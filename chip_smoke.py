@@ -1,0 +1,499 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
+
+Run from the root of a checkout, with no arguments::
+
+    python3 chip_smoke.py
+
+It imports only ``repro_torch`` (plus torch, numpy and the standard
+library) and runs, failing on the first phase that fails:
+
+1. the card's name and power limit (``nvidia-smi``), then the build of every
+   CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
+2. each kernel against its plain PyTorch version on the card, at the main
+   path's shapes (qwen3-4b: 8 KV heads, 4 query heads per KV head, head_dim
+   128; 4 chains), in bf16 and float32: outputs within the stated
+   tolerance, caches / pools bit-for-bit equal outside the garbage row;
+   with the kernel's, the plain version's and one PyTorch library call's
+   time (``scaled_dot_product_attention``), and the bytes bound;
+3. the engines on a reduced float32 bank, on the card (kernels) and on the
+   CPU (plain path): the same tokens and BMA log-probs within 1e-4;
+4. the main path, part 1: ``DecodeEngine`` over a 4-chain bank of
+   full-width qwen3-4b (36 layers, bf16, ~35 GB of weights drawn on the
+   card from a seeded ``torch.Generator``): 4 prompts x 32 tokens, 16 new
+   tokens greedy, then one sampled request; the decode kernel must have run
+   once per layer per decode step;
+5. the main path, part 2: ``PagedDecodeEngine`` on the same bank — 8 slots,
+   page size 16, max_seq 256, 12 requests of mixed lengths, two of them at
+   a higher priority that preempts; the paged kernel must have run once
+   per layer per micro-step, and every page must be free at the end.
+
+The line before the last is one JSON object with each kernel's numbers;
+the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
+outside a checkout, it exits non-zero and prints no result.  The
+compiler's register and spill report goes to standard error.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from dataclasses import replace
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
+FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+L2_BYTES = 50 * 2**20
+TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # bf16: one ulp of |o| <= 4
+
+def log(*parts) -> None:
+    print(" ".join(str(p) for p in parts), flush=True)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+def cuda_ms(torch, fns, iters: int) -> float:
+    """Mean device ms of one call, cycling through ``fns`` (one per input
+    set, so that the sets together exceed the L2 cache and each call finds
+    its inputs in device memory, as on the serving path)."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def n_sets(bytes_per_set: int) -> int:
+    return max(2, math.ceil(2 * L2_BYTES / bytes_per_set))
+
+
+def bound(bytes_moved: float, flops: float) -> tuple:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def decode_inputs(torch, gen, dtype, N, smax, n_valid, slot, KV=8, G=4, hd=128):
+    dev = "cuda"
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
+    valid = torch.zeros(smax, dtype=torch.int32, device=dev)
+    valid[:n_valid] = 1
+    valid[slot] = 1
+    return dict(q=r(N, KV, G, hd), k_new=r(N, KV, hd), v_new=r(N, KV, hd),
+                k_cache=r(N, smax, KV, hd), v_cache=r(N, smax, KV, hd),
+                valid=valid, slot=slot)
+
+
+def paged_inputs(torch, gen, dtype, C, pos, ps=16, maxp=16, KV=8, G=4, hd=128):
+    """One pool per chain, slots on a permuted page table; slots with
+    ``pos`` None are inactive: table row 0, position 0 (the garbage page)."""
+    dev = "cuda"
+    S = len(pos)
+    n_pages = S * maxp + 1
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(5)) + 1
+    tables = torch.zeros(S, maxp, dtype=torch.int32)
+    nxt = 0
+    for s, p in enumerate(pos):
+        if p is not None:
+            n = p // ps + 1
+            tables[s, :n] = perm[nxt:nxt + n]
+            nxt += n
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)  # noqa: E731
+    return dict(q=r(C, S, KV, G, hd), k_new=r(C, S, KV, hd),
+                v_new=r(C, S, KV, hd), k_pages=r(C, n_pages, ps, KV, hd),
+                v_pages=r(C, n_pages, ps, KV, hd), tables=tables.to(dev),
+                pos=torch.tensor([p or 0 for p in pos], dtype=torch.int32,
+                                 device=dev))
+
+
+def run_decode_case(torch, F, ds, ref, dtype, smax, n_valid, slot, timed):
+    gen = torch.Generator(device="cuda").manual_seed(smax + n_valid)
+    N, KV, G, hd = 16, 8, 4, 128  # C = 4 chains x B = 4 rows
+    c = decode_inputs(torch, gen, dtype, N, smax, n_valid, slot)
+    kc, vc = c["k_cache"].clone(), c["v_cache"].clone()
+    o, kc, vc = ds.decode_step(c["q"], c["k_new"], c["v_new"], kc, vc,
+                               c["valid"], slot)
+    want, wk, wv = ref.decode_step_ref(c["q"], c["k_new"], c["v_new"],
+                                       c["k_cache"].clone(),
+                                       c["v_cache"].clone(), c["valid"], slot)
+    torch.cuda.synchronize()
+    err = (o.float() - want.float()).abs().max().item()
+    name = str(dtype).replace("torch.", "")
+    check(err <= TOL[name], f"decode_step {name} smax={smax}: max |err| {err}")
+    check(torch.equal(kc, wk) and torch.equal(vc, wv),
+          f"decode_step {name} smax={smax}: caches differ from the plain step")
+    changed = (kc != c["k_cache"]).any(dim=(0, 2, 3)).nonzero().flatten().tolist()
+    check(set(changed) <= {slot}, f"decode_step wrote rows {changed}")
+    res = {"dtype": name, "smax": smax, "valid": n_valid, "max_abs_err": err}
+    if not timed:
+        log("decode_step", json.dumps(res))
+        return res
+    es = c["q"].element_size()
+    row = KV * hd * es
+    n_read = int(c["valid"].sum().item()) - 1  # the slot row comes from k_new
+    bytes_moved = (c["q"].numel() * es * 2 + 2 * N * row + smax * 4
+                   + 2 * N * n_read * row + 2 * N * row)
+    flops = 4.0 * N * KV * G * hd * (n_read + 1)
+    sets = [decode_inputs(torch, gen, dtype, N, smax, n_valid, slot)
+            for _ in range(n_sets(2 * N * smax * row))]
+    mask = [s["valid"].bool().reshape(1, 1, 1, smax) for s in sets]
+    kern = [lambda s=s: ds.decode_step(s["q"], s["k_new"], s["v_new"],
+                                       s["k_cache"], s["v_cache"], s["valid"],
+                                       slot) for s in sets]
+    plain = [lambda s=s: ref.decode_step_ref(s["q"], s["k_new"], s["v_new"],
+                                             s["k_cache"], s["v_cache"],
+                                             s["valid"], slot) for s in sets]
+    lib = [lambda s=s, m=m: F.scaled_dot_product_attention(
+        s["q"].reshape(N, KV * G, 1, hd), s["k_cache"].transpose(1, 2),
+        s["v_cache"].transpose(1, 2), attn_mask=m, enable_gqa=True)
+        for s, m in zip(sets, mask)]
+    res["ms"] = cuda_ms(torch, kern, 200)
+    res["plain_ms"] = cuda_ms(torch, plain, 50)
+    res["library_ms"] = cuda_ms(torch, lib, 200)
+    res["bytes"] = bytes_moved
+    res["bound_ms"], res["bound_by"] = bound(bytes_moved, flops)
+    log("decode_step", json.dumps(res))
+    return res
+
+
+def run_paged_case(torch, F, ds, ref, dtype, timed):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    C, KV, G, hd, ps, maxp = 4, 8, 4, 128, 16, 16
+    pos = [40, 95, 130, 7, 200, None, None, 255]  # 8 slots, 2 inactive
+    c = paged_inputs(torch, gen, dtype, C, pos)
+    kp, vp = c["k_pages"].clone(), c["v_pages"].clone()
+    o, kp, vp = ds.paged_decode_step(c["q"], c["k_new"], c["v_new"], kp, vp,
+                                     c["tables"], c["pos"])
+    want, wk, wv = ref.paged_decode_step_ref(
+        c["q"], c["k_new"], c["v_new"], c["k_pages"].clone(),
+        c["v_pages"].clone(), c["tables"], c["pos"])
+    torch.cuda.synchronize()
+    err = (o.float() - want.float()).abs().max().item()
+    name = str(dtype).replace("torch.", "")
+    check(err <= TOL[name], f"paged_decode_step {name}: max |err| {err}")
+    S = len(pos)
+    inactive = [s for s, p in enumerate(pos) if p is None]
+    for got, plain, new, src in ((kp, wk, c["k_new"], c["k_pages"]),
+                                 (vp, wv, c["v_new"], c["v_pages"])):
+        # every row but the garbage row (page 0, offset 0) bit-for-bit; the
+        # inactive slots race on the garbage row element by element, so
+        # each element of it is that element of one of their new rows
+        g, w = got.clone(), plain.clone()
+        g[:, 0, 0] = 0
+        w[:, 0, 0] = 0
+        check(torch.equal(g, w), f"paged_decode_step {name}: pools differ")
+        cands = new[:, inactive]  # (C, inactive, KV, hd)
+        check(bool((cands == got[:, 0, 0][:, None]).any(dim=1).all()),
+              f"paged_decode_step {name}: garbage row holds a foreign value")
+        rows = (got != src).any(dim=(3, 4)).nonzero().tolist()
+        written = {(int(c["tables"][s, p // ps]), p % ps)
+                   for s, p in enumerate(pos) if p is not None} | {(0, 0)}
+        check({(r[1], r[2]) for r in rows} <= written,
+              f"paged_decode_step {name}: wrote outside the slot rows")
+    res = {"dtype": name, "slots": S, "pos": pos, "max_abs_err": err}
+    if not timed:
+        log("paged_decode_step", json.dumps(res))
+        return res
+    es = c["q"].element_size()
+    row = KV * hd * es
+    n_read = sum(p for p in pos if p is not None)  # rows 0..p-1 per slot
+    bytes_moved = (c["q"].numel() * es * 2 + 2 * C * S * row
+                   + c["tables"].numel() * 4 + S * 4
+                   + 2 * C * n_read * row + 2 * C * S * row)
+    flops = 4.0 * C * KV * G * hd * sum((p or 0) + 1 for p in pos)
+    pool_bytes = 2 * c["k_pages"].numel() * es
+    sets = [paged_inputs(torch, gen, dtype, C, pos)
+            for _ in range(n_sets(pool_bytes))]
+    kern = [lambda s=s: ds.paged_decode_step(s["q"], s["k_new"], s["v_new"],
+                                             s["k_pages"], s["v_pages"],
+                                             s["tables"], s["pos"]) for s in sets]
+    plain = [lambda s=s: ref.paged_decode_step_ref(
+        s["q"], s["k_new"], s["v_new"], s["k_pages"], s["v_pages"],
+        s["tables"], s["pos"]) for s in sets]
+    # the library yardstick attends over each slot's window gathered into
+    # logical order beforehand (the gather is not timed)
+    win = maxp * ps
+    lib_sets = []
+    for s in sets:
+        gidx = (s["tables"].long() * ps)[:, :, None] + torch.arange(ps, device="cuda")
+        gidx = gidx.reshape(S, win)
+        kf = s["k_pages"].reshape(C, -1, KV, hd)[:, gidx]  # (C, S, win, KV, hd)
+        vf = s["v_pages"].reshape(C, -1, KV, hd)[:, gidx]
+        m = (torch.arange(win, device="cuda")[None] <= s["pos"][:, None].long())
+        lib_sets.append((s["q"].reshape(C * S, KV * G, 1, hd),
+                         kf.reshape(C * S, win, KV, hd).transpose(1, 2).contiguous(),
+                         vf.reshape(C * S, win, KV, hd).transpose(1, 2).contiguous(),
+                         m.repeat(C, 1)[:, None, None, :]))
+    lib = [lambda a=a: F.scaled_dot_product_attention(
+        a[0], a[1], a[2], attn_mask=a[3], enable_gqa=True) for a in lib_sets]
+    res["ms"] = cuda_ms(torch, kern, 200)
+    res["plain_ms"] = cuda_ms(torch, plain, 50)
+    res["library_ms"] = cuda_ms(torch, lib, 200)
+    res["bytes"] = bytes_moved
+    res["bound_ms"], res["bound_by"] = bound(bytes_moved, flops)
+    log("paged_decode_step", json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernel path == plain path, end to end, on a small f32 bank
+# ---------------------------------------------------------------------------
+def reference_check(torch, np) -> None:
+    from repro_torch.cluster import DecodeEngine, PagedDecodeEngine, Request
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import init_params
+    from repro_torch.utils import tree_map
+
+    cfg = replace(get_reduced("qwen3-4b"), dtype="float32")
+    cpu = init_params(cfg, torch.Generator().manual_seed(3), device="cpu",
+                      num_chains=4)
+    gpu = tree_map(lambda t: t.to("cuda"), cpu)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (3, 7)).astype(np.int32)
+    runs = {}
+    for dev, bank in (("cpu", cpu), ("cuda", gpu)):
+        eng = DecodeEngine(cfg, bank, max_seq=32, return_logits=True, device=dev)
+        runs[dev] = eng.generate(toks, 8)
+    check(np.array_equal(runs["cpu"].tokens, runs["cuda"].tokens),
+          "small bank: DecodeEngine tokens differ between card and CPU")
+    err = float(np.abs(runs["cpu"].logits - runs["cuda"].logits).max())
+    check(err <= 1e-4, f"small bank: DecodeEngine log-probs differ by {err}")
+    log(f"reference DecodeEngine: card == CPU, tokens equal, max |dlogp| {err:.3g}")
+    lens, budgets = [5, 9, 3, 12, 6], [7, 6, 9, 5, 8]
+    prompts = [rng.integers(0, cfg.vocab_size, (t,)).astype(np.int32) for t in lens]
+    out = {}
+    for dev, bank in (("cpu", cpu), ("cuda", gpu)):
+        eng = PagedDecodeEngine(cfg, bank, num_slots=3, page_size=8,
+                                max_seq=32, decode_chunk=3, return_logits=True,
+                                device=dev)
+        ids, early = [], []
+        for i, (p, n) in enumerate(zip(prompts, budgets)):
+            if i == 3:
+                early = eng.step()  # fill the slots: the priority one preempts
+            ids.append(eng.submit(Request(tokens=p, max_new_tokens=n,
+                                          priority=2 if i == 4 else 0,
+                                          key=None if i % 2 else 100 + i)))
+        done = {c.request_id: c for c in early + eng.drain()}
+        out[dev] = [done[i] for i in ids]
+    worst = 0.0
+    for a, b in zip(out["cpu"], out["cuda"]):
+        check(np.array_equal(a.tokens, b.tokens),
+              "small bank: PagedDecodeEngine tokens differ between card and CPU")
+        worst = max(worst, float(np.abs(a.logits - b.logits).max()))
+    check(worst <= 1e-4, f"small bank: paged log-probs differ by {worst}")
+    ev = sum(c.timing.get("evictions", 0) for c in out["cuda"])
+    check(ev >= 1, "small bank: the priority request preempted nothing")
+    log(f"reference PagedDecodeEngine: card == CPU, tokens equal, "
+        f"max |dlogp| {worst:.3g}, evictions {ev}")
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: the main path at full width
+# ---------------------------------------------------------------------------
+def main_path(torch, np, ds, cfg, device="cuda") -> dict:
+    from repro_torch.cluster import DecodeEngine, PagedDecodeEngine, Request
+    from repro_torch.models.predictive import bma_logits
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.obs.metrics import registry
+    from repro_torch.utils import tree_leaves
+
+    C, L, V = 4, cfg.num_layers, cfg.vocab_size
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device, num_chains=C)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"bank: {C} x {cfg.name}, {L} layers, {n_bytes / 1e9:.2f} GB {cfg.dtype}, "
+        f"drawn in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, V, (4, 32)).astype(np.int32)
+    reg = registry()
+    out = {}
+
+    # -- DecodeEngine ---------------------------------------------------------
+    eng = DecodeEngine(cfg, params, max_seq=256, return_logits=True,
+                       device=device)
+    eng.generate(prompts, 2)  # warm-up: cuBLAS handles, allocator
+    sync()
+    steps0 = reg.counter("decode.steps").value
+    ds.decode_step.launches = 0
+    ds.paged_decode_step.launches = 0
+    t0 = time.perf_counter()
+    greedy = eng.generate(prompts, 16)
+    t_greedy = time.perf_counter() - t0
+    sampled = eng.generate(prompts[:1], 16, key=1234)
+    launches = ds.decode_step.launches
+    steps = reg.counter("decode.steps").value - steps0
+    steps = int(steps)
+    check(steps == 2 * 15, f"decode steps {steps}")
+    check(launches == L * steps,
+          f"decode kernel launched {launches} times for {steps} steps x {L} layers")
+    check(ds.paged_decode_step.launches == 0, "paged kernel ran in DecodeEngine")
+    for res, b in ((greedy, 4), (sampled, 1)):
+        check(res.tokens.shape == (b, 16), f"tokens shape {res.tokens.shape}")
+        check(((res.tokens >= 0) & (res.tokens < V)).all(), "token outside vocab")
+        check(res.logits.shape == (b, 16, V), f"logits shape {res.logits.shape}")
+        check(np.isfinite(res.logits).all(), "non-finite BMA log-probs")
+        check(np.allclose(np.exp(res.logits).sum(-1), 1.0, atol=1e-3),
+              "BMA log-probs are not a distribution")
+    check(np.array_equal(greedy.tokens, np.argmax(greedy.logits, -1)),
+          "greedy tokens are not the argmax of the BMA law")
+    # decode vs one prefill over the generated stream (bf16: reported)
+    stream = np.concatenate([prompts, greedy.tokens[:, :-1]], axis=1)
+    with torch.no_grad():
+        full, _, _ = Model(cfg, device).forward(params, {"tokens": stream})
+        ref_logp = bma_logits(full[:, :, 31:]).cpu().numpy()
+    del full
+    dev = float(np.abs(ref_logp - greedy.logits).max())
+    per_tok = t_greedy * 1e3 / 16
+    log(f"DecodeEngine: 4 x (32 + 16) greedy in {t_greedy:.3f} s "
+        f"({per_tok:.2f} ms/token, {4 * 16 / t_greedy:.1f} tokens/s); "
+        f"sampled request ok; decode kernel launches {launches} = {L} x {steps}; "
+        f"max |logp(decode) - logp(prefill)| {dev:.3g} (bf16)")
+    out["decode"] = {"launches": launches, "steps": steps, "per_token_ms": per_tok,
+                     "decode_vs_prefill_max_abs": dev}
+    del eng
+
+    # -- PagedDecodeEngine ----------------------------------------------------
+    peng = PagedDecodeEngine(cfg, params, num_slots=8, page_size=16,
+                             max_seq=256, decode_chunk=8, device=device)
+    lens = [8, 96, 17, 64, 33, 8, 80, 45, 12, 96, 24, 50]
+    budgets = [32, 4, 16, 24, 8, 32, 12, 4, 20, 16, 28, 6]
+    prio = [0] * 10 + [1, 1]
+    reqs = [rng.integers(0, V, (t,)).astype(np.int32) for t in lens]
+    micro0 = reg.counter("paged.micro_steps").value
+    ds.decode_step.launches = 0
+    ds.paged_decode_step.launches = 0
+    t0 = time.perf_counter()
+    ids, early = [], []
+    for i, (p, n, pr) in enumerate(zip(reqs, budgets, prio)):
+        if i == 10:
+            early = peng.step()  # slots full: the priority requests preempt
+        ids.append(peng.submit(Request(tokens=p, max_new_tokens=n, priority=pr,
+                                       key=None if i % 3 else 77 + i)))
+    done = {c.request_id: c for c in early + peng.drain()}
+    t_paged = time.perf_counter() - t0
+    launches = ds.paged_decode_step.launches
+    micro = int(reg.counter("paged.micro_steps").value - micro0)
+    comps = [done[i] for i in ids]
+    for c, n in zip(comps, budgets):
+        check(c.status == "ok" and len(c.tokens) == n,
+              f"request {c.request_id}: {c.status}, {len(c.tokens)} of {n}")
+        check(((c.tokens >= 0) & (c.tokens < V)).all(), "token outside vocab")
+    check(launches == L * micro,
+          f"paged kernel launched {launches} times for {micro} micro-steps x {L}")
+    check(ds.decode_step.launches == 0, "ring kernel ran in PagedDecodeEngine")
+    check(peng.free_pages == peng.num_pages - 1 and peng.num_active == 0,
+          "pages still held after drain")
+    evictions = sum(c.timing.get("evictions", 0) for c in comps)
+    check(evictions >= 1, "the priority requests preempted nothing")
+    n_tok = sum(len(c.tokens) for c in comps)
+    log(f"PagedDecodeEngine: 12 requests, {n_tok} tokens in {t_paged:.3f} s "
+        f"({n_tok / t_paged:.1f} tokens/s), {micro} micro-steps, "
+        f"{evictions} evictions; paged kernel launches {launches} = {L} x {micro}")
+    out["paged"] = {"launches": launches, "micro_steps": micro,
+                    "tokens_per_s": n_tok / t_paged, "evictions": evictions}
+    return out
+
+
+def main() -> int:
+    try:
+        import numpy as np
+        import torch
+        import torch.nn.functional as F
+    except ImportError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: run from the root of a checkout (src/repro_torch "
+              "is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_step as ds
+    from repro_torch.kernels import ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    logs = build.build()
+    log(f"built {', '.join(build.sources())} with nvcc for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in "\n".join(logs.values()).splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print("ptxas:", line.strip(), file=sys.stderr)
+
+    dec = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for smax, n_valid, slot in ((256, 48, 47), (1024, 1024, 1000)):
+            timed = dtype == torch.bfloat16
+            dec[(dtype, smax)] = run_decode_case(torch, F, ds, ref, dtype, smax,
+                                                 n_valid, slot, timed)
+    pag = {dtype: run_paged_case(torch, F, ds, ref, dtype,
+                                 timed=dtype == torch.bfloat16)
+           for dtype in (torch.bfloat16, torch.float32)}
+    reference_check(torch, np)
+    from repro_torch.configs import get_arch
+
+    mp = main_path(torch, np, ds, get_arch("qwen3-4b"))
+
+    d, p = dec[(torch.bfloat16, 256)], pag[torch.bfloat16]
+    kernels = [
+        {"name": "decode_step", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/decode_step.cu",
+         "replaces": "src/repro/kernels/decode_step.py:63",
+         "launches": mp["decode"]["launches"], "max_abs_err": d["max_abs_err"],
+         "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+         "bound_by": d["bound_by"], "library_ms": d["library_ms"]},
+        {"name": "paged_decode_step", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/decode_step.cu",
+         "replaces": "src/repro/kernels/decode_step.py:150",
+         "launches": mp["paged"]["launches"], "max_abs_err": p["max_abs_err"],
+         "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+         "bound_by": p["bound_by"], "library_ms": p["library_ms"]},
+    ]
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

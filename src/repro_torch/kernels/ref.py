@@ -1,0 +1,81 @@
+"""Plain PyTorch versions of the decode kernels (port of
+``repro.kernels.ref``'s ``decode_step_ref`` / ``paged_decode_step_ref``).
+
+The same math and op order as the JAX oracles: the new row selected in at
+its position, ``q * (1/sqrt(hd))`` in fp32, fp32 scores, a ``-1e30`` mask,
+``p = exp(s - max); p = p / sum(p)``, ``p . V`` in fp32, the output cast to
+q's dtype.  Like the CUDA kernels they replace on the card, they update the
+caches **in place** (what ``input_output_aliases`` does in the JAX
+package) and return ``(o, k_cache, v_cache)`` with the same cache objects.
+The CPU path of :mod:`repro_torch.kernels.ops` runs them, and
+``chip_smoke.py`` holds each kernel against them on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _softmax_pv(s, v):
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = p / torch.sum(p, dim=-1, keepdim=True)
+    return torch.einsum("...ngc,...cnh->...ngh", p, v.float())
+
+
+def decode_step_ref(q, k_new, v_new, k_cache, v_cache, valid, slot: int):
+    """Ring-cache decode step.
+
+    q: (N, KV, G, hd); k_new/v_new: (N, KV, hd); caches: (N, smax, KV, hd)
+    (a chain bank flattens chains x rows into N); valid: (smax,) int32
+    (1 = attend); slot: the ring slot the new row lands in.
+    """
+    hd = k_cache.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    k_cache[:, slot] = k_new
+    v_cache[:, slot] = v_new
+    q32 = q.float() * scale
+    s = torch.einsum("bngh,bcnh->bngc", q32, k_cache.float())
+    s = torch.where(valid[None, None, None, :] == 1, s, NEG_INF)
+    o = _softmax_pv(s, v_cache)
+    return o.to(q.dtype), k_cache, v_cache
+
+
+def paged_decode_step_ref(q, k_new, v_new, k_pages, v_pages, tables, pos):
+    """Paged decode step over one shared page pool per chain.
+
+    q: (C, S, KV, G, hd); k_new/v_new: (C, S, KV, hd); k_pages/v_pages:
+    (C, n_pages, page_size, KV, hd); tables: (S, maxp) int32, shared by the
+    chains; pos: (S,) int32.  Each slot's pages are gathered in logical
+    order from the pool as it was before this step, the new row is
+    overlaid at logical ``pos`` (so slots that share the garbage row each
+    see their own), and the rows ``(tables[s, pos // ps], pos % ps)`` are
+    stored last.
+    """
+    C, S, KV, G, hd = q.shape
+    ps = k_pages.shape[2]
+    maxp = tables.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    kf = k_pages.view(C, -1, KV, hd)
+    vf = v_pages.view(C, -1, KV, hd)
+    tables = tables.long()
+    pos = pos.long()
+    ar = torch.arange(maxp * ps, device=q.device)
+    gidx = ((tables * ps)[:, :, None]
+            + torch.arange(ps, device=q.device)[None, None]).reshape(S, maxp * ps)
+    sel = (ar[None, :, None, None] == pos[:, None, None, None])[None]
+    k = torch.where(sel, k_new[:, :, None], kf[:, gidx])   # (C, S, maxp*ps, KV, hd)
+    v = torch.where(sel, v_new[:, :, None], vf[:, gidx])
+    q32 = q.float() * scale
+    s = torch.einsum("...ngh,...cnh->...ngc", q32, k.float())
+    valid = ar[None, :] <= pos[:, None]
+    s = torch.where(valid[None, :, None, None, :], s, NEG_INF)
+    o = _softmax_pv(s, v)
+    widx = tables[torch.arange(S, device=q.device), pos // ps] * ps + pos % ps
+    kf[:, widx] = k_new
+    vf[:, widx] = v_new
+    return o.to(q.dtype), k_pages, v_pages

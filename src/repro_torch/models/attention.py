@@ -1,0 +1,97 @@
+"""Attention: the naive prefill path and the plain decode paths (port of
+``repro.models.attention``).
+
+Everything here is plain PyTorch with the JAX package's math: fp32 scores
+and softmax, a ``-1e30`` mask, the same einsum orders.  The cached decode
+step on the serving hot path does not come through here — it goes through
+:mod:`repro_torch.kernels.ops`, which launches the CUDA kernel on a card.
+The chunked flash path (the JAX prefill above 512 tokens) belongs to the
+training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _mask_block(q_pos, k_pos, causal: bool, window: Optional[int]):
+    """(qc, kc) boolean mask: True = attend."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        m &= k_pos[None, :] > (q_pos[:, None] - window)
+    return m
+
+
+def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0):
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd).  fp32 softmax.  A chain
+    bank flattens its chain axis into B."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qh = q.reshape(B, Sq, KV, G, hd).float() / math.sqrt(hd)
+    s = torch.einsum("bqngh,bcnh->bngqc", qh, k.float())
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    mask = _mask_block(q_pos, k_pos, causal, window)
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bngqc,bcnh->bqngh", p, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_pos, cur_pos, *, window=None):
+    """One query against a (possibly ring) KV cache, unfused.
+
+    q: (B, 1, H, hd); caches: (B, Smax, KV, hd) with this step's k/v already
+    written; cache_pos: (Smax,) or (B, Smax) absolute position of each slot
+    (-1 empty); cur_pos: the current absolute position.
+    """
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    qh = q.reshape(B, KV, G, hd).float() / math.sqrt(hd)
+    s = torch.einsum("bngh,bcnh->bngc", qh, k_cache.float())
+    pos = cache_pos if cache_pos.dim() == 2 else cache_pos[None, :]
+    valid = (pos >= 0) & (pos <= cur_pos)
+    if window is not None:
+        valid &= pos > (cur_pos - window)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bngc,bcnh->bngh", p, v_cache.float())
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def paged_decode_attention(q, k_flat, v_flat, tables, positions, page_size):
+    """Single-query attention over a paged KV pool, unfused.
+
+    q: (S, 1, H, hd) — one query per slot; k_flat, v_flat:
+    (n_pages * page_size, KV, hd) — the shared block pool, flattened, with
+    this step's k/v already written; tables: (S, maxp) per-slot page table;
+    positions: (S,) absolute position per slot.  Pages are gathered in
+    logical order; validity is ``logical index <= position``.
+    """
+    S, _, H, hd = q.shape
+    KV = k_flat.shape[1]
+    G = H // KV
+    maxp = tables.shape[1]
+    qh = q.reshape(S, KV, G, hd).float() / math.sqrt(hd)
+    ar = torch.arange(page_size, device=q.device)
+    gidx = ((tables.long() * page_size)[:, :, None]
+            + ar[None, None]).reshape(S, maxp * page_size)
+    kg = k_flat[gidx]                                 # (S, maxp*ps, KV, hd)
+    vg = v_flat[gidx]
+    s = torch.einsum("bngh,bcnh->bngc", qh, kg.float())
+    valid = (torch.arange(maxp * page_size, device=q.device)[None, :]
+             <= positions[:, None])
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bngc,bcnh->bngh", p, vg.float())
+    return o.reshape(S, 1, H, hd).to(q.dtype)
