@@ -9,15 +9,24 @@ It imports only ``repro_torch`` (plus torch, numpy and the standard
 library) and runs, failing on the first phase that fails:
 
 1. the card's name and power limit (``nvidia-smi``), then the build of every
-   CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
-2. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (qwen3-4b: 8 KV heads, 4 query heads per KV head, head_dim
-   128; 4 chains), in bf16 and float32: outputs within the stated
-   tolerance, caches / pools bit-for-bit equal outside the garbage row;
-   with the kernel's, the plain version's and one PyTorch library call's
-   time (``scaled_dot_product_attention``), and the bytes bound;
+   CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one
+   process per source, all at once);
+2. each decode kernel against its plain PyTorch version on the card, at
+   the main path's shapes (qwen3-4b: 8 KV heads, 4 query heads per KV
+   head, head_dim 128; 4 chains), in bf16 and float32: outputs within the
+   stated tolerance, caches / pools bit-for-bit equal outside the garbage
+   row; with the kernel's, the plain version's and one PyTorch library
+   call's time (``scaled_dot_product_attention``), and the bytes bound;
+   then the SGLD kernels (Langevin update, delay draw, delay gather)
+   against theirs, at a ragged length in bf16 and float32 and at the
+   largest full-width leaf (36 x 2560 x 9728 bf16): the update within
+   2e-6 in float32 and one bf16 ulp in bf16, its noise alone (gamma 0,
+   x 0) likewise, the delays and the gather bit for bit; with times and
+   bounds (``torch.gather`` is the gather's library call);
 3. the engines on a reduced float32 bank, on the card (kernels) and on the
-   CPU (plain path): the same tokens and BMA log-probs within 1e-4;
+   CPU (plain path): the same tokens and BMA log-probs within 1e-4; then
+   4 fused W-Icon training commits of the reduced float32 model on both:
+   losses within rtol 1e-5, parameters within 1e-5;
 4. the main path, part 1: ``DecodeEngine`` over a 4-chain bank of
    full-width qwen3-4b (36 layers, bf16, ~35 GB of weights drawn on the
    card from a seeded ``torch.Generator``): 4 prompts x 32 tokens, 16 new
@@ -26,7 +35,15 @@ library) and runs, failing on the first phase that fails:
 5. the main path, part 2: ``PagedDecodeEngine`` on the same bank — 8 slots,
    page size 16, max_seq 256, 12 requests of mixed lengths, two of them at
    a higher priority that preempts; the paged kernel must have run once
-   per layer per micro-step, and every page must be free at the end.
+   per layer per micro-step, and every page must be free at the end;
+6. the main path, part 3, once the serving bank is freed: delayed-gradient
+   SGLD training of one full-width qwen3-4b chain (4.4 B parameters, bf16,
+   drawn on the card) through the launcher's path
+   (``repro_torch.launch.train``: ``--mode inconsistent --fused --tau 2
+   --batch 8 --seq 128``), 6 commits in chunks of 3, delays from 8
+   simulated workers: finite losses, ms per commit (the first chunk
+   apart), tokens/s, peak memory, and each SGLD kernel launched once per
+   parameter leaf per commit (14 x 6).
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -36,6 +53,7 @@ compiler's register and spill report goes to standard error.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -49,8 +67,23 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+# 32-bit ALU operations a second outside the tensor cores: the fp32 rate
+# counts an fma as 2 flops, so 67e12 / 2 lane-instructions; integer ops
+# run at most at that rate (Hopper's INT32 pipes have half the lanes),
+# so a bound from it is a lower bound
+ALU_OPS = FP32_FLOPS / 2
 L2_BYTES = 50 * 2**20
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # bf16: one ulp of |o| <= 4
+LARGEST_LEAF = 36 * 2560 * 9728  # stack/mlp/w_{gate,up,down} of qwen3-4b
+RAGGED = 1_000_003
+# 32-bit operations per element, counted from the sources: threefry2x32-20
+# is 20 rounds of (add, rotate, xor) plus 12 key-schedule adds
+THREEFRY_OPS = 72
+# + counter xor, 2 x (shift, convert, mul, add), log, cos, sqrt, 3 muls,
+# 2 fmas, 2 type conversions
+LANGEVIN_OPS = THREEFRY_OPS + 1 + 8 + 3 + 3 + 2 + 2
+# two threefry blocks + 2 xors + 3 remainders, a multiply, an add, a convert
+DELAY_OPS = 2 * THREEFRY_OPS + 8
 
 def log(*parts) -> None:
     print(" ".join(str(p) for p in parts), flush=True)
@@ -89,9 +122,9 @@ def n_sets(bytes_per_set: int) -> int:
     return max(2, math.ceil(2 * L2_BYTES / bytes_per_set))
 
 
-def bound(bytes_moved: float, flops: float) -> tuple:
+def bound(bytes_moved: float, flops: float, rate: float = FP32_FLOPS) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -261,6 +294,117 @@ def run_paged_case(torch, F, ds, ref, dtype, timed):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, continued: the SGLD kernels against their plain versions
+# ---------------------------------------------------------------------------
+def within_bf16_ulp(torch, got, want) -> bool:
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= want.abs() * 2.0**-7 + 1e-30).all())
+
+
+def run_langevin_checks(torch, np, lu, ref) -> dict:
+    """The fused update against the plain update: ragged bf16 / f32, the
+    noise alone, and the largest full-width leaf (timed there)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    seed, gamma, scale = (0x1234ABCD, 77), np.float32(1e-3), np.float32(0.03)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        x = torch.randn(RAGGED, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(RAGGED, generator=gen, device="cuda").to(dtype)
+        want = ref.langevin_update_ref(x.clone(), g, seed, gamma, scale)
+        lu.langevin_update(x, g, seed, gamma, scale)
+        zero = torch.zeros(RAGGED, device="cuda", dtype=dtype)
+        noise_want = ref.langevin_update_ref(zero.clone(), g, seed,
+                                             np.float32(0), np.float32(1))
+        lu.langevin_update(zero, g, seed, np.float32(0), np.float32(1))
+        torch.cuda.synchronize()
+        for what, got, w in (("update", x, want), ("noise", zero, noise_want)):
+            err = (got.float() - w.float()).abs().max().item()
+            ok = (err <= 2e-6 if dtype == torch.float32
+                  else within_bf16_ulp(torch, got, w))
+            check(ok, f"langevin_update {name} n={RAGGED} {what}: max |err| {err}")
+            out[f"{name}_{what}_max_abs_err"] = err
+    # the largest leaf, bf16, at the launcher's gamma and sigma
+    n = LARGEST_LEAF
+    x = (torch.randn(n, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    g = (torch.randn(n, generator=gen, device="cuda") * 1e-2).to(torch.bfloat16)
+    scale = np.sqrt(np.float32(2.0 * 1e-5) * gamma)
+    want = ref.langevin_update_ref(x.clone(), g, seed, gamma, scale)
+    lu.langevin_update(x, g, seed, gamma, scale)
+    torch.cuda.synchronize()
+    err = (x.float() - want.float()).abs().max().item()
+    check(within_bf16_ulp(torch, x, want),
+          f"langevin_update bf16 n={n}: beyond one bf16 ulp (max |err| {err})")
+    del want
+    out["max_abs_err"] = err
+    out["ms"] = cuda_ms(torch, [lambda: lu.langevin_update(x, g, seed, gamma,
+                                                           scale)], 20)
+    out["plain_ms"] = cuda_ms(torch, [lambda: ref.langevin_update_ref(
+        x, g, seed, gamma, scale)], 2)
+    out["bytes"] = 3 * 2 * n  # read x and g, write x, bf16
+    out["ops"] = LANGEVIN_OPS * n
+    out["bound_ms"], out["bound_by"] = bound(out["bytes"], out["ops"], ALU_OPS)
+    out["library_ms"] = None  # no PyTorch call draws threefry noise
+    # beside it, not a yardstick: randn_like + two add_ (another RNG)
+    out["randn_add_ms"] = cuda_ms(torch, [lambda: x.add_(g, alpha=-1e-3).add_(
+        torch.randn_like(x), alpha=float(scale))], 10)
+    log("langevin_update", json.dumps(out))
+    return out
+
+
+def run_gather_checks(torch, np, dg, ref) -> tuple:
+    """The delay draw and the gather against their plain versions: ragged
+    f32 / bf16 / int32 (signed zeros, inf and nan), then the largest
+    full-width leaf over a 3-slot ring (timed there)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for maxval in (1, 2, 3):
+        got = dg.coordinate_delays((123, 456), RAGGED, maxval, "cuda")
+        want = ref.coordinate_delays_ref((123, 456), RAGGED, maxval, "cuda")
+        check(torch.equal(got, want), f"coordinate_delays maxval={maxval}: "
+              "the kernel's delays differ from the plain draw")
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        h = torch.randn(3, RAGGED, generator=gen, device="cuda")
+        h[0, :4] = torch.tensor([-0.0, float("inf"), float("nan"), -0.0])
+        h = h.to(dtype) if dtype != torch.int32 else (h.nan_to_num(0, 9, -9)
+                                                       * 1000).to(dtype)
+        d = torch.randint(0, 3, (RAGGED,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        got, want = dg.delay_gather(h, d, 1), ref.delay_gather_ref(h, d, 1)
+        check(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+              f"delay_gather {dtype}: not bit for bit the plain gather")
+    n, depth, head, key = LARGEST_LEAF, 3, 2, (0xC0FFEE, 9)
+    hist = torch.randn(depth, n, generator=gen, device="cuda").to(torch.bfloat16)
+    delays = dg.coordinate_delays(key, n, depth, "cuda")
+    check(torch.equal(delays, ref.coordinate_delays_ref(key, n, depth, "cuda")),
+          f"coordinate_delays n={n}: differs from the plain draw")
+    got, want = dg.delay_gather(hist, delays, head), ref.delay_gather_ref(
+        hist, delays, head)
+    check(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+          f"delay_gather n={n}: not bit for bit the plain gather")
+    slots = torch.remainder(head - delays.long(), depth)[None]
+    del want
+    gat = {"max_abs_err": 0.0,
+           "ms": cuda_ms(torch, [lambda: dg.delay_gather(hist, delays, head)], 20),
+           "plain_ms": cuda_ms(torch, [lambda: ref.delay_gather_ref(
+               hist, delays, head)], 5),
+           "library_ms": cuda_ms(torch, [lambda: torch.gather(hist, 0, slots)], 10),
+           "bytes": n * (4 + 2 + 2), "ops": 4 * n}  # delay, element in, out
+    gat["bound_ms"], gat["bound_by"] = bound(gat["bytes"], gat["ops"], ALU_OPS)
+    del slots
+    dly = {"max_abs_err": 0.0,
+           "ms": cuda_ms(torch, [lambda: dg.coordinate_delays(key, n, depth,
+                                                              "cuda")], 10),
+           "plain_ms": cuda_ms(torch, [lambda: ref.coordinate_delays_ref(
+               key, n, depth, "cuda")], 1),
+           "library_ms": None,  # torch.randint is another RNG
+           "bytes": 4 * n, "ops": DELAY_OPS * n}
+    dly["bound_ms"], dly["bound_by"] = bound(dly["bytes"], dly["ops"], ALU_OPS)
+    log("delay_gather", json.dumps(gat))
+    log("coordinate_delays", json.dumps(dly))
+    return gat, dly
+
+
+# ---------------------------------------------------------------------------
 # phase 3: kernel path == plain path, end to end, on a small f32 bank
 # ---------------------------------------------------------------------------
 def reference_check(torch, np) -> None:
@@ -310,6 +454,47 @@ def reference_check(torch, np) -> None:
     check(ev >= 1, "small bank: the priority request preempted nothing")
     log(f"reference PagedDecodeEngine: card == CPU, tokens equal, "
         f"max |dlogp| {worst:.3g}, evictions {ev}")
+
+
+def training_reference_check(torch, np, lu, dg) -> None:
+    """4 fused W-Icon commits of the reduced float32 model on the card
+    (kernels) and on the CPU (plain path), from the same weights, batches,
+    delays and keys."""
+    from repro_torch import samplers
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import WorkerModel, simulate_async
+    from repro_torch.kernels import rng
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.train.engine import Engine
+    from repro_torch.train.loop import make_grad_fn
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = replace(get_reduced("qwen3-4b"), dtype="float32")
+    cpu = init_params(cfg, torch.Generator().manual_seed(4), device="cpu",
+                      num_chains=1)
+    gpu = tree_map(lambda t: t.to("cuda"), cpu)
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (4, 4, 33))
+    delays = np.minimum(simulate_async(WorkerModel(num_workers=8), 4).delays, 2)
+    out = {}
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        s = samplers.sgld("inconsistent", make_grad_fn(Model(cfg, device=dev)),
+                          gamma=1e-3, sigma=0.5, tau=2, has_aux=True, fused=True)
+        n0 = lu.langevin_update.launches, dg.delay_gather.launches
+        state, aux = Engine(s, chunk_size=2).run(
+            s.init(params, rng.PRNGKey(4)), steps=4,
+            batches={"tokens": tokens.astype(np.int32)}, delays=delays)
+        out[dev] = (aux["loss"], [t.cpu() for t in tree_leaves(state.params)])
+        ran = (lu.langevin_update.launches - n0[0], dg.delay_gather.launches - n0[1])
+        check(ran == ((0, 0) if dev == "cpu" else (14 * 4, 14 * 4)),
+              f"training on {dev}: kernel launches {ran}")
+    (lc, pc), (lg, pg) = out["cpu"], out["cuda"]
+    loss_err = float(np.abs(lg / lc - 1).max())
+    check(loss_err <= 1e-5, f"reduced training: losses differ, rel {loss_err}")
+    p_err = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
+    check(p_err <= 1e-5, f"reduced training: parameters differ by {p_err}")
+    log(f"reference training (fused W-Icon, 4 commits): card == CPU, "
+        f"losses {np.round(lg, 4).tolist()} within rel {loss_err:.3g}, "
+        f"parameters within {p_err:.3g}")
 
 
 # ---------------------------------------------------------------------------
@@ -422,6 +607,64 @@ def main_path(torch, np, ds, cfg, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the main path, part 3 — training at full width
+# ---------------------------------------------------------------------------
+def train_path(torch, np, lu, dg) -> dict:
+    from repro_torch.launch import train as launch
+    from repro_torch.utils import tree_leaves
+
+    steps, chunk = 6, 3
+    args = launch.parser().parse_args(
+        ["--arch", "qwen3-4b", "--mode", "inconsistent", "--fused", "--tau", "2",
+         "--batch", "8", "--seq", "128", "--steps", str(steps), "--chunk",
+         str(chunk)])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, state, engine, delays = launch.build(args)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(state.params)
+    n_params = sum(t.numel() for t in leaves)
+    log(f"training: 1 x {cfg.name}, {n_params / 1e9:.3f} B parameters in "
+        f"{len(leaves)} leaves, {sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB; "
+        f"ring of {args.tau + 1}; built in {time.perf_counter() - t0:.1f} s; "
+        f"delays {delays.tolist()}")
+    ends = []
+
+    def timer(_step_end, _state, _aux):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+
+    engine.hooks = [*engine.hooks, timer]
+    lu.langevin_update.launches = 0
+    dg.delay_gather.launches = 0
+    dg.coordinate_delays.launches = 0
+    t0 = time.perf_counter()
+    state, aux = engine.run(state, steps=steps, delays=delays, key=args.seed)
+    launches = {"langevin_update": lu.langevin_update.launches,
+                "delay_gather": dg.delay_gather.launches,
+                "coordinate_delays": dg.coordinate_delays.launches}
+    peak = torch.cuda.max_memory_allocated()
+    losses = aux["loss"]
+    check(losses.shape == (steps,) and np.isfinite(losses).all(),
+          f"training losses {losses}")
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.params)),
+          "non-finite parameters after training")
+    for name, n in launches.items():
+        check(n == len(leaves) * steps,
+              f"{name} launched {n} times for {steps} commits x {len(leaves)} leaves")
+    first, rest = ends[0] - t0, ends[-1] - ends[0]
+    ms = rest * 1e3 / (steps - chunk)
+    tok_s = (steps - chunk) * args.batch * args.seq / rest
+    log(f"training: {steps} fused W-Icon commits; first chunk {first:.3f} s, "
+        f"then {ms:.2f} ms/commit, {tok_s:.1f} tokens/s; losses "
+        f"{[round(float(v), 4) for v in losses]}; peak memory {peak / 1e9:.2f} GB; "
+        f"launches {launches}")
+    return {"launches": launches, "ms_per_commit": ms, "tokens_per_s": tok_s,
+            "first_chunk_s": first, "peak_gb": peak / 1e9,
+            "losses": [float(v) for v in losses]}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -440,6 +683,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_step as ds
+    from repro_torch.kernels import delay_gather as dg
+    from repro_torch.kernels import langevin_update as lu
     from repro_torch.kernels import ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -468,10 +713,19 @@ def main() -> int:
     pag = {dtype: run_paged_case(torch, F, ds, ref, dtype,
                                  timed=dtype == torch.bfloat16)
            for dtype in (torch.bfloat16, torch.float32)}
+    lang = run_langevin_checks(torch, np, lu, ref)
+    gat, dly = run_gather_checks(torch, np, dg, ref)
+    torch.cuda.empty_cache()
     reference_check(torch, np)
+    training_reference_check(torch, np, lu, dg)
     from repro_torch.configs import get_arch
 
     mp = main_path(torch, np, ds, get_arch("qwen3-4b"))
+    gc.collect()  # the serving bank and engines went out of scope
+    torch.cuda.empty_cache()
+    log(f"serving bank freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "still allocated")
+    tp = train_path(torch, np, lu, dg)
 
     d, p = dec[(torch.bfloat16, 256)], pag[torch.bfloat16]
     kernels = [
@@ -488,6 +742,20 @@ def main() -> int:
          "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
          "bound_by": p["bound_by"], "library_ms": p["library_ms"]},
     ]
+    for name, src, replaces, r in (
+            ("langevin_update", "langevin_update.cu",
+             "src/repro/kernels/langevin_update.py:45", lang),
+            ("delay_gather", "delay_gather.cu",
+             "src/repro/kernels/delay_gather.py:33", gat),
+            # not a Pallas kernel: the jax.random.randint of the W-Icon read
+            ("coordinate_delays", "delay_gather.cu",
+             "src/repro/core/delay.py:118", dly)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
+            "launches": tp["launches"][name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,17 @@
 """repro_torch — the PyTorch/CUDA port of :mod:`repro` for one NVIDIA H100.
 
-The package mirrors the JAX package's module tree, slice by slice.  This
-slice serves a chain bank of dense transformers: the models, the
-request-level engines (:class:`~repro_torch.cluster.decode.DecodeEngine`,
-:class:`~repro_torch.cluster.paged.PagedDecodeEngine`) and the two decode
-kernels, written in CUDA C++ for ``sm_90a``.
+The package mirrors the JAX package's module tree, slice by slice.  Two
+slices are ported: serving a chain bank of dense transformers (the models,
+:class:`~repro_torch.cluster.decode.DecodeEngine`,
+:class:`~repro_torch.cluster.paged.PagedDecodeEngine`), and training them
+with delayed-gradient SGLD (:mod:`repro_torch.core`,
+:mod:`repro_torch.samplers`, :class:`~repro_torch.train.engine.Engine`,
+:mod:`repro_torch.launch.train`).  All four kernels of the JAX package —
+the two decode steps, the fused Langevin update and the W-Icon delay
+gather — are written in CUDA C++ for ``sm_90a``.
 
 It imports ``torch``, numpy and the standard library only — never ``jax``
 and nothing of ``repro``.  Entry points run on ``device="cuda"`` unless the
-caller passes ``device="cpu"``; on a CUDA tensor a decode step is the
+caller passes ``device="cpu"``; on a CUDA tensor each kernel op is the
 hand-written kernel, on a CPU tensor its plain PyTorch version.
 """

@@ -1,7 +1,7 @@
 """Architecture config dataclass and the registry (port of
 ``repro.configs.base``).
 
-Only the fields and helpers the serving slice needs are kept; the port
+Only the fields and helpers the ported slices need are kept; the port
 registers the architectures it can run (the dense ``attn_mlp`` stack), so a
 request for another id fails at lookup instead of deep inside the model.
 """
@@ -74,6 +74,16 @@ class ArchConfig:
 
         params = init_params(self, device="meta")
         return sum(t.numel() for t in tree_leaves(params))
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape x step kind (``repro.configs.base.ShapeConfig``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
 
 
 def _module(name: str):

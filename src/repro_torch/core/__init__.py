@@ -1,0 +1,29 @@
+"""Core: delayed-gradient SGLD's ring buffer, delay model, schedules and
+configuration (port of ``repro.core``; the potentials and the theory
+module come with a later slice)."""
+
+from repro_torch.core.delay import (  # noqa: F401
+    RingBuffer,
+    StalenessError,
+    check_staleness_fits,
+    init_ring,
+    push,
+    read_consistent,
+    read_inconsistent,
+    ring_depths,
+    sample_coordinate_delays,
+    validate_staleness,
+)
+from repro_torch.core.delay_model import (  # noqa: F401
+    BATCH_POLICIES,
+    DelayTrace,
+    FaultPlan,
+    WorkerModel,
+    constant_delays,
+    simulate_async,
+    simulate_sync,
+    speedup_vs_sync,
+    truncate_to_evals,
+)
+from repro_torch.core.schedules import clip_to_theory, constant, poly_decay, wsd  # noqa: F401
+from repro_torch.core.sgld import SGLDConfig  # noqa: F401

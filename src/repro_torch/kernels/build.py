@@ -3,9 +3,10 @@
 Every source ``kernels/csrc/<name>.cu`` becomes its own shared library with
 a plain C interface, compiled for ``sm_90a`` (Hopper) on first use into
 ``kernels/_build/`` (listed in ``.gitignore``).  A library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and
-a stale library is never loaded.  :func:`build` starts one ``nvcc`` per
-out-of-date source, all at once, and waits for them together.
+carries a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt and a stale library is never
+loaded.  :func:`build` starts one ``nvcc`` per out-of-date source, all at
+once, and waits for them together.
 
 Nothing here runs at import: the CPU tests import every module, and this
 container has no ``nvcc``.
@@ -49,6 +50,7 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -91,3 +93,18 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib
+
+
+def require_cuda(t, what: str) -> None:
+    """Raise unless ``t`` lies on a CUDA device (a wrapper launches its
+    kernel or raises; the plain versions are in ``kernels.ref``)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} launches a CUDA kernel; got a tensor on "
+                         f"{t.device} (the plain version is in kernels.ref)")
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")

@@ -75,17 +75,6 @@ def _check_common(q: torch.Tensor, hd: int, G: int, smem: int, what: str) -> Non
                          f"{_SMEM_LIMIT} bytes of shared memory")
 
 
-def _require_cuda(q: torch.Tensor, what: str) -> None:
-    if q.device.type != "cuda":
-        raise ValueError(f"{what} launches a CUDA kernel; got a tensor on "
-                         f"{q.device} (the plain version is in kernels.ref)")
-
-
-def _launched(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
-
-
 def decode_step(q, k_new, v_new, k_cache, v_cache, valid, slot: int):
     """Fused ring-cache decode step on the card.
 
@@ -107,7 +96,7 @@ def decode_step(q, k_new, v_new, k_cache, v_cache, valid, slot: int):
     slot = int(slot)
     if not 0 <= slot < smax:
         raise ValueError(f"slot {slot} outside the {smax}-slot ring")
-    _require_cuda(q, "decode_step")
+    build.require_cuda(q, "decode_step")
     o = torch.empty_like(q)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -116,7 +105,7 @@ def decode_step(q, k_new, v_new, k_cache, v_cache, valid, slot: int):
             k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
             valid.data_ptr(), slot, N, smax, KV, G, hd, _DTYPES[dt],
             1.0 / math.sqrt(hd), stream)
-    _launched(err, "decode_step")
+    build.check_launch(err, "decode_step")
     decode_step.launches += 1
     return o, k_cache, v_cache
 
@@ -147,7 +136,7 @@ def paged_decode_step(q, k_new, v_new, k_pages, v_pages, tables, pos):
         _check(name, t, (C, n_pages, ps, KV, hd), dt, dev)
     _check("tables", tables, (S, maxp), torch.int32, dev)
     _check("pos", pos, (S,), torch.int32, dev)
-    _require_cuda(q, "paged_decode_step")
+    build.require_cuda(q, "paged_decode_step")
     o = torch.empty_like(q)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -156,7 +145,7 @@ def paged_decode_step(q, k_new, v_new, k_pages, v_pages, tables, pos):
             k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
             tables.data_ptr(), pos.data_ptr(), C, S, n_pages, ps, maxp, KV,
             G, hd, _DTYPES[dt], 1.0 / math.sqrt(hd), stream)
-    _launched(err, "paged_decode_step")
+    build.check_launch(err, "paged_decode_step")
     paged_decode_step.launches += 1
     return o, k_pages, v_pages
 

@@ -1,17 +1,27 @@
-"""Decode steps in model layout (port of ``repro.kernels.ops``'s
-``fused_decode_step`` / ``fused_paged_decode_step``).
+"""The kernels in model layout (port of ``repro.kernels.ops``): the two
+decode steps, the fused Langevin update over a parameter tree, and the
+W-Icon delay draw and gather.
 
 Dispatch goes by the tensors' device, and nothing else: on a CUDA tensor
-the step **is** the hand-written kernel (:mod:`repro_torch.kernels.
-decode_step`), which launches or raises — there is no fallback; on a CPU
-tensor it is the plain version (:mod:`repro_torch.kernels.ref`).  Either
-way the caches / pools are updated in place.
+the op **is** the hand-written kernel (:mod:`~repro_torch.kernels.
+decode_step`, :mod:`~repro_torch.kernels.langevin_update`,
+:mod:`~repro_torch.kernels.delay_gather`), which launches or raises —
+there is no fallback; on a CPU tensor it is the plain version
+(:mod:`repro_torch.kernels.ref`).  Either way caches, pools and the
+updated parameters change in place.
 """
 
 from __future__ import annotations
 
+from typing import Any
+
 from repro_torch.kernels import decode_step as ds
-from repro_torch.kernels import ref
+from repro_torch.kernels import delay_gather as dg
+from repro_torch.kernels import langevin_update as lu
+from repro_torch.kernels import ref, rng
+from repro_torch.utils import tree_flatten, tree_map
+
+PyTree = Any
 
 
 def _route(t, kernel, plain):
@@ -19,7 +29,7 @@ def _route(t, kernel, plain):
         return kernel
     if t.device.type == "cpu":
         return plain
-    raise ValueError(f"no decode step for device {t.device}")
+    raise ValueError(f"no kernel for device {t.device}")
 
 
 def fused_decode_step(q, k_new, v_new, k_cache, v_cache, valid, slot: int):
@@ -52,3 +62,51 @@ def fused_paged_decode_step(q, k_new, v_new, k_pages, v_pages, tables, pos):
     o, kp, vp = step(q.reshape(C, S, KV, H // KV, hd), k_new.contiguous(),
                      v_new.contiguous(), k_pages, v_pages, tables, pos)
     return o.reshape(C, S, H, hd), kp, vp
+
+
+def fused_langevin_update(params: PyTree, grads: PyTree, seed, gamma,
+                          scale) -> PyTree:
+    """Leafwise fused SGLD commit, **in place** on every leaf of
+    ``params``: ``x <- x - gamma*g + scale*xi``.
+
+    Leaf ``i`` — in JAX's leaf order — draws its noise under the seed fold
+    ``(s0 ^ 0x85EBCA6B·(i+1), s1 + i)`` (:func:`rng.leaf_seed`), so the port
+    and ``repro.kernels.ops.fused_langevin_update`` give every leaf the same
+    stream.  seed: ``(s0, s1)`` uint32 ints; gamma, scale: float32 scalars.
+    One kernel launch per leaf on a card.  Returns ``params``."""
+    leaves, _ = tree_flatten(params)
+    gleaves, _ = tree_flatten(grads)
+    if len(gleaves) != len(leaves):
+        raise ValueError(f"{len(gleaves)} gradient leaves for {len(leaves)} "
+                         "parameter leaves")
+    for i, (x, g) in enumerate(zip(leaves, gleaves)):
+        step = _route(x, lu.langevin_update, ref.langevin_update_ref)
+        step(x, g.contiguous(), rng.leaf_seed(seed, i), gamma, scale)
+    return params
+
+
+def coordinate_delays(key, like, maxval: int):
+    """Delays ``U{0..maxval-1}`` (int32) for every coordinate of ``like``
+    (a tensor; only its size and device are read), bit for bit
+    ``jax.random.randint(key, like.shape, 0, maxval, int32)``, flat."""
+    draw = _route(like, dg.coordinate_delays, ref.coordinate_delays_ref)
+    return draw(key, like.numel(), int(maxval), like.device)
+
+
+def delay_gather_leaf(history, delays, head: int):
+    """W-Icon read of one leaf: history ``(depth, *shape)``, delays of
+    ``shape``'s size (int32) -> ``(*shape)`` with element ``i`` taken from
+    snapshot ``(head - delays[i]) mod depth``."""
+    depth, shape = history.shape[0], history.shape[1:]
+    gather = _route(history, dg.delay_gather, ref.delay_gather_ref)
+    out = gather(history.reshape(depth, -1), delays.reshape(-1), int(head))
+    return out.reshape(shape)
+
+
+def fused_delay_gather(ring_history: PyTree, delays: PyTree, head: int,
+                       depth: int) -> PyTree:
+    """W-Icon read over a ring-buffer tree (leaves ``(depth, *shape)``)
+    with a per-coordinate delay tree shaped like the parameters."""
+    del depth  # each leaf's leading axis
+    return tree_map(lambda h, d: delay_gather_leaf(h, d.to(h.device), head),
+                    ring_history, delays)

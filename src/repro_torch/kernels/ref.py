@@ -1,6 +1,8 @@
-"""Plain PyTorch versions of the decode kernels (port of
-``repro.kernels.ref``'s ``decode_step_ref`` / ``paged_decode_step_ref``).
+"""Plain PyTorch versions of the port's kernels (port of
+``repro.kernels.ref``): the two decode steps, the Langevin update, the
+W-Icon delay gather, and the coordinate-delay draw.
 
+Decode steps:
 The same math and op order as the JAX oracles: the new row selected in at
 its position, ``q * (1/sqrt(hd))`` in fp32, fp32 scores, a ``-1e30`` mask,
 ``p = exp(s - max); p = p / sum(p)``, ``p . V`` in fp32, the output cast to
@@ -16,6 +18,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.kernels import rng
 
 NEG_INF = -1e30
 
@@ -79,3 +83,46 @@ def paged_decode_step_ref(q, k_new, v_new, k_pages, v_pages, tables, pos):
     kf[:, widx] = k_new
     vf[:, widx] = v_new
     return o.to(q.dtype), k_pages, v_pages
+
+
+def langevin_update_ref(x, g, seed, gamma, scale):
+    """The fused SGLD commit ``x <- x - gamma*g + scale*xi``, **in place**
+    on ``x``, with ``xi`` the threefry/Box-Muller normal of each element's
+    flat index under ``seed`` (a ``(s0, s1)`` pair).
+
+    x, g: any shape, bfloat16 or float32, same numel; gamma, scale: float32
+    scalars.  Each element is read in its dtype and updated in float32 as
+    ``fma(scale, xi, fma(-gamma, g, x))`` — the order in which the JAX
+    reference evaluates ``x - gamma*g + scale*xi`` (XLA contracts both
+    products into fused multiply-adds) and the CUDA kernel's.  A float32
+    fma is emulated in float64: the product is exact there and the sum
+    rounds twice, which differs from one rounding with probability about
+    2^-29 per element.  The result is written back in x's dtype.  Works in
+    slices of ``rng.CHUNK`` elements.  Returns x."""
+    xf, gf = x.view(-1), g.reshape(-1)
+    gamma = float(torch.tensor(gamma, dtype=torch.float32))
+    scale = float(torch.tensor(scale, dtype=torch.float32))
+    for a in range(0, xf.numel(), rng.CHUNK):
+        b = min(xf.numel(), a + rng.CHUNK)
+        xi = rng.normal(seed, a, b, x.device).double()
+        t = (xf[a:b].double() - gamma * gf[a:b].double()).float()
+        xf[a:b] = (t.double() + scale * xi).float().to(x.dtype)
+    return x
+
+
+def delay_gather_ref(history, delays, head: int):
+    """W-Icon read ``out[i] = history[(head - delays[i]) mod depth, i]``.
+
+    history: (depth, N) of any dtype; delays: (N,) int32; head: the ring
+    slot of the newest snapshot.  A true gather: the selected element is
+    copied, ``-0.0``, ``inf`` and ``nan`` included (the JAX Pallas kernel
+    selects by multiply-and-sum, which turns a selected ``-0.0`` into
+    ``+0.0``)."""
+    slots = torch.remainder(int(head) - delays.long(), history.shape[0])
+    return torch.gather(history, 0, slots[None])[0]
+
+
+def coordinate_delays_ref(key, n: int, maxval: int, device="cpu"):
+    """Per-coordinate delays ``U{0..maxval-1}`` as int32, bit for bit
+    ``jax.random.randint(key, (n,), 0, maxval, int32)``."""
+    return rng.randint(key, n, maxval, device)

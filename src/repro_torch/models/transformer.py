@@ -255,16 +255,20 @@ class Model:
         return bank_matmul(x, w)
 
     # -- forward over layers --------------------------------------------------
-    def forward(self, params, batch, want_kv: bool = False):
-        """Prefill forward.  Returns (logits (C, B, S, V), aux, kv) where kv
-        is ``(k, v)`` stacked ``(L, C, B, S, KV, hd)`` when ``want_kv``."""
+    def forward(self, params, batch, want_kv: bool = False, layers=None):
+        """Prefill / training forward.  Returns (logits (C, B, S, V), aux,
+        kv) where kv is ``(k, v)`` stacked ``(L, C, B, S, KV, hd)`` when
+        ``want_kv``.  ``layers`` (optional) gives each layer's parameters
+        in place of the slices of ``params["stack"]`` — the training path
+        passes per-layer autograd leaves (:func:`repro_torch.train.loop.
+        make_grad_fn`)."""
         cfg = self.cfg
         x, positions = self.embed(params, batch)
         block = cfg.block_pattern[0]
         ks, vs = [], []
         for i in range(cfg.num_layers):
-            x, _, (k, v) = apply_block(_layer(params["stack"], i), x, cfg,
-                                       block, positions)
+            layer = _layer(params["stack"], i) if layers is None else layers[i]
+            x, _, (k, v) = apply_block(layer, x, cfg, block, positions)
             if want_kv:
                 ks.append(k)
                 vs.append(v)
@@ -409,3 +413,27 @@ class Model:
             x, _ = apply_paged_block(_layer(params["stack"], i), x, cfg, block,
                                      layer_pages, tables, positions)
         return self.unembed(params, x), pages
+
+
+# ===========================================================================
+# loss
+# ===========================================================================
+def loss_fn(model: Model, params, batch, layers=None):
+    """Next-token cross-entropy, as ``repro.models.transformer.loss_fn``.
+
+    ``batch["tokens"]`` is ``(B, S+1)``; the model reads ``tokens[:, :-1]``
+    and is scored on ``tokens[:, 1:]`` with a float32 log-softmax.  Over a
+    chain bank the loss is the sum of each chain's mean CE, so each chain's
+    gradient is its own; for a bank of one chain it is the reference's
+    loss.  Dense blocks have no auxiliary (router) loss, so the total is
+    the CE and ``aux`` is 0.  Returns
+    ``(total, {"ce": ce, "aux": aux})``, 0-d tensors."""
+    tokens = model._tokens(batch["tokens"])
+    logits, _, _ = model.forward(params, {"tokens": tokens[:, :-1]},
+                                 layers=layers)
+    labels = tokens[:, 1:]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.expand(logits.shape[0], *labels.shape)
+                      [..., None])[..., 0]
+    ce = -ll.mean(dim=(-2, -1)).sum()
+    return ce, {"ce": ce.detach(), "aux": torch.zeros_like(ce.detach())}

@@ -1,8 +1,15 @@
-"""Small shared utilities: nested-dict tree helpers, shape math, devices."""
+"""Small shared utilities: nested-dict tree helpers, shape math, devices.
+
+Trees are nested dicts / lists / tuples of tensors, the JAX package's
+parameter layout.  Leaves are ordered as ``jax.tree_util`` orders them —
+dict keys sorted — everywhere: the fused update folds a leaf's index into
+its noise seed, and :func:`leaf_keys` hands leaf ``i`` the ``i``-th split
+key, so any other order would give a leaf another leaf's random stream.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator
+from typing import Any, Callable
 
 import torch
 
@@ -21,20 +28,67 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     return fn(tree, *rest)
 
 
+_LEAF = object()  # a leaf's place in a treedef
+
+
+def tree_flatten(tree: PyTree) -> tuple[list, PyTree]:
+    """``(leaves, treedef)`` in JAX's leaf order (dict keys sorted);
+    :func:`tree_unflatten` inverts it."""
+    leaves: list = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        leaves.append(t)
+        return _LEAF
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef: PyTree, leaves) -> PyTree:
+    """The tree of ``treedef`` (from :func:`tree_flatten`) with ``leaves``
+    put in, in order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    return build(treedef)
+
+
 def tree_leaves(tree: PyTree) -> list:
-    """Leaves of a nested dict / list / tuple, in insertion order."""
-    return list(_iter_leaves(tree))
+    """Leaves of a nested dict / list / tuple, in JAX's order."""
+    return tree_flatten(tree)[0]
 
 
-def _iter_leaves(tree: PyTree) -> Iterator:
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _iter_leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _iter_leaves(v)
-    else:
-        yield tree
+def leaf_keys(key, tree: PyTree) -> list:
+    """One key per leaf, in JAX's leaf order: leaf ``i`` gets
+    ``split(key, n_leaves)[i]`` (``repro.utils.tree_keys``, flattened —
+    a key is a ``(k0, k1)`` tuple, which a tree walk would take apart)."""
+    from repro_torch.kernels import rng
+
+    return rng.split(key, len(tree_leaves(tree)))
+
+
+def tree_zeros_like(a: PyTree) -> PyTree:
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_add_scaled(a: PyTree, b: PyTree, scale) -> PyTree:
+    """a + scale * b, leafwise."""
+    return tree_map(lambda x, y: x + scale * y, a, b)
+
+
+def tree_broadcast_leading(a: PyTree, n: int) -> PyTree:
+    """Every leaf copied ``n`` times along a new leading axis (the slots
+    of an iterate ring)."""
+    return tree_map(lambda x: x[None].expand(n, *x.shape).clone(), a)
 
 
 def resolve_device(device) -> torch.device:

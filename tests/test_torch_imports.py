@@ -39,6 +39,10 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.cluster.paged, repro_torch.cluster.decode\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
         "import repro_torch.weights, repro_torch.configs\n"
+        "import repro_torch.core, repro_torch.samplers, repro_torch.data\n"
+        "import repro_torch.train.engine, repro_torch.train.loop\n"
+        "import repro_torch.launch.train, repro_torch.kernels.rng\n"
+        "import repro_torch.kernels.langevin_update, repro_torch.kernels.delay_gather\n"
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None}\n"
     )

@@ -1,9 +1,23 @@
 """Inputs shared by the port's kernel tests: ring-cache and paged decode
 steps made from a numpy seed, and the pool comparison that allows for the
-garbage row.  Imports numpy only, so the card-only tests run where JAX is
-not installed."""
+garbage row; and a fixture for the CPU parity tests.  Imports no JAX, so
+the card-only tests run where JAX is not installed."""
 
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_cpu_thread():
+    """Run a module's tests on one ATen thread.  The suite runs in several
+    worker processes at once; ATen's OpenMP threads, spinning against each
+    other's, slow the parity tests' many small CPU ops by 10x or more.
+    A test module takes it with ``from torch_cases import one_cpu_thread``."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 KV, G, HD = 2, 2, 64
 RING_CASES = [
