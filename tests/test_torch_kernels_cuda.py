@@ -7,11 +7,19 @@ machine without it::
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Decode steps: qwen3-4b's shapes (8 KV heads, 4 query heads each,
-head_dim 128).  Outputs agree to 1e-5 in float32 (same op order,
-summation order differs) and to 2e-2 in bf16 (one bf16 ulp of |o| <= 4:
-both round the same fp32 result, which may sit on either side of a
-rounding boundary); caches and pools are equal bit for bit outside the
-garbage row.
+head_dim 128), at the small shared cases and at the cases the split-KV
+plan makes hard (full 1024- and 16,384-slot rings, whole empty splits, a
+ring where only the slot is valid or nothing is, paged positions on chunk
+and page boundaries, position 0, the garbage page, 4,096-position windows,
+a page id outside the pool).  Outputs agree to 1e-5 in float32 (same op
+order, summation order differs) and in bf16 to 2e-2 (one bf16 ulp of
+|o| <= 4: the kernel's fp32 result, from tensor-core products with the
+weights kept to ~16 bits, differs from the plain step's by ~1e-5 and may
+round to the other side of a boundary) and to two bf16 ulps of the largest
+plain output (a long context's output is small, |o| ~ sqrt(e / n), where
+2e-2 alone would pass a kernel that dropped a split); caches and pools are
+equal bit for bit outside the garbage row, and two calls give the same
+bits.
 
 SGLD kernels, at ragged lengths: the Langevin update agrees with its plain
 version within 2e-6 in float32 and one bf16 ulp in bfloat16 (same bits
@@ -51,6 +59,27 @@ def cuda():
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
+def _decode_limit(want, dtype):
+    """Per row or slot (over its KV heads x G x hd outputs): KERNEL_TOL, and
+    in bf16 also two bf16 ulps of the row's largest |want|."""
+    tol = torch.full((*want.shape[:-3], 1, 1, 1), KERNEL_TOL[dtype],
+                     device=want.device)
+    if dtype != torch.bfloat16:
+        return tol
+    m = want.float().abs().amax(dim=(-3, -2, -1), keepdim=True)
+    return torch.where(m > 0, torch.minimum(tol, torch.exp2(torch.floor(torch.log2(m)) - 6)), tol)
+
+
+def _within(got, want, limit):
+    return bool(((got.float() - want.float()).abs() <= limit).all())
+
+
+def _assert_decode_close(got, want, dtype):
+    limit = _decode_limit(want, dtype)
+    err = (got.float() - want.float()).abs().max().item()
+    assert _within(got, want, limit), (err, limit.min().item())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -66,8 +95,7 @@ def test_decode_kernel_matches_plain_on_card(cuda, dtype, case):
     want, wk, wv = ref.decode_step_ref(q, t["k_new"], t["v_new"], *plain,
                                        t["valid"], c["slot"])
     torch.cuda.synchronize()
-    torch.testing.assert_close(o.float(), want.float(), rtol=0,
-                               atol=KERNEL_TOL[dtype])
+    _assert_decode_close(o, want, dtype)
     assert torch.equal(kc, wk) and torch.equal(vc, wv)
 
 
@@ -85,8 +113,7 @@ def test_paged_kernel_matches_plain_on_card(cuda, dtype):
     want, wk, wv = ref.paged_decode_step_ref(q, t["k_new"], t["v_new"], *plain,
                                              t["tables"], t["pos"])
     torch.cuda.synchronize()
-    torch.testing.assert_close(o.float(), want.float(), rtol=0,
-                               atol=KERNEL_TOL[dtype])
+    _assert_decode_close(o, want, dtype)
     ps = c["k_pages"].shape[2]
     rows = c["tables"][np.arange(5), c["pos"] // ps] * ps + c["pos"] % ps
     shared = {0: [3, 4]}
@@ -95,6 +122,199 @@ def test_paged_kernel_matches_plain_on_card(cuda, dtype):
     assert_pool_equal(_np(kp.float()), _np(wk.float()), shared, new_k, ps)
     assert_pool_equal(_np(vp.float()), _np(wv.float()), shared, new_v, ps)
     assert rows[3] == rows[4] == 0
+
+
+# ---------------------------------------------------------------------------
+# the split-KV decode kernels at the cases their plan makes hard
+# ---------------------------------------------------------------------------
+def _ring(cuda, dtype, N, smax, slot, valid_rows, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device=cuda).to(dtype)  # noqa: E731
+    valid = torch.zeros(smax, dtype=torch.int32, device=cuda)
+    valid[valid_rows] = 1
+    return (r(N, 8, 4, 128), r(N, 8, 128), r(N, 8, 128), r(N, smax, 8, 128),
+            r(N, smax, 8, 128), valid, slot)
+
+
+def _ring_check(args, dtype):
+    q, kn, vn, kc, vc, valid, slot = args
+    plain = [x.clone() for x in (kc, vc)]
+    before = ds.decode_step.launches
+    o, kc2, vc2 = ds.decode_step(q, kn, vn, kc, vc, valid, slot)
+    want, wk, wv = ref.decode_step_ref(q, kn, vn, *plain, valid, slot)
+    torch.cuda.synchronize()
+    assert ds.decode_step.launches == before + 1
+    assert torch.isfinite(o.float()).all()
+    _assert_decode_close(o, want, dtype)
+    assert torch.equal(kc2, wk) and torch.equal(vc2, wv)
+    return o
+
+
+RING_SPLIT_CASES = {
+    # smax, slot, valid rows: a full 1024-slot ring (16 splits of 64)
+    "full-1024": (1024, 1000, slice(None)),
+    # a 16,384-slot ring, which the kernel refused before it was split
+    "full-16384": (16384, 9000, slice(None)),
+    # valid rows in splits 0 and 15 only: splits 1-14 are empty
+    "empty-splits": (1024, 1020, [0, 5, 63, 1000, 1023]),
+    # only the slot is valid
+    "only-slot-1024": (1024, 517, [517]),
+    # the decode cell's shape: 48 valid rows of 256, splits 2-7 empty
+    "decode-cell": (256, 47, slice(0, 48)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(RING_SPLIT_CASES))
+def test_split_ring_kernel_matches_plain_on_card(cuda, dtype, case):
+    smax, slot, rows = RING_SPLIT_CASES[case]
+    N = 2 if smax > 4096 else 4
+    _ring_check(_ring(cuda, dtype, N, smax, slot, rows, seed=smax), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["full-1024", "full-16384"])
+def test_decode_limit_sees_a_dropped_split(cuda, dtype, case):
+    """The kernel's output is within the limit; the plain step with split
+    0's positions masked off is not (the slot stays valid)."""
+    smax, slot, rows = RING_SPLIT_CASES[case]
+    args = _ring(cuda, dtype, 2, smax, slot, rows, seed=smax)
+    o = _ring_check(args, dtype)
+    q, kn, vn, kc, vc, valid, _ = args
+    chunk = ds.ring_plan(smax)[1]
+    drop = valid.clone()
+    drop[:chunk] = 0
+    drop[slot] = 1
+    full = ref.decode_step_ref(q, kn, vn, kc.clone(), vc.clone(), valid, slot)[0]
+    off = ref.decode_step_ref(q, kn, vn, kc.clone(), vc.clone(), drop, slot)[0]
+    limit = _decode_limit(full, dtype)
+    assert _within(o, full, limit)
+    assert not _within(off, full, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_split_ring_kernel_with_nothing_valid_matches_plain(cuda, dtype):
+    """No position valid, not even the slot: the plain step weighs every
+    position equally, and so does the kernel's last block."""
+    _ring_check(_ring(cuda, dtype, 2, 256, 9, []), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_split_kernels_are_bitwise_repeatable(cuda, dtype):
+    """Splits merge in a fixed order: two calls give the same bits."""
+    q, kn, vn, kc, vc, valid, slot = _ring(cuda, dtype, 4, 1024, 3, slice(None))
+    a = ds.decode_step(q, kn, vn, kc, vc, valid, slot)[0].clone()
+    b = ds.decode_step(q, kn, vn, kc, vc, valid, slot)[0]
+    assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    args = _paged(cuda, dtype, [255, 40, 0, 17], ps=16, maxp=16)
+    a = ds.paged_decode_step(*args)[0].clone()
+    b = ds.paged_decode_step(*args)[0]
+    assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def _paged(cuda, dtype, pos, *, ps, maxp, C=2, seed=1):
+    """Slots at ``pos`` on a permuted page table (None: inactive, table row
+    0 and position 0, the garbage page)."""
+    S = len(pos)
+    n_pages = S * maxp + 1
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    tables = torch.zeros(S, maxp, dtype=torch.int32)
+    nxt = 0
+    for s, p in enumerate(pos):
+        if p is not None:
+            tables[s, :p // ps + 1] = perm[nxt:nxt + p // ps + 1]
+            nxt += p // ps + 1
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device=cuda).to(dtype)  # noqa: E731
+    return (r(C, S, 8, 4, 128), r(C, S, 8, 128), r(C, S, 8, 128),
+            r(C, n_pages, ps, 8, 128), r(C, n_pages, ps, 8, 128),
+            tables.to(cuda),
+            torch.tensor([p or 0 for p in pos], dtype=torch.int32, device=cuda))
+
+
+PAGED_SPLIT_CASES = {
+    # 16 pages of 16, 16 splits of one page: positions on a chunk boundary
+    # (the first row of a split's page), the last row of a chunk, and the
+    # longest slot
+    "chunk-boundary": ([16, 31, 32, 255], 16, 16),
+    # 64 pages of 4, 16 splits of up to 4 pages: page boundaries inside a
+    # chunk
+    "page-boundary": ([4, 7, 8, 100, 255], 4, 64),
+    # position 0 only, and inactive slots on the garbage page
+    "pos-0": ([0, 0, 0], 16, 16),
+    "garbage-page": ([None, 200, None, 3, None], 16, 16),
+    # 4,096-position windows: maxp 256, positions spread over the window
+    "window-4096": ([4095, 2048, 17, None, 3000, 1023, None, 600], 16, 256),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(PAGED_SPLIT_CASES))
+def test_split_paged_kernel_matches_plain_on_card(cuda, dtype, case):
+    pos, ps, maxp = PAGED_SPLIT_CASES[case]
+    q, kn, vn, kp, vp, tables, pos_t = _paged(cuda, dtype, pos, ps=ps, maxp=maxp)
+    plain = [x.clone() for x in (kp, vp)]
+    o, kp, vp = ds.paged_decode_step(q, kn, vn, kp, vp, tables, pos_t)
+    want, wk, wv = ref.paged_decode_step_ref(q, kn, vn, *plain, tables, pos_t)
+    torch.cuda.synchronize()
+    _assert_decode_close(o, want, dtype)
+    writers = [s for s, p in enumerate(pos) if p is None or p == 0
+               and int(tables[s, 0]) == 0]
+    shared = {0: writers} if len(writers) > 1 else {}
+    assert_pool_equal(_np(kp.float()), _np(wk.float()), shared,
+                      _np(kn.float()), ps)
+    assert_pool_equal(_np(vp.float()), _np(wv.float()), shared,
+                      _np(vn.float()), ps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_split_paged_kernel_refuses_a_page_outside_the_pool(cuda, dtype):
+    """A page id outside the pool: that slot's output is NaN and nothing is
+    stored for it; the other slots are unaffected."""
+    q, kn, vn, kp, vp, tables, pos = _paged(cuda, dtype, [40, 100, 7], ps=16,
+                                           maxp=16)
+    n_pages = kp.shape[1]
+    tables[1, 3] = n_pages  # one past the pool, on a page slot 1 attends to
+    before_k, before_v = kp.clone(), vp.clone()
+    o, kp, vp = ds.paged_decode_step(q, kn, vn, kp, vp, tables, pos)
+    torch.cuda.synchronize()
+    assert torch.isnan(o[:, 1].float()).all()
+    assert torch.isfinite(o[:, [0, 2]].float()).all()
+    row1 = int(tables[1, 100 // 16]) * 16 + 100 % 16
+    flat = lambda t: t.reshape(t.shape[0], -1, 8, 128)  # noqa: E731
+    assert torch.equal(flat(kp)[:, row1], flat(before_k)[:, row1])
+    assert torch.equal(flat(vp)[:, row1], flat(before_v)[:, row1])
+    # the good slots stored their rows and match the plain step
+    t2 = tables.clone()
+    t2[1, 3] = 0
+    want = ref.paged_decode_step_ref(q, kn, vn, before_k.clone(),
+                                     before_v.clone(), t2, pos)[0]
+    _assert_decode_close(o[:, [0, 2]], want[:, [0, 2]], dtype)
+
+
+@pytest.mark.cuda
+def test_split_shared_memory_mirror_matches_the_source(cuda):
+    """decode_step.smem_bytes (used by the CPU plan tests and the wrapper's
+    check) equals the source's own layout."""
+    lib = ds._lib()
+    for elem in (2, 4):
+        for hd in (64, 128):
+            for G in (1, 2, 4, 8):
+                for pages in (0, 1, 16, 128):
+                    assert lib.decode_step_smem_bytes(G, hd, elem, pages) == \
+                        ds.smem_bytes(G, hd, elem, pages)
 
 
 # ---------------------------------------------------------------------------
