@@ -21,12 +21,15 @@ library) and runs, failing on the first phase that fails:
    calls, caches / pools bit-for-bit equal outside the garbage
    row; with the kernel's, the plain version's and one PyTorch library
    call's time (``scaled_dot_product_attention``), and the bytes bound;
-   then the SGLD kernels (Langevin update, delay draw, delay gather)
-   against theirs, at a ragged length in bf16 and float32 and at the
-   largest full-width leaf (36 x 2560 x 9728 bf16): the update within
-   2e-6 in float32 and one bf16 ulp in bf16, its noise alone (gamma 0,
-   x 0) likewise, the delays and the gather bit for bit; with times and
-   bounds (``torch.gather`` is the gather's library call);
+   then the SGLD kernels (Langevin update, delay draw, delay gather, the
+   one-pass W-Icon read) against theirs, at a ragged length (misaligned
+   rows, the scalar code) and at 2^20 elements (the vector code) in bf16,
+   float32 and int32, over rings of depth 1-5, and at the largest
+   full-width leaf (36 x 2560 x 9728 bf16): the update within 2e-6 in
+   float32 and one bf16 ulp in bf16, its noise alone (gamma 0, x 0)
+   likewise, the delays, the gather (out-of-range delays included) and the
+   read bit for bit; with times and bounds (``torch.gather`` is the
+   gather's library call);
 3. the engines on a reduced float32 bank, on the card (kernels) and on the
    CPU (plain path): the same tokens and BMA log-probs within 1e-4; then
    4 fused W-Icon training commits of the reduced float32 model on both:
@@ -46,8 +49,9 @@ library) and runs, failing on the first phase that fails:
    (``repro_torch.launch.train``: ``--mode inconsistent --fused --tau 2
    --batch 8 --seq 128``), 6 commits in chunks of 3, delays from 8
    simulated workers: finite losses, ms per commit (the first chunk
-   apart), tokens/s, peak memory, and each SGLD kernel launched once per
-   parameter leaf per commit (14 x 6).
+   apart), tokens/s, peak memory, and the Langevin update and the one-pass
+   W-Icon read each launched once per parameter leaf per commit (14 x 6),
+   the standalone gather and delay draw never.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -398,15 +402,17 @@ def within_bf16_ulp(torch, got, want) -> bool:
 
 
 def run_langevin_checks(torch, np, lu, ref) -> dict:
-    """The fused update against the plain update: ragged bf16 / f32, the
-    noise alone, and the largest full-width leaf (timed there)."""
+    """The fused update against the plain update: ragged bf16 / f32 (the
+    vector code and its tail; one element off 16 bytes, the scalar code),
+    the noise alone, and the largest full-width leaf (timed there)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     seed, gamma, scale = (0x1234ABCD, 77), np.float32(1e-3), np.float32(0.03)
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).replace("torch.", "")
-        x = torch.randn(RAGGED, generator=gen, device="cuda").to(dtype)
-        g = torch.randn(RAGGED, generator=gen, device="cuda").to(dtype)
+    for dtype, off in ((torch.bfloat16, 0), (torch.float32, 0),
+                       (torch.bfloat16, 1), (torch.float32, 1)):
+        name = str(dtype).replace("torch.", "") + ("_offset" if off else "")
+        x = torch.randn(off + RAGGED, generator=gen, device="cuda").to(dtype)[off:]
+        g = torch.randn(off + RAGGED, generator=gen, device="cuda").to(dtype)[off:]
         want = ref.langevin_update_ref(x.clone(), g, seed, gamma, scale)
         lu.langevin_update(x, g, seed, gamma, scale)
         zero = torch.zeros(RAGGED, device="cuda", dtype=dtype)
@@ -448,38 +454,73 @@ def run_langevin_checks(torch, np, lu, ref) -> dict:
     return out
 
 
+def ring_of(torch, gen, dtype, depth, n):
+    """A (depth, n) ring with signed zeros, inf and nan in its first row."""
+    h = torch.randn(depth, n, generator=gen, device="cuda")
+    h[0, :4] = torch.tensor([-0.0, float("inf"), float("nan"), -0.0])
+    if dtype == torch.int32:
+        return (h.nan_to_num(0, 9, -9) * 1000).to(dtype)
+    return h.to(dtype)
+
+
 def run_gather_checks(torch, np, dg, ref) -> tuple:
-    """The delay draw and the gather against their plain versions: ragged
-    f32 / bf16 / int32 (signed zeros, inf and nan), then the largest
-    full-width leaf over a 3-slot ring (timed there)."""
+    """The delay draw, the gather and the one-pass W-Icon read against
+    their plain versions: ragged (the scalar code) and 2^20 elements (the
+    vector code) in f32 / bf16 / int32 (signed zeros, inf and nan), rings
+    of depth 1-5, then the largest full-width leaf over a 3-slot ring
+    (timed there)."""
     gen = torch.Generator(device="cuda").manual_seed(13)
-    for maxval in (1, 2, 3):
+    for maxval in (1, 2, 3, 7, 4097, 65535):
         got = dg.coordinate_delays((123, 456), RAGGED, maxval, "cuda")
         want = ref.coordinate_delays_ref((123, 456), RAGGED, maxval, "cuda")
         check(torch.equal(got, want), f"coordinate_delays maxval={maxval}: "
               "the kernel's delays differ from the plain draw")
-    for dtype in (torch.float32, torch.bfloat16, torch.int32):
-        h = torch.randn(3, RAGGED, generator=gen, device="cuda")
-        h[0, :4] = torch.tensor([-0.0, float("inf"), float("nan"), -0.0])
-        h = h.to(dtype) if dtype != torch.int32 else (h.nan_to_num(0, 9, -9)
-                                                       * 1000).to(dtype)
-        d = torch.randint(0, 3, (RAGGED,), generator=gen, device="cuda",
-                          dtype=torch.int32)
-        got, want = dg.delay_gather(h, d, 1), ref.delay_gather_ref(h, d, 1)
-        check(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
-              f"delay_gather {dtype}: not bit for bit the plain gather")
+    reads = 0
+    for n in (RAGGED, 1 << 20):
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            for depth in range(1, 6):
+                h = ring_of(torch, gen, dtype, depth, n)
+                head = (n + depth) % depth
+                # out-of-range delays: negative and >= depth
+                d = torch.randint(-2 * depth, 2 * depth, (n,), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+                check(bitwise_equal(torch, dg.delay_gather(h, d, head),
+                                ref.delay_gather_ref(h, d, head)),
+                      f"delay_gather {dtype} n={n} depth={depth}: not bit for "
+                      "bit the plain gather")
+                for maxval in sorted({1, (depth + 1) // 2, depth}):
+                    key = (n + maxval, depth)
+                    check(bitwise_equal(torch, dg.wicon_read(h, key, maxval, head),
+                                    ref.wicon_read_ref(h, key, maxval, head)),
+                          f"wicon_read {dtype} n={n} depth={depth} maxval="
+                          f"{maxval}: not bit for bit the plain read")
+                    reads += 1
+    log(f"wicon_read: {reads} reads bit for bit the plain read (n {RAGGED} "
+        f"and {1 << 20}, f32/bf16/int32, depth 1-5)")
     n, depth, head, key = LARGEST_LEAF, 3, 2, (0xC0FFEE, 9)
     hist = torch.randn(depth, n, generator=gen, device="cuda").to(torch.bfloat16)
+    got, want = dg.wicon_read(hist, key, depth, head), ref.wicon_read_ref(
+        hist, key, depth, head)
+    check(bitwise_equal(torch, got, want),
+          f"wicon_read n={n}: not bit for bit the plain read")
+    del got, want
+    wic = {"entry": "wicon_read", "max_abs_err": 0.0,
+           "ms": cuda_ms(torch, [lambda: dg.wicon_read(hist, key, depth, head)], 20),
+           "plain_ms": cuda_ms(torch, [lambda: ref.wicon_read_ref(
+               hist, key, depth, head)], 1),
+           "library_ms": None,  # no one PyTorch call draws and gathers
+           "bytes": n * (2 + 2), "ops": DELAY_OPS * n}  # element in, out
+    wic["bound_ms"], wic["bound_by"] = bound(wic["bytes"], wic["ops"], ALU_OPS)
     delays = dg.coordinate_delays(key, n, depth, "cuda")
     check(torch.equal(delays, ref.coordinate_delays_ref(key, n, depth, "cuda")),
           f"coordinate_delays n={n}: differs from the plain draw")
     got, want = dg.delay_gather(hist, delays, head), ref.delay_gather_ref(
         hist, delays, head)
-    check(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+    check(bitwise_equal(torch, got, want),
           f"delay_gather n={n}: not bit for bit the plain gather")
     slots = torch.remainder(head - delays.long(), depth)[None]
-    del want
-    gat = {"max_abs_err": 0.0,
+    del got, want
+    gat = {"entry": "delay_gather", "max_abs_err": 0.0,
            "ms": cuda_ms(torch, [lambda: dg.delay_gather(hist, delays, head)], 20),
            "plain_ms": cuda_ms(torch, [lambda: ref.delay_gather_ref(
                hist, delays, head)], 5),
@@ -495,9 +536,10 @@ def run_gather_checks(torch, np, dg, ref) -> tuple:
            "library_ms": None,  # torch.randint is another RNG
            "bytes": 4 * n, "ops": DELAY_OPS * n}
     dly["bound_ms"], dly["bound_by"] = bound(dly["bytes"], dly["ops"], ALU_OPS)
+    log("wicon_read", json.dumps(wic))
     log("delay_gather", json.dumps(gat))
     log("coordinate_delays", json.dumps(dly))
-    return gat, dly
+    return wic, gat, dly
 
 
 # ---------------------------------------------------------------------------
@@ -575,14 +617,17 @@ def training_reference_check(torch, np, lu, dg) -> None:
     for dev, params in (("cpu", cpu), ("cuda", gpu)):
         s = samplers.sgld("inconsistent", make_grad_fn(Model(cfg, device=dev)),
                           gamma=1e-3, sigma=0.5, tau=2, has_aux=True, fused=True)
-        n0 = lu.langevin_update.launches, dg.delay_gather.launches
+        counters = (lu.langevin_update, dg.wicon_read, dg.delay_gather,
+                    dg.coordinate_delays)
+        n0 = [c.launches for c in counters]
         state, aux = Engine(s, chunk_size=2).run(
             s.init(params, rng.PRNGKey(4)), steps=4,
             batches={"tokens": tokens.astype(np.int32)}, delays=delays)
         out[dev] = (aux["loss"], [t.cpu() for t in tree_leaves(state.params)])
-        ran = (lu.langevin_update.launches - n0[0], dg.delay_gather.launches - n0[1])
-        check(ran == ((0, 0) if dev == "cpu" else (14 * 4, 14 * 4)),
-              f"training on {dev}: kernel launches {ran}")
+        ran = tuple(c.launches - n for c, n in zip(counters, n0))
+        check(ran == ((0, 0, 0, 0) if dev == "cpu" else (14 * 4, 14 * 4, 0, 0)),
+              f"training on {dev}: kernel launches {ran} (update, W-Icon read, "
+              "gather, draw)")
     (lc, pc), (lg, pg) = out["cpu"], out["cuda"]
     loss_err = float(np.abs(lg / lc - 1).max())
     check(loss_err <= 1e-5, f"reduced training: losses differ, rel {loss_err}")
@@ -732,23 +777,26 @@ def train_path(torch, np, lu, dg) -> dict:
         ends.append(time.perf_counter())
 
     engine.hooks = [*engine.hooks, timer]
-    lu.langevin_update.launches = 0
-    dg.delay_gather.launches = 0
-    dg.coordinate_delays.launches = 0
+    counters = {"langevin_update": lu.langevin_update, "wicon_read": dg.wicon_read,
+                "delay_gather": dg.delay_gather,
+                "coordinate_delays": dg.coordinate_delays}
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
     state, aux = engine.run(state, steps=steps, delays=delays, key=args.seed)
-    launches = {"langevin_update": lu.langevin_update.launches,
-                "delay_gather": dg.delay_gather.launches,
-                "coordinate_delays": dg.coordinate_delays.launches}
+    launches = {name: c.launches for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     losses = aux["loss"]
     check(losses.shape == (steps,) and np.isfinite(losses).all(),
           f"training losses {losses}")
     check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.params)),
           "non-finite parameters after training")
-    for name, n in launches.items():
-        check(n == len(leaves) * steps,
-              f"{name} launched {n} times for {steps} commits x {len(leaves)} leaves")
+    # the W-Icon read draws its delays in the kernel: no standalone gather
+    # or draw on the path
+    want = {"langevin_update": len(leaves) * steps, "wicon_read": len(leaves) * steps,
+            "delay_gather": 0, "coordinate_delays": 0}
+    check(launches == want, f"launches {launches} for {steps} commits x "
+          f"{len(leaves)} leaves, want {want}")
     first, rest = ends[0] - t0, ends[-1] - ends[0]
     ms = rest * 1e3 / (steps - chunk)
     tok_s = (steps - chunk) * args.batch * args.seq / rest
@@ -816,7 +864,7 @@ def main() -> int:
                 maxp=maxp, plain_iters=5 if maxp > 16 else 50)
             torch.cuda.empty_cache()
     lang = run_langevin_checks(torch, np, lu, ref)
-    gat, dly = run_gather_checks(torch, np, dg, ref)
+    wic, gat, dly = run_gather_checks(torch, np, dg, ref)
     torch.cuda.empty_cache()
     reference_check(torch, np)
     training_reference_check(torch, np, lu, dg)
@@ -853,20 +901,29 @@ def main() -> int:
          "bound_by": p["bound_by"], "library_ms": p["library_ms"],
          "cases": cases(pag[(torch.bfloat16, n)] for n in (16, 256))},
     ]
-    for name, src, replaces, r in (
+    # the delay_gather entry is the one W-Icon kernel: its numbers and
+    # launches are the main path's instantiation (wicon_read, delays drawn
+    # in the kernel), both instantiations under "cases"
+    for name, src, replaces, r, launches in (
             ("langevin_update", "langevin_update.cu",
-             "src/repro/kernels/langevin_update.py:45", lang),
+             "src/repro/kernels/langevin_update.py:45", lang,
+             tp["launches"]["langevin_update"]),
             ("delay_gather", "delay_gather.cu",
-             "src/repro/kernels/delay_gather.py:33", gat),
+             "src/repro/kernels/delay_gather.py:33", wic,
+             tp["launches"]["wicon_read"]),
             # not a Pallas kernel: the jax.random.randint of the W-Icon read
             ("coordinate_delays", "delay_gather.cu",
-             "src/repro/core/delay.py:118", dly)):
+             "src/repro/core/delay.py:118", dly,
+             tp["launches"]["coordinate_delays"])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
-            "launches": tp["launches"][name], "max_abs_err": r["max_abs_err"],
+            "launches": launches, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    kernels[-2]["cases"] = [
+        {k: r[k] for k in ("entry", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms")} for r in (wic, gat)]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,11 +14,13 @@ two commits to warm up, and profiles ``--steps`` commits, one
   intervals on the card, and ``idle_share`` = 1 - busy / wall;
 - ``kernels_per_commit``;
 - ``shares``: each part's device time over the busy time — the Langevin
-  update, the delay gather, the delay draw, the GEMMs (cuBLAS), copies and
-  fills, and the rest (elementwise, norms, softmax, reductions) — and
+  update, the W-Icon read (the one-pass ``wicon_kernel``; in a tree from
+  before it, the delay draw and the gather), the GEMMs (cuBLAS), copies
+  and fills, and the rest (elementwise, norms, softmax, reductions) — and
   ``ms`` per commit for each;
 - ``per_leaf_ms``: each SGLD kernel's time on each parameter leaf (the
-  first profiled commit, leaves in JAX's order, with their sizes);
+  first profiled commit, leaves in JAX's order, with their sizes; the
+  W-Icon read one launch a leaf);
 - the kernels with the most device time.
 
 Run from the repository root on a machine with an NVIDIA GPU::
@@ -49,8 +51,8 @@ from repro_torch.utils import tree_flatten  # noqa: E402
 from torch_profile_decode import DEVICE_CATS, busy_union  # noqa: E402
 
 PARTS = (("update", ("langevin_update_kernel",)),
-         ("gather", ("delay_gather_kernel",)),
-         ("delays", ("coordinate_delays_kernel",)),
+         ("wicon_read", ("wicon_kernel", "delay_gather_kernel",
+                         "coordinate_delays_kernel")),
          ("gemm", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
@@ -112,7 +114,7 @@ def main() -> int:
     leaves = tree_flatten(holder[0].params)[0]
     n_leaves = len(leaves)
     per_leaf = {}
-    for part in ("delays", "gather", "update"):
+    for part in ("wicon_read", "update"):
         launches = sorted((e for e in dev if part_of(e) == part),
                           key=lambda e: e["ts"])[:n_leaves]
         per_leaf[part] = [round(e["dur"] / 1e3, 4) for e in launches]

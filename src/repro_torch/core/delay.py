@@ -137,13 +137,18 @@ def read_inconsistent(ring: RingBuffer, delays: PyTree) -> PyTree:
 def read_inconsistent_leafwise(ring: RingBuffer, key, max_delay: int, *,
                                fused: bool) -> PyTree:
     """Draw and read one leaf at a time: the same result as
-    :func:`sample_coordinate_delays` then :func:`read_inconsistent` (or
-    ``fused_delay_gather`` when ``fused``), but only one leaf's delays live
-    at once — 4 bytes a coordinate of the largest leaf, not of the whole
-    model."""
+    :func:`sample_coordinate_delays` then :func:`read_inconsistent`.
+    When ``fused``, each leaf is one :func:`ops.wicon_read_leaf` (on a card
+    one kernel that draws the delays in registers: no delay tensor at
+    all); otherwise only one leaf's delays live at once — 4 bytes a
+    coordinate of the largest leaf, not of the whole model."""
     maxval = _clip(max_delay, ring.depth) + 1
-    read = ops.delay_gather_leaf if fused else _gather_plain
     leaves, treedef = tree_flatten(ring.history)
-    return tree_unflatten(treedef, [
-        read(h, ops.coordinate_delays(k, h[0], maxval), ring.head)
-        for k, h in zip(leaf_keys(key, leaves), leaves)])
+    keys = leaf_keys(key, leaves)
+    if fused:
+        reads = [ops.wicon_read_leaf(h, k, maxval, ring.head)
+                 for k, h in zip(keys, leaves)]
+    else:
+        reads = [_gather_plain(h, ops.coordinate_delays(k, h[0], maxval), ring.head)
+                 for k, h in zip(keys, leaves)]
+    return tree_unflatten(treedef, reads)

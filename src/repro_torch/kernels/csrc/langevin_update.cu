@@ -27,10 +27,16 @@
 // moves 6 bytes (read x and g, write x) but costs one threefry2x32 (about
 // 80 32-bit integer operations) plus a log, a cos and a sqrt, so at
 // 4.4e9 elements a commit the integer pipes, not the 3.35 TB/s of memory,
-// set the pace.  The design keeps to that: one element per thread per
-// iteration of a grid-stride loop, no shared memory, 256 threads a block
-// and enough blocks to fill every SM with warps whose integer work hides
-// each other's memory latency.
+// set the pace.  The design keeps the instructions an element near that
+// count: a thread takes a 16-byte vector of x and of g a step (8 bfloat16
+// or 4 float32 elements), so one load of each and one store serve 8 (or
+// 4) elements and the 8 threefry chains are independent work for the
+// schedulers (ILP); indices are 32-bit (n <= 2^32; each element's counter
+// is still its flat index, so the noise is the same as one element a
+// thread).  The vector path runs when x and g start on 16 bytes; a ragged
+// tail of fewer than 8 elements, or a leaf that does not start on 16
+// bytes, takes the scalar code (one element a thread, the same
+// arithmetic).  No shared memory; 256 threads a block.
 //
 // C interface (bound with ctypes): the launcher returns cudaGetLastError().
 
@@ -47,12 +53,26 @@ constexpr int kMaxBlocks = 132 * 16;  // 16 blocks of 8 warps per SM
 constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr float kTwoPi = (float)(2.0 * 3.14159265358979);
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
+// An element's raw bits (float, or bfloat16 as uint16_t) and their
+// conversions to and from float32: a bfloat16 is the top half of a float.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  using Raw = float;
+  static __device__ __forceinline__ float to_f(float r) { return r; }
+  static __device__ __forceinline__ float from_f(float x) { return x; }
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  using Raw = uint16_t;
+  static __device__ __forceinline__ float to_f(uint16_t r) {
+    return __uint_as_float((uint32_t)r << 16);
+  }
+  static __device__ __forceinline__ uint16_t from_f(float x) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  }
+};
 
 // top 24 bits -> (0, 1): k * 2^-24 + 2^-25
 __device__ __forceinline__ float uniform(uint32_t bits) {
@@ -67,34 +87,73 @@ __device__ __forceinline__ float normal(uint32_t s0, uint32_t s1, uint32_t c) {
   return __fmul_rn(r, cosf(__fmul_rn(kTwoPi, uniform(b1))));
 }
 
+// x <- fmaf(scale, xi, fmaf(-gamma, g, x)) for the element of counter c
+template <typename T>
+__device__ __forceinline__ typename Elem<T>::Raw update(typename Elem<T>::Raw x,
+                                                        typename Elem<T>::Raw g, uint32_t c,
+                                                        uint32_t s0, uint32_t s1,
+                                                        float gamma, float scale) {
+  const float xi = normal(s0, s1, c);
+  return Elem<T>::from_f(fmaf(scale, xi, fmaf(-gamma, Elem<T>::to_f(g), Elem<T>::to_f(x))));
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    langevin_update_kernel(T* __restrict__ x, const T* __restrict__ g, long long n,
-                           uint32_t s0, uint32_t s1, float gamma, float scale) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
-    const float xi = normal(s0, s1, (uint32_t)i);
-    const float t = fmaf(-gamma, to_f(g[i]), to_f(x[i]));
-    store_f(x + i, fmaf(scale, xi, t));
+    langevin_update_kernel(typename Elem<T>::Raw* __restrict__ x,
+                           const typename Elem<T>::Raw* __restrict__ g, unsigned long long n,
+                           uint32_t s0, uint32_t s1, float gamma, float scale, int vec) {
+  using Raw = typename Elem<T>::Raw;
+  constexpr int V = 16 / sizeof(Raw);  // lanes of a 16-byte vector
+  const uint32_t tid = blockIdx.x * kThreads + threadIdx.x;
+  const uint32_t stride = gridDim.x * kThreads;
+  uint32_t done = 0;  // elements the vector loop covers
+  if (vec) {
+    union Lanes {
+      uint4 v;
+      Raw e[V];
+    };
+    const uint32_t nv = (uint32_t)(n / V);
+    for (uint32_t v = tid; v < nv; v += stride) {
+      Lanes xv, gv;
+      xv.v = reinterpret_cast<const uint4*>(x)[v];
+      gv.v = reinterpret_cast<const uint4*>(g)[v];
+      const uint32_t base = v * V;
+#pragma unroll
+      for (int l = 0; l < V; ++l)
+        xv.e[l] = update<T>(xv.e[l], gv.e[l], base + l, s0, s1, gamma, scale);
+      reinterpret_cast<uint4*>(x)[v] = xv.v;
+    }
+    const uint32_t tail = (uint32_t)(n - (unsigned long long)nv * V);  // < V
+    if (tid >= tail) return;
+    done = (uint32_t)((unsigned long long)nv * V);  // < 2^32 when tail > 0
+  }
+  const uint32_t last = (uint32_t)(n - 1);
+  for (uint32_t i = done + tid; i <= last; i += stride) {
+    x[i] = update<T>(x[i], g[i], i, s0, s1, gamma, scale);
+    if (last - i < stride) break;  // i + stride would pass last (or wrap)
   }
 }
 
 template <typename T>
-void launch(void* x, const void* g, long long n, uint32_t s0, uint32_t s1, float gamma,
-            float scale, cudaStream_t stream) {
-  const long long want = (n + kThreads - 1) / kThreads;
+void launch(void* x, const void* g, unsigned long long n, uint32_t s0, uint32_t s1,
+            float gamma, float scale, cudaStream_t stream) {
+  using Raw = typename Elem<T>::Raw;
+  constexpr int V = 16 / sizeof(Raw);
+  const int vec = ((uintptr_t)x & 15u) == 0 && ((uintptr_t)g & 15u) == 0;
+  const unsigned long long work = vec ? n / V + 1 : n;
+  const unsigned long long want = (work + kThreads - 1) / kThreads;
   const int blocks = (int)(want < kMaxBlocks ? want : kMaxBlocks);
   langevin_update_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<T*>(x), static_cast<const T*>(g), n, s0, s1, gamma, scale);
+      static_cast<Raw*>(x), static_cast<const Raw*>(g), n, s0, s1, gamma, scale, vec);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  n >= 1, n <= 2^32 (the counter).
-extern "C" int langevin_update_launch(void* x, const void* g, long long n, unsigned s0,
-                                      unsigned s1, float gamma, float scale, int dtype,
-                                      void* stream) {
-  if (n < 1 || n > (1LL << 32)) return cudaErrorInvalidValue;
+extern "C" int langevin_update_launch(void* x, const void* g, unsigned long long n,
+                                      unsigned s0, unsigned s1, float gamma, float scale,
+                                      int dtype, void* stream) {
+  if (n < 1 || n > (1ULL << 32)) return cudaErrorInvalidValue;
   if (dtype == 0) {
     launch<float>(x, g, n, s0, s1, gamma, scale, (cudaStream_t)stream);
   } else if (dtype == 1) {

@@ -3,15 +3,16 @@
 // src/repro/kernels/rng.py::threefry2x32), in native uint32.
 //
 // Included by langevin_update.cu (the Box-Muller noise of the fused SGLD
-// commit) and delay_gather.cu (jax.random.randint's bit streams for the
-// per-coordinate delays).
+// commit) and randint.cuh (jax.random.randint's bit streams for the
+// per-coordinate delays).  A rotate by a constant is one funnel shift
+// (SHF.L.W) on sm_90.
 
 #pragma once
 
 #include <stdint.h>
 
 __device__ __forceinline__ uint32_t tf_rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
+  return __funnelshift_l(x, x, r);
 }
 
 #define TF_ROUND(r)      \

@@ -31,7 +31,7 @@ def _lib():
     lib = build.load("langevin_update")
     if not getattr(lib, "_typed", False):
         p, u, f = ctypes.c_void_p, ctypes.c_uint, ctypes.c_float
-        lib.langevin_update_launch.argtypes = [p, p, ctypes.c_longlong, u, u,
+        lib.langevin_update_launch.argtypes = [p, p, ctypes.c_ulonglong, u, u,
                                                f, f, ctypes.c_int, p]
         lib.langevin_update_launch.restype = ctypes.c_int
         lib._typed = True

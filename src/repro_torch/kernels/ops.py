@@ -1,6 +1,7 @@
 """The kernels in model layout (port of ``repro.kernels.ops``): the two
-decode steps, the fused Langevin update over a parameter tree, and the
-W-Icon delay draw and gather.
+decode steps, the fused Langevin update over a parameter tree, the W-Icon
+delay draw and gather, and the one-pass W-Icon read that draws and
+gathers in one launch.
 
 Dispatch goes by the tensors' device, and nothing else: on a CUDA tensor
 the op **is** the hand-written kernel (:mod:`~repro_torch.kernels.
@@ -100,6 +101,18 @@ def delay_gather_leaf(history, delays, head: int):
     depth, shape = history.shape[0], history.shape[1:]
     gather = _route(history, dg.delay_gather, ref.delay_gather_ref)
     out = gather(history.reshape(depth, -1), delays.reshape(-1), int(head))
+    return out.reshape(shape)
+
+
+def wicon_read_leaf(history, key, maxval: int, head: int):
+    """One-pass W-Icon read of one leaf: history ``(depth, *shape)`` ->
+    ``(*shape)``, element ``i`` from snapshot ``(head - d_i) mod depth``
+    with ``d_i = jax.random.randint(key, shape, 0, maxval, int32)``, flat
+    element ``i`` (1 <= maxval <= depth).  On a card one launch, drawing
+    the delays in registers; no delay tensor is made."""
+    depth, shape = history.shape[0], history.shape[1:]
+    read = _route(history, dg.wicon_read, ref.wicon_read_ref)
+    out = read(history.reshape(depth, -1), key, int(maxval), int(head))
     return out.reshape(shape)
 
 

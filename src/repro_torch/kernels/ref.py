@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels (port of
 ``repro.kernels.ref``): the two decode steps, the Langevin update, the
-W-Icon delay gather, and the coordinate-delay draw.
+W-Icon delay gather, the coordinate-delay draw, and the one-pass W-Icon
+read (the draw, then the gather).
 
 Decode steps:
 The same math and op order as the JAX oracles: the new row selected in at
@@ -22,6 +23,7 @@ import torch
 from repro_torch.kernels import rng
 
 NEG_INF = -1e30
+_RAW = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 def _softmax_pv(s, v):
@@ -117,12 +119,22 @@ def delay_gather_ref(history, delays, head: int):
     slot of the newest snapshot.  A true gather: the selected element is
     copied, ``-0.0``, ``inf`` and ``nan`` included (the JAX Pallas kernel
     selects by multiply-and-sum, which turns a selected ``-0.0`` into
-    ``+0.0``)."""
+    ``+0.0``).  It gathers the raw bits, through an integer view of the
+    same width: ATen's CPU gather of bfloat16 rewrites a NaN's bits."""
     slots = torch.remainder(int(head) - delays.long(), history.shape[0])
-    return torch.gather(history, 0, slots[None])[0]
+    raw = _RAW[history.element_size()]
+    return torch.gather(history.view(raw), 0, slots[None])[0].view(history.dtype)
 
 
 def coordinate_delays_ref(key, n: int, maxval: int, device="cpu"):
     """Per-coordinate delays ``U{0..maxval-1}`` as int32, bit for bit
     ``jax.random.randint(key, (n,), 0, maxval, int32)``."""
     return rng.randint(key, n, maxval, device)
+
+
+def wicon_read_ref(history, key, maxval: int, head: int):
+    """The one-pass W-Icon read: the delays of :func:`coordinate_delays_ref`
+    gathered by :func:`delay_gather_ref`.  history: (depth, N)."""
+    n = history.shape[1]
+    return delay_gather_ref(history, coordinate_delays_ref(key, n, maxval,
+                                                           history.device), head)

@@ -110,6 +110,14 @@ def randint_params(key, maxval: int) -> tuple:
     return k_hi, k_lo, span, mult
 
 
+def fastmod_magic(span: int) -> int:
+    """The constant with which the CUDA kernels take ``x mod span`` of a
+    uint32 ``x`` by two multiplications, no division
+    (``csrc/randint.cuh::fastmod_u32``: ``((magic * x) mod 2**64) * span
+    >> 64``): ``floor((2**64 - 1) / span) + 1``, mod ``2**64``."""
+    return ((2**64 - 1) // int(span) + 1) % 2**64
+
+
 def randint(key, n: int, maxval: int, device="cpu") -> torch.Tensor:
     """``jax.random.randint(key, (n,), 0, maxval, int32)`` bit for bit, for
     ``1 <= maxval < 2**16`` (the span of a coordinate delay): two bit

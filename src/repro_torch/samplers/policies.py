@@ -7,7 +7,7 @@
   realized staleness fed per step.
 - :class:`PerCoordinateDelay` — inconsistent (W-Icon) per-coordinate read
   ``[X_hat]_i = [X_{s_i}]_i`` with ``s_i ~ U{0..tau_k}``; ``fused=True``
-  draws the delays and gathers through the CUDA kernels on a card.
+  draws the delays and gathers in one CUDA kernel a leaf on a card.
 """
 
 from __future__ import annotations
@@ -69,6 +69,6 @@ class PerCoordinateDelay:
         """Per-coordinate read: each coordinate's staleness in ``[0,
         ctx.delay]`` drawn from ``ctx.key_delay`` (bit for bit the JAX
         package's draw), gathered from the ring one leaf at a time (through
-        the ``delay_gather`` kernel when ``fused``)."""
+        the one-pass ``wicon_read`` kernel when ``fused``)."""
         return read_inconsistent_leafwise(ring, ctx.key_delay, ctx.delay,
                                           fused=self.fused)

@@ -25,7 +25,11 @@ SGLD kernels, at ragged lengths: the Langevin update agrees with its plain
 version within 2e-6 in float32 and one bf16 ulp in bfloat16 (same bits
 and the same fused multiply-adds; the plain version's float64 emulation
 of an fma and CUDA's logf/cosf against ATen's may differ in the last
-float32 ulp); the delay draw and the gather are equal bit for bit.
+float32 ulp), on its vector code (16-byte aligned, a tail of 1-7
+elements) and its scalar code (a tensor one element off 16 bytes); the
+delay draw, the gather (out-of-range delays included) and the one-pass
+W-Icon read are equal bit for bit, the read on aligned rows (vectors) and
+on misaligned ones (scalar code) over rings of depth 1-5.
 """
 
 import numpy as np
@@ -366,8 +370,11 @@ def test_langevin_kernel_noise_is_the_plain_noise(cuda, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("maxval", [1, 2, 3])
+@pytest.mark.parametrize("maxval", [1, 2, 3, 5, 7, 255, 4097, 65535])
 def test_coordinate_delays_kernel_equals_plain_on_card(cuda, maxval):
+    """The kernel takes ``x mod maxval`` by two multiplications
+    (``csrc/randint.cuh``) and skips the high stream where 2^32 mod maxval
+    is 0; the plain draw takes ``%`` of both."""
     n = 1_000_003
     got = dg.coordinate_delays((123, 456), n, maxval, cuda)
     want = ref.coordinate_delays_ref((123, 456), n, maxval, cuda)
@@ -397,3 +404,86 @@ def test_delay_gather_kernel_equals_plain_on_card(cuda, dtype):
     assert dg.delay_gather.launches == before + 1
     assert got.dtype == dtype
     assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("off", [0, 1, 3])
+def test_langevin_kernel_vector_and_scalar_code_match_plain(cuda, dtype, off):
+    """Sizes = 1..7 mod 8 and a whole number of vectors; the tensor at
+    ``off`` elements past a 16-byte boundary (off 0: the vector code and
+    its tail; else the scalar code)."""
+    seed, gamma, scale = (0xABCDEF01, 5), np.float32(1e-2), np.float32(0.1)
+    for n in [4096 + r for r in range(9)] + [1, 7]:
+        gen = torch.Generator(device=cuda).manual_seed(n + off)
+        x = torch.randn(off + n, generator=gen, device=cuda).to(dtype)[off:]
+        g = torch.randn(off + n, generator=gen, device=cuda).to(dtype)[off:]
+        want = ref.langevin_update_ref(x.clone(), g, seed, gamma, scale)
+        lu.langevin_update(x, g, seed, gamma, scale)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            torch.testing.assert_close(x, want, rtol=0, atol=2e-6)
+        else:
+            assert _within_bf16_ulp(x, want), n
+
+
+def _ring_on(cuda, dtype, depth, n, off, seed):
+    """(depth, n) ring starting ``off`` elements past an allocation (off 1:
+    history misaligned), with -0.0, inf and nan among the floats."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    h = torch.randn(off + depth * n, generator=gen, device=cuda)
+    h[off:off + 4] = torch.tensor([-0.0, float("inf"), float("nan"), -0.0])[:depth * n]
+    h = (h.nan_to_num(0, 9, -9) * 1000).to(dtype) if dtype == torch.int32 else h.to(dtype)
+    return h[off:].view(depth, n)
+
+
+def _bitwise(a, b):
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32],
+                         ids=["f32", "bf16", "i32"])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5])
+def test_wicon_read_kernel_equals_plain_on_card(cuda, dtype, depth):
+    """Aligned rows (the vector code; rows past 4 are gathered lane by
+    lane), sizes = 1..7 mod 8 (misaligned rows: the scalar code) and a
+    history one element off its allocation; every maxval, two heads."""
+    for n in [4096 + r for r in range(8)]:
+        for off in (0, 1):
+            h = _ring_on(cuda, dtype, depth, n, off, seed=n + depth + off)
+            for head in sorted({0, depth - 1}):
+                for maxval in range(1, depth + 1):
+                    key = (n * depth + maxval, head)
+                    before = dg.wicon_read.launches
+                    got = dg.wicon_read(h, key, maxval, head)
+                    want = ref.wicon_read_ref(h, key, maxval, head)
+                    torch.cuda.synchronize()
+                    assert dg.wicon_read.launches == before + 1
+                    assert got.dtype == dtype
+                    assert _bitwise(got, want), (n, off, head, maxval)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32],
+                         ids=["f32", "bf16", "i32"])
+@pytest.mark.parametrize("depth", [1, 3, 5])
+def test_delay_gather_kernel_takes_any_delay_mod_depth(cuda, dtype, depth):
+    """Negative and >= depth delays (the int32 extremes too) give
+    ``torch.remainder(head - delay, depth)``'s slot, on the vector code
+    (n 4096) and the scalar code (n 4099)."""
+    for n in (4096, 4099):
+        h = _ring_on(cuda, dtype, depth, n, 0, seed=n + depth)
+        gen = torch.Generator(device=cuda).manual_seed(depth)
+        d = torch.randint(-3 * depth, 3 * depth + 1, (n,), generator=gen,
+                          device=cuda, dtype=torch.int32)
+        d[:4] = torch.tensor([-2**31, 2**31 - 1, -1, depth], dtype=torch.int32)
+        head = depth // 2
+        got = dg.delay_gather(h, d, head)
+        want = ref.delay_gather_ref(h, d, head)
+        torch.cuda.synchronize()
+        assert _bitwise(got, want), n
+        slots = torch.remainder(head - d.long(), depth)
+        assert torch.equal(got.view(torch.uint8),
+                           h.gather(0, slots[None])[0].view(torch.uint8))

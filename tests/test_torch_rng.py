@@ -248,4 +248,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         dg.delay_gather(torch.zeros(2, 8), torch.zeros(8, dtype=torch.int32), 0)
     with pytest.raises(ValueError, match="CUDA kernel"):
         dg.coordinate_delays((0, 0), 8, 2, "cpu")
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        dg.wicon_read(torch.zeros(2, 8), (0, 0), 1, 0)
     assert lu.langevin_update.launches == dg.delay_gather.launches == 0
+    assert dg.wicon_read.launches == 0
