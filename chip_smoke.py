@@ -51,8 +51,23 @@ library) and runs, failing on the first phase that fails:
    simulated workers: finite losses, ms per commit (the first chunk
    apart), tokens/s, peak memory, and the Langevin update and the one-pass
    W-Icon read each launched once per parameter leaf per commit (14 x 6),
-   the standalone gather and delay draw never.
+   the standalone gather and delay draw never;
+7. the main path, part 4: the paper's experiments (``repro_torch.
+   experiments``), Sync, W-Con and W-Icon — (a) the §3.2 regression (P 4,
+   400 steps) and the §3.3 RICA (patch 16, 8 features, 60 steps) at
+   sigma 0 on the card and on the CPU: the same iterations, simulated times
+   and speedups, trajectories, W2, objectives and distances within 1e-5 +
+   1e-4 x |CPU|; (b) the regression chain through the fused preset at the
+   published gamma and sigma, W-Con and W-Icon, 400 commits, card against
+   CPU likewise (the same noise bits), every iterate distinct; (c) both
+   experiments at their published settings on the card (regression P 18,
+   nu 0.1, 6000 steps, batch 256; RICA P 4, nu 0.01, 800 steps, batch 512,
+   64 x 48), each final W2, objective and distance inside the band of
+   ``tests/fixtures/torch_paper_reference.json`` around the JAX package's
+   value and each speedup equal to it, with wall seconds, commits a second
+   and the delay kernel's launches a commit (one a W-Icon commit).
 
+Before it, one JSON object with the paper path's numbers (phase 7c).
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 outside a checkout, it exits non-zero and prints no result.  The
@@ -92,6 +107,23 @@ THREEFRY_OPS = 72
 LANGEVIN_OPS = THREEFRY_OPS + 1 + 8 + 3 + 3 + 2 + 2
 # two threefry blocks + 2 xors + 3 remainders, a multiply, an add, a convert
 DELAY_OPS = 2 * THREEFRY_OPS + 8
+
+# the paper's experiments at their published settings; the JAX package's
+# values there, and the band the card's must fall in, come from
+# scripts/torch_paper_reference.py (a test holds the fixture's settings to
+# these)
+MODES = ["sync", "consistent", "inconsistent"]
+PUBLISHED = {
+    "regression": dict(P=18, nu=0.1, steps=6000, gamma=2e-4, sigma=1e-3,
+                       batch=256, tau_cap=16, seed=0, modes=MODES),
+    "rica": dict(P=4, nu=0.01, steps=800, gamma=2e-3, batch=512, patch_dim=64,
+                 num_features=48, tau_cap=8, seed=0, modes=MODES),
+}
+REFERENCE = ROOT / "tests" / "fixtures" / "torch_paper_reference.json"
+# card against CPU at sigma = 0, where only float arithmetic differs
+# (cuBLAS, cuFFT and cuSOLVER against the CPU's libraries)
+PAPER_RTOL, PAPER_ATOL = 1e-4, 1e-5
+
 
 def log(*parts) -> None:
     print(" ".join(str(p) for p in parts), flush=True)
@@ -639,6 +671,163 @@ def training_reference_check(torch, np, lu, dg) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the paper path — the §3.2 regression and §3.3 RICA experiments
+# ---------------------------------------------------------------------------
+def _counts(kernels) -> dict:
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def _reset(kernels) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def paper_reference_check(np, kernels) -> None:
+    """(a) Both experiments at sigma = 0 (regression P 4, 400 steps; RICA
+    patch 16, 8 features, 60 steps), all three modes, on the card and on
+    the CPU: the same iterations, simulated times and speedups, and
+    trajectories, W2, objectives and distances within PAPER_RTOL /
+    PAPER_ATOL.  The card's W-Icon draws its coordinate delays with the
+    delay kernel, one launch a commit; the CPU launches nothing."""
+    from repro_torch.experiments import run_regression_experiment, run_rica_experiment
+
+    runs, worst = {}, {}
+    for name, fn, kw, n_icon in (
+            ("regression", run_regression_experiment,
+             dict(P=4, steps=400, sigma=0.0), 400),
+            ("rica", run_rica_experiment,
+             dict(patch_dim=16, num_features=8, steps=60, nu=0.0), 60)):
+        for dev in ("cpu", "cuda"):
+            _reset(kernels)
+            runs[dev] = fn(**kw, device=dev)
+            want = dict.fromkeys(kernels, 0)
+            if dev == "cuda":
+                want["coordinate_delays"] = n_icon
+            check(_counts(kernels) == want, f"paper {name} at sigma 0 on {dev}: "
+                  f"launches {_counts(kernels)}, want {want}")
+        fields = ("traj2d", "w2") if name == "regression" else ("objective", "dist_to_opt")
+        for mode in MODES:
+            c, g = runs["cpu"][mode], runs["cuda"][mode]
+            check(np.array_equal(c.iters, g.iters) and np.array_equal(c.times, g.times)
+                  and c.speedup == g.speedup,
+                  f"paper {name} {mode}: iterations, times or speedup differ")
+            for f in fields:
+                a, b = np.asarray(getattr(c, f)), np.asarray(getattr(g, f))
+                check(a.shape == b.shape and np.isfinite(b).all(),
+                      f"paper {name} {mode} {f}: shape {b.shape} or non-finite")
+                check(np.allclose(b, a, rtol=PAPER_RTOL, atol=PAPER_ATOL),
+                      f"paper {name} {mode} {f}: card and CPU differ by "
+                      f"{np.abs(b - a).max()}")
+                worst[f] = max(worst.get(f, 0.0), float(np.abs(b - a).max()))
+    log(f"paper path (a), sigma 0, card == CPU: max |diff| "
+        f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } "
+        f"(limit {PAPER_ATOL} + {PAPER_RTOL} x |CPU|)")
+
+
+def paper_fused_check(np, kernels) -> dict:
+    """(b) The regression chain through the preset's fused commit at the
+    published gamma and sigma, W-Con and W-Icon, 400 commits, on the card
+    (the Langevin-update kernel, and for W-Icon the one-pass read) and on
+    the CPU (their plain versions): the same noise bits, so the
+    trajectories agree within PAPER_RTOL / PAPER_ATOL; every iterate
+    differs from the one before (``Sampler.run`` copies each iterate
+    out of the in-place commit)."""
+    from repro_torch import samplers
+    from repro_torch.core import PolyRegression, WorkerModel, simulate_async
+    from repro_torch.kernels import rng
+
+    n, s = 400, PUBLISHED["regression"]
+    delays = np.minimum(simulate_async(WorkerModel(num_workers=s["P"]), n).delays,
+                        s["tau_cap"])
+    out = {}
+    _reset(kernels)
+    for mode in ("consistent", "inconsistent"):
+        traj = {}
+        for dev in ("cpu", "cuda"):
+            reg = PolyRegression.make(rng.PRNGKey(0), nu_std=s["nu"], device=dev)
+            mu = reg.posterior_moments(sigma=s["sigma"])[0]
+            sampler = samplers.sgld(
+                mode, lambda p, k, reg=reg: reg.grad(p, reg.sample_batch(k, s["batch"])),
+                gamma=s["gamma"], sigma=s["sigma"], tau=s["tau_cap"], fused=True)
+            _, traj[dev] = sampler.run(sampler.init(mu + 1.0, rng.PRNGKey(1)),
+                                       rng.split(rng.PRNGKey(2), n), delays)
+        a, b = traj["cpu"].numpy(), traj["cuda"].cpu().numpy()
+        err = float(np.abs(a - b).max())
+        check(np.isfinite(b).all() and np.allclose(b, a, rtol=PAPER_RTOL, atol=PAPER_ATOL),
+              f"paper fused {mode}: card and CPU trajectories differ by {err}")
+        check(bool((np.abs(np.diff(b, axis=0)).max(axis=1) > 0).all()),
+              f"paper fused {mode}: two consecutive iterates are equal")
+        out[mode] = err
+    got = _counts(kernels)
+    want = {"langevin_update": 2 * n, "wicon_read": n, "delay_gather": 0,
+            "coordinate_delays": 0}
+    check(got == want, f"paper fused: launches {got}, want {want}")
+    log(f"paper path (b), fused preset at gamma {s['gamma']} sigma {s['sigma']}, "
+        f"{n} commits: card == CPU within {out}; launches {got}")
+    return {"max_abs_err": out, "launches": got}
+
+
+def paper_path(torch, np, kernels) -> dict:
+    """(c) Both experiments at their published settings on the card, each
+    mode in its own call: the final W2 (regression) or objective and
+    distance (RICA) within the fixture's band around the JAX package's
+    value, the speedup equal to it; wall seconds, commits a second, and
+    the delay kernels' launches a commit."""
+    from repro_torch.experiments import run_regression_experiment, run_rica_experiment
+
+    fx = json.loads(REFERENCE.read_text())
+    out, launches = {}, dict.fromkeys(kernels, 0)
+    for name, fn in (("regression", run_regression_experiment),
+                     ("rica", run_rica_experiment)):
+        s = PUBLISHED[name]
+        check(fx["settings"][name] == s, f"{REFERENCE.name}: {name} settings differ")
+        kw = {k: v for k, v in s.items() if k != "modes"}
+        out[name] = {}
+        for mode in s["modes"]:
+            _reset(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(**kw, modes=(mode,), device="cuda")[mode]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _counts(kernels)
+            for k, v in got.items():
+                launches[k] += v
+            n = max(s["steps"] // s["P"], 1) if mode == "sync" else s["steps"]
+            # RICA runs its optimum's plain-SGD chain (2 x steps) in each call
+            commits = n + (2 * s["steps"] if name == "rica" else 0)
+            check(got["coordinate_delays"] == (n if mode == "inconsistent" else 0)
+                  and got["langevin_update"] == got["wicon_read"] == got["delay_gather"] == 0,
+                  f"paper {name} {mode}: launches {got}")
+            ref, band = fx["reference"][name][mode], fx["band"][name][mode]
+            vals = ({"w2": float(res.w2[-1])} if name == "regression" else
+                    {"objective": float(res.objective[-1]),
+                     "dist_to_opt": float(res.dist_to_opt[-1])})
+            for k, v in vals.items():
+                dev = abs(math.log(v / ref[k])) if v > 0 else math.inf
+                check(math.isfinite(v) and dev <= band[k],
+                      f"paper {name} {mode}: final {k} {v} outside the band "
+                      f"|ln(v / {ref[k]})| <= {band[k]:.4g} ({dev:.4g})")
+            check(res.speedup == ref["speedup"],
+                  f"paper {name} {mode}: speedup {res.speedup} != {ref['speedup']}")
+            row = {**vals, "reference": {k: ref[k] for k in vals}, "band": band,
+                   "speedup": res.speedup, "wall_s": wall, "commits": commits,
+                   "commits_per_s": commits / wall,
+                   "kernel_launches_per_commit": {k: v / commits for k, v in got.items() if v}}
+            out[name][mode] = row
+            log(f"paper path (c), {name} {mode}: "
+                + ", ".join(f"final {k} {v:.6g} (JAX {ref[k]:.6g}, "
+                            f"|ln ratio| {abs(math.log(v / ref[k])):.3g} <= {band[k]:.3g})"
+                            for k, v in vals.items())
+                + f"; speedup {res.speedup:.6g}; {wall:.2f} s, {commits} commits, "
+                f"{commits / wall:.1f} commits/s; delay-kernel launches a commit "
+                f"{got['coordinate_delays'] / commits:.3g}")
+    check(launches["coordinate_delays"] > 0, "paper path: the delay kernel never ran")
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: the main path at full width
 # ---------------------------------------------------------------------------
 def main_path(torch, np, ds, cfg, device="cuda") -> dict:
@@ -876,6 +1065,14 @@ def main() -> int:
     log(f"serving bank freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         "still allocated")
     tp = train_path(torch, np, lu, dg)
+    gc.collect()  # the training chain and its ring went out of scope
+    torch.cuda.empty_cache()
+    sgld_kernels = {"langevin_update": lu.langevin_update, "wicon_read": dg.wicon_read,
+                    "delay_gather": dg.delay_gather,
+                    "coordinate_delays": dg.coordinate_delays}
+    paper_reference_check(np, sgld_kernels)
+    pf = paper_fused_check(np, sgld_kernels)
+    pp = paper_path(torch, np, sgld_kernels)
 
     def cases(runs):
         return [{k: r[k] for k in ("smax", "valid", "maxp", "pos", "splits",
@@ -904,26 +1101,31 @@ def main() -> int:
     # the delay_gather entry is the one W-Icon kernel: its numbers and
     # launches are the main path's instantiation (wicon_read, delays drawn
     # in the kernel), both instantiations under "cases"
-    for name, src, replaces, r, launches in (
+    # an SGLD kernel's launches on each main path: training (phase 6), the
+    # paper's experiments at their published settings (phase 7c) and the
+    # fused preset inside the regression chain (7b); "launches" is their sum
+    for name, src, replaces, r, counter in (
             ("langevin_update", "langevin_update.cu",
-             "src/repro/kernels/langevin_update.py:45", lang,
-             tp["launches"]["langevin_update"]),
+             "src/repro/kernels/langevin_update.py:45", lang, "langevin_update"),
             ("delay_gather", "delay_gather.cu",
-             "src/repro/kernels/delay_gather.py:33", wic,
-             tp["launches"]["wicon_read"]),
+             "src/repro/kernels/delay_gather.py:33", wic, "wicon_read"),
             # not a Pallas kernel: the jax.random.randint of the W-Icon read
             ("coordinate_delays", "delay_gather.cu",
-             "src/repro/core/delay.py:118", dly,
-             tp["launches"]["coordinate_delays"])):
+             "src/repro/core/delay.py:118", dly, "coordinate_delays")):
+        by_path = {"train": tp["launches"][counter],
+                   "paper": pp["launches"][counter],
+                   "paper_fused": pf["launches"][counter]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
-            "launches": launches, "max_abs_err": r["max_abs_err"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     kernels[-2]["cases"] = [
         {k: r[k] for k in ("entry", "max_abs_err", "ms", "plain_ms", "bound_ms",
                            "bound_by", "library_ms")} for r in (wic, gat)]
+    log(json.dumps({"paper": {k: v for k, v in pp.items() if k != "launches"}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
 """repro_torch — the PyTorch/CUDA port of :mod:`repro` for one NVIDIA H100.
 
-The package mirrors the JAX package's module tree, slice by slice.  Two
+The package mirrors the JAX package's module tree, slice by slice.  Three
 slices are ported: serving a chain bank of dense transformers (the models,
 :class:`~repro_torch.cluster.decode.DecodeEngine`,
-:class:`~repro_torch.cluster.paged.PagedDecodeEngine`), and training them
+:class:`~repro_torch.cluster.paged.PagedDecodeEngine`), training them
 with delayed-gradient SGLD (:mod:`repro_torch.core`,
 :mod:`repro_torch.samplers`, :class:`~repro_torch.train.engine.Engine`,
-:mod:`repro_torch.launch.train`).  All four kernels of the JAX package —
+:mod:`repro_torch.launch.train`), and the paper's experiments (the
+potentials and theory in :mod:`repro_torch.core`, the W2 and KL metrics in
+:mod:`repro_torch.metrics`, the §3.2 regression and §3.3 RICA runs in
+:mod:`repro_torch.experiments`).  All four kernels of the JAX package —
 the two decode steps, the fused Langevin update and the W-Icon delay
 gather — are written in CUDA C++ for ``sm_90a``.
 

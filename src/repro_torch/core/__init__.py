@@ -1,6 +1,6 @@
-"""Core: delayed-gradient SGLD's ring buffer, delay model, schedules and
-configuration (port of ``repro.core``; the potentials and the theory
-module come with a later slice)."""
+"""Core: the paper's contribution — delayed-gradient SGLD's ring buffer,
+delay model, potentials, schedules, configuration and theory (port of
+``repro.core``; the deprecated ``SGLDSampler`` shim is not ported)."""
 
 from repro_torch.core.delay import (  # noqa: F401
     RingBuffer,
@@ -25,5 +25,14 @@ from repro_torch.core.delay_model import (  # noqa: F401
     speedup_vs_sync,
     truncate_to_evals,
 )
+from repro_torch.core.potentials import PolyRegression, Quadratic, RICA  # noqa: F401
 from repro_torch.core.schedules import clip_to_theory, constant, poly_decay, wsd  # noqa: F401
 from repro_torch.core.sgld import SGLDConfig  # noqa: F401
+from repro_torch.core.theory import (  # noqa: F401
+    ProblemConstants,
+    gamma_eps_kl,
+    gamma_eps_w2,
+    gamma_terms,
+    n_eps_kl,
+    n_eps_w2,
+)

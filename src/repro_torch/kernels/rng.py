@@ -1,6 +1,6 @@
 """Counter-based RNG: threefry2x32, Box-Muller and JAX's key discipline,
 without JAX (port of ``repro.kernels.rng`` plus the parts of
-``jax.random`` the SGLD path draws from).
+``jax.random`` the SGLD path and the paper's potentials draw from).
 
 Two kinds of operand, one code path:
 
@@ -22,6 +22,9 @@ native ``uint32``; the tests hold this module against ``jax.random``.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -167,3 +170,122 @@ def seed_int(key) -> int:
     noise, which does not reproduce ``jax.random.normal``)."""
     return ((int(key[0]) << 31) ^ int(key[1])) & (2**63 - 1)
 
+
+# ---------------------------------------------------------------------------
+# jax.random.uniform / jax.random.normal (float32), as XLA computes them on
+# the CPU.  The potentials draw their problems and minibatches with these, so
+# the same key gives the same problem in both packages.
+# ---------------------------------------------------------------------------
+def _f64(v):
+    return v.double() if torch.is_tensor(v) else float(v)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as XLA's contracted multiply-add:
+    the product of two float32 values is exact in float64."""
+    return (_f64(a) * _f64(b) + _f64(c)).float()
+
+
+def jax_uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
+                device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` bit for
+    bit: 23 random mantissa bits under exponent 0 (a float in [1, 2)),
+    minus 1, then ``max(minval, u * (maxval - minval) + minval)`` with the
+    multiply-add fused (XLA contracts it on the CPU)."""
+    shape = tuple(shape)
+    bits = random_bits(key, math.prod(shape), device)
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = np.float32(minval)
+    span = np.float32(maxval) - lo
+    return torch.clamp_min(_fma(u, span, lo), float(lo)).reshape(shape)
+
+
+# XLA's float32 log: Cephes' logf on the mantissa in [sqrt(1/2), sqrt(2))
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+# XLA's log1p below sqrt(2) - 1: Cephes' rational, highest power first
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+# Giles' single-precision erfinv in w = -log1p(-x^2), split at w = 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+def _xla_log(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``log`` for x > 0 (Cephes: exponent and mantissa
+    apart, a degree-8 polynomial, the same multiply-adds fused)."""
+    x = torch.clamp_min(x, _f32(1.17549435e-38))
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 0x7F).float() + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    small = m < _f32(0.707106781186547524)
+    e = e - small.float()
+    m = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    x2 = m * m
+    x3 = x2 * m
+    p = [_f32(c) for c in _LOG_P]
+    y = _fma(_fma(m, p[0], p[1]), m, p[2])
+    y1 = _fma(_fma(m, p[3], p[4]), m, p[5])
+    y2 = _fma(_fma(m, p[6], p[7]), m, p[8])
+    y = _fma(_fma(_fma(y, x3, y1), x3, y2), x3, e * _f32(_LOG_Q1))
+    m = m - 0.5 * x2
+    return (m + y) + e * _f32(_LOG_Q2)
+
+
+def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
+    p = torch.full_like(x, _f32(coeffs[0]))
+    for c in coeffs[1:]:
+        p = _fma(p, x, _f32(c))
+    return p
+
+
+def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``log1p``: a rational approximation below sqrt(2) - 1
+    in magnitude, ``log(1 + x)`` above."""
+    x2 = x * x
+    r = _horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN)
+    small = x + (-0.5 * x2 + (x * x2) * r)
+    return torch.where(x.abs() < 0.41421356237309504880, small,
+                       _xla_log(x + 1.0))
+
+
+def _xla_erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` (Giles), for x in (-1, 1); +-1 map to
+    +-max float, as in XLA.  (``torch.erfinv`` is another approximation.)"""
+    w = -_xla_log1p(-(x * x))
+    lt = w < 5.0
+    # sqrt in float64 then rounded: correctly rounded, as XLA's is
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    lo = torch.tensor([_f32(c) for c in _ERFINV_LT5], device=x.device)
+    hi = torch.tensor([_f32(c) for c in _ERFINV_GE5], device=x.device)
+    p = torch.where(lt, lo[0], hi[0])
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma(p, w, torch.where(lt, lo[i], hi[i]))
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def jax_normal(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: ``sqrt(2) *
+    erf_inv(u)`` with u uniform in ``(nextafter(-1, 0), 1)`` and XLA's
+    ``erf_inv``, ``log1p`` and ``log``, so the draws are JAX's on the CPU:
+    ``tests/test_torch_potentials.py`` holds them within 4 ulps and bit for
+    bit on 99% of draws (every draw it tests is equal)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = jax_uniform(key, shape, lo, 1.0, device)
+    return np.float32(math.sqrt(2.0)).item() * _xla_erf_inv(u)

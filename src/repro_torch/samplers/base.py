@@ -18,6 +18,7 @@ import numpy as np
 
 from repro_torch.kernels import rng
 from repro_torch.samplers.transform import SamplerTransform, StepContext
+from repro_torch.utils import tree_map
 
 PyTree = Any
 Schedule = Callable[[int], np.float32]
@@ -67,3 +68,32 @@ class Sampler:
                           step=state.step, delay=int(delay), batch=batch)
         ctx, inner = self.transform.update(ctx, state.inner)
         return SamplerState(ctx.params, state.step + 1, key, inner), ctx.aux
+
+    def run(self, state: SamplerState, batches, delays=None, *,
+            collect: bool = True):
+        """Commit once per entry of ``batches`` — a sequence with one batch
+        a commit (a list of keys, when the oracle draws its own minibatch;
+        a tensor or array whose rows are the batches) — at the matching
+        staleness of ``delays`` (zeros by default).  Returns the final
+        state and, when ``collect``, the iterates stacked on axis 0 on the
+        parameters' device (else None): the loop form of the JAX sampler's
+        scan.
+
+        Each iterate is copied out as it is committed: a commit may update
+        the parameters in place (the fused one does), so keeping the
+        tensors themselves would give n views of the last iterate."""
+        n = len(batches)
+        if delays is None:
+            delays = [0] * n
+        elif hasattr(delays, "tolist"):  # an array or a tensor
+            delays = delays.tolist()
+        delays = [int(d) for d in delays]
+        if len(delays) != n:
+            raise ValueError(f"{len(delays)} delays for {n} batches")
+        traj = (tree_map(lambda p: p.new_empty((n, *p.shape)), state.params)
+                if collect else None)
+        for i in range(n):
+            state, _ = self.step(state, batches[i], delays[i])
+            if collect:
+                tree_map(lambda t, p: t[i].copy_(p), traj, state.params)
+        return state, traj
