@@ -28,8 +28,15 @@ library) and runs, failing on the first phase that fails:
    full-width leaf (36 x 2560 x 9728 bf16): the update within 2e-6 in
    float32 and one bf16 ulp in bf16, its noise alone (gamma 0, x 0)
    likewise, the delays, the gather (out-of-range delays included) and the
-   read bit for bit; with times and bounds (``torch.gather`` is the
-   gather's library call);
+   read bit for bit (each kernel takes chains on a leading axis; these
+   cases are one chain, C = 1); with times and bounds (``torch.gather`` is
+   the gather's library call); then the update, the one-pass read, the
+   draw and the gather on C chains in one launch (each chain under its own
+   key, gamma, scale and maxval) against their plain versions and against
+   the same kernels on each chain alone: C 32 on a
+   5-element and a ragged leaf (rows off 16 bytes), C 4 on the 4-layer
+   stacked largest leaf (4 x 2560 x 9728) and the embedding (151936 x
+   2560), bf16, timed there;
 3. the engines on a reduced float32 bank, on the card (kernels) and on the
    CPU (plain path): the same tokens and BMA log-probs within 1e-4; then
    4 fused W-Icon training commits of the reduced float32 model on both:
@@ -65,7 +72,23 @@ library) and runs, failing on the first phase that fails:
    64 x 48), each final W2, objective and distance inside the band of
    ``tests/fixtures/torch_paper_reference.json`` around the JAX package's
    value and each speedup equal to it, with wall seconds, commits a second
-   and the delay kernel's launches a commit (one a W-Icon commit).
+   and the delay kernels' launches a commit (one draw and one gather a
+   W-Icon commit);
+8. the main path, part 5: the multi-chain ``ClusterEngine`` — (a) 8 chains
+   x 37 commits of a d=4 quadratic (tau 8, schedules from 4 simulated
+   workers) through the fused W-Icon preset at sigma 0.5, on the card and
+   on the CPU (the same noise bits): within 1e-5 + 1e-4 x |CPU|, and chain
+   c on the card bit for bit the card's single-chain ``Engine``; (b) the
+   torch cluster quickstart's scenario at its own settings (32 chains, 8
+   workers, 600 commits): ``sgld``, ``svrg`` and ``sghmc`` W-Con, the
+   inverse-speed half, then the 32 chains through the fused W-Icon preset
+   (one update and one read launch a commit for all 32): final W2, wall
+   seconds, commits a second; (c) a 4-chain ensemble of qwen3-4b at its
+   published widths, depth cut to 4 layers (bf16, drawn on the card),
+   fused W-Icon at tau 2, schedules from 8 simulated workers, a batch of 8
+   x 128 tokens a chain drawn by ``batch_fn``, 3 commits in one chunk:
+   finite losses, ms a commit, peak memory, and the update and the read
+   each launched 14 x 3 times (once a leaf a commit, whatever C).
 
 Before it, one JSON object with the paper path's numbers (phase 7c).
 The line before the last is one JSON object with each kernel's numbers;
@@ -98,6 +121,9 @@ ALU_OPS = FP32_FLOPS / 2
 L2_BYTES = 50 * 2**20
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # bf16: one ulp of |o| <= 4
 LARGEST_LEAF = 36 * 2560 * 9728  # stack/mlp/w_{gate,up,down} of qwen3-4b
+STACK4_LEAF = 4 * 2560 * 9728    # the same leaf at phase 8c's 4 layers
+EMBED_LEAF = 151936 * 2560       # the embedding (and the untied head)
+CLUSTER_LAYERS = 4               # phase 8c: qwen3-4b's widths, depth cut
 RAGGED = 1_000_003
 # 32-bit operations per element, counted from the sources: threefry2x32-20
 # is 20 rounds of (add, rotate, xor) plus 12 key-schedule adds
@@ -433,6 +459,20 @@ def within_bf16_ulp(torch, got, want) -> bool:
     return bool(((got - want).abs() <= want.abs() * 2.0**-7 + 1e-30).all())
 
 
+def _device_table(torch, np, rows):
+    return torch.from_numpy(np.ascontiguousarray(rows).view(np.int32)).to("cuda")
+
+
+def update_one(torch, np, lu, x, g, seed, gamma, scale):
+    """The update kernel on one chain (C = 1), in place on x."""
+    table = _device_table(torch, np, lu.chain_rows([seed], [gamma], [scale]))
+    return lu.langevin_update(x[None], g[None], table)[0]
+
+
+def update_ref_one(ref, x, g, seed, gamma, scale):
+    return ref.langevin_update_ref(x[None], g[None], [seed], [gamma], [scale])[0]
+
+
 def run_langevin_checks(torch, np, lu, ref) -> dict:
     """The fused update against the plain update: ragged bf16 / f32 (the
     vector code and its tail; one element off 16 bytes, the scalar code),
@@ -445,12 +485,12 @@ def run_langevin_checks(torch, np, lu, ref) -> dict:
         name = str(dtype).replace("torch.", "") + ("_offset" if off else "")
         x = torch.randn(off + RAGGED, generator=gen, device="cuda").to(dtype)[off:]
         g = torch.randn(off + RAGGED, generator=gen, device="cuda").to(dtype)[off:]
-        want = ref.langevin_update_ref(x.clone(), g, seed, gamma, scale)
-        lu.langevin_update(x, g, seed, gamma, scale)
+        want = update_ref_one(ref, x.clone(), g, seed, gamma, scale)
+        update_one(torch, np, lu, x, g, seed, gamma, scale)
         zero = torch.zeros(RAGGED, device="cuda", dtype=dtype)
-        noise_want = ref.langevin_update_ref(zero.clone(), g, seed,
-                                             np.float32(0), np.float32(1))
-        lu.langevin_update(zero, g, seed, np.float32(0), np.float32(1))
+        noise_want = update_ref_one(ref, zero.clone(), g, seed, np.float32(0),
+                                    np.float32(1))
+        update_one(torch, np, lu, zero, g, seed, np.float32(0), np.float32(1))
         torch.cuda.synchronize()
         for what, got, w in (("update", x, want), ("noise", zero, noise_want)):
             err = (got.float() - w.float()).abs().max().item()
@@ -463,18 +503,18 @@ def run_langevin_checks(torch, np, lu, ref) -> dict:
     x = (torch.randn(n, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
     g = (torch.randn(n, generator=gen, device="cuda") * 1e-2).to(torch.bfloat16)
     scale = np.sqrt(np.float32(2.0 * 1e-5) * gamma)
-    want = ref.langevin_update_ref(x.clone(), g, seed, gamma, scale)
-    lu.langevin_update(x, g, seed, gamma, scale)
+    want = update_ref_one(ref, x.clone(), g, seed, gamma, scale)
+    update_one(torch, np, lu, x, g, seed, gamma, scale)
     torch.cuda.synchronize()
     err = (x.float() - want.float()).abs().max().item()
     check(within_bf16_ulp(torch, x, want),
           f"langevin_update bf16 n={n}: beyond one bf16 ulp (max |err| {err})")
     del want
     out["max_abs_err"] = err
-    out["ms"] = cuda_ms(torch, [lambda: lu.langevin_update(x, g, seed, gamma,
-                                                           scale)], 20)
-    out["plain_ms"] = cuda_ms(torch, [lambda: ref.langevin_update_ref(
-        x, g, seed, gamma, scale)], 2)
+    table = _device_table(torch, np, lu.chain_rows([seed], [gamma], [scale]))
+    out["ms"] = cuda_ms(torch, [lambda: lu.langevin_update(x[None], g[None], table)], 20)
+    out["plain_ms"] = cuda_ms(torch, [lambda: update_ref_one(ref, x, g, seed, gamma,
+                                                             scale)], 2)
     out["bytes"] = 3 * 2 * n  # read x and g, write x, bf16
     out["ops"] = LANGEVIN_OPS * n
     out["bound_ms"], out["bound_by"] = bound(out["bytes"], out["ops"], ALU_OPS)
@@ -495,6 +535,10 @@ def ring_of(torch, gen, dtype, depth, n):
     return h.to(dtype)
 
 
+def draw_table(torch, np, dg, key, maxval):
+    return _device_table(torch, np, dg.randint_rows([key], [maxval]))
+
+
 def run_gather_checks(torch, np, dg, ref) -> tuple:
     """The delay draw, the gather and the one-pass W-Icon read against
     their plain versions: ragged (the scalar code) and 2^20 elements (the
@@ -503,18 +547,19 @@ def run_gather_checks(torch, np, dg, ref) -> tuple:
     (timed there)."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     for maxval in (1, 2, 3, 7, 4097, 65535):
-        got = dg.coordinate_delays((123, 456), RAGGED, maxval, "cuda")
-        want = ref.coordinate_delays_ref((123, 456), RAGGED, maxval, "cuda")
+        got = dg.coordinate_delays(draw_table(torch, np, dg, (123, 456), maxval),
+                                   RAGGED, [maxval])
+        want = ref.coordinate_delays_ref([(123, 456)], RAGGED, [maxval], "cuda")
         check(torch.equal(got, want), f"coordinate_delays maxval={maxval}: "
               "the kernel's delays differ from the plain draw")
     reads = 0
     for n in (RAGGED, 1 << 20):
         for dtype in (torch.float32, torch.bfloat16, torch.int32):
             for depth in range(1, 6):
-                h = ring_of(torch, gen, dtype, depth, n)
+                h = ring_of(torch, gen, dtype, depth, n)[None]  # one chain: C = 1
                 head = (n + depth) % depth
                 # out-of-range delays: negative and >= depth
-                d = torch.randint(-2 * depth, 2 * depth, (n,), generator=gen,
+                d = torch.randint(-2 * depth, 2 * depth, (1, n), generator=gen,
                                   device="cuda", dtype=torch.int32)
                 check(bitwise_equal(torch, dg.delay_gather(h, d, head),
                                 ref.delay_gather_ref(h, d, head)),
@@ -522,49 +567,50 @@ def run_gather_checks(torch, np, dg, ref) -> tuple:
                       "bit the plain gather")
                 for maxval in sorted({1, (depth + 1) // 2, depth}):
                     key = (n + maxval, depth)
-                    check(bitwise_equal(torch, dg.wicon_read(h, key, maxval, head),
-                                    ref.wicon_read_ref(h, key, maxval, head)),
+                    check(bitwise_equal(torch, dg.wicon_read(
+                        h, draw_table(torch, np, dg, key, maxval), [maxval], head),
+                        ref.wicon_read_ref(h, [key], [maxval], head)),
                           f"wicon_read {dtype} n={n} depth={depth} maxval="
                           f"{maxval}: not bit for bit the plain read")
                     reads += 1
     log(f"wicon_read: {reads} reads bit for bit the plain read (n {RAGGED} "
         f"and {1 << 20}, f32/bf16/int32, depth 1-5)")
     n, depth, head, key = LARGEST_LEAF, 3, 2, (0xC0FFEE, 9)
-    hist = torch.randn(depth, n, generator=gen, device="cuda").to(torch.bfloat16)
-    got, want = dg.wicon_read(hist, key, depth, head), ref.wicon_read_ref(
-        hist, key, depth, head)
+    hist = torch.randn(1, depth, n, generator=gen, device="cuda").to(torch.bfloat16)
+    table = draw_table(torch, np, dg, key, depth)
+    got, want = dg.wicon_read(hist, table, [depth], head), ref.wicon_read_ref(
+        hist, [key], [depth], head)
     check(bitwise_equal(torch, got, want),
           f"wicon_read n={n}: not bit for bit the plain read")
     del got, want
     wic = {"entry": "wicon_read", "max_abs_err": 0.0,
-           "ms": cuda_ms(torch, [lambda: dg.wicon_read(hist, key, depth, head)], 20),
+           "ms": cuda_ms(torch, [lambda: dg.wicon_read(hist, table, [depth], head)], 20),
            "plain_ms": cuda_ms(torch, [lambda: ref.wicon_read_ref(
-               hist, key, depth, head)], 1),
+               hist, [key], [depth], head)], 1),
            "library_ms": None,  # no one PyTorch call draws and gathers
            "bytes": n * (2 + 2), "ops": DELAY_OPS * n}  # element in, out
     wic["bound_ms"], wic["bound_by"] = bound(wic["bytes"], wic["ops"], ALU_OPS)
-    delays = dg.coordinate_delays(key, n, depth, "cuda")
-    check(torch.equal(delays, ref.coordinate_delays_ref(key, n, depth, "cuda")),
+    delays = dg.coordinate_delays(table, n, [depth])
+    check(torch.equal(delays, ref.coordinate_delays_ref([key], n, [depth], "cuda")),
           f"coordinate_delays n={n}: differs from the plain draw")
     got, want = dg.delay_gather(hist, delays, head), ref.delay_gather_ref(
         hist, delays, head)
     check(bitwise_equal(torch, got, want),
           f"delay_gather n={n}: not bit for bit the plain gather")
-    slots = torch.remainder(head - delays.long(), depth)[None]
+    slots = torch.remainder(head - delays.long(), depth)[:, None]
     del got, want
     gat = {"entry": "delay_gather", "max_abs_err": 0.0,
            "ms": cuda_ms(torch, [lambda: dg.delay_gather(hist, delays, head)], 20),
            "plain_ms": cuda_ms(torch, [lambda: ref.delay_gather_ref(
                hist, delays, head)], 5),
-           "library_ms": cuda_ms(torch, [lambda: torch.gather(hist, 0, slots)], 10),
+           "library_ms": cuda_ms(torch, [lambda: torch.gather(hist, 1, slots)], 10),
            "bytes": n * (4 + 2 + 2), "ops": 4 * n}  # delay, element in, out
     gat["bound_ms"], gat["bound_by"] = bound(gat["bytes"], gat["ops"], ALU_OPS)
     del slots
     dly = {"max_abs_err": 0.0,
-           "ms": cuda_ms(torch, [lambda: dg.coordinate_delays(key, n, depth,
-                                                              "cuda")], 10),
+           "ms": cuda_ms(torch, [lambda: dg.coordinate_delays(table, n, [depth])], 10),
            "plain_ms": cuda_ms(torch, [lambda: ref.coordinate_delays_ref(
-               key, n, depth, "cuda")], 1),
+               [key], n, [depth], "cuda")], 1),
            "library_ms": None,  # torch.randint is another RNG
            "bytes": 4 * n, "ops": DELAY_OPS * n}
     dly["bound_ms"], dly["bound_by"] = bound(dly["bytes"], dly["ops"], ALU_OPS)
@@ -572,6 +618,147 @@ def run_gather_checks(torch, np, dg, ref) -> tuple:
     log("delay_gather", json.dumps(gat))
     log("coordinate_delays", json.dumps(dly))
     return wic, gat, dly
+
+
+def _timed_once(torch, fn):
+    """(result, device ms) of one call (a plain version, too slow to
+    repeat at full width)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def _draw_ops(maxvals) -> float:
+    """32-bit operations a coordinate of the chains' draws, as this run's
+    maxvals need them: none at 1, one threefry stream where 2^32 mod
+    maxval is 0, else both (DELAY_OPS)."""
+    per = [0 if m == 1 else THREEFRY_OPS + 4 if (m & (m - 1)) == 0 else DELAY_OPS
+           for m in maxvals]
+    return sum(per) / len(per)
+
+
+def run_chain_checks(torch, np, lu, dg, ref) -> dict:
+    """The kernels on C chains in one launch against their plain versions
+    and against the same kernels on each chain alone (C = 1): C 32 on a
+    5-element and a ragged leaf (bf16 and f32; rows off 16 bytes), then
+    C 4 on the 4-layer stacked largest leaf and the embedding (bf16, the
+    chains at maxvals 3, 3, 2 and 1: both draw streams, the low one alone,
+    none), timed there."""
+    from repro_torch.kernels import rng
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for C, n in ((32, 5), (32, RAGGED)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(C, n, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(C, n, generator=gen, device="cuda").to(dtype)
+            seeds = rng.split((n, C), C)
+            gammas = np.linspace(1e-3, 5e-2, C).astype(np.float32)
+            scales = np.linspace(0.0, 0.3, C).astype(np.float32)
+            want = ref.langevin_update_ref(x.clone(), g, seeds, gammas, scales)
+            single = [update_one(torch, np, lu, x[c].clone(), g[c].clone(), seeds[c],
+                                 gammas[c], scales[c]) for c in range(C)]
+            lu.langevin_update(x, g, _device_table(
+                torch, np, lu.chain_rows(seeds, gammas, scales)))
+            torch.cuda.synchronize()
+            err = (x.float() - want.float()).abs().max().item()
+            check(all(bitwise_equal(torch, x[c], single[c]) for c in range(C)),
+                  f"langevin_update C={C} n={n} {dtype}: not each chain alone")
+            check(err <= 2e-6 if dtype == torch.float32 else within_bf16_ulp(torch, x, want),
+                  f"langevin_update C={C} n={n} {dtype}: max |err| {err}")
+            h = torch.randn(C, 3, n, generator=gen, device="cuda").to(dtype)
+            keys, maxvals = rng.split((C, n), C), [1 + c % 3 for c in range(C)]
+            table = _device_table(torch, np, dg.randint_rows(keys, maxvals))
+            got = dg.wicon_read(h, table, maxvals, 1)
+            check(bitwise_equal(torch, got, ref.wicon_read_ref(h, keys, maxvals, 1))
+                  and all(bitwise_equal(torch, got[c], dg.wicon_read(
+                      h[c:c + 1].clone(), draw_table(torch, np, dg, keys[c], maxvals[c]),
+                      [maxvals[c]], 1)[0]) for c in range(C)),
+                  f"wicon_read C={C} n={n} {dtype}: not bit for bit")
+            d = dg.coordinate_delays(table, n, maxvals)
+            check(torch.equal(d, ref.coordinate_delays_ref(keys, n, maxvals, "cuda")),
+                  f"coordinate_delays C={C} n={n}: not the plain draw")
+    log("chain-axis kernels: C 32 on 5 and 1,000,003 elements (bf16, f32) == "
+        "the plain versions and each chain alone (C = 1)")
+    cases = {"update": [], "read": [], "draw": [], "gather": []}
+    C, maxvals = 4, [3, 3, 2, 1]
+    for leaf, n in (("stack4", STACK4_LEAF), ("embedding", EMBED_LEAF)):
+        seeds = rng.split((n, C), C)
+        gammas = np.full(C, 1e-3, np.float32)
+        scales = np.full(C, np.sqrt(np.float32(2e-5) * np.float32(1e-3)), np.float32)
+        x = (torch.randn(C, n, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        g = (torch.randn(C, n, generator=gen, device="cuda") * 1e-2).to(torch.bfloat16)
+        table = _device_table(torch, np, lu.chain_rows(seeds, gammas, scales))
+        want, plain_ms = _timed_once(torch, lambda: ref.langevin_update_ref(
+            x.clone(), g, seeds, gammas, scales))
+        single = x[0].clone()
+        update_one(torch, np, lu, single, g[0], seeds[0], gammas[0], scales[0])
+        lu.langevin_update(x, g, table)
+        torch.cuda.synchronize()
+        err = (x.float() - want.float()).abs().max().item()
+        check(within_bf16_ulp(torch, x, want) and bitwise_equal(torch, x[0], single),
+              f"langevin_update {leaf}: max |err| {err} or chain 0 differs")
+        del want, single
+        row = {"leaf": leaf, "chains": C, "n": n, "max_abs_err": err,
+               "ms": cuda_ms(torch, [lambda: lu.langevin_update(x, g, table)], 10),
+               "plain_ms": plain_ms, "library_ms": None,
+               "bytes": 3 * 2 * C * n, "ops": LANGEVIN_OPS * C * n}
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"], ALU_OPS)
+        cases["update"].append(row)
+        del x, g
+        torch.cuda.empty_cache()
+        h = torch.randn(C, 3, n, generator=gen, device="cuda").to(torch.bfloat16)
+        keys, head = rng.split((C, n + 1), C), 2
+        table = _device_table(torch, np, dg.randint_rows(keys, maxvals))
+        want, plain_ms = _timed_once(torch, lambda: ref.wicon_read_ref(
+            h, keys, maxvals, head))
+        got = dg.wicon_read(h, table, maxvals, head)
+        check(bitwise_equal(torch, got, want) and bitwise_equal(
+            torch, got[0], dg.wicon_read(h[:1].clone(), draw_table(
+                torch, np, dg, keys[0], maxvals[0]), maxvals[:1], head)[0]),
+            f"wicon_read {leaf}: not bit for bit")
+        del got, want
+        ops = _draw_ops(maxvals) * C * n
+        row = {"leaf": leaf, "chains": C, "n": n, "maxvals": maxvals, "max_abs_err": 0.0,
+               "ms": cuda_ms(torch, [lambda: dg.wicon_read(h, table, maxvals, head)], 10),
+               "plain_ms": plain_ms, "library_ms": None,
+               "bytes": C * n * (2 + 2), "ops": ops}
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"], ALU_OPS)
+        cases["read"].append(row)
+        want, plain_ms = _timed_once(torch, lambda: ref.coordinate_delays_ref(
+            keys, n, maxvals, "cuda"))
+        d = dg.coordinate_delays(table, n, maxvals)
+        check(torch.equal(d, want), f"coordinate_delays {leaf}: not the plain draw")
+        del want
+        row = {"leaf": leaf, "chains": C, "n": n, "maxvals": maxvals, "max_abs_err": 0.0,
+               "ms": cuda_ms(torch, [lambda: dg.coordinate_delays(table, n, maxvals)], 10),
+               "plain_ms": plain_ms, "library_ms": None,
+               "bytes": 4 * C * n, "ops": ops}
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"], ALU_OPS)
+        cases["draw"].append(row)
+        if leaf == "stack4":
+            want, plain_ms = _timed_once(torch, lambda: ref.delay_gather_ref(h, d, head))
+            check(bitwise_equal(torch, dg.delay_gather(h, d, head), want),
+                  f"delay_gather {leaf}: not the plain gather")
+            del want
+            slots = torch.remainder(head - d.long(), 3)[:, None]
+            row = {"leaf": leaf, "chains": C, "n": n, "max_abs_err": 0.0,
+                   "ms": cuda_ms(torch, [lambda: dg.delay_gather(h, d, head)], 10),
+                   "plain_ms": plain_ms,
+                   "library_ms": cuda_ms(torch, [lambda: torch.gather(h, 1, slots)], 5),
+                   "bytes": C * n * (4 + 2 + 2), "ops": 4 * C * n}
+            row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"], ALU_OPS)
+            cases["gather"].append(row)
+            del slots
+        del h, d
+        torch.cuda.empty_cache()
+    for name, rows in cases.items():
+        log(f"chain-axis {name}", json.dumps(rows))
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -688,7 +875,8 @@ def paper_reference_check(np, kernels) -> None:
     the CPU: the same iterations, simulated times and speedups, and
     trajectories, W2, objectives and distances within PAPER_RTOL /
     PAPER_ATOL.  The card's W-Icon draws its coordinate delays with the
-    delay kernel, one launch a commit; the CPU launches nothing."""
+    delay kernel and gathers with the gather kernel, one launch each a
+    commit; the CPU launches nothing."""
     from repro_torch.experiments import run_regression_experiment, run_rica_experiment
 
     runs, worst = {}, {}
@@ -702,7 +890,7 @@ def paper_reference_check(np, kernels) -> None:
             runs[dev] = fn(**kw, device=dev)
             want = dict.fromkeys(kernels, 0)
             if dev == "cuda":
-                want["coordinate_delays"] = n_icon
+                want["coordinate_delays"] = want["delay_gather"] = n_icon
             check(_counts(kernels) == want, f"paper {name} at sigma 0 on {dev}: "
                   f"launches {_counts(kernels)}, want {want}")
         fields = ("traj2d", "w2") if name == "regression" else ("objective", "dist_to_opt")
@@ -796,8 +984,9 @@ def paper_path(torch, np, kernels) -> dict:
             n = max(s["steps"] // s["P"], 1) if mode == "sync" else s["steps"]
             # RICA runs its optimum's plain-SGD chain (2 x steps) in each call
             commits = n + (2 * s["steps"] if name == "rica" else 0)
-            check(got["coordinate_delays"] == (n if mode == "inconsistent" else 0)
-                  and got["langevin_update"] == got["wicon_read"] == got["delay_gather"] == 0,
+            icon = n if mode == "inconsistent" else 0
+            check(got["coordinate_delays"] == got["delay_gather"] == icon
+                  and got["langevin_update"] == got["wicon_read"] == 0,
                   f"paper {name} {mode}: launches {got}")
             ref, band = fx["reference"][name][mode], fx["band"][name][mode]
             vals = ({"w2": float(res.w2[-1])} if name == "regression" else
@@ -998,6 +1187,150 @@ def train_path(torch, np, lu, dg) -> dict:
             "losses": [float(v) for v in losses]}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the main path, part 5 — the multi-chain ClusterEngine
+# ---------------------------------------------------------------------------
+def cluster_reference_check(torch, np, kernels) -> dict:
+    """(a) 8 chains x 37 commits of a d=4 quadratic, fused W-Icon at sigma
+    0.5, tau 8, on the card and on the CPU: the same noise bits and
+    delays, so the chains agree within PAPER_ATOL + PAPER_RTOL x |CPU|;
+    chain c on the card equals the card's single-chain Engine bit for bit;
+    the update and the read run once a commit for all chains on the card,
+    never on the CPU."""
+    from repro_torch import samplers
+    from repro_torch.cluster import ClusterEngine, ensemble_async
+    from repro_torch.core import Quadratic, WorkerModel
+    from repro_torch.kernels import rng
+    from repro_torch.train.engine import Engine
+
+    C, steps, tau = 8, 37, 8
+    schedules = ensemble_async(WorkerModel(num_workers=4, seed=1), steps, C, seed=0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        quad = Quadratic.make(rng.PRNGKey(0), d=4, m=1.0, L=3.0, device=dev)
+        sampler = samplers.sgld("inconsistent", lambda p, b, q=quad: q.grad(p, b),
+                                gamma=0.01, sigma=0.5, tau=tau, fused=True)
+        engine = ClusterEngine(sampler, num_chains=C, chunk_size=10)
+        state = engine.init(torch.zeros(4, device=dev), rng.PRNGKey(42))
+        _reset(kernels)
+        state, _ = engine.run(state, steps=steps, schedule=schedules)
+        want = dict.fromkeys(kernels, 0)
+        if dev == "cuda":
+            want.update(langevin_update=steps, wicon_read=steps)
+        check(_counts(kernels) == want,
+              f"cluster (a) on {dev}: launches {_counts(kernels)}, want {want}")
+        out[dev] = state.params.cpu().numpy()
+    a, b = out["cpu"], out["cuda"]
+    err = float(np.abs(a - b).max())
+    check(np.isfinite(b).all() and np.allclose(b, a, rtol=PAPER_RTOL, atol=PAPER_ATOL),
+          f"cluster (a): card and CPU chains differ by {err}")
+    for c, k in enumerate(rng.split(rng.PRNGKey(42), C)):
+        st, _ = Engine(sampler, chunk_size=10).run(
+            sampler.init(torch.zeros(4, device="cuda"), k), steps=steps,
+            batches=torch.zeros(steps, 1), delays=schedules[c].to_trace())
+        check(np.array_equal(st.params.cpu().numpy(), b[c]),
+              f"cluster (a): chain {c} differs from the single-chain Engine")
+    log(f"cluster (a): {C} chains x {steps} fused W-Icon commits, card == CPU "
+        f"within {err:.3g}; every chain == the single-chain Engine bit for bit")
+    return {"max_abs_err": err}
+
+
+def cluster_quickstart(torch, np, kernels) -> dict:
+    """(b) The torch cluster quickstart's scenario at its own settings:
+    sgld, svrg, sghmc, the inverse-speed half, the fused W-Icon preset;
+    final W2, wall seconds, commits a second (each run on its own)."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_cluster_quickstart as qs
+
+    out = {}
+    runs = [(name, lambda name=name: qs.run_ensemble(name, device="cuda"))
+            for name in ("sgld", "svrg", "sghmc")]
+    runs.append(("inverse-speed", lambda: qs.run_heterogeneous(device="cuda")))
+    runs.append(("fused-wicon", lambda: qs.run_ensemble("sgld", device="cuda",
+                                                        fused=True)))
+    for name, fn in runs:
+        _reset(kernels)
+        rows, engine, state, wall, _ = fn()
+        got = _counts(kernels)
+        w2 = [r["w2"] for r in rows]
+        check(len(rows) == qs.COMMITS // 50 and all(math.isfinite(v) for v in w2)
+              and w2[-1] < 1.0, f"cluster (b) {name}: W2 rows {w2}")
+        want = dict.fromkeys(kernels, 0)
+        if name == "fused-wicon":
+            want.update(langevin_update=qs.COMMITS, wicon_read=qs.COMMITS)
+        check(got == want, f"cluster (b) {name}: launches {got}, want {want}")
+        out[name] = {"final_w2": w2[-1], "w2": w2, "wall_s": wall,
+                     "commits_per_s": qs.COMMITS / wall, "launches": got}
+        log(f"cluster (b), {name}: {qs.CHAINS} chains x {qs.COMMITS} commits, final "
+            f"W2 {w2[-1]:.4f}, {wall:.2f} s, {qs.COMMITS / wall:.1f} commits/s"
+            + (f"; launches {got}" if name == "fused-wicon" else ""))
+    return out
+
+
+def cluster_path(torch, np, kernels) -> dict:
+    """(c) 4 chains of qwen3-4b at its published widths, CLUSTER_LAYERS
+    layers, fused W-Icon at tau 2, 3 commits in one chunk."""
+    from repro_torch import samplers
+    from repro_torch.cluster import ClusterEngine, ensemble_async
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import WorkerModel
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import rng
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.train.loop import make_grad_fn
+    from repro_torch.utils import tree_leaves
+
+    C, steps, tau = 4, 3, 2
+    cfg = replace(get_arch("qwen3-4b"), num_layers=CLUSTER_LAYERS)
+    shape = ShapeConfig("cluster", seq_len=128, global_batch=8, kind="train")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    sampler = samplers.sgld("inconsistent", make_grad_fn(model), gamma=1e-3,
+                            sigma=1e-5, tau=tau, has_aux=True, fused=True)
+    engine = ClusterEngine(sampler, num_chains=C, chunk_size=steps, collect_aux=True,
+                           batch_fn=lambda gen: make_batch(cfg, shape, gen, "train"))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", num_chains=1)
+    state = engine.init(params, rng.PRNGKey(0))
+    del params
+    torch.cuda.synchronize()
+    leaves = tree_leaves(state.params)
+    per_chain = sum(t[0].numel() for t in leaves)
+    schedules = ensemble_async(WorkerModel(num_workers=8), steps, C, seed=0)
+    delays = np.stack([s.delays for s in schedules], axis=1)
+    log(f"cluster (c): {C} x {cfg.name} at {cfg.num_layers} layers, "
+        f"{per_chain / 1e9:.3f} B parameters a chain in {len(leaves)} leaves, "
+        f"state {torch.cuda.memory_allocated() / 1e9:.2f} GB, built in "
+        f"{time.perf_counter() - t0:.1f} s; delays (commit x chain) {delays.tolist()}")
+    _reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, aux = engine.run(state, steps=steps, schedule=schedules, key=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    losses = aux["loss"]
+    check(losses.shape == (steps, C) and np.isfinite(losses).all(),
+          f"cluster (c): losses {losses}")
+    check(all(bool(torch.isfinite(t).all()) for t in leaves),
+          "cluster (c): non-finite parameters")
+    want = dict.fromkeys(kernels, 0)
+    want.update(langevin_update=len(leaves) * steps, wicon_read=len(leaves) * steps)
+    check(got == want, f"cluster (c): launches {got}, want {want} "
+          f"({len(leaves)} leaves x {steps} commits, whatever C)")
+    ms = wall * 1e3 / steps
+    log(f"cluster (c): {steps} fused W-Icon commits of {C} chains in {wall:.3f} s, "
+        f"{ms:.2f} ms a commit ({ms / C:.2f} a chain-commit), "
+        f"{steps * C * 8 * 128 / wall:.1f} tokens/s; losses "
+        f"{np.round(losses, 4).tolist()}; peak memory {peak / 1e9:.2f} GB; "
+        f"launches {got}")
+    return {"launches": got, "ms_per_commit": ms, "wall_s": wall, "peak_gb": peak / 1e9,
+            "chains": C, "layers": cfg.num_layers,
+            "losses": losses.tolist()}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1055,6 +1388,7 @@ def main() -> int:
     lang = run_langevin_checks(torch, np, lu, ref)
     wic, gat, dly = run_gather_checks(torch, np, dg, ref)
     torch.cuda.empty_cache()
+    chains = run_chain_checks(torch, np, lu, dg, ref)
     reference_check(torch, np)
     training_reference_check(torch, np, lu, dg)
     from repro_torch.configs import get_arch
@@ -1073,6 +1407,11 @@ def main() -> int:
     paper_reference_check(np, sgld_kernels)
     pf = paper_fused_check(np, sgld_kernels)
     pp = paper_path(torch, np, sgld_kernels)
+    ca = cluster_reference_check(torch, np, sgld_kernels)
+    cq = cluster_quickstart(torch, np, sgld_kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cp = cluster_path(torch, np, sgld_kernels)
 
     def cases(runs):
         return [{k: r[k] for k in ("smax", "valid", "maxp", "pos", "splits",
@@ -1104,28 +1443,38 @@ def main() -> int:
     # an SGLD kernel's launches on each main path: training (phase 6), the
     # paper's experiments at their published settings (phase 7c) and the
     # fused preset inside the regression chain (7b); "launches" is their sum
-    for name, src, replaces, r, counter in (
+    # "cluster": the launches on phase 8c's full-width 4-chain ensemble; the
+    # kernels take every path's chains in one launch (1 chain on the
+    # others), the 4- and 32-chain cases are under "chain_cases"
+    # (the W-Icon kernel's launches are its two instantiations' together:
+    # the one-pass read, and the gather of the unfused read)
+    for name, src, replaces, r, counters, chain_case in (
             ("langevin_update", "langevin_update.cu",
-             "src/repro/kernels/langevin_update.py:45", lang, "langevin_update"),
+             "src/repro/kernels/langevin_update.py:45", lang, ("langevin_update",),
+             "update"),
             ("delay_gather", "delay_gather.cu",
-             "src/repro/kernels/delay_gather.py:33", wic, "wicon_read"),
+             "src/repro/kernels/delay_gather.py:33", wic, ("wicon_read", "delay_gather"),
+             "read"),
             # not a Pallas kernel: the jax.random.randint of the W-Icon read
             ("coordinate_delays", "delay_gather.cu",
-             "src/repro/core/delay.py:118", dly, "coordinate_delays")):
-        by_path = {"train": tp["launches"][counter],
-                   "paper": pp["launches"][counter],
-                   "paper_fused": pf["launches"][counter]}
+             "src/repro/core/delay.py:118", dly, ("coordinate_delays",), "draw")):
+        by_path = {path: sum(run["launches"][k] for k in counters)
+                   for path, run in (("train", tp), ("paper", pp), ("paper_fused", pf),
+                                     ("cluster", cp))}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "chain_cases": chains[chain_case]
+            + (chains["gather"] if chain_case == "read" else [])})
     kernels[-2]["cases"] = [
         {k: r[k] for k in ("entry", "max_abs_err", "ms", "plain_ms", "bound_ms",
                            "bound_by", "library_ms")} for r in (wic, gat)]
     log(json.dumps({"paper": {k: v for k, v in pp.items() if k != "launches"}}))
+    log(json.dumps({"cluster": {"reference": ca, "quickstart": cq, "full_width": cp}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ GPU, for one or more copies of the package.
     python3 scripts/torch_bench_sgld.py [--src DIR ...] [--iters N] [--sass] [--train]
 
 Each ``--src`` is a ``src`` directory holding ``repro_torch`` (default: this
-checkout's).  Giving two, e.g. an unpacked parent commit's and this one's,
+checkout's); a tree whose kernels take a chain axis is timed on one chain
+(C = 1), with its parameter tables made before the timing.  Giving two, e.g. an unpacked parent commit's and this one's,
 as ``--src A --src B --src B --src A`` times them in turns in one call on
 one card, so they can be compared.  Each source runs in its own
 subprocess, so that its kernels are built from its own ``csrc/``.
@@ -52,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import re
 import shutil
@@ -179,25 +181,55 @@ def run_one(src: str, iters: int, sass: bool) -> None:
     x = (torch.randn(n, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
     g = (torch.randn(n, generator=gen, device="cuda") * 1e-2).to(torch.bfloat16)
     hist = torch.randn(depth, n, generator=gen, device="cuda").to(torch.bfloat16)
-    delays = dg.coordinate_delays(key, n, depth, "cuda")
     seed, gamma = (0x1234ABCD, 77), np.float32(1e-3)
     scale = np.sqrt(np.float32(2.0 * 1e-5) * gamma)
-    if hasattr(dg, "wicon_read"):
+    if len(inspect.signature(lu.langevin_update).parameters) == 3:
+        # kernels over a chain axis: one chain, C = 1, tables made once
+        def table(rows):
+            return torch.from_numpy(rows.view(np.int32)).to("cuda")
+
+        x1, g1, hist1 = x[None], g[None], hist[None]
+        ut = table(lu.chain_rows([seed], [gamma], [scale]))
+        dt = {m: table(dg.randint_rows([key], [m])) for m in (2, depth)}
+        delays = dg.coordinate_delays(dt[depth], n, [depth])
+
+        def update():
+            return lu.langevin_update(x1, g1, ut)
+
+        def draw():
+            return dg.coordinate_delays(dt[depth], n, [depth])
+
+        def gather():
+            return dg.delay_gather(hist1, delays, head)
+
         def read(maxval=depth):
-            return dg.wicon_read(hist, key, maxval, head)
+            return dg.wicon_read(hist1, dt[maxval], [maxval], head)
         kernels = 1
     else:
-        def read(maxval=depth):
-            return dg.delay_gather(hist, dg.coordinate_delays(key, n, maxval, "cuda"),
-                                   head)
-        kernels = 2
+        delays = dg.coordinate_delays(key, n, depth, "cuda")
+
+        def update():
+            return lu.langevin_update(x, g, seed, gamma, scale)
+
+        def draw():
+            return dg.coordinate_delays(key, n, depth, "cuda")
+
+        def gather():
+            return dg.delay_gather(hist, delays, head)
+
+        if hasattr(dg, "wicon_read"):
+            def read(maxval=depth):
+                return dg.wicon_read(hist, key, maxval, head)
+            kernels = 1
+        else:
+            def read(maxval=depth):
+                return dg.delay_gather(hist, dg.coordinate_delays(key, n, maxval, "cuda"),
+                                       head)
+            kernels = 2
     cases = {
-        "langevin_update": (lambda: lu.langevin_update(x, g, seed, gamma, scale),
-                            3 * 2 * n, cs.LANGEVIN_OPS * n),
-        "coordinate_delays": (lambda: dg.coordinate_delays(key, n, depth, "cuda"),
-                              4 * n, cs.DELAY_OPS * n),
-        "delay_gather": (lambda: dg.delay_gather(hist, delays, head),
-                         n * (4 + 2 + 2), 4 * n),
+        "langevin_update": (update, 3 * 2 * n, cs.LANGEVIN_OPS * n),
+        "coordinate_delays": (draw, 4 * n, cs.DELAY_OPS * n),
+        "delay_gather": (gather, n * (4 + 2 + 2), 4 * n),
         "wicon_read": (read, n * (2 + 2), cs.DELAY_OPS * n),
         # maxval 2 (a commit one step stale): 2^32 mod 2 = 0, one bit
         # stream of the two drops out of randint's sum

@@ -13,6 +13,13 @@ parameter leaf — and stale reads index into it:
 Where the JAX ring is an immutable pytree rebuilt by every push, the port's
 :func:`push` copies into a slot **in place** and returns a ring over the
 same tensors with the new head; ``head`` is a host int.
+
+:func:`init_ring` makes one chain's ring.  Everything else takes C chains'
+rings stacked on a leading axis — leaves ``(C, depth, *leaf)``, the layout
+``jax.vmap`` gives the JAX ring; C = 1 for a single chain — under **one**
+head: the chains commit in lockstep, so their heads agree.  Delays,
+parameters and reads carry the same leading chain axis, and staleness,
+keys and delays are given a chain each.
 """
 
 from __future__ import annotations
@@ -20,9 +27,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
-from repro_torch.kernels import ops, ref
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
 from repro_torch.utils import (
     leaf_keys,
+    to_device,
     tree_broadcast_leading,
     tree_flatten,
     tree_map,
@@ -48,7 +59,8 @@ class RingBuffer:
 
 
 def init_ring(params: PyTree, tau: int) -> RingBuffer:
-    """Fill every slot with the initial parameters (delay-0 warm start)."""
+    """One chain's ring: every slot filled with its initial parameters
+    (delay-0 warm start); leaves ``(depth, *leaf)``."""
     depth = int(tau) + 1
     return RingBuffer(history=tree_broadcast_leading(params, depth), head=0,
                       depth=depth)
@@ -90,10 +102,18 @@ def validate_staleness(max_delay: int, tree: PyTree,
         check_staleness_fits(max_delay, depth, context)
 
 
+def _shared_head(ring: RingBuffer) -> int:
+    if not isinstance(ring.head, int):
+        raise TypeError(f"a chain-stacked ring keeps one host-int head "
+                        f"(the chains commit in lockstep), got {ring.head!r}")
+    return ring.head
+
+
 def push(ring: RingBuffer, params: PyTree) -> RingBuffer:
-    """Commit a new snapshot into the next slot (a copy, in place)."""
-    new_head = (ring.head + 1) % ring.depth
-    tree_map(lambda h, x: h[new_head].copy_(x), ring.history, params)
+    """Commit every chain's new snapshot (``params`` leaves ``(C,
+    *leaf)``) into the next slot: one copy a leaf, in place."""
+    new_head = (_shared_head(ring) + 1) % ring.depth
+    tree_map(lambda h, x: h[:, new_head].copy_(x), ring.history, params)
     return RingBuffer(history=ring.history, head=new_head, depth=ring.depth)
 
 
@@ -101,54 +121,75 @@ def _clip(delay: int, depth: int) -> int:
     return min(max(int(delay), 0), depth - 1)
 
 
-def read_consistent(ring: RingBuffer, delay: int) -> PyTree:
-    """W-Con: the snapshot committed ``delay`` updates ago (clamped to
-    depth-1), as views into the ring."""
-    slot = (ring.head - _clip(delay, ring.depth)) % ring.depth
-    return tree_map(lambda h: h[slot], ring.history)
+def read_consistent(ring: RingBuffer, delays) -> PyTree:
+    """W-Con of every chain: chain c's snapshot committed ``delays[c]``
+    updates ago (clamped to depth-1).  Views into the ring when every
+    chain reads the same slot, else one gather a leaf."""
+    head = _shared_head(ring)
+    slots = [(head - _clip(d, ring.depth)) % ring.depth for d in delays]
+    if len(set(slots)) == 1:
+        return tree_map(lambda h: h[:, slots[0]], ring.history)
+    dev = tree_flatten(ring.history)[0][0].device
+    chains = torch.arange(len(slots), device=dev)
+    picked = to_device(np.asarray(slots, np.int64), dev)
+    return tree_map(lambda h: h[chains, picked], ring.history)
 
 
-def sample_coordinate_delays(key, ring: RingBuffer, max_delay: int) -> PyTree:
-    """Per-coordinate delays ``s_i ~ U{0..max_delay}`` for the W-Icon read:
-    an int32 tree shaped like the parameters, bit for bit the JAX
-    package's (leaf ``i`` draws from ``split(key, n_leaves)[i]``)."""
-    maxval = _clip(max_delay, ring.depth) + 1
+def _maxvals(max_delays, depth: int) -> list:
+    return [_clip(d, depth) + 1 for d in max_delays]
+
+
+def _keys_by_leaf(keys, leaves) -> list:
+    """``keys_by_leaf[i][c]``: leaf ``i``'s key of chain c, the ``i``-th
+    split of ``keys[c]`` (as a single JAX chain splits it)."""
+    per_chain = [leaf_keys(k, leaves) for k in keys]
+    return [[ks[i] for ks in per_chain] for i in range(len(leaves))]
+
+
+def sample_coordinate_delays(keys, ring: RingBuffer, max_delays) -> PyTree:
+    """Per-coordinate delays ``s_i ~ U{0..max_delays[c]}`` of every chain
+    for the W-Icon read: an int32 tree shaped like the parameters, ``(C,
+    *leaf)``, bit for bit the JAX package's (chain c's leaf ``i`` draws
+    from ``split(keys[c], n_leaves)[i]``)."""
+    maxvals = _maxvals(max_delays, ring.depth)
     leaves, treedef = tree_flatten(ring.history)
     return tree_unflatten(treedef, [
-        ops.coordinate_delays(k, h[0], maxval).reshape(h.shape[1:])
-        for k, h in zip(leaf_keys(key, leaves), leaves)])
-
-
-def _gather_plain(history, delays, head: int):
-    """One leaf's W-Icon read with the plain gather (``torch.gather``)."""
-    flat = ref.delay_gather_ref(history.reshape(history.shape[0], -1),
-                                delays.reshape(-1), head)
-    return flat.reshape(history.shape[1:])
+        ops.coordinate_delays(h[:, 0], ks, maxvals).reshape(h[:, 0].shape)
+        for ks, h in zip(_keys_by_leaf(keys, leaves), leaves)])
 
 
 def read_inconsistent(ring: RingBuffer, delays: PyTree) -> PyTree:
-    """W-Icon: gather ``x_hat[i] = history[(head - s_i) % depth, i]`` per
-    coordinate with the plain gather (the kernel path is
-    :func:`repro_torch.kernels.ops.fused_delay_gather`)."""
-    return tree_map(lambda h, s: _gather_plain(h, s, ring.head),
-                    ring.history, delays)
+    """W-Icon of every chain: gather ``x_hat[c, i] = history[c, (head -
+    s_ci) % depth, i]`` per coordinate (``delays``: ``(C, *leaf)`` int32
+    leaves)."""
+    head = _shared_head(ring)
+    return tree_map(lambda h, s: ops.delay_gather(h, s, head), ring.history,
+                    delays)
 
 
-def read_inconsistent_leafwise(ring: RingBuffer, key, max_delay: int, *,
+def read_inconsistent_leafwise(ring: RingBuffer, keys, max_delays, *,
                                fused: bool) -> PyTree:
     """Draw and read one leaf at a time: the same result as
     :func:`sample_coordinate_delays` then :func:`read_inconsistent`.
-    When ``fused``, each leaf is one :func:`ops.wicon_read_leaf` (on a card
-    one kernel that draws the delays in registers: no delay tensor at
-    all); otherwise only one leaf's delays live at once — 4 bytes a
-    coordinate of the largest leaf, not of the whole model."""
-    maxval = _clip(max_delay, ring.depth) + 1
+    Chain c draws its delays under ``keys[c]`` in ``[0, max_delays[c]]``.
+    Each leaf is one launch for every chain on a card: when ``fused``,
+    :func:`ops.wicon_read` (the delays drawn in registers: no delay tensor
+    at all); otherwise :func:`ops.coordinate_delays` then
+    :func:`ops.delay_gather`, so only one leaf's delays live at once — 4
+    bytes a coordinate of the largest leaf, not of the whole model.  One
+    table of every leaf's draw parameters is copied to the card once."""
+    head = _shared_head(ring)
+    maxvals = _maxvals(max_delays, ring.depth)
     leaves, treedef = tree_flatten(ring.history)
-    keys = leaf_keys(key, leaves)
-    if fused:
-        reads = [ops.wicon_read_leaf(h, k, maxval, ring.head)
-                 for k, h in zip(keys, leaves)]
-    else:
-        reads = [_gather_plain(h, ops.coordinate_delays(k, h[0], maxval), ring.head)
-                 for k, h in zip(keys, leaves)]
+    keys_by_leaf = _keys_by_leaf(keys, leaves)
+    tables = ops.randint_tables(keys_by_leaf, maxvals, leaves[0].device)
+    reads = []
+    for i, h in enumerate(leaves):
+        table = None if tables is None else tables[i]
+        if fused:
+            reads.append(ops.wicon_read(h, keys_by_leaf[i], maxvals, head,
+                                        table=table))
+        else:
+            d = ops.coordinate_delays(h[:, 0], keys_by_leaf[i], maxvals, table=table)
+            reads.append(ops.delay_gather(h, d, head))
     return tree_unflatten(treedef, reads)

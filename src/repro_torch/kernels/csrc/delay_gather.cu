@@ -13,7 +13,8 @@
 // Here the selected element's raw bits are copied (-0.0, inf and nan
 // included) for any 2- or 4-byte type (bfloat16, float32, int32).
 //
-// One kernel, wicon_kernel, templated on where delay_i comes from (Source):
+// One kernel, wicon_kernel, reads; wicon_row, its row loop, is templated on
+// where delay_i comes from (Source):
 //
 // - kArray (delay_gather_launch): from an int32 array, any value, the slot
 //   taken with torch.remainder's semantics.  A delay in [0, depth) takes a
@@ -61,6 +62,20 @@
 // Indices are 32-bit (n <= 2^32, and the flat index is randint's counter);
 // a row is addressed by one 64-bit offset, slot * n.
 //
+// The chain axis.  Every launch reads C chains (C = 1 for a single chain):
+// the rings are (C, depth, n) and the output (C, n), one block row
+// (blockIdx.y) a chain, under one shared head (the chains commit in
+// lockstep).  Each chain draws under its own key and its own maxval (its
+// staleness differs), so the host builds a table of C rows (the subkeys,
+// span, mult and remainder constant of rng.randint_params) once a commit
+// for every leaf, and each block picks kZero, kLow or kBoth from its
+// chain's row (one branch a block, no divergence inside it).  The delay
+// array of kArray is (C, n), and coordinate_delays_kernel writes (C, n)
+// draws from the same table.  A chain's output does not depend on C.  The
+// rows of every chain start on 16 bytes when the bases do and n *
+// elem_bytes is a multiple of 16; otherwise every element takes the
+// scalar code.  Row offsets are 64-bit.
+//
 // C interface (bound with ctypes): each launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -73,11 +88,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
 constexpr int kSelectRows = 4;  // read whole rows up to this many, else gather
-
-int blocks_for(unsigned long long work) {
-  const unsigned long long want = (work + kThreads - 1) / kThreads;
-  return (int)(want < kMaxBlocks ? want : kMaxBlocks);
-}
 
 // delay in [0, depth) with torch.remainder's semantics for any int32
 __device__ __forceinline__ int wrap_delay(int d, int depth) {
@@ -107,14 +117,15 @@ __device__ __forceinline__ int delay_at(const int32_t* __restrict__ delays,
   }
 }
 
+// One ring's read (history (depth, n) -> out (n,)) by the threads of one
+// block row: thread tid of stride.
 template <typename W, int kSrc>
-__global__ void __launch_bounds__(kThreads)
-    wicon_kernel(const W* __restrict__ hist, const int32_t* __restrict__ delays,
-                 W* __restrict__ out, unsigned long long n, int depth, int head, int rows,
-                 RandintKey key, int vec) {
+__device__ __forceinline__ void wicon_row(const W* __restrict__ hist,
+                                          const int32_t* __restrict__ delays,
+                                          W* __restrict__ out, unsigned long long n, int depth,
+                                          int head, int rows, const RandintKey& key, int vec,
+                                          uint32_t tid, uint32_t stride) {
   constexpr int V = 16 / sizeof(W);  // lanes of a 16-byte vector
-  const uint32_t tid = blockIdx.x * kThreads + threadIdx.x;
-  const uint32_t stride = gridDim.x * kThreads;
   if (!vec) {
     const uint32_t last = (uint32_t)(n - 1);
     for (uint32_t i = tid; i <= last; i += stride) {  // the unaligned case
@@ -171,10 +182,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <bool kBoth>
-__global__ void __launch_bounds__(kThreads)
-    coordinate_delays_kernel(int32_t* __restrict__ out, unsigned long long n, RandintKey key) {
-  const uint32_t tid = blockIdx.x * kThreads + threadIdx.x;
-  const uint32_t stride = gridDim.x * kThreads;
+__device__ __forceinline__ void delays_row(int32_t* __restrict__ out, unsigned long long n,
+                                           const RandintKey& key, uint32_t tid,
+                                           uint32_t stride) {
   const uint32_t last = (uint32_t)(n - 1);
   for (uint32_t i = tid; i <= last; i += stride) {
     out[i] = (int32_t)randint_at<kBoth>(key, i);
@@ -182,88 +192,135 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// One row of the chain table: chain c's randint parameters (as
+// rng.randint_params and rng.fastmod_magic give them).
+struct ChainKey {
+  uint32_t hk0, hk1, lk0, lk1, span, mult, magic_lo, magic_hi;
+};
+
+__device__ __forceinline__ RandintKey chain_key(const ChainKey* __restrict__ table) {
+  const ChainKey c = table[blockIdx.y];
+  RandintKey k;
+  k.hk0 = c.hk0;
+  k.hk1 = c.hk1;
+  k.lk0 = c.lk0;
+  k.lk1 = c.lk1;
+  k.span = c.span;
+  k.mult = c.mult;
+  k.magic = ((unsigned long long)c.magic_hi << 32) | c.magic_lo;
+  return k;
+}
+
+// The read of every chain: block row blockIdx.y is chain c, its ring
+// hist[c] (depth, n) and its output out[c] (n,).  kFromArray: the delays
+// are delays[c] (n,) int32; else they are drawn under table row c, the
+// draw picked from the row (one branch a block).
+template <typename W, bool kFromArray>
+__global__ void __launch_bounds__(kThreads)
+    wicon_kernel(const W* __restrict__ hist, const int32_t* __restrict__ delays,
+                 W* __restrict__ out, unsigned long long n, int depth, int head,
+                 const ChainKey* __restrict__ table, int vec) {
+  const unsigned long long c = blockIdx.y;
+  const W* h = hist + c * depth * n;
+  W* o = out + c * n;
+  const uint32_t tid = blockIdx.x * kThreads + threadIdx.x, stride = gridDim.x * kThreads;
+  if constexpr (kFromArray) {
+    wicon_row<W, kArray>(h, delays + c * n, o, n, depth, head, depth, RandintKey(), vec, tid,
+                         stride);
+  } else {
+    const RandintKey key = chain_key(table);
+    if (key.span == 1u) {
+      wicon_row<W, kZero>(h, nullptr, o, n, depth, head, 1, key, vec, tid, stride);
+    } else if (key.mult == 0u) {
+      wicon_row<W, kLow>(h, nullptr, o, n, depth, head, (int)key.span, key, vec, tid, stride);
+    } else {
+      wicon_row<W, kBoth>(h, nullptr, o, n, depth, head, (int)key.span, key, vec, tid, stride);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    coordinate_delays_kernel(int32_t* __restrict__ out, unsigned long long n,
+                             const ChainKey* __restrict__ table) {
+  const RandintKey key = chain_key(table);
+  int32_t* o = out + (unsigned long long)blockIdx.y * n;
+  const uint32_t tid = blockIdx.x * kThreads + threadIdx.x, stride = gridDim.x * kThreads;
+  if (key.mult == 0u) {
+    delays_row<false>(o, n, key, tid, stride);
+  } else {
+    delays_row<true>(o, n, key, tid, stride);
+  }
+}
+
+dim3 chain_grid(unsigned long long work, int chains) {
+  const unsigned long long want = (work + kThreads - 1) / kThreads;
+  const unsigned long long cap = kMaxBlocks / chains > 0 ? kMaxBlocks / chains : 1;
+  return dim3((unsigned)(want < cap ? want : cap), (unsigned)chains);
+}
+
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
-template <int kSrc>
+bool bad_ring(unsigned long long n, int chains, int depth, int head) {
+  return n < 1 || n > (1ULL << 32) || chains < 1 || chains > 65535 || depth < 1 || head < 0 ||
+         head >= depth;
+}
+
+template <bool kFromArray>
 int launch(const void* hist, const int32_t* delays, void* out, unsigned long long n,
-           int depth, int head, int rows, const RandintKey& key, int elem_bytes,
+           int chains, int depth, int head, const ChainKey* table, int elem_bytes,
            cudaStream_t s) {
   const bool vec = aligned16(hist) && aligned16(out) && (n * elem_bytes) % 16 == 0 &&
-                   (kSrc != kArray || aligned16(delays));
-  const unsigned long long work = vec ? n / (16 / elem_bytes) : n;
-  const int blocks = blocks_for(work);
+                   (!kFromArray || aligned16(delays));
+  const dim3 grid = chain_grid(vec ? n / (16 / elem_bytes) : n, chains);
   if (elem_bytes == 2) {
-    wicon_kernel<uint16_t, kSrc><<<blocks, kThreads, 0, s>>>(
+    wicon_kernel<uint16_t, kFromArray><<<grid, kThreads, 0, s>>>(
         static_cast<const uint16_t*>(hist), delays, static_cast<uint16_t*>(out), n, depth,
-        head, rows, key, vec);
+        head, table, vec);
   } else if (elem_bytes == 4) {
-    wicon_kernel<uint32_t, kSrc><<<blocks, kThreads, 0, s>>>(
+    wicon_kernel<uint32_t, kFromArray><<<grid, kThreads, 0, s>>>(
         static_cast<const uint32_t*>(hist), delays, static_cast<uint32_t*>(out), n, depth,
-        head, rows, key, vec);
+        head, table, vec);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-RandintKey make_key(unsigned hk0, unsigned hk1, unsigned lk0, unsigned lk1, unsigned span,
-                    unsigned mult, unsigned long long magic) {
-  RandintKey k;
-  k.hk0 = hk0;
-  k.hk1 = hk1;
-  k.lk0 = lk0;
-  k.lk1 = lk1;
-  k.span = span;
-  k.mult = mult;
-  k.magic = magic;
-  return k;
-}
-
 }  // namespace
 
-// history (depth, n) of elem_bytes-byte elements, delays (n,) int32 (any
-// value: the slot is (head - delay) mod depth), out (n,).  1 <= n <= 2^32,
-// depth >= 1, 0 <= head < depth.
+// The one-pass W-Icon read: history (chains, depth, n) of elem_bytes-byte
+// elements, out (chains, n); chain c's delays drawn as
+// jax.random.randint(key_c, (n,), 0, span_c, int32) from table row c
+// (chains, 8) 32-bit words on the device: hk0, hk1, lk0, lk1, span, mult,
+// magic low, magic high (rng.randint_params, rng.fastmod_magic).  The
+// caller checks 1 <= span <= depth and span < 2^16 for every chain.
+// 1 <= n <= 2^32, 1 <= chains <= 65535, 0 <= head < depth.
+extern "C" int wicon_read_launch(const void* hist, void* out, unsigned long long n, int chains,
+                                 int depth, int head, const void* table, int elem_bytes,
+                                 void* stream) {
+  if (bad_ring(n, chains, depth, head)) return cudaErrorInvalidValue;
+  return launch<false>(hist, nullptr, out, n, chains, depth, head,
+                       static_cast<const ChainKey*>(table), elem_bytes, (cudaStream_t)stream);
+}
+
+// history (chains, depth, n), delays (chains, n) int32 (any value: the
+// slot is (head - delay) mod depth), out (chains, n).  Limits as
+// wicon_read_launch.
 extern "C" int delay_gather_launch(const void* hist, const void* delays, void* out,
-                                   unsigned long long n, int depth, int head, int elem_bytes,
-                                   void* stream) {
-  if (n < 1 || n > (1ULL << 32) || depth < 1 || head < 0 || head >= depth)
-    return cudaErrorInvalidValue;
-  return launch<kArray>(hist, static_cast<const int32_t*>(delays), out, n, depth, head,
-                        depth, make_key(0, 0, 0, 0, 1, 0, 0), elem_bytes,
-                        (cudaStream_t)stream);
+                                   unsigned long long n, int chains, int depth, int head,
+                                   int elem_bytes, void* stream) {
+  if (bad_ring(n, chains, depth, head)) return cudaErrorInvalidValue;
+  return launch<true>(hist, static_cast<const int32_t*>(delays), out, n, chains, depth, head,
+                      nullptr, elem_bytes, (cudaStream_t)stream);
 }
 
-// The one-pass W-Icon read: history (depth, n), out (n,), the delays drawn
-// as jax.random.randint(key, (n,), 0, span, int32) with the subkeys, mult
-// and magic of rng.randint_params.  1 <= span <= depth, span < 2^16.
-extern "C" int wicon_read_launch(const void* hist, void* out, unsigned long long n,
-                                 int depth, int head, unsigned hk0, unsigned hk1,
-                                 unsigned lk0, unsigned lk1, unsigned span, unsigned mult,
-                                 unsigned long long magic, int elem_bytes, void* stream) {
-  if (n < 1 || n > (1ULL << 32) || depth < 1 || head < 0 || head >= depth || span < 1u ||
-      span > (unsigned)depth || span >= 65536u)
-    return cudaErrorInvalidValue;
-  const RandintKey key = make_key(hk0, hk1, lk0, lk1, span, mult, magic);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (span == 1u) return launch<kZero>(hist, nullptr, out, n, depth, head, 1, key, elem_bytes, s);
-  if (mult == 0u) return launch<kLow>(hist, nullptr, out, n, depth, head, span, key, elem_bytes, s);
-  return launch<kBoth>(hist, nullptr, out, n, depth, head, span, key, elem_bytes, s);
-}
-
-// out (n,) int32 in [0, span); 1 <= span < 2^16, 1 <= n <= 2^32 (the counter).
-extern "C" int coordinate_delays_launch(void* out, unsigned long long n, unsigned hk0,
-                                        unsigned hk1, unsigned lk0, unsigned lk1,
-                                        unsigned span, unsigned mult,
-                                        unsigned long long magic, void* stream) {
-  if (n < 1 || n > (1ULL << 32) || span < 1u || span >= 65536u) return cudaErrorInvalidValue;
-  const RandintKey key = make_key(hk0, hk1, lk0, lk1, span, mult, magic);
-  if (mult == 0u) {
-    coordinate_delays_kernel<false><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<int32_t*>(out), n, key);
-  } else {
-    coordinate_delays_kernel<true><<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        static_cast<int32_t*>(out), n, key);
-  }
+// out (chains, n) int32 in [0, span_c), chain c's row drawn under table
+// row c (the caller checks 1 <= span < 2^16).  1 <= n <= 2^32,
+// 1 <= chains <= 65535.
+extern "C" int coordinate_delays_launch(void* out, unsigned long long n, int chains,
+                                        const void* table, void* stream) {
+  if (n < 1 || n > (1ULL << 32) || chains < 1 || chains > 65535) return cudaErrorInvalidValue;
+  coordinate_delays_kernel<<<chain_grid(n, chains), kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<int32_t*>(out), n, static_cast<const ChainKey*>(table));
   return cudaGetLastError();
 }

@@ -31,14 +31,24 @@
 // count: a thread takes a 16-byte vector of x and of g a step (8 bfloat16
 // or 4 float32 elements), so one load of each and one store serve 8 (or
 // 4) elements and the 8 threefry chains are independent work for the
-// schedulers (ILP); indices are 32-bit (n <= 2^32; each element's counter
-// is still its flat index, so the noise is the same as one element a
-// thread).  The vector path runs when x and g start on 16 bytes; a ragged
-// tail of fewer than 8 elements, or a leaf that does not start on 16
-// bytes, takes the scalar code (one element a thread, the same
-// arithmetic).  No shared memory; 256 threads a block.
+// schedulers (ILP); indices within a row are 32-bit (n <= 2^32; each
+// element's counter is still its index, so the noise is the same as one
+// element a thread).  No shared memory; 256 threads a block.
 //
-// C interface (bound with ctypes): the launcher returns cudaGetLastError().
+// The chain axis.  x and g are (C, n), one row a chain (C = 1 for a single
+// chain), and a device table holds C rows (s0, s1, gamma, scale) that the
+// host builds once a commit for every leaf (one copy for all of them), so
+// one launch a leaf serves every chain.  Block row blockIdx.y is chain c;
+// the counter is the element's index within its own row, so chain c's
+// bits do not depend on C.  A row starts at c * n elements, which is off
+// 16 bytes whenever n * sizeof(T) is not a multiple of 16, so each row
+// peels the elements before its first 16-byte boundary (scalar code, one
+// element a thread, the same arithmetic), runs the vector code, and ends
+// on a scalar tail; a row whose x and g are off 16 bytes by different
+// amounts is all scalar.  Row offsets are 64-bit: C * n passes 2^32 at
+// full width.
+//
+// C interface (bound with ctypes): each launcher returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,67 +107,81 @@ __device__ __forceinline__ typename Elem<T>::Raw update(typename Elem<T>::Raw x,
   return Elem<T>::from_f(fmaf(scale, xi, fmaf(-gamma, Elem<T>::to_f(g), Elem<T>::to_f(x))));
 }
 
+// One row of the chain table: chain c's seed, gamma and scale.
+struct ChainParams {
+  uint32_t s0, s1;
+  float gamma, scale;
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     langevin_update_kernel(typename Elem<T>::Raw* __restrict__ x,
                            const typename Elem<T>::Raw* __restrict__ g, unsigned long long n,
-                           uint32_t s0, uint32_t s1, float gamma, float scale, int vec) {
+                           const ChainParams* __restrict__ table) {
   using Raw = typename Elem<T>::Raw;
-  constexpr int V = 16 / sizeof(Raw);  // lanes of a 16-byte vector
+  constexpr int V = 16 / sizeof(Raw);
+  const ChainParams p = table[blockIdx.y];
+  Raw* __restrict__ xr = x + (unsigned long long)blockIdx.y * n;
+  const Raw* __restrict__ gr = g + (unsigned long long)blockIdx.y * n;
+  // elements before the row's first 16-byte boundary; all of them when x
+  // and g sit at different offsets from it
+  const uint32_t ax = (uint32_t)((uintptr_t)xr & 15u), ag = (uint32_t)((uintptr_t)gr & 15u);
+  unsigned long long peel = ax == ag ? ((16u - ax) & 15u) / sizeof(Raw) : n;
+  if (peel > n) peel = n;
+  const unsigned long long nv = (n - peel) / V;
   const uint32_t tid = blockIdx.x * kThreads + threadIdx.x;
   const uint32_t stride = gridDim.x * kThreads;
-  uint32_t done = 0;  // elements the vector loop covers
-  if (vec) {
-    union Lanes {
-      uint4 v;
-      Raw e[V];
-    };
-    const uint32_t nv = (uint32_t)(n / V);
-    for (uint32_t v = tid; v < nv; v += stride) {
-      Lanes xv, gv;
-      xv.v = reinterpret_cast<const uint4*>(x)[v];
-      gv.v = reinterpret_cast<const uint4*>(g)[v];
-      const uint32_t base = v * V;
+  union Lanes {
+    uint4 v;
+    Raw e[V];
+  };
+  const uint4* xv4 = reinterpret_cast<const uint4*>(xr + peel);
+  const uint4* gv4 = reinterpret_cast<const uint4*>(gr + peel);
+  for (uint32_t v = tid; v < nv; v += stride) {
+    Lanes xv, gv;
+    xv.v = xv4[v];
+    gv.v = gv4[v];
+    const uint32_t base = (uint32_t)(peel + (unsigned long long)v * V);
 #pragma unroll
-      for (int l = 0; l < V; ++l)
-        xv.e[l] = update<T>(xv.e[l], gv.e[l], base + l, s0, s1, gamma, scale);
-      reinterpret_cast<uint4*>(x)[v] = xv.v;
-    }
-    const uint32_t tail = (uint32_t)(n - (unsigned long long)nv * V);  // < V
-    if (tid >= tail) return;
-    done = (uint32_t)((unsigned long long)nv * V);  // < 2^32 when tail > 0
+    for (int l = 0; l < V; ++l)
+      xv.e[l] = update<T>(xv.e[l], gv.e[l], base + l, p.s0, p.s1, p.gamma, p.scale);
+    reinterpret_cast<uint4*>(xr + peel)[v] = xv.v;
   }
-  const uint32_t last = (uint32_t)(n - 1);
-  for (uint32_t i = done + tid; i <= last; i += stride) {
-    x[i] = update<T>(x[i], g[i], i, s0, s1, gamma, scale);
-    if (last - i < stride) break;  // i + stride would pass last (or wrap)
+  // the scalar elements: the peel, then the tail after the vectors
+  const unsigned long long nscalar = n - nv * V;
+  for (unsigned long long j = tid; j < nscalar; j += stride) {
+    const unsigned long long i = j < peel ? j : j + nv * V;
+    xr[i] = update<T>(xr[i], gr[i], (uint32_t)i, p.s0, p.s1, p.gamma, p.scale);
   }
 }
 
 template <typename T>
-void launch(void* x, const void* g, unsigned long long n, uint32_t s0, uint32_t s1,
-            float gamma, float scale, cudaStream_t stream) {
+void launch(void* x, const void* g, unsigned long long n, int chains, const void* table,
+            cudaStream_t stream) {
   using Raw = typename Elem<T>::Raw;
   constexpr int V = 16 / sizeof(Raw);
-  const int vec = ((uintptr_t)x & 15u) == 0 && ((uintptr_t)g & 15u) == 0;
-  const unsigned long long work = vec ? n / V + 1 : n;
+  const unsigned long long work = n / V + V;  // vectors, and the peel and tail
   const unsigned long long want = (work + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < kMaxBlocks ? want : kMaxBlocks);
-  langevin_update_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<Raw*>(x), static_cast<const Raw*>(g), n, s0, s1, gamma, scale, vec);
+  const unsigned long long cap = kMaxBlocks / chains > 0 ? kMaxBlocks / chains : 1;
+  const dim3 grid((unsigned)(want < cap ? want : cap), (unsigned)chains);
+  langevin_update_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<Raw*>(x), static_cast<const Raw*>(g), n,
+      static_cast<const ChainParams*>(table));
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  n >= 1, n <= 2^32 (the counter).
+// x, g (chains, n), one chain a row; table (chains, 4) 32-bit words on the
+// device: s0, s1, and gamma and scale as float bits.  dtype: 0 = float32,
+// 1 = bfloat16.  1 <= n <= 2^32, 1 <= chains <= 65535.
 extern "C" int langevin_update_launch(void* x, const void* g, unsigned long long n,
-                                      unsigned s0, unsigned s1, float gamma, float scale,
-                                      int dtype, void* stream) {
-  if (n < 1 || n > (1ULL << 32)) return cudaErrorInvalidValue;
+                                      int chains, const void* table, int dtype, void* stream) {
+  if (n < 1 || n > (1ULL << 32) || chains < 1 || chains > 65535)
+    return cudaErrorInvalidValue;
   if (dtype == 0) {
-    launch<float>(x, g, n, s0, s1, gamma, scale, (cudaStream_t)stream);
+    launch<float>(x, g, n, chains, table, (cudaStream_t)stream);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(x, g, n, s0, s1, gamma, scale, (cudaStream_t)stream);
+    launch<__nv_bfloat16>(x, g, n, chains, table, (cudaStream_t)stream);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -1,23 +1,28 @@
 """ctypes wrappers of the CUDA W-Icon kernels (``csrc/delay_gather.cu``).
 
-:func:`wicon_read` is the training path's W-Icon read of one leaf in one
-launch: each coordinate's delay ``d_i`` is drawn in registers, bit for bit
-``jax.random.randint`` (``csrc/randint.cuh``), and ``out[i] =
-history[(head - d_i) mod depth, i]`` is read from the ring ``(depth, N)``
-— no delay array is allocated or written.  :func:`delay_gather` is the
-same kernel with the delays read from an int32 array (any value, the slot
-taken with ``torch.remainder``'s semantics): the counterpart of
+Each takes C chains of one leaf in one launch (C = 1 for a single chain):
+rings ``(C, depth, N)`` under one shared head, delays and reads ``(C, N)``.
+
+:func:`wicon_read` is the training path's W-Icon read in one launch: each
+coordinate's delay ``d_ci`` is drawn in registers, bit for bit
+``jax.random.randint`` (``csrc/randint.cuh``), and ``out[c, i] =
+history[c, (head - d_ci) mod depth, i]`` is read from the ring — no delay
+array is allocated or written.  :func:`delay_gather` is the same kernel
+with the delays read from an int32 array (any value, the slot taken with
+``torch.remainder``'s semantics): the counterpart of
 ``repro.kernels.delay_gather.delay_gather_1d``.  :func:`coordinate_delays`
 draws the delays alone, bit for bit ``jax.random.randint`` (the same
-device function).  The source's header says more.
+device function).  :func:`wicon_read` and :func:`coordinate_delays` draw
+chain c under row c of a device table (:func:`randint_rows` builds the
+rows on the host, for each chain's key and maxval; the caller copies every
+leaf's table to the card at once).  The source's header says more.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, raise on anything else, allocate the output with
 ``torch.empty``, launch on the current stream and raise if the launch
 fails.  Each keeps a launch count (``wicon_read.launches``,
 ``delay_gather.launches``, ``coordinate_delays.launches``) raised nowhere
-else.  The plain versions are
-:func:`repro_torch.kernels.ref.wicon_read_ref`,
+else.  The plain versions are :func:`repro_torch.kernels.ref.wicon_read_ref`,
 :func:`~repro_torch.kernels.ref.delay_gather_ref` and
 :func:`~repro_torch.kernels.ref.coordinate_delays_ref`.
 """
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, rng
@@ -36,60 +42,108 @@ _GATHER_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 def _lib():
     lib = build.load("delay_gather")
     if not getattr(lib, "_typed", False):
-        p, i, u, ull = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong
-        lib.delay_gather_launch.argtypes = [p, p, p, ull, i, i, i, p]
-        lib.delay_gather_launch.restype = i
-        lib.wicon_read_launch.argtypes = [p, p, ull, i, i, u, u, u, u, u, u, ull, i, p]
+        p, i, ull = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+        lib.wicon_read_launch.argtypes = [p, p, ull, i, i, i, p, i, p]
         lib.wicon_read_launch.restype = i
-        lib.coordinate_delays_launch.argtypes = [p, ull, u, u, u, u, u, u, ull, p]
+        lib.delay_gather_launch.argtypes = [p, p, p, ull, i, i, i, i, p]
+        lib.delay_gather_launch.restype = i
+        lib.coordinate_delays_launch.argtypes = [p, ull, i, p, p]
         lib.coordinate_delays_launch.restype = i
         lib._typed = True
     return lib
 
 
-def _check_history(history, what: str):
+def randint_rows(keys, maxvals) -> np.ndarray:
+    """The ``(C, 8)`` uint32 table rows of the draws: chain c's
+    ``jax.random.randint(keys[c], ..., 0, maxvals[c])`` parameters — the
+    high and low subkeys, span, mult and the remainder constant's two
+    words (``rng.randint_params``, ``rng.fastmod_magic``)."""
+    rows = np.empty((len(keys), 8), np.uint32)
+    for c, (key, maxval) in enumerate(zip(keys, maxvals)):
+        if not 1 <= int(maxval) < 2**16:
+            raise ValueError(f"maxval {maxval} outside 1 .. 2^16 - 1")
+        k_hi, k_lo, span, mult = rng.randint_params(key, maxval)
+        magic = rng.fastmod_magic(span)
+        rows[c] = (k_hi[0], k_hi[1], k_lo[0], k_lo[1], span, mult,
+                   magic & 0xFFFFFFFF, magic >> 32)
+    return rows
+
+
+def _check_ring(history, what: str):
     build.require_cuda(history, what)
-    if history.dim() != 2 or history.dtype not in _GATHER_DTYPES:
-        raise ValueError(f"{what}: history must be (depth, N) of "
+    if history.dim() != 3 or history.dtype not in _GATHER_DTYPES:
+        raise ValueError(f"{what}: history must be (C, depth, N) of "
                          f"{_GATHER_DTYPES}, got {tuple(history.shape)} "
                          f"{history.dtype}")
     if not history.is_contiguous():
         raise ValueError(f"{what}: history must be contiguous")
-    if history.shape[1] > 2**32:
-        raise ValueError(f"{what}: {history.shape[1]} elements (at most 2^32)")
+    C, depth, n = history.shape
+    if not 1 <= C <= 65535 or not 1 <= n <= 2**32:
+        raise ValueError(f"{what}: {C} chains (1 .. 65535) of {n} elements "
+                         "(1 .. 2^32)")
+    return C, depth, n
 
 
-def _check_draw(maxval: int, n: int, what: str):
-    if not 1 <= int(maxval) < 2**16 or not 1 <= n <= 2**32:
-        raise ValueError(f"{what}: maxval {maxval} (1 .. 2^16-1), "
-                         f"n {n} (1 .. 2^32)")
+def _check_head(head: int, depth: int, what: str):
+    if not 0 <= int(head) < depth:
+        raise ValueError(f"{what}: head {head} outside the {depth}-slot ring")
+
+
+def _check_table(table, C: int, device, what: str):
+    if (table.device != device or tuple(table.shape) != (C, 8)
+            or table.element_size() != 4 or not table.is_contiguous()):
+        raise ValueError(f"{what}: table must be ({C}, 8) 32-bit words on {device}")
+
+
+def wicon_read(history: torch.Tensor, table: torch.Tensor, maxvals, head: int):
+    """The one-pass W-Icon read of C chains in one launch: ``out[c, i] =
+    history[c, (head - d_ci) mod depth, i]`` with ``d_c =
+    jax.random.randint(key_c, (N,), 0, maxvals[c], int32)`` drawn in the
+    kernel.
+
+    history: (C, depth, N) contiguous CUDA tensor (float32, bfloat16 or
+    int32); table: (C, 8) 32-bit words on its device, :func:`randint_rows`
+    of the chains' keys and ``maxvals`` (each 1 .. depth; the host values
+    are checked here, the table carries them); head: the shared ring slot
+    of the newest snapshot.  Returns out (C, N) in history's dtype."""
+    C, depth, n = _check_ring(history, "wicon_read")
+    _check_table(table, C, history.device, "wicon_read")
+    if len(maxvals) != C or not all(1 <= int(m) <= min(depth, 2**16 - 1)
+                                    for m in maxvals):
+        raise ValueError(f"wicon_read: maxvals {list(maxvals)} for {C} chains "
+                         f"(each 1 .. depth {depth})")
+    _check_head(head, depth, "wicon_read")
+    out = torch.empty((C, n), dtype=history.dtype, device=history.device)
+    with torch.cuda.device(history.device):
+        stream = torch.cuda.current_stream(history.device).cuda_stream
+        err = _lib().wicon_read_launch(
+            history.data_ptr(), out.data_ptr(), n, C, depth, int(head),
+            table.data_ptr(), history.element_size(), stream)
+    build.check_launch(err, "wicon_read")
+    wicon_read.launches += 1
+    return out
+
+
+wicon_read.launches = 0
 
 
 def delay_gather(history: torch.Tensor, delays: torch.Tensor, head: int):
-    """W-Icon read on the card, delays from an array.
-
-    history: (depth, N) contiguous CUDA tensor (float32, bfloat16 or
-    int32); delays: (N,) int32 on the same device, any value (the slot is
-    ``(head - delays[i]) mod depth``); head: the ring slot of the newest
-    snapshot.  Returns out (N,) in history's dtype."""
-    _check_history(history, "delay_gather")
-    depth, n = history.shape
-    if tuple(delays.shape) != (n,) or delays.dtype != torch.int32:
-        raise ValueError(f"delay_gather: delays must be ({n},) int32, got "
-                         f"{tuple(delays.shape)} {delays.dtype}")
-    if delays.device != history.device:
-        raise ValueError("delay_gather: delays on another device")
-    if not delays.is_contiguous():
-        raise ValueError("delay_gather: delays must be contiguous")
-    if not 0 <= int(head) < depth:
-        raise ValueError(f"delay_gather: head {head} outside the {depth}-slot ring")
-    out = torch.empty(n, dtype=history.dtype, device=history.device)
-    if n == 0:
-        return out
+    """W-Icon read of C chains in one launch, delays from an array:
+    history (C, depth, N) contiguous CUDA tensor (float32, bfloat16 or
+    int32); delays (C, N) int32 on its device, any value (the slot is
+    ``(head - delays[c, i]) mod depth``); head: the shared ring slot of the
+    newest snapshot.  Returns out (C, N) in history's dtype."""
+    C, depth, n = _check_ring(history, "delay_gather")
+    if (tuple(delays.shape) != (C, n) or delays.dtype != torch.int32
+            or delays.device != history.device or not delays.is_contiguous()):
+        raise ValueError(f"delay_gather: delays must be contiguous ({C}, {n}) "
+                         f"int32 on {history.device}")
+    _check_head(head, depth, "delay_gather")
+    out = torch.empty((C, n), dtype=history.dtype, device=history.device)
     with torch.cuda.device(history.device):
         stream = torch.cuda.current_stream(history.device).cuda_stream
         err = _lib().delay_gather_launch(
-            history.data_ptr(), delays.data_ptr(), out.data_ptr(), n, depth,
+            history.data_ptr(), delays.data_ptr(), out.data_ptr(), n, C, depth,
             int(head), history.element_size(), stream)
     build.check_launch(err, "delay_gather")
     delay_gather.launches += 1
@@ -99,56 +153,24 @@ def delay_gather(history: torch.Tensor, delays: torch.Tensor, head: int):
 delay_gather.launches = 0
 
 
-def wicon_read(history: torch.Tensor, key, maxval: int, head: int):
-    """The one-pass W-Icon read on the card: ``out[i] = history[(head -
-    d_i) mod depth, i]`` with ``d_i = jax.random.randint(key, (N,), 0,
-    maxval, int32)[i]`` drawn in the kernel.
-
-    history: (depth, N) contiguous CUDA tensor (float32, bfloat16 or
-    int32), N <= 2^32; key: ``(k0, k1)`` ints; maxval: 1 .. min(depth,
-    2^16 - 1); head: the ring slot of the newest snapshot.  Returns out
-    (N,) in history's dtype."""
-    _check_history(history, "wicon_read")
-    depth, n = history.shape
-    if not 1 <= int(maxval) <= depth:
-        raise ValueError(f"wicon_read: maxval {maxval} outside 1 .. depth {depth}")
-    if not 0 <= int(head) < depth:
-        raise ValueError(f"wicon_read: head {head} outside the {depth}-slot ring")
-    out = torch.empty(n, dtype=history.dtype, device=history.device)
-    if n == 0:
-        return out
-    _check_draw(maxval, n, "wicon_read")
-    k_hi, k_lo, span, mult = rng.randint_params(key, maxval)
-    with torch.cuda.device(history.device):
-        stream = torch.cuda.current_stream(history.device).cuda_stream
-        err = _lib().wicon_read_launch(
-            history.data_ptr(), out.data_ptr(), n, depth, int(head), k_hi[0],
-            k_hi[1], k_lo[0], k_lo[1], span, mult, rng.fastmod_magic(span),
-            history.element_size(), stream)
-    build.check_launch(err, "wicon_read")
-    wicon_read.launches += 1
-    return out
-
-
-wicon_read.launches = 0
-
-
-def coordinate_delays(key, n: int, maxval: int, device) -> torch.Tensor:
-    """Per-coordinate delays on the card: ``jax.random.randint(key, (n,),
-    0, maxval, int32)`` bit for bit, 1 <= maxval < 2^16, n <= 2^32.
-    key: ``(k0, k1)`` ints; returns (n,) int32 on ``device``."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"coordinate_delays launches a CUDA kernel; got "
-                         f"device {device} (the plain version is in kernels.ref)")
-    _check_draw(maxval, n, "coordinate_delays")
-    k_hi, k_lo, span, mult = rng.randint_params(key, maxval)
-    out = torch.empty(n, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+def coordinate_delays(table: torch.Tensor, n: int, maxvals) -> torch.Tensor:
+    """Per-coordinate delays of C chains in one launch: row c is
+    ``jax.random.randint(key_c, (n,), 0, maxvals[c], int32)`` bit for bit.
+    table: (C, 8) 32-bit words on a CUDA device, :func:`randint_rows` of
+    the chains' keys and ``maxvals`` (each 1 .. 2^16 - 1), n <= 2^32;
+    returns (C, n) int32 there."""
+    build.require_cuda(table, "coordinate_delays")
+    C = len(maxvals)
+    _check_table(table, C, table.device, "coordinate_delays")
+    if not 1 <= C <= 65535 or not 1 <= n <= 2**32 or not all(
+            1 <= int(m) < 2**16 for m in maxvals):
+        raise ValueError(f"coordinate_delays: {C} chains (1 .. 65535), n {n} "
+                         f"(1 .. 2^32), maxvals {list(maxvals)} (1 .. 2^16-1)")
+    out = torch.empty((C, n), dtype=torch.int32, device=table.device)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
         err = _lib().coordinate_delays_launch(
-            out.data_ptr(), n, k_hi[0], k_hi[1], k_lo[0], k_lo[1], span, mult,
-            rng.fastmod_magic(span), stream)
+            out.data_ptr(), n, C, table.data_ptr(), stream)
     build.check_launch(err, "coordinate_delays")
     coordinate_delays.launches += 1
     return out

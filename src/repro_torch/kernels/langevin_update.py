@@ -4,12 +4,16 @@
 :func:`langevin_update` replaces
 ``repro.kernels.langevin_update.langevin_update_2d``: the fused SGLD commit
 ``x <- x - gamma*g + scale*xi`` with the threefry/Box-Muller noise made in
-the kernel, **in place** on ``x``.  It takes one leaf of any shape in its
-own dtype (bfloat16 or float32) — no padding and no float32 copy, which
-the JAX wrapper makes.  It is bound by integer operations (one threefry
-block per element); the source's header says more.
+the kernel, **in place** on ``x``.  It takes one leaf of C chains, x and g
+``(C, ...)`` in their own dtype (bfloat16 or float32) — no padding and no
+float32 copy, which the JAX wrapper makes — in one launch for every chain
+(C = 1 for a single chain), chain c under row c ``(s0, s1, gamma,
+scale)`` of a device table (:func:`chain_rows` builds the rows on the
+host; the caller copies every leaf's table to the card at once).  It is
+bound by integer operations (one threefry block per element); the
+source's header says more.
 
-The wrapper takes CUDA tensors only: it checks device, dtype, size and
+The wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, raises on anything else, launches on the current stream and
 raises if the launch fails.  ``langevin_update.launches`` counts launches
 and is raised nowhere else.  The plain version is
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -30,36 +35,55 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _lib():
     lib = build.load("langevin_update")
     if not getattr(lib, "_typed", False):
-        p, u, f = ctypes.c_void_p, ctypes.c_uint, ctypes.c_float
-        lib.langevin_update_launch.argtypes = [p, p, ctypes.c_ulonglong, u, u,
-                                               f, f, ctypes.c_int, p]
+        p = ctypes.c_void_p
+        lib.langevin_update_launch.argtypes = [p, p, ctypes.c_ulonglong,
+                                               ctypes.c_int, p, ctypes.c_int, p]
         lib.langevin_update_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def langevin_update(x: torch.Tensor, g: torch.Tensor, seed, gamma, scale):
-    """x <- x - gamma*g + scale*xi on the card, in place; returns x.
+def chain_rows(seeds, gammas, scales) -> np.ndarray:
+    """The ``(C, 4)`` uint32 table rows of :func:`langevin_update`: chain
+    c's seed ``(s0, s1)``, then gamma and scale as float32 bits."""
+    rows = np.empty((len(seeds), 4), np.uint32)
+    rows[:, :2] = np.asarray(seeds, np.uint64).reshape(-1, 2) & 0xFFFFFFFF
+    rows[:, 2] = np.asarray(gammas, np.float32).view(np.uint32)
+    rows[:, 3] = np.asarray(scales, np.float32).view(np.uint32)
+    return rows
 
-    x, g: contiguous CUDA tensors of one dtype (bfloat16 or float32) and
-    the same number of elements, at most 2^32; seed: ``(s0, s1)`` uint32
-    ints; gamma, scale: float32 scalars."""
+
+def langevin_update(x: torch.Tensor, g: torch.Tensor, table: torch.Tensor):
+    """x[c] <- x[c] - gamma_c*g[c] + scale_c*xi_c for every chain c in one
+    launch, in place; returns x.
+
+    x, g: contiguous ``(C, ...)`` CUDA tensors of one dtype (bfloat16 or
+    float32) and shape, at most 2^32 elements a chain; table: ``(C, 4)``
+    32-bit words on x's device, row c :func:`chain_rows`' row c.  Chain c's
+    noise counter is its element's index within the chain."""
     build.require_cuda(x, "langevin_update")
     if x.dtype not in _DTYPES or g.dtype != x.dtype:
         raise ValueError(f"langevin_update: dtypes {x.dtype}/{g.dtype} (one of "
-                         f"bfloat16, float32 for both)")
-    if g.device != x.device or g.numel() != x.numel():
-        raise ValueError("langevin_update: g must match x's device and size")
+                         "bfloat16, float32 for both)")
+    if x.dim() < 1 or g.shape != x.shape or g.device != x.device:
+        raise ValueError("langevin_update: g must match x's (C, ...) shape and "
+                         "device")
     if not (x.is_contiguous() and g.is_contiguous()):
         raise ValueError("langevin_update: x and g must be contiguous")
-    n = x.numel()
-    if not 1 <= n <= 2**32:
-        raise ValueError(f"langevin_update: {n} elements (1 .. 2^32)")
+    C = x.shape[0]
+    n = x[0].numel()
+    if not 1 <= n <= 2**32 or not 1 <= C <= 65535:
+        raise ValueError(f"langevin_update: {C} chains (1 .. 65535) of {n} "
+                         "elements (1 .. 2^32)")
+    if (table.device != x.device or table.shape != (C, 4)
+            or table.element_size() != 4 or not table.is_contiguous()):
+        raise ValueError(f"langevin_update: table must be ({C}, 4) 32-bit "
+                         f"words on {x.device}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().langevin_update_launch(
-            x.data_ptr(), g.data_ptr(), n, int(seed[0]), int(seed[1]),
-            float(gamma), float(scale), _DTYPES[x.dtype], stream)
+            x.data_ptr(), g.data_ptr(), n, C, table.data_ptr(),
+            _DTYPES[x.dtype], stream)
     build.check_launch(err, "langevin_update")
     langevin_update.launches += 1
     return x

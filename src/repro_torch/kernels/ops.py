@@ -1,7 +1,9 @@
 """The kernels in model layout (port of ``repro.kernels.ops``): the two
 decode steps, the fused Langevin update over a parameter tree, the W-Icon
 delay draw and gather, and the one-pass W-Icon read that draws and
-gathers in one launch.
+gathers in one launch.  The last four take C chains stacked on a leading
+axis (C = 1 for a single chain; what ``jax.vmap`` of the JAX package's ops
+computes) in one launch a leaf for every chain.
 
 Dispatch goes by the tensors' device, and nothing else: on a CUDA tensor
 the op **is** the hand-written kernel (:mod:`~repro_torch.kernels.
@@ -16,11 +18,14 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
+import torch
+
 from repro_torch.kernels import decode_step as ds
 from repro_torch.kernels import delay_gather as dg
 from repro_torch.kernels import langevin_update as lu
 from repro_torch.kernels import ref, rng
-from repro_torch.utils import tree_flatten, tree_map
+from repro_torch.utils import to_device, tree_flatten
 
 PyTree = Any
 
@@ -65,61 +70,96 @@ def fused_paged_decode_step(q, k_new, v_new, k_pages, v_pages, tables, pos):
     return o.reshape(C, S, H, hd), kp, vp
 
 
-def fused_langevin_update(params: PyTree, grads: PyTree, seed, gamma,
-                          scale) -> PyTree:
-    """Leafwise fused SGLD commit, **in place** on every leaf of
-    ``params``: ``x <- x - gamma*g + scale*xi``.
+def _table(rows: np.ndarray, device) -> torch.Tensor:
+    """Host table rows (uint32) as 32-bit words on ``device``: one copy,
+    which does not stall the host (:func:`~repro_torch.utils.to_device`)."""
+    return to_device(np.ascontiguousarray(rows).view(np.int32), device)
 
-    Leaf ``i`` — in JAX's leaf order — draws its noise under the seed fold
-    ``(s0 ^ 0x85EBCA6B·(i+1), s1 + i)`` (:func:`rng.leaf_seed`), so the port
-    and ``repro.kernels.ops.fused_langevin_update`` give every leaf the same
-    stream.  seed: ``(s0, s1)`` uint32 ints; gamma, scale: float32 scalars.
-    One kernel launch per leaf on a card.  Returns ``params``."""
+
+def fused_langevin_update(params: PyTree, grads: PyTree, seeds, gammas,
+                          scales) -> PyTree:
+    """Leafwise fused SGLD commit of C chain-stacked chains, **in place**
+    on every leaf of ``params`` (``(C, *shape)``, as ``grads``): ``x[c] <-
+    x[c] - gammas[c]*g[c] + scales[c]*xi_c``.
+
+    Leaf ``i`` — in JAX's leaf order — of chain c draws its noise under the
+    seed fold ``(s0 ^ 0x85EBCA6B·(i+1), s1 + i)`` of ``seeds[c]``
+    (:func:`rng.leaf_seed`), its counter its element's index within the
+    chain, so the port and ``repro.kernels.ops.fused_langevin_update``
+    give every leaf of every chain the same stream.  seeds: C ``(s0, s1)``
+    uint32 pairs; gammas, scales: C float32 values.  On a card one launch a
+    leaf for every chain, from one table of every leaf's rows copied to the
+    card once.  Returns ``params``."""
     leaves, _ = tree_flatten(params)
     gleaves, _ = tree_flatten(grads)
     if len(gleaves) != len(leaves):
         raise ValueError(f"{len(gleaves)} gradient leaves for {len(leaves)} "
                          "parameter leaves")
-    for i, (x, g) in enumerate(zip(leaves, gleaves)):
-        step = _route(x, lu.langevin_update, ref.langevin_update_ref)
-        step(x, g.contiguous(), rng.leaf_seed(seed, i), gamma, scale)
+    seeds_by_leaf = [[rng.leaf_seed(s, i) for s in seeds] for i in range(len(leaves))]
+    if leaves and leaves[0].device.type == "cuda":
+        table = _table(np.stack([lu.chain_rows(sl, gammas, scales)
+                                 for sl in seeds_by_leaf]), leaves[0].device)
+        for i, (x, g) in enumerate(zip(leaves, gleaves)):
+            C = x.shape[0]
+            lu.langevin_update(x.view(C, -1), g.contiguous().view(C, -1), table[i])
+        return params
+    for x, g, sl in zip(leaves, gleaves, seeds_by_leaf):
+        _route(x, None, ref.langevin_update_ref)(x, g.contiguous(), sl, gammas,
+                                                 scales)
     return params
 
 
-def coordinate_delays(key, like, maxval: int):
-    """Delays ``U{0..maxval-1}`` (int32) for every coordinate of ``like``
-    (a tensor; only its size and device are read), bit for bit
-    ``jax.random.randint(key, like.shape, 0, maxval, int32)``, flat."""
-    draw = _route(like, dg.coordinate_delays, ref.coordinate_delays_ref)
-    return draw(key, like.numel(), int(maxval), like.device)
+def randint_tables(keys_by_leaf, maxvals, device):
+    """Every leaf's chain table of the draws, ``(leaves, C, 8)`` 32-bit
+    words on a card ``device`` (one copy); on the CPU ``None`` (the plain
+    versions take the keys)."""
+    if torch.device(device).type != "cuda":
+        return None
+    return _table(np.stack([dg.randint_rows(keys, maxvals)
+                            for keys in keys_by_leaf]), device)
 
 
-def delay_gather_leaf(history, delays, head: int):
-    """W-Icon read of one leaf: history ``(depth, *shape)``, delays of
-    ``shape``'s size (int32) -> ``(*shape)`` with element ``i`` taken from
-    snapshot ``(head - delays[i]) mod depth``."""
-    depth, shape = history.shape[0], history.shape[1:]
+def coordinate_delays(like, keys, maxvals, table=None):
+    """Delays of C chains for one leaf ``like`` (``(C, *shape)``; only its
+    size and device are read): ``(C, n)`` int32, row c bit for bit
+    ``jax.random.randint(keys[c], (n,), 0, maxvals[c], int32)``.
+    ``table``: this leaf's rows of :func:`randint_tables` (made here when
+    not given)."""
+    n = like[0].numel()
+    if like.device.type == "cuda":
+        if table is None:
+            table = _table(dg.randint_rows(keys, maxvals), like.device)
+        return dg.coordinate_delays(table, n, maxvals)
+    return _route(like, None, ref.coordinate_delays_ref)(keys, n, maxvals,
+                                                          like.device)
+
+
+def delay_gather(history, delays, head: int):
+    """W-Icon read of C chains of one leaf: history ``(C, depth, *shape)``,
+    delays of ``(C, n)`` int32 (any shape with those elements) -> ``(C,
+    *shape)``, element ``i`` of chain c from snapshot ``(head - delays[c,
+    i]) mod depth``."""
+    C, depth, shape = history.shape[0], history.shape[1], history.shape[2:]
     gather = _route(history, dg.delay_gather, ref.delay_gather_ref)
-    out = gather(history.reshape(depth, -1), delays.reshape(-1), int(head))
-    return out.reshape(shape)
+    out = gather(history.reshape(C, depth, -1), delays.reshape(C, -1), int(head))
+    return out.reshape(C, *shape)
 
 
-def wicon_read_leaf(history, key, maxval: int, head: int):
-    """One-pass W-Icon read of one leaf: history ``(depth, *shape)`` ->
-    ``(*shape)``, element ``i`` from snapshot ``(head - d_i) mod depth``
-    with ``d_i = jax.random.randint(key, shape, 0, maxval, int32)``, flat
-    element ``i`` (1 <= maxval <= depth).  On a card one launch, drawing
-    the delays in registers; no delay tensor is made."""
-    depth, shape = history.shape[0], history.shape[1:]
-    read = _route(history, dg.wicon_read, ref.wicon_read_ref)
-    out = read(history.reshape(depth, -1), key, int(maxval), int(head))
-    return out.reshape(shape)
-
-
-def fused_delay_gather(ring_history: PyTree, delays: PyTree, head: int,
-                       depth: int) -> PyTree:
-    """W-Icon read over a ring-buffer tree (leaves ``(depth, *shape)``)
-    with a per-coordinate delay tree shaped like the parameters."""
-    del depth  # each leaf's leading axis
-    return tree_map(lambda h, d: delay_gather_leaf(h, d.to(h.device), head),
-                    ring_history, delays)
+def wicon_read(history, keys, maxvals, head: int, table=None):
+    """One-pass W-Icon read of C chains of one leaf: history ``(C, depth,
+    *shape)`` -> ``(C, *shape)``, element ``i`` of chain c from snapshot
+    ``(head - d_ci) mod depth`` with ``d_c = jax.random.randint(keys[c],
+    shape, 0, maxvals[c], int32)``, flat element ``i`` (1 <= maxvals[c] <=
+    depth), one shared head.  On a card one launch for every chain,
+    drawing the delays in registers (no delay tensor is made); ``table``:
+    this leaf's rows of :func:`randint_tables` (made here when not
+    given)."""
+    C, depth, shape = history.shape[0], history.shape[1], history.shape[2:]
+    h = history.reshape(C, depth, -1)
+    if history.device.type == "cuda":
+        if table is None:
+            table = _table(dg.randint_rows(keys, maxvals), history.device)
+        out = dg.wicon_read(h, table, maxvals, int(head))
+    else:
+        out = _route(history, None, ref.wicon_read_ref)(h, keys, maxvals, int(head))
+    return out.reshape(C, *shape)

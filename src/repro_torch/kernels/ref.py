@@ -1,7 +1,10 @@
 """Plain PyTorch versions of the port's kernels (port of
 ``repro.kernels.ref``): the two decode steps, the Langevin update, the
 W-Icon delay gather, the coordinate-delay draw, and the one-pass W-Icon
-read (the draw, then the gather).
+read (the draw, then the gather).  The last four take C chains on a
+leading axis, as the kernels do (C = 1 for a single chain), and run chain
+by chain: chain c is what ``jax.vmap`` of the JAX package's kernel
+computes for it.
 
 Decode steps:
 The same math and op order as the JAX oracles: the new row selected in at
@@ -87,20 +90,7 @@ def paged_decode_step_ref(q, k_new, v_new, k_pages, v_pages, tables, pos):
     return o.to(q.dtype), k_pages, v_pages
 
 
-def langevin_update_ref(x, g, seed, gamma, scale):
-    """The fused SGLD commit ``x <- x - gamma*g + scale*xi``, **in place**
-    on ``x``, with ``xi`` the threefry/Box-Muller normal of each element's
-    flat index under ``seed`` (a ``(s0, s1)`` pair).
-
-    x, g: any shape, bfloat16 or float32, same numel; gamma, scale: float32
-    scalars.  Each element is read in its dtype and updated in float32 as
-    ``fma(scale, xi, fma(-gamma, g, x))`` — the order in which the JAX
-    reference evaluates ``x - gamma*g + scale*xi`` (XLA contracts both
-    products into fused multiply-adds) and the CUDA kernel's.  A float32
-    fma is emulated in float64: the product is exact there and the sum
-    rounds twice, which differs from one rounding with probability about
-    2^-29 per element.  The result is written back in x's dtype.  Works in
-    slices of ``rng.CHUNK`` elements.  Returns x."""
+def _update_row(x, g, seed, gamma, scale):
     xf, gf = x.view(-1), g.reshape(-1)
     gamma = float(torch.tensor(gamma, dtype=torch.float32))
     scale = float(torch.tensor(scale, dtype=torch.float32))
@@ -109,32 +99,60 @@ def langevin_update_ref(x, g, seed, gamma, scale):
         xi = rng.normal(seed, a, b, x.device).double()
         t = (xf[a:b].double() - gamma * gf[a:b].double()).float()
         xf[a:b] = (t.double() + scale * xi).float().to(x.dtype)
+
+
+def langevin_update_ref(x, g, seeds, gammas, scales):
+    """The fused SGLD commit ``x[c] <- x[c] - gamma_c*g[c] + scale_c*xi_c``
+    of every chain of ``x`` / ``g`` ``(C, ...)``, **in place** on ``x``,
+    with ``xi_c`` the threefry/Box-Muller normal of each element's index
+    within its chain under ``seeds[c]`` (a ``(s0, s1)`` pair).
+
+    x, g: bfloat16 or float32, same shape; gammas, scales: C float32
+    values.  Each element is read in its dtype and updated in float32 as
+    ``fma(scale, xi, fma(-gamma, g, x))`` — the order in which the JAX
+    reference evaluates ``x - gamma*g + scale*xi`` (XLA contracts both
+    products into fused multiply-adds) and the CUDA kernel's.  A float32
+    fma is emulated in float64: the product is exact there and the sum
+    rounds twice, which differs from one rounding with probability about
+    2^-29 per element.  The result is written back in x's dtype.  Works in
+    slices of ``rng.CHUNK`` elements.  Returns x."""
+    for c in range(x.shape[0]):
+        _update_row(x[c], g[c], seeds[c], gammas[c], scales[c])
     return x
 
 
-def delay_gather_ref(history, delays, head: int):
-    """W-Icon read ``out[i] = history[(head - delays[i]) mod depth, i]``.
-
-    history: (depth, N) of any dtype; delays: (N,) int32; head: the ring
-    slot of the newest snapshot.  A true gather: the selected element is
-    copied, ``-0.0``, ``inf`` and ``nan`` included (the JAX Pallas kernel
-    selects by multiply-and-sum, which turns a selected ``-0.0`` into
-    ``+0.0``).  It gathers the raw bits, through an integer view of the
-    same width: ATen's CPU gather of bfloat16 rewrites a NaN's bits."""
+def _gather_row(history, delays, head: int):
     slots = torch.remainder(int(head) - delays.long(), history.shape[0])
     raw = _RAW[history.element_size()]
     return torch.gather(history.view(raw), 0, slots[None])[0].view(history.dtype)
 
 
-def coordinate_delays_ref(key, n: int, maxval: int, device="cpu"):
-    """Per-coordinate delays ``U{0..maxval-1}`` as int32, bit for bit
-    ``jax.random.randint(key, (n,), 0, maxval, int32)``."""
-    return rng.randint(key, n, maxval, device)
+def delay_gather_ref(history, delays, head: int):
+    """W-Icon read ``out[c, i] = history[c, (head - delays[c, i]) mod
+    depth, i]``.
+
+    history: (C, depth, N) of any dtype; delays: (C, N) int32; head: the
+    shared ring slot of the newest snapshot.  A true gather: the selected
+    element is copied, ``-0.0``, ``inf`` and ``nan`` included (the JAX
+    Pallas kernel selects by multiply-and-sum, which turns a selected
+    ``-0.0`` into ``+0.0``).  It gathers the raw bits, through an integer
+    view of the same width: ATen's CPU gather of bfloat16 rewrites a NaN's
+    bits."""
+    return torch.stack([_gather_row(history[c], delays[c], head)
+                        for c in range(history.shape[0])])
 
 
-def wicon_read_ref(history, key, maxval: int, head: int):
+def coordinate_delays_ref(keys, n: int, maxvals, device="cpu"):
+    """Per-coordinate delays of C chains, ``(C, n)`` int32: row c is
+    ``jax.random.randint(keys[c], (n,), 0, maxvals[c], int32)`` bit for
+    bit."""
+    return torch.stack([rng.randint(k, n, m, device) for k, m in zip(keys, maxvals)])
+
+
+def wicon_read_ref(history, keys, maxvals, head: int):
     """The one-pass W-Icon read: the delays of :func:`coordinate_delays_ref`
-    gathered by :func:`delay_gather_ref`.  history: (depth, N)."""
-    n = history.shape[1]
-    return delay_gather_ref(history, coordinate_delays_ref(key, n, maxval,
-                                                           history.device), head)
+    gathered by :func:`delay_gather_ref`.  history: (C, depth, N) ->
+    (C, N)."""
+    n, dev = history.shape[2], history.device
+    return torch.stack([_gather_row(history[c], rng.randint(k, n, m, dev), head)
+                        for c, (k, m) in enumerate(zip(keys, maxvals))])

@@ -72,6 +72,12 @@ def split(key, num: int = 2) -> list:
     return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
 
 
+def fold_in(key, data: int) -> tuple:
+    """``jax.random.fold_in(key, data)`` for a 32-bit ``data``: the key
+    ``threefry2x32(key, (0, data))``."""
+    return threefry2x32(key[0], key[1], 0, int(data) & M32)
+
+
 def key_bits(key) -> tuple:
     """The two uint32 words of a key (``jax.random.key_data``), as ints —
     the seed the fused Langevin kernel takes."""

@@ -35,7 +35,7 @@ from repro_torch.models.common import (
     rms_norm,
 )
 from repro_torch.models.mlp import apply_mlp, init_mlp
-from repro_torch.utils import resolve_device, tree_map
+from repro_torch.utils import resolve_device, to_device, tree_map
 
 PyTree = Any
 
@@ -237,7 +237,7 @@ class Model:
         self.device = resolve_device(device)
 
     def _tokens(self, tokens) -> torch.Tensor:
-        return torch.as_tensor(tokens, device=self.device).long()
+        return to_device(tokens, self.device).long()
 
     # -- embedding ------------------------------------------------------------
     def embed(self, params, batch):

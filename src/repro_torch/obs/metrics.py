@@ -32,11 +32,13 @@ import threading
 from typing import Optional, Sequence
 
 __all__ = ["Counter", "Gauge", "Histogram", "Registry", "registry",
-           "LATENCY_MS_BUCKETS"]
+           "LATENCY_MS_BUCKETS", "STALENESS_BUCKETS"]
 
 #: default rungs for millisecond-latency histograms (log-ish ladder)
 LATENCY_MS_BUCKETS = (0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
                       500.0, 1000.0, 2500.0)
+#: default rungs for per-commit staleness histograms (powers of two)
+STALENESS_BUCKETS = (0, 1, 2, 4, 8, 16, 32, 64, 128)
 
 
 class Counter:

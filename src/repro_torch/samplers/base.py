@@ -17,7 +17,12 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 
 from repro_torch.kernels import rng
-from repro_torch.samplers.transform import SamplerTransform, StepContext
+from repro_torch.samplers.transform import (
+    SamplerTransform,
+    StepContext,
+    chain_at,
+    one_chain,
+)
 from repro_torch.utils import tree_map
 
 PyTree = Any
@@ -54,20 +59,50 @@ class Sampler:
         return SamplerState(params=params, step=0, key=rng.key_bits(key),
                             inner=self.transform.init(params))
 
-    def step(self, state: SamplerState, batch: Any = None,
-             delay: int = 0) -> tuple[SamplerState, Any]:
+    def step(self, state: SamplerState, batch: Any = None, delay: int = 0,
+             keys: tuple | None = None) -> tuple[SamplerState, Any]:
         """Run the chain once; ``delay`` is the realized staleness tau_k.
         The step's noise and coordinate-delay keys are split off the
         carried key, ``key, k_noise, k_delay = split(key, 3)``, as the JAX
-        sampler splits them.  Returns ``(new_state, aux)`` with aux from
-        the gradients stage."""
-        key, k_noise, k_delay = rng.split(state.key, 3)
+        sampler splits them — unless explicit ``keys = (k_noise, k_delay)``
+        are given (e.g. per-worker keys from the commit's worker and slot):
+        the carried key is then left untouched, so the caller's derivation
+        is the only source of randomness.  Returns ``(new_state, aux)``
+        with aux from the gradients stage.
+
+        This is :meth:`step_chains` at C = 1: the state's tensors are
+        viewed with a leading chain axis of 1."""
+        stacked = SamplerState(one_chain(state.params), state.step, [state.key],
+                               one_chain(state.inner))
+        out, aux = self.step_chains(stacked, [batch], [delay],
+                                    None if keys is None else [keys])
+        return (SamplerState(chain_at(out.params, 0), out.step, out.key[0],
+                             chain_at(out.inner, 0)), chain_at(aux, 0))
+
+    def step_chains(self, state: SamplerState, batches: list, delays,
+                    keys: list | None = None) -> tuple[SamplerState, Any]:
+        """One commit of C chains stacked on a leading axis (``state.key``
+        a list of C keys; see :mod:`repro_torch.samplers.transform`):
+        ``batches`` a list of C batches, ``delays`` the C realized
+        staleness values.  Chain c's keys are split off its carried key as
+        :meth:`step` splits them, or are ``keys[c] = (k_noise, k_delay)``
+        with the carried keys untouched.  Returns ``(state, aux)`` with
+        aux's tensors stacked over the chains."""
+        if keys is not None:
+            carried = list(state.key)
+            k_noise, k_delay = [k[0] for k in keys], [k[1] for k in keys]
+        else:
+            splits = [rng.split(k, 3) for k in state.key]
+            carried = [s[0] for s in splits]
+            k_noise, k_delay = [s[1] for s in splits], [s[2] for s in splits]
         ctx = StepContext(params=state.params, x_hat=state.params, grads=None,
-                          noise=None, aux=None, gamma=self.gamma_at(state.step),
-                          key_noise=k_noise, key_delay=k_delay,
-                          step=state.step, delay=int(delay), batch=batch)
+                          noise=None, aux=None,
+                          gamma=np.full(len(carried), self.gamma_at(state.step),
+                                        np.float32),
+                          key_noise=k_noise, key_delay=k_delay, step=state.step,
+                          delay=np.asarray(delays, np.int64), batch=list(batches))
         ctx, inner = self.transform.update(ctx, state.inner)
-        return SamplerState(ctx.params, state.step + 1, key, inner), ctx.aux
+        return SamplerState(ctx.params, state.step + 1, carried, inner), ctx.aux
 
     def run(self, state: SamplerState, batches, delays=None, *,
             collect: bool = True):

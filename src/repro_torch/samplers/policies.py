@@ -8,6 +8,10 @@
 - :class:`PerCoordinateDelay` — inconsistent (W-Icon) per-coordinate read
   ``[X_hat]_i = [X_{s_i}]_i`` with ``s_i ~ U{0..tau_k}``; ``fused=True``
   draws the delays and gathers in one CUDA kernel a leaf on a card.
+
+A policy reads C chains' stacked ring at once (C = 1 for a single chain):
+chain c at its staleness ``ctx.delay[c]`` under its key
+``ctx.key_delay[c]``, one shared head.
 """
 
 from __future__ import annotations
@@ -27,8 +31,9 @@ PyTree = Any
 
 @runtime_checkable
 class DelayPolicy(Protocol):
-    """Chooses the read point for one commit from the iterate history;
-    ``tau`` is the maximum staleness (ring depth ``tau + 1``)."""
+    """Chooses every chain's read point for one commit from the
+    chain-stacked iterate history; ``tau`` is the maximum staleness (ring
+    depth ``tau + 1``)."""
 
     tau: int
 
@@ -43,8 +48,8 @@ class ConstantDelay:
     tau: int
 
     def read(self, ctx: StepContext, ring: RingBuffer) -> PyTree:
-        """Whole-vector read ``X_{k - min(k, tau)}`` from the ring."""
-        return read_consistent(ring, min(ctx.step, self.tau))
+        """Whole-vector read ``X_{k - min(k, tau)}`` of every chain."""
+        return read_consistent(ring, [min(ctx.step, self.tau)] * len(ctx.delay))
 
 
 @dataclass(frozen=True)
@@ -54,7 +59,7 @@ class TraceDelay:
     tau: int
 
     def read(self, ctx: StepContext, ring: RingBuffer) -> PyTree:
-        """Whole-vector read ``X_{k - ctx.delay}`` from the ring."""
+        """Whole-vector read ``X_{k - ctx.delay[c]}`` of every chain c."""
         return read_consistent(ring, ctx.delay)
 
 
@@ -66,9 +71,10 @@ class PerCoordinateDelay:
     fused: bool = False
 
     def read(self, ctx: StepContext, ring: RingBuffer) -> PyTree:
-        """Per-coordinate read: each coordinate's staleness in ``[0,
-        ctx.delay]`` drawn from ``ctx.key_delay`` (bit for bit the JAX
-        package's draw), gathered from the ring one leaf at a time (through
-        the one-pass ``wicon_read`` kernel when ``fused``)."""
+        """Per-coordinate read: chain c's coordinate staleness in ``[0,
+        ctx.delay[c]]`` drawn from ``ctx.key_delay[c]`` (bit for bit the
+        JAX package's draw), gathered from the ring one leaf at a time, one
+        launch a leaf for every chain on a card (the one-pass
+        ``wicon_read`` kernel when ``fused``)."""
         return read_inconsistent_leafwise(ring, ctx.key_delay, ctx.delay,
                                           fused=self.fused)

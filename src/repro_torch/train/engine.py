@@ -78,23 +78,51 @@ def _to_host(aux_steps: list) -> PyTree:
                     .cpu().numpy(), *aux_steps)
 
 
+def merge_host_aux(aux, host_rows: dict):
+    """Thread chunk-aligned host arrays (commit times, cumulative gradient
+    evaluations) into a chunk's aux dict (shared by Engine and
+    ClusterEngine)."""
+    if aux is None:
+        return dict(host_rows)
+    if isinstance(aux, dict):
+        return {**aux, **host_rows}
+    return {"aux": aux, **host_rows}
+
+
+def flush_hooks(hooks: Sequence[Hook], step_end: int, state: SamplerState) -> None:
+    """After the final chunk, give every hook with a ``flush`` attribute a
+    chance to act on the terminal state."""
+    for hook in hooks:
+        flush = getattr(hook, "flush", None)
+        if flush is not None:
+            flush(step_end, state)
+
+
 def drive_chunks(run_chunk, state: SamplerState, *, steps: int,
                  chunk_size: int, hooks: Sequence[Hook], collect_aux: bool,
                  extra, batches: Optional[PyTree] = None,
-                 gen_batches=None, key=None, commit_times=None):
-    """The host chunk loop.  ``run_chunk(state, batches, extra) -> (state,
-    aux)`` runs one chunk; ``extra`` is the per-step input with leading
-    axis ``steps`` (the delays), sliced alongside the batches.  Give stacked
-    ``batches`` (leading axis ``steps``) or ``gen_batches(key, n) -> (key,
-    chunk_batches)`` plus ``key``.  ``commit_times`` (host, leading axis
-    ``steps``) are sliced per chunk into its aux as ``"commit_time"``.
-    Returns ``(state, aux stacked over all steps or None)``."""
+                 gen_batches=None, key=None, commit_times=None,
+                 host_aux: Optional[dict] = None):
+    """The host chunk loop shared by :class:`Engine` and
+    :class:`~repro_torch.cluster.executor.ClusterEngine`.
+    ``run_chunk(state, batches, extra) -> (state, aux)`` runs one chunk;
+    ``extra`` is the per-step input (a tensor, or a dict of arrays, with
+    leading axis ``steps``: the delays, or the read versions), sliced
+    alongside the batches.  Give stacked ``batches`` (leading axis
+    ``steps``) or ``gen_batches(key, n) -> (key, chunk_batches)`` plus
+    ``key``.  ``commit_times`` and any ``host_aux`` arrays (host, leading
+    axis ``steps``) are sliced per chunk into its aux (commit times as
+    ``"commit_time"``).  Hooks run between chunks and are flushed at the
+    end.  Returns ``(state, aux stacked over all steps or None)``."""
     if batches is None and gen_batches is None:
         raise ValueError("give stacked `batches` or a batch_fn")
     if batches is not None:
         n_batches = tree_leaves(batches)[0].shape[0]
         if n_batches < steps:
             raise ValueError(f"batches has {n_batches} entries, need {steps}")
+    host_rows = dict(host_aux or {})
+    if commit_times is not None:
+        host_rows["commit_time"] = commit_times
     aux_chunks = []
     done = 0
     while done < steps:
@@ -104,15 +132,17 @@ def drive_chunks(run_chunk, state: SamplerState, *, steps: int,
                 key, chunk_batches = gen_batches(key, n)
             else:
                 chunk_batches = tree_map(lambda x: x[done:done + n], batches)
-            state, aux = run_chunk(state, chunk_batches, extra[done:done + n])
+            state, aux = run_chunk(state, chunk_batches,
+                                   tree_map(lambda x: x[done:done + n], extra))
             done += n
-            if commit_times is not None:
-                rows = {"commit_time": np.asarray(commit_times[done - n:done])}
-                aux = rows if aux is None else {**aux, **rows}
+            if host_rows:
+                aux = merge_host_aux(aux, {k: np.asarray(v[done - n:done])
+                                           for k, v in host_rows.items()})
             if collect_aux:
                 aux_chunks.append(aux)
             for hook in hooks:
                 hook(done, state, aux)
+    flush_hooks(hooks, done, state)
     if not aux_chunks or aux_chunks[0] is None:
         return state, None
     return state, tree_map(lambda *xs: np.concatenate(xs, axis=0), *aux_chunks)

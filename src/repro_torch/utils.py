@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 PyTree = Any
@@ -31,35 +32,37 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
 _LEAF = object()  # a leaf's place in a treedef
 
 
+# module-level recursions: a recursive closure is a reference cycle
+# (function -> cell -> function) that would keep every leaf it saw alive
+# until the garbage collector runs — parameter-sized tensors, at full width
+def _flatten_into(t, leaves: list):
+    if isinstance(t, dict):
+        return {k: _flatten_into(t[k], leaves) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_flatten_into(v, leaves) for v in t)
+    leaves.append(t)
+    return _LEAF
+
+
+def _build(t, it):
+    if isinstance(t, dict):
+        return {k: _build(v, it) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
+
+
 def tree_flatten(tree: PyTree) -> tuple[list, PyTree]:
     """``(leaves, treedef)`` in JAX's leaf order (dict keys sorted);
     :func:`tree_unflatten` inverts it."""
     leaves: list = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(walk(v) for v in t)
-        leaves.append(t)
-        return _LEAF
-
-    return leaves, walk(tree)
+    return leaves, _flatten_into(tree, leaves)
 
 
 def tree_unflatten(treedef: PyTree, leaves) -> PyTree:
     """The tree of ``treedef`` (from :func:`tree_flatten`) with ``leaves``
     put in, in order."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree: PyTree) -> list:
@@ -89,6 +92,20 @@ def tree_broadcast_leading(a: PyTree, n: int) -> PyTree:
     """Every leaf copied ``n`` times along a new leading axis (the slots
     of an iterate ring)."""
     return tree_map(lambda x: x[None].expand(n, *x.shape).clone(), a)
+
+
+def to_device(array, device) -> torch.Tensor:
+    """A small host array (numpy, or a tensor) as a tensor on ``device``
+    without stalling the host: bound for a card, host data is staged in
+    pinned memory and copied on the current stream with
+    ``non_blocking=True`` (a copy from pageable memory waits for the stream
+    to drain).  PyTorch's pinned-memory cache records the copy and holds
+    the staging buffer until it has run."""
+    t = array if torch.is_tensor(array) else torch.from_numpy(np.array(array))
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def resolve_device(device) -> torch.device:

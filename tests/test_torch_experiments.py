@@ -36,6 +36,7 @@ from repro_torch import samplers
 from repro_torch.core import delay, potentials
 from repro_torch.experiments import run_regression_experiment, run_rica_experiment
 from repro_torch.kernels import rng
+from repro_torch.samplers.transform import one_chain
 from torch_cases import one_cpu_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -130,14 +131,14 @@ def test_wicon_coordinate_delays_along_the_chain():
     """Each commit's W-Icon delays, drawn from the chain's own delay keys,
     equal the reference's bit for bit."""
     jring = jdelay.init_ring(jax.numpy.zeros(5), 16)
-    ring = delay.init_ring(torch.zeros(5), 16)
+    ring = one_chain(delay.init_ring(torch.zeros(5), 16))  # one chain: C = 1
     jkey, key = jax.random.PRNGKey(1), rng.PRNGKey(1)
     for d in _delays(40, 16):
         jkey, _, jk_delay = jax.random.split(jkey, 3)
         key, _, k_delay = rng.split(key, 3)
         want = jdelay.sample_coordinate_delays(jk_delay, jring, int(d))
-        got = delay.sample_coordinate_delays(k_delay, ring, int(d))
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        got = delay.sample_coordinate_delays([k_delay], ring, [int(d)])
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
 
 
 # ---------------------------------------------------------------------------

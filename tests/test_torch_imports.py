@@ -45,6 +45,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.kernels.langevin_update, repro_torch.kernels.delay_gather\n"
         "import repro_torch.metrics, repro_torch.experiments\n"
         "import repro_torch.core.potentials, repro_torch.core.theory\n"
+        "import repro_torch.cluster.schedule, repro_torch.cluster.ensemble\n"
+        "import repro_torch.cluster.executor, repro_torch.data.pipeline\n"
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None}\n"
     )

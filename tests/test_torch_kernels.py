@@ -9,6 +9,9 @@ order is the same and only the summation order of the two einsums
 differs; caches and pools are compared exactly.  The CUDA kernels
 themselves are held against the plain versions in
 ``test_torch_kernels_cuda.py``, on a card.
+
+The SGLD plain versions and ops take chains on a leading axis: C chains
+are held bit for bit against each chain alone (C = 1), at C 1, 3 and 32.
 """
 
 import jax
@@ -199,3 +202,139 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take(fault):
         args[6] = args[6][:3]
     with pytest.raises(ValueError):
         ds.paged_decode_step(*args)
+
+
+# ---------------------------------------------------------------------------
+# the chain axis: C chains against each chain alone (C = 1)
+# ---------------------------------------------------------------------------
+from repro_torch.core import delay as tdelay  # noqa: E402
+from repro_torch.kernels import delay_gather as dg  # noqa: E402
+from repro_torch.kernels import langevin_update as lu  # noqa: E402
+from repro_torch.kernels import rng  # noqa: E402
+
+CHAIN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "i32": torch.int32}
+
+
+def _chain_ring(C, depth, n, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn(C, depth, n, generator=g)
+    h.view(-1)[:3] = torch.tensor([-0.0, float("inf"), float("nan")])[: min(3, h.numel())]
+    return (h.nan_to_num(0, 9, -9) * 100).to(dtype) if dtype == torch.int32 else h.to(dtype)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.uint8) if t.dtype != torch.bool else t
+
+
+@pytest.mark.parametrize("C", [1, 3, 32])
+@pytest.mark.parametrize("n", [5, 1003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_plain_chain_update_is_the_single_update_chain_by_chain(C, n, dtype):
+    """Bitwise: chain c of the plain update of C chains is the plain update
+    of chain c alone (C = 1) under its seed, gamma and scale."""
+    g = torch.Generator().manual_seed(C * n)
+    x = torch.randn(C, n, generator=g).to(dtype)
+    grad = torch.randn(C, n, generator=g).to(dtype)
+    seeds = [rng.split((C, n), C)[c] for c in range(C)]
+    gammas = np.linspace(1e-3, 5e-2, C).astype(np.float32)
+    scales = np.linspace(0.0, 0.3, C).astype(np.float32)
+    got = ref.langevin_update_ref(x.clone(), grad, seeds, gammas, scales)
+    for c in range(C):
+        want = ref.langevin_update_ref(x[c:c + 1].clone(), grad[c:c + 1], [seeds[c]],
+                                       [gammas[c]], [scales[c]])
+        assert torch.equal(_bits(got[c]), _bits(want[0])), c
+
+
+@pytest.mark.parametrize("C", [1, 3, 32])
+@pytest.mark.parametrize("n", [5, 1003])
+@pytest.mark.parametrize("name", list(CHAIN_DTYPES))
+def test_plain_chain_reads_are_the_single_reads_chain_by_chain(C, n, name):
+    """Bitwise, ``-0.0``, ``inf`` and ``nan`` included: the draw, gather and
+    one-pass read of C chains against those of each chain alone (C = 1),
+    each chain at its own key and maxval (1 .. depth) under one shared
+    head."""
+    depth, head = 4, 2
+    h = _chain_ring(C, depth, n, CHAIN_DTYPES[name], seed=C + n)
+    keys = rng.split((7, C), C)
+    maxvals = [1 + c % depth for c in range(C)]
+    d = ref.coordinate_delays_ref(keys, n, maxvals)
+    assert d.shape == (C, n) and d.dtype == torch.int32
+    read = ref.wicon_read_ref(h, keys, maxvals, head)
+    any_d = d * 3 - 5  # out-of-range delays: the slot is taken mod depth
+    gather = ref.delay_gather_ref(h, any_d, head)
+    for c in range(C):
+        one = slice(c, c + 1)
+        assert torch.equal(d[c], ref.coordinate_delays_ref([keys[c]], n, [maxvals[c]])[0])
+        assert torch.equal(_bits(read[c]), _bits(ref.wicon_read_ref(
+            h[one], [keys[c]], [maxvals[c]], head)[0]))
+        assert torch.equal(_bits(gather[c]),
+                           _bits(ref.delay_gather_ref(h[one], any_d[one], head)[0]))
+
+
+def test_chain_ops_on_cpu_route_to_the_plain_versions():
+    """The ops over a two-leaf tree (5 elements and 3 x 7) on CPU tensors:
+    the commit and reads of C chains equal those of each chain alone (C =
+    1), bit for bit, and launch nothing."""
+    C = 3
+    g = torch.Generator().manual_seed(0)
+    params = {"a": torch.randn(C, 5, generator=g), "b": torch.randn(C, 3, 7, generator=g)}
+    grads = {"a": torch.randn(C, 5, generator=g), "b": torch.randn(C, 3, 7, generator=g)}
+    seeds = [(c, 99) for c in range(C)]
+    gammas, scales = [np.float32(1e-2)] * C, [np.float32(0.1 * c) for c in range(C)]
+    want = [ops.fused_langevin_update({k: v[c:c + 1].clone() for k, v in params.items()},
+                                      {k: v[c:c + 1] for k, v in grads.items()},
+                                      [seeds[c]], [gammas[c]], [scales[c]])
+            for c in range(C)]
+    counts = (lu.langevin_update.launches, dg.wicon_read.launches)
+    ops.fused_langevin_update(params, grads, seeds, gammas, scales)
+    for c in range(C):
+        for k in params:
+            assert torch.equal(params[k][c], want[c][k][0])
+    ring = tdelay.RingBuffer(history={k: torch.randn(C, 4, *v.shape[1:], generator=g)
+                                      for k, v in params.items()}, head=1, depth=4)
+    keys, delays = rng.split((5, 5), C), [0, 2, 7]
+    for fused in (False, True):
+        got = tdelay.read_inconsistent_leafwise(ring, keys, delays, fused=fused)
+        for c in range(C):
+            one = tdelay.RingBuffer({k: v[c:c + 1] for k, v in ring.history.items()}, 1, 4)
+            want = tdelay.read_inconsistent_leafwise(one, [keys[c]], [delays[c]],
+                                                     fused=fused)
+            for k in params:
+                assert torch.equal(got[k][c], want[k][0])
+    same = tdelay.read_consistent(ring, [1, 1, 1])
+    assert same["a"].data_ptr() == ring.history["a"][:, 0].data_ptr()  # a view
+    mixed = tdelay.read_consistent(ring, delays)
+    for c in range(C):
+        one = tdelay.RingBuffer({k: v[c:c + 1] for k, v in ring.history.items()}, 1, 4)
+        assert torch.equal(mixed["b"][c], tdelay.read_consistent(one, [delays[c]])["b"][0])
+    assert counts == (lu.langevin_update.launches, dg.wicon_read.launches)
+
+
+def test_chain_tables_encode_each_chains_parameters():
+    rows = lu.chain_rows([(1, 2), (2**32 - 1, 0)], [np.float32(0.5), np.float32(1e-3)],
+                         [np.float32(0.0), np.float32(3.0)])
+    assert rows.dtype == np.uint32 and rows.shape == (2, 4)
+    assert rows[1, 0] == 2**32 - 1 and rows[1, 1] == 0
+    assert rows[:, 2].view(np.float32).tolist() == [0.5, np.float32(1e-3)]
+    t = dg.randint_rows([(3, 4), (5, 6)], [3, 1])
+    for row, key, m in zip(t, [(3, 4), (5, 6)], [3, 1]):
+        k_hi, k_lo, span, mult = rng.randint_params(key, m)
+        magic = rng.fastmod_magic(span)
+        assert row.tolist() == [*k_hi, *k_lo, span, mult, magic & 0xFFFFFFFF, magic >> 32]
+    with pytest.raises(ValueError, match="maxval"):
+        dg.randint_rows([(1, 1)], [0])
+
+
+def test_chain_kernels_refuse_cpu_tensors():
+    x = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        lu.langevin_update(x, x, torch.zeros(2, 4, dtype=torch.int32))
+    h = torch.zeros(2, 3, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        dg.wicon_read(h, torch.zeros(2, 8, dtype=torch.int32), [1, 1], 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        dg.delay_gather(h, torch.zeros(2, 8, dtype=torch.int32), 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        dg.coordinate_delays(torch.zeros(2, 8, dtype=torch.int32), 8, [1, 1])
+    with pytest.raises(TypeError, match="host-int head"):
+        tdelay.push(tdelay.RingBuffer({"a": h}, np.int32(0), 3), {"a": x})

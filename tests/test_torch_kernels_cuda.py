@@ -21,7 +21,8 @@ plain output (a long context's output is small, |o| ~ sqrt(e / n), where
 equal bit for bit outside the garbage row, and two calls give the same
 bits.
 
-SGLD kernels, at ragged lengths: the Langevin update agrees with its plain
+SGLD kernels (each takes chains on a leading axis; one chain is C = 1),
+at ragged lengths: the Langevin update agrees with its plain
 version within 2e-6 in float32 and one bf16 ulp in bfloat16 (same bits
 and the same fused multiply-adds; the plain version's float64 emulation
 of an fma and CUDA's logf/cosf against ATen's may differ in the last
@@ -30,16 +31,26 @@ elements) and its scalar code (a tensor one element off 16 bytes); the
 delay draw, the gather (out-of-range delays included) and the one-pass
 W-Icon read are equal bit for bit, the read on aligned rows (vectors) and
 on misaligned ones (scalar code) over rings of depth 1-5.
+
+One launch for C chains: chain c is bit for bit the same kernel on chain
+c alone (C = 1, an aligned copy) with its parameters, and agrees with the
+plain version (the update within 2e-6 / one bf16 ulp, the draw, gather
+and read bit for bit), at C 1, 3 and 32, on rows that start off 16 bytes
+(odd sizes), on aligned ones, and with x and g off 16 bytes by different
+amounts (the update's all-scalar rows); an op launches each kernel once a
+leaf whatever C is, and its per-commit tables reach the card without
+stalling the host.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import delay as tdelay
 from repro_torch.kernels import decode_step as ds
 from repro_torch.kernels import delay_gather as dg
 from repro_torch.kernels import langevin_update as lu
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref, rng
 from torch_cases import RING_CASES, RING_IDS, assert_pool_equal, paged_case, ring_case
 
 
@@ -322,11 +333,29 @@ def test_split_shared_memory_mirror_matches_the_source(cuda):
 
 
 # ---------------------------------------------------------------------------
-# SGLD kernels
+# SGLD kernels (each takes chains on a leading axis; one chain is C = 1)
 # ---------------------------------------------------------------------------
 def _within_bf16_ulp(got, want):
     got, want = got.float(), want.float()
     return bool(((got - want).abs() <= want.abs() * 2.0**-7 + 1e-30).all())
+
+
+def _table(rows, device):
+    return torch.from_numpy(np.ascontiguousarray(rows).view(np.int32)).to(device)
+
+
+def _update_one(x, g, seed, gamma, scale):
+    """The update kernel on one chain (C = 1), in place on x."""
+    table = _table(lu.chain_rows([seed], [gamma], [scale]), x.device)
+    return lu.langevin_update(x[None], g[None], table)[0]
+
+
+def _update_ref_one(x, g, seed, gamma, scale):
+    return ref.langevin_update_ref(x[None], g[None], [seed], [gamma], [scale])[0]
+
+
+def _draw_table(key, maxval, device):
+    return _table(dg.randint_rows([key], [maxval]), device)
 
 
 @pytest.mark.cuda
@@ -338,15 +367,15 @@ def test_langevin_kernel_matches_plain_on_card(cuda, dtype, n):
     x = torch.randn(n, generator=gen, device=cuda).to(dtype)
     g = torch.randn(n, generator=gen, device=cuda).to(dtype)
     seed, gamma, scale = (0x1234ABCD, 77), np.float32(1e-3), np.float32(0.03)
-    want = ref.langevin_update_ref(x.clone(), g, seed, gamma, scale)
+    want = _update_ref_one(x.clone(), g, seed, gamma, scale)
     before = lu.langevin_update.launches
-    got = lu.langevin_update(x, g, seed, gamma, scale)
+    got = _update_one(x, g, seed, gamma, scale)
     torch.cuda.synchronize()
-    assert got is x and lu.langevin_update.launches == before + 1
+    assert got.data_ptr() == x.data_ptr() and lu.langevin_update.launches == before + 1
     if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+        torch.testing.assert_close(x, want, rtol=0, atol=2e-6)
     else:
-        assert _within_bf16_ulp(got, want)
+        assert _within_bf16_ulp(x, want)
 
 
 @pytest.mark.cuda
@@ -357,9 +386,8 @@ def test_langevin_kernel_noise_is_the_plain_noise(cuda, dtype):
     n = 1_000_003
     g = torch.ones(n, device=cuda, dtype=dtype)
     x = torch.zeros(n, device=cuda, dtype=dtype)
-    lu.langevin_update(x, g, (5, 6), np.float32(0), np.float32(1))
-    want = ref.langevin_update_ref(torch.zeros_like(x), g, (5, 6),
-                                   np.float32(0), np.float32(1))
+    _update_one(x, g, (5, 6), np.float32(0), np.float32(1))
+    want = _update_ref_one(torch.zeros_like(x), g, (5, 6), np.float32(0), np.float32(1))
     torch.cuda.synchronize()
     if dtype == torch.float32:
         torch.testing.assert_close(x, want, rtol=0, atol=2e-6)
@@ -376,8 +404,8 @@ def test_coordinate_delays_kernel_equals_plain_on_card(cuda, maxval):
     (``csrc/randint.cuh``) and skips the high stream where 2^32 mod maxval
     is 0; the plain draw takes ``%`` of both."""
     n = 1_000_003
-    got = dg.coordinate_delays((123, 456), n, maxval, cuda)
-    want = ref.coordinate_delays_ref((123, 456), n, maxval, cuda)
+    got = dg.coordinate_delays(_draw_table((123, 456), maxval, cuda), n, [maxval])
+    want = ref.coordinate_delays_ref([(123, 456)], n, [maxval], cuda)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert int(got.min()) == 0 and int(got.max()) == maxval - 1
@@ -398,11 +426,11 @@ def test_delay_gather_kernel_equals_plain_on_card(cuda, dtype):
     delays = torch.randint(0, depth, (n,), generator=gen, device=cuda,
                            dtype=torch.int32)
     before = dg.delay_gather.launches
-    got = dg.delay_gather(h, delays, head)
-    want = ref.delay_gather_ref(h, delays, head)
+    got = dg.delay_gather(h[None], delays[None], head)
+    want = ref.delay_gather_ref(h[None], delays[None], head)
     torch.cuda.synchronize()
     assert dg.delay_gather.launches == before + 1
-    assert got.dtype == dtype
+    assert got.dtype == dtype and got.shape == (1, n)
     assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
 
 
@@ -413,14 +441,14 @@ def test_delay_gather_kernel_equals_plain_on_card(cuda, dtype):
 def test_langevin_kernel_vector_and_scalar_code_match_plain(cuda, dtype, off):
     """Sizes = 1..7 mod 8 and a whole number of vectors; the tensor at
     ``off`` elements past a 16-byte boundary (off 0: the vector code and
-    its tail; else the scalar code)."""
+    its tail; else the peel, the vector code and the tail)."""
     seed, gamma, scale = (0xABCDEF01, 5), np.float32(1e-2), np.float32(0.1)
     for n in [4096 + r for r in range(9)] + [1, 7]:
         gen = torch.Generator(device=cuda).manual_seed(n + off)
         x = torch.randn(off + n, generator=gen, device=cuda).to(dtype)[off:]
         g = torch.randn(off + n, generator=gen, device=cuda).to(dtype)[off:]
-        want = ref.langevin_update_ref(x.clone(), g, seed, gamma, scale)
-        lu.langevin_update(x, g, seed, gamma, scale)
+        want = _update_ref_one(x.clone(), g, seed, gamma, scale)
+        _update_one(x, g, seed, gamma, scale)
         torch.cuda.synchronize()
         if dtype == torch.float32:
             torch.testing.assert_close(x, want, rtol=0, atol=2e-6)
@@ -452,13 +480,13 @@ def test_wicon_read_kernel_equals_plain_on_card(cuda, dtype, depth):
     history one element off its allocation; every maxval, two heads."""
     for n in [4096 + r for r in range(8)]:
         for off in (0, 1):
-            h = _ring_on(cuda, dtype, depth, n, off, seed=n + depth + off)
+            h = _ring_on(cuda, dtype, depth, n, off, seed=n + depth + off)[None]
             for head in sorted({0, depth - 1}):
                 for maxval in range(1, depth + 1):
                     key = (n * depth + maxval, head)
                     before = dg.wicon_read.launches
-                    got = dg.wicon_read(h, key, maxval, head)
-                    want = ref.wicon_read_ref(h, key, maxval, head)
+                    got = dg.wicon_read(h, _draw_table(key, maxval, cuda), [maxval], head)
+                    want = ref.wicon_read_ref(h, [key], [maxval], head)
                     torch.cuda.synchronize()
                     assert dg.wicon_read.launches == before + 1
                     assert got.dtype == dtype
@@ -480,10 +508,161 @@ def test_delay_gather_kernel_takes_any_delay_mod_depth(cuda, dtype, depth):
                           device=cuda, dtype=torch.int32)
         d[:4] = torch.tensor([-2**31, 2**31 - 1, -1, depth], dtype=torch.int32)
         head = depth // 2
-        got = dg.delay_gather(h, d, head)
-        want = ref.delay_gather_ref(h, d, head)
+        got = dg.delay_gather(h[None], d[None], head)[0]
+        want = ref.delay_gather_ref(h[None], d[None], head)[0]
         torch.cuda.synchronize()
         assert _bitwise(got, want), n
         slots = torch.remainder(head - d.long(), depth)
         assert torch.equal(got.view(torch.uint8),
                            h.gather(0, slots[None])[0].view(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# the chain axis: C chains against each chain alone (C = 1)
+# ---------------------------------------------------------------------------
+CHAIN_SIZES = [1, 5, 7, 4096, 4099, 65536 + 3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [1, 3, 32])
+@pytest.mark.parametrize("offs", [(0, 0), (1, 1), (1, 0), (0, 2)],
+                         ids=["aligned", "both-off", "x-off", "g-off"])
+def test_langevin_chain_kernel_is_the_single_kernel_chain_by_chain(cuda, dtype, C, offs):
+    """Rows of odd sizes start off 16 bytes (the peel, then vectors, then
+    the tail); ``offs`` puts x and g that many elements past 16 bytes too,
+    and where x and g sit at different offsets (x-off, g-off) every element
+    takes the scalar code.  Each chain must equal, bit for bit, the kernel
+    on that chain alone (C = 1) in a fresh, aligned allocation (the vector
+    code), and the plain version within its float64-emulated fma."""
+    xo, go = offs
+    for n in CHAIN_SIZES:
+        gen = torch.Generator(device=cuda).manual_seed(n * C + 2 * xo + go)
+        x = torch.randn(xo + C * n, generator=gen, device=cuda).to(dtype)[xo:].view(C, n)
+        g = torch.randn(go + C * n, generator=gen, device=cuda).to(dtype)[go:].view(C, n)
+        seeds = rng.split((n, C), C)
+        gammas = np.linspace(1e-3, 5e-2, C).astype(np.float32)
+        scales = np.linspace(0.0, 0.3, C).astype(np.float32)
+        single = [_update_one(x[c].clone(), g[c].clone(), seeds[c], gammas[c], scales[c])
+                  for c in range(C)]
+        want = ref.langevin_update_ref(x.clone(), g, seeds, gammas, scales)
+        before = lu.langevin_update.launches
+        got = lu.langevin_update(x, g, _table(lu.chain_rows(seeds, gammas, scales), cuda))
+        torch.cuda.synchronize()
+        assert got is x and lu.langevin_update.launches == before + 1
+        for c in range(C):
+            assert _bitwise(got[c], single[c]), (n, c)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=0, atol=2e-6)
+        else:
+            assert _within_bf16_ulp(got, want), n
+
+
+def _chain_ring_on(cuda, dtype, C, depth, n, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    h = torch.randn(C * depth * n, generator=gen, device=cuda)
+    h[:4] = torch.tensor([-0.0, float("inf"), float("nan"), -0.0])[:h.numel()]
+    h = (h.nan_to_num(0, 9, -9) * 1000).to(dtype) if dtype == torch.int32 else h.to(dtype)
+    return h.view(C, depth, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32],
+                         ids=["f32", "bf16", "i32"])
+@pytest.mark.parametrize("C", [1, 3, 32])
+@pytest.mark.parametrize("depth", [1, 3, 5])
+def test_chain_reads_are_the_single_kernels_chain_by_chain(cuda, dtype, C, depth):
+    """The one-pass read, gather and draw of C chains against the same
+    kernels on each chain alone (C = 1) and the plain versions, bit for
+    bit: each chain at its own key and maxval (1, 2, ... depth in turn: the
+    zero, low-stream and two-stream draws side by side in one launch), one
+    shared head."""
+    for n in (5, 4096, 4099):
+        h = _chain_ring_on(cuda, dtype, C, depth, n, seed=n + C + depth)
+        head = depth - 1
+        keys = rng.split((n, depth), C)
+        maxvals = [1 + c % depth for c in range(C)]
+        table = _table(dg.randint_rows(keys, maxvals), cuda)
+        counts = (dg.wicon_read.launches, dg.coordinate_delays.launches,
+                  dg.delay_gather.launches)
+        read = dg.wicon_read(h, table, maxvals, head)
+        delays = dg.coordinate_delays(table, n, maxvals)
+        wild = delays * 7 - 9  # any int32: the slot is taken mod depth
+        gather = dg.delay_gather(h, wild, head)
+        torch.cuda.synchronize()
+        assert (dg.wicon_read.launches, dg.coordinate_delays.launches,
+                dg.delay_gather.launches) == tuple(k + 1 for k in counts)
+        assert _bitwise(read, ref.wicon_read_ref(h, keys, maxvals, head))
+        assert torch.equal(delays, ref.coordinate_delays_ref(keys, n, maxvals, cuda))
+        assert _bitwise(gather, ref.delay_gather_ref(h, wild, head))
+        for c in range(C):
+            one = h[c:c + 1].clone()
+            t1 = _draw_table(keys[c], maxvals[c], cuda)
+            assert _bitwise(read[c], dg.wicon_read(one, t1, [maxvals[c]], head)[0]), (n, c)
+            assert torch.equal(delays[c], dg.coordinate_delays(t1, n, [maxvals[c]])[0])
+            assert _bitwise(gather[c], dg.delay_gather(one, wild[c:c + 1].clone(), head)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 4, 32])
+def test_chain_ops_launch_once_a_leaf_whatever_c(cuda, C):
+    """Three leaves (5 elements, 3 x 7, 64 x 33) of C chains: the fused
+    commit and the fused read are 3 launches each, the unfused read 3 draws
+    and 3 gathers, and each equals the op on each chain alone (C = 1)."""
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    shapes = {"a": (5,), "b": (3, 7), "c": (64, 33)}
+    params = {k: torch.randn(C, *s, generator=gen, device=cuda) for k, s in shapes.items()}
+    grads = {k: torch.randn(C, *s, generator=gen, device=cuda) for k, s in shapes.items()}
+    seeds = rng.split((C, 1), C)
+    gammas = [np.float32(1e-2)] * C
+    scales = [np.float32(0.05)] * C
+    want = [ops.fused_langevin_update({k: v[c:c + 1].clone() for k, v in params.items()},
+                                      {k: v[c:c + 1].clone() for k, v in grads.items()},
+                                      [seeds[c]], [gammas[c]], [scales[c]])
+            for c in range(C)]
+    before = lu.langevin_update.launches
+    ops.fused_langevin_update(params, grads, seeds, gammas, scales)
+    assert lu.langevin_update.launches == before + 3
+    for c in range(C):
+        for k in shapes:
+            assert _bitwise(params[k][c], want[c][k][0])
+    ring = tdelay.RingBuffer({k: torch.randn(C, 3, *s, generator=gen, device=cuda)
+                              for k, s in shapes.items()}, head=2, depth=3)
+    keys, delays = rng.split((9, C), C), [c % 4 for c in range(C)]
+    for fused, counters in ((True, (dg.wicon_read,)),
+                            (False, (dg.coordinate_delays, dg.delay_gather))):
+        before = [k.launches for k in counters]
+        got = tdelay.read_inconsistent_leafwise(ring, keys, delays, fused=fused)
+        assert [k.launches for k in counters] == [b + 3 for b in before]
+        for c in range(C):
+            one = tdelay.RingBuffer({k: v[c:c + 1].clone() for k, v in ring.history.items()},
+                                    2, 3)
+            single = tdelay.read_inconsistent_leafwise(one, [keys[c]], [delays[c]],
+                                                       fused=fused)
+            for k in shapes:
+                assert _bitwise(got[k][c], single[k][0]), (fused, c, k)
+
+
+@pytest.mark.cuda
+def test_table_copies_do_not_stall_the_host(cuda):
+    """The per-commit tables reach the card by a copy from pinned memory on
+    the current stream: a commit enqueued behind a long kernel returns to
+    the host before that kernel ends, and the result is the same as after a
+    synchronise."""
+    a = torch.randn(4096, 4096, device=cuda)
+    x = torch.randn(2, 1_000_003, device=cuda)
+    g = torch.randn_like(x)
+    want = x.clone()
+    ops.fused_langevin_update({"x": want}, {"x": g}, [(1, 2), (3, 4)],
+                              [np.float32(1e-2)] * 2, [np.float32(0.1)] * 2)
+    torch.cuda.synchronize()
+    busy = a
+    for _ in range(20):  # ~tens of ms of matmuls on the stream
+        busy = busy @ a
+    done = torch.cuda.Event()
+    done.record()
+    ops.fused_langevin_update({"x": x}, {"x": g}, [(1, 2), (3, 4)],
+                              [np.float32(1e-2)] * 2, [np.float32(0.1)] * 2)
+    assert not done.query()  # the host did not wait for the matmuls
+    torch.cuda.synchronize()
+    assert _bitwise(x, want)

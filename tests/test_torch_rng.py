@@ -33,6 +33,7 @@ from repro_torch.core import delay
 from repro_torch.kernels import delay_gather as dg
 from repro_torch.kernels import langevin_update as lu
 from repro_torch.kernels import ops, ref, rng
+from repro_torch.samplers.transform import one_chain
 from repro_torch.utils import tree_leaves
 from repro_torch.weights import from_jax_params
 from torch_cases import one_cpu_thread  # noqa: F401
@@ -124,8 +125,10 @@ def test_plain_langevin_update_matches_pallas_and_oracle(n):
     jseed = jnp.asarray(seed, jnp.uint32)
     pallas = np.asarray(jops.langevin_update_flat(jnp.asarray(x), jnp.asarray(g),
                                                   jseed, gamma, scale))
-    got = ref.langevin_update_ref(torch.from_numpy(x.copy()),
-                                  torch.from_numpy(g), seed, gamma, scale)
+    # the plain version takes chains on a leading axis: one chain is C = 1
+    got = ref.langevin_update_ref(torch.from_numpy(x.copy())[None],
+                                  torch.from_numpy(g)[None], [seed], [gamma],
+                                  [scale])[0]
     np.testing.assert_allclose(got.numpy(), pallas, rtol=0, atol=1e-6)
     R = -(-n // 1024)  # the oracle takes (R, L) tiles: pad the tail with 0
     xp, gp = (np.pad(a, (0, R * 1024 - n)).reshape(R, 1024) for a in (x, g))
@@ -143,8 +146,10 @@ def test_plain_langevin_update_bf16_within_one_ulp(n):
     seed, gamma, scale = (3, 4), np.float32(0.1), np.float32(0.5)
     want = np.asarray(jops.langevin_update_flat(
         jx, jg, jnp.asarray(seed, jnp.uint32), gamma, scale).astype(jnp.float32))
-    got = ref.langevin_update_ref(tx, tg, seed, gamma, scale)
-    assert got is tx and got.dtype == torch.bfloat16  # in place
+    tx1 = tx[None]
+    got = ref.langevin_update_ref(tx1, tg[None], [seed], [gamma], [scale])
+    assert got is tx1 and got.dtype == torch.bfloat16  # in place
+    got = tx
     ulp = np.abs(want) * 2.0**-7 + 1e-30
     assert (np.abs(got.float().numpy() - want) <= ulp).all()
 
@@ -162,11 +167,12 @@ def test_fused_update_on_reduced_qwen3_tree_matches_jax():
     host = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     tp = from_jax_params(host(jp), device="cpu")
     tg = from_jax_params(host(jg), device="cpu")
-    got = ops.fused_langevin_update(tp, tg, seed, gamma, scale)
-    assert got is tp
+    stacked = one_chain(tp)  # the op takes chains stacked: C = 1
+    got = ops.fused_langevin_update(stacked, one_chain(tg), [seed], [gamma], [scale])
+    assert got is stacked
     leaves = jax.tree_util.tree_leaves(want)
     assert len(leaves) == 14
-    for w, t in zip(leaves, tree_leaves(got)):
+    for w, t in zip(leaves, tree_leaves(tp)):  # in place on tp
         w = np.asarray(w.astype(jnp.float32))
         ulp = np.abs(w) * 2.0**-7 + 1e-30
         assert (np.abs(t[0].float().numpy() - w) <= ulp).all()
@@ -190,7 +196,8 @@ def test_plain_gather_equals_pallas_bitwise(dtype):
     want = np.asarray(jops.delay_gather_flat(jnp.asarray(h), jnp.asarray(slots)))
     th = (torch.from_numpy(h.astype(np.float32)).bfloat16()
           if dtype == ml_dtypes.bfloat16 else torch.from_numpy(h))
-    got = ref.delay_gather_ref(th, torch.from_numpy(delays.astype(np.int32)), head)
+    got = ref.delay_gather_ref(th[None], torch.from_numpy(delays.astype(np.int32))[None],
+                               head)[0]
     got = got.float().numpy() if dtype == ml_dtypes.bfloat16 else got.numpy()
     np.testing.assert_array_equal(got, want.astype(got.dtype))
 
@@ -200,8 +207,8 @@ def test_plain_gather_copies_signed_zero_inf_nan_like_the_oracle():
                   [3.0, -0.0, -np.inf, 4.0, np.nan]], np.float32)
     slots = np.array([0, 1, 1, 0, 1], np.int32)
     want = np.asarray(jref.delay_gather_ref(jnp.asarray(h), jnp.asarray(slots)))
-    got = ref.delay_gather_ref(torch.from_numpy(h),
-                               torch.from_numpy((0 - slots) % 2), 0).numpy()
+    got = ref.delay_gather_ref(torch.from_numpy(h)[None],
+                               torch.from_numpy((0 - slots) % 2)[None], 0)[0].numpy()
     assert got.tobytes() == want.tobytes()
     assert np.signbit(got[:2]).all()  # the selected -0.0 stays -0.0
 
@@ -215,40 +222,41 @@ def test_coordinate_delays_and_read_equal_jax_on_reduced_tree():
     jp = jax_init(jax.random.PRNGKey(2), cfg)
     jring = jdelay.init_ring(jp, 2)
     tp = from_jax_params(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
-    ring = delay.init_ring(tp, 2)
+    ring = one_chain(delay.init_ring(tp, 2))  # the ring of one chain: C = 1
     for k in range(2):  # two pushes of distinct iterates
         jp = jax.tree_util.tree_map(lambda p: (p + 1).astype(p.dtype), jp)
         jring = jdelay.push(jring, jp)
-        ring = delay.push(ring, from_jax_params(
-            jax.tree_util.tree_map(np.asarray, jp), device="cpu"))
+        ring = delay.push(ring, one_chain(from_jax_params(
+            jax.tree_util.tree_map(np.asarray, jp), device="cpu")))
     jkey = jax.random.PRNGKey(9)
     want = jdelay.sample_coordinate_delays(jkey, jring, jnp.int32(2))
-    got = delay.sample_coordinate_delays(rng.PRNGKey(9), ring, 2)
+    got = delay.sample_coordinate_delays([rng.PRNGKey(9)], ring, [2])
     for w, g in zip(jax.tree_util.tree_leaves(want), tree_leaves(got)):
-        np.testing.assert_array_equal(np.asarray(w), g[0].numpy())
+        np.testing.assert_array_equal(np.asarray(w), g[0, 0].numpy())
     jread = jdelay.read_inconsistent(jring, want)
-    tree_read = ops.fused_delay_gather(ring.history, got, ring.head, ring.depth)
+    tree_read = delay.read_inconsistent(ring, got)
     for w, g in zip(jax.tree_util.tree_leaves(jread), tree_leaves(tree_read)):
         np.testing.assert_array_equal(np.asarray(w.astype(jnp.float32)),
-                                      g[0].float().numpy())
+                                      g[0, 0].float().numpy())
     for fused in (False, True):
-        read = delay.read_inconsistent_leafwise(ring, rng.PRNGKey(9), 2,
+        read = delay.read_inconsistent_leafwise(ring, [rng.PRNGKey(9)], [2],
                                                 fused=fused)
         for w, g in zip(jax.tree_util.tree_leaves(jread), tree_leaves(read)):
             np.testing.assert_array_equal(np.asarray(w.astype(jnp.float32)),
-                                          g[0].float().numpy())
+                                          g[0, 0].float().numpy())
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel or raises: no silent plain path."""
-    x = torch.zeros(8)
+    x = torch.zeros(1, 8)
+    rows = torch.zeros(1, 8, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA kernel"):
-        lu.langevin_update(x, x, (0, 0), 0.0, 1.0)
+        lu.langevin_update(x, x, torch.zeros(1, 4, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA kernel"):
-        dg.delay_gather(torch.zeros(2, 8), torch.zeros(8, dtype=torch.int32), 0)
+        dg.delay_gather(torch.zeros(1, 2, 8), torch.zeros(1, 8, dtype=torch.int32), 0)
     with pytest.raises(ValueError, match="CUDA kernel"):
-        dg.coordinate_delays((0, 0), 8, 2, "cpu")
+        dg.coordinate_delays(rows, 8, [2])
     with pytest.raises(ValueError, match="CUDA kernel"):
-        dg.wicon_read(torch.zeros(2, 8), (0, 0), 1, 0)
+        dg.wicon_read(torch.zeros(1, 2, 8), rows, [1], 0)
     assert lu.langevin_update.launches == dg.delay_gather.launches == 0
     assert dg.wicon_read.launches == 0

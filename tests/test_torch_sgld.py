@@ -41,6 +41,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.core import delay, delay_model, schedules
 from repro_torch.kernels import rng
 from repro_torch.models.transformer import Model, loss_fn
+from repro_torch.samplers.transform import one_chain
 from repro_torch.train.loop import make_grad_fn
 from repro_torch.utils import tree_leaves
 from repro_torch.weights import from_jax_params
@@ -81,23 +82,24 @@ def test_ring_push_and_reads_equal_jax():
     p0 = {"b": r.standard_normal((3, 4)).astype(np.float32),
           "a": r.standard_normal((5,)).astype(np.float32)}
     jring = jdelay.init_ring(p0, 3)
-    ring = delay.init_ring({k: torch.from_numpy(v) for k, v in p0.items()}, 3)
+    # one chain's ring, read as the chain-stacked ring of C = 1
+    ring = one_chain(delay.init_ring({k: torch.from_numpy(v) for k, v in p0.items()}, 3))
     for k in range(6):  # wraps the 4-slot ring
         p = {n: r.standard_normal(v.shape).astype(np.float32) for n, v in p0.items()}
         jring = jdelay.push(jring, p)
-        ring = delay.push(ring, {n: torch.from_numpy(v) for n, v in p.items()})
+        ring = delay.push(ring, {n: torch.from_numpy(v)[None] for n, v in p.items()})
         assert ring.head == int(jring.head)
         for d in range(5):  # 4 clamps to depth - 1
             want = jdelay.read_consistent(jring, jnp.int32(d))
-            got = delay.read_consistent(ring, d)
+            got = delay.read_consistent(ring, [d])
             for n in p0:
-                np.testing.assert_array_equal(got[n].numpy(), np.asarray(want[n]))
+                np.testing.assert_array_equal(got[n][0].numpy(), np.asarray(want[n]))
         dl = {n: r.integers(0, 4, v.shape).astype(np.int32) for n, v in p0.items()}
         want = jdelay.read_inconsistent(jring, dl)
-        got = delay.read_inconsistent(ring, {n: torch.from_numpy(v)
+        got = delay.read_inconsistent(ring, {n: torch.from_numpy(v)[None]
                                              for n, v in dl.items()})
         for n in p0:
-            np.testing.assert_array_equal(got[n].numpy(), np.asarray(want[n]))
+            np.testing.assert_array_equal(got[n][0].numpy(), np.asarray(want[n]))
     assert delay.ring_depths((ring, ())) == [4]
     with pytest.raises(delay.StalenessError):
         delay.validate_staleness(4, ((), ring))

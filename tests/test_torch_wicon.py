@@ -70,12 +70,13 @@ def test_plain_wicon_read_equals_jax_randint_then_read(name, depth):
             jd = jax.random.randint(jnp.asarray(key, jnp.uint32), (n,), 0,
                                     maxval, dtype=jnp.int32)
             want = _jax_read(jh, head, depth, jd)
-            got = ref.wicon_read_ref(th, key, maxval, head)
+            # chains on a leading axis: one chain is C = 1
+            got = ref.wicon_read_ref(th[None], [key], [maxval], head)[0]
             assert got.dtype == th.dtype
             assert _bits(got) == _bits(want), (head, maxval)
             # the op route on CPU tensors: the same read, leaf-shaped
-            got = ops.wicon_read_leaf(th.reshape(depth, 17, 59), key, maxval, head)
-            assert got.shape == (17, 59)
+            got = ops.wicon_read(th.reshape(1, depth, 17, 59), [key], [maxval], head)
+            assert got.shape == (1, 17, 59)
             assert _bits(got) == _bits(want), (head, maxval)
 
 
@@ -90,14 +91,16 @@ def test_fused_leafwise_read_equals_jax_draw_then_read(depth):
     thist = {k: t for k, (_, t) in pairs.items()}
     for head in range(depth):
         jring = jdelay.RingBuffer(history=jhist, head=jnp.int32(head), depth=depth)
-        ring = delay.RingBuffer(history=thist, head=head, depth=depth)
+        ring = delay.RingBuffer(history={k: t[None] for k, t in thist.items()},
+                                head=head, depth=depth)  # one chain: C = 1
         for max_delay in range(depth + 1):
             jkey = jax.random.PRNGKey(100 * depth + 10 * head + max_delay)
             key = rng.PRNGKey(100 * depth + 10 * head + max_delay)
             want = jdelay.read_inconsistent(jring, jdelay.sample_coordinate_delays(
                 jkey, jring, jnp.int32(max_delay)))
-            got = delay.read_inconsistent_leafwise(ring, key, max_delay, fused=True)
-            for w, g in zip(jax.tree_util.tree_leaves(want), tree_leaves(got)):
+            got = delay.read_inconsistent_leafwise(ring, [key], [max_delay], fused=True)
+            for w, g in zip(jax.tree_util.tree_leaves(want),
+                            (g[0] for g in tree_leaves(got))):
                 assert g.shape == w.shape
                 assert _bits(g) == _bits(w), (head, max_delay)
 
