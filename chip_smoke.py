@@ -36,7 +36,14 @@ library) and runs, failing on the first phase that fails:
    the same kernels on each chain alone: C 32 on a
    5-element and a ragged leaf (rows off 16 bytes), C 4 on the 4-layer
    stacked largest leaf (4 x 2560 x 9728) and the embedding (151936 x
-   2560), bf16, timed there;
+   2560), bf16, timed there (the chains' ring heads differ in the C 32
+   cases: each kernel takes chain c's head from chain c's row); then the
+   masked commit: the update with chains skipped (their NaN gradient rows
+   never read) bitwise untouched there and bitwise the unmasked kernel
+   elsewhere, its non-finite flags equal to ``torch.isfinite`` of the
+   output and to the plain version's, and the read over a head a chain,
+   on a ragged leaf and the stacked leaf, timed with the flags written and
+   with one chain skipped;
 3. the engines on a reduced float32 bank, on the card (kernels) and on the
    CPU (plain path): the same tokens and BMA log-probs within 1e-4; then
    4 fused W-Icon training commits of the reduced float32 model on both:
@@ -88,7 +95,26 @@ library) and runs, failing on the first phase that fails:
    fused W-Icon at tau 2, schedules from 8 simulated workers, a batch of 8
    x 128 tokens a chain drawn by ``batch_fn``, 3 commits in one chunk:
    finite losses, ms a commit, peak memory, and the update and the read
-   each launched 14 x 3 times (once a leaf a commit, whatever C).
+   each launched 14 x 3 times (once a leaf a commit, whatever C);
+9. the main path, part 6: faults, checkpoints and self-healing — (a) the
+   ``ClusterEngine`` under a ``FaultPlan`` chaos schedule and a
+   ``nan_storm`` with ``health_check`` and respawn, 8 chains x 40 commits
+   of the d=4 quadratic (tau 32), fused W-Icon and fused W-Con, card
+   against CPU: iterates within 1e-5 + 1e-4 x |CPU|, health masks, respawn
+   counts, keys and ring heads equal; then interrupted at commit 20 and
+   resumed from its run checkpoint, bitwise the uninterrupted card run;
+   (b) phase 8c's cell again from the same start under ``health_check``,
+   one chain losing its last commit and one poisoned at the second: the
+   lost commit leaves that chain bitwise (parameters and ring head), the
+   poisoned chain is quarantined, restored and respawned from its donor at
+   the boundary, the other two chains are bitwise phase 8c's; then
+   ``save_ensemble`` (GB, seconds), the engine freed,
+   ``DecodeEngine.from_checkpoint`` (seconds) greedy-decodes the tokens
+   ``DecodeEngine.from_cluster`` decoded from memory; (c) a run checkpoint
+   at full width, cut to 2 chains at 1 layer (tau 1, ~10 GB): restored
+   into a fresh carry bitwise, and resumed for one chunk bitwise the
+   uninterrupted run.  Checkpoints go to a temporary directory in the
+   checkout, deleted after use.
 
 Before it, one JSON object with the paper path's numbers (phase 7c).
 The line before the last is one JSON object with each kernel's numbers;
@@ -535,8 +561,8 @@ def ring_of(torch, gen, dtype, depth, n):
     return h.to(dtype)
 
 
-def draw_table(torch, np, dg, key, maxval):
-    return _device_table(torch, np, dg.randint_rows([key], [maxval]))
+def draw_table(torch, np, dg, key, maxval, head=0):
+    return _device_table(torch, np, dg.randint_rows([key], [maxval], [head]))
 
 
 def run_gather_checks(torch, np, dg, ref) -> tuple:
@@ -561,15 +587,15 @@ def run_gather_checks(torch, np, dg, ref) -> tuple:
                 # out-of-range delays: negative and >= depth
                 d = torch.randint(-2 * depth, 2 * depth, (1, n), generator=gen,
                                   device="cuda", dtype=torch.int32)
-                check(bitwise_equal(torch, dg.delay_gather(h, d, head),
-                                ref.delay_gather_ref(h, d, head)),
+                check(bitwise_equal(torch, dg.delay_gather(h, d, [head]),
+                                ref.delay_gather_ref(h, d, [head])),
                       f"delay_gather {dtype} n={n} depth={depth}: not bit for "
                       "bit the plain gather")
                 for maxval in sorted({1, (depth + 1) // 2, depth}):
                     key = (n + maxval, depth)
                     check(bitwise_equal(torch, dg.wicon_read(
-                        h, draw_table(torch, np, dg, key, maxval), [maxval], head),
-                        ref.wicon_read_ref(h, [key], [maxval], head)),
+                        h, draw_table(torch, np, dg, key, maxval, head), [maxval], [head]),
+                        ref.wicon_read_ref(h, [key], [maxval], [head])),
                           f"wicon_read {dtype} n={n} depth={depth} maxval="
                           f"{maxval}: not bit for bit the plain read")
                     reads += 1
@@ -577,32 +603,32 @@ def run_gather_checks(torch, np, dg, ref) -> tuple:
         f"and {1 << 20}, f32/bf16/int32, depth 1-5)")
     n, depth, head, key = LARGEST_LEAF, 3, 2, (0xC0FFEE, 9)
     hist = torch.randn(1, depth, n, generator=gen, device="cuda").to(torch.bfloat16)
-    table = draw_table(torch, np, dg, key, depth)
-    got, want = dg.wicon_read(hist, table, [depth], head), ref.wicon_read_ref(
-        hist, [key], [depth], head)
+    table = draw_table(torch, np, dg, key, depth, head)
+    got, want = dg.wicon_read(hist, table, [depth], [head]), ref.wicon_read_ref(
+        hist, [key], [depth], [head])
     check(bitwise_equal(torch, got, want),
           f"wicon_read n={n}: not bit for bit the plain read")
     del got, want
     wic = {"entry": "wicon_read", "max_abs_err": 0.0,
-           "ms": cuda_ms(torch, [lambda: dg.wicon_read(hist, table, [depth], head)], 20),
+           "ms": cuda_ms(torch, [lambda: dg.wicon_read(hist, table, [depth], [head])], 20),
            "plain_ms": cuda_ms(torch, [lambda: ref.wicon_read_ref(
-               hist, [key], [depth], head)], 1),
+               hist, [key], [depth], [head])], 1),
            "library_ms": None,  # no one PyTorch call draws and gathers
            "bytes": n * (2 + 2), "ops": DELAY_OPS * n}  # element in, out
     wic["bound_ms"], wic["bound_by"] = bound(wic["bytes"], wic["ops"], ALU_OPS)
     delays = dg.coordinate_delays(table, n, [depth])
     check(torch.equal(delays, ref.coordinate_delays_ref([key], n, [depth], "cuda")),
           f"coordinate_delays n={n}: differs from the plain draw")
-    got, want = dg.delay_gather(hist, delays, head), ref.delay_gather_ref(
-        hist, delays, head)
+    got, want = dg.delay_gather(hist, delays, [head]), ref.delay_gather_ref(
+        hist, delays, [head])
     check(bitwise_equal(torch, got, want),
           f"delay_gather n={n}: not bit for bit the plain gather")
     slots = torch.remainder(head - delays.long(), depth)[:, None]
     del got, want
     gat = {"entry": "delay_gather", "max_abs_err": 0.0,
-           "ms": cuda_ms(torch, [lambda: dg.delay_gather(hist, delays, head)], 20),
+           "ms": cuda_ms(torch, [lambda: dg.delay_gather(hist, delays, [head])], 20),
            "plain_ms": cuda_ms(torch, [lambda: ref.delay_gather_ref(
-               hist, delays, head)], 5),
+               hist, delays, [head])], 5),
            "library_ms": cuda_ms(torch, [lambda: torch.gather(hist, 1, slots)], 10),
            "bytes": n * (4 + 2 + 2), "ops": 4 * n}  # delay, element in, out
     gat["bound_ms"], gat["bound_by"] = bound(gat["bytes"], gat["ops"], ALU_OPS)
@@ -672,13 +698,23 @@ def run_chain_checks(torch, np, lu, dg, ref) -> dict:
                   f"langevin_update C={C} n={n} {dtype}: max |err| {err}")
             h = torch.randn(C, 3, n, generator=gen, device="cuda").to(dtype)
             keys, maxvals = rng.split((C, n), C), [1 + c % 3 for c in range(C)]
-            table = _device_table(torch, np, dg.randint_rows(keys, maxvals))
-            got = dg.wicon_read(h, table, maxvals, 1)
-            check(bitwise_equal(torch, got, ref.wicon_read_ref(h, keys, maxvals, 1))
+            heads = [(1 + c) % 3 for c in range(C)]  # parted by masked commits
+            table = _device_table(torch, np, dg.randint_rows(keys, maxvals, heads))
+            got = dg.wicon_read(h, table, maxvals, heads)
+            check(bitwise_equal(torch, got, ref.wicon_read_ref(h, keys, maxvals, heads))
                   and all(bitwise_equal(torch, got[c], dg.wicon_read(
-                      h[c:c + 1].clone(), draw_table(torch, np, dg, keys[c], maxvals[c]),
-                      [maxvals[c]], 1)[0]) for c in range(C)),
+                      h[c:c + 1].clone(), draw_table(torch, np, dg, keys[c], maxvals[c],
+                                                     heads[c]),
+                      [maxvals[c]], [heads[c]])[0]) for c in range(C)),
                   f"wicon_read C={C} n={n} {dtype}: not bit for bit")
+            wild = (torch.randint(-7, 9, (C, n), generator=gen, device="cuda")
+                    .to(torch.int32))
+            got = dg.delay_gather(h, wild, heads)
+            check(bitwise_equal(torch, got, ref.delay_gather_ref(h, wild, heads))
+                  and all(bitwise_equal(torch, got[c], dg.delay_gather(
+                      h[c:c + 1].clone(), wild[c:c + 1].clone(), [heads[c]])[0])
+                      for c in range(C)),
+                  f"delay_gather C={C} n={n} {dtype} (a head a chain): not bit for bit")
             d = dg.coordinate_delays(table, n, maxvals)
             check(torch.equal(d, ref.coordinate_delays_ref(keys, n, maxvals, "cuda")),
                   f"coordinate_delays C={C} n={n}: not the plain draw")
@@ -713,18 +749,19 @@ def run_chain_checks(torch, np, lu, dg, ref) -> dict:
         torch.cuda.empty_cache()
         h = torch.randn(C, 3, n, generator=gen, device="cuda").to(torch.bfloat16)
         keys, head = rng.split((C, n + 1), C), 2
-        table = _device_table(torch, np, dg.randint_rows(keys, maxvals))
+        heads = [head] * C  # every chain committed: the fault-free heads
+        table = _device_table(torch, np, dg.randint_rows(keys, maxvals, heads))
         want, plain_ms = _timed_once(torch, lambda: ref.wicon_read_ref(
-            h, keys, maxvals, head))
-        got = dg.wicon_read(h, table, maxvals, head)
+            h, keys, maxvals, heads))
+        got = dg.wicon_read(h, table, maxvals, heads)
         check(bitwise_equal(torch, got, want) and bitwise_equal(
             torch, got[0], dg.wicon_read(h[:1].clone(), draw_table(
-                torch, np, dg, keys[0], maxvals[0]), maxvals[:1], head)[0]),
+                torch, np, dg, keys[0], maxvals[0], head), maxvals[:1], [head])[0]),
             f"wicon_read {leaf}: not bit for bit")
         del got, want
         ops = _draw_ops(maxvals) * C * n
         row = {"leaf": leaf, "chains": C, "n": n, "maxvals": maxvals, "max_abs_err": 0.0,
-               "ms": cuda_ms(torch, [lambda: dg.wicon_read(h, table, maxvals, head)], 10),
+               "ms": cuda_ms(torch, [lambda: dg.wicon_read(h, table, maxvals, heads)], 10),
                "plain_ms": plain_ms, "library_ms": None,
                "bytes": C * n * (2 + 2), "ops": ops}
         row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"], ALU_OPS)
@@ -741,13 +778,13 @@ def run_chain_checks(torch, np, lu, dg, ref) -> dict:
         row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"], ALU_OPS)
         cases["draw"].append(row)
         if leaf == "stack4":
-            want, plain_ms = _timed_once(torch, lambda: ref.delay_gather_ref(h, d, head))
-            check(bitwise_equal(torch, dg.delay_gather(h, d, head), want),
+            want, plain_ms = _timed_once(torch, lambda: ref.delay_gather_ref(h, d, heads))
+            check(bitwise_equal(torch, dg.delay_gather(h, d, heads), want),
                   f"delay_gather {leaf}: not the plain gather")
             del want
             slots = torch.remainder(head - d.long(), 3)[:, None]
             row = {"leaf": leaf, "chains": C, "n": n, "max_abs_err": 0.0,
-                   "ms": cuda_ms(torch, [lambda: dg.delay_gather(h, d, head)], 10),
+                   "ms": cuda_ms(torch, [lambda: dg.delay_gather(h, d, heads)], 10),
                    "plain_ms": plain_ms,
                    "library_ms": cuda_ms(torch, [lambda: torch.gather(h, 1, slots)], 5),
                    "bytes": C * n * (4 + 2 + 2), "ops": 4 * C * n}
@@ -759,6 +796,91 @@ def run_chain_checks(torch, np, lu, dg, ref) -> dict:
     for name, rows in cases.items():
         log(f"chain-axis {name}", json.dumps(rows))
     return cases
+
+
+def run_mask_checks(torch, np, lu, dg, ref) -> dict:
+    """The masked commit's kernel cases: C 4 chains, chains 1 and 3
+    skipped (their gradient rows NaN), an Inf in chain 2's gradient.
+    Skipped rows must be bitwise untouched, kept rows bitwise the unmasked
+    kernel, the non-finite flags equal ``torch.isfinite`` of the output
+    and the plain version's flags: on a ragged leaf (bf16, f32) and the
+    4-layer stacked leaf (bf16), timed there with the flags written and
+    with one chain skipped; then the W-Icon read over heads that differ a
+    chain on the stacked leaf, against its plain version and each chain
+    alone, timed."""
+    from repro_torch.kernels import rng
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    C, skip = 4, np.array([False, True, False, True])
+    out = {}
+    for n, dtype in ((RAGGED, torch.bfloat16), (RAGGED, torch.float32),
+                     (STACK4_LEAF, torch.bfloat16)):
+        x = (torch.randn(C, n, generator=gen, device="cuda") * 0.02).to(dtype)
+        g = (torch.randn(C, n, generator=gen, device="cuda") * 1e-2).to(dtype)
+        g[1].fill_(float("nan"))
+        g[3, :7] = float("nan")
+        g[2, n // 3] = float("inf")
+        seeds = rng.split((n, 5), C)
+        gammas = np.full(C, 1e-3, np.float32)
+        scales = np.full(C, np.sqrt(np.float32(2e-5) * np.float32(1e-3)), np.float32)
+        full = _device_table(torch, np, lu.chain_rows(seeds, gammas, scales))
+        masked = _device_table(torch, np, lu.chain_rows(seeds, gammas, scales, skip))
+        plain = lu.langevin_update(x.clone(), g, full)
+        flags = torch.zeros(C, dtype=torch.int32, device="cuda")
+        got = lu.langevin_update(x.clone(), g, masked, flags)
+        torch.cuda.synchronize()
+        name = f"{n}_{str(dtype).replace('torch.', '')}"
+        check(all(bitwise_equal(torch, got[c], x[c] if skip[c] else plain[c])
+                  for c in range(C)),
+              f"langevin_update skip {name}: a skipped row moved, or a kept row is "
+              "not the unmasked kernel's")
+        finite = (~torch.isfinite(got).all(dim=1)).to(torch.int32)
+        check(flags.tolist() == finite.tolist() == [0, 0, 1, 0],
+              f"langevin_update flags {name}: {flags.tolist()}, isfinite says "
+              f"{finite.tolist()}")
+        if n == RAGGED:
+            want_flags = torch.zeros(C, dtype=torch.int32)
+            want = ref.langevin_update_ref(x.clone(), g, seeds, gammas, scales, skip,
+                                           want_flags)
+            check(want_flags.tolist() == flags.tolist(),
+                  f"langevin_update flags {name}: plain version's {want_flags.tolist()}")
+            keep = torch.from_numpy(~skip).to("cuda")
+            err = (got[keep].float() - want[keep].float()).nan_to_num(0, 0, 0).abs().max().item()
+            check(err <= 2e-6 if dtype == torch.float32 else within_bf16_ulp(
+                torch, got[keep].nan_to_num(0), want[keep].nan_to_num(0)),
+                f"langevin_update skip {name}: max |err| {err} against the plain version")
+            del want
+        else:
+            g[1].zero_()
+            g[3].zero_()
+            g[2].zero_()
+            out = {"leaf": "stack4", "chains": C, "n": n,
+                   "ms": cuda_ms(torch, [lambda: lu.langevin_update(x, g, full)], 10),
+                   "flags_ms": cuda_ms(torch, [lambda: lu.langevin_update(
+                       x, g, full, flags)], 10),
+                   "one_skipped_ms": cuda_ms(torch, [lambda: lu.langevin_update(
+                       x, g, _device_table(torch, np, lu.chain_rows(
+                           seeds, gammas, scales, [False, True, False, False])))], 10)}
+        del x, g, plain, got
+        torch.cuda.empty_cache()
+    n, maxvals, heads = STACK4_LEAF, [3, 3, 2, 1], [2, 1, 2, 0]
+    h = torch.randn(C, 3, n, generator=gen, device="cuda").to(torch.bfloat16)
+    keys = rng.split((C, n + 3), C)
+    table = _device_table(torch, np, dg.randint_rows(keys, maxvals, heads))
+    got = dg.wicon_read(h, table, maxvals, heads)
+    check(bitwise_equal(torch, got, ref.wicon_read_ref(h, keys, maxvals, heads))
+          and all(bitwise_equal(torch, got[c], dg.wicon_read(
+              h[c:c + 1].clone(), draw_table(torch, np, dg, keys[c], maxvals[c], heads[c]),
+              [maxvals[c]], [heads[c]])[0]) for c in range(C)),
+          "wicon_read stack4, a head a chain: not bit for bit")
+    out["read_mixed_heads_ms"] = cuda_ms(torch, [lambda: dg.wicon_read(
+        h, table, maxvals, heads)], 10)
+    del h, got
+    torch.cuda.empty_cache()
+    log("masked-commit kernels: skipped rows untouched, kept rows == the unmasked "
+        "kernel, flags == torch.isfinite == the plain flags (ragged bf16/f32, stack4); "
+        "the read over a head a chain == plain and each chain alone", json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1267,9 +1389,11 @@ def cluster_quickstart(torch, np, kernels) -> dict:
     return out
 
 
-def cluster_path(torch, np, kernels) -> dict:
+def cluster_path(torch, np, kernels, keep=()) -> dict:
     """(c) 4 chains of qwen3-4b at its published widths, CLUSTER_LAYERS
-    layers, fused W-Icon at tau 2, 3 commits in one chunk."""
+    layers, fused W-Icon at tau 2, 3 commits in one chunk.  ``keep``:
+    chains whose final parameters come back on the host (phase 9b holds
+    its chains against them)."""
     from repro_torch import samplers
     from repro_torch.cluster import ClusterEngine, ensemble_async
     from repro_torch.configs import ShapeConfig, get_arch
@@ -1328,7 +1452,333 @@ def cluster_path(torch, np, kernels) -> dict:
         f"launches {got}")
     return {"launches": got, "ms_per_commit": ms, "wall_s": wall, "peak_gb": peak / 1e9,
             "chains": C, "layers": cfg.num_layers,
-            "losses": losses.tolist()}
+            "losses": losses.tolist(),
+            "final": {c: [t[c].cpu() for t in leaves] for c in keep}}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the main path, part 6 — faults, checkpoints and self-healing
+# ---------------------------------------------------------------------------
+CHAOS = dict(crash_rate=0.15, mean_downtime=2.0, pause_rate=0.1, mean_pause=1.0)
+
+
+def _registry_value(name: str) -> float:
+    from repro_torch.obs.metrics import registry
+
+    return registry().snapshot().get(name, {}).get("value", 0.0)
+
+
+def _ckpt_dir():
+    """A temporary directory inside the checkout (deleted after use): the
+    checkpoints of phase 9 are several GB."""
+    import tempfile
+
+    return tempfile.TemporaryDirectory(prefix="_ckpt", dir=ROOT)
+
+
+def cluster_fault_check(torch, np, kernels) -> dict:
+    """(a) The ClusterEngine under a FaultPlan chaos schedule, a nan_storm
+    and health_check with respawn: 8 chains x 40 commits of the d=4
+    quadratic, tau 32, fused W-Icon and fused W-Con, on the card and on the
+    CPU: iterates within PAPER_ATOL + PAPER_RTOL x |CPU|, health masks at
+    every chunk boundary, respawn counts, keys and ring heads equal; the
+    update once a commit (and the read once a commit in W-Icon) on the
+    card, whatever was masked.  Then the card's W-Icon run interrupted at
+    commit 20 and resumed from its run checkpoint is bitwise the
+    uninterrupted run."""
+    from repro_torch import samplers
+    from repro_torch.cluster import ClusterEngine, ensemble_async
+    from repro_torch.core import FaultPlan, Quadratic, WorkerModel
+    from repro_torch.faults import nan_storm
+    from repro_torch.kernels import rng
+
+    C, steps, tau = 8, 40, 32
+    scheds = ensemble_async(WorkerModel(num_workers=4, seed=1, faults=FaultPlan(**CHAOS)),
+                            steps, C, seed=0)
+    poison = nan_storm(steps, C, rate=0.02, seed=7)
+    lost = sum(s.num_lost for s in scheds)
+    check(lost > 0 and poison.any(), f"fault (a): {lost} lost commits, "
+          f"{int(poison.sum())} poisons")
+
+    def build(mode, dev, hooks=()):
+        quad = Quadratic.make(rng.PRNGKey(0), d=4, m=1.0, L=3.0, device=dev)
+        sampler = samplers.sgld(mode, lambda p, b, q=quad: q.grad(p, b), gamma=0.01,
+                                sigma=0.5, tau=tau, fused=True)
+        engine = ClusterEngine(sampler, num_chains=C, chunk_size=10, health_check=True,
+                               hooks=list(hooks))
+        return engine, engine.init(torch.zeros(4, device=dev), rng.PRNGKey(42))
+
+    out, launches, card_runs = {}, dict.fromkeys(kernels, 0), {}
+    for mode in ("inconsistent", "consistent"):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            seen = []
+            engine, state = build(mode, dev, [lambda n, st, aux: seen.append(st.health.copy())])
+            r0 = _registry_value("chains.respawned")
+            _reset(kernels)
+            state, _ = engine.run(state, steps=steps, schedule=scheds, poison=poison)
+            got = _counts(kernels)
+            runs[dev] = (state, seen, _registry_value("chains.respawned") - r0)
+            if dev == "cuda":
+                want = dict.fromkeys(kernels, 0)
+                want["langevin_update"] = steps
+                if mode == "inconsistent":
+                    want["wicon_read"] = steps
+                check(got == want, f"fault (a) {mode}: launches {got}, want {want}")
+                launches = {k: launches[k] + got[k] for k in kernels}
+                card_runs[mode] = state
+        (a, sa, ra), (b, sb, rb) = runs["cpu"], runs["cuda"]
+        pa, pb = a.params.numpy(), b.params.cpu().numpy()
+        err = float(np.abs(pa - pb).max())
+        check(np.isfinite(pb).all() and np.allclose(pb, pa, rtol=PAPER_RTOL, atol=PAPER_ATOL),
+              f"fault (a) {mode}: card and CPU differ by {err}")
+        check(all(np.array_equal(x, y) for x, y in zip(sa, sb)) and len(sa) == len(sb),
+              f"fault (a) {mode}: health masks differ: {sa} vs {sb}")
+        check(ra == rb and ra > 0, f"fault (a) {mode}: respawns {ra} (CPU) vs {rb} (card)")
+        check(a.key == b.key and torch.equal(a.inner[0].head, b.inner[0].head),
+              f"fault (a) {mode}: keys or ring heads differ")
+        quarantined = [int((~h).sum()) for h in sb]
+        out[mode] = {"max_abs_err": err, "respawned": rb, "quarantined_by_chunk": quarantined}
+        log(f"fault (a) {mode}: {C} chains x {steps} commits, {lost} lost, "
+            f"{int(poison.sum())} poisoned; card == CPU within {err:.3g}; quarantined a "
+            f"chunk {quarantined}, {int(rb)} respawned on both")
+    # interrupt at commit 20, resume to 40: bitwise the uninterrupted card run
+    full = card_runs["inconsistent"]
+    with _ckpt_dir() as tmp:
+        ck = str(Path(tmp) / "run.npz")
+        engine, state = build("inconsistent", "cuda")
+        engine.run(state, steps=20, schedule=scheds, poison=poison[:20], checkpoint_path=ck)
+        engine, state = build("inconsistent", "cuda")
+        res, _ = engine.resume(ck, state, steps=steps, schedule=scheds, poison=poison)
+    same = (torch.equal(res.params, full.params) and res.key == full.key
+            and np.array_equal(res.health, full.health) and res.step == full.step
+            and torch.equal(res.inner[0].history, full.inner[0].history)
+            and torch.equal(res.inner[0].head, full.inner[0].head))
+    check(same, "fault (a): the resumed run is not bitwise the uninterrupted one")
+    log("fault (a): interrupted at commit 20 and resumed: bitwise the uninterrupted run")
+    out["launches"] = launches
+    return out
+
+
+def cluster_fault_path(torch, np, kernels, base: dict) -> dict:
+    """(b) Phase 8c's cell (4 chains of qwen3-4b's widths at CLUSTER_LAYERS
+    layers, fused W-Icon, tau 2, 3 commits in one chunk, the same start,
+    schedules and batches) under health_check, with chain 1's last commit
+    lost and chain 2 poisoned at the second commit: the lost commit leaves
+    chain 1's parameters and ring head bitwise; chain 2 is quarantined,
+    restored to its pre-commit iterate, and respawned from chain 0 at the
+    boundary; chains 0 and 3 are bitwise phase 8c's (``base``).  Then the
+    bank is saved (``save_ensemble``), the engine freed, and
+    ``DecodeEngine.from_checkpoint`` greedy-decodes 8 tokens for 2
+    prompts, as ``DecodeEngine.from_cluster`` did on the bank in memory."""
+    from repro_torch import samplers
+    from repro_torch.cluster import ClusterEngine, DecodeEngine, ensemble_async
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.core import WorkerModel
+    from repro_torch.core.delay import heads
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import rng
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.train.loop import make_grad_fn
+    from repro_torch.utils import tree_leaves
+
+    C, steps, tau, LOST, POISONED = 4, 3, 2, 1, 2
+    cfg = replace(get_arch("qwen3-4b"), num_layers=CLUSTER_LAYERS)
+    shape = ShapeConfig("cluster", seq_len=128, global_batch=8, kind="train")
+    model = Model(cfg, device="cuda")
+    sampler = samplers.sgld("inconsistent", make_grad_fn(model), gamma=1e-3,
+                            sigma=1e-5, tau=tau, has_aux=True, fused=True)
+    seen = []
+    engine = ClusterEngine(sampler, num_chains=C, chunk_size=steps, collect_aux=True,
+                           health_check=True,
+                           batch_fn=lambda gen: make_batch(cfg, shape, gen, "train"),
+                           hooks=[lambda n, st, aux: seen.append(st.health.copy())])
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", num_chains=1)
+    state = engine.init(params, rng.PRNGKey(0))
+    del params
+    schedules = ensemble_async(WorkerModel(num_workers=8), steps, C, seed=0)
+    alive = np.ones(steps, bool)
+    alive[steps - 1] = False
+    schedules[LOST] = replace(schedules[LOST], alive=alive)
+    poison = np.zeros((steps, C), bool)
+    poison[1, POISONED] = True
+    checks = []
+    advance = engine._advance
+
+    def spy(carry, batches, ex):
+        k = len(checks)
+        watch = LOST if k == steps - 1 else POISONED if k == 1 else None
+        if watch is None:
+            checks.append(True)
+            return advance(carry, batches, ex)
+        before = [t[watch].clone() for t in tree_leaves(carry.params)]
+        head = heads(carry.inner[0])[watch]
+        carry, aux = advance(carry, batches, ex)
+        ok = (all(torch.equal(a, t[watch]) for a, t in zip(before, tree_leaves(carry.params)))
+              and heads(carry.inner[0])[watch] == head)
+        if watch == POISONED:
+            ok = ok and not carry.health[POISONED]
+        checks.append(ok)
+        del before
+        return carry, aux
+
+    engine._advance = spy
+    counts0 = {k: _registry_value(k) for k in ("chains.quarantined", "chains.respawned",
+                                              "faults.injected")}
+    _reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, aux = engine.run(state, steps=steps, schedule=schedules, key=0, poison=poison)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _counts(kernels)
+    leaves = tree_leaves(state.params)
+    deltas = {k: _registry_value(k) - v for k, v in counts0.items()}
+    check(checks == [True, True, True],
+          f"fault (b): commit checks {checks} (commit 2: chain {POISONED} poisoned, "
+          f"quarantined and restored; commit 3: chain {LOST}'s lost commit a no-op)")
+    check(len(seen) == 1 and seen[0].tolist() == [True, True, False, True]
+          and state.health.all(),
+          f"fault (b): health at the boundary {seen}, after it {state.health}")
+    check(deltas == {"chains.quarantined": 1.0, "chains.respawned": 1.0,
+                     "faults.injected": 2.0}, f"fault (b): counters {deltas}")
+    check(all(torch.equal(t[POISONED], t[0]) for t in leaves)
+          and heads(state.inner[0])[POISONED] == heads(state.inner[0])[0],
+          "fault (b): the respawned chain is not its donor's clone")
+    for c, want in base["final"].items():
+        check(all(torch.equal(t[c].cpu(), w) for t, w in zip(leaves, want)),
+              f"fault (b): chain {c} is not bitwise phase 8c's")
+    want = dict.fromkeys(kernels, 0)
+    want.update(langevin_update=len(leaves) * steps, wicon_read=len(leaves) * steps)
+    check(got == want, f"fault (b): launches {got}, want {want}")
+    losses = aux["loss"]
+    check(losses.shape == (steps, C) and np.isfinite(losses).all(),
+          f"fault (b): losses {losses}")
+    ms = wall * 1e3 / steps
+    log(f"fault (b): {C} x {cfg.name} at {cfg.num_layers} layers, health_check: chain "
+        f"{POISONED} poisoned at commit 2, quarantined, restored and respawned from chain 0; "
+        f"chain {LOST}'s lost commit left it bitwise; chains {sorted(base['final'])} == "
+        f"phase 8c bitwise; {ms:.2f} ms a commit (8c without health_check: "
+        f"{base['ms_per_commit']:.2f}); launches {got}")
+
+    prompts = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    eng = DecodeEngine.from_cluster(state, cfg, max_seq=64, device="cuda")
+    check(eng.num_chains == C, f"fault (b): from_cluster serves {eng.num_chains} chains")
+    tokens = eng.generate(prompts, 8).tokens
+    with _ckpt_dir() as tmp:
+        path = Path(tmp) / "bank.npz"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.save_ensemble(state, str(path))
+        write_s = time.perf_counter() - t0
+        gb = path.stat().st_size / 1e9
+        del eng, state, leaves, engine, spy, advance, aux
+        gc.collect()
+        torch.cuda.empty_cache()
+        like = init_params(cfg, device="meta", num_chains=1)
+        t0 = time.perf_counter()
+        eng = DecodeEngine.from_checkpoint(str(path), like, cfg, max_seq=64, device="cuda")
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+    again = eng.generate(prompts, 8).tokens
+    check(eng.num_chains == C and np.array_equal(tokens, again),
+          f"fault (b): from_checkpoint tokens {again.tolist()}, from_cluster "
+          f"{tokens.tolist()}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"fault (b): save_ensemble {gb:.2f} GB in {write_s:.1f} s, from_checkpoint in "
+        f"{read_s:.1f} s; 8 greedy tokens x 2 prompts equal from the file and from memory "
+        f"({tokens.tolist()})")
+    return {"launches": got, "ms_per_commit": ms, "ms_per_commit_8c": base["ms_per_commit"],
+            "bank_gb": gb, "write_s": write_s, "read_s": read_s, "tokens": tokens.tolist()}
+
+
+def run_checkpoint_path(torch, np, kernels) -> dict:
+    """(c) A run checkpoint at full width, cut to 2 chains of qwen3-4b's
+    widths at 1 layer, fused W-Icon, tau 1, health_check, one commit a
+    chunk: the run's checkpoint after commit 1 restores into a fresh carry
+    bitwise (every tensor, key, head and the health mask), and resuming it
+    for one chunk is bitwise the uninterrupted 2-commit run.  Files go to a
+    temporary directory, deleted after use."""
+    from repro_torch import samplers
+    from repro_torch.cluster import ClusterEngine, WorkerSchedule
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import rng
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.checkpoint import leaf_paths
+    from repro_torch.train.loop import make_grad_fn
+    from repro_torch.utils import tree_leaves
+
+    C, tau, steps = 2, 1, 2
+    cfg = replace(get_arch("qwen3-4b"), num_layers=1)
+    shape = ShapeConfig("ckpt", seq_len=128, global_batch=8, kind="train")
+    sampler = samplers.sgld("inconsistent", make_grad_fn(Model(cfg, device="cuda")),
+                            gamma=1e-3, sigma=1e-5, tau=tau, has_aux=True, fused=True)
+    engine = ClusterEngine(sampler, num_chains=C, chunk_size=1, health_check=True,
+                           batch_fn=lambda gen: make_batch(cfg, shape, gen, "train"))
+    schedule = WorkerSchedule.from_delays(np.array([0, 1]))
+
+    def start():
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                             device="cuda", num_chains=1)
+        return engine.init(params, rng.PRNGKey(1))
+
+    def host(carry):
+        return ([t.cpu() for t in tree_leaves(carry.params)],
+                [t.cpu() for _, t in leaf_paths(carry.inner)],
+                carry.key, carry.step, carry.health.copy())
+
+    def same(a, b):
+        return (all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+                and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+                and a[2:4] == b[2:4] and np.array_equal(a[4], b[4]))
+
+    _reset(kernels)
+    full, _ = engine.run(start(), steps=steps, schedule=schedule, key=5)
+    launches = _counts(kernels)
+    want_full = host(full)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _ckpt_dir() as tmp:
+        ck = str(Path(tmp) / "run.npz")
+        t0 = time.perf_counter()
+        part, _ = engine.run(start(), steps=1, schedule=schedule, key=5, checkpoint_path=ck)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        gb = Path(ck).stat().st_size / 1e9
+        want_part = host(part)
+        del part
+        gc.collect()
+        torch.cuda.empty_cache()
+        fresh = start()
+        t0 = time.perf_counter()
+        carry, done, _ = engine._load_run_checkpoint(ck, fresh)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        check(done == 1 and same(host(carry), want_part),
+              "run checkpoint: the restored carry is not bitwise the saved one")
+        del carry, fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out, _ = engine.resume(ck, start(), steps=steps, schedule=schedule, key=5)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    check(same(host(out), want_full),
+          "run checkpoint: the resumed chunk is not bitwise the uninterrupted run")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"fault (c): run checkpoint of {C} x {cfg.name} at 1 layer, tau {tau}: {gb:.2f} GB, "
+        f"the 1-commit run with its write {run_s:.1f} s, read into a fresh carry "
+        f"{read_s:.1f} s (bitwise), resume of one chunk {resume_s:.1f} s (bitwise the "
+        f"uninterrupted run)")
+    return {"launches": launches, "run_gb": gb, "run_with_write_s": run_s,
+            "read_s": read_s, "resume_s": resume_s}
 
 
 def main() -> int:
@@ -1389,6 +1839,7 @@ def main() -> int:
     wic, gat, dly = run_gather_checks(torch, np, dg, ref)
     torch.cuda.empty_cache()
     chains = run_chain_checks(torch, np, lu, dg, ref)
+    masks = run_mask_checks(torch, np, lu, dg, ref)
     reference_check(torch, np)
     training_reference_check(torch, np, lu, dg)
     from repro_torch.configs import get_arch
@@ -1411,7 +1862,13 @@ def main() -> int:
     cq = cluster_quickstart(torch, np, sgld_kernels)
     gc.collect()
     torch.cuda.empty_cache()
-    cp = cluster_path(torch, np, sgld_kernels)
+    cp = cluster_path(torch, np, sgld_kernels, keep=(0, 3))
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa = cluster_fault_check(torch, np, sgld_kernels)
+    fb = cluster_fault_path(torch, np, sgld_kernels, cp)
+    del cp["final"]
+    fc = run_checkpoint_path(torch, np, sgld_kernels)
 
     def cases(runs):
         return [{k: r[k] for k in ("smax", "valid", "maxp", "pos", "splits",
@@ -1460,7 +1917,8 @@ def main() -> int:
              "src/repro/core/delay.py:118", dly, ("coordinate_delays",), "draw")):
         by_path = {path: sum(run["launches"][k] for k in counters)
                    for path, run in (("train", tp), ("paper", pp), ("paper_fused", pf),
-                                     ("cluster", cp))}
+                                     ("cluster", cp), ("faults", fa), ("fault_path", fb),
+                                     ("run_checkpoint", fc))}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
@@ -1470,11 +1928,13 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "chain_cases": chains[chain_case]
             + (chains["gather"] if chain_case == "read" else [])})
+    kernels[2]["masked_cases"] = masks
     kernels[-2]["cases"] = [
         {k: r[k] for k in ("entry", "max_abs_err", "ms", "plain_ms", "bound_ms",
                            "bound_by", "library_ms")} for r in (wic, gat)]
     log(json.dumps({"paper": {k: v for k, v in pp.items() if k != "launches"}}))
     log(json.dumps({"cluster": {"reference": ca, "quickstart": cq, "full_width": cp}}))
+    log(json.dumps({"faults": {"chaos": fa, "full_width": fb, "run_checkpoint": fc}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

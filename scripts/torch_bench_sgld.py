@@ -42,8 +42,17 @@ that the data never takes is counted too.
 
 With ``--train`` it runs, for each source, that tree's own
 ``chip_smoke.train_path`` instead (6 fused W-Icon commits of one full-width
-qwen3-4b chain) and prints its ms per commit: host-bound numbers, so
-compare trees only in turns within one call.
+qwen3-4b chain) and prints its ms per commit, and with ``--cluster`` that
+tree's ``chip_smoke.cluster_path`` (phase 8c: 3 fused W-Icon commits of 4
+chains of qwen3-4b at 4 layers; run twice, the first a warm-up):
+host-bound numbers, so compare trees only in turns within one call.
+
+With ``--chains`` it times instead, at C 4 chains on the 4-layer stacked
+leaf (4 x 2560 x 9728 bf16 a chain, ``chip_smoke.STACK4_LEAF``; maxvals
+3, 3, 2, 1 as ``chip_smoke.py`` phase 2 times them), the update and the
+one-pass read; and, for a tree whose update takes a skip word and a flag
+output, the update writing the non-finite flags (the ``health_check``
+path) and the update with one chain skipped.
 
 Prints the card's name, power limit and SM clock, then one JSON object a
 line.
@@ -183,14 +192,30 @@ def run_one(src: str, iters: int, sass: bool) -> None:
     hist = torch.randn(depth, n, generator=gen, device="cuda").to(torch.bfloat16)
     seed, gamma = (0x1234ABCD, 77), np.float32(1e-3)
     scale = np.sqrt(np.float32(2.0 * 1e-5) * gamma)
-    if len(inspect.signature(lu.langevin_update).parameters) == 3:
-        # kernels over a chain axis: one chain, C = 1, tables made once
-        def table(rows):
-            return torch.from_numpy(rows.view(np.int32)).to("cuda")
-
+    if _per_chain_heads(lu):
+        # kernels over a chain axis with a head a chain: C = 1, tables once
         x1, g1, hist1 = x[None], g[None], hist[None]
-        ut = table(lu.chain_rows([seed], [gamma], [scale]))
-        dt = {m: table(dg.randint_rows([key], [m])) for m in (2, depth)}
+        ut = _table(lu.chain_rows([seed], [gamma], [scale]))
+        dt = {m: _table(dg.randint_rows([key], [m], [head])) for m in (2, depth)}
+        delays = dg.coordinate_delays(dt[depth], n, [depth])
+
+        def update():
+            return lu.langevin_update(x1, g1, ut)
+
+        def draw():
+            return dg.coordinate_delays(dt[depth], n, [depth])
+
+        def gather():
+            return dg.delay_gather(hist1, delays, [head])
+
+        def read(maxval=depth):
+            return dg.wicon_read(hist1, dt[maxval], [maxval], [head])
+        kernels = 1
+    elif len(inspect.signature(lu.langevin_update).parameters) == 3:
+        # kernels over a chain axis under one shared head: C = 1, tables once
+        x1, g1, hist1 = x[None], g[None], hist[None]
+        ut = _table(lu.chain_rows([seed], [gamma], [scale]))
+        dt = {m: _table(dg.randint_rows([key], [m])) for m in (2, depth)}
         delays = dg.coordinate_delays(dt[depth], n, [depth])
 
         def update():
@@ -268,7 +293,73 @@ def run_one(src: str, iters: int, sass: bool) -> None:
                           "calls": len(single)}), flush=True)
 
 
-def run_train(src: str) -> None:
+def _table(rows):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(rows).view(np.int32)).to("cuda")
+
+
+def _per_chain_heads(lu) -> bool:
+    """The tree's kernels take a head a chain (and the update a skip word
+    and a flag output)."""
+    return "flags" in inspect.signature(lu.langevin_update).parameters
+
+
+def run_chains(src: str, iters: int) -> None:
+    """The update and the one-pass read at C 4 on the 4-layer stacked
+    leaf, as ``chip_smoke.py`` phase 2 times them (PERF.md rows 3c, 4c)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, src)
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import build, rng
+    from repro_torch.kernels import delay_gather as dg
+    from repro_torch.kernels import langevin_update as lu
+
+    build.build(["delay_gather", "langevin_update"])
+    C, n, maxvals, head = 4, cs.STACK4_LEAF, [3, 3, 2, 1], 2
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    seeds = rng.split((n, C), C)
+    gammas = np.full(C, 1e-3, np.float32)
+    scales = np.full(C, np.sqrt(np.float32(2e-5) * np.float32(1e-3)), np.float32)
+    x = (torch.randn(C, n, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    g = (torch.randn(C, n, generator=gen, device="cuda") * 1e-2).to(torch.bfloat16)
+    new = _per_chain_heads(lu)
+    ut = _table(lu.chain_rows(seeds, gammas, scales))
+    cases = {"update": lambda: lu.langevin_update(x, g, ut)}
+    if new:
+        flags = torch.zeros(C, dtype=torch.int32, device="cuda")
+        skip_t = _table(lu.chain_rows(seeds, gammas, scales, [False, True, False, False]))
+        cases["update_flags"] = lambda: lu.langevin_update(x, g, ut, flags)
+        cases["update_one_skipped"] = lambda: lu.langevin_update(x, g, skip_t)
+    res = {"src": src, "chains": C, "n": n}
+    for name, fn in cases.items():
+        res[f"{name}_ms"] = cs.cuda_ms(torch, [fn], iters)
+    del x, g
+    torch.cuda.empty_cache()
+    h = torch.randn(C, 3, n, generator=gen, device="cuda").to(torch.bfloat16)
+    keys = rng.split((C, n + 1), C)
+    if new:
+        heads = [head] * C
+        rt = _table(dg.randint_rows(keys, maxvals, heads))
+        res["read_ms"] = cs.cuda_ms(torch, [lambda: dg.wicon_read(h, rt, maxvals, heads)],
+                                    iters)
+        mixed = [2, 1, 2, 0]  # heads parted by masked commits
+        mt = _table(dg.randint_rows(keys, maxvals, mixed))
+        res["read_mixed_heads_ms"] = cs.cuda_ms(
+            torch, [lambda: dg.wicon_read(h, mt, maxvals, mixed)], iters)
+    else:
+        rt = _table(dg.randint_rows(keys, maxvals))
+        res["read_ms"] = cs.cuda_ms(torch, [lambda: dg.wicon_read(h, rt, maxvals, head)],
+                                    iters)
+    print(json.dumps(res), flush=True)
+
+
+def run_path(src: str, which: str) -> None:
+    """The tree's own ``chip_smoke.train_path`` or ``cluster_path``."""
     import numpy as np
     import torch
 
@@ -281,6 +372,31 @@ def run_train(src: str) -> None:
     from repro_torch.kernels import langevin_update as lu
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    if which == "cluster":
+        import gc
+
+        kernels = {"langevin_update": lu.langevin_update, "wicon_read": dg.wicon_read,
+                   "delay_gather": dg.delay_gather,
+                   "coordinate_delays": dg.coordinate_delays}
+        for run in ("warm-up", "timed"):  # the first run pays the process's set-up
+            out = cs.cluster_path(torch, np, kernels)
+            print(json.dumps({"src": src, "path": "cluster", "run": run,
+                              "ms_per_commit": out["ms_per_commit"],
+                              "wall_s": out["wall_s"], "peak_gb": out["peak_gb"]}),
+                  flush=True)
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
+        return
+    run_train(src, cs)
+
+
+def run_train(src: str, cs) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import delay_gather as dg
+    from repro_torch.kernels import langevin_update as lu
+
     out = cs.train_path(torch, np, lu, dg)
     print(json.dumps({"src": src, "ms_per_commit": out["ms_per_commit"],
                       "tokens_per_s": out["tokens_per_s"],
@@ -297,10 +413,17 @@ def main() -> int:
                     help="also count each kernel's SASS instructions")
     ap.add_argument("--train", action="store_true",
                     help="time each tree's chip_smoke.train_path instead")
+    ap.add_argument("--cluster", action="store_true",
+                    help="time each tree's chip_smoke.cluster_path instead")
+    ap.add_argument("--chains", action="store_true",
+                    help="time the update and the read at C 4 on the 4-layer leaf")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.one and args.train:
-        run_train(args.one)
+    if args.one and (args.train or args.cluster):
+        run_path(args.one, "cluster" if args.cluster else "train")
+        return 0
+    if args.one and args.chains:
+        run_chains(args.one, args.iters)
         return 0
     if args.one:
         run_one(args.one, args.iters, args.sass)
@@ -310,7 +433,9 @@ def main() -> int:
         subprocess.run([sys.executable, __file__, "--one", str(Path(src).resolve()),
                         "--iters", str(args.iters)]
                        + (["--sass"] if args.sass else [])
-                       + (["--train"] if args.train else []), check=True)
+                       + (["--train"] if args.train else [])
+                       + (["--cluster"] if args.cluster else [])
+                       + (["--chains"] if args.chains else []), check=True)
     print(", ".join(smi()), flush=True)
     return 0
 

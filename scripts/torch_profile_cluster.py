@@ -8,6 +8,9 @@ port: the cluster cells of ``chip_smoke.py`` phase 8.
   ``--steps`` commits are profiled in one ``run`` at staleness 0, 1, 2, 2,
   ... (a run's first commits cannot be staler than their index), every
   chain alike, one commit a chunk.
+- ``full-health``: the same under ``health_check=True`` (no fault
+  injected): each commit's ``(C,)`` non-finite flags come back to the
+  host, one read a commit.
 - ``quickstart``: the torch cluster quickstart's 32 chains of a d=2
   quadratic (``examples/torch_cluster_quickstart.py``), sgld W-Con and the
   fused W-Icon preset; 50 commits warm up, then ``--quick-steps`` commits
@@ -25,7 +28,7 @@ with the most device time.
 
 Run from the repository root on a machine with an NVIDIA GPU::
 
-    python3 scripts/torch_profile_cluster.py [--cells full quickstart] [--steps 4]
+    python3 scripts/torch_profile_cluster.py [--cells full full-health quickstart] [--steps 4]
 """
 
 from __future__ import annotations
@@ -105,13 +108,13 @@ def profile(cell: str, run, steps: int) -> dict:
                      "ms_per_commit": t / 1e3 / steps} for n, (c, t) in top]}
 
 
-def full_cell(steps: int) -> dict:
+def full_cell(steps: int, health: bool = False) -> dict:
     C, tau = 4, 2
     cfg = replace(get_arch("qwen3-4b"), num_layers=4)
     shape = ShapeConfig("cluster", seq_len=128, global_batch=8, kind="train")
     sampler = samplers.sgld("inconsistent", make_grad_fn(Model(cfg, device="cuda")),
                             gamma=1e-3, sigma=1e-5, tau=tau, has_aux=True, fused=True)
-    engine = ClusterEngine(sampler, num_chains=C, chunk_size=1,
+    engine = ClusterEngine(sampler, num_chains=C, chunk_size=1, health_check=health,
                            batch_fn=lambda g: make_batch(cfg, shape, g, "train"))
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda", num_chains=1)
@@ -126,8 +129,8 @@ def full_cell(steps: int) -> dict:
                                   schedule=WorkerSchedule.from_delays(delays), key=gen)
 
     torch.cuda.reset_peak_memory_stats()
-    out = profile(f"full: 4 x qwen3-4b at 4 layers, fused W-Icon, tau 2, 8 x 128, "
-                  f"delays {delays.tolist()}", run, steps)
+    out = profile(f"full{'-health' if health else ''}: 4 x qwen3-4b at 4 layers, "
+                  f"fused W-Icon, tau 2, 8 x 128, delays {delays.tolist()}", run, steps)
     del holder[0]
     return out
 
@@ -152,7 +155,7 @@ def quickstart_cells(steps: int) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cells", nargs="+", default=["full", "quickstart"],
-                    choices=["full", "quickstart"])
+                    choices=["full", "full-health", "quickstart"])
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--quick-steps", type=int, default=50)
     args = ap.parse_args()
@@ -167,8 +170,10 @@ def main() -> int:
     rows = []
     if "quickstart" in args.cells:
         rows += quickstart_cells(args.quick_steps)
-    if "full" in args.cells:
-        rows.append(full_cell(args.steps))
+    for cell in ("full", "full-health"):
+        if cell in args.cells:
+            rows.append(full_cell(args.steps, health=cell == "full-health"))
+            torch.cuda.empty_cache()
     for row in rows:
         print(json.dumps(row))
     return 0

@@ -9,7 +9,9 @@
 - :class:`Endpoint` — the shared ``submit()`` / ``drain()`` surface, with
   ``max_waiting`` backpressure;
 - :class:`BankEngine` — the plumbing every chain-bank engine shares: bank
-  validation, chain counting, host pad scratch and the request queue.
+  validation, chain counting, host pad scratch and the request queue, and
+  the constructors from a cluster state (``from_cluster``, serving degraded
+  from the healthy chains) and from a checkpoint (``from_checkpoint``).
 
 Differences from the JAX package: ``Request.key`` is an int seed (``None``
 = greedy) where JAX carries a PRNG key, and tokens are sampled by
@@ -30,7 +32,7 @@ import torch
 
 from repro_torch.obs.metrics import registry as _registry
 from repro_torch.obs.trace import now as _now
-from repro_torch.utils import tree_leaves
+from repro_torch.utils import resolve_device, tree_leaves, tree_map
 
 PyTree = Any
 
@@ -160,6 +162,61 @@ class BankEngine(Endpoint):
     one device: the engines are dataclasses with ``params`` / ``model`` /
     ``device`` fields."""
 
+    # -- constructors -----------------------------------------------------------
+    @classmethod
+    def from_cluster(cls, state, model=None, **kw):
+        """Serve straight from a ClusterEngine state — or any chain-stacked
+        parameter tree.  A model's ensemble state has leaves ``(C, 1,
+        ...)`` (each chain a bank of one); the bank is served as ``(C,
+        ...)``.
+
+        A :class:`~repro_torch.cluster.executor.HealthState` (any state
+        carrying a ``health`` mask) serves **degraded**: quarantined chains
+        are dropped from the bank and the BMA averages the survivors.  An
+        all-quarantined bank raises."""
+        params = getattr(state, "params", state)
+        health = getattr(state, "health", None)
+        if health is not None:
+            h = np.asarray(health, bool)
+            if not h.any():
+                raise ValueError("every chain is quarantined — no healthy bank to serve")
+            if not h.all():
+                keep = np.flatnonzero(h)
+                params = tree_map(lambda x: x[torch.from_numpy(keep).to(x.device)],
+                                  params)
+                _registry().gauge("chains.unhealthy", "chains currently "
+                                  "quarantined").set(float(h.size - keep.size))
+        if isinstance(params, dict) and "embed" in params and params["embed"]["w"].dim() == 4:
+            params = tree_map(lambda t: t[:, 0], params)  # (C, 1, ...) -> (C, ...)
+        if model is not None:
+            kw["model"] = model
+        return cls(params=params, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, like=None, model=None, *,
+                        num_chains: Optional[int] = None, **kw):
+        """Restore a bank saved by :meth:`ClusterEngine.save_ensemble` (or
+        broadcast a single-model checkpoint to ``num_chains``) and serve it.
+
+        ``(path, like, model, ...)``: ``like`` is the *single-chain*
+        parameter structure (shapes only; the port's one chain, a bank of
+        one, will do, and so will a ``meta`` tree), ``model`` the engine's
+        model or config (also by keyword).  The legacy ``(path, model,
+        like)`` order is recognised (a model or config in the ``like``
+        seat) and swapped.  The bank is restored onto the engine's
+        ``device``."""
+        from repro_torch.checkpoint import restore_ensemble
+        from repro_torch.weights import drop_unit_chain
+
+        if _looks_like_model(like) and not _looks_like_model(model):
+            like, model = model, like  # legacy (path, model, like) order
+        if model is not None:
+            kw["model"] = model
+        dev = resolve_device(kw.get("device", "cuda"))
+        params = restore_ensemble(path, drop_unit_chain(like), num_chains=num_chains,
+                                  device=dev)
+        return cls(params=params, **kw)
+
     def _init_bank(self) -> None:
         """Validate the bank, count chains, sort the prompt ladder, and wire
         the host pad scratch and the request queue."""
@@ -183,6 +240,12 @@ class BankEngine(Endpoint):
         """Host scratch-buffer creations so far (one per rung, not per
         request)."""
         return self._scratch.allocs
+
+
+def _looks_like_model(x) -> bool:
+    """A Model (has .cfg) or a config (has .d_model) — never a parameter
+    tree."""
+    return hasattr(x, "cfg") or hasattr(x, "d_model")
 
 
 # ---------------------------------------------------------------------------

@@ -236,17 +236,26 @@ def diagnostics_recorder(*, every: int = 1, window: int = 64) -> Callable:
     ``every`` commits, at chunk boundaries); once full, each snapshot adds
     a row ``{"step", "rhat_max", "ess_min", "n_draws"}`` to
     ``hook.record`` (worst coordinate each); ``flush`` adds a final row from
-    however much history exists (>= 4 snapshots).  Non-finite chains are
-    left out (at least 2 must remain)."""
+    however much history exists (>= 4 snapshots).  Non-finite chains, and
+    chains the state's newest ``health`` mask quarantines, are left out (at
+    least 2 must remain)."""
     record: list[dict] = []
     history: list[torch.Tensor] = []
     last = [-every]
+    latest_health = [None]  # the newest quarantine mask, when the carry has one
+
+    def note_health(state) -> None:
+        health = getattr(state, "health", None)
+        if health is not None:
+            latest_health[0] = torch.from_numpy(np.asarray(health, bool))
 
     def measure(step_end: int) -> None:
         if len(history) < 4:
             return
         draws = torch.stack(history, dim=1)  # (C, n, d)
         ok = torch.isfinite(draws).all(dim=2).all(dim=1)
+        if latest_health[0] is not None:
+            ok &= latest_health[0]
         if not bool(ok.all()):
             if int(ok.sum()) < 2:
                 return
@@ -263,6 +272,7 @@ def diagnostics_recorder(*, every: int = 1, window: int = 64) -> Callable:
                   "size").set(row["ess_min"])
 
     def hook(step_end: int, state: SamplerState, _aux) -> None:
+        note_health(state)
         if step_end - last[0] < every:
             return
         last[0] = step_end
@@ -277,6 +287,7 @@ def diagnostics_recorder(*, every: int = 1, window: int = 64) -> Callable:
             measure(step_end)
 
     def flush(step_end: int, state: SamplerState) -> None:
+        note_health(state)
         if not record or record[-1]["step"] < step_end:
             if step_end > last[0]:
                 history.append(chain_positions(state.params).cpu())

@@ -12,19 +12,23 @@ parameter leaf — and stale reads index into it:
 
 Where the JAX ring is an immutable pytree rebuilt by every push, the port's
 :func:`push` copies into a slot **in place** and returns a ring over the
-same tensors with the new head; ``head`` is a host int.
+same tensors with the new heads.
 
 :func:`init_ring` makes one chain's ring.  Everything else takes C chains'
 rings stacked on a leading axis — leaves ``(C, depth, *leaf)``, the layout
-``jax.vmap`` gives the JAX ring; C = 1 for a single chain — under **one**
-head: the chains commit in lockstep, so their heads agree.  Delays,
-parameters and reads carry the same leading chain axis, and staleness,
-keys and delays are given a chain each.
+``jax.vmap`` gives the JAX ring; C = 1 for a single chain — and **one head
+a chain**: ``head`` is a ``(C,)`` int64 tensor on the host (a 0-d one in
+one chain's ring from :func:`init_ring`), as the JAX ring's ``head`` is
+``(C,)`` int32 under ``vmap``.  The heads agree while every chain commits;
+a commit masked for some chains (a lost commit, a quarantined chain:
+``push(..., keep=)``) leaves theirs behind.  Delays, parameters and reads
+carry the same leading chain axis, and staleness, keys and delays are
+given a chain each.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -48,22 +52,24 @@ class RingBuffer:
     """History of the last ``depth`` parameter snapshots.
 
     Attributes:
-      history: tree; each leaf has shape ``(depth, *leaf_shape)``.
-      head: slot holding the most recent snapshot.
-      depth: ``tau + 1``.
+      history: tree; each leaf has shape ``(depth, *leaf_shape)`` (``(C,
+        depth, *leaf_shape)`` stacked).
+      head: slot holding each chain's most recent snapshot: a host int64
+        tensor, 0-d for one chain's ring, ``(C,)`` stacked.
+      depth: ``tau + 1`` (static: not a checkpoint leaf).
     """
 
     history: PyTree
-    head: int
-    depth: int
+    head: torch.Tensor
+    depth: int = field(metadata=dict(static=True))
 
 
 def init_ring(params: PyTree, tau: int) -> RingBuffer:
     """One chain's ring: every slot filled with its initial parameters
-    (delay-0 warm start); leaves ``(depth, *leaf)``."""
+    (delay-0 warm start); leaves ``(depth, *leaf)``, head 0."""
     depth = int(tau) + 1
-    return RingBuffer(history=tree_broadcast_leading(params, depth), head=0,
-                      depth=depth)
+    return RingBuffer(history=tree_broadcast_leading(params, depth),
+                      head=torch.zeros((), dtype=torch.int64), depth=depth)
 
 
 class StalenessError(ValueError):
@@ -102,19 +108,43 @@ def validate_staleness(max_delay: int, tree: PyTree,
         check_staleness_fits(max_delay, depth, context)
 
 
-def _shared_head(ring: RingBuffer) -> int:
-    if not isinstance(ring.head, int):
-        raise TypeError(f"a chain-stacked ring keeps one host-int head "
-                        f"(the chains commit in lockstep), got {ring.head!r}")
-    return ring.head
+def heads(ring: RingBuffer) -> list:
+    """Every chain's head of a chain-stacked ring, as host ints (one a
+    chain of the history's leading axis)."""
+    h = ring.head
+    if not torch.is_tensor(h) or h.dim() != 1:
+        raise TypeError(f"a chain-stacked ring keeps a (C,) head tensor, one "
+                        f"slot a chain; got {h!r}")
+    n = tree_flatten(ring.history)[0][0].shape[0]
+    if h.shape[0] != n:
+        raise ValueError(f"{h.shape[0]} heads for {n} chains")
+    return h.tolist()
 
 
-def push(ring: RingBuffer, params: PyTree) -> RingBuffer:
+def push(ring: RingBuffer, params: PyTree, keep=None) -> RingBuffer:
     """Commit every chain's new snapshot (``params`` leaves ``(C,
-    *leaf)``) into the next slot: one copy a leaf, in place."""
-    new_head = (_shared_head(ring) + 1) % ring.depth
-    tree_map(lambda h, x: h[:, new_head].copy_(x), ring.history, params)
-    return RingBuffer(history=ring.history, head=new_head, depth=ring.depth)
+    *leaf)``) into the slot after its head, in place.  With every chain
+    kept and the heads equal (the fault-free path) that is one copy a
+    leaf; ``keep`` (``(C,)`` bool, host) writes only the kept chains and
+    advances only their heads.  The new heads are a new tensor: a caller
+    that keeps the old ring can put a chain's head back."""
+    old = heads(ring)
+    C = len(old)
+    kept = list(range(C)) if keep is None else \
+        [c for c in range(C) if bool(keep[c])]
+    new = list(old)
+    for c in kept:
+        new[c] = (old[c] + 1) % ring.depth
+    if len(kept) == C and len(set(new)) == 1:
+        tree_map(lambda h, x: h[:, new[0]].copy_(x), ring.history, params)
+    elif kept:
+        dev = tree_flatten(ring.history)[0][0].device
+        rows = to_device(np.asarray(kept, np.int64), dev)
+        slots = to_device(np.asarray([new[c] for c in kept], np.int64), dev)
+        tree_map(lambda h, x: h.index_put_((rows, slots), x[rows]),
+                 ring.history, params)
+    return RingBuffer(history=ring.history, head=torch.tensor(new, dtype=torch.int64),
+                      depth=ring.depth)
 
 
 def _clip(delay: int, depth: int) -> int:
@@ -123,10 +153,10 @@ def _clip(delay: int, depth: int) -> int:
 
 def read_consistent(ring: RingBuffer, delays) -> PyTree:
     """W-Con of every chain: chain c's snapshot committed ``delays[c]``
-    updates ago (clamped to depth-1).  Views into the ring when every
-    chain reads the same slot, else one gather a leaf."""
-    head = _shared_head(ring)
-    slots = [(head - _clip(d, ring.depth)) % ring.depth for d in delays]
+    updates before its head (clamped to depth-1).  Views into the ring
+    when every chain reads the same slot, else one gather a leaf."""
+    slots = [(h - _clip(d, ring.depth)) % ring.depth
+             for h, d in zip(heads(ring), delays)]
     if len(set(slots)) == 1:
         return tree_map(lambda h: h[:, slots[0]], ring.history)
     dev = tree_flatten(ring.history)[0][0].device
@@ -159,11 +189,11 @@ def sample_coordinate_delays(keys, ring: RingBuffer, max_delays) -> PyTree:
 
 
 def read_inconsistent(ring: RingBuffer, delays: PyTree) -> PyTree:
-    """W-Icon of every chain: gather ``x_hat[c, i] = history[c, (head -
+    """W-Icon of every chain: gather ``x_hat[c, i] = history[c, (head_c -
     s_ci) % depth, i]`` per coordinate (``delays``: ``(C, *leaf)`` int32
     leaves)."""
-    head = _shared_head(ring)
-    return tree_map(lambda h, s: ops.delay_gather(h, s, head), ring.history,
+    hs = heads(ring)
+    return tree_map(lambda h, s: ops.delay_gather(h, s, hs), ring.history,
                     delays)
 
 
@@ -177,19 +207,20 @@ def read_inconsistent_leafwise(ring: RingBuffer, keys, max_delays, *,
     at all); otherwise :func:`ops.coordinate_delays` then
     :func:`ops.delay_gather`, so only one leaf's delays live at once — 4
     bytes a coordinate of the largest leaf, not of the whole model.  One
-    table of every leaf's draw parameters is copied to the card once."""
-    head = _shared_head(ring)
+    table of every leaf's draw parameters (and the chains' heads) is
+    copied to the card once."""
+    hs = heads(ring)
     maxvals = _maxvals(max_delays, ring.depth)
     leaves, treedef = tree_flatten(ring.history)
     keys_by_leaf = _keys_by_leaf(keys, leaves)
-    tables = ops.randint_tables(keys_by_leaf, maxvals, leaves[0].device)
+    tables = ops.randint_tables(keys_by_leaf, maxvals, hs, leaves[0].device)
     reads = []
     for i, h in enumerate(leaves):
         table = None if tables is None else tables[i]
         if fused:
-            reads.append(ops.wicon_read(h, keys_by_leaf[i], maxvals, head,
+            reads.append(ops.wicon_read(h, keys_by_leaf[i], maxvals, hs,
                                         table=table))
         else:
             d = ops.coordinate_delays(h[:, 0], keys_by_leaf[i], maxvals, table=table)
-            reads.append(ops.delay_gather(h, d, head))
+            reads.append(ops.delay_gather(h, d, hs))
     return tree_unflatten(treedef, reads)

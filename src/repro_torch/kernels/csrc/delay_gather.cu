@@ -64,14 +64,17 @@
 //
 // The chain axis.  Every launch reads C chains (C = 1 for a single chain):
 // the rings are (C, depth, n) and the output (C, n), one block row
-// (blockIdx.y) a chain, under one shared head (the chains commit in
-// lockstep).  Each chain draws under its own key and its own maxval (its
-// staleness differs), so the host builds a table of C rows (the subkeys,
-// span, mult and remainder constant of rng.randint_params) once a commit
-// for every leaf, and each block picks kZero, kLow or kBoth from its
-// chain's row (one branch a block, no divergence inside it).  The delay
-// array of kArray is (C, n), and coordinate_delays_kernel writes (C, n)
-// draws from the same table.  A chain's output does not depend on C.  The
+// (blockIdx.y) a chain, each under its own head: the heads agree while
+// every chain commits, and a masked commit (a lost commit, a quarantined
+// chain) leaves that chain's head behind.  Each chain draws under its own
+// key and its own maxval (its staleness differs), so the host builds a
+// table of C rows (the subkeys, span, mult and remainder constant of
+// rng.randint_params, then the chain's head) once a commit for every
+// leaf, and each block reads its head and picks kZero, kLow or kBoth from
+// its chain's row (one branch a block, no divergence inside it).  The
+// delay array of kArray is (C, n), with the heads in a (C,) int32 array,
+// and coordinate_delays_kernel writes (C, n) draws from the same table
+// (it reads no head).  A chain's output does not depend on C.  The
 // rows of every chain start on 16 bytes when the bases do and n *
 // elem_bytes is a multiple of 16; otherwise every element takes the
 // scalar code.  Row offsets are 64-bit.
@@ -193,9 +196,9 @@ __device__ __forceinline__ void delays_row(int32_t* __restrict__ out, unsigned l
 }
 
 // One row of the chain table: chain c's randint parameters (as
-// rng.randint_params and rng.fastmod_magic give them).
+// rng.randint_params and rng.fastmod_magic give them) and its ring head.
 struct ChainKey {
-  uint32_t hk0, hk1, lk0, lk1, span, mult, magic_lo, magic_hi;
+  uint32_t hk0, hk1, lk0, lk1, span, mult, magic_lo, magic_hi, head;
 };
 
 __device__ __forceinline__ RandintKey chain_key(const ChainKey* __restrict__ table) {
@@ -213,21 +216,24 @@ __device__ __forceinline__ RandintKey chain_key(const ChainKey* __restrict__ tab
 
 // The read of every chain: block row blockIdx.y is chain c, its ring
 // hist[c] (depth, n) and its output out[c] (n,).  kFromArray: the delays
-// are delays[c] (n,) int32; else they are drawn under table row c, the
-// draw picked from the row (one branch a block).
+// are delays[c] (n,) int32 and the head heads[c]; else they are drawn
+// under table row c, which also holds the head, the draw picked from the
+// row (one branch a block).
 template <typename W, bool kFromArray>
 __global__ void __launch_bounds__(kThreads)
     wicon_kernel(const W* __restrict__ hist, const int32_t* __restrict__ delays,
-                 W* __restrict__ out, unsigned long long n, int depth, int head,
-                 const ChainKey* __restrict__ table, int vec) {
+                 W* __restrict__ out, unsigned long long n, int depth,
+                 const int32_t* __restrict__ heads, const ChainKey* __restrict__ table,
+                 int vec) {
   const unsigned long long c = blockIdx.y;
   const W* h = hist + c * depth * n;
   W* o = out + c * n;
   const uint32_t tid = blockIdx.x * kThreads + threadIdx.x, stride = gridDim.x * kThreads;
   if constexpr (kFromArray) {
-    wicon_row<W, kArray>(h, delays + c * n, o, n, depth, head, depth, RandintKey(), vec, tid,
-                         stride);
+    wicon_row<W, kArray>(h, delays + c * n, o, n, depth, heads[c], depth, RandintKey(), vec,
+                         tid, stride);
   } else {
+    const int head = (int)table[c].head;
     const RandintKey key = chain_key(table);
     if (key.span == 1u) {
       wicon_row<W, kZero>(h, nullptr, o, n, depth, head, 1, key, vec, tid, stride);
@@ -260,14 +266,13 @@ dim3 chain_grid(unsigned long long work, int chains) {
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
-bool bad_ring(unsigned long long n, int chains, int depth, int head) {
-  return n < 1 || n > (1ULL << 32) || chains < 1 || chains > 65535 || depth < 1 || head < 0 ||
-         head >= depth;
+bool bad_ring(unsigned long long n, int chains, int depth) {
+  return n < 1 || n > (1ULL << 32) || chains < 1 || chains > 65535 || depth < 1;
 }
 
 template <bool kFromArray>
 int launch(const void* hist, const int32_t* delays, void* out, unsigned long long n,
-           int chains, int depth, int head, const ChainKey* table, int elem_bytes,
+           int chains, int depth, const int32_t* heads, const ChainKey* table, int elem_bytes,
            cudaStream_t s) {
   const bool vec = aligned16(hist) && aligned16(out) && (n * elem_bytes) % 16 == 0 &&
                    (!kFromArray || aligned16(delays));
@@ -275,11 +280,11 @@ int launch(const void* hist, const int32_t* delays, void* out, unsigned long lon
   if (elem_bytes == 2) {
     wicon_kernel<uint16_t, kFromArray><<<grid, kThreads, 0, s>>>(
         static_cast<const uint16_t*>(hist), delays, static_cast<uint16_t*>(out), n, depth,
-        head, table, vec);
+        heads, table, vec);
   } else if (elem_bytes == 4) {
     wicon_kernel<uint32_t, kFromArray><<<grid, kThreads, 0, s>>>(
         static_cast<const uint32_t*>(hist), delays, static_cast<uint32_t*>(out), n, depth,
-        head, table, vec);
+        heads, table, vec);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -291,27 +296,29 @@ int launch(const void* hist, const int32_t* delays, void* out, unsigned long lon
 // The one-pass W-Icon read: history (chains, depth, n) of elem_bytes-byte
 // elements, out (chains, n); chain c's delays drawn as
 // jax.random.randint(key_c, (n,), 0, span_c, int32) from table row c
-// (chains, 8) 32-bit words on the device: hk0, hk1, lk0, lk1, span, mult,
-// magic low, magic high (rng.randint_params, rng.fastmod_magic).  The
-// caller checks 1 <= span <= depth and span < 2^16 for every chain.
-// 1 <= n <= 2^32, 1 <= chains <= 65535, 0 <= head < depth.
+// (chains, 9) 32-bit words on the device: hk0, hk1, lk0, lk1, span, mult,
+// magic low, magic high (rng.randint_params, rng.fastmod_magic), and the
+// chain's head.  The caller checks 1 <= span <= depth, span < 2^16 and
+// 0 <= head < depth for every chain.  1 <= n <= 2^32,
+// 1 <= chains <= 65535.
 extern "C" int wicon_read_launch(const void* hist, void* out, unsigned long long n, int chains,
-                                 int depth, int head, const void* table, int elem_bytes,
-                                 void* stream) {
-  if (bad_ring(n, chains, depth, head)) return cudaErrorInvalidValue;
-  return launch<false>(hist, nullptr, out, n, chains, depth, head,
+                                 int depth, const void* table, int elem_bytes, void* stream) {
+  if (bad_ring(n, chains, depth)) return cudaErrorInvalidValue;
+  return launch<false>(hist, nullptr, out, n, chains, depth, nullptr,
                        static_cast<const ChainKey*>(table), elem_bytes, (cudaStream_t)stream);
 }
 
 // history (chains, depth, n), delays (chains, n) int32 (any value: the
-// slot is (head - delay) mod depth), out (chains, n).  Limits as
-// wicon_read_launch.
+// slot is (heads[c] - delay) mod depth), heads (chains,) int32 on the
+// device (the caller checks 0 <= heads[c] < depth), out (chains, n).
+// Limits as wicon_read_launch.
 extern "C" int delay_gather_launch(const void* hist, const void* delays, void* out,
-                                   unsigned long long n, int chains, int depth, int head,
-                                   int elem_bytes, void* stream) {
-  if (bad_ring(n, chains, depth, head)) return cudaErrorInvalidValue;
-  return launch<true>(hist, static_cast<const int32_t*>(delays), out, n, chains, depth, head,
-                      nullptr, elem_bytes, (cudaStream_t)stream);
+                                   unsigned long long n, int chains, int depth,
+                                   const void* heads, int elem_bytes, void* stream) {
+  if (bad_ring(n, chains, depth)) return cudaErrorInvalidValue;
+  return launch<true>(hist, static_cast<const int32_t*>(delays), out, n, chains, depth,
+                      static_cast<const int32_t*>(heads), nullptr, elem_bytes,
+                      (cudaStream_t)stream);
 }
 
 // out (chains, n) int32 in [0, span_c), chain c's row drawn under table

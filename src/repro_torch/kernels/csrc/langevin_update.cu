@@ -48,6 +48,18 @@
 // amounts is all scalar.  Row offsets are 64-bit: C * n passes 2^32 at
 // full width.
 //
+// Masked commits.  A row's fifth word is a skip flag: a chain whose commit
+// is lost, or which is quarantined, is neither read nor written (its blocks
+// return before the loop), so its iterate stays bitwise whatever its
+// gradient row holds, NaN included.  With a non-null flags array (C,) int32
+// the kernel also reports, per chain, whether any element it wrote is NaN
+// or Inf: each thread ORs a test of its stored values into a register, the
+// block reduces it with __syncthreads_or, and one thread of a block that
+// saw one writes flags[c] = 1 (a benign race between blocks: they all
+// write 1).  The caller zeroes flags once for a commit and passes it to
+// every leaf's launch.  The test is a template argument, so the launch
+// without flags (the fault-free path) runs the loop without it.
+//
 // C interface (bound with ctypes): each launcher returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -107,20 +119,29 @@ __device__ __forceinline__ typename Elem<T>::Raw update(typename Elem<T>::Raw x,
   return Elem<T>::from_f(fmaf(scale, xi, fmaf(-gamma, Elem<T>::to_f(g), Elem<T>::to_f(x))));
 }
 
-// One row of the chain table: chain c's seed, gamma and scale.
+// One row of the chain table: chain c's seed, gamma, scale and skip flag.
 struct ChainParams {
   uint32_t s0, s1;
   float gamma, scale;
+  uint32_t skip;
 };
 
-template <typename T>
+// NaN or Inf: every exponent bit set (bfloat16 shares float's exponent)
+__device__ __forceinline__ bool nonfinite(float v) {
+  return (__float_as_uint(v) & 0x7F800000u) == 0x7F800000u;
+}
+__device__ __forceinline__ bool nonfinite(uint16_t r) { return (r & 0x7F80u) == 0x7F80u; }
+
+template <typename T, bool kFlag>
 __global__ void __launch_bounds__(kThreads)
     langevin_update_kernel(typename Elem<T>::Raw* __restrict__ x,
                            const typename Elem<T>::Raw* __restrict__ g, unsigned long long n,
-                           const ChainParams* __restrict__ table) {
+                           const ChainParams* __restrict__ table, int* __restrict__ flags) {
   using Raw = typename Elem<T>::Raw;
   constexpr int V = 16 / sizeof(Raw);
   const ChainParams p = table[blockIdx.y];
+  if (p.skip) return;  // the whole block: no thread reaches a barrier
+  bool bad = false;
   Raw* __restrict__ xr = x + (unsigned long long)blockIdx.y * n;
   const Raw* __restrict__ gr = g + (unsigned long long)blockIdx.y * n;
   // elements before the row's first 16-byte boundary; all of them when x
@@ -143,45 +164,62 @@ __global__ void __launch_bounds__(kThreads)
     gv.v = gv4[v];
     const uint32_t base = (uint32_t)(peel + (unsigned long long)v * V);
 #pragma unroll
-    for (int l = 0; l < V; ++l)
+    for (int l = 0; l < V; ++l) {
       xv.e[l] = update<T>(xv.e[l], gv.e[l], base + l, p.s0, p.s1, p.gamma, p.scale);
+      if constexpr (kFlag) bad |= nonfinite(xv.e[l]);
+    }
     reinterpret_cast<uint4*>(xr + peel)[v] = xv.v;
   }
   // the scalar elements: the peel, then the tail after the vectors
   const unsigned long long nscalar = n - nv * V;
   for (unsigned long long j = tid; j < nscalar; j += stride) {
     const unsigned long long i = j < peel ? j : j + nv * V;
-    xr[i] = update<T>(xr[i], gr[i], (uint32_t)i, p.s0, p.s1, p.gamma, p.scale);
+    const Raw r = update<T>(xr[i], gr[i], (uint32_t)i, p.s0, p.s1, p.gamma, p.scale);
+    xr[i] = r;
+    if constexpr (kFlag) bad |= nonfinite(r);
+  }
+  if constexpr (kFlag) {
+    if (__syncthreads_or(bad) && threadIdx.x == 0) flags[blockIdx.y] = 1;
   }
 }
 
 template <typename T>
 void launch(void* x, const void* g, unsigned long long n, int chains, const void* table,
-            cudaStream_t stream) {
+            int* flags, cudaStream_t stream) {
   using Raw = typename Elem<T>::Raw;
   constexpr int V = 16 / sizeof(Raw);
   const unsigned long long work = n / V + V;  // vectors, and the peel and tail
   const unsigned long long want = (work + kThreads - 1) / kThreads;
   const unsigned long long cap = kMaxBlocks / chains > 0 ? kMaxBlocks / chains : 1;
   const dim3 grid((unsigned)(want < cap ? want : cap), (unsigned)chains);
-  langevin_update_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<Raw*>(x), static_cast<const Raw*>(g), n,
-      static_cast<const ChainParams*>(table));
+  if (flags) {
+    langevin_update_kernel<T, true><<<grid, kThreads, 0, stream>>>(
+        static_cast<Raw*>(x), static_cast<const Raw*>(g), n,
+        static_cast<const ChainParams*>(table), flags);
+  } else {
+    langevin_update_kernel<T, false><<<grid, kThreads, 0, stream>>>(
+        static_cast<Raw*>(x), static_cast<const Raw*>(g), n,
+        static_cast<const ChainParams*>(table), nullptr);
+  }
 }
 
 }  // namespace
 
-// x, g (chains, n), one chain a row; table (chains, 4) 32-bit words on the
-// device: s0, s1, and gamma and scale as float bits.  dtype: 0 = float32,
-// 1 = bfloat16.  1 <= n <= 2^32, 1 <= chains <= 65535.
+// x, g (chains, n), one chain a row; table (chains, 5) 32-bit words on the
+// device: s0, s1, gamma and scale as float bits, and skip (nonzero: leave
+// the row alone).  flags: null, or (chains,) int32 on the device, set to 1
+// for a chain any of whose written elements is NaN or Inf.  dtype:
+// 0 = float32, 1 = bfloat16.  1 <= n <= 2^32, 1 <= chains <= 65535.
 extern "C" int langevin_update_launch(void* x, const void* g, unsigned long long n,
-                                      int chains, const void* table, int dtype, void* stream) {
+                                      int chains, const void* table, void* flags, int dtype,
+                                      void* stream) {
   if (n < 1 || n > (1ULL << 32) || chains < 1 || chains > 65535)
     return cudaErrorInvalidValue;
+  int* f = static_cast<int*>(flags);
   if (dtype == 0) {
-    launch<float>(x, g, n, chains, table, (cudaStream_t)stream);
+    launch<float>(x, g, n, chains, table, f, (cudaStream_t)stream);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(x, g, n, chains, table, (cudaStream_t)stream);
+    launch<__nv_bfloat16>(x, g, n, chains, table, f, (cudaStream_t)stream);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -77,7 +77,7 @@ def _table(rows: np.ndarray, device) -> torch.Tensor:
 
 
 def fused_langevin_update(params: PyTree, grads: PyTree, seeds, gammas,
-                          scales) -> PyTree:
+                          scales, skip=None, flags=None) -> PyTree:
     """Leafwise fused SGLD commit of C chain-stacked chains, **in place**
     on every leaf of ``params`` (``(C, *shape)``, as ``grads``): ``x[c] <-
     x[c] - gammas[c]*g[c] + scales[c]*xi_c``.
@@ -87,9 +87,13 @@ def fused_langevin_update(params: PyTree, grads: PyTree, seeds, gammas,
     (:func:`rng.leaf_seed`), its counter its element's index within the
     chain, so the port and ``repro.kernels.ops.fused_langevin_update``
     give every leaf of every chain the same stream.  seeds: C ``(s0, s1)``
-    uint32 pairs; gammas, scales: C float32 values.  On a card one launch a
-    leaf for every chain, from one table of every leaf's rows copied to the
-    card once.  Returns ``params``."""
+    uint32 pairs; gammas, scales: C float32 values.  ``skip`` (C host
+    bools, optional): skipped chains' rows are neither read nor written.
+    ``flags`` (optional ``(C,)`` int32 on the parameters' device, zeroed by
+    the caller): set for every chain any of whose updated elements, in any
+    leaf, is NaN or Inf.  On a card one launch a leaf for every chain, from
+    one table of every leaf's rows copied to the card once.  Returns
+    ``params``."""
     leaves, _ = tree_flatten(params)
     gleaves, _ = tree_flatten(grads)
     if len(gleaves) != len(leaves):
@@ -97,25 +101,26 @@ def fused_langevin_update(params: PyTree, grads: PyTree, seeds, gammas,
                          "parameter leaves")
     seeds_by_leaf = [[rng.leaf_seed(s, i) for s in seeds] for i in range(len(leaves))]
     if leaves and leaves[0].device.type == "cuda":
-        table = _table(np.stack([lu.chain_rows(sl, gammas, scales)
+        table = _table(np.stack([lu.chain_rows(sl, gammas, scales, skip)
                                  for sl in seeds_by_leaf]), leaves[0].device)
         for i, (x, g) in enumerate(zip(leaves, gleaves)):
             C = x.shape[0]
-            lu.langevin_update(x.view(C, -1), g.contiguous().view(C, -1), table[i])
+            lu.langevin_update(x.view(C, -1), g.contiguous().view(C, -1), table[i],
+                               flags)
         return params
     for x, g, sl in zip(leaves, gleaves, seeds_by_leaf):
         _route(x, None, ref.langevin_update_ref)(x, g.contiguous(), sl, gammas,
-                                                 scales)
+                                                 scales, skip, flags)
     return params
 
 
-def randint_tables(keys_by_leaf, maxvals, device):
-    """Every leaf's chain table of the draws, ``(leaves, C, 8)`` 32-bit
-    words on a card ``device`` (one copy); on the CPU ``None`` (the plain
-    versions take the keys)."""
+def randint_tables(keys_by_leaf, maxvals, heads, device):
+    """Every leaf's chain table of the draws and the chains' ring heads,
+    ``(leaves, C, 9)`` 32-bit words on a card ``device`` (one copy); on
+    the CPU ``None`` (the plain versions take the keys and heads)."""
     if torch.device(device).type != "cuda":
         return None
-    return _table(np.stack([dg.randint_rows(keys, maxvals)
+    return _table(np.stack([dg.randint_rows(keys, maxvals, heads)
                             for keys in keys_by_leaf]), device)
 
 
@@ -134,32 +139,34 @@ def coordinate_delays(like, keys, maxvals, table=None):
                                                           like.device)
 
 
-def delay_gather(history, delays, head: int):
+def delay_gather(history, delays, heads):
     """W-Icon read of C chains of one leaf: history ``(C, depth, *shape)``,
     delays of ``(C, n)`` int32 (any shape with those elements) -> ``(C,
-    *shape)``, element ``i`` of chain c from snapshot ``(head - delays[c,
-    i]) mod depth``."""
+    *shape)``, element ``i`` of chain c from snapshot ``(heads[c] -
+    delays[c, i]) mod depth`` (``heads``: C host ints)."""
     C, depth, shape = history.shape[0], history.shape[1], history.shape[2:]
     gather = _route(history, dg.delay_gather, ref.delay_gather_ref)
-    out = gather(history.reshape(C, depth, -1), delays.reshape(C, -1), int(head))
+    out = gather(history.reshape(C, depth, -1), delays.reshape(C, -1),
+                 [int(h) for h in heads])
     return out.reshape(C, *shape)
 
 
-def wicon_read(history, keys, maxvals, head: int, table=None):
+def wicon_read(history, keys, maxvals, heads, table=None):
     """One-pass W-Icon read of C chains of one leaf: history ``(C, depth,
     *shape)`` -> ``(C, *shape)``, element ``i`` of chain c from snapshot
-    ``(head - d_ci) mod depth`` with ``d_c = jax.random.randint(keys[c],
+    ``(heads[c] - d_ci) mod depth`` with ``d_c = jax.random.randint(keys[c],
     shape, 0, maxvals[c], int32)``, flat element ``i`` (1 <= maxvals[c] <=
-    depth), one shared head.  On a card one launch for every chain,
+    depth; ``heads``: C host ints).  On a card one launch for every chain,
     drawing the delays in registers (no delay tensor is made); ``table``:
     this leaf's rows of :func:`randint_tables` (made here when not
     given)."""
     C, depth, shape = history.shape[0], history.shape[1], history.shape[2:]
     h = history.reshape(C, depth, -1)
+    heads = [int(v) for v in heads]
     if history.device.type == "cuda":
         if table is None:
-            table = _table(dg.randint_rows(keys, maxvals), history.device)
-        out = dg.wicon_read(h, table, maxvals, int(head))
+            table = _table(dg.randint_rows(keys, maxvals, heads), history.device)
+        out = dg.wicon_read(h, table, maxvals, heads)
     else:
-        out = _route(history, None, ref.wicon_read_ref)(h, keys, maxvals, int(head))
+        out = _route(history, None, ref.wicon_read_ref)(h, keys, maxvals, heads)
     return out.reshape(C, *shape)

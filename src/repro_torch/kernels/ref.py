@@ -90,18 +90,24 @@ def paged_decode_step_ref(q, k_new, v_new, k_pages, v_pages, tables, pos):
     return o.to(q.dtype), k_pages, v_pages
 
 
-def _update_row(x, g, seed, gamma, scale):
+def _update_row(x, g, seed, gamma, scale, check: bool = False) -> bool:
+    """One chain's update in place; with ``check``, True when an updated
+    element is NaN or Inf (after the cast to x's dtype)."""
     xf, gf = x.view(-1), g.reshape(-1)
     gamma = float(torch.tensor(gamma, dtype=torch.float32))
     scale = float(torch.tensor(scale, dtype=torch.float32))
+    bad = False
     for a in range(0, xf.numel(), rng.CHUNK):
         b = min(xf.numel(), a + rng.CHUNK)
         xi = rng.normal(seed, a, b, x.device).double()
         t = (xf[a:b].double() - gamma * gf[a:b].double()).float()
         xf[a:b] = (t.double() + scale * xi).float().to(x.dtype)
+        if check and not bad:
+            bad = not bool(torch.isfinite(xf[a:b]).all())
+    return bad
 
 
-def langevin_update_ref(x, g, seeds, gammas, scales):
+def langevin_update_ref(x, g, seeds, gammas, scales, skip=None, flags=None):
     """The fused SGLD commit ``x[c] <- x[c] - gamma_c*g[c] + scale_c*xi_c``
     of every chain of ``x`` / ``g`` ``(C, ...)``, **in place** on ``x``,
     with ``xi_c`` the threefry/Box-Muller normal of each element's index
@@ -115,9 +121,17 @@ def langevin_update_ref(x, g, seeds, gammas, scales):
     fma is emulated in float64: the product is exact there and the sum
     rounds twice, which differs from one rounding with probability about
     2^-29 per element.  The result is written back in x's dtype.  Works in
-    slices of ``rng.CHUNK`` elements.  Returns x."""
+    slices of ``rng.CHUNK`` elements.
+
+    ``skip`` (C host bools, optional): a skipped chain's row is neither
+    read nor written (its gradient row may hold anything).  ``flags``
+    (optional ``(C,)`` int32): set to 1 for a chain any of whose updated
+    elements is NaN or Inf, left alone otherwise.  Returns x."""
     for c in range(x.shape[0]):
-        _update_row(x[c], g[c], seeds[c], gammas[c], scales[c])
+        if skip is not None and skip[c]:
+            continue
+        if _update_row(x[c], g[c], seeds[c], gammas[c], scales[c], flags is not None):
+            flags[c] = 1
     return x
 
 
@@ -127,18 +141,18 @@ def _gather_row(history, delays, head: int):
     return torch.gather(history.view(raw), 0, slots[None])[0].view(history.dtype)
 
 
-def delay_gather_ref(history, delays, head: int):
-    """W-Icon read ``out[c, i] = history[c, (head - delays[c, i]) mod
+def delay_gather_ref(history, delays, heads):
+    """W-Icon read ``out[c, i] = history[c, (heads[c] - delays[c, i]) mod
     depth, i]``.
 
-    history: (C, depth, N) of any dtype; delays: (C, N) int32; head: the
-    shared ring slot of the newest snapshot.  A true gather: the selected
-    element is copied, ``-0.0``, ``inf`` and ``nan`` included (the JAX
-    Pallas kernel selects by multiply-and-sum, which turns a selected
-    ``-0.0`` into ``+0.0``).  It gathers the raw bits, through an integer
-    view of the same width: ATen's CPU gather of bfloat16 rewrites a NaN's
-    bits."""
-    return torch.stack([_gather_row(history[c], delays[c], head)
+    history: (C, depth, N) of any dtype; delays: (C, N) int32; heads: C
+    ints, chain c's ring slot of its newest snapshot.  A true gather: the
+    selected element is copied, ``-0.0``, ``inf`` and ``nan`` included
+    (the JAX Pallas kernel selects by multiply-and-sum, which turns a
+    selected ``-0.0`` into ``+0.0``).  It gathers the raw bits, through an
+    integer view of the same width: ATen's CPU gather of bfloat16 rewrites
+    a NaN's bits."""
+    return torch.stack([_gather_row(history[c], delays[c], heads[c])
                         for c in range(history.shape[0])])
 
 
@@ -149,10 +163,10 @@ def coordinate_delays_ref(keys, n: int, maxvals, device="cpu"):
     return torch.stack([rng.randint(k, n, m, device) for k, m in zip(keys, maxvals)])
 
 
-def wicon_read_ref(history, keys, maxvals, head: int):
+def wicon_read_ref(history, keys, maxvals, heads):
     """The one-pass W-Icon read: the delays of :func:`coordinate_delays_ref`
-    gathered by :func:`delay_gather_ref`.  history: (C, depth, N) ->
-    (C, N)."""
+    gathered by :func:`delay_gather_ref`, chain c from its head
+    ``heads[c]``.  history: (C, depth, N) -> (C, N)."""
     n, dev = history.shape[2], history.device
-    return torch.stack([_gather_row(history[c], rng.randint(k, n, m, dev), head)
+    return torch.stack([_gather_row(history[c], rng.randint(k, n, m, dev), heads[c])
                         for c, (k, m) in enumerate(zip(keys, maxvals))])

@@ -10,6 +10,9 @@ the chunked :class:`~repro_torch.train.engine.Engine`: delays from a
 simulated asynchronous run of ``--workers`` virtual workers, clipped to
 ``--tau``; ``--fused`` commits through the CUDA Langevin kernel and, in
 ``inconsistent`` (W-Icon) mode, reads through the delay kernels.
+``--save PATH`` checkpoints the parameters every ``max(--chunk, 100)``
+commits and at the end, in the JAX package's single-model layout (its
+``restore_ensemble`` reads the file).
 
 One chain of full-width qwen3-4b holds 8.8 GB of bf16 parameters, and W-Icon
 keeps ``tau + 1`` more copies in its ring, one gathered read point and one
@@ -24,15 +27,17 @@ import argparse
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import ShapeConfig, get_arch, get_reduced
 from repro_torch.core import WorkerModel, simulate_async
 from repro_torch.core.sgld import SGLDConfig
 from repro_torch.data import make_batch
 from repro_torch.kernels import rng
 from repro_torch.models.transformer import Model, init_params
-from repro_torch.train.engine import Engine, log_hook
+from repro_torch.train.engine import Engine, checkpoint_hook, log_hook
 from repro_torch.train.loop import make_train_step
 from repro_torch.utils import resolve_device, tree_leaves
+from repro_torch.weights import drop_unit_chain
 
 
 def build(args):
@@ -58,8 +63,11 @@ def build(args):
                                            seed=args.seed), args.steps,
                                seed=args.seed)
         delays = np.minimum(trace.delays, args.tau)
+    hooks = [log_hook(every=10)]
+    if args.save:
+        hooks.append(checkpoint_hook(args.save, every=max(args.chunk, 100)))
     engine = Engine(sampler, batch_fn=lambda g: make_batch(cfg, shape, g, "train"),
-                    chunk_size=args.chunk, hooks=[log_hook(every=10)])
+                    chunk_size=args.chunk, hooks=hooks)
     return cfg, model, state, engine, delays
 
 
@@ -84,23 +92,23 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--fused", action="store_true",
                     help="commit (and, in W-Icon mode, read) through the CUDA kernels")
     ap.add_argument("--save", default=None,
-                    help="checkpoint path (not ported yet: refused)")
+                    help="checkpoint path (npz, the JAX package's format)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; needs a card) or cpu (the plain path)")
     return ap
 
 
 def main(argv=None):
-    ap = parser()
-    args = ap.parse_args(argv)
-    if args.save:
-        ap.error("--save: checkpoints are not ported yet")
+    args = parser().parse_args(argv)
     cfg, model, state, engine, delays = build(args)
     n_params = sum(t.numel() for t in tree_leaves(state.params))
     print(f"{cfg.name}: {n_params/1e6:.1f}M params, mode={args.mode}"
           f"{' (fused)' if args.fused else ''}, chunk={args.chunk}, "
           f"device={model.device}")
     state, _ = engine.run(state, steps=args.steps, delays=delays, key=args.seed)
+    if args.save:
+        save_checkpoint(args.save, drop_unit_chain(state.params), step=args.steps)
+        print("saved", args.save)
     return state
 
 

@@ -88,6 +88,19 @@ class Sampler:
         :meth:`step` splits them, or are ``keys[c] = (k_noise, k_delay)``
         with the carried keys untouched.  Returns ``(state, aux)`` with
         aux's tensors stacked over the chains."""
+        state, aux, _ = self.commit(state, batches, delays, keys)
+        return state, aux
+
+    def commit(self, state: SamplerState, batches: list, delays,
+               keys: list | None = None, *, skip=None, check: bool = False):
+        """:meth:`step_chains` with the guards of a masked commit:
+        ``skip`` (``(C,)`` host bools) marks chains whose commit is
+        masked — the ring does not push them and the fused commit leaves
+        their rows alone (the other stages still run for them; the caller
+        keeps their old values) — and ``check`` asks the fused commit for
+        its non-finite flags.  Returns ``(state, aux, nonfinite)``:
+        ``nonfinite`` the fused commit's ``(C,)`` int32 flags on the
+        parameters' device, or None where no stage set them."""
         if keys is not None:
             carried = list(state.key)
             k_noise, k_delay = [k[0] for k in keys], [k[1] for k in keys]
@@ -100,9 +113,11 @@ class Sampler:
                           gamma=np.full(len(carried), self.gamma_at(state.step),
                                         np.float32),
                           key_noise=k_noise, key_delay=k_delay, step=state.step,
-                          delay=np.asarray(delays, np.int64), batch=list(batches))
+                          delay=np.asarray(delays, np.int64), batch=list(batches),
+                          skip=skip, check=check)
         ctx, inner = self.transform.update(ctx, state.inner)
-        return SamplerState(ctx.params, state.step + 1, carried, inner), ctx.aux
+        return (SamplerState(ctx.params, state.step + 1, carried, inner), ctx.aux,
+                ctx.nonfinite)
 
     def run(self, state: SamplerState, batches, delays=None, *,
             collect: bool = True):

@@ -11,7 +11,7 @@
 
 A policy reads C chains' stacked ring at once (C = 1 for a single chain):
 chain c at its staleness ``ctx.delay[c]`` under its key
-``ctx.key_delay[c]``, one shared head.
+``ctx.key_delay[c]``, from its own head.
 """
 
 from __future__ import annotations

@@ -19,10 +19,14 @@ hand-written kernels, so ``update`` takes C chains stacked: the tensors
 of ``params``, ``x_hat``, ``grads``, ``noise``, ``aux`` and of the
 transform's state carry a leading chain axis C; ``gamma`` and ``delay``
 are ``(C,)`` numpy arrays; ``key_noise`` and ``key_delay`` are lists of C
-keys; ``batch`` is a list of C batches; ``step`` is one int (the chains
-commit in lockstep).  A single chain is C = 1 (:meth:`Sampler.step` views
-its state so, with :func:`one_chain`).  Chain ``c``'s result does not
-depend on C.
+keys; ``batch`` is a list of C batches; ``step`` is one int (the commit
+counter advances for every chain, a masked commit too).  ``skip`` (a
+``(C,)`` host bool array, or None) marks the chains whose commit is
+masked (a lost commit, a quarantined chain): the ring does not push them
+and the fused commit leaves their rows alone; with ``check`` the fused
+commit reports non-finite chains in ``nonfinite``.  A single chain is
+C = 1 (:meth:`Sampler.step` views its state so, with :func:`one_chain`).
+Chain ``c``'s result does not depend on C.
 """
 
 from __future__ import annotations
@@ -51,6 +55,9 @@ class StepContext(NamedTuple):
     step: int                    # commit counter k
     delay: np.ndarray            # (C,) realized staleness tau_k of this commit
     batch: list                  # C opaque payloads for the gradient oracle
+    skip: Optional[np.ndarray] = None       # (C,) bool: chains masked this commit
+    check: bool = False                     # report non-finite chains
+    nonfinite: Optional[torch.Tensor] = None  # (C,) int32, set by the fused commit
 
 
 InitFn = Callable[[PyTree], Any]
@@ -100,7 +107,7 @@ def map_tensors(fn: Callable, tree: Any, *rest: Any) -> Any:
     """``fn`` over the tensors of same-structured state trees (dicts,
     lists, tuples, named tuples, dataclasses such as a ring buffer); any
     other value (an int, None) must be equal across the trees — a ring's
-    head: the chains commit in lockstep — and is kept."""
+    depth — and is kept."""
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
     if isinstance(tree, dict):

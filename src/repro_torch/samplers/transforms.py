@@ -285,15 +285,21 @@ def fused_update(sigma: float) -> SamplerTransform:
     and the update reads x and g once and writes x once — replacing the
     ``langevin_noise() + apply_sgld_update()`` pair on the hot path.  One
     launch a leaf commits every chain under its own key, gamma and
-    scale."""
+    scale.  Chains in ``ctx.skip`` keep their rows bitwise; with
+    ``ctx.check`` the launches report non-finite chains in
+    ``ctx.nonfinite`` (``(C,)`` int32, one buffer for every leaf)."""
 
     def update(ctx: StepContext) -> StepContext:
         if ctx.grads is None:
             raise ValueError("fused_update needs a gradients() stage first")
+        flags = None
+        if ctx.check:
+            flags = torch.zeros(len(ctx.gamma), dtype=torch.int32,
+                                device=tree_leaves(ctx.params)[0].device)
         params = fused_langevin_update(
             ctx.params, ctx.grads, [rng.key_bits(k) for k in ctx.key_noise],
-            ctx.gamma, [langevin_scale(sigma, g) for g in ctx.gamma])
-        return ctx._replace(params=params)
+            ctx.gamma, [langevin_scale(sigma, g) for g in ctx.gamma], ctx.skip, flags)
+        return ctx._replace(params=params, nonfinite=flags)
 
     return stateless(update)
 
@@ -331,7 +337,7 @@ def svrg_gradients(grad_fn: GradFn, full_grad_fn: Callable[[PyTree], PyTree],
 
     def update(ctx: StepContext, state: SVRGState):
         C = len(ctx.batch)
-        if ctx.step % anchor_every == 0:  # the chains commit in lockstep
+        if ctx.step % anchor_every == 0:  # one commit counter for every chain
             state = SVRGState(
                 anchor=tree_map(torch.clone, ctx.params),
                 anchor_grad=stack_chains([full_grad_fn(chain_at(ctx.params, c))
@@ -472,15 +478,18 @@ def delay_read(policy: DelayPolicy) -> SamplerTransform:
     """Maintain the iterate ring buffer and set the stale read point.
 
     The last commit is pushed at the *start* of the step (value-identical to
-    pushing at the end of the previous step).  The chains' ring leaves are
-    ``(C, depth, *shape)`` under one shared head: the push is one copy a
-    leaf."""
+    pushing at the end of the previous step), so after the push slot
+    ``head_c`` of chain c holds its pre-commit iterate X_k.  The chains'
+    ring leaves are ``(C, depth, *shape)``, one head a chain: the push is
+    one copy a leaf while every chain commits, and leaves the chains in
+    ``ctx.skip`` (masked commits) unpushed."""
 
     def init(params):
         return delay_lib.init_ring(params, policy.tau)
 
     def update(ctx: StepContext, ring):
-        ring = delay_lib.push(ring, ctx.params)
+        ring = delay_lib.push(ring, ctx.params,
+                              None if ctx.skip is None else ~np.asarray(ctx.skip, bool))
         return ctx._replace(x_hat=policy.read(ctx, ring)), ring
 
     return SamplerTransform(init, update)

@@ -70,6 +70,35 @@ def log_hook(every: int = 10, log_fn: Callable[[str], None] = print,
     return hook
 
 
+def checkpoint_hook(path: str, every: int = 100) -> Hook:
+    """Save ``state.params`` to ``path`` every ``every`` steps
+    (chunk-aligned), in the JAX package's single-model layout (a port
+    model's chain axis of 1 dropped: :func:`~repro_torch.weights.
+    drop_unit_chain`), with the step as the checkpoint step.
+
+    The hook's ``flush``, which the engine calls after the last chunk,
+    saves the final state when the cadence skipped it."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.weights import drop_unit_chain
+
+    last = [0]
+
+    def save(step_end: int, state: SamplerState) -> None:
+        last[0] = step_end
+        save_checkpoint(path, drop_unit_chain(state.params), step=step_end)
+
+    def hook(step_end: int, state: SamplerState, _aux) -> None:
+        if step_end - last[0] >= every:
+            save(step_end, state)
+
+    def flush(step_end: int, state: SamplerState) -> None:
+        if step_end > last[0]:
+            save(step_end, state)
+
+    hook.flush = flush
+    return hook
+
+
 def _to_host(aux_steps: list) -> PyTree:
     """Per-commit aux trees of 0-d tensors -> one tree of numpy arrays."""
     if not aux_steps or aux_steps[0] is None:
@@ -102,7 +131,7 @@ def drive_chunks(run_chunk, state: SamplerState, *, steps: int,
                  chunk_size: int, hooks: Sequence[Hook], collect_aux: bool,
                  extra, batches: Optional[PyTree] = None,
                  gen_batches=None, key=None, commit_times=None,
-                 host_aux: Optional[dict] = None):
+                 host_aux: Optional[dict] = None, chunk_post=None):
     """The host chunk loop shared by :class:`Engine` and
     :class:`~repro_torch.cluster.executor.ClusterEngine`.
     ``run_chunk(state, batches, extra) -> (state, aux)`` runs one chunk;
@@ -113,7 +142,11 @@ def drive_chunks(run_chunk, state: SamplerState, *, steps: int,
     ``key``.  ``commit_times`` and any ``host_aux`` arrays (host, leading
     axis ``steps``) are sliced per chunk into its aux (commit times as
     ``"commit_time"``).  Hooks run between chunks and are flushed at the
-    end.  Returns ``(state, aux stacked over all steps or None)``."""
+    end.  ``chunk_post(done, state) -> state`` (optional) runs after each
+    chunk's hooks and may replace the state: the seam where the cluster
+    executor respawns chains and writes run checkpoints, so hooks see each
+    chunk's raw outcome (quarantines included) before it heals.  Returns
+    ``(state, aux stacked over all steps or None)``."""
     if batches is None and gen_batches is None:
         raise ValueError("give stacked `batches` or a batch_fn")
     if batches is not None:
@@ -142,6 +175,8 @@ def drive_chunks(run_chunk, state: SamplerState, *, steps: int,
                 aux_chunks.append(aux)
             for hook in hooks:
                 hook(done, state, aux)
+            if chunk_post is not None:
+                state = chunk_post(done, state)
     flush_hooks(hooks, done, state)
     if not aux_chunks or aux_chunks[0] is None:
         return state, None

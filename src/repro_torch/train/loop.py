@@ -1,6 +1,7 @@
 """Training-loop substrate: the gradient oracle of the LM loss, with
-microbatch accumulation, wired into an SGLD preset (port of
-``repro.train.loop``'s ``make_grad_fn`` and ``make_train_step``).
+microbatch accumulation, wired into an SGLD preset, and ``train_loop``,
+which drives it through the chunked
+:class:`~repro_torch.train.engine.Engine` (port of ``repro.train.loop``).
 
 Gradients come from autograd.  The model reads its layer-stacked
 ``stack`` leaves one layer at a time; differentiating through those
@@ -14,13 +15,15 @@ costs one parameter-sized tree.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 from repro_torch import samplers
 from repro_torch.core.sgld import SGLDConfig
+from repro_torch.kernels import rng
 from repro_torch.models.transformer import Model, loss_fn
+from repro_torch.train.engine import Engine, log_hook
 from repro_torch.utils import tree_add_scaled, tree_map, tree_zeros_like
 
 PyTree = Any
@@ -84,3 +87,30 @@ def make_train_step(model: Model, sgld_cfg: SGLDConfig,
         return sampler.step(state, batch, delay)
 
     return sampler, step_fn
+
+
+def train_loop(model: Model, params: PyTree, sgld_cfg: SGLDConfig,
+               batch_fn: Callable[[torch.Generator], PyTree], steps: int, key,
+               delays=None, log_every: int = 10, log_fn=print,
+               num_microbatches: int = 1, chunk_size: int = 0, *, fused: bool = False):
+    """Train through the chunked :class:`~repro_torch.train.engine.Engine`,
+    logging through :func:`~repro_torch.train.engine.log_hook`.
+
+    ``key`` is a JAX-style key (``rng.PRNGKey(seed)``) or an int seed of
+    one: ``key, init_key = split(key)`` as the JAX package splits it, the
+    sampler's state under ``init_key``, and ``batch_fn(generator)`` drawing
+    from a ``torch.Generator`` seeded from ``key``.  Returns ``(state,
+    history)`` with history ``[(step, loss), ...]`` at the ``log_every``
+    cadence and the last step."""
+    sampler, _ = make_train_step(model, sgld_cfg, num_microbatches, fused=fused)
+    key = rng.PRNGKey(key) if isinstance(key, int) else rng.key_bits(key)
+    key, init_key = rng.split(key)
+    state = sampler.init(params, init_key)
+    engine = Engine(sampler, batch_fn=batch_fn,
+                    chunk_size=chunk_size or max(1, log_every),
+                    hooks=[log_hook(every=log_every, log_fn=log_fn)])
+    state, aux = engine.run(state, steps=steps, delays=delays,
+                            key=rng.seed_int(key))
+    losses = aux["loss"]
+    idx = sorted(set(range(0, steps, log_every)) | {steps - 1})
+    return state, [(k, float(losses[k])) for k in idx]

@@ -4,7 +4,8 @@
 ``jax.device_get`` / ``np.asarray`` — nested dicts of numpy arrays — and
 returns the port's tree of tensors.  One chain (``embed/w`` of rank 2)
 gains a leading chain axis of 1; a chain-stacked bank keeps its ``(C, ...)``
-layout, which is the port's.
+layout, which is the port's.  :func:`drop_unit_chain` is the way back, for
+the checkpoints the JAX package reads.
 """
 
 from __future__ import annotations
@@ -43,3 +44,21 @@ def from_jax_params(tree: PyTree, device="cuda", dtype=None) -> PyTree:
     if out["embed"]["w"].dim() == 2:
         out = tree_map(lambda t: t[None], out)
     return out
+
+
+def drop_unit_chain(tree: PyTree) -> PyTree:
+    """A model tree in the JAX package's layout, for files the JAX package
+    reads: the port's one chain is a bank of one (leaves ``(1, ...)``,
+    ``embed/w`` of rank 3), and a chain-stacked ensemble of such chains
+    has leaves ``(C, 1, ...)`` (rank 4); both lose the axis of 1 (views,
+    no copies).  Any other tree — already in that layout, or no model
+    tree — is returned as it is."""
+    embed = tree.get("embed") if isinstance(tree, dict) else None
+    w = embed.get("w") if isinstance(embed, dict) else None
+    if not torch.is_tensor(w):
+        return tree
+    if w.dim() == 3 and w.shape[0] == 1:
+        return tree_map(lambda t: t[0], tree)
+    if w.dim() == 4 and w.shape[1] == 1:
+        return tree_map(lambda t: t[:, 0], tree)
+    return tree

@@ -324,30 +324,34 @@ def test_recorders_rows_match_reference(quads, scheds):
         assert abs(a["ess_min"] - b["ess_min"]) <= 1e-5 * b["ess_min"]
 
 
-# -- the knobs of later slices -------------------------------------------------------------
-def test_refused_knobs_name_their_slice(quads):
+# -- the knobs of earlier refusals ---------------------------------------------------------
+def test_refused_knobs_name_their_slice(quads, tmp_path):
+    """mesh= stays refused (one card cannot test it); the fault and
+    checkpoint knobs, refused until their slice, are accepted, and a
+    poison mask of the wrong shape is refused."""
     _, tq = quads
     s = samplers.sgld("consistent", lambda p, b: tq.grad(p, b), gamma=0.01,
                       sigma=0.5, tau=TAU)
-    with pytest.raises(ValueError, match="item 5"):
-        ClusterEngine(s, num_chains=C, health_check=True)
     with pytest.raises(ValueError, match="mesh"):
         ClusterEngine(s, num_chains=C, mesh=object())
-    e = ClusterEngine(s, num_chains=C)
-    st = e.init(torch.zeros(D), rng.PRNGKey(0))
-    with pytest.raises(ValueError, match="item 5"):
-        e.run(st, steps=4, poison=np.zeros((4, C), bool))
-    with pytest.raises(ValueError, match="items 4-5"):
-        e.run(st, steps=4, checkpoint_path="ckpt.npz")
-    with pytest.raises(ValueError, match="items 4-5"):
-        e.resume("ckpt.npz", st, steps=4)
-    with pytest.raises(ValueError, match="item 4"):
-        e.save_ensemble(st, "bank.npz")
+    e = ClusterEngine(s, num_chains=C, chunk_size=2, health_check=True)
+    st, _ = e.run(e.init(torch.zeros(D), rng.PRNGKey(0)), steps=4,
+                  poison=np.zeros((4, C), bool))
+    assert st.health.all() and st.step == 4
+    with pytest.raises(ValueError, match="poison must be"):
+        e.run(e.init(torch.zeros(D), rng.PRNGKey(0)), steps=4,
+              poison=np.zeros((3, C), bool))
+    ck, bank = str(tmp_path / "ckpt.npz"), str(tmp_path / "bank.npz")
+    e = ClusterEngine(s, num_chains=C, chunk_size=2)
+    e.run(e.init(torch.zeros(D), rng.PRNGKey(0)), steps=4, checkpoint_path=ck)
+    st, _ = e.resume(ck, e.init(torch.zeros(D), rng.PRNGKey(0)), steps=6)
+    assert st.step == 6
+    e.save_ensemble(st, bank)
     chaos = ensemble_async(WorkerModel(num_workers=4, seed=1,
                                        faults=FaultPlan(crash_rate=0.3)), 20, C)
     assert sum(sc.num_lost for sc in chaos) > 0
-    with pytest.raises(ValueError, match="item 5"):
-        e.run(st, steps=20, schedule=chaos)
+    st, _ = e.run(e.init(torch.zeros(D), rng.PRNGKey(0)), steps=20, schedule=chaos)
+    assert st.step == 20 and torch.isfinite(st.params).all()
 
 
 def test_a_commit_frees_its_read_and_gradient_without_the_garbage_collector(quads, scheds):

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of the JAX package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/torch_*.py``) import neither ``jax`` nor
+anything of the JAX package ``repro``."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted(ROOT.glob("examples/torch_*.py")))
 
 
 def _imported_modules(path: Path):
@@ -47,6 +49,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.core.potentials, repro_torch.core.theory\n"
         "import repro_torch.cluster.schedule, repro_torch.cluster.ensemble\n"
         "import repro_torch.cluster.executor, repro_torch.data.pipeline\n"
+        "import repro_torch.checkpoint, repro_torch.faults\n"
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None}\n"
     )

@@ -251,24 +251,26 @@ def test_plain_chain_update_is_the_single_update_chain_by_chain(C, n, dtype):
 def test_plain_chain_reads_are_the_single_reads_chain_by_chain(C, n, name):
     """Bitwise, ``-0.0``, ``inf`` and ``nan`` included: the draw, gather and
     one-pass read of C chains against those of each chain alone (C = 1),
-    each chain at its own key and maxval (1 .. depth) under one shared
-    head."""
-    depth, head = 4, 2
+    each chain at its own key, maxval (1 .. depth) and ring head."""
+    depth = 4
+    heads = [(2 + 3 * c) % depth for c in range(C)]
     h = _chain_ring(C, depth, n, CHAIN_DTYPES[name], seed=C + n)
     keys = rng.split((7, C), C)
     maxvals = [1 + c % depth for c in range(C)]
     d = ref.coordinate_delays_ref(keys, n, maxvals)
     assert d.shape == (C, n) and d.dtype == torch.int32
-    read = ref.wicon_read_ref(h, keys, maxvals, head)
+    read = ref.wicon_read_ref(h, keys, maxvals, heads)
     any_d = d * 3 - 5  # out-of-range delays: the slot is taken mod depth
-    gather = ref.delay_gather_ref(h, any_d, head)
+    gather = ref.delay_gather_ref(h, any_d, heads)
     for c in range(C):
         one = slice(c, c + 1)
         assert torch.equal(d[c], ref.coordinate_delays_ref([keys[c]], n, [maxvals[c]])[0])
         assert torch.equal(_bits(read[c]), _bits(ref.wicon_read_ref(
-            h[one], [keys[c]], [maxvals[c]], head)[0]))
+            h[one], [keys[c]], [maxvals[c]], [heads[c]])[0]))
         assert torch.equal(_bits(gather[c]),
-                           _bits(ref.delay_gather_ref(h[one], any_d[one], head)[0]))
+                           _bits(ref.delay_gather_ref(h[one], any_d[one], [heads[c]])[0]))
+        slots = torch.remainder(heads[c] - any_d[c].long(), depth)
+        assert torch.equal(_bits(gather[c]), _bits(h[c, slots, torch.arange(n)]))
 
 
 def test_chain_ops_on_cpu_route_to_the_plain_versions():
@@ -291,12 +293,14 @@ def test_chain_ops_on_cpu_route_to_the_plain_versions():
         for k in params:
             assert torch.equal(params[k][c], want[c][k][0])
     ring = tdelay.RingBuffer(history={k: torch.randn(C, 4, *v.shape[1:], generator=g)
-                                      for k, v in params.items()}, head=1, depth=4)
+                                      for k, v in params.items()},
+                             head=torch.tensor([1] * C), depth=4)
     keys, delays = rng.split((5, 5), C), [0, 2, 7]
     for fused in (False, True):
         got = tdelay.read_inconsistent_leafwise(ring, keys, delays, fused=fused)
         for c in range(C):
-            one = tdelay.RingBuffer({k: v[c:c + 1] for k, v in ring.history.items()}, 1, 4)
+            one = tdelay.RingBuffer({k: v[c:c + 1] for k, v in ring.history.items()},
+                                    torch.tensor([1]), 4)
             want = tdelay.read_inconsistent_leafwise(one, [keys[c]], [delays[c]],
                                                      fused=fused)
             for k in params:
@@ -305,7 +309,8 @@ def test_chain_ops_on_cpu_route_to_the_plain_versions():
     assert same["a"].data_ptr() == ring.history["a"][:, 0].data_ptr()  # a view
     mixed = tdelay.read_consistent(ring, delays)
     for c in range(C):
-        one = tdelay.RingBuffer({k: v[c:c + 1] for k, v in ring.history.items()}, 1, 4)
+        one = tdelay.RingBuffer({k: v[c:c + 1] for k, v in ring.history.items()},
+                                torch.tensor([1]), 4)
         assert torch.equal(mixed["b"][c], tdelay.read_consistent(one, [delays[c]])["b"][0])
     assert counts == (lu.langevin_update.launches, dg.wicon_read.launches)
 
@@ -313,14 +318,18 @@ def test_chain_ops_on_cpu_route_to_the_plain_versions():
 def test_chain_tables_encode_each_chains_parameters():
     rows = lu.chain_rows([(1, 2), (2**32 - 1, 0)], [np.float32(0.5), np.float32(1e-3)],
                          [np.float32(0.0), np.float32(3.0)])
-    assert rows.dtype == np.uint32 and rows.shape == (2, 4)
+    assert rows.dtype == np.uint32 and rows.shape == (2, 5)
     assert rows[1, 0] == 2**32 - 1 and rows[1, 1] == 0
     assert rows[:, 2].view(np.float32).tolist() == [0.5, np.float32(1e-3)]
-    t = dg.randint_rows([(3, 4), (5, 6)], [3, 1])
-    for row, key, m in zip(t, [(3, 4), (5, 6)], [3, 1]):
+    assert rows[:, 4].tolist() == [0, 0]  # no chain skipped
+    skipped = lu.chain_rows([(1, 2), (3, 4)], [0.5, 0.5], [0.0, 0.0], skip=[True, False])
+    assert skipped[:, 4].tolist() == [1, 0]
+    t = dg.randint_rows([(3, 4), (5, 6)], [3, 1], heads=[2, 0])
+    for row, key, m, head in zip(t, [(3, 4), (5, 6)], [3, 1], [2, 0]):
         k_hi, k_lo, span, mult = rng.randint_params(key, m)
         magic = rng.fastmod_magic(span)
-        assert row.tolist() == [*k_hi, *k_lo, span, mult, magic & 0xFFFFFFFF, magic >> 32]
+        assert row.tolist() == [*k_hi, *k_lo, span, mult, magic & 0xFFFFFFFF,
+                                magic >> 32, head]
     with pytest.raises(ValueError, match="maxval"):
         dg.randint_rows([(1, 1)], [0])
 
@@ -331,10 +340,67 @@ def test_chain_kernels_refuse_cpu_tensors():
         lu.langevin_update(x, x, torch.zeros(2, 4, dtype=torch.int32))
     h = torch.zeros(2, 3, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        dg.wicon_read(h, torch.zeros(2, 8, dtype=torch.int32), [1, 1], 0)
+        dg.wicon_read(h, torch.zeros(2, 9, dtype=torch.int32), [1, 1], [0, 0])
     with pytest.raises(ValueError, match="CUDA"):
-        dg.delay_gather(h, torch.zeros(2, 8, dtype=torch.int32), 0)
+        dg.delay_gather(h, torch.zeros(2, 8, dtype=torch.int32), [0, 0])
     with pytest.raises(ValueError, match="CUDA"):
-        dg.coordinate_delays(torch.zeros(2, 8, dtype=torch.int32), 8, [1, 1])
-    with pytest.raises(TypeError, match="host-int head"):
+        dg.coordinate_delays(torch.zeros(2, 9, dtype=torch.int32), 8, [1, 1])
+    with pytest.raises(TypeError, match=r"\(C,\) head tensor"):  # one head a chain
         tdelay.push(tdelay.RingBuffer({"a": h}, np.int32(0), 3), {"a": x})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_plain_update_skips_rows_and_flags_nonfinite_chains(dtype):
+    """A skipped chain's row is bitwise untouched, a NaN gradient
+    included; kept rows are bitwise the unmasked update; the flags mark
+    exactly the kept chains whose new row holds a NaN or Inf, and equal
+    ``torch.isfinite`` on the output."""
+    C, n = 5, 1003
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(C, n, generator=g).to(dtype)
+    grad = torch.randn(C, n, generator=g).to(dtype)
+    grad[1, 7] = float("nan")   # skipped: never read
+    grad[2, 500] = float("nan")  # kept: its row goes non-finite
+    grad[4, 0] = float("inf")
+    seeds = rng.split((C, n), C)
+    gammas = np.full(C, 1e-2, np.float32)
+    scales = np.linspace(0.0, 0.3, C).astype(np.float32)
+    skip = np.array([False, True, False, True, False])
+    want = ref.langevin_update_ref(x.clone(), grad, seeds, gammas, scales)
+    flags = torch.zeros(C, dtype=torch.int32)
+    got = ref.langevin_update_ref(x.clone(), grad, seeds, gammas, scales, skip, flags)
+    for c in range(C):
+        assert torch.equal(_bits(got[c]), _bits(x[c] if skip[c] else want[c])), c
+    assert flags.tolist() == [0, 0, 1, 0, 1]
+    expect = (~torch.isfinite(got).all(dim=1)).to(torch.int32)
+    assert torch.equal(flags, expect * torch.from_numpy(~skip).to(torch.int32))
+    # ops route the same masks through the tree op, flags OR'd over leaves
+    params = {"a": x[:, :3].clone(), "b": x[:, 3:].clone()}
+    grads = {"a": grad[:, :3].contiguous(), "b": grad[:, 3:].contiguous()}
+    flags = torch.zeros(C, dtype=torch.int32)
+    ops.fused_langevin_update(params, grads, seeds, gammas, scales, skip, flags)
+    assert flags.tolist() == [0, 0, 1, 0, 1]
+    for c in np.flatnonzero(skip):
+        assert torch.equal(_bits(params["b"][c]), _bits(x[c, 3:]))
+
+
+def test_ring_push_keeps_masked_chains_and_reads_from_each_head():
+    """``push(keep=)`` writes and advances only the kept chains; the reads
+    then take each chain's slot from its own head."""
+    C, depth = 3, 4
+    ring = tdelay.init_ring({"w": torch.zeros(5)}, depth - 1)
+    assert ring.head.shape == ()
+    ring = tdelay.RingBuffer({"w": torch.stack([ring.history["w"]] * C)},
+                             torch.zeros(C, dtype=torch.int64), depth)
+    for k in range(1, 4):
+        x = {"w": torch.full((C, 5), float(k)) + torch.arange(C)[:, None] * 10}
+        ring = tdelay.push(ring, x, keep=np.array([True, k != 2, k == 3]))
+    assert tdelay.heads(ring) == [3, 2, 1]
+    assert ring.history["w"][0, 1:, 0].tolist() == [1.0, 2.0, 3.0]
+    assert ring.history["w"][1, 1:3, 0].tolist() == [11.0, 13.0]
+    assert ring.history["w"][2, 1, 0] == 23.0 and ring.history["w"][2, 2:, 0].sum() == 0
+    newest = tdelay.read_consistent(ring, [0, 0, 0])["w"][:, 0]
+    assert newest.tolist() == [3.0, 13.0, 23.0]
+    keys = rng.split((1, 2), C)
+    got = tdelay.read_inconsistent_leafwise(ring, keys, [0, 0, 0], fused=True)
+    assert torch.equal(got["w"][:, 0], newest)

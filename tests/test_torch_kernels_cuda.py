@@ -354,8 +354,8 @@ def _update_ref_one(x, g, seed, gamma, scale):
     return ref.langevin_update_ref(x[None], g[None], [seed], [gamma], [scale])[0]
 
 
-def _draw_table(key, maxval, device):
-    return _table(dg.randint_rows([key], [maxval]), device)
+def _draw_table(key, maxval, device, head=0):
+    return _table(dg.randint_rows([key], [maxval], [head]), device)
 
 
 @pytest.mark.cuda
@@ -426,8 +426,8 @@ def test_delay_gather_kernel_equals_plain_on_card(cuda, dtype):
     delays = torch.randint(0, depth, (n,), generator=gen, device=cuda,
                            dtype=torch.int32)
     before = dg.delay_gather.launches
-    got = dg.delay_gather(h[None], delays[None], head)
-    want = ref.delay_gather_ref(h[None], delays[None], head)
+    got = dg.delay_gather(h[None], delays[None], [head])
+    want = ref.delay_gather_ref(h[None], delays[None], [head])
     torch.cuda.synchronize()
     assert dg.delay_gather.launches == before + 1
     assert got.dtype == dtype and got.shape == (1, n)
@@ -485,8 +485,9 @@ def test_wicon_read_kernel_equals_plain_on_card(cuda, dtype, depth):
                 for maxval in range(1, depth + 1):
                     key = (n * depth + maxval, head)
                     before = dg.wicon_read.launches
-                    got = dg.wicon_read(h, _draw_table(key, maxval, cuda), [maxval], head)
-                    want = ref.wicon_read_ref(h, [key], [maxval], head)
+                    got = dg.wicon_read(h, _draw_table(key, maxval, cuda, head), [maxval],
+                                        [head])
+                    want = ref.wicon_read_ref(h, [key], [maxval], [head])
                     torch.cuda.synchronize()
                     assert dg.wicon_read.launches == before + 1
                     assert got.dtype == dtype
@@ -508,8 +509,8 @@ def test_delay_gather_kernel_takes_any_delay_mod_depth(cuda, dtype, depth):
                           device=cuda, dtype=torch.int32)
         d[:4] = torch.tensor([-2**31, 2**31 - 1, -1, depth], dtype=torch.int32)
         head = depth // 2
-        got = dg.delay_gather(h[None], d[None], head)[0]
-        want = ref.delay_gather_ref(h[None], d[None], head)[0]
+        got = dg.delay_gather(h[None], d[None], [head])[0]
+        want = ref.delay_gather_ref(h[None], d[None], [head])[0]
         torch.cuda.synchronize()
         assert _bitwise(got, want), n
         slots = torch.remainder(head - d.long(), depth)
@@ -575,32 +576,34 @@ def test_chain_reads_are_the_single_kernels_chain_by_chain(cuda, dtype, C, depth
     """The one-pass read, gather and draw of C chains against the same
     kernels on each chain alone (C = 1) and the plain versions, bit for
     bit: each chain at its own key and maxval (1, 2, ... depth in turn: the
-    zero, low-stream and two-stream draws side by side in one launch), one
-    shared head."""
+    zero, low-stream and two-stream draws side by side in one launch) and
+    its own ring head (the heads part after masked commits)."""
     for n in (5, 4096, 4099):
         h = _chain_ring_on(cuda, dtype, C, depth, n, seed=n + C + depth)
-        head = depth - 1
+        heads = [(depth - 1 + 2 * c) % depth for c in range(C)]
         keys = rng.split((n, depth), C)
         maxvals = [1 + c % depth for c in range(C)]
-        table = _table(dg.randint_rows(keys, maxvals), cuda)
+        table = _table(dg.randint_rows(keys, maxvals, heads), cuda)
         counts = (dg.wicon_read.launches, dg.coordinate_delays.launches,
                   dg.delay_gather.launches)
-        read = dg.wicon_read(h, table, maxvals, head)
+        read = dg.wicon_read(h, table, maxvals, heads)
         delays = dg.coordinate_delays(table, n, maxvals)
         wild = delays * 7 - 9  # any int32: the slot is taken mod depth
-        gather = dg.delay_gather(h, wild, head)
+        gather = dg.delay_gather(h, wild, heads)
         torch.cuda.synchronize()
         assert (dg.wicon_read.launches, dg.coordinate_delays.launches,
                 dg.delay_gather.launches) == tuple(k + 1 for k in counts)
-        assert _bitwise(read, ref.wicon_read_ref(h, keys, maxvals, head))
+        assert _bitwise(read, ref.wicon_read_ref(h, keys, maxvals, heads))
         assert torch.equal(delays, ref.coordinate_delays_ref(keys, n, maxvals, cuda))
-        assert _bitwise(gather, ref.delay_gather_ref(h, wild, head))
+        assert _bitwise(gather, ref.delay_gather_ref(h, wild, heads))
         for c in range(C):
             one = h[c:c + 1].clone()
-            t1 = _draw_table(keys[c], maxvals[c], cuda)
-            assert _bitwise(read[c], dg.wicon_read(one, t1, [maxvals[c]], head)[0]), (n, c)
+            t1 = _draw_table(keys[c], maxvals[c], cuda, heads[c])
+            assert _bitwise(read[c], dg.wicon_read(one, t1, [maxvals[c]],
+                                                   [heads[c]])[0]), (n, c)
             assert torch.equal(delays[c], dg.coordinate_delays(t1, n, [maxvals[c]])[0])
-            assert _bitwise(gather[c], dg.delay_gather(one, wild[c:c + 1].clone(), head)[0])
+            assert _bitwise(gather[c], dg.delay_gather(one, wild[c:c + 1].clone(),
+                                                       [heads[c]])[0])
 
 
 @pytest.mark.cuda
@@ -627,7 +630,8 @@ def test_chain_ops_launch_once_a_leaf_whatever_c(cuda, C):
         for k in shapes:
             assert _bitwise(params[k][c], want[c][k][0])
     ring = tdelay.RingBuffer({k: torch.randn(C, 3, *s, generator=gen, device=cuda)
-                              for k, s in shapes.items()}, head=2, depth=3)
+                              for k, s in shapes.items()},
+                             head=torch.tensor([(2 + c) % 3 for c in range(C)]), depth=3)
     keys, delays = rng.split((9, C), C), [c % 4 for c in range(C)]
     for fused, counters in ((True, (dg.wicon_read,)),
                             (False, (dg.coordinate_delays, dg.delay_gather))):
@@ -636,11 +640,81 @@ def test_chain_ops_launch_once_a_leaf_whatever_c(cuda, C):
         assert [k.launches for k in counters] == [b + 3 for b in before]
         for c in range(C):
             one = tdelay.RingBuffer({k: v[c:c + 1].clone() for k, v in ring.history.items()},
-                                    2, 3)
+                                    ring.head[c:c + 1], 3)
             single = tdelay.read_inconsistent_leafwise(one, [keys[c]], [delays[c]],
                                                        fused=fused)
             for k in shapes:
                 assert _bitwise(got[k][c], single[k][0]), (fused, c, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [1, 4, 32])
+def test_langevin_kernel_skips_rows_and_flags_nonfinite_chains(cuda, dtype, C):
+    """A skipped chain's row is bitwise untouched, a NaN gradient row
+    included; kept rows are bitwise the unmasked kernel; the non-finite
+    flags equal ``torch.isfinite`` of the kept rows and the plain
+    version's flags, on the vector code (4096), the peel and tail (4099)
+    and a row of 5."""
+    for n in (5, 4096, 4099):
+        gen = torch.Generator(device=cuda).manual_seed(n + C)
+        x = torch.randn(C, n, generator=gen, device=cuda).to(dtype)
+        g = torch.randn(C, n, generator=gen, device=cuda).to(dtype)
+        skip = np.array([c % 3 == 1 for c in range(C)])
+        g[torch.from_numpy(skip).to(cuda)] = float("nan")  # never read
+        bad = [c for c in range(C) if c % 4 == 2]
+        for c in bad:
+            g[c, n // 2] = float("inf")
+        seeds = rng.split((n, C), C)
+        gammas = np.full(C, 1e-2, np.float32)
+        scales = np.linspace(0.0, 0.3, C).astype(np.float32)
+        plain = lu.langevin_update(x.clone(), g, _table(lu.chain_rows(seeds, gammas, scales),
+                                                        cuda))
+        want_flags = torch.zeros(C, dtype=torch.int32)
+        want = ref.langevin_update_ref(x.clone(), g, seeds, gammas, scales, skip, want_flags)
+        flags = torch.zeros(C, dtype=torch.int32, device=cuda)
+        got = lu.langevin_update(x.clone(), g, _table(lu.chain_rows(
+            seeds, gammas, scales, skip), cuda), flags)
+        torch.cuda.synchronize()
+        for c in range(C):
+            assert _bitwise(got[c], x[c] if skip[c] else plain[c]), (n, c)
+        expect = (~torch.isfinite(got).all(dim=1)).cpu() & ~torch.from_numpy(skip)
+        assert flags.cpu().tolist() == expect.to(torch.int32).tolist() \
+            == want_flags.tolist() == [int(c in bad and not skip[c]) for c in range(C)]
+        if dtype == torch.float32:
+            torch.testing.assert_close(got.cpu(), want.cpu(), rtol=0, atol=2e-6,
+                                       equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_masked_commit_on_card_equals_the_cpu(cuda):
+    """The ClusterEngine under a chaos schedule, a poison and
+    ``health_check`` (fused W-Icon: kernel skips, flags, the ring restore)
+    gives the CPU run's health masks, heads and keys, and iterates within
+    1e-5 + 1e-4 x |CPU|."""
+    from repro_torch import samplers
+    from repro_torch.cluster import ClusterEngine, ensemble_async
+    from repro_torch.core import FaultPlan, Quadratic, WorkerModel
+
+    C = 8
+    scheds = ensemble_async(WorkerModel(num_workers=4, seed=1, faults=FaultPlan(
+        crash_rate=0.15, mean_downtime=2.0)), 40, C, seed=0)
+    poison = np.zeros((40, C), bool)
+    poison[5, 2] = poison[17, 6] = True
+    out = {}
+    for dev in ("cpu", cuda):
+        q = Quadratic.make(rng.PRNGKey(0), d=4, m=1.0, L=3.0, device=dev)
+        s = samplers.sgld("inconsistent", lambda p, b, q=q: q.grad(p, b), gamma=0.01,
+                          sigma=0.5, tau=32, fused=True)
+        e = ClusterEngine(s, num_chains=C, chunk_size=10, health_check=True,
+                          respawn=False)
+        st, _ = e.run(e.init(torch.zeros(4, device=dev), rng.PRNGKey(3)), steps=40,
+                      schedule=scheds, poison=poison)
+        out[str(dev)] = st
+    a, b = out["cpu"], out[str(cuda)]
+    assert np.array_equal(a.health, b.health) and not a.health[2] and not a.health[6]
+    assert a.key == b.key and torch.equal(a.inner[0].head, b.inner[0].head)
+    torch.testing.assert_close(b.params.cpu(), a.params, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -197,7 +197,7 @@ def test_plain_gather_equals_pallas_bitwise(dtype):
     th = (torch.from_numpy(h.astype(np.float32)).bfloat16()
           if dtype == ml_dtypes.bfloat16 else torch.from_numpy(h))
     got = ref.delay_gather_ref(th[None], torch.from_numpy(delays.astype(np.int32))[None],
-                               head)[0]
+                               [head])[0]
     got = got.float().numpy() if dtype == ml_dtypes.bfloat16 else got.numpy()
     np.testing.assert_array_equal(got, want.astype(got.dtype))
 
@@ -208,7 +208,7 @@ def test_plain_gather_copies_signed_zero_inf_nan_like_the_oracle():
     slots = np.array([0, 1, 1, 0, 1], np.int32)
     want = np.asarray(jref.delay_gather_ref(jnp.asarray(h), jnp.asarray(slots)))
     got = ref.delay_gather_ref(torch.from_numpy(h)[None],
-                               torch.from_numpy((0 - slots) % 2)[None], 0)[0].numpy()
+                               torch.from_numpy((0 - slots) % 2)[None], [0])[0].numpy()
     assert got.tobytes() == want.tobytes()
     assert np.signbit(got[:2]).all()  # the selected -0.0 stays -0.0
 

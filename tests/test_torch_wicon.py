@@ -71,11 +71,11 @@ def test_plain_wicon_read_equals_jax_randint_then_read(name, depth):
                                     maxval, dtype=jnp.int32)
             want = _jax_read(jh, head, depth, jd)
             # chains on a leading axis: one chain is C = 1
-            got = ref.wicon_read_ref(th[None], [key], [maxval], head)[0]
+            got = ref.wicon_read_ref(th[None], [key], [maxval], [head])[0]
             assert got.dtype == th.dtype
             assert _bits(got) == _bits(want), (head, maxval)
             # the op route on CPU tensors: the same read, leaf-shaped
-            got = ops.wicon_read(th.reshape(1, depth, 17, 59), [key], [maxval], head)
+            got = ops.wicon_read(th.reshape(1, depth, 17, 59), [key], [maxval], [head])
             assert got.shape == (1, 17, 59)
             assert _bits(got) == _bits(want), (head, maxval)
 
@@ -92,7 +92,7 @@ def test_fused_leafwise_read_equals_jax_draw_then_read(depth):
     for head in range(depth):
         jring = jdelay.RingBuffer(history=jhist, head=jnp.int32(head), depth=depth)
         ring = delay.RingBuffer(history={k: t[None] for k, t in thist.items()},
-                                head=head, depth=depth)  # one chain: C = 1
+                                head=torch.tensor([head]), depth=depth)  # C = 1
         for max_delay in range(depth + 1):
             jkey = jax.random.PRNGKey(100 * depth + 10 * head + max_delay)
             key = rng.PRNGKey(100 * depth + 10 * head + max_delay)
