@@ -21,7 +21,9 @@ library) and runs, failing on the first phase that fails:
    calls, caches / pools bit-for-bit equal outside the garbage
    row; with the kernel's, the plain version's and one PyTorch library
    call's time (``scaled_dot_product_attention``), and the bytes bound;
-   then the SGLD kernels (Langevin update, delay draw, delay gather, the
+   then both at a group of 3 (12 query heads over 4 KV heads, head_dim 64:
+   the 110M example model) on the decode cell's ring and the paged cell, in
+   bf16 and float32, timed; then the SGLD kernels (Langevin update, delay draw, delay gather, the
    one-pass W-Icon read) against theirs, at a ragged length (misaligned
    rows, the scalar code) and at 2^20 elements (the vector code) in bf16,
    float32 and int32, over rings of depth 1-5, and at the largest
@@ -56,7 +58,17 @@ library) and runs, failing on the first phase that fails:
 5. the main path, part 2: ``PagedDecodeEngine`` on the same bank — 8 slots,
    page size 16, max_seq 256, 12 requests of mixed lengths, two of them at
    a higher priority that preempts; the paged kernel must have run once
-   per layer per micro-step, and every page must be free at the end;
+   per layer per micro-step, and every page must be free at the end; then
+   ``ServeEngine`` on the same bank: (a) ``transformer_next_token_predict``
+   over 8 prompts of 1,024 tokens (``Model.prefill``, the long-prompt SDPA
+   path): the mean within rtol 1e-6 of the chain average of the per-chain
+   predictions, ordered quantiles, finite, with ms a request, queries/s
+   and peak memory; (b) a mixed stream of 3, 5, 8 and 3 queries of 128
+   tokens, whose host pad scratch stops growing once rungs 4 and 8 have
+   been seen; (c) one 8,192-token query, with its peak memory; no decode
+   kernel runs in (a)-(c); (d) ``ServeEngine.decoder`` greedy-decodes
+   the ``DecodeEngine`` section's tokens (the ring kernel once per layer
+   per step);
 6. the main path, part 3, once the serving bank is freed: delayed-gradient
    SGLD training of one full-width qwen3-4b chain (4.4 B parameters, bf16,
    drawn on the card) through the launcher's path
@@ -65,7 +77,10 @@ library) and runs, failing on the first phase that fails:
    simulated workers: finite losses, ms per commit (the first chunk
    apart), tokens/s, peak memory, and the Langevin update and the one-pass
    W-Icon read each launched once per parameter leaf per commit (14 x 6),
-   the standalone gather and delay draw never;
+   the standalone gather and delay draw never; then the torch twin of
+   ``examples/train_lm.py`` (110M parameters, 12 query heads over 4 KV
+   heads) for 4 commits and its greedy decode through ``DecodeEngine``: the
+   ring kernel at a group of 3, once per layer per decode step;
 7. the main path, part 4: the paper's experiments (``repro_torch.
    experiments``), Sync, W-Con and W-Icon — (a) the §3.2 regression (P 4,
    400 steps) and the §3.3 RICA (patch 16, 8 features, 60 steps) at
@@ -90,7 +105,11 @@ library) and runs, failing on the first phase that fails:
    workers, 600 commits): ``sgld``, ``svrg`` and ``sghmc`` W-Con, the
    inverse-speed half, then the 32 chains through the fused W-Icon preset
    (one update and one read launch a commit for all 32): final W2, wall
-   seconds, commits a second; (c) a 4-chain ensemble of qwen3-4b at its
+   seconds, commits a second; (d) the torch serve quickstart at its own
+   settings (32 chains, 8 workers, 4,000 W-Con commits of the polynomial
+   regression, ``save_ensemble``, ``ServeEngine.from_checkpoint``): means
+   and 90% intervals against the closed-form posterior predictive
+   (``torch_serve_quickstart.check``); (c) a 4-chain ensemble of qwen3-4b at its
    published widths, depth cut to 4 layers (bf16, drawn on the card),
    fused W-Icon at tau 2, schedules from 8 simulated workers, a batch of 8
    x 128 tokens a chain drawn by ``batch_fn``, 3 commits in one chunk:
@@ -146,6 +165,9 @@ FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 ALU_OPS = FP32_FLOPS / 2
 L2_BYTES = 50 * 2**20
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # bf16: one ulp of |o| <= 4
+# (KV heads, query heads a KV head, head_dim): qwen3-4b's, and the 110M
+# example model's 12 query heads over 4 KV heads (a group of 3)
+QWEN_HEADS, LM100M_HEADS = (8, 4, 128), (4, 3, 64)
 LARGEST_LEAF = 36 * 2560 * 9728  # stack/mlp/w_{gate,up,down} of qwen3-4b
 STACK4_LEAF = 4 * 2560 * 9728    # the same leaf at phase 8c's 4 layers
 EMBED_LEAF = 151936 * 2560       # the embedding (and the untied head)
@@ -303,10 +325,11 @@ def bitwise_equal(torch, a, b) -> bool:
 
 
 def run_decode_case(torch, F, ds, ref, dtype, smax, n_valid, slot, timed,
-                    plain_iters=50):
+                    plain_iters=50, heads=QWEN_HEADS):
     gen = torch.Generator(device="cuda").manual_seed(smax + n_valid)
-    N, KV, G, hd = 16, 8, 4, 128  # C = 4 chains x B = 4 rows
-    c = decode_inputs(torch, gen, dtype, N, smax, n_valid, slot)
+    N = 16  # C = 4 chains x B = 4 rows
+    KV, G, hd = heads
+    c = decode_inputs(torch, gen, dtype, N, smax, n_valid, slot, KV, G, hd)
     kc, vc = c["k_cache"].clone(), c["v_cache"].clone()
     o, kc, vc = ds.decode_step(c["q"], c["k_new"], c["v_new"], kc, vc,
                                c["valid"], slot)
@@ -341,8 +364,8 @@ def run_decode_case(torch, F, ds, ref, dtype, smax, n_valid, slot, timed,
     del want, wk, wv, again
     changed = (kc != c["k_cache"]).any(dim=(0, 2, 3)).nonzero().flatten().tolist()
     check(set(changed) <= {slot}, f"decode_step wrote rows {changed}")
-    res = {"dtype": name, "smax": smax, "valid": n_valid, "max_abs_err": err,
-           "limit": limit.min().item(), "splits": splits}
+    res = {"dtype": name, "heads": list(heads), "smax": smax, "valid": n_valid,
+           "max_abs_err": err, "limit": limit.min().item(), "splits": splits}
     if not timed:
         log("decode_step", json.dumps(res))
         return res
@@ -352,7 +375,7 @@ def run_decode_case(torch, F, ds, ref, dtype, smax, n_valid, slot, timed,
     bytes_moved = (c["q"].numel() * es * 2 + 2 * N * row + smax * 4
                    + 2 * N * n_read * row + 2 * N * row)
     flops = 4.0 * N * KV * G * hd * (n_read + 1)
-    sets = [decode_inputs(torch, gen, dtype, N, smax, n_valid, slot)
+    sets = [decode_inputs(torch, gen, dtype, N, smax, n_valid, slot, KV, G, hd)
             for _ in range(n_sets(2 * N * smax * row))]
     mask = [s["valid"].bool().reshape(1, 1, 1, smax) for s in sets]
     kern = [lambda s=s: ds.decode_step(s["q"], s["k_new"], s["v_new"],
@@ -387,10 +410,11 @@ PAGED_CASES = ((PAGED_CELL, 16), (PAGED_LONG, 256))
 
 
 def run_paged_case(torch, F, ds, ref, dtype, timed, pos=PAGED_CELL, maxp=16,
-                   plain_iters=50):
+                   plain_iters=50, heads=QWEN_HEADS):
     gen = torch.Generator(device="cuda").manual_seed(7 + maxp)
-    C, KV, G, hd, ps = 4, 8, 4, 128, 16
-    c = paged_inputs(torch, gen, dtype, C, pos, maxp=maxp)
+    C, ps = 4, 16
+    KV, G, hd = heads
+    c = paged_inputs(torch, gen, dtype, C, pos, maxp=maxp, KV=KV, G=G, hd=hd)
     kp, vp = c["k_pages"].clone(), c["v_pages"].clone()
     o, kp, vp = ds.paged_decode_step(c["q"], c["k_new"], c["v_new"], kp, vp,
                                      c["tables"], c["pos"])
@@ -428,7 +452,7 @@ def run_paged_case(torch, F, ds, ref, dtype, timed, pos=PAGED_CELL, maxp=16,
         check({(r[1], r[2]) for r in rows} <= written,
               f"paged_decode_step {name}: wrote outside the slot rows")
     del want, wk, wv, again
-    res = {"dtype": name, "slots": S, "maxp": maxp, "pos": pos,
+    res = {"dtype": name, "heads": list(heads), "slots": S, "maxp": maxp, "pos": pos,
            "max_abs_err": err, "limit": limit.min().item(),
            "splits": ds.paged_plan(maxp)}
     if not timed:
@@ -442,7 +466,7 @@ def run_paged_case(torch, F, ds, ref, dtype, timed, pos=PAGED_CELL, maxp=16,
                    + 2 * C * n_read * row + 2 * C * S * row)
     flops = 4.0 * C * KV * G * hd * sum((p or 0) + 1 for p in pos)
     pool_bytes = 2 * c["k_pages"].numel() * es
-    sets = [paged_inputs(torch, gen, dtype, C, pos, maxp=maxp)
+    sets = [paged_inputs(torch, gen, dtype, C, pos, maxp=maxp, KV=KV, G=G, hd=hd)
             for _ in range(n_sets(pool_bytes))]
     kern = [lambda s=s: ds.paged_decode_step(s["q"], s["k_new"], s["v_new"],
                                              s["k_pages"], s["v_pages"],
@@ -1245,6 +1269,110 @@ def main_path(torch, np, ds, cfg, device="cuda") -> dict:
         f"{evictions} evictions; paged kernel launches {launches} = {L} x {micro}")
     out["paged"] = {"launches": launches, "micro_steps": micro,
                     "tokens_per_s": n_tok / t_paged, "evictions": evictions}
+    del peng
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = serve_path(torch, np, ds, cfg, params, prompts, greedy.tokens)
+    return out
+
+
+def serve_path(torch, np, ds, cfg, params, prompts, greedy) -> dict:
+    """The main path, part 2b: ``ServeEngine`` on the same 4-chain bank —
+    (a) ``transformer_next_token_predict`` over 8 prompts of 1,024 tokens
+    (the long-prompt SDPA path): the mean within rtol 1e-6 of the chain
+    average of the per-chain predictions computed here, ordered quantiles,
+    everything finite; (b) a mixed stream of 3, 5, 8 and 3 queries of 128
+    tokens: no host pad scratch is made once rungs 4 and 8 have been seen;
+    (c) one 8,192-token query (naive attention would need 34.4 GB of scores
+    a layer); (d) ``serve.decoder(model)`` greedy-decodes the
+    ``DecodeEngine`` section's tokens.  No decode kernel runs in (a)-(c);
+    in (d) the ring kernel runs once a layer a step."""
+    from repro_torch.cluster import ServeEngine
+    from repro_torch.models import transformer_next_token_predict
+    from repro_torch.models.transformer import Model
+    from repro_torch.utils import tree_leaves
+
+    V, L = cfg.vocab_size, cfg.num_layers
+    dev = tree_leaves(params)[0].device
+    model = Model(cfg, device=dev)
+    predict = transformer_next_token_predict(model)
+    serve = ServeEngine(predict_fn=predict, params=params, device=dev)
+    rng = np.random.default_rng(8)
+    out = {}
+
+    def finite(res, q):
+        return (res.mean.shape == (q, V) and res.quantiles.shape == (3, q, V)
+                and all(np.isfinite(x).all() for x in res))
+
+    # (a) 8 prompts of 1,024 tokens
+    long = rng.integers(0, V, (8, 1024)).astype(np.int32)
+    serve({"tokens": long[:1]})  # warm-up: the SDPA backend, allocator
+    ds.decode_step.launches = ds.paged_decode_step.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve({"tokens": long})
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        per_chain = predict(params, {"tokens": torch.from_numpy(long).to(dev)})
+    want = per_chain.mean(dim=0).cpu().numpy()
+    del per_chain
+    check(finite(res, 8), "serve (a): statistics not finite or misshapen")
+    check(np.allclose(res.mean, want, rtol=1e-6),
+          f"serve (a): mean differs from the chain average by "
+          f"{np.abs(res.mean - want).max()}")
+    check(bool((res.quantiles[0] <= res.quantiles[1]).all()
+               and (res.quantiles[1] <= res.quantiles[2]).all()),
+          "serve (a): quantiles out of order")
+    out["long"] = {"queries": 8, "tokens": 1024, "ms_per_request": ms,
+                   "queries_per_s": 8e3 / ms, "peak_gb": peak,
+                   "mean_vs_chain_average_max_abs": float(np.abs(res.mean - want).max())}
+    log(f"serve (a): 8 x 1024-token prompts over {serve.num_chains} chains in {ms:.1f} ms "
+        f"({8e3 / ms:.2f} queries/s), peak {peak:.2f} GB; mean == chain average "
+        f"within {out['long']['mean_vs_chain_average_max_abs']:.3g}, quantiles ordered")
+
+    # (b) a mixed stream at 128 tokens: one host scratch a rung
+    allocs, t_b = [], []
+    for q in (3, 5, 8, 3):
+        t0 = time.perf_counter()
+        r = serve({"tokens": rng.integers(0, V, (q, 128)).astype(np.int32)})
+        t_b.append((time.perf_counter() - t0) * 1e3)
+        check(finite(r, q), f"serve (b): {q} queries not finite or misshapen")
+        allocs.append(serve.num_host_pad_allocs)
+    check(allocs[1:] == [allocs[1]] * 3,
+          f"serve (b): host pad scratch grew after rungs 4 and 8: {allocs}")
+    out["mixed"] = {"sizes": [3, 5, 8, 3], "pad_allocs": allocs, "ms": t_b}
+    log(f"serve (b): stream 3, 5, 8, 3 x 128 tokens in "
+        f"{', '.join(f'{t:.1f}' for t in t_b)} ms; host pad scratch {allocs}")
+
+    # (c) one 8,192-token query on the long path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = serve({"tokens": rng.integers(0, V, (1, 8192)).astype(np.int32)})
+    ms_c = (time.perf_counter() - t0) * 1e3
+    peak_c = torch.cuda.max_memory_allocated() / 1e9
+    check(finite(r, 1), "serve (c): the 8,192-token query is not finite")
+    check(ds.decode_step.launches == ds.paged_decode_step.launches == 0,
+          "serve (a)-(c): a decode kernel ran on the predictive path")
+    out["prompt_8192"] = {"ms": ms_c, "peak_gb": peak_c}
+    log(f"serve (c): one 8,192-token query in {ms_c:.1f} ms, peak {peak_c:.2f} GB "
+        f"(the bank {sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9:.2f} "
+        f"GB; naive fp32 scores would take "
+        f"{serve.num_chains * cfg.num_heads * 8192**2 * 4 / 1e9:.1f} GB a layer)")
+
+    # (d) the decoder over the same bank: the DecodeEngine section's tokens
+    ds.decode_step.launches = 0
+    tokens = serve.decoder(cfg).generate(prompts, 16).tokens
+    launches = ds.decode_step.launches
+    check(np.array_equal(tokens, greedy),
+          f"serve (d): decoder tokens {tokens.tolist()} != DecodeEngine's {greedy.tolist()}")
+    check(launches == L * 15, f"serve (d): decode kernel launched {launches} times, "
+          f"want {L} x 15")
+    out["decoder"] = {"launches": launches, "tokens_equal": True}
+    log(f"serve (d): ServeEngine.decoder greedy tokens == DecodeEngine's; decode "
+        f"kernel launches {launches} = {L} x 15")
     return out
 
 
@@ -1307,6 +1435,30 @@ def train_path(torch, np, lu, dg) -> dict:
     return {"launches": launches, "ms_per_commit": ms, "tokens_per_s": tok_s,
             "first_chunk_s": first, "peak_gb": peak / 1e9,
             "losses": [float(v) for v in losses]}
+
+
+def train_lm_decode(torch, np, ds) -> dict:
+    """(6b) The torch twin of ``examples/train_lm.py`` at 4 commits of 2 x
+    64 tokens, then its greedy decode of 8 tokens through ``DecodeEngine``:
+    the ring kernel at a group of 3 (12 query heads over 4 KV heads), once
+    a layer a decode step."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_train_lm as lm
+
+    ds.decode_step.launches = ds.paged_decode_step.launches = 0
+    t0 = time.perf_counter()
+    losses, sampled = lm.main(["--steps", "4", "--batch", "2", "--seq", "64",
+                               "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches, L = ds.decode_step.launches, lm.LM_100M.num_layers
+    check(np.isfinite(losses).all(), f"train_lm: losses {losses}")
+    check(len(sampled) == 8 and all(0 <= t < lm.LM_100M.vocab_size for t in sampled),
+          f"train_lm: greedy decode {sampled}")
+    check(launches == L * 7 and ds.paged_decode_step.launches == 0,
+          f"train_lm: decode kernel launched {launches} times, want {L} x 7")
+    log(f"train_lm twin: 4 commits and 8 greedy tokens through DecodeEngine in "
+        f"{wall:.1f} s; decode kernel (group 3) launches {launches} = {L} x 7")
+    return {"launches": launches, "tokens": sampled, "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -1387,6 +1539,32 @@ def cluster_quickstart(torch, np, kernels) -> dict:
             f"W2 {w2[-1]:.4f}, {wall:.2f} s, {qs.COMMITS / wall:.1f} commits/s"
             + (f"; launches {got}" if name == "fused-wicon" else ""))
     return out
+
+
+def serve_quickstart(torch, np, kernels, ds) -> dict:
+    """(d) The torch serve quickstart at its own settings (32 chains, 8
+    workers, 4,000 W-Con commits of the polynomial regression, the bank
+    saved and restored into a ``ServeEngine``): the served means and 90%
+    intervals against the closed-form posterior predictive
+    (``torch_serve_quickstart.check``); no kernel of this repo runs
+    (unfused W-Con, a predictive path)."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_serve_quickstart as sq
+
+    every = {**kernels, "decode_step": ds.decode_step,
+             "paged_decode_step": ds.paged_decode_step}
+    _reset(every)
+    out = sq.run(device="cuda", commits=sq.COMMITS)
+    got = _counts(every)
+    verdict = sq.check(out)
+    check(verdict["ok"], f"serve quickstart: against the closed form {verdict}")
+    check(got == dict.fromkeys(every, 0), f"serve quickstart: launches {got}")
+    log(f"serve quickstart: {sq.CHAINS} chains x {out['commits']} commits in "
+        f"{out['train_s']:.2f} s ({out['commits'] / out['train_s']:.1f} commits/s); "
+        f"{sq.QUERIES} queries served in {out['serve_ms']:.2f} ms; against the closed "
+        f"form {verdict}")
+    return {"commits": out["commits"], "train_s": out["train_s"],
+            "serve_ms": out["serve_ms"], "check": verdict}
 
 
 def cluster_path(torch, np, kernels, keep=()) -> dict:
@@ -1835,6 +2013,15 @@ def main() -> int:
                 torch, F, ds, ref, dtype, dtype == torch.bfloat16, pos=pos,
                 maxp=maxp, plain_iters=5 if maxp > 16 else 50)
             torch.cuda.empty_cache()
+    # a group of 3 (the 110M example model's heads): the decode cell's ring
+    # and the paged cell, both dtypes timed
+    g3 = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        g3[("ring", dtype)] = run_decode_case(torch, F, ds, ref, dtype, *RING_CASES[0],
+                                              True, heads=LM100M_HEADS)
+        g3[("paged", dtype)] = run_paged_case(torch, F, ds, ref, dtype, True,
+                                              heads=LM100M_HEADS)
+    torch.cuda.empty_cache()
     lang = run_langevin_checks(torch, np, lu, ref)
     wic, gat, dly = run_gather_checks(torch, np, dg, ref)
     torch.cuda.empty_cache()
@@ -1852,6 +2039,7 @@ def main() -> int:
     tp = train_path(torch, np, lu, dg)
     gc.collect()  # the training chain and its ring went out of scope
     torch.cuda.empty_cache()
+    tl = train_lm_decode(torch, np, ds)
     sgld_kernels = {"langevin_update": lu.langevin_update, "wicon_read": dg.wicon_read,
                     "delay_gather": dg.delay_gather,
                     "coordinate_delays": dg.coordinate_delays}
@@ -1860,6 +2048,7 @@ def main() -> int:
     pp = paper_path(torch, np, sgld_kernels)
     ca = cluster_reference_check(torch, np, sgld_kernels)
     cq = cluster_quickstart(torch, np, sgld_kernels)
+    sq = serve_quickstart(torch, np, sgld_kernels, ds)
     gc.collect()
     torch.cuda.empty_cache()
     cp = cluster_path(torch, np, sgld_kernels, keep=(0, 3))
@@ -1871,7 +2060,7 @@ def main() -> int:
     fc = run_checkpoint_path(torch, np, sgld_kernels)
 
     def cases(runs):
-        return [{k: r[k] for k in ("smax", "valid", "maxp", "pos", "splits",
+        return [{k: r[k] for k in ("dtype", "heads", "smax", "valid", "maxp", "pos", "splits",
                                    "max_abs_err", "limit", "ms", "eager_ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms",
                                    "library_eager_ms") if k in r}
@@ -1882,17 +2071,24 @@ def main() -> int:
         {"name": "decode_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_step.cu",
          "replaces": "src/repro/kernels/decode_step.py:63",
-         "launches": mp["decode"]["launches"], "max_abs_err": d["max_abs_err"],
+         "launches": (mp["decode"]["launches"] + mp["serve"]["decoder"]["launches"]
+                      + tl["launches"]),
+         "launches_by_path": {"decode": mp["decode"]["launches"],
+                              "serve_decoder": mp["serve"]["decoder"]["launches"],
+                              "train_lm_decode_group3": tl["launches"]},
+         "max_abs_err": d["max_abs_err"],
          "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
          "bound_by": d["bound_by"], "library_ms": d["library_ms"],
-         "cases": cases(dec[(torch.bfloat16, n)] for n in (256, 1024, 16384))},
+         "cases": cases(dec[(torch.bfloat16, n)] for n in (256, 1024, 16384)),
+         "group3_cases": cases(g3[("ring", t)] for t in (torch.bfloat16, torch.float32))},
         {"name": "paged_decode_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_step.cu",
          "replaces": "src/repro/kernels/decode_step.py:150",
          "launches": mp["paged"]["launches"], "max_abs_err": p["max_abs_err"],
          "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
          "bound_by": p["bound_by"], "library_ms": p["library_ms"],
-         "cases": cases(pag[(torch.bfloat16, n)] for n in (16, 256))},
+         "cases": cases(pag[(torch.bfloat16, n)] for n in (16, 256)),
+         "group3_cases": cases(g3[("paged", t)] for t in (torch.bfloat16, torch.float32))},
     ]
     # the delay_gather entry is the one W-Icon kernel: its numbers and
     # launches are the main path's instantiation (wicon_read, delays drawn
@@ -1934,6 +2130,7 @@ def main() -> int:
                            "bound_by", "library_ms")} for r in (wic, gat)]
     log(json.dumps({"paper": {k: v for k, v in pp.items() if k != "launches"}}))
     log(json.dumps({"cluster": {"reference": ca, "quickstart": cq, "full_width": cp}}))
+    log(json.dumps({"serve": {**mp["serve"], "quickstart": sq}}))
     log(json.dumps({"faults": {"chaos": fa, "full_width": fb, "run_checkpoint": fc}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,11 +7,11 @@ async-SGLD (the torch twin of ``examples/train_lm.py``).
 A GPT-small-scale decoder (12L, d=768, 32k vocab ~ 110M params) trained on
 the synthetic token stream, with periodic checkpointing (``--ckpt PATH``:
 the JAX package's single-model npz, every 100 commits and at the end) and
-a final greedy decode (a forward a token: the port's decode kernels are
-compiled for 1, 2, 4 or 8 query heads a KV head, and this model has 3).  Modes: sync (paper baseline) / consistent /
-inconsistent / pipeline (the overlapped mode); ``--fused`` commits (and in
-W-Icon mode reads) through the CUDA kernels on a card.  ``--device cuda``
-(the default) needs a card.
+a final greedy decode through the KV cache (``DecodeEngine``: on a card
+the decode kernel, at 3 query heads a KV head).  Modes: sync (paper
+baseline) / consistent / inconsistent / pipeline (the overlapped mode);
+``--fused`` commits (and in W-Icon mode reads) through the CUDA kernels
+on a card.  ``--device cuda`` (the default) needs a card.
 """
 
 import argparse
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import save_checkpoint
+from repro_torch.cluster import DecodeEngine
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import SGLDConfig, WorkerModel, simulate_async
 from repro_torch.data import make_batch
@@ -114,16 +115,9 @@ def main(argv=None):
         save_checkpoint(args.ckpt, drop_unit_chain(state.params), step=args.steps)
         print("checkpoint:", args.ckpt)
 
-    # decode sanity check: greedy, each token from a forward over the
-    # sequence so far (the decode kernels are compiled for 1, 2, 4 or 8
-    # query heads a KV head; this model has 3)
-    seq = torch.zeros((1, 1), dtype=torch.int32, device=dev)
-    with torch.no_grad():
-        for _ in range(8):
-            logits, _, _ = model.forward(state.params, {"tokens": seq})
-            tok = torch.argmax(logits[0, :, -1:], dim=-1).to(torch.int32)
-            seq = torch.cat([seq, tok], dim=1)
-    sampled = seq[0, 1:].tolist()
+    # decode sanity check: greedy from token 0 through the KV cache
+    decoder = DecodeEngine(cfg, state.params, max_seq=16, device=dev)
+    sampled = decoder.generate(np.zeros((1, 1), np.int32), 8).tokens[0].tolist()
     print("greedy decode:", sampled)
     return losses, sampled
 

@@ -5,17 +5,22 @@ Builds the 4-chain full-width qwen3-4b bank on the card (bf16, random
 weights from a seeded ``torch.Generator``), warms up, and profiles
 ``--steps`` steps each of ``Model.serve_step`` (the ``DecodeEngine`` step,
 4 rows) and ``Model.paged_step`` (the ``PagedDecodeEngine`` micro-step,
-8 slots) with ``torch.profiler``.  For each it prints one JSON line:
+8 slots) with ``torch.profiler``; with ``--serve``, ``ServeEngine``
+requests instead (``transformer_next_token_predict``: 8 prompts of 1,024
+tokens, the long-prompt SDPA path, and 8 of 128 tokens, the naive path).
+For each it prints one JSON line:
 
 - ``wall_ms``: host clock per step, the step ending in a synchronise;
 - ``device_busy_ms``: per step, the union of the kernel intervals on the
   card (so overlapping kernels count once), and ``idle_share`` = 1 -
   busy / wall;
-- ``kernels_per_step`` and the kernels with the most device time.
+- ``kernels_per_step`` and the kernels with the most device time;
+- ``attention_kernels``: the kernels whose names say they are SDPA's
+  (which backend ran: flash, memory-efficient or the math path's GEMMs).
 
 Run from the repository root on a machine with an NVIDIA GPU::
 
-    python3 scripts/torch_profile_decode.py [--steps 5]
+    python3 scripts/torch_profile_decode.py [--steps 5] [--serve]
 """
 
 from __future__ import annotations
@@ -34,8 +39,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
+from repro_torch.cluster import ServeEngine  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.models import transformer_next_token_predict  # noqa: E402
 from repro_torch.models.transformer import Model, init_params  # noqa: E402
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -77,6 +84,8 @@ def profile(name: str, step, steps: int) -> dict:
         by_name[e["name"]][1] += e["dur"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     busy = busy_union(dev) / 1e3 / steps
+    attn = sorted(n for n in by_name
+                  if any(w in n.lower() for w in ("flash", "fmha", "attention", "efficient")))
     return {
         "step": name, "steps": steps, "wall_ms": wall * 1e3,
         "device_busy_ms": busy,
@@ -84,12 +93,16 @@ def profile(name: str, step, steps: int) -> dict:
         "kernels_per_step": len(dev) / steps,
         "top": [{"name": n[:90], "per_step": c / steps, "ms_per_step": t / 1e3 / steps}
                 for n, (c, t) in top],
+        "attention_kernels": [{"name": n[:160], "per_step": by_name[n][0] / steps,
+                               "ms_per_step": by_name[n][1] / 1e3 / steps} for n in attn],
     }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--serve", action="store_true",
+                    help="profile ServeEngine requests instead of decode steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_decode: no CUDA device", file=sys.stderr)
@@ -104,6 +117,13 @@ def main() -> int:
                          device="cuda", num_chains=C)
     model = Model(cfg)
     rng = np.random.default_rng(0)
+    if args.serve:
+        serve = ServeEngine(predict_fn=transformer_next_token_predict(model), params=params)
+        for T in (1024, 128):
+            prompts = {"tokens": rng.integers(0, cfg.vocab_size, (8, T)).astype(np.int32)}
+            res = profile(f"serve_request_8x{T}", lambda p=prompts: serve(p), args.steps)
+            print(json.dumps(res))
+        return 0
 
     # the DecodeEngine step: 4 rows, a 256-slot ring, position 40
     cache = model.init_cache_bank(C, 4, 256)

@@ -3,7 +3,10 @@
 The package mirrors the JAX package's module tree, slice by slice: serving
 a chain bank of dense transformers (the models,
 :class:`~repro_torch.cluster.decode.DecodeEngine`,
-:class:`~repro_torch.cluster.paged.PagedDecodeEngine`), training them
+:class:`~repro_torch.cluster.paged.PagedDecodeEngine`), posterior-
+predictive serving from any chain bank
+(:class:`~repro_torch.cluster.serve.ServeEngine`, the predict-fn builders
+of :mod:`repro_torch.models.predictive`), training them
 with delayed-gradient SGLD (:mod:`repro_torch.core`,
 :mod:`repro_torch.samplers`, :class:`~repro_torch.train.engine.Engine`,
 :mod:`repro_torch.launch.train`), the paper's experiments (the

@@ -1,7 +1,8 @@
 """The port's cluster: the multi-chain async-SGLD executor
 (:mod:`~repro_torch.cluster.schedule`, :mod:`~repro_torch.cluster.ensemble`,
 :class:`ClusterEngine`) and the serving engines (the request API, the
-streaming :class:`DecodeEngine` and the continuously-batched
+posterior-predictive :class:`ServeEngine`, the streaming
+:class:`DecodeEngine` and the continuously-batched
 :class:`PagedDecodeEngine`)."""
 
 from repro_torch.cluster.api import (  # noqa: F401
@@ -33,4 +34,10 @@ from repro_torch.cluster.schedule import (  # noqa: F401
     stack_liveness,
     stack_schedules,
     stack_worker_info,
+)
+from repro_torch.cluster.serve import (  # noqa: F401
+    ServeEngine,
+    ServeResult,
+    bucket_size,
+    predictive_stats,
 )

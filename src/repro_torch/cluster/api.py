@@ -11,7 +11,9 @@
 - :class:`BankEngine` — the plumbing every chain-bank engine shares: bank
   validation, chain counting, host pad scratch and the request queue, and
   the constructors from a cluster state (``from_cluster``, serving degraded
-  from the healthy chains) and from a checkpoint (``from_checkpoint``).
+  from the healthy chains) and from a checkpoint (``from_checkpoint``),
+  which bind the engine's front argument (``model`` on the decode engines,
+  ``predict_fn`` on :class:`~repro_torch.cluster.serve.ServeEngine`).
 
 Differences from the JAX package: ``Request.key`` is an int seed (``None``
 = greedy) where JAX carries a PRNG key, and tokens are sampled by
@@ -38,6 +40,7 @@ PyTree = Any
 
 #: finish reasons a :class:`Completion` can carry
 FINISH_LENGTH = "length"      # generated its full max_new_tokens budget
+FINISH_QUERY = "query"        # predictive query: answered in one shot
 FINISH_DEADLINE = "deadline"  # deadline expired (shed or cut short)
 
 #: delivery status a :class:`Completion` can carry
@@ -57,12 +60,14 @@ class QueueFullError(RuntimeError):
 class Request:
     """One unit of serving work.
 
-    ``tokens`` is a 1-D prompt token array; ``max_new_tokens`` this
-    request's own generation budget.  ``key`` is the sampling seed (an int;
-    ``None`` = greedy).  Higher ``priority`` admits first and may preempt
-    lower-priority running slots.  ``deadline_ms`` is a host-clock latency
-    budget from submission (``None`` never expires).  ``request_id`` is
-    stamped by :meth:`Endpoint.submit`.
+    ``tokens`` is a 1-D prompt token array for decode engines, or one query
+    (any tree row) for predictive engines; ``max_new_tokens`` this
+    request's own generation budget (0 = predictive query).  ``key`` is
+    the sampling seed (an int; ``None`` = greedy).  Higher ``priority``
+    admits first and may preempt lower-priority running slots.
+    ``deadline_ms`` is a host-clock latency budget from submission
+    (``None`` never expires).  ``request_id`` is stamped by
+    :meth:`Endpoint.submit`.
     """
 
     tokens: Any
@@ -80,15 +85,18 @@ class Completion:
     ``(n,)`` int32 host array, ``logits`` the per-token BMA log-prob block
     ``(n, V)`` when the engine returns logits, ``finish_reason``,
     ``timing`` (host seconds: ``submitted`` / ``admitted`` /
-    ``first_token`` / ``finished``, plus ``evictions`` under preemption)
-    and ``status`` (:data:`STATUS_OK`, :data:`STATUS_TIMEOUT` with the
-    partial prefix, or :data:`STATUS_SHED` with no tokens)."""
+    ``first_token`` / ``finished``, plus ``evictions`` under preemption),
+    ``stats`` the per-query :class:`~repro_torch.cluster.serve.ServeResult`
+    row on predictive endpoints, and ``status`` (:data:`STATUS_OK`,
+    :data:`STATUS_TIMEOUT` with the partial prefix, or :data:`STATUS_SHED`
+    with no tokens)."""
 
     request_id: int
     tokens: np.ndarray
     logits: Optional[np.ndarray]
     finish_reason: str
     timing: dict
+    stats: Optional[Any] = None
     status: str = STATUS_OK
 
 
@@ -109,6 +117,18 @@ class HostScratch:
             buf = np.empty(shape, dtype)
             self._bufs[k] = buf
             self.allocs += 1
+        return buf
+
+    def pad(self, x: np.ndarray, n: int, key=0) -> np.ndarray:
+        """``x`` with its leading axis padded to ``n`` by edge-replicating
+        the last row, written into the reused scratch; ``x`` itself when it
+        already has ``n`` rows (the copy to the device leaves it intact)."""
+        q = x.shape[0]
+        if q == n:
+            return x
+        buf = self.get(("pad", key), (n,) + x.shape[1:], x.dtype)
+        buf[:q] = x
+        buf[q:] = x[-1:]
         return buf
 
 
@@ -159,16 +179,22 @@ class Endpoint:
 
 class BankEngine(Endpoint):
     """Shared plumbing for engines serving a chain-stacked parameter bank on
-    one device: the engines are dataclasses with ``params`` / ``model`` /
-    ``device`` fields."""
+    one device: the engines are dataclasses with ``params`` / ``device``
+    fields and a front field, :attr:`_FRONT_FIELD` (``model`` on the decode
+    engines, ``predict_fn`` on the predictive one), which the constructors'
+    ``front`` argument binds."""
+
+    #: the dataclass field the constructors' ``front`` argument binds to
+    _FRONT_FIELD = "model"
 
     # -- constructors -----------------------------------------------------------
     @classmethod
-    def from_cluster(cls, state, model=None, **kw):
+    def from_cluster(cls, state, front=None, **kw):
         """Serve straight from a ClusterEngine state — or any chain-stacked
-        parameter tree.  A model's ensemble state has leaves ``(C, 1,
-        ...)`` (each chain a bank of one); the bank is served as ``(C,
-        ...)``.
+        parameter tree.  ``front`` is the engine's front argument (``model``
+        or ``predict_fn``; also by keyword).  A model's ensemble state has
+        leaves ``(C, 1, ...)`` (each chain a bank of one); the bank is
+        served as ``(C, ...)``.
 
         A :class:`~repro_torch.cluster.executor.HealthState` (any state
         carrying a ``health`` mask) serves **degraded**: quarantined chains
@@ -188,30 +214,30 @@ class BankEngine(Endpoint):
                                   "quarantined").set(float(h.size - keep.size))
         if isinstance(params, dict) and "embed" in params and params["embed"]["w"].dim() == 4:
             params = tree_map(lambda t: t[:, 0], params)  # (C, 1, ...) -> (C, ...)
-        if model is not None:
-            kw["model"] = model
+        if front is not None:
+            kw.setdefault(cls._FRONT_FIELD, front)
         return cls(params=params, **kw)
 
     @classmethod
-    def from_checkpoint(cls, path: str, like=None, model=None, *,
+    def from_checkpoint(cls, path: str, like=None, front=None, *,
                         num_chains: Optional[int] = None, **kw):
         """Restore a bank saved by :meth:`ClusterEngine.save_ensemble` (or
         broadcast a single-model checkpoint to ``num_chains``) and serve it.
 
-        ``(path, like, model, ...)``: ``like`` is the *single-chain*
+        ``(path, like, front, ...)``: ``like`` is the *single-chain*
         parameter structure (shapes only; the port's one chain, a bank of
-        one, will do, and so will a ``meta`` tree), ``model`` the engine's
-        model or config (also by keyword).  The legacy ``(path, model,
-        like)`` order is recognised (a model or config in the ``like``
-        seat) and swapped.  The bank is restored onto the engine's
-        ``device``."""
+        one, will do, and so will a ``meta`` tree), ``front`` the engine's
+        front argument — a model or config, or a predict fn — also by
+        keyword.  The other order, ``(path, front, like)``, is recognised
+        (a model, config or function in the ``like`` seat) and swapped.
+        The bank is restored onto the engine's ``device``."""
         from repro_torch.checkpoint import restore_ensemble
         from repro_torch.weights import drop_unit_chain
 
-        if _looks_like_model(like) and not _looks_like_model(model):
-            like, model = model, like  # legacy (path, model, like) order
-        if model is not None:
-            kw["model"] = model
+        if _looks_like_front(like) and not _looks_like_front(front):
+            like, front = front, like  # (path, front, like) order
+        if front is not None:
+            kw.setdefault(cls._FRONT_FIELD, front)
         dev = resolve_device(kw.get("device", "cuda"))
         params = restore_ensemble(path, drop_unit_chain(like), num_chains=num_chains,
                                   device=dev)
@@ -242,10 +268,10 @@ class BankEngine(Endpoint):
         return self._scratch.allocs
 
 
-def _looks_like_model(x) -> bool:
-    """A Model (has .cfg) or a config (has .d_model) — never a parameter
-    tree."""
-    return hasattr(x, "cfg") or hasattr(x, "d_model")
+def _looks_like_front(x) -> bool:
+    """A Model (has .cfg), a config (has .d_model) or a predict fn (a
+    function) — never a parameter tree."""
+    return hasattr(x, "cfg") or hasattr(x, "d_model") or callable(x)
 
 
 # ---------------------------------------------------------------------------

@@ -724,11 +724,16 @@ cudaError_t launch_paged(const void* q, const void* k_new, const void* v_new, vo
   return cudaGetLastError();
 }
 
-// dispatch over (dtype, HD, G): dtype 0 = float32, 1 = bfloat16
+// dispatch over (dtype, HD, G): dtype 0 = float32, 1 = bfloat16.  G need not
+// be a power of two: every loop over heads stops at G, the mma paths pad the
+// heads to 8 (n < G), the softmax takes a warp a head (g += kWarps), and the
+// shared-memory layout counts G exactly (G = 3: 12 query heads over 4 KV
+// heads, the 110M example model)
 #define DISPATCH_G(T, HD, FN, ...)                          \
   switch (G) {                                              \
     case 1: return FN<T, HD, 1>(__VA_ARGS__);               \
     case 2: return FN<T, HD, 2>(__VA_ARGS__);               \
+    case 3: return FN<T, HD, 3>(__VA_ARGS__);               \
     case 4: return FN<T, HD, 4>(__VA_ARGS__);               \
     case 8: return FN<T, HD, 8>(__VA_ARGS__);               \
     default: return cudaErrorInvalidValue;                  \

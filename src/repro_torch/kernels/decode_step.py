@@ -55,7 +55,7 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_GROUPS = (1, 2, 4, 8)
+_GROUPS = (1, 2, 3, 4, 8)
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 # kThreads, kTile, kStages and kMaxSplits in the source
 THREADS, TILE, STAGES, MAX_SPLITS = 128, 32, 2, 16

@@ -1,12 +1,24 @@
-"""Attention: the naive prefill path and the plain decode paths (port of
-``repro.models.attention``).
+"""Attention: the naive and the long-prompt prefill paths, and the plain
+decode paths (port of ``repro.models.attention``).
 
-Everything here is plain PyTorch with the JAX package's math: fp32 scores
-and softmax, a ``-1e30`` mask, the same einsum orders.  The cached decode
-step on the serving hot path does not come through here — it goes through
-:mod:`repro_torch.kernels.ops`, which launches the CUDA kernel on a card.
-The chunked flash path (the JAX prefill above 512 tokens) belongs to the
-training slice.
+:func:`naive_attention` and the decode paths are plain PyTorch with the JAX
+package's math: fp32 scores and softmax, a ``-1e30`` mask, the same einsum
+orders.  :func:`attention_any` dispatches as the reference does: above
+``q_chunk`` (512) query positions, when both lengths divide into chunks, to
+:func:`flash_attention`, whose naive scores would otherwise take
+``(B, H, S, S)`` fp32 — 34.4 GB a layer for 4 chains of qwen3-4b at 8,192
+tokens.  The reference's flash path is a ``lax.scan`` with a hand-written
+backward, not a Pallas kernel; the port's is
+``torch.nn.functional.scaled_dot_product_attention`` (PyTorch picks the
+backend — flash, memory-efficient, cuDNN or math; a bf16 causal prefill
+on an H100 ran cuDNN's) with autograd's backward.  A
+difference by design: in bf16 SDPA's fused kernels feed the tensor cores
+bf16 and round the weights to bf16 for ``p . V``, where the reference
+computes the chunk in fp32; in fp32 the two agree within 1e-5.
+
+The cached decode step on the serving hot path does not come through here
+— it goes through :mod:`repro_torch.kernels.ops`, which launches the CUDA
+kernel on a card.
 """
 
 from __future__ import annotations
@@ -15,6 +27,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -45,6 +58,37 @@ def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bngqc,bcnh->bqngh", p, v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def flash_attention(q, k, v, causal=True, window=None):
+    """The long-prompt path: q (B, Sq, H, hd); k, v (B, Sk, KV, hd), H a
+    multiple of KV -> (B, Sq, H, hd) in q's dtype.  Positions count from 0
+    on both axes, as in the reference's chunks.  Without a window, SDPA's
+    own causal mask; with one, the boolean mask of :func:`_mask_block`.
+    The KV heads are shared through ``enable_gqa``, never repeated."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, heads, S, hd)
+    if window is None:
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                           enable_gqa=True)
+    else:
+        q_pos = torch.arange(q.shape[1], device=q.device)
+        k_pos = torch.arange(k.shape[1], device=q.device)
+        o = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=_mask_block(q_pos, k_pos, causal, window),
+            enable_gqa=True)
+    return o.transpose(1, 2)
+
+
+def attention_any(q, k, v, *, causal=True, window=None, q_chunk=512,
+                  k_chunk=512):
+    """Dispatch as the reference does: :func:`flash_attention` when both
+    lengths divide into chunks and there is more than one query chunk,
+    else :func:`naive_attention`.  The chunks decide the dispatch only
+    (SDPA tiles on its own)."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    if Sq % q_chunk == 0 and Sk % k_chunk == 0 and Sq > q_chunk:
+        return flash_attention(q, k, v, causal, window)
+    return naive_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, cache_pos, cur_pos, *, window=None):

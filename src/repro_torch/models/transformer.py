@@ -1,5 +1,5 @@
-"""The dense decoder (``attn_mlp``) over a chain bank: init, forward
-(prefill), and the two cached decode paths — port of
+"""The dense decoder (``attn_mlp``) over a chain bank: init, forward,
+prefill, and the two cached decode paths — port of
 ``repro.models.transformer``.
 
 Parameters are the JAX package's nested dict: ``embed``, ``final_norm``,
@@ -13,6 +13,11 @@ makes one kernel launch per layer that covers every chain.
 Decode state is layer-major — ``(L, C, ...)`` — so that one layer's state
 for all chains is one contiguous tensor the kernel updates in place.
 
+Attention without a cache goes through :func:`~repro_torch.models.
+attention.attention_any`, as the reference's does: naive up to 512 query
+positions, the long-prompt SDPA path above.  The prefills unembed only the
+position they return (one row of logits, not ``(C, B, S, V)``).
+
 MoE, SSM and xLSTM blocks come with a later slice.
 """
 
@@ -24,7 +29,7 @@ from typing import Any
 import torch
 
 from repro_torch.kernels.ops import fused_decode_step, fused_paged_decode_step
-from repro_torch.models.attention import naive_attention
+from repro_torch.models.attention import attention_any
 from repro_torch.models.common import (
     apply_rope,
     bank_matmul,
@@ -40,6 +45,7 @@ from repro_torch.utils import resolve_device, to_device, tree_map
 PyTree = Any
 
 BLOCKS = ("attn_mlp",)  # the block kinds this slice implements
+ATTENTION_BLOCKS = ("attn_mlp", "attn_moe")  # blocks whose prefill is a KV cache
 
 
 # ===========================================================================
@@ -151,8 +157,8 @@ def apply_attn(p, x, cfg, positions, *, window, cache=None, cur_pos=None):
     q, k, v = _qkv(p, x, cfg, positions)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if cache is None:  # prefill: chains flatten into the batch
-        o = naive_attention(q.reshape(C * B, S, H, hd), k.reshape(C * B, S, KV, hd),
-                            v.reshape(C * B, S, KV, hd), causal=True, window=window)
+        o = attention_any(q.reshape(C * B, S, H, hd), k.reshape(C * B, S, KV, hd),
+                          v.reshape(C * B, S, KV, hd), causal=True, window=window)
         new_kv = (k, v)
     else:  # decode: S == 1
         smax = cache["k"].shape[2]
@@ -255,13 +261,11 @@ class Model:
         return bank_matmul(x, w)
 
     # -- forward over layers --------------------------------------------------
-    def forward(self, params, batch, want_kv: bool = False, layers=None):
-        """Prefill / training forward.  Returns (logits (C, B, S, V), aux,
-        kv) where kv is ``(k, v)`` stacked ``(L, C, B, S, KV, hd)`` when
-        ``want_kv``.  ``layers`` (optional) gives each layer's parameters
-        in place of the slices of ``params["stack"]`` — the training path
-        passes per-layer autograd leaves (:func:`repro_torch.train.loop.
-        make_grad_fn`)."""
+    def hidden(self, params, batch, want_kv: bool = False, layers=None):
+        """The layers without the unembedding: returns (x (C, B, S, d), kv)
+        with kv ``(k, v)`` stacked ``(L, C, B, S, KV, hd)`` when
+        ``want_kv``, else None.  ``layers`` (optional) gives each layer's
+        parameters in place of the slices of ``params["stack"]``."""
         cfg = self.cfg
         x, positions = self.embed(params, batch)
         block = cfg.block_pattern[0]
@@ -272,9 +276,42 @@ class Model:
             if want_kv:
                 ks.append(k)
                 vs.append(v)
-        logits = self.unembed(params, x)
         kv = (torch.stack(ks), torch.stack(vs)) if want_kv else None
-        return logits, 0.0, kv
+        return x, kv
+
+    def forward(self, params, batch, want_kv: bool = False, layers=None):
+        """Prefill / training forward.  Returns (logits (C, B, S, V), aux,
+        kv) where kv is ``(k, v)`` stacked ``(L, C, B, S, KV, hd)`` when
+        ``want_kv``.  ``layers`` (optional) gives each layer's parameters
+        in place of the slices of ``params["stack"]`` — the training path
+        passes per-layer autograd leaves (:func:`repro_torch.train.loop.
+        make_grad_fn`)."""
+        x, kv = self.hidden(params, batch, want_kv, layers)
+        return self.unembed(params, x), 0.0, kv
+
+    def prefill(self, params, batch):
+        """Full-prompt forward; returns (last-position logits (C, B, 1, V),
+        cache), the reference's ``Model.prefill`` over the bank.
+
+        For an attention stack the cache is ``{"attn": {"k", "v": (L, C,
+        B, S, KV, hd), "pos": (S,) int32}}``, cut to the last
+        ``sliding_window`` positions when the prompt is longer; for any
+        other block pattern it is None.  Only the last position is
+        unembedded."""
+        cfg = self.cfg
+        attn = cfg.block_pattern[0] in ATTENTION_BLOCKS
+        x, kv = self.hidden(params, batch, want_kv=attn)
+        logits = self.unembed(params, x[:, :, -1:])
+        if not attn:
+            return logits, None
+        k, v = kv
+        S, window = k.shape[3], cfg.sliding_window
+        if window and S > window:
+            k, v = k[:, :, :, -window:], v[:, :, :, -window:]
+            pos = torch.arange(S - window, S, dtype=torch.int32, device=self.device)
+        else:
+            pos = torch.arange(S, dtype=torch.int32, device=self.device)
+        return logits, {"attn": {"k": k, "v": v, "pos": pos}}
 
     # -- ring-cache decode ----------------------------------------------------
     def _require_stacked_attention(self, what: str):
@@ -326,13 +363,13 @@ class Model:
             raise ValueError(
                 f"padded prompt length {T} exceeds the cache's {smax} slots "
                 "(raise max_seq, or loosen the prompt bucket ladder)")
-        logits, _, (k, v) = self.forward(params, {"tokens": tokens}, want_kv=True)
+        x, (k, v) = self.hidden(params, {"tokens": tokens}, want_kv=True)
         c = cache["attn"]
         c["k"][:, :, :, :T] = k
         c["v"][:, :, :, :T] = v
         ar = torch.arange(smax, device=self.device, dtype=torch.int32)
         c["pos"][:] = torch.where(ar < prompt_len, ar, -1)
-        return logits[:, :, prompt_len - 1], cache
+        return self.unembed(params, x[:, :, prompt_len - 1]), cache
 
     def serve_step(self, params, cache, tokens, cur_pos: int):
         """One decode step, updating ``cache`` in place.  tokens: (B, 1);
@@ -387,13 +424,13 @@ class Model:
                 f"padded prompt length {T} exceeds the slot's "
                 f"{table.shape[0]} x {ps} paged capacity (raise max_seq, or "
                 "loosen the prompt bucket ladder)")
-        logits, _, (k, v) = self.forward(params, {"tokens": tokens}, want_kv=True)
+        x, (k, v) = self.hidden(params, {"tokens": tokens}, want_kv=True)
         r = torch.arange(T, device=self.device)
         idx = table[r // ps] * ps + r % ps  # logical -> flat physical rows
         for name, new in (("k", k), ("v", v)):
             flat = pages[name].view(L, C, n_pages * ps, *pages[name].shape[4:])
             flat[:, :, idx] = new[:, :, 0]
-        return logits[:, :, prompt_len - 1], pages
+        return self.unembed(params, x[:, :, prompt_len - 1]), pages
 
     def paged_step(self, params, pages, tables, tokens, positions):
         """One decode step over the serving slots of the paged pools.

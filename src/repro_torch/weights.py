@@ -38,10 +38,12 @@ def from_jax_params(tree: PyTree, device="cuda", dtype=None) -> PyTree:
 
     ``dtype`` (optional) casts every floating leaf; by default each leaf
     keeps its own dtype (bf16 weights stay bf16, fp32 norm scales stay
-    fp32).  A single chain becomes a bank of one."""
+    fp32).  A single chain becomes a bank of one.  A tree that is no
+    model's (a regression bank ``(C, 5)``, an MLP bank) crosses leaf for
+    leaf as it is."""
     dev = resolve_device(device)
     out = tree_map(lambda a: _to_tensor(a, dev, dtype), tree)
-    if out["embed"]["w"].dim() == 2:
+    if isinstance(out, dict) and "embed" in out and out["embed"]["w"].dim() == 2:
         out = tree_map(lambda t: t[None], out)
     return out
 

@@ -110,7 +110,7 @@ def test_plan_depends_on_the_shapes_only(smax):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8])
 def test_shared_memory_fits_up_to_32768_positions(dtype, hd, G):
     """A block's shared memory does not grow with the ring; the paged
     chunk's page ids grow with maxp / splits, even at page size 1."""
@@ -142,3 +142,24 @@ def test_decode_wrapper_takes_a_16384_slot_ring_past_its_checks():
     with pytest.raises(ValueError, match="launches a CUDA kernel"):
         ds.decode_step(q, kn, kn.clone(), kc, kc.clone(),
                        torch.ones(smax, dtype=torch.int32), 3)
+
+
+@pytest.mark.parametrize("G,compiled", [(3, True), (5, False), (7, False)])
+def test_decode_wrappers_take_the_compiled_groups(G, compiled):
+    """Group 3 (12 query heads over 4 KV heads) passes both wrappers'
+    checks and stops only at the device; groups 5 and 7 (the configs still
+    to port) are refused as not compiled."""
+    KV, hd, smax = 4, 64, 32
+    q = torch.zeros(2, KV, G, hd)
+    kn = torch.zeros(2, KV, hd)
+    kc = torch.zeros(2, smax, KV, hd)
+    ring = lambda: ds.decode_step(q, kn, kn.clone(), kc, kc.clone(),  # noqa: E731
+                                  torch.ones(smax, dtype=torch.int32), 3)
+    pages = torch.zeros(1, 9, 4, KV, hd)
+    paged = lambda: ds.paged_decode_step(  # noqa: E731
+        q[None], kn[None], kn[None].clone(), pages, pages.clone(),
+        torch.zeros(2, 4, dtype=torch.int32), torch.zeros(2, dtype=torch.int32))
+    for call in (ring, paged):
+        with pytest.raises(ValueError, match="launches a CUDA kernel" if compiled
+                           else "not compiled"):
+            call()

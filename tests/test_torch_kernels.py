@@ -22,6 +22,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import attention as jattention
 from repro_torch.kernels import decode_step as ds
 from repro_torch.kernels import ops, ref
 from repro_torch.models.attention import decode_attention, paged_decode_attention
@@ -152,6 +153,55 @@ def test_plain_paged_attention_agrees_with_the_step():
     np.testing.assert_allclose(_np(plain[:, 0]),
                                _np(o[0, active]).reshape(3, KV * G, HD),
                                rtol=0, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# group 3: 12 query heads over 4 KV heads (the 110M example model)
+# ---------------------------------------------------------------------------
+KV3, G3 = 4, 3
+
+
+def test_plain_decode_at_group_3_matches_jax_attention():
+    """The plain ring step at G = 3 against the JAX package's unfused
+    ``decode_attention`` over a cache written independently here, and
+    against its Pallas kernel in interpret mode."""
+    c = ring_case(12, 3, 16, 6, 9, kv=KV3, g=G3)
+    t = {k: _t(v) for k, v in c.items() if k != "slot"}
+    o, kc, _ = ops.fused_decode_step(t["q"], t["k_new"], t["v_new"], t["k_cache"],
+                                     t["v_cache"], t["valid"], c["slot"])
+    kw, vw = c["k_cache"].copy(), c["v_cache"].copy()
+    kw[:, c["slot"]], vw[:, c["slot"]] = c["k_new"], c["v_new"]
+    pos = np.where(c["valid"] == 1, np.arange(16), -1).astype(np.int32)
+    want = jattention.decode_attention(c["q"][:, None], kw, vw, pos, 15)
+    assert o.shape == (3, KV3 * G3, HD)
+    np.testing.assert_allclose(_np(o), np.asarray(want)[:, 0], rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(_np(kc), kw)
+    pallas = jops.fused_decode_step(c["q"], c["k_new"], c["v_new"], c["k_cache"],
+                                    c["v_cache"], c["valid"], c["slot"])[0]
+    np.testing.assert_allclose(_np(o), np.asarray(pallas), rtol=0, atol=ATOL)
+
+
+def test_plain_paged_decode_at_group_3_matches_jax_attention():
+    """The plain paged step at G = 3, two chains, against the JAX package's
+    unfused ``paged_decode_attention`` on each chain's pool, written here
+    (the active slots; the inactive ones share the garbage page)."""
+    C = 2
+    c = paged_case(13, C, kv=KV3, g=G3)
+    ps = c["k_pages"].shape[2]
+    t = {k: _t(v) for k, v in c.items()}
+    o, _, _ = ops.fused_paged_decode_step(t["q"], t["k_new"], t["v_new"], t["k_pages"],
+                                          t["v_pages"], t["tables"], t["pos"])
+    active = [0, 1, 2]
+    kw, vw = c["k_pages"].copy(), c["v_pages"].copy()
+    for s in active:
+        page, off = c["tables"][s, c["pos"][s] // ps], c["pos"][s] % ps
+        kw[:, page, off], vw[:, page, off] = c["k_new"][:, s], c["v_new"][:, s]
+    for ch in range(C):
+        want = jattention.paged_decode_attention(
+            c["q"][ch, active, None], kw[ch].reshape(-1, KV3, HD),
+            vw[ch].reshape(-1, KV3, HD), c["tables"][active], c["pos"][active], ps)
+        np.testing.assert_allclose(_np(o[ch, active]), np.asarray(want)[:, 0],
+                                   rtol=0, atol=ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -139,6 +139,43 @@ def test_paged_kernel_matches_plain_on_card(cuda, dtype):
     assert rows[3] == rows[4] == 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", RING_CASES, ids=RING_IDS)
+def test_decode_kernel_at_group_3_matches_plain_on_card(cuda, dtype, case):
+    """12 query heads over 4 KV heads, head_dim 64 (the 110M example
+    model): a group that is no power of two."""
+    c = ring_case(**case, kv=4, g=3, hd=64)
+    t = {k: _t(v, cuda, dtype if v.dtype == np.float32 else None)
+         for k, v in c.items() if k != "slot"}
+    q = t["q"].reshape(-1, 4, 3, 64)
+    plain = [x.clone() for x in (t["k_cache"], t["v_cache"])]
+    o, kc, vc = ds.decode_step(q, t["k_new"], t["v_new"], t["k_cache"],
+                               t["v_cache"], t["valid"], c["slot"])
+    want, wk, wv = ref.decode_step_ref(q, t["k_new"], t["v_new"], *plain,
+                                       t["valid"], c["slot"])
+    torch.cuda.synchronize()
+    _assert_decode_close(o, want, dtype)
+    assert torch.equal(kc, wk) and torch.equal(vc, wv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("pos,maxp", [([40, 95, 130, 7, None], 16),
+                                      ([1000, 17, None, 600], 64)],
+                         ids=["cell", "long"])
+def test_paged_kernel_at_group_3_matches_plain_on_card(cuda, dtype, pos, maxp):
+    q, kn, vn, kp, vp, tables, pos_t = _paged(cuda, dtype, pos, ps=16, maxp=maxp,
+                                              KV=4, G=3, hd=64)
+    plain = [x.clone() for x in (kp, vp)]
+    o, _, _ = ds.paged_decode_step(q, kn, vn, kp, vp, tables, pos_t)
+    want = ref.paged_decode_step_ref(q, kn, vn, *plain, tables, pos_t)[0]
+    torch.cuda.synchronize()
+    _assert_decode_close(o, want, dtype)
+
+
 # ---------------------------------------------------------------------------
 # the split-KV decode kernels at the cases their plan makes hard
 # ---------------------------------------------------------------------------
@@ -235,7 +272,7 @@ def test_split_kernels_are_bitwise_repeatable(cuda, dtype):
     assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
-def _paged(cuda, dtype, pos, *, ps, maxp, C=2, seed=1):
+def _paged(cuda, dtype, pos, *, ps, maxp, C=2, seed=1, KV=8, G=4, hd=128):
     """Slots at ``pos`` on a permuted page table (None: inactive, table row
     0 and position 0, the garbage page)."""
     S = len(pos)
@@ -249,8 +286,8 @@ def _paged(cuda, dtype, pos, *, ps, maxp, C=2, seed=1):
             nxt += p // ps + 1
     gen = torch.Generator(device=cuda).manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=gen, device=cuda).to(dtype)  # noqa: E731
-    return (r(C, S, 8, 4, 128), r(C, S, 8, 128), r(C, S, 8, 128),
-            r(C, n_pages, ps, 8, 128), r(C, n_pages, ps, 8, 128),
+    return (r(C, S, KV, G, hd), r(C, S, KV, hd), r(C, S, KV, hd),
+            r(C, n_pages, ps, KV, hd), r(C, n_pages, ps, KV, hd),
             tables.to(cuda),
             torch.tensor([p or 0 for p in pos], dtype=torch.int32, device=cuda))
 
@@ -326,7 +363,7 @@ def test_split_shared_memory_mirror_matches_the_source(cuda):
     lib = ds._lib()
     for elem in (2, 4):
         for hd in (64, 128):
-            for G in (1, 2, 4, 8):
+            for G in ds._GROUPS:
                 for pages in (0, 1, 16, 128):
                     assert lib.decode_step_smem_bytes(G, hd, elem, pages) == \
                         ds.smem_bytes(G, hd, elem, pages)
