@@ -23,7 +23,9 @@ library) and runs, failing on the first phase that fails:
    call's time (``scaled_dot_product_attention``), and the bytes bound;
    then both at a group of 3 (12 query heads over 4 KV heads, head_dim 64:
    the 110M example model) on the decode cell's ring and the paged cell, in
-   bf16 and float32, timed; then the SGLD kernels (Langevin update, delay draw, delay gather, the
+   bf16 and float32, timed, and likewise at the model zoo's shapes
+   (kimi-k2's head_dim 112 at a group of 8, stablelm-12b's 160 at 4,
+   internvl2-1b's group of 7 at head_dim 64); then the SGLD kernels (Langevin update, delay draw, delay gather, the
    one-pass W-Icon read) against theirs, at a ragged length (misaligned
    rows, the scalar code) and at 2^20 elements (the vector code) in bf16,
    float32 and int32, over rings of depth 1-5, and at the largest
@@ -133,7 +135,31 @@ library) and runs, failing on the first phase that fails:
    at full width, cut to 2 chains at 1 layer (tau 1, ~10 GB): restored
    into a fresh carry bitwise, and resumed for one chunk bitwise the
    uninterrupted run.  Checkpoints go to a temporary directory in the
-   checkout, deleted after use.
+   checkout, deleted after use;
+10. the main path, part 7: the model zoo, each config at its published
+   widths, random bf16 weights drawn on the card, freed before the next —
+   (a) a one-chain bank of minicpm-2b (40 layers), internvl2-1b (24, 256
+   vision stub positions), musicgen-medium (48, 64 audio stub positions),
+   stablelm-12b (40), qwen1.5-32b (depth cut 64 -> 32), phi3.5-moe (32 ->
+   16) and kimi-k2 (61 -> 1: one layer holds 384 x 3 experts of 7168 x
+   2048): ``Model.prefill`` of 2 x 64 tokens, 8 greedy tokens through
+   ``serve_step`` from an ``init_cache`` ring (the ring kernel once a layer
+   a step, at head_dim 112 and 160 and a group of 7 among others), each
+   step's logits within 0.1 relative L2 of one prefill of the same stream
+   (no kernel; the MoE configs keep every pair and take the decode's
+   expert choices there), ms a token, peak GB; stablelm-12b and kimi-k2
+   also serve one ``PagedDecodeEngine`` request (the paged kernel at
+   head_dim 160 and 112); (b) MoE serving: a 2-chain phi3.5-moe bank at 12
+   of 32 layers (63.5 GB) through ``DecodeEngine`` (4 prompts x 32 + 16
+   new tokens) and ``PagedDecodeEngine`` (the same on 8 slots, page size
+   16), then one ``ServeEngine`` request of 8 x 128 tokens: ms a token,
+   tokens/s, ms a request, peak GB, and the dropped (token, expert) pairs
+   at the reference's capacity; (c) ``launch.train --arch`` for
+   phi3.5-moe at 3 layers (4.16 B parameters) and the whole internvl2-1b
+   with its stub batches (``--seq 384``: 256 stub positions and 128
+   tokens), 6 fused W-Icon commits each at tau 2, in chunks of 3: finite
+   losses, the MoE's aux above 0, ms a commit, peak GB, and the SGLD
+   kernels once a leaf a commit.
 
 Before it, one JSON object with the paper path's numbers (phase 7c).
 The line before the last is one JSON object with each kernel's numbers;
@@ -144,6 +170,7 @@ compiler's register and spill report goes to standard error.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -168,6 +195,20 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-5}  # bf16: one ulp of |o| <= 4
 # (KV heads, query heads a KV head, head_dim): qwen3-4b's, and the 110M
 # example model's 12 query heads over 4 KV heads (a group of 3)
 QWEN_HEADS, LM100M_HEADS = (8, 4, 128), (4, 3, 64)
+# the model zoo's shapes the kernels gained: kimi-k2's head_dim 112 at G 8,
+# stablelm-12b's 160 at G 4, internvl2-1b's group of 7 at head_dim 64
+ZOO_HEADS = {"kimi-k2-1t-a32b": (8, 8, 112), "stablelm-12b": (8, 4, 160),
+             "internvl2-1b": (2, 7, 64)}
+# phase 10a: each config at its published widths, a one-chain bank at this
+# depth (the configs' own depth unless the card cannot hold it)
+ZOO_DEPTH = {"minicpm-2b": 40, "internvl2-1b": 24, "musicgen-medium": 48,
+             "stablelm-12b": 40, "qwen1.5-32b": 32, "phi3.5-moe-42b-a6.6b": 16,
+             "kimi-k2-1t-a32b": 1}
+# decode logits against a prefill of the same tokens, in bf16: the largest
+# relative L2 error a step may have, and the least a step must have against
+# the prefill's neighbouring position (see zoo_config)
+ZOO_REL_TOL, ZOO_SHIFT_MIN = 0.1, 0.5
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 12, 3  # phases 10b and 10c, of 32
 LARGEST_LEAF = 36 * 2560 * 9728  # stack/mlp/w_{gate,up,down} of qwen3-4b
 STACK4_LEAF = 4 * 2560 * 9728    # the same leaf at phase 8c's 4 layers
 EMBED_LEAF = 151936 * 2560       # the embedding (and the untied head)
@@ -1379,22 +1420,28 @@ def serve_path(torch, np, ds, cfg, params, prompts, greedy) -> dict:
 # ---------------------------------------------------------------------------
 # phase 6: the main path, part 3 — training at full width
 # ---------------------------------------------------------------------------
-def train_path(torch, np, lu, dg) -> dict:
+def train_path(torch, np, lu, dg, arch_args=("--arch", "qwen3-4b", "--seq", "128"),
+               cut=None) -> dict:
+    """The launcher's path (``repro_torch.launch.train``): ``--mode
+    inconsistent --fused --tau 2 --batch 8``, 6 commits in chunks of 3,
+    with ``arch_args`` naming the architecture, its sequence and any depth
+    cut (``cut`` says which, for the log).  An MoE architecture's aux (its
+    load-balance loss) must be positive on every commit."""
     from repro_torch.launch import train as launch
     from repro_torch.utils import tree_leaves
 
     steps, chunk = 6, 3
     args = launch.parser().parse_args(
-        ["--arch", "qwen3-4b", "--mode", "inconsistent", "--fused", "--tau", "2",
-         "--batch", "8", "--seq", "128", "--steps", str(steps), "--chunk",
-         str(chunk)])
+        [*arch_args, "--mode", "inconsistent", "--fused", "--tau", "2",
+         "--batch", "8", "--steps", str(steps), "--chunk", str(chunk)])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg, model, state, engine, delays = launch.build(args)
     torch.cuda.synchronize()
     leaves = tree_leaves(state.params)
     n_params = sum(t.numel() for t in leaves)
-    log(f"training: 1 x {cfg.name}, {n_params / 1e9:.3f} B parameters in "
+    log(f"training: 1 x {cfg.name}{f' ({cut})' if cut else ''}, "
+        f"{n_params / 1e9:.3f} B parameters in "
         f"{len(leaves)} leaves, {sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB; "
         f"ring of {args.tau + 1}; built in {time.perf_counter() - t0:.1f} s; "
         f"delays {delays.tolist()}")
@@ -1417,6 +1464,8 @@ def train_path(torch, np, lu, dg) -> dict:
     losses = aux["loss"]
     check(losses.shape == (steps,) and np.isfinite(losses).all(),
           f"training losses {losses}")
+    if cfg.num_experts:
+        check(bool((aux["aux"] > 0).all()), f"{cfg.name}: router aux {aux['aux']}")
     check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.params)),
           "non-finite parameters after training")
     # the W-Icon read draws its delays in the kernel: no standalone gather
@@ -1430,11 +1479,14 @@ def train_path(torch, np, lu, dg) -> dict:
     tok_s = (steps - chunk) * args.batch * args.seq / rest
     log(f"training: {steps} fused W-Icon commits; first chunk {first:.3f} s, "
         f"then {ms:.2f} ms/commit, {tok_s:.1f} tokens/s; losses "
-        f"{[round(float(v), 4) for v in losses]}; peak memory {peak / 1e9:.2f} GB; "
+        f"{[round(float(v), 4) for v in losses]}; aux "
+        f"{[round(float(v), 4) for v in aux['aux']]}; peak memory {peak / 1e9:.2f} GB; "
         f"launches {launches}")
-    return {"launches": launches, "ms_per_commit": ms, "tokens_per_s": tok_s,
+    return {"arch": cfg.name, "reduced": cut, "params_b": n_params / 1e9,
+            "launches": launches, "ms_per_commit": ms, "tokens_per_s": tok_s,
             "first_chunk_s": first, "peak_gb": peak / 1e9,
-            "losses": [float(v) for v in losses]}
+            "losses": [float(v) for v in losses],
+            "aux": [float(v) for v in aux["aux"]]}
 
 
 def train_lm_decode(torch, np, ds) -> dict:
@@ -1959,6 +2011,330 @@ def run_checkpoint_path(torch, np, kernels) -> dict:
             "read_s": read_s, "resume_s": resume_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the main path, part 7 — the model zoo
+# ---------------------------------------------------------------------------
+def _free(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _keep_every_pair(moe, cfg):
+    """An MoE capacity that keeps every (token, expert) pair (factor E / k:
+    capacity = tokens).  Phase 10a holds decode steps (2 tokens, capacity
+    4: nothing drops) against one prefill of the whole stream, whose
+    capacity at the reference's factor 1.25 drops pairs the steps keep;
+    the drops themselves run in 10b and 10c."""
+    prev = moe.CAPACITY_FACTOR
+    if cfg.num_experts:
+        moe.CAPACITY_FACTOR = cfg.num_experts / cfg.experts_per_token
+    try:
+        yield
+    finally:
+        moe.CAPACITY_FACTOR = prev
+
+
+@contextlib.contextmanager
+def _routing(moe, record=None, replay=None):
+    """Expert choices in and out of ``moe.route``: ``record`` (a list) gets
+    each call's ``(C, T, k)`` experts; ``replay`` (an iterator) gives each
+    call's experts in place of the router's, weighted by the router's own
+    probabilities there, renormalised.  Top-k routing is discontinuous: in
+    bf16, the rounding differences between a decode step and a prefill flip
+    experts whose probabilities nearly tie, and a flipped expert moves the
+    logits as far as a wrong token would (phi3.5-moe at 16 layers: 1.28
+    relative L2).  So phase 10a compares the paths under the decode's
+    routing."""
+    route = moe.route
+
+    def wrapped(params, xt, cfg):
+        probs, vals, idx = route(params, xt, cfg)
+        if replay is not None:
+            idx = next(replay)
+            vals = probs.gather(-1, idx)
+            vals = vals / vals.sum(dim=-1, keepdim=True)
+        if record is not None:
+            record.append(idx)
+        return probs, vals, idx
+
+    moe.route = wrapped
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def _plain_decode(ops):
+    """The kernels' plain versions in ``kernels.ops`` on the card's tensors
+    too (a comparison, so no launch is counted)."""
+    route = ops._route
+    ops._route = lambda t, kernel, plain: plain
+    try:
+        yield
+    finally:
+        ops._route = route
+
+
+def zoo_config(torch, np, ds, arch: str, device="cuda") -> dict:
+    """(10a) One config at its published widths, a one-chain bank at
+    ``ZOO_DEPTH`` layers (bf16, drawn on the card): ``Model.prefill`` of 2
+    prompts x 64 tokens (after the frontend configs' stub positions), the
+    prefill's K/V copied into an ``init_cache`` ring, then 8 greedy tokens
+    through ``serve_step`` (the ring kernel once a layer a step).  Gate:
+    each step's logits against one ``Model.forward`` of the same stream
+    (``attention_any``, no kernel) at the same position, relative L2 error
+    at most ``ZOO_REL_TOL`` (0.1), while the prefill's neighbouring
+    position must be at least ``ZOO_SHIFT_MIN`` (0.5) away.  Why 0.1 for
+    bf16: a bf16 rounding is up to 2^-9 relative, and the two paths round
+    at different places (cuBLAS picks other kernels for 2 rows than for
+    144, the decode kernel sums p . V in another order); the differences
+    compound over the layers of random weights: 0.021-0.049 over 24-48
+    layers in this script's first run on the card, which the bound clears
+    twice over.  A kernel that dropped or misplaced positions moves the
+    logits by a large part of their norm, as a one-position shift does
+    (0.97-1.40 in that run).  The same steps through the plain decode
+    step on the card give the kernel's share of the error (reported).
+    MoE configs keep every pair (``_keep_every_pair``) and the forward and
+    the plain steps take the kernel decode's expert choices
+    (``_routing``).  stablelm-12b and kimi-k2 also serve one
+    ``PagedDecodeEngine`` request (the paged kernel at head_dim 160 and
+    112)."""
+    from repro_torch.cluster import PagedDecodeEngine, Request
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import FRONTEND_DIM, Model, init_params
+    from repro_torch.obs.metrics import registry
+    from repro_torch.utils import tree_leaves, tree_map
+
+    full = get_arch(arch)
+    L = ZOO_DEPTH[arch]
+    cfg = replace(full, num_layers=L)
+    cut = None if L == full.num_layers else f"depth {full.num_layers} -> {L}"
+    B, T, n_new, V = 2, 64, 8, cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device, num_chains=1)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    draw_s = time.perf_counter() - t0
+    rng = np.random.default_rng(10)
+    prompts = rng.integers(0, V, (B, T)).astype(np.int32)
+    batch = {"tokens": prompts}
+    N = cfg.num_frontend_tokens if cfg.frontend else 0
+    if cfg.frontend:
+        batch["frontend"] = torch.randn(B, N, FRONTEND_DIM,
+                                        generator=torch.Generator().manual_seed(11))
+    P = N + T
+    model = Model(cfg, device=device)
+    out = {"arch": arch, "reduced": cut, "layers": L, "params_b": n_params / 1e9,
+           "bank_gb": gb, "head_dim": cfg.head_dim,
+           "group": cfg.num_heads // cfg.num_kv_heads}
+    seen_pre, seen_dec = [], []
+    with torch.no_grad(), _keep_every_pair(moe, cfg):
+        moe.reset_dropped()
+        t0 = time.perf_counter()
+        with _routing(moe, record=seen_pre):
+            last, pre = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        cache = model.init_cache(B, P + n_new, prefill_len=P)
+        for name in ("k", "v"):
+            cache["attn"][name][:, :, :, :P] = pre["attn"][name]
+        del pre
+        start = tree_map(torch.clone, cache)
+        tok = last[0, :, 0].argmax(-1)
+        fed, dec = [], []
+        ds.decode_step.launches = ds.paged_decode_step.launches = 0
+        t0 = time.perf_counter()
+        with _routing(moe, record=seen_dec):
+            for i in range(n_new):
+                fed.append(tok)
+                step, cache = model.serve_step(params, cache, tok[:, None], P + i)
+                dec.append(step[0, :, 0].float())
+                tok = dec[-1].argmax(-1)
+            torch.cuda.synchronize()
+        ms_tok = (time.perf_counter() - t0) * 1e3 / n_new
+        launches = ds.decode_step.launches
+        check(ds.paged_decode_step.launches == 0, f"{arch}: paged kernel in serve_step")
+        del cache
+        # the same steps through the plain decode step, the kernel decode's
+        # expert choices
+        plain, cache = [], start
+        with _plain_decode(ops), _routing(moe, replay=iter(seen_dec)):
+            for i in range(n_new):
+                step, cache = model.serve_step(params, cache, fed[i][:, None], P + i)
+                plain.append(step[0, :, 0].float())
+        del cache, start
+        stream = np.concatenate([prompts, torch.stack(fed, 1).cpu().numpy().astype(np.int32)],
+                                axis=1)
+        k = cfg.experts_per_token
+        choices = [torch.cat([seen_pre[l].reshape(1, B, P, k),
+                              torch.stack([seen_dec[i * L + l].reshape(1, B, k)
+                                           for i in range(n_new)], dim=2)],
+                             dim=2).reshape(1, B * (P + n_new), k)
+                   for l in range(L)] if cfg.num_experts else []
+        with _routing(moe, replay=iter(choices)):
+            logits, _, _ = model.forward(params, {**batch, "tokens": stream})
+        ref = logits[0, :, P:P + n_new].float()  # (B, n_new, V)
+        del logits
+        dropped = moe.dropped_pairs()
+    dec, plain = torch.stack(dec, 1), torch.stack(plain, 1)
+    check(bool(torch.isfinite(dec).all()), f"{arch}: non-finite decode logits")
+    check(launches == L * n_new,
+          f"{arch}: decode kernel launched {launches} times for {n_new} steps x {L} layers")
+
+    def rel(a, b):
+        return (a - b).norm(dim=-1) / b.norm(dim=-1)
+
+    err = rel(dec, ref).max().item()
+    shifted = rel(dec[:, 1:], ref[:, :-1]).min().item()
+    check(err <= ZOO_REL_TOL,
+          f"{arch}: decode logits {err:.4g} from the prefill's (relative L2), "
+          f"limit {ZOO_REL_TOL}")
+    check(shifted >= ZOO_SHIFT_MIN, f"{arch}: the prefill's neighbouring position is "
+          f"only {shifted:.4g} from the decode logits")
+    check(dropped == 0, f"{arch}: {dropped} pairs dropped with every pair kept")
+    agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    out.update(prefill_ms=prefill_ms, ms_per_token=ms_tok, launches=launches,
+               launches_per_step=launches // n_new, decode_vs_prefill_rel_l2=err,
+               plain_vs_prefill_rel_l2=rel(plain, ref).max().item(),
+               decode_vs_plain_rel_l2=rel(dec, plain).max().item(),
+               shifted_rel_l2_min=shifted, argmax_agreement=agree,
+               decode_vs_prefill_max_abs=(dec - ref).abs().max().item())
+    if arch in ("stablelm-12b", "kimi-k2-1t-a32b"):
+        reg = registry()
+        with torch.no_grad(), _keep_every_pair(moe, cfg):
+            peng = PagedDecodeEngine(cfg, params, num_slots=2, page_size=16,
+                                     max_seq=128, device=device)
+            micro0 = reg.counter("paged.micro_steps").value
+            ds.decode_step.launches = ds.paged_decode_step.launches = 0
+            t0 = time.perf_counter()
+            rid = peng.submit(Request(tokens=prompts[0], max_new_tokens=n_new))
+            done = {c.request_id: c for c in peng.drain()}[rid]
+            paged_s = time.perf_counter() - t0
+            micro = int(reg.counter("paged.micro_steps").value - micro0)
+            paged = ds.paged_decode_step.launches
+        check(done.status == "ok" and len(done.tokens) == n_new,
+              f"{arch}: paged request {done.status}, {len(done.tokens)} tokens")
+        check(paged == L * micro and ds.decode_step.launches == 0,
+              f"{arch}: paged kernel launched {paged} times for {micro} micro-steps x {L}")
+        out["paged"] = {"launches": paged, "micro_steps": micro,
+                        "tokens_per_s": n_new / paged_s,
+                        "tokens_equal_ring": done.tokens.tolist() == [int(t[0]) for t in fed]}
+        del peng
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, model, dec, plain, ref, seen_pre, seen_dec, choices
+    _free(torch)
+    log(f"zoo (a): {arch}{f' ({cut})' if cut else ''}, {n_params / 1e9:.3f} B parameters, "
+        f"{gb:.2f} GB (drawn in {draw_s:.1f} s), hd {cfg.head_dim}, group {out['group']}: "
+        f"prefill 2 x {P} in {prefill_ms:.1f} ms; {ms_tok:.2f} ms/token, "
+        f"{launches // n_new} kernel launches a step; decode vs prefill relative L2 "
+        f"{err:.3g} (plain step {out['plain_vs_prefill_rel_l2']:.3g}, kernel vs plain "
+        f"{out['decode_vs_plain_rel_l2']:.3g}, a shifted position {shifted:.3g}), argmax "
+        f"agreement {agree:.3f}; peak {out['peak_gb']:.2f} GB"
+        + (f"; paged request {out['paged']['tokens_per_s']:.1f} tokens/s, "
+           f"{out['paged']['launches']} launches" if "paged" in out else ""))
+    return out
+
+
+def moe_serve_path(torch, np, ds, device="cuda") -> dict:
+    """(10b) MoE serving: a 2-chain phi3.5-moe bank at its published widths,
+    depth cut 32 -> ``MOE_SERVE_LAYERS``, at the reference's capacity
+    factor: ``DecodeEngine`` (4 prompts x 32 + 16 new tokens),
+    ``PagedDecodeEngine`` (the same 4 requests on 8 slots, page size 16),
+    then one ``ServeEngine`` request of 8 x 128 tokens; the dropped (token,
+    expert) pairs of each part are counted."""
+    from repro_torch.cluster import DecodeEngine, PagedDecodeEngine, Request, ServeEngine
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe, transformer_next_token_predict
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.obs.metrics import registry
+    from repro_torch.utils import tree_leaves
+
+    full = get_arch("phi3.5-moe-42b-a6.6b")
+    L, C = MOE_SERVE_LAYERS, 2
+    cfg = replace(full, num_layers=L)
+    V = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(3),
+                         device=device, num_chains=C)
+    gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+    rng = np.random.default_rng(12)
+    prompts = rng.integers(0, V, (4, 32)).astype(np.int32)
+    out = {"arch": cfg.name, "reduced": f"depth {full.num_layers} -> {L}", "chains": C,
+           "bank_gb": gb}
+
+    eng = DecodeEngine(cfg, params, max_seq=256, device=device)
+    eng.generate(prompts, 2)  # warm-up
+    torch.cuda.synchronize()
+    moe.reset_dropped()
+    ds.decode_step.launches = ds.paged_decode_step.launches = 0
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, 16)
+    t_dec = time.perf_counter() - t0
+    launches = ds.decode_step.launches
+    check(res.tokens.shape == (4, 16) and ((res.tokens >= 0) & (res.tokens < V)).all(),
+          f"moe serve: DecodeEngine tokens {res.tokens.shape}")
+    check(launches == L * 15, f"moe serve: decode kernel launched {launches} times, "
+          f"want {L} x 15")
+    out["decode"] = {"launches": launches, "ms_per_token": t_dec * 1e3 / 16,
+                     "tokens_per_s": 64 / t_dec, "dropped_pairs": moe.dropped_pairs()}
+    del eng
+    _free(torch)
+
+    reg = registry()
+    peng = PagedDecodeEngine(cfg, params, num_slots=8, page_size=16, max_seq=256,
+                             device=device)
+    moe.reset_dropped()
+    ds.decode_step.launches = ds.paged_decode_step.launches = 0
+    micro0 = reg.counter("paged.micro_steps").value
+    t0 = time.perf_counter()
+    ids = [peng.submit(Request(tokens=p, max_new_tokens=16)) for p in prompts]
+    done = {c.request_id: c for c in peng.drain()}
+    t_paged = time.perf_counter() - t0
+    micro = int(reg.counter("paged.micro_steps").value - micro0)
+    paged = ds.paged_decode_step.launches
+    check(all(done[i].status == "ok" and len(done[i].tokens) == 16 for i in ids),
+          "moe serve: a paged request failed")
+    check(paged == L * micro and ds.decode_step.launches == 0,
+          f"moe serve: paged kernel launched {paged} times for {micro} micro-steps x {L}")
+    out["paged"] = {"launches": paged, "micro_steps": micro, "tokens_per_s": 64 / t_paged,
+                    "dropped_pairs": moe.dropped_pairs()}
+    del peng
+    _free(torch)
+
+    serve = ServeEngine(predict_fn=transformer_next_token_predict(Model(cfg, device=device)),
+                        params=params, device=device)
+    queries = rng.integers(0, V, (8, 128)).astype(np.int32)
+    serve({"tokens": queries[:1]})  # warm-up
+    torch.cuda.synchronize()
+    moe.reset_dropped()
+    t0 = time.perf_counter()
+    r = serve({"tokens": queries})
+    ms = (time.perf_counter() - t0) * 1e3
+    check(r.mean.shape == (8, V) and all(np.isfinite(x).all() for x in r),
+          "moe serve: ServeEngine statistics not finite or misshapen")
+    out["serve"] = {"queries": 8, "tokens": 128, "ms_per_request": ms,
+                    "queries_per_s": 8e3 / ms, "dropped_pairs": moe.dropped_pairs()}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del serve, params
+    _free(torch)
+    log(f"moe serve: {C} x {cfg.name} ({out['reduced']}), {gb:.2f} GB: DecodeEngine "
+        f"{out['decode']['ms_per_token']:.2f} ms/token ({out['decode']['tokens_per_s']:.1f} "
+        f"tokens/s, {launches} launches), PagedDecodeEngine "
+        f"{out['paged']['tokens_per_s']:.1f} tokens/s ({paged} launches), ServeEngine "
+        f"8 x 128 in {ms:.1f} ms; dropped pairs {out['decode']['dropped_pairs']}, "
+        f"{out['paged']['dropped_pairs']}, {out['serve']['dropped_pairs']}; peak "
+        f"{out['peak_gb']:.2f} GB")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2021,6 +2397,15 @@ def main() -> int:
                                               True, heads=LM100M_HEADS)
         g3[("paged", dtype)] = run_paged_case(torch, F, ds, ref, dtype, True,
                                               heads=LM100M_HEADS)
+    # the model zoo's shapes (head_dim 112 and 160, a group of 7): the
+    # decode cell's ring and the paged cell, both dtypes timed
+    zc = {}
+    for arch, heads in ZOO_HEADS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            zc[("ring", arch, dtype)] = run_decode_case(
+                torch, F, ds, ref, dtype, *RING_CASES[0], True, heads=heads)
+            zc[("paged", arch, dtype)] = run_paged_case(torch, F, ds, ref, dtype,
+                                                        True, heads=heads)
     torch.cuda.empty_cache()
     lang = run_langevin_checks(torch, np, lu, ref)
     wic, gat, dly = run_gather_checks(torch, np, dg, ref)
@@ -2058,6 +2443,15 @@ def main() -> int:
     fb = cluster_fault_path(torch, np, sgld_kernels, cp)
     del cp["final"]
     fc = run_checkpoint_path(torch, np, sgld_kernels)
+    _free(torch)
+    zoo = [zoo_config(torch, np, ds, arch) for arch in ZOO_DEPTH]
+    srv = moe_serve_path(torch, np, ds)
+    zt = [train_path(torch, np, lu, dg, ("--arch", "phi3.5-moe-42b-a6.6b", "--layers",
+                                         str(MOE_TRAIN_LAYERS), "--seq", "128"),
+                     cut=f"depth 32 -> {MOE_TRAIN_LAYERS}"),
+          train_path(torch, np, lu, dg, ("--arch", "internvl2-1b", "--seq", "384"))]
+    zoo_train = {"launches": {k: sum(r["launches"][k] for r in zt)
+                              for k in zt[0]["launches"]}}
 
     def cases(runs):
         return [{k: r[k] for k in ("dtype", "heads", "smax", "valid", "maxp", "pos", "splits",
@@ -2069,26 +2463,39 @@ def main() -> int:
     d, p = dec[(torch.bfloat16, 256)], pag[(torch.bfloat16, 16)]
     kernels = [
         {"name": "decode_step", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/decode_step.cu",
+         "source": "src/repro_torch/kernels/csrc/decode_step.cuh",
          "replaces": "src/repro/kernels/decode_step.py:63",
          "launches": (mp["decode"]["launches"] + mp["serve"]["decoder"]["launches"]
-                      + tl["launches"]),
+                      + tl["launches"] + sum(z["launches"] for z in zoo)
+                      + srv["decode"]["launches"]),
          "launches_by_path": {"decode": mp["decode"]["launches"],
                               "serve_decoder": mp["serve"]["decoder"]["launches"],
-                              "train_lm_decode_group3": tl["launches"]},
+                              "train_lm_decode_group3": tl["launches"],
+                              "zoo": {z["arch"]: z["launches"] for z in zoo},
+                              "moe_serve": srv["decode"]["launches"]},
          "max_abs_err": d["max_abs_err"],
          "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
          "bound_by": d["bound_by"], "library_ms": d["library_ms"],
          "cases": cases(dec[(torch.bfloat16, n)] for n in (256, 1024, 16384)),
-         "group3_cases": cases(g3[("ring", t)] for t in (torch.bfloat16, torch.float32))},
+         "group3_cases": cases(g3[("ring", t)] for t in (torch.bfloat16, torch.float32)),
+         "zoo_cases": cases(zc[("ring", a, t)] for a in ZOO_HEADS
+                            for t in (torch.bfloat16, torch.float32))},
         {"name": "paged_decode_step", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/decode_step.cu",
+         "source": "src/repro_torch/kernels/csrc/decode_step.cuh",
          "replaces": "src/repro/kernels/decode_step.py:150",
-         "launches": mp["paged"]["launches"], "max_abs_err": p["max_abs_err"],
+         "launches": (mp["paged"]["launches"] + srv["paged"]["launches"]
+                      + sum(z["paged"]["launches"] for z in zoo if "paged" in z)),
+         "launches_by_path": {"paged": mp["paged"]["launches"],
+                              "zoo": {z["arch"]: z["paged"]["launches"]
+                                      for z in zoo if "paged" in z},
+                              "moe_serve": srv["paged"]["launches"]},
+         "max_abs_err": p["max_abs_err"],
          "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
          "bound_by": p["bound_by"], "library_ms": p["library_ms"],
          "cases": cases(pag[(torch.bfloat16, n)] for n in (16, 256)),
-         "group3_cases": cases(g3[("paged", t)] for t in (torch.bfloat16, torch.float32))},
+         "group3_cases": cases(g3[("paged", t)] for t in (torch.bfloat16, torch.float32)),
+         "zoo_cases": cases(zc[("paged", a, t)] for a in ZOO_HEADS
+                            for t in (torch.bfloat16, torch.float32))},
     ]
     # the delay_gather entry is the one W-Icon kernel: its numbers and
     # launches are the main path's instantiation (wicon_read, delays drawn
@@ -2114,7 +2521,7 @@ def main() -> int:
         by_path = {path: sum(run["launches"][k] for k in counters)
                    for path, run in (("train", tp), ("paper", pp), ("paper_fused", pf),
                                      ("cluster", cp), ("faults", fa), ("fault_path", fb),
-                                     ("run_checkpoint", fc))}
+                                     ("run_checkpoint", fc), ("zoo_train", zoo_train))}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
@@ -2132,6 +2539,7 @@ def main() -> int:
     log(json.dumps({"cluster": {"reference": ca, "quickstart": cq, "full_width": cp}}))
     log(json.dumps({"serve": {**mp["serve"], "quickstart": sq}}))
     log(json.dumps({"faults": {"chaos": fa, "full_width": fb, "run_checkpoint": fc}}))
+    log(json.dumps({"zoo": {"configs": zoo, "moe_serve": srv, "train": zt}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

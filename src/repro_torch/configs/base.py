@@ -1,9 +1,11 @@
 """Architecture config dataclass and the registry (port of
 ``repro.configs.base``).
 
-Only the fields and helpers the ported slices need are kept; the port
-registers the architectures it can run (the dense ``attn_mlp`` stack), so a
-request for another id fails at lookup instead of deep inside the model.
+Only the fields and helpers the ported slices need are kept (no mesh,
+sharding or SSM fields); the port registers the architectures it can run
+(the homogeneous attention stacks, ``attn_mlp`` and ``attn_moe``, with the
+vision and audio frontend stubs), so a request for another id fails at
+lookup instead of deep inside the model.
 """
 
 from __future__ import annotations
@@ -13,10 +15,28 @@ from dataclasses import dataclass, replace
 from typing import Optional
 
 #: architectures the port implements (module name under repro_torch.configs)
-ARCH_IDS = ["qwen3_4b"]
+ARCH_IDS = [
+    "minicpm_2b",
+    "internvl2_1b",
+    "kimi_k2_1t_a32b",
+    "phi35_moe_42b_a6p6b",
+    "qwen3_4b",
+    "stablelm_12b",
+    "qwen15_32b",
+    "musicgen_medium",
+]
 
 # canonical dashed ids (CLI) -> module names
-ALIASES = {"qwen3-4b": "qwen3_4b"}
+ALIASES = {
+    "minicpm-2b": "minicpm_2b",
+    "internvl2-1b": "internvl2_1b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b_a6p6b",
+    "qwen3-4b": "qwen3_4b",
+    "stablelm-12b": "stablelm_12b",
+    "qwen1.5-32b": "qwen15_32b",
+    "musicgen-medium": "musicgen_medium",
+}
 
 
 @dataclass(frozen=True)
@@ -40,14 +60,21 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     sliding_window: Optional[int] = None  # static window if set
 
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    num_shared_experts: int = 0
+    router_aux_coef: float = 0.01
+
     block_pattern: tuple = ("attn_mlp",)  # cycled over layers
 
     # misc
     act: str = "silu"
-    residual_scale: float = 1.0
+    residual_scale: float = 1.0     # MiniCPM depth-scaled residuals
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     frontend: Optional[str] = None  # None | "vision" | "audio"
+    num_frontend_tokens: int = 0    # prepended stub-embedding positions
     dtype: str = "bfloat16"
 
     def __post_init__(self):
@@ -74,6 +101,19 @@ class ArchConfig:
 
         params = init_params(self, device="meta")
         return sum(t.numel() for t in tree_leaves(params))
+
+    def active_param_count(self) -> int:
+        """Parameters one token activates (MoE: only its routed experts)."""
+        full = self.param_count()
+        if self.num_experts == 0:
+            return full
+        expert_p = 3 * self.d_model * self.d_ff
+        n_moe_layers = sum(
+            1 for i in range(self.num_layers)
+            if self.block_pattern[i % len(self.block_pattern)] == "attn_moe")
+        inactive = ((self.num_experts - self.experts_per_token)
+                    * expert_p * n_moe_layers)
+        return int(full - inactive)
 
 
 @dataclass(frozen=True)
@@ -103,7 +143,8 @@ def get_reduced(name: str) -> ArchConfig:
 
 
 def _reduce_common(cfg: ArchConfig, **over) -> ArchConfig:
-    """Shared recipe for CPU smoke variants: 2 layers, d_model 256."""
+    """Shared recipe for CPU smoke variants: 2 layers, d_model 256, at most
+    4 experts (top-2, one shared expert at most)."""
     kw = dict(
         num_layers=2,
         d_model=256,
@@ -114,5 +155,8 @@ def _reduce_common(cfg: ArchConfig, **over) -> ArchConfig:
         vocab_size=512,
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else None,
     )
+    if cfg.num_experts:
+        kw.update(num_experts=4, experts_per_token=2,
+                  num_shared_experts=min(cfg.num_shared_experts, 1))
     kw.update(over)
     return replace(cfg, name=cfg.name + "-reduced", **kw)

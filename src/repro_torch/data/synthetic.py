@@ -1,16 +1,22 @@
-"""Synthetic token data for training (port of ``repro.data.synthetic``'s
-``token_stream`` and the ``train`` kind of ``make_batch``).
+"""Synthetic data: token streams and frontend-embedding stubs (port of
+``repro.data.synthetic``'s ``token_stream`` and ``make_batch``).
 
 Batches are drawn on the CPU from a ``torch.Generator``, so one seed gives
-the same batches whichever device trains on them (the model moves the
-tokens to its device).  The numbers differ from ``jax.random``'s: tests
-that need both packages on one batch make it with numpy and hand it to
-both.
+the same batches whichever device trains on them (the model moves them to
+its device).  The numbers differ from ``jax.random``'s: tests that need
+both packages on one batch make it with numpy and hand it to both.
+
+Frontend stubs, as in the reference: a vision or audio config's batches
+carry precomputed embeddings ``(B, num_frontend_tokens, FRONTEND_DIM)`` in
+float32, standing in for InternViT / EnCodec outputs, and the text is
+``seq_len - num_frontend_tokens`` tokens long.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.transformer import FRONTEND_DIM
 
 
 def token_stream(generator: torch.Generator, vocab_size: int, batch: int,
@@ -24,13 +30,28 @@ def token_stream(generator: torch.Generator, vocab_size: int, batch: int,
     return torch.where(rep, shifted, base)
 
 
+def _text_len(cfg, shape) -> int:
+    return shape.seq_len - (cfg.num_frontend_tokens if cfg.frontend else 0)
+
+
 def make_batch(cfg, shape, generator: torch.Generator, kind: str | None = None):
-    """A training batch for (arch, shape): ``{"tokens": (B, S+1) int32}``
-    (the extra token is the last position's label).  Token-only
-    architectures and the ``train`` kind, the ones the port trains."""
+    """Real tensors for an (arch, shape) pair; ``kind`` defaults to
+    ``shape.kind``.  ``train``: ``{"tokens": (B, S_text + 1) int32}`` (the
+    extra token is the last position's label); ``prefill``: ``(B,
+    S_text)``; both with ``"frontend"`` for a frontend config.  ``decode``:
+    ``{"tokens": (B, 1) int32, "cur_pos": seq_len - 1}``."""
     kind = kind or shape.kind
-    if kind != "train" or cfg.frontend:
-        raise ValueError(f"the port makes token batches for training only "
-                         f"(kind={kind!r}, frontend={cfg.frontend!r})")
-    return {"tokens": token_stream(generator, cfg.vocab_size,
-                                   shape.global_batch, shape.seq_len + 1)}
+    B = shape.global_batch
+    if kind in ("train", "prefill"):
+        extra = 1 if kind == "train" else 0
+        batch = {"tokens": token_stream(generator, cfg.vocab_size, B,
+                                        _text_len(cfg, shape) + extra)}
+        if cfg.frontend:
+            batch["frontend"] = torch.randn(
+                (B, cfg.num_frontend_tokens, FRONTEND_DIM), generator=generator)
+        return batch
+    if kind == "decode":
+        return {"tokens": torch.randint(0, cfg.vocab_size, (B, 1),
+                                        generator=generator, dtype=torch.int32),
+                "cur_pos": shape.seq_len - 1}
+    raise ValueError(kind)

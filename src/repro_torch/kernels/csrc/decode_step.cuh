@@ -63,6 +63,10 @@
 // page 0, offset 0 at once, race only on a row nobody reads.
 //
 // C interface (bound with ctypes): each launcher returns cudaGetLastError().
+// One library a dtype: decode_step_bf16.cu and decode_step_f32.cu include this
+// file with DECODE_STEP_T (the element type) and DECODE_STEP_DTYPE (its code,
+// 0 = float32, 1 = bfloat16) defined, so nvcc builds the two halves of the
+// (dtype, head_dim, group) instantiations at once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,6 +88,12 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
+// A head_dim need not divide the block: at hd 112 or 160 a row is 14 or 20
+// (bf16), 28 or 40 (f32) 16-byte copies, and the copies walk the tile's
+// (row, copy) pairs in one flat loop.  In f32's p . V the first
+// kRowGroups * kSegs threads own a column slice each (kRowGroups row groups)
+// and the rest sit the product out: 112 of 128 threads at hd 112, 120 at
+// hd 160.
 template <typename T, int HD>
 struct Shape {
   static constexpr int kVec = 16 / (int)sizeof(T);          // elements a 16-byte copy
@@ -91,7 +101,7 @@ struct Shape {
   static constexpr int kRowBytes = HD * (int)sizeof(T) + 16; // padded row in shared memory
   static constexpr int kTileBytes = kTile * kRowBytes;
   static constexpr int kRowGroups = kThreads / kSegs;        // p . V: threads a column slice
-  static_assert(kThreads % kSegs == 0 && kRowGroups <= kTile, "tile shape");
+  static_assert(HD % kVec == 0 && kSegs <= kThreads && kRowGroups <= kTile, "tile shape");
   static_assert(kTile % 32 == 0 && kTile >= kMaxSplits, "a warp's lanes share a tile's "
                 "scores, and the merge keeps its weights in the scores' place");
 };
@@ -101,7 +111,9 @@ struct Shape {
 // q (f32 only: bf16 keeps it in registers), the scores, the row flags, the
 // splits' (m, l), (m, l, alpha), a flag, and the paged kernel's chunk of the
 // page table.  At bf16, G = 4, hd 128 a block takes 36,160 bytes, so six
-// fit an SM (with the 1 KB the hardware reserves for each).
+// fit an SM (with the 1 KB the hardware reserves for each).  The reduction
+// region holds floor(kThreads / kSegs) row groups, the threads that own a
+// column slice in p . V.
 __host__ __device__ constexpr size_t tile_region_bytes(int G, int HD, int elem) {
   const size_t tiles = (size_t)kStages * 2 * kTile * (HD * elem + 16);
   const size_t red = (size_t)(kThreads / (HD * elem / 16)) * G * HD * 4;
@@ -209,10 +221,17 @@ struct SplitAttention {
     pages_s = flag_s + 4;
   }
 
-  // bf16 runs both products on the tensor cores; f32 on the CUDA cores
+  // bf16 runs both products on the tensor cores; f32 on the CUDA cores.
+  // p . V's HD / 16 row tiles of 16 go round the warps: warp w owns tiles
+  // w, w + kWarps, ..., so at hd 112 (7 tiles) warps 0-2 take two and warp
+  // 3 one, at hd 160 (10 tiles) warps 0-1 take three and 2-3 two.  Whether
+  // a warp has its mt-th tile is the same for all its lanes, so the mma
+  // instructions stay warp-uniform.
   static constexpr bool kMma = sizeof(T) == 2;
-  static constexpr int kMt = HD / 16 / kWarps;  // mma: 16-row hd tiles a warp
-  static_assert(!kMma || (HD % (16 * kWarps) == 0 && kTile % 16 == 0 && G <= 8), "mma shape");
+  static constexpr int kHdTiles = HD / 16;                       // mma: 16-row hd tiles
+  static constexpr int kMt = (kHdTiles + kWarps - 1) / kWarps;   // ... a warp, at most
+  static_assert(!kMma || (HD % 16 == 0 && kTile % 16 == 0 && G <= 8), "mma shape");
+  __device__ __forceinline__ static int hd_tile(int warp, int mt) { return mt * kWarps + warp; }
   unsigned qb[HD / 16][2];  // mma: q as the B operand (n = head, padded to 8)
   float scale;
 
@@ -346,6 +365,7 @@ struct SplitAttention {
   // every kRowGroups-th row
   __device__ __forceinline__ void pv(const unsigned char* vs, const int* ok, float (&acc)[G][kVec]) {
     const int cv = threadIdx.x % S::kSegs, rg = threadIdx.x / S::kSegs;
+    if (rg >= S::kRowGroups) return;  // past the last whole row group
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float a = a_s[g];
@@ -368,7 +388,7 @@ struct SplitAttention {
   // bf16: O^T (hd x heads) += V^T (hd x positions) . P^T on the tensor
   // cores, V^T through ldmatrix.trans; each weight goes in as a bf16 pair
   // hi + lo (about 16 significant bits; a single bf16 would keep 8), fp32
-  // accumulation.  A warp owns kMt 16-row hd tiles.
+  // accumulation.  A warp owns up to kMt 16-row hd tiles (hd_tile).
   __device__ __forceinline__ void pv_mma(const unsigned char* vs, float (&acc)[kMt][4]) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int gid = lane / 4, tig = lane % 4, mi = lane / 8, r = lane % 8;
@@ -391,7 +411,8 @@ struct SplitAttention {
       }
 #pragma unroll
       for (int mt = 0; mt < kMt; ++mt) {
-        const int m0 = (warp * kMt + mt) * 16;
+        if (hd_tile(warp, mt) >= kHdTiles) break;
+        const int m0 = hd_tile(warp, mt) * 16;
         unsigned a[4];
         ldmatrix_x4_trans(a, vs + (ks * 16 + (mi >> 1) * 8 + r) * S::kRowBytes + (m0 + (mi & 1) * 8) * 2);
         mma_bf16(acc[mt], a, hi[0], hi[1]);
@@ -420,10 +441,11 @@ struct SplitAttention {
     // sum the row groups' accumulators, in row-group order
     float* red = reinterpret_cast<float*>(kv);  // (kRowGroups, G, HD)
     const int cv = threadIdx.x % S::kSegs, rg = threadIdx.x / S::kSegs;
+    if (rg < S::kRowGroups)
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+      for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) red[((size_t)rg * G + g) * HD + cv * kVec + e] = acc[g][e];
+        for (int e = 0; e < kVec; ++e) red[((size_t)rg * G + g) * HD + cv * kVec + e] = acc[g][e];
     __syncthreads();
     for (int i = threadIdx.x; i < G * HD; i += kThreads) {
       float o = 0.f;
@@ -442,8 +464,8 @@ struct SplitAttention {
     for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int n = tig * 2 + (i % 2), m = (warp * kMt + mt) * 16 + gid + (i / 2) * 8;
-        if (n >= G) continue;
+        const int n = tig * 2 + (i % 2), m = hd_tile(warp, mt) * 16 + gid + (i / 2) * 8;
+        if (n >= G || hd_tile(warp, mt) >= kHdTiles) continue;
         if (acc_out != nullptr)
           acc_out[n * HD + m] = acc[mt][i];
         else
@@ -724,32 +746,34 @@ cudaError_t launch_paged(const void* q, const void* k_new, const void* v_new, vo
   return cudaGetLastError();
 }
 
-// dispatch over (dtype, HD, G): dtype 0 = float32, 1 = bfloat16.  G need not
+// dispatch over (HD, G), this library's dtype only.  G need not
 // be a power of two: every loop over heads stops at G, the mma paths pad the
 // heads to 8 (n < G), the softmax takes a warp a head (g += kWarps), and the
 // shared-memory layout counts G exactly (G = 3: 12 query heads over 4 KV
-// heads, the 110M example model)
+// heads, the 110M example model; G = 7: internvl2-1b's 14 over 2).  HD need
+// not be a multiple of 64 (see Shape and kMt): 112 is kimi-k2's, 160
+// stablelm-12b's.
 #define DISPATCH_G(T, HD, FN, ...)                          \
   switch (G) {                                              \
     case 1: return FN<T, HD, 1>(__VA_ARGS__);               \
     case 2: return FN<T, HD, 2>(__VA_ARGS__);               \
     case 3: return FN<T, HD, 3>(__VA_ARGS__);               \
     case 4: return FN<T, HD, 4>(__VA_ARGS__);               \
+    case 7: return FN<T, HD, 7>(__VA_ARGS__);               \
     case 8: return FN<T, HD, 8>(__VA_ARGS__);               \
     default: return cudaErrorInvalidValue;                  \
   }
 #define DISPATCH_HD(T, FN, ...)                             \
   switch (HD) {                                             \
     case 64: DISPATCH_G(T, 64, FN, __VA_ARGS__)             \
+    case 112: DISPATCH_G(T, 112, FN, __VA_ARGS__)           \
     case 128: DISPATCH_G(T, 128, FN, __VA_ARGS__)           \
+    case 160: DISPATCH_G(T, 160, FN, __VA_ARGS__)           \
     default: return cudaErrorInvalidValue;                  \
   }
 #define DISPATCH(FN, ...)                                   \
-  switch (dtype) {                                          \
-    case 0: DISPATCH_HD(float, FN, __VA_ARGS__)             \
-    case 1: DISPATCH_HD(__nv_bfloat16, FN, __VA_ARGS__)     \
-    default: return cudaErrorInvalidValue;                  \
-  }
+  if (dtype != DECODE_STEP_DTYPE) return cudaErrorInvalidValue; \
+  DISPATCH_HD(DECODE_STEP_T, FN, __VA_ARGS__)
 
 }  // namespace
 

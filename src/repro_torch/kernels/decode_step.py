@@ -1,4 +1,5 @@
-"""ctypes wrappers of the CUDA decode kernels (``csrc/decode_step.cu``).
+"""ctypes wrappers of the CUDA decode kernels (``csrc/decode_step.cuh``,
+built as one library a dtype: ``decode_step_bf16.cu``, ``decode_step_f32.cu``).
 
 :func:`decode_step` replaces ``repro.kernels.decode_step.decode_step_2d``
 and :func:`paged_decode_step` replaces
@@ -54,8 +55,8 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
-_GROUPS = (1, 2, 3, 4, 8)
+_HEAD_DIMS = (64, 112, 128, 160)
+_GROUPS = (1, 2, 3, 4, 7, 8)
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 # kThreads, kTile, kStages and kMaxSplits in the source
 THREADS, TILE, STAGES, MAX_SPLITS = 128, 32, 2, 16
@@ -114,7 +115,9 @@ def smem_bytes(G: int, hd: int, elem: int, max_pages: int = 0) -> int:
     source): the double-buffered K/V tiles (reused by the final reduction),
     then q (float32 only), scores, row flags, the splits' (m, l) in the
     merge, (m, l, alpha), a flag and the paged chunk's ``max_pages`` page
-    ids."""
+    ids.  The reduction keeps ``THREADS // segs`` row groups, ``segs`` the
+    16-byte copies of a row (14 or 20 in bf16 at head_dim 112 or 160: no
+    divisor of the block's threads)."""
     tiles = STAGES * 2 * TILE * (hd * elem + 16)
     red = (THREADS // (hd * elem // 16)) * G * hd * 4
     q = G * hd if elem == 4 else 0  # bf16 keeps q in registers
@@ -140,8 +143,8 @@ def _counters(dev, n: int, what: str) -> torch.Tensor:
     return buf
 
 
-def _lib():
-    lib = build.load("decode_step")
+def _lib(dtype):
+    lib = build.load("decode_step_bf16" if dtype == torch.bfloat16 else "decode_step_f32")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.decode_step_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
@@ -216,7 +219,7 @@ def decode_step(q, k_new, v_new, k_cache, v_cache, valid, slot: int):
                        device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().decode_step_launch(
+        err = _lib(dt).decode_step_launch(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
             valid.data_ptr(), part.data_ptr(),
@@ -267,7 +270,7 @@ def paged_decode_step(q, k_new, v_new, k_pages, v_pages, tables, pos):
                        device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().paged_decode_step_launch(
+        err = _lib(dt).paged_decode_step_launch(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
             tables.data_ptr(), pos.data_ptr(), part.data_ptr(),

@@ -17,12 +17,17 @@ commits and at the end, in the JAX package's single-model layout (its
 One chain of full-width qwen3-4b holds 8.8 GB of bf16 parameters, and W-Icon
 keeps ``tau + 1`` more copies in its ring, one gathered read point and one
 gradient: at ``--tau 2`` that is 53 GB before activations, which fits an
-80 GB card; the launcher's default ``--tau 4`` (71 GB) does not.
+80 GB card; the launcher's default ``--tau 4`` (71 GB) does not.  A larger
+architecture trains at its published widths with its depth cut by
+``--layers`` (phi3.5-moe-42b-a6.6b at 3 layers: 4.16 B parameters).  A
+frontend architecture's ``--seq`` counts its stub positions too
+(internvl2-1b: 256 of them, so ``--seq 384`` gives 128 text tokens).
 """
 
 from __future__ import annotations
 
 import argparse
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -45,6 +50,8 @@ def build(args):
     everything :func:`main` runs, for callers that time or inspect it."""
     dev = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
+    if args.layers:
+        cfg = replace(cfg, num_layers=args.layers)
     shape = ShapeConfig("cli", seq_len=args.seq, global_batch=args.batch,
                         kind="train")
     model = Model(cfg, device=dev)
@@ -76,6 +83,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
                     help="CPU-scale smoke variant of the arch")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the config's)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

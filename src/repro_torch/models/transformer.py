@@ -1,5 +1,5 @@
-"""The dense decoder (``attn_mlp``) over a chain bank: init, forward,
-prefill, and the two cached decode paths — port of
+"""The attention decoders (``attn_mlp``, ``attn_moe``) over a chain bank:
+init, forward, prefill, and the two cached decode paths — port of
 ``repro.models.transformer``.
 
 Parameters are the JAX package's nested dict: ``embed``, ``final_norm``,
@@ -18,7 +18,13 @@ attention.attention_any`, as the reference's does: naive up to 512 query
 positions, the long-prompt SDPA path above.  The prefills unembed only the
 position they return (one row of logits, not ``(C, B, S, V)``).
 
-MoE, SSM and xLSTM blocks come with a later slice.
+``attn_moe`` replaces the MLP by :mod:`~repro_torch.models.moe`; its
+load-balance loss comes back from :meth:`Model.forward` per chain.  The
+vision and audio frontends are the reference's stub: precomputed
+``FRONTEND_DIM``-wide embeddings ``(B, N, 1024)`` in float32, projected by
+``params["frontend"]["proj"]`` and prepended to the token embeddings.
+SSM and xLSTM blocks (heterogeneous stacks, recurrent decode state) come
+with a later slice.
 """
 
 from __future__ import annotations
@@ -40,12 +46,14 @@ from repro_torch.models.common import (
     rms_norm,
 )
 from repro_torch.models.mlp import apply_mlp, init_mlp
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.utils import resolve_device, to_device, tree_map
 
 PyTree = Any
 
-BLOCKS = ("attn_mlp",)  # the block kinds this slice implements
-ATTENTION_BLOCKS = ("attn_mlp", "attn_moe")  # blocks whose prefill is a KV cache
+BLOCKS = ("attn_mlp", "attn_moe")  # the block kinds the port implements
+
+FRONTEND_DIM = 1024  # stub embedding width (ViT / EnCodec feature dim)
 
 
 # ===========================================================================
@@ -79,12 +87,16 @@ def init_block(generator, cfg, block: str, dtype, lead=(), device="cpu") -> dict
     if block not in BLOCKS:
         raise ValueError(f"the port implements blocks {BLOCKS}, not {block!r}")
     lead = tuple(lead)
-    return {
+    p = {
         "norm1": _ones(lead + (cfg.d_model,), device),
         "attn": init_attn(generator, cfg, dtype, lead, device),
         "norm2": _ones(lead + (cfg.d_model,), device),
-        "mlp": init_mlp(generator, cfg, dtype, lead, device),
     }
+    if block == "attn_moe":
+        p["moe"] = init_moe(generator, cfg, dtype, lead, device)
+    else:
+        p["mlp"] = init_mlp(generator, cfg, dtype, lead, device)
+    return p
 
 
 def init_params(cfg, generator=None, *, device="cuda", num_chains=None) -> dict:
@@ -96,8 +108,9 @@ def init_params(cfg, generator=None, *, device="cuda", num_chains=None) -> dict:
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
-    if len(cfg.block_pattern) != 1 or cfg.frontend:
-        raise ValueError("the port implements homogeneous token-only stacks")
+    if len(cfg.block_pattern) != 1:
+        raise ValueError("the port implements homogeneous stacks "
+                         f"(one block kind), got {cfg.block_pattern}")
     dtype = dtype_of(cfg)
     lead = () if num_chains is None else (int(num_chains),)
     params: dict = {
@@ -108,6 +121,9 @@ def init_params(cfg, generator=None, *, device="cuda", num_chains=None) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense_init(
             generator, lead + (cfg.d_model, cfg.vocab_size), dtype, device=dev)}
+    if cfg.frontend:
+        params["frontend"] = {"proj": dense_init(
+            generator, lead + (FRONTEND_DIM, cfg.d_model), dtype, device=dev)}
     params["stack"] = init_block(generator, cfg, cfg.block_pattern[0], dtype,
                                  lead + (cfg.num_layers,), dev)
     return params
@@ -192,9 +208,15 @@ def apply_paged_attn(p, x, cfg, pages, tables, positions):
     return y, pages
 
 
-def _ffn(p, x, cfg):
+def _ffn(p, x, cfg, block: str):
+    """The block's second half: returns (x, aux) with aux the MoE's
+    load-balance loss per chain ``(C,)``, None for a dense block."""
     h2 = rms_norm(x, _per_chain(p["norm2"], x), cfg.norm_eps)
-    return x + cfg.residual_scale * apply_mlp(p["mlp"], h2, cfg)
+    if block == "attn_moe":
+        ff, aux = apply_moe(p["moe"], h2, cfg)
+    else:
+        ff, aux = apply_mlp(p["mlp"], h2, cfg), None
+    return x + cfg.residual_scale * ff, aux
 
 
 def apply_paged_block(p, x, cfg, block: str, pages, tables, positions):
@@ -206,12 +228,13 @@ def apply_paged_block(p, x, cfg, block: str, pages, tables, positions):
     h = rms_norm(x, _per_chain(p["norm1"], x), cfg.norm_eps)
     attn_out, pages = apply_paged_attn(p["attn"], h, cfg, pages, tables, positions)
     x = x + cfg.residual_scale * attn_out
-    return _ffn(p, x, cfg), pages
+    return _ffn(p, x, cfg, block)[0], pages
 
 
 def apply_block(p, x, cfg, block: str, positions, *, cache=None, cur_pos=None):
-    """Returns (x, aux_loss, new_cache) — ``new_cache`` is ``{"attn": ..}``
-    when decoding, else this layer's prefill (k, v)."""
+    """Returns (x, aux_loss, new_cache) — ``aux_loss`` the MoE's ``(C,)``
+    (None for a dense block), ``new_cache`` ``{"attn": ..}`` when decoding,
+    else this layer's prefill (k, v)."""
     if block not in BLOCKS:
         raise ValueError(f"unknown block {block!r}")
     h = rms_norm(x, _per_chain(p["norm1"], x), cfg.norm_eps)
@@ -220,7 +243,8 @@ def apply_block(p, x, cfg, block: str, positions, *, cache=None, cur_pos=None):
                               cache=None if cache is None else cache["attn"],
                               cur_pos=cur_pos)
     x = x + cfg.residual_scale * attn_out
-    return _ffn(p, x, cfg), 0.0, ({"attn": kv} if cache is not None else kv)
+    x, aux = _ffn(p, x, cfg, block)
+    return x, aux, ({"attn": kv} if cache is not None else kv)
 
 
 def _layer(stack: dict, i: int) -> dict:
@@ -247,11 +271,20 @@ class Model:
 
     # -- embedding ------------------------------------------------------------
     def embed(self, params, batch):
-        """Returns (x (C, B, S, d), positions (S,))."""
-        if self.cfg.frontend or "tokens" not in batch:
-            raise ValueError("the port serves token prompts only")
-        tok = self._tokens(batch["tokens"])
-        x = params["embed"]["w"][:, tok]
+        """Returns (x (C, B, S, d), positions (S,)).  A frontend config's
+        batch carries ``"frontend"`` stub embeddings ``(B, N, FRONTEND_DIM)``
+        in float32: projected per chain, in float32 as JAX promotes ``fe @
+        proj`` (proj upcast, fe kept), cast to the model's dtype and put
+        before the tokens' embeddings."""
+        parts = []
+        if self.cfg.frontend:
+            fe = to_device(batch["frontend"], self.device).float()
+            proj = params["frontend"]["proj"]
+            parts.append(bank_matmul(fe.expand(proj.shape[0], *fe.shape),
+                                     proj.float()).to(dtype_of(self.cfg)))
+        if "tokens" in batch:
+            parts.append(params["embed"]["w"][:, self._tokens(batch["tokens"])])
+        x = torch.cat(parts, dim=2) if len(parts) > 1 else parts[0]
         return x, torch.arange(x.shape[2], device=self.device)
 
     def unembed(self, params, x):
@@ -262,49 +295,50 @@ class Model:
 
     # -- forward over layers --------------------------------------------------
     def hidden(self, params, batch, want_kv: bool = False, layers=None):
-        """The layers without the unembedding: returns (x (C, B, S, d), kv)
-        with kv ``(k, v)`` stacked ``(L, C, B, S, KV, hd)`` when
-        ``want_kv``, else None.  ``layers`` (optional) gives each layer's
-        parameters in place of the slices of ``params["stack"]``."""
+        """The layers without the unembedding: returns (x (C, B, S, d), kv,
+        aux) with kv ``(k, v)`` stacked ``(L, C, B, S, KV, hd)`` when
+        ``want_kv``, else None, and aux each chain's load-balance loss
+        summed over the layers, ``(C,)`` float32 (0 for dense blocks).
+        ``layers`` (optional) gives each layer's parameters in place of the
+        slices of ``params["stack"]``."""
         cfg = self.cfg
         x, positions = self.embed(params, batch)
         block = cfg.block_pattern[0]
+        aux_total = torch.zeros(x.shape[0], device=self.device)
         ks, vs = [], []
         for i in range(cfg.num_layers):
             layer = _layer(params["stack"], i) if layers is None else layers[i]
-            x, _, (k, v) = apply_block(layer, x, cfg, block, positions)
+            x, aux, (k, v) = apply_block(layer, x, cfg, block, positions)
+            if aux is not None:
+                aux_total = aux_total + aux
             if want_kv:
                 ks.append(k)
                 vs.append(v)
         kv = (torch.stack(ks), torch.stack(vs)) if want_kv else None
-        return x, kv
+        return x, kv, aux_total
 
     def forward(self, params, batch, want_kv: bool = False, layers=None):
-        """Prefill / training forward.  Returns (logits (C, B, S, V), aux,
-        kv) where kv is ``(k, v)`` stacked ``(L, C, B, S, KV, hd)`` when
-        ``want_kv``.  ``layers`` (optional) gives each layer's parameters
-        in place of the slices of ``params["stack"]`` — the training path
-        passes per-layer autograd leaves (:func:`repro_torch.train.loop.
-        make_grad_fn`)."""
-        x, kv = self.hidden(params, batch, want_kv, layers)
-        return self.unembed(params, x), 0.0, kv
+        """Prefill / training forward.  Returns (logits (C, B, S, V), aux
+        (C,), kv): aux each chain's ``aux_total / num_layers`` (the
+        reference's per-chain value; 0 for dense blocks), kv ``(k, v)``
+        stacked ``(L, C, B, S, KV, hd)`` when ``want_kv``.  ``layers``
+        (optional) gives each layer's parameters in place of the slices of
+        ``params["stack"]`` — the training path passes per-layer autograd
+        leaves (:func:`repro_torch.train.loop.make_grad_fn`)."""
+        x, kv, aux = self.hidden(params, batch, want_kv, layers)
+        return self.unembed(params, x), aux / self.cfg.num_layers, kv
 
     def prefill(self, params, batch):
         """Full-prompt forward; returns (last-position logits (C, B, 1, V),
         cache), the reference's ``Model.prefill`` over the bank.
 
-        For an attention stack the cache is ``{"attn": {"k", "v": (L, C,
-        B, S, KV, hd), "pos": (S,) int32}}``, cut to the last
-        ``sliding_window`` positions when the prompt is longer; for any
-        other block pattern it is None.  Only the last position is
-        unembedded."""
+        The cache is ``{"attn": {"k", "v": (L, C, B, S, KV, hd), "pos":
+        (S,) int32}}``, cut to the last ``sliding_window`` positions when the
+        prompt is longer (every block the port implements is an attention
+        block).  Only the last position is unembedded."""
         cfg = self.cfg
-        attn = cfg.block_pattern[0] in ATTENTION_BLOCKS
-        x, kv = self.hidden(params, batch, want_kv=attn)
+        x, (k, v), _ = self.hidden(params, batch, want_kv=True)
         logits = self.unembed(params, x[:, :, -1:])
-        if not attn:
-            return logits, None
-        k, v = kv
         S, window = k.shape[3], cfg.sliding_window
         if window and S > window:
             k, v = k[:, :, :, -window:], v[:, :, :, -window:]
@@ -328,8 +362,20 @@ class Model:
         """Chain-bank decode cache: ``{"attn": {"k", "v": (L, C, B, smax,
         KV, hd), "pos": (L, smax)}}``.  ``pos`` holds each ring slot's
         absolute position (-1 empty); the chains share it, since they decode
-        one token stream."""
+        one token stream.  The engines' banks serve token prompts only: a
+        frontend config is refused, as in the reference."""
         self._require_stacked_attention("init_cache_bank")
+        return self._cache(num_chains, batch_size, max_seq, prefill_len)
+
+    def init_cache(self, batch_size: int, max_seq: int, prefill_len: int = 0):
+        """:meth:`init_cache_bank` for a bank of one chain, for every
+        config the port runs — frontend configs too, as the reference's
+        ``Model.init_cache`` (their stub positions are prefilled by the
+        caller; decoding reads tokens only)."""
+        return self._cache(1, batch_size, max_seq, prefill_len)
+
+    def _cache(self, num_chains: int, batch_size: int, max_seq: int,
+               prefill_len: int):
         cfg = self.cfg
         window = cfg.sliding_window
         smax = min(max_seq, window) if window else max_seq
@@ -342,10 +388,6 @@ class Model:
             "v": torch.zeros(shape, dtype=dtype_of(cfg), device=self.device),
             "pos": pos[None].repeat(cfg.num_layers, 1),
         }}
-
-    def init_cache(self, batch_size: int, max_seq: int, prefill_len: int = 0):
-        """:meth:`init_cache_bank` for a bank of one chain."""
-        return self.init_cache_bank(1, batch_size, max_seq, prefill_len)
 
     def prefill_cache(self, params, tokens, cache, prompt_len: int):
         """Padded-prompt prefill *into* the decode cache, in place.
@@ -363,7 +405,7 @@ class Model:
             raise ValueError(
                 f"padded prompt length {T} exceeds the cache's {smax} slots "
                 "(raise max_seq, or loosen the prompt bucket ladder)")
-        x, (k, v) = self.hidden(params, {"tokens": tokens}, want_kv=True)
+        x, (k, v), _ = self.hidden(params, {"tokens": tokens}, want_kv=True)
         c = cache["attn"]
         c["k"][:, :, :, :T] = k
         c["v"][:, :, :, :T] = v
@@ -424,7 +466,7 @@ class Model:
                 f"padded prompt length {T} exceeds the slot's "
                 f"{table.shape[0]} x {ps} paged capacity (raise max_seq, or "
                 "loosen the prompt bucket ladder)")
-        x, (k, v) = self.hidden(params, {"tokens": tokens}, want_kv=True)
+        x, (k, v), _ = self.hidden(params, {"tokens": tokens}, want_kv=True)
         r = torch.arange(T, device=self.device)
         idx = table[r // ps] * ps + r % ps  # logical -> flat physical rows
         for name, new in (("k", k), ("v", v)):
@@ -456,21 +498,26 @@ class Model:
 # loss
 # ===========================================================================
 def loss_fn(model: Model, params, batch, layers=None):
-    """Next-token cross-entropy, as ``repro.models.transformer.loss_fn``.
+    """Next-token cross-entropy plus the MoE aux, as
+    ``repro.models.transformer.loss_fn``.
 
-    ``batch["tokens"]`` is ``(B, S+1)``; the model reads ``tokens[:, :-1]``
-    and is scored on ``tokens[:, 1:]`` with a float32 log-softmax.  Over a
-    chain bank the loss is the sum of each chain's mean CE, so each chain's
-    gradient is its own; for a bank of one chain it is the reference's
-    loss.  Dense blocks have no auxiliary (router) loss, so the total is
-    the CE and ``aux`` is 0.  Returns
-    ``(total, {"ce": ce, "aux": aux})``, 0-d tensors."""
+    ``batch["tokens"]`` is ``(B, S+1)`` (and a frontend config's batch
+    carries ``"frontend"``); the model reads ``tokens[:, :-1]`` after the
+    stub positions and is scored on ``tokens[:, 1:]`` at the text positions
+    only, with a float32 log-softmax.  A chain's total is its mean CE plus
+    ``router_aux_coef`` times its aux (0 for dense blocks); over a chain
+    bank the loss is the sum of the chains' totals, so each chain's
+    gradient is its own, and for a bank of one chain it is the reference's
+    loss.  Returns ``(total, {"ce": ce, "aux": aux})``, 0-d tensors summed
+    over the chains likewise."""
     tokens = model._tokens(batch["tokens"])
-    logits, _, _ = model.forward(params, {"tokens": tokens[:, :-1]},
-                                 layers=layers)
+    logits, aux, _ = model.forward(params, {**batch, "tokens": tokens[:, :-1]},
+                                   layers=layers)
     labels = tokens[:, 1:]
+    logits = logits[:, :, -labels.shape[1]:]  # skip the frontend positions
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, labels.expand(logits.shape[0], *labels.shape)
                       [..., None])[..., 0]
-    ce = -ll.mean(dim=(-2, -1)).sum()
-    return ce, {"ce": ce.detach(), "aux": torch.zeros_like(ce.detach())}
+    ce = -ll.mean(dim=(-2, -1))
+    total = (ce + model.cfg.router_aux_coef * aux).sum()
+    return total, {"ce": ce.sum().detach(), "aux": aux.sum().detach()}

@@ -242,13 +242,16 @@ def test_train_loop_matches_jax_history_at_sigma_zero():
 
 
 def test_launcher_save_is_read_by_jax_restore_ensemble(tmp_path):
+    # one ATen thread in the launcher: with its default of one a core, next
+    # to the suite's other worker processes, six such runs took 909 s
+    # together where one takes 7 s (threads spinning against each other)
     path = str(tmp_path / "launch.npz")
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen3-4b",
          "--reduced", "--device", "cpu", "--steps", "4", "--mode", "inconsistent",
          "--fused", "--tau", "2", "--chunk", "2", "--save", path],
         capture_output=True, text=True, timeout=300,
-        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "saved" in proc.stdout and checkpoint_step(path) == 4
     jcfg = jax_reduced("qwen3-4b")

@@ -109,8 +109,8 @@ def test_plan_depends_on_the_shapes_only(smax):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("G", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("hd", [64, 112, 128, 160])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 7, 8])
 def test_shared_memory_fits_up_to_32768_positions(dtype, hd, G):
     """A block's shared memory does not grow with the ring; the paged
     chunk's page ids grow with maxp / splits, even at page size 1."""
@@ -144,11 +144,11 @@ def test_decode_wrapper_takes_a_16384_slot_ring_past_its_checks():
                        torch.ones(smax, dtype=torch.int32), 3)
 
 
-@pytest.mark.parametrize("G,compiled", [(3, True), (5, False), (7, False)])
+@pytest.mark.parametrize("G,compiled", [(3, True), (5, False), (7, True)])
 def test_decode_wrappers_take_the_compiled_groups(G, compiled):
-    """Group 3 (12 query heads over 4 KV heads) passes both wrappers'
-    checks and stops only at the device; groups 5 and 7 (the configs still
-    to port) are refused as not compiled."""
+    """Groups 3 (12 query heads over 4 KV heads) and 7 (internvl2-1b's 14
+    over 2) pass both wrappers' checks and stop only at the device; group
+    5 (hymba-1.5b, still to port) is refused as not compiled."""
     KV, hd, smax = 4, 64, 32
     q = torch.zeros(2, KV, G, hd)
     kn = torch.zeros(2, KV, hd)
@@ -163,3 +163,41 @@ def test_decode_wrappers_take_the_compiled_groups(G, compiled):
         with pytest.raises(ValueError, match="launches a CUDA kernel" if compiled
                            else "not compiled"):
             call()
+
+
+@pytest.mark.parametrize("hd,compiled", [(112, True), (160, True), (96, False)])
+def test_decode_wrappers_take_the_compiled_head_dims(hd, compiled):
+    """head_dim 112 (kimi-k2, G 8) and 160 (stablelm-12b, G 4) pass both
+    wrappers' checks and stop only at the device; 96 is refused as not
+    compiled, with no plain fallback."""
+    KV, G, smax = 2, 8 if hd == 112 else 4, 32
+    q = torch.zeros(2, KV, G, hd)
+    kn = torch.zeros(2, KV, hd)
+    kc = torch.zeros(2, smax, KV, hd)
+    pages = torch.zeros(1, 9, 4, KV, hd)
+    calls = (lambda: ds.decode_step(q, kn, kn.clone(), kc, kc.clone(),
+                                    torch.ones(smax, dtype=torch.int32), 3),
+             lambda: ds.paged_decode_step(
+                 q[None], kn[None], kn[None].clone(), pages, pages.clone(),
+                 torch.zeros(2, 4, dtype=torch.int32),
+                 torch.zeros(2, dtype=torch.int32)))
+    for call in calls:
+        with pytest.raises(ValueError, match="launches a CUDA kernel" if compiled
+                           else "not compiled"):
+            call()
+
+
+@pytest.mark.parametrize("G,hd", [(8, 112), (4, 160), (7, 64)])
+def test_new_shapes_fit_shared_memory_and_its_row_groups(G, hd):
+    """The new shapes' blocks fit the card's shared memory in both dtypes,
+    and the reduction region holds the whole row groups of p . V: floor(128
+    / segs) groups, segs the 16-byte copies of a row (28 or 40 in f32 at
+    head_dim 112 or 160, which do not divide the block's 128 threads)."""
+    for elem in (2, 4):
+        segs = hd * elem // 16
+        groups = ds.THREADS // segs
+        assert groups * segs <= ds.THREADS and groups >= 1
+        tiles = ds.STAGES * 2 * ds.TILE * (hd * elem + 16)
+        head = ds.smem_bytes(G, hd, elem) - max(tiles, groups * G * hd * 4)
+        assert head > 0
+        assert ds.smem_bytes(G, hd, elem, 256) <= ds._SMEM_LIMIT

@@ -51,6 +51,9 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.cluster.executor, repro_torch.data.pipeline\n"
         "import repro_torch.checkpoint, repro_torch.faults\n"
         "import repro_torch.cluster.serve, repro_torch.models.predictive\n"
+        "import repro_torch.models.moe\n"
+        "from repro_torch.configs.base import ALIASES, get_arch, get_reduced\n"
+        "assert all(get_arch(a).name == a and get_reduced(a) for a in ALIASES)\n"
         f"sys.path.insert(0, {str(ROOT / 'examples')!r})\n"
         "import torch_serve_quickstart, torch_serve_batch, torch_train_lm\n"
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules\n"

@@ -176,6 +176,79 @@ def test_paged_kernel_at_group_3_matches_plain_on_card(cuda, dtype, pos, maxp):
     _assert_decode_close(o, want, dtype)
 
 
+# (KV heads, query heads a KV head, head_dim) the model zoo adds: kimi-k2's
+# head_dim 112 at G 8 and stablelm-12b's 160 at G 4 (rows of 14 or 20 bf16
+# copies, which do not divide the block; 7 or 10 mma row tiles over 4
+# warps), internvl2-1b's group of 7 at head_dim 64
+NEW_SHAPES = {"hd112-g8": (8, 8, 112), "hd160-g4": (8, 4, 160),
+              "hd64-g7": (2, 7, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(NEW_SHAPES))
+@pytest.mark.parametrize("case", RING_CASES + [dict(seed=3, N=2, smax=1024,
+                                                    slot=1000, n_valid=1024)],
+                         ids=RING_IDS + ["full-1024"])
+def test_decode_kernel_at_new_shapes_matches_plain_on_card(cuda, dtype, shape, case):
+    kv, g, hd = NEW_SHAPES[shape]
+    c = ring_case(**case, kv=kv, g=g, hd=hd)
+    t = {k: _t(v, cuda, dtype if v.dtype == np.float32 else None)
+         for k, v in c.items() if k != "slot"}
+    q = t["q"].reshape(-1, kv, g, hd)
+    plain = [x.clone() for x in (t["k_cache"], t["v_cache"])]
+    o, kc, vc = ds.decode_step(q, t["k_new"], t["v_new"], t["k_cache"],
+                               t["v_cache"], t["valid"], c["slot"])
+    want, wk, wv = ref.decode_step_ref(q, t["k_new"], t["v_new"], *plain,
+                                       t["valid"], c["slot"])
+    torch.cuda.synchronize()
+    _assert_decode_close(o, want, dtype)
+    assert torch.equal(kc, wk) and torch.equal(vc, wv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", list(NEW_SHAPES))
+@pytest.mark.parametrize("pos,maxp", [([40, 95, 130, 7, None, 255], 16),
+                                      ([1000, 17, None, 600], 64)],
+                         ids=["cell", "long"])
+def test_paged_kernel_at_new_shapes_matches_plain_on_card(cuda, dtype, shape,
+                                                          pos, maxp):
+    kv, g, hd = NEW_SHAPES[shape]
+    q, kn, vn, kp, vp, tables, pos_t = _paged(cuda, dtype, pos, ps=16, maxp=maxp,
+                                              KV=kv, G=g, hd=hd)
+    plain = [x.clone() for x in (kp, vp)]
+    o, kp, vp = ds.paged_decode_step(q, kn, vn, kp, vp, tables, pos_t)
+    want, wk, wv = ref.paged_decode_step_ref(q, kn, vn, *plain, tables, pos_t)
+    torch.cuda.synchronize()
+    _assert_decode_close(o, want, dtype)
+    assert torch.isfinite(o.float()).all()
+    for got, exp in ((kp, wk), (vp, wv)):  # one inactive slot: no race
+        assert torch.equal(got, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,hd", [(5, 64), (4, 96)])
+def test_uncompiled_shapes_raise_on_card(cuda, G, hd):
+    """Group 5 and head_dim 96 are not compiled: both wrappers raise on
+    the card's tensors, before any launch and with no plain fallback."""
+    q, kn, vn, kc, vc = (torch.zeros(*s, device=cuda) for s in
+                         ((2, 2, G, hd), (2, 2, hd), (2, 2, hd),
+                          (2, 32, 2, hd), (2, 32, 2, hd)))
+    before = ds.decode_step.launches, ds.paged_decode_step.launches
+    with pytest.raises(ValueError, match="not compiled"):
+        ds.decode_step(q, kn, vn, kc, vc,
+                       torch.ones(32, dtype=torch.int32, device=cuda), 3)
+    pages = torch.zeros(1, 9, 4, 2, hd, device=cuda)
+    with pytest.raises(ValueError, match="not compiled"):
+        ds.paged_decode_step(q[None], kn[None], vn[None], pages, pages.clone(),
+                             torch.zeros(2, 4, dtype=torch.int32, device=cuda),
+                             torch.zeros(2, dtype=torch.int32, device=cuda))
+    assert (ds.decode_step.launches, ds.paged_decode_step.launches) == before
+
+
 # ---------------------------------------------------------------------------
 # the split-KV decode kernels at the cases their plan makes hard
 # ---------------------------------------------------------------------------
@@ -360,9 +433,9 @@ def test_split_paged_kernel_refuses_a_page_outside_the_pool(cuda, dtype):
 def test_split_shared_memory_mirror_matches_the_source(cuda):
     """decode_step.smem_bytes (used by the CPU plan tests and the wrapper's
     check) equals the source's own layout."""
-    lib = ds._lib()
-    for elem in (2, 4):
-        for hd in (64, 128):
+    for elem, dtype in ((2, torch.bfloat16), (4, torch.float32)):
+        lib = ds._lib(dtype)
+        for hd in ds._HEAD_DIMS:
             for G in ds._GROUPS:
                 for pages in (0, 1, 16, 128):
                     assert lib.decode_step_smem_bytes(G, hd, elem, pages) == \
