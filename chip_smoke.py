@@ -25,7 +25,9 @@ library) and runs, failing on the first phase that fails:
    the 110M example model) on the decode cell's ring and the paged cell, in
    bf16 and float32, timed, and likewise at the model zoo's shapes
    (kimi-k2's head_dim 112 at a group of 8, stablelm-12b's 160 at 4,
-   internvl2-1b's group of 7 at head_dim 64); then the SGLD kernels (Langevin update, delay draw, delay gather, the
+   internvl2-1b's group of 7 at head_dim 64, hymba-1.5b's group of 5 at
+   head_dim 64, the ring kernel at G 5 also on the rings hymba's serving
+   gives it: 16 rows of 48 slots, one row of 1,024); then the SGLD kernels (Langevin update, delay draw, delay gather, the
    one-pass W-Icon read) against theirs, at a ragged length (misaligned
    rows, the scalar code) and at 2^20 elements (the vector code) in bf16,
    float32 and int32, over rings of depth 1-5, and at the largest
@@ -159,7 +161,30 @@ library) and runs, failing on the first phase that fails:
    with its stub batches (``--seq 384``: 256 stub positions and 128
    tokens), 6 fused W-Icon commits each at tau 2, in chunks of 3: finite
    losses, the MoE's aux above 0, ms a commit, peak GB, and the SGLD
-   kernels once a leaf a commit.
+   kernels once a leaf a commit;
+11. the main path, part 8 — the recurrent configs, hymba-1.5b (attention
+   and SSD heads in parallel, a window of 1,024, 25 query heads over 5 KV
+   heads) and xlstm-1.3b (a 7:1 mLSTM / sLSTM ``layers`` list), served by
+   replay (``init_cache``, then one ``serve_step`` a token: their stacks
+   have no prefill-fillable cache, as in the reference) and trained:
+   (e) first the reduced float32 hymba at 5 query heads over 1 KV head
+   (d_model 320) and the reduced xlstm, 80 tokens replayed on the card
+   (the ring kernel at G 5) and on the CPU, logits within 1e-4, and 4
+   fused W-Icon commits of each, as phase 3; (a) a 4-chain hymba bank at
+   full width and depth (13.1 GB): 4 prompts x 32 tokens replayed, 16
+   greedy tokens from the BMA law, the ring kernel once a layer a step,
+   each step's logits within 0.1 relative L2 of one forward of the stream,
+   then the stream replayed again with each kernel call held against the
+   plain step on the same inputs (phase 2's limits, caches equal);
+   (c) the same for a 4-chain xlstm bank (16.2 GB, 11.3 GB of mLSTM
+   state), gated layer by layer (see ``recurrent_serve``); (b) hymba's
+   window at depth 2: one 1,088-token stream through the 1,024-slot ring,
+   the last 64 positions against the forward (SDPA under the window
+   mask), then held as (a); (d) ``launch.train`` of each at full width (6
+   fused W-Icon commits at tau 2, batch 8 x 128; xlstm at gamma 1e-7): ms
+   a commit, peak GB, the SGLD kernels once a leaf a commit; the sLSTM
+   loop's operations a layer; and xlstm's gradient at init, a layer's
+   largest.  Phase 11's seconds and the script's so far are logged.
 
 Before it, one JSON object with the paper path's numbers (phase 7c).
 The line before the last is one JSON object with each kernel's numbers;
@@ -180,6 +205,7 @@ import time
 from dataclasses import replace
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -209,6 +235,24 @@ ZOO_DEPTH = {"minicpm-2b": 40, "internvl2-1b": 24, "musicgen-medium": 48,
 # the prefill's neighbouring position (see zoo_config)
 ZOO_REL_TOL, ZOO_SHIFT_MIN = 0.1, 0.5
 MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 12, 3  # phases 10b and 10c, of 32
+# phase 11: hymba-1.5b's heads (25 query heads over 5 KV heads, a group of
+# 5); the recurrent serving banks' chains; 11b's depth and stream (17 x 64
+# tokens past hymba's 1,024-token window)
+HYMBA_HEADS = (5, 5, 64)
+# (smax, valid rows, slot, rows) of the ring kernel at G 5 as hymba's serving
+# gives it: 11a's 48-slot ring of 16 rows (4 chains x 4 rows) filling up and
+# full, and 11b's 1,024-slot ring of one row, filling up and wrapped (every
+# slot inside the window)
+HYMBA_RING_CASES = ((48, 32, 31, 16), (48, 48, 47, 16), (1024, 600, 599, 1),
+                    (1024, 1024, 63, 1))
+RECURRENT_CHAINS = 4
+WINDOW_LAYERS, WINDOW_TOKENS = 2, 17 * 64
+# 11d's step sizes: qwen3-4b's cell's 1e-3 for hymba; xlstm's gradient at
+# its random init reaches 3e4 at 48 layers (11d measures it, xlstm_grad_scale;
+# scripts/torch_recurrent_witness.py holds it against the JAX package's at
+# 8 and 16 layers), so a step of 1e-3 would move a weight by 30: it trains
+# at 1e-7
+RECURRENT_TRAIN_GAMMA = {"hymba-1.5b": "1e-3", "xlstm-1.3b": "1e-7"}
 LARGEST_LEAF = 36 * 2560 * 9728  # stack/mlp/w_{gate,up,down} of qwen3-4b
 STACK4_LEAF = 4 * 2560 * 9728    # the same leaf at phase 8c's 4 layers
 EMBED_LEAF = 151936 * 2560       # the embedding (and the untied head)
@@ -366,9 +410,9 @@ def bitwise_equal(torch, a, b) -> bool:
 
 
 def run_decode_case(torch, F, ds, ref, dtype, smax, n_valid, slot, timed,
-                    plain_iters=50, heads=QWEN_HEADS):
+                    plain_iters=50, heads=QWEN_HEADS, N=16):
+    """``N`` rows: C = 4 chains x B = 4 rows by default."""
     gen = torch.Generator(device="cuda").manual_seed(smax + n_valid)
-    N = 16  # C = 4 chains x B = 4 rows
     KV, G, hd = heads
     c = decode_inputs(torch, gen, dtype, N, smax, n_valid, slot, KV, G, hd)
     kc, vc = c["k_cache"].clone(), c["v_cache"].clone()
@@ -405,7 +449,7 @@ def run_decode_case(torch, F, ds, ref, dtype, smax, n_valid, slot, timed,
     del want, wk, wv, again
     changed = (kc != c["k_cache"]).any(dim=(0, 2, 3)).nonzero().flatten().tolist()
     check(set(changed) <= {slot}, f"decode_step wrote rows {changed}")
-    res = {"dtype": name, "heads": list(heads), "smax": smax, "valid": n_valid,
+    res = {"dtype": name, "heads": list(heads), "rows": N, "smax": smax, "valid": n_valid,
            "max_abs_err": err, "limit": limit.min().item(), "splits": splits}
     if not timed:
         log("decode_step", json.dumps(res))
@@ -1000,10 +1044,10 @@ def reference_check(torch, np) -> None:
         f"max |dlogp| {worst:.3g}, evictions {ev}")
 
 
-def training_reference_check(torch, np, lu, dg) -> None:
-    """4 fused W-Icon commits of the reduced float32 model on the card
-    (kernels) and on the CPU (plain path), from the same weights, batches,
-    delays and keys."""
+def training_reference_check(torch, np, lu, dg, cfg=None) -> dict:
+    """4 fused W-Icon commits of a reduced float32 model (qwen3-4b's unless
+    ``cfg``) on the card (kernels) and on the CPU (plain path), from the
+    same weights, batches, delays and keys."""
     from repro_torch import samplers
     from repro_torch.configs import get_reduced
     from repro_torch.core import WorkerModel, simulate_async
@@ -1013,9 +1057,10 @@ def training_reference_check(torch, np, lu, dg) -> None:
     from repro_torch.train.loop import make_grad_fn
     from repro_torch.utils import tree_leaves, tree_map
 
-    cfg = replace(get_reduced("qwen3-4b"), dtype="float32")
+    cfg = cfg or replace(get_reduced("qwen3-4b"), dtype="float32")
     cpu = init_params(cfg, torch.Generator().manual_seed(4), device="cpu",
                       num_chains=1)
+    n_leaves = len(tree_leaves(cpu))
     gpu = tree_map(lambda t: t.to("cuda"), cpu)
     tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (4, 4, 33))
     delays = np.minimum(simulate_async(WorkerModel(num_workers=8), 4).delays, 2)
@@ -1031,17 +1076,21 @@ def training_reference_check(torch, np, lu, dg) -> None:
             batches={"tokens": tokens.astype(np.int32)}, delays=delays)
         out[dev] = (aux["loss"], [t.cpu() for t in tree_leaves(state.params)])
         ran = tuple(c.launches - n for c, n in zip(counters, n0))
-        check(ran == ((0, 0, 0, 0) if dev == "cpu" else (14 * 4, 14 * 4, 0, 0)),
+        check(ran == ((0, 0, 0, 0) if dev == "cpu" else (n_leaves * 4, n_leaves * 4, 0, 0)),
               f"training on {dev}: kernel launches {ran} (update, W-Icon read, "
               "gather, draw)")
+        if dev == "cuda":
+            launches = dict(zip(("langevin_update", "wicon_read", "delay_gather",
+                                 "coordinate_delays"), ran))
     (lc, pc), (lg, pg) = out["cpu"], out["cuda"]
     loss_err = float(np.abs(lg / lc - 1).max())
     check(loss_err <= 1e-5, f"reduced training: losses differ, rel {loss_err}")
     p_err = max(float((a - b).abs().max()) for a, b in zip(pc, pg))
     check(p_err <= 1e-5, f"reduced training: parameters differ by {p_err}")
-    log(f"reference training (fused W-Icon, 4 commits): card == CPU, "
+    log(f"reference training {cfg.name} (fused W-Icon, 4 commits): card == CPU, "
         f"losses {np.round(lg, 4).tolist()} within rel {loss_err:.3g}, "
         f"parameters within {p_err:.3g}")
+    return {"launches": launches, "loss_rel_err": loss_err, "param_max_abs_err": p_err}
 
 
 # ---------------------------------------------------------------------------
@@ -1424,9 +1473,10 @@ def train_path(torch, np, lu, dg, arch_args=("--arch", "qwen3-4b", "--seq", "128
                cut=None) -> dict:
     """The launcher's path (``repro_torch.launch.train``): ``--mode
     inconsistent --fused --tau 2 --batch 8``, 6 commits in chunks of 3,
-    with ``arch_args`` naming the architecture, its sequence and any depth
-    cut (``cut`` says which, for the log).  An MoE architecture's aux (its
-    load-balance loss) must be positive on every commit."""
+    with ``arch_args`` naming the architecture, its sequence, any step size
+    and any depth cut (``cut`` says which, for the log).  An MoE
+    architecture's aux (its load-balance loss) must be positive on every
+    commit."""
     from repro_torch.launch import train as launch
     from repro_torch.utils import tree_leaves
 
@@ -1483,6 +1533,7 @@ def train_path(torch, np, lu, dg, arch_args=("--arch", "qwen3-4b", "--seq", "128
         f"{[round(float(v), 4) for v in aux['aux']]}; peak memory {peak / 1e9:.2f} GB; "
         f"launches {launches}")
     return {"arch": cfg.name, "reduced": cut, "params_b": n_params / 1e9,
+            "leaves": len(leaves), "batch": args.batch, "gamma": args.gamma,
             "launches": launches, "ms_per_commit": ms, "tokens_per_s": tok_s,
             "first_chunk_s": first, "peak_gb": peak / 1e9,
             "losses": [float(v) for v in losses],
@@ -2019,6 +2070,11 @@ def _free(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def _rel(a, b):
+    """Relative L2 error of a against b over the last axis."""
+    return (a - b).norm(dim=-1) / b.norm(dim=-1)
+
+
 @contextlib.contextmanager
 def _keep_every_pair(moe, cfg):
     """An MoE capacity that keeps every (token, expert) pair (factor E / k:
@@ -2075,6 +2131,70 @@ def _plain_decode(ops):
         yield
     finally:
         ops._route = route
+
+
+@contextlib.contextmanager
+def _hold_decode(torch, ops, ds, ref, record: dict):
+    """Every ring-kernel call through ``kernels.ops`` in the block held
+    against the plain step on the same inputs: the plain step on copies of
+    the caches, then the kernel on the caches themselves (its launch
+    counted, as on the main path); the outputs within ``decode_limit``, the
+    caches equal.  ``record`` gets the calls, their shapes ``(rows, smax)``,
+    the largest |err| and the largest |err| over its limit (at most 0 to
+    pass), and whether every cache was equal; read on the host at the end."""
+    route = ops._route
+    over = torch.full((), -math.inf, device="cuda")
+    err = torch.zeros((), device="cuda")
+    same = torch.ones((), dtype=torch.bool, device="cuda")
+    shapes = set()
+
+    def held(q, k_new, v_new, kc, vc, valid, slot):
+        nonlocal over, err, same
+        want, wk, wv = ref.decode_step_ref(q, k_new, v_new, kc.clone(), vc.clone(),
+                                           valid, slot)
+        o, kc, vc = ds.decode_step(q, k_new, v_new, kc, vc, valid, slot)
+        d = (o.float() - want.float()).abs()
+        limit = decode_limit(torch, str(q.dtype).replace("torch.", ""), want)
+        over = torch.maximum(over, (d - limit).amax())
+        err = torch.maximum(err, d.amax())
+        same = same & (kc == wk).all() & (vc == wv).all()
+        shapes.add((q.shape[0], kc.shape[1]))
+        record["calls"] = record.get("calls", 0) + 1
+        return o, kc, vc
+
+    ops._route = lambda t, kernel, plain: (held if kernel is ds.decode_step
+                                           else route(t, kernel, plain))
+    try:
+        yield
+    finally:
+        ops._route = route
+        record.update(shapes=sorted(shapes), max_abs_err=err.item(),
+                      over_limit=over.item(), caches_equal=bool(same))
+
+
+def held_replay(torch, ds, model, params, stream, num_chains: int, what: str) -> dict:
+    """The replay of ``stream`` through ``serve_step`` again, every ring-kernel
+    call held against the plain step (``_hold_decode``): the kernel at the
+    shapes, masks and caches the main path gives it.  A comparison: its
+    launches are not the main path's."""
+    from repro_torch.kernels import ops, ref
+
+    B, T = stream.shape
+    rec = {}
+    with torch.no_grad(), _hold_decode(torch, ops, ds, ref, rec):
+        cache = model.init_cache(B, T, num_chains=num_chains)
+        for t in range(T):
+            model.serve_step(params, cache, stream[:, t:t + 1], t)
+        del cache
+    want = model.cfg.num_layers * T
+    check(rec.get("calls") == want, f"{what}: {rec.get('calls')} held ring-kernel calls, "
+          f"want {want}")
+    check(rec["over_limit"] <= 0, f"{what}: the ring kernel is {rec['over_limit']:.3g} past "
+          f"the plain step's limit (max |err| {rec['max_abs_err']:.3g})")
+    check(rec["caches_equal"], f"{what}: the ring kernel's caches differ from the plain step's")
+    log(f"{what}: {rec['calls']} ring-kernel calls at (rows, slots) {rec['shapes']} held "
+        f"against the plain step: max |err| {rec['max_abs_err']:.3g}, caches equal")
+    return rec
 
 
 def zoo_config(torch, np, ds, arch: str, device="cuda") -> dict:
@@ -2189,11 +2309,8 @@ def zoo_config(torch, np, ds, arch: str, device="cuda") -> dict:
     check(launches == L * n_new,
           f"{arch}: decode kernel launched {launches} times for {n_new} steps x {L} layers")
 
-    def rel(a, b):
-        return (a - b).norm(dim=-1) / b.norm(dim=-1)
-
-    err = rel(dec, ref).max().item()
-    shifted = rel(dec[:, 1:], ref[:, :-1]).min().item()
+    err = _rel(dec, ref).max().item()
+    shifted = _rel(dec[:, 1:], ref[:, :-1]).min().item()
     check(err <= ZOO_REL_TOL,
           f"{arch}: decode logits {err:.4g} from the prefill's (relative L2), "
           f"limit {ZOO_REL_TOL}")
@@ -2203,8 +2320,8 @@ def zoo_config(torch, np, ds, arch: str, device="cuda") -> dict:
     agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
     out.update(prefill_ms=prefill_ms, ms_per_token=ms_tok, launches=launches,
                launches_per_step=launches // n_new, decode_vs_prefill_rel_l2=err,
-               plain_vs_prefill_rel_l2=rel(plain, ref).max().item(),
-               decode_vs_plain_rel_l2=rel(dec, plain).max().item(),
+               plain_vs_prefill_rel_l2=_rel(plain, ref).max().item(),
+               decode_vs_plain_rel_l2=_rel(dec, plain).max().item(),
                shifted_rel_l2_min=shifted, argmax_agreement=agree,
                decode_vs_prefill_max_abs=(dec - ref).abs().max().item())
     if arch in ("stablelm-12b", "kimi-k2-1t-a32b"):
@@ -2335,6 +2452,330 @@ def moe_serve_path(torch, np, ds, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the main path, part 8 — the recurrent configs
+# ---------------------------------------------------------------------------
+def recurrent_serve(torch, np, ds, arch: str, gate="stream", device="cuda") -> dict:
+    """(11a, 11c) One recurrent config at its published widths and depth, a
+    bank of ``RECURRENT_CHAINS`` chains in bf16 drawn on the card, served by
+    replay (its stack has no prefill-fillable cache, as in the reference):
+    4 prompts x 32 tokens through ``serve_step`` from ``init_cache``, then
+    16 greedy tokens from the bank's BMA law, each fed back.  hymba's ring
+    kernel runs once a layer a step (G 5), and the stream is replayed once
+    more with every kernel call held against the plain step
+    (``held_replay``); xlstm has no attention, so no kernel.
+
+    Gate ``"stream"`` (hymba): every step's logits (each chain, each row)
+    against one ``Model.forward`` of the same 48-token stream at that
+    position, relative L2 at most ``ZOO_REL_TOL``, and the forward's
+    neighbouring position at least ``ZOO_SHIFT_MIN`` away, as in
+    ``zoo_config``.  Gate ``"layers"`` (xlstm): a random-weight xLSTM
+    stack amplifies any rounding difference layer after layer (its
+    gradient at init reaches 3e4, ``xlstm_grad_scale``), so its replay and
+    its forward part further with every layer, by as much as a shifted
+    position at 48 bf16 layers; the JAX package's part as far as the
+    port's at 8 and 16 layers (``scripts/torch_recurrent_witness.py`` on a
+    CPU, which cannot hold the JAX package at 48).  The stream's error is
+    reported, and the gate holds each layer instead: every layer's decode
+    step, fed the forward's input to that layer at that position
+    (teacher-forced) and its own recurrent state, against the forward's output of the layer there —
+    the block's increment, relative L2 at most ``ZOO_REL_TOL`` at every
+    position, while each layer's steps against the forward's a position
+    late must be at least ``ZOO_SHIFT_MIN`` away over each row's stream
+    (a slow sLSTM's neighbouring positions may lie closer one by one)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import bma_logits
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.utils import tree_leaves
+
+    cfg = get_arch(arch)
+    C, B, P, n_new = RECURRENT_CHAINS, 4, 32, 16
+    T, L, V = P + n_new, cfg.num_layers, cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(20),
+                         device=device, num_chains=C)
+    gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+    model = Model(cfg, device=device)
+    stream = torch.zeros(B, T, dtype=torch.long, device=device)
+    stream[:, :P] = torch.from_numpy(
+        np.random.default_rng(21).integers(0, V, (B, P))).to(device)
+    with torch.no_grad():
+        cache = model.init_cache(B, T, num_chains=C)
+        state_gb = sum(t.numel() * t.element_size() for t in tree_leaves(cache)) / 1e9
+        steps = []
+        ds.decode_step.launches = ds.paged_decode_step.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(T):
+            logits, cache = model.serve_step(params, cache, stream[:, t:t + 1], t)
+            steps.append(logits[:, :, 0].float())
+            if P - 1 <= t < T - 1:
+                stream[:, t + 1] = bma_logits(logits[:, :, 0]).argmax(-1)
+            if t == P - 1:
+                torch.cuda.synchronize()
+                t_prompt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ds.decode_step.launches
+        del cache
+        dec = torch.stack(steps, 2)  # (C, B, T, V)
+        del steps
+        t1 = time.perf_counter()
+        ref, _, _ = model.forward(params, {"tokens": stream})
+        torch.cuda.synchronize()
+        forward_ms = (time.perf_counter() - t1) * 1e3
+        ref = ref.float()
+    check(bool(torch.isfinite(dec).all()), f"{arch}: non-finite replay logits")
+    want = L * T if cfg.block_pattern[0] == "hymba_mlp" else 0
+    check(launches == want and ds.paged_decode_step.launches == 0,
+          f"{arch}: decode kernel launched {launches} times for {T} steps x {L} "
+          f"layers, want {want}")
+    held = held_replay(torch, ds, model, params, stream, C, arch) if want else None
+    err = stream_err = _rel(dec, ref).max().item()
+    shifted = stream_shifted = _rel(dec[:, :, 1:], ref[:, :, :-1]).min().item()
+    agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    del dec, ref
+    if gate == "layers":
+        with torch.no_grad():
+            err, shifted = layer_replay(torch, model, params, stream)
+        what = "a layer's decode step"
+    else:
+        what = "replay logits"
+    check(err <= ZOO_REL_TOL, f"{arch}: {what} {err:.4g} from the forward's (relative "
+          f"L2), limit {ZOO_REL_TOL}")
+    check(shifted >= ZOO_SHIFT_MIN, f"{arch}: the forward's neighbouring position is "
+          f"only {shifted:.4g} from {what}")
+    out = {"arch": arch, "gate": gate, "chains": C, "rows": B, "prompt": P,
+           "new_tokens": n_new,
+           "layers": L, "bank_gb": gb, "state_gb": state_gb, "launches": launches,
+           "ms_per_step": wall * 1e3 / T, "prompt_replay_ms": t_prompt * 1e3,
+           "ms_per_token": (wall - t_prompt) * 1e3 / n_new,
+           "tokens_per_s": B * n_new / (wall - t_prompt), "forward_ms": forward_ms,
+           "replay_vs_forward_rel_l2": stream_err, "stream_shifted_rel_l2_min":
+           stream_shifted, "argmax_agreement": agree, "gate_rel_l2": err,
+           "gate_shifted_rel_l2_min": shifted, "held": held,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, model
+    _free(torch)
+    log(f"recurrent serve: {C} x {arch} ({L} layers), {gb:.2f} GB of weights, "
+        f"{state_gb:.2f} GB of decode state; {B} x {P} prompt tokens replayed in "
+        f"{t_prompt * 1e3:.1f} ms, then {out['ms_per_token']:.2f} ms/token "
+        f"({out['tokens_per_s']:.1f} tokens/s); {launches} kernel launches; replay vs "
+        f"forward relative L2 {stream_err:.3g} (a shifted position {stream_shifted:.3g}), "
+        f"argmax agreement {agree:.3f}; gate ({gate}) {err:.3g}, shifted {shifted:.3g}; "
+        f"peak {out['peak_gb']:.2f} GB")
+    return out
+
+
+def layer_replay(torch, model, params, stream):
+    """Each layer's decode step against its forward, teacher-forced: the
+    forward's input to layer l at position t, through ``serve_step``'s
+    block with layer l's own recurrent state (carried from t - 1), against
+    the forward's output of layer l at t (both read and fed through the
+    ``tap`` of ``Model.hidden`` and ``Model.serve_step``).  Compares the
+    block's increment (output minus input).  Returns (the largest relative
+    L2 over layers, chains, rows and positions; the least over layers,
+    chains and rows of the relative L2 of a row's steps against the
+    forward's a position late, over its whole stream)."""
+    L = model.cfg.num_layers
+    xs = []  # the input to each layer, the last layer's output
+    model.hidden(params, {"tokens": stream}, tap=lambda i, x: xs.append(x) or x)
+    C, B, T = xs[0].shape[:3]
+    inc = [(xs[i + 1] - xs[i]).float() for i in range(L)]
+    cache = model.init_cache(B, T, num_chains=C)
+    steps = [[] for _ in range(L)]
+    for t in range(T):
+        def force(i, x, t=t):
+            if i:  # layer i - 1's step: its increment over the forward's input
+                steps[i - 1].append((x - xs[i - 1][:, :, t:t + 1]).float()[:, :, 0])
+            return xs[i][:, :, t:t + 1] if i < L else x
+        model.serve_step(params, cache, stream[:, t:t + 1], t, tap=force)
+    err, shifted = 0.0, math.inf
+    for i, s in enumerate(steps):
+        s = torch.stack(s, 2)  # (C, B, T, d)
+        err = max(err, _rel(s, inc[i]).max().item())
+        # a layer's steps a position late, over the whole stream of each row
+        d = (s[:, :, 1:] - inc[i][:, :, :-1]).flatten(2).norm(dim=-1)
+        shifted = min(shifted, (d / inc[i][:, :, :-1].flatten(2).norm(dim=-1)).min().item())
+    return err, shifted
+
+
+def hymba_window(torch, np, ds, device="cuda") -> dict:
+    """(11b) hymba-1.5b's sliding window at its published widths, one chain,
+    depth cut 32 -> ``WINDOW_LAYERS``: one stream of ``WINDOW_TOKENS``
+    (17 x 64) replayed through ``serve_step``, so the ring of 1,024 slots
+    wraps and the window drops positions; gate as ``recurrent_serve``'s
+    over the last 64 positions, against ``Model.forward`` (SDPA under the
+    window mask above 512 tokens, the SSD scan in chunks of 64); then the
+    replay again with every kernel call held against the plain step
+    (``held_replay``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import Model, init_params
+
+    full = get_arch("hymba-1.5b")
+    L, T = WINDOW_LAYERS, WINDOW_TOKENS
+    cfg = replace(full, num_layers=L)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(22),
+                         device=device, num_chains=1)
+    model = Model(cfg, device=device)
+    stream = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (1, T))).to(device)
+    last = []
+    with torch.no_grad():
+        cache = model.init_cache(1, T)
+        smax = cache["attn"]["k"].shape[3]
+        ds.decode_step.launches = ds.paged_decode_step.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(T):
+            logits, cache = model.serve_step(params, cache, stream[:, t:t + 1], t)
+            if t >= T - 64:
+                last.append(logits[0, 0, 0].float())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ds.decode_step.launches
+        pos = cache["attn"]["pos"][0]
+        held = (int(pos.min()), int(pos.max()))
+        del cache
+        ref, _, _ = model.forward(params, {"tokens": stream})
+        ref = ref[0, 0, T - 64:].float()
+    dec = torch.stack(last)
+    check(smax == full.sliding_window, f"hymba window: a ring of {smax} slots")
+    check(held == (T - smax, T - 1), f"hymba window: the ring holds positions {held}")
+    check(launches == L * T, f"hymba window: decode kernel launched {launches} times, "
+          f"want {L} x {T}")
+    hold = held_replay(torch, ds, model, params, stream, 1, "hymba window")
+    err = _rel(dec, ref).max().item()
+    shifted = _rel(dec[1:], ref[:-1]).min().item()
+    check(err <= ZOO_REL_TOL, f"hymba window: replay logits {err:.4g} from the "
+          f"forward's (relative L2), limit {ZOO_REL_TOL}")
+    check(shifted >= ZOO_SHIFT_MIN, f"hymba window: the forward's neighbouring position "
+          f"is only {shifted:.4g} from the replay's")
+    out = {"arch": "hymba-1.5b", "reduced": f"depth {full.num_layers} -> {L}",
+           "tokens": T, "ring_slots": smax, "ring_positions": list(held),
+           "launches": launches, "ms_per_step": wall * 1e3 / T,
+           "replay_vs_forward_rel_l2": err, "shifted_rel_l2_min": shifted, "held": hold}
+    del params, model, dec, ref
+    _free(torch)
+    log(f"hymba window: {L} layers, one {T}-token stream replayed at "
+        f"{out['ms_per_step']:.2f} ms a step, the {smax}-slot ring holding positions "
+        f"{held[0]}-{held[1]}; last 64 positions against the forward: relative L2 "
+        f"{err:.3g} (a shifted position {shifted:.3g}); {launches} kernel launches")
+    return out
+
+
+def slstm_launches(torch, device="cuda") -> dict:
+    """The sLSTM time loop's operations on the card at the training cell's
+    shape (one chain, 8 x 128 tokens, xlstm-1.3b's widths): aten operations
+    that are not views (each one kernel launch or none) in one layer's
+    forward and backward, counted by a dispatch mode (no profiler)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.xlstm import apply_slstm, init_slstm
+
+    views = {"view", "_unsafe_view", "t", "transpose", "expand", "slice", "select",
+             "split", "unsqueeze", "squeeze", "permute", "detach", "alias",
+             "split_with_sizes", "as_strided", "unbind", "_reshape_alias"}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in views:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = get_arch("xlstm-1.3b")
+    p = init_slstm(torch.Generator(device=device).manual_seed(24), cfg, torch.bfloat16,
+                   (1,), device)
+    for t in p.values():
+        t.requires_grad_()
+    x = torch.randn(1, 8, 128, cfg.d_model, device=device, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=device).manual_seed(25))
+    with Count():
+        y = apply_slstm(p, x, cfg)
+    fwd = Count.n
+    with Count():
+        y.float().square().mean().backward()
+    out = {"forward_ops": fwd, "backward_ops": Count.n - fwd, "positions": 128,
+           "ops_per_position_forward": fwd / 128}
+    log(f"sLSTM loop (one layer, 8 x 128 tokens): {fwd} operations forward, "
+        f"{Count.n - fwd} backward ({fwd / 128:.1f} a position forward)")
+    return out
+
+
+def xlstm_grad_scale(torch, np, device="cuda") -> dict:
+    """The size of xlstm-1.3b's gradient at its random init, the reason 11d
+    trains it at ``RECURRENT_TRAIN_GAMMA``: one chain at its published
+    widths and depth in bf16, one gradient of the training cell's batch (8 x
+    129 tokens from a numpy seed): the largest |gradient| of each layer and
+    of the embedding."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.train.loop import make_grad_fn
+    from repro_torch.utils import tree_leaves
+
+    cfg = get_arch("xlstm-1.3b")
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device, num_chains=1)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 129))
+    grads, metrics = make_grad_fn(Model(cfg, device=device))(params, {"tokens": tokens})
+    largest = lambda tree: max(float(t.float().abs().max()) for t in tree_leaves(tree))  # noqa: E731
+    layers = [largest(g) for g in grads["layers"]]
+    out = {"loss": float(metrics["loss"]), "embed_max_abs": largest(grads["embed"]),
+           "layer_max_abs": layers, "largest_layer": max(range(len(layers)), key=layers.__getitem__)}
+    check(all(map(math.isfinite, layers)), "xlstm: non-finite gradient at init")
+    del params, grads
+    _free(torch)
+    log(f"xlstm-1.3b gradient at init (8 x 129 tokens, bf16): embedding {out['embed_max_abs']:.4g}, "
+        f"largest layer {out['largest_layer']} {max(layers):.4g}, last layer {layers[-1]:.4g}")
+    return out
+
+
+def recurrent_reference_check(torch, np, lu, dg, ds) -> dict:
+    """(11e) Reduced float32 hymba at 5 query heads over 1 KV head, d_model
+    320 (the SSD head dim 2 * 320 / 5 an integer; the window 64), and the
+    reduced xlstm: 80 tokens replayed on the card (the ring kernel at G 5)
+    and on the CPU (plain), logits within 1e-4; then 4 fused W-Icon commits
+    of each, card against CPU, as phase 3 (``training_reference_check``)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.utils import tree_map
+
+    cfgs = [replace(get_reduced("hymba-1.5b"), num_heads=5, num_kv_heads=1,
+                    d_model=320, dtype="float32"),
+            replace(get_reduced("xlstm-1.3b"), dtype="float32")]
+    out = {}
+    for cfg in cfgs:
+        cpu = init_params(cfg, torch.Generator().manual_seed(26), device="cpu",
+                          num_chains=2)
+        gpu = tree_map(lambda t: t.to("cuda"), cpu)
+        stream = np.random.default_rng(27).integers(0, cfg.vocab_size, (2, 80))
+        runs = {}
+        ds.decode_step.launches = 0
+        for dev, params in (("cpu", cpu), ("cuda", gpu)):
+            model = Model(cfg, device=dev)
+            with torch.no_grad():
+                cache = model.init_cache(2, 80, num_chains=2)
+                steps = []
+                for t in range(80):
+                    logits, cache = model.serve_step(params, cache, stream[:, t:t + 1], t)
+                    steps.append(logits.cpu())
+            runs[dev] = torch.cat(steps, 2)
+        launches = ds.decode_step.launches
+        want = cfg.num_layers * 80 if cfg.block_pattern[0] == "hymba_mlp" else 0
+        check(launches == want, f"{cfg.name}: card replay launched the decode kernel "
+              f"{launches} times, want {want}")
+        err = float((runs["cpu"] - runs["cuda"]).abs().max())
+        check(err <= 1e-4, f"{cfg.name}: card replay logits differ from the CPU's by {err}")
+        train = training_reference_check(torch, np, lu, dg, cfg)
+        out[cfg.name] = {"replay_max_abs_err": err, "replay_launches": launches, **train}
+        log(f"reference replay {cfg.name}: 80 tokens x 2 chains, card == CPU within "
+            f"{err:.3g}, {launches} kernel launches")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2406,6 +2847,18 @@ def main() -> int:
                 torch, F, ds, ref, dtype, *RING_CASES[0], True, heads=heads)
             zc[("paged", arch, dtype)] = run_paged_case(torch, F, ds, ref, dtype,
                                                         True, heads=heads)
+    # hymba-1.5b's group of 5 (25 query heads over 5 KV heads, head_dim 64):
+    # the decode cell's ring, the rings hymba's serving gives the kernel
+    # (phase 11) and the paged cell, both dtypes timed
+    g5 = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        g5[("ring", dtype)] = [run_decode_case(torch, F, ds, ref, dtype, *RING_CASES[0],
+                                               True, heads=HYMBA_HEADS)]
+        g5[("ring", dtype)] += [run_decode_case(torch, F, ds, ref, dtype, smax, n_valid,
+                                                slot, True, heads=HYMBA_HEADS, N=N)
+                                for smax, n_valid, slot, N in HYMBA_RING_CASES]
+        g5[("paged", dtype)] = run_paged_case(torch, F, ds, ref, dtype, True,
+                                              heads=HYMBA_HEADS)
     torch.cuda.empty_cache()
     lang = run_langevin_checks(torch, np, lu, ref)
     wic, gat, dly = run_gather_checks(torch, np, dg, ref)
@@ -2452,9 +2905,29 @@ def main() -> int:
           train_path(torch, np, lu, dg, ("--arch", "internvl2-1b", "--seq", "384"))]
     zoo_train = {"launches": {k: sum(r["launches"][k] for r in zt)
                               for k in zt[0]["launches"]}}
+    _free(torch)
+    # phase 11: the recurrent configs
+    t11 = time.perf_counter()
+    rref = recurrent_reference_check(torch, np, lu, dg, ds)
+    rsrv = [recurrent_serve(torch, np, ds, "hymba-1.5b"),
+            recurrent_serve(torch, np, ds, "xlstm-1.3b", gate="layers")]
+    hwin = hymba_window(torch, np, ds)
+    rtrain = [train_path(torch, np, lu, dg, ("--arch", arch, "--seq", "128", "--gamma",
+                                             RECURRENT_TRAIN_GAMMA[arch]))
+              for arch in ("hymba-1.5b", "xlstm-1.3b")]
+    _free(torch)
+    sloop = slstm_launches(torch)
+    xgrad = xlstm_grad_scale(torch, np)
+    phase11_s = time.perf_counter() - t11
+    log(f"phase 11: {phase11_s:.1f} s; the script so far {time.perf_counter() - T_START:.1f} s "
+        "of its 1,200")
+    hybrid_train = {"launches": {k: sum(r["launches"][k] for r in rtrain)
+                                 for k in rtrain[0]["launches"]}}
+    hybrid = {"serve": rsrv[0]["launches"], "window": hwin["launches"]}
 
     def cases(runs):
-        return [{k: r[k] for k in ("dtype", "heads", "smax", "valid", "maxp", "pos", "splits",
+        return [{k: r[k] for k in ("dtype", "heads", "rows", "smax", "valid", "maxp", "pos",
+                                   "splits",
                                    "max_abs_err", "limit", "ms", "eager_ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms",
                                    "library_eager_ms") if k in r}
@@ -2467,19 +2940,23 @@ def main() -> int:
          "replaces": "src/repro/kernels/decode_step.py:63",
          "launches": (mp["decode"]["launches"] + mp["serve"]["decoder"]["launches"]
                       + tl["launches"] + sum(z["launches"] for z in zoo)
-                      + srv["decode"]["launches"]),
+                      + srv["decode"]["launches"] + sum(hybrid.values())),
          "launches_by_path": {"decode": mp["decode"]["launches"],
                               "serve_decoder": mp["serve"]["decoder"]["launches"],
                               "train_lm_decode_group3": tl["launches"],
                               "zoo": {z["arch"]: z["launches"] for z in zoo},
-                              "moe_serve": srv["decode"]["launches"]},
+                              "moe_serve": srv["decode"]["launches"],
+                              "hybrid": hybrid},
          "max_abs_err": d["max_abs_err"],
          "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
          "bound_by": d["bound_by"], "library_ms": d["library_ms"],
          "cases": cases(dec[(torch.bfloat16, n)] for n in (256, 1024, 16384)),
          "group3_cases": cases(g3[("ring", t)] for t in (torch.bfloat16, torch.float32)),
          "zoo_cases": cases(zc[("ring", a, t)] for a in ZOO_HEADS
-                            for t in (torch.bfloat16, torch.float32))},
+                            for t in (torch.bfloat16, torch.float32)),
+         "group5_cases": cases(r for t in (torch.bfloat16, torch.float32)
+                               for r in g5[("ring", t)]),
+         "group5_held": {k: r["held"] for k, r in (("serve", rsrv[0]), ("window", hwin))}},
         {"name": "paged_decode_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_step.cuh",
          "replaces": "src/repro/kernels/decode_step.py:150",
@@ -2495,7 +2972,8 @@ def main() -> int:
          "cases": cases(pag[(torch.bfloat16, n)] for n in (16, 256)),
          "group3_cases": cases(g3[("paged", t)] for t in (torch.bfloat16, torch.float32)),
          "zoo_cases": cases(zc[("paged", a, t)] for a in ZOO_HEADS
-                            for t in (torch.bfloat16, torch.float32))},
+                            for t in (torch.bfloat16, torch.float32)),
+         "group5_cases": cases(g5[("paged", t)] for t in (torch.bfloat16, torch.float32))},
     ]
     # the delay_gather entry is the one W-Icon kernel: its numbers and
     # launches are the main path's instantiation (wicon_read, delays drawn
@@ -2521,7 +2999,8 @@ def main() -> int:
         by_path = {path: sum(run["launches"][k] for k in counters)
                    for path, run in (("train", tp), ("paper", pp), ("paper_fused", pf),
                                      ("cluster", cp), ("faults", fa), ("fault_path", fb),
-                                     ("run_checkpoint", fc), ("zoo_train", zoo_train))}
+                                     ("run_checkpoint", fc), ("zoo_train", zoo_train),
+                                     ("hybrid_train", hybrid_train))}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
@@ -2540,6 +3019,9 @@ def main() -> int:
     log(json.dumps({"serve": {**mp["serve"], "quickstart": sq}}))
     log(json.dumps({"faults": {"chaos": fa, "full_width": fb, "run_checkpoint": fc}}))
     log(json.dumps({"zoo": {"configs": zoo, "moe_serve": srv, "train": zt}}))
+    log(json.dumps({"recurrent": {"reference": rref, "serve": rsrv, "window": hwin,
+                                  "train": rtrain, "slstm_loop": sloop,
+                                  "xlstm_grad_at_init": xgrad, "seconds": phase11_s}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

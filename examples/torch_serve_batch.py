@@ -46,6 +46,9 @@ def main(argv=None):
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
 
     cfg = get_reduced(args.arch)
+    if cfg.block_pattern[0] not in ("attn_mlp", "attn_moe"):
+        raise SystemExit(f"{args.arch}: prefill->cache path is attention-only; "
+                         "recurrent archs serve via init_cache + replay")
     model = Model(cfg, device=dev)
     chains = []
     # a few fused SGLD commits a chain, so the served weights are posterior

@@ -1,11 +1,11 @@
 """Architecture config dataclass and the registry (port of
 ``repro.configs.base``).
 
-Only the fields and helpers the ported slices need are kept (no mesh,
-sharding or SSM fields); the port registers the architectures it can run
-(the homogeneous attention stacks, ``attn_mlp`` and ``attn_moe``, with the
-vision and audio frontend stubs), so a request for another id fails at
-lookup instead of deep inside the model.
+Only the fields and helpers the ported slices need are kept (no mesh or
+sharding fields); the port registers every architecture of the reference:
+the attention stacks (``attn_mlp``, ``attn_moe``, with the vision and audio
+frontend stubs), the hybrid attention + SSD stack (``hymba_mlp``) and the
+heterogeneous xLSTM stack (``mlstm`` / ``slstm``).
 """
 
 from __future__ import annotations
@@ -16,10 +16,12 @@ from typing import Optional
 
 #: architectures the port implements (module name under repro_torch.configs)
 ARCH_IDS = [
+    "hymba_1p5b",
     "minicpm_2b",
     "internvl2_1b",
     "kimi_k2_1t_a32b",
     "phi35_moe_42b_a6p6b",
+    "xlstm_1p3b",
     "qwen3_4b",
     "stablelm_12b",
     "qwen15_32b",
@@ -28,10 +30,12 @@ ARCH_IDS = [
 
 # canonical dashed ids (CLI) -> module names
 ALIASES = {
+    "hymba-1.5b": "hymba_1p5b",
     "minicpm-2b": "minicpm_2b",
     "internvl2-1b": "internvl2_1b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b_a6p6b",
+    "xlstm-1.3b": "xlstm_1p3b",
     "qwen3-4b": "qwen3_4b",
     "stablelm-12b": "stablelm_12b",
     "qwen1.5-32b": "qwen15_32b",
@@ -66,6 +70,9 @@ class ArchConfig:
     num_shared_experts: int = 0
     router_aux_coef: float = 0.01
 
+    # SSM (mamba-style heads: hymba) / xLSTM
+    ssm_state: int = 0
+    ssm_conv: int = 4
     block_pattern: tuple = ("attn_mlp",)  # cycled over layers
 
     # misc

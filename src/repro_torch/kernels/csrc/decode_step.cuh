@@ -750,15 +750,16 @@ cudaError_t launch_paged(const void* q, const void* k_new, const void* v_new, vo
 // be a power of two: every loop over heads stops at G, the mma paths pad the
 // heads to 8 (n < G), the softmax takes a warp a head (g += kWarps), and the
 // shared-memory layout counts G exactly (G = 3: 12 query heads over 4 KV
-// heads, the 110M example model; G = 7: internvl2-1b's 14 over 2).  HD need
-// not be a multiple of 64 (see Shape and kMt): 112 is kimi-k2's, 160
-// stablelm-12b's.
+// heads, the 110M example model; G = 5: hymba-1.5b's 25 over 5; G = 7:
+// internvl2-1b's 14 over 2).  HD need not be a multiple of 64 (see Shape
+// and kMt): 112 is kimi-k2's, 160 stablelm-12b's.
 #define DISPATCH_G(T, HD, FN, ...)                          \
   switch (G) {                                              \
     case 1: return FN<T, HD, 1>(__VA_ARGS__);               \
     case 2: return FN<T, HD, 2>(__VA_ARGS__);               \
     case 3: return FN<T, HD, 3>(__VA_ARGS__);               \
     case 4: return FN<T, HD, 4>(__VA_ARGS__);               \
+    case 5: return FN<T, HD, 5>(__VA_ARGS__);               \
     case 7: return FN<T, HD, 7>(__VA_ARGS__);               \
     case 8: return FN<T, HD, 8>(__VA_ARGS__);               \
     default: return cudaErrorInvalidValue;                  \

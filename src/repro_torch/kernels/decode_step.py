@@ -56,7 +56,7 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 112, 128, 160)
-_GROUPS = (1, 2, 3, 4, 7, 8)
+_GROUPS = (1, 2, 3, 4, 5, 7, 8)
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 # kThreads, kTile, kStages and kMaxSplits in the source
 THREADS, TILE, STAGES, MAX_SPLITS = 128, 32, 2, 16

@@ -83,6 +83,17 @@ def embed_init(generator, shape, dtype, device="cpu") -> torch.Tensor:
     return _normal(generator, shape, dtype, 0.02, device)
 
 
+def repeat_lead(values: torch.Tensor, lead, device="cpu") -> torch.Tensor:
+    """A deterministic leaf: ``values`` repeated over the leading axes
+    ``lead`` (chains, layers) as a tensor of its own, not a broadcast view
+    (the SGLD update writes it in place)."""
+    out = torch.empty(tuple(lead) + tuple(values.shape), dtype=values.dtype,
+                      device=device)
+    if out.device.type == "meta":
+        return out
+    return out.copy_(values.to(out.device).expand_as(out))
+
+
 def _normal(generator, shape, dtype, std, device) -> torch.Tensor:
     out = torch.empty(shape, dtype=dtype, device=device)
     if out.device.type == "meta":  # shapes only: nothing to draw
@@ -93,6 +104,12 @@ def _normal(generator, shape, dtype, std, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # chain-stacked projections
 # ---------------------------------------------------------------------------
+def per_chain(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-chain vector ``(C, n)`` shaped to broadcast against ``like``
+    ``(C, ..., n)``."""
+    return w.reshape(w.shape[0], *([1] * (like.dim() - 2)), w.shape[-1])
+
+
 def bank_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` per chain: x (C, ..., d), w (C, d, f) -> (C, ..., f).
 

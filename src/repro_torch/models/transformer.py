@@ -1,30 +1,45 @@
-"""The attention decoders (``attn_mlp``, ``attn_moe``) over a chain bank:
-init, forward, prefill, and the two cached decode paths — port of
-``repro.models.transformer``.
+"""The decoders of every config over a chain bank: init, forward, prefill,
+and the cached decode paths — port of ``repro.models.transformer``.
+
+Block kinds (``cfg.block_pattern``, cycled over the layers):
+
+- ``attn_mlp``   dense decoder layer (qk-norm / qkv-bias / sliding window
+                 per config);
+- ``attn_moe``   the MLP replaced by :mod:`~repro_torch.models.moe`;
+- ``hymba_mlp``  attention and SSD heads (:mod:`~repro_torch.models.ssm`)
+                 in parallel on the same input, mixed ``0.5 * (attn +
+                 ssm)``, then the MLP;
+- ``mlstm`` / ``slstm``  xLSTM blocks (:mod:`~repro_torch.models.xlstm`),
+                 no separate MLP.
 
 Parameters are the JAX package's nested dict: ``embed``, ``final_norm``,
-``lm_head`` and a layer-stacked ``stack``.  The model functions take a
-**chain bank**: every leaf has a leading chain axis ``(C, ...)`` (``stack``
-leaves are ``(C, L, ...)``) and activations are ``(C, B, ...)``.  Where the
-JAX engines ``vmap`` a one-chain model over the bank, the port writes the
-chain axis out: projections are batched GEMMs over it, and each decode step
-makes one kernel launch per layer that covers every chain.
+``lm_head`` and either a layer-stacked ``stack`` (one block kind) or a
+``layers`` list of per-layer dicts (a heterogeneous pattern: xLSTM).  The
+model functions take a **chain bank**: every leaf has a leading chain axis
+``(C, ...)`` (``stack`` leaves are ``(C, L, ...)``) and activations are
+``(C, B, ...)``.  Where the JAX engines ``vmap`` a one-chain model over the
+bank, the port writes the chain axis out: projections are batched GEMMs
+over it, and each decode step makes one kernel launch per attention layer
+that covers every chain.
 
-Decode state is layer-major — ``(L, C, ...)`` — so that one layer's state
-for all chains is one contiguous tensor the kernel updates in place.
+Decode state is layer-major for a stack — ``(L, C, ...)`` — so that one
+layer's state for all chains is one contiguous tensor the step updates in
+place: the ring K/V, and hymba's SSD state (``ssm_h``, ``ssm_conv``).  An
+xLSTM stack's decode state is a list of per-layer dicts, as in the
+reference.  The recurrent stacks have no prefill-fillable cache: they are
+served by :meth:`Model.init_cache` and one :meth:`Model.serve_step` a
+prompt token (replay), as the reference serves them.
 
 Attention without a cache goes through :func:`~repro_torch.models.
 attention.attention_any`, as the reference's does: naive up to 512 query
 positions, the long-prompt SDPA path above.  The prefills unembed only the
 position they return (one row of logits, not ``(C, B, S, V)``).
 
-``attn_moe`` replaces the MLP by :mod:`~repro_torch.models.moe`; its
-load-balance loss comes back from :meth:`Model.forward` per chain.  The
-vision and audio frontends are the reference's stub: precomputed
-``FRONTEND_DIM``-wide embeddings ``(B, N, 1024)`` in float32, projected by
-``params["frontend"]["proj"]`` and prepended to the token embeddings.
-SSM and xLSTM blocks (heterogeneous stacks, recurrent decode state) come
-with a later slice.
+``attn_moe``'s load-balance loss comes back from :meth:`Model.forward` per
+chain.  The vision and audio frontends are the reference's stub:
+precomputed ``FRONTEND_DIM``-wide embeddings ``(B, N, 1024)`` in float32,
+projected by ``params["frontend"]["proj"]`` and prepended to the token
+embeddings.
 """
 
 from __future__ import annotations
@@ -43,15 +58,29 @@ from repro_torch.models.common import (
     dtype_of,
     embed_init,
     head_rms_norm,
+    per_chain,
     rms_norm,
 )
 from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.ssm import SSMState, apply_ssm, init_ssm, init_ssm_state
+from repro_torch.models.xlstm import (
+    MLSTMState,
+    SLSTMState,
+    apply_mlstm,
+    apply_slstm,
+    init_mlstm,
+    init_mlstm_state,
+    init_slstm,
+    init_slstm_state,
+)
 from repro_torch.utils import resolve_device, to_device, tree_map
 
 PyTree = Any
 
-BLOCKS = ("attn_mlp", "attn_moe")  # the block kinds the port implements
+BLOCKS = ("attn_mlp", "attn_moe", "hymba_mlp", "mlstm", "slstm")
+WITH_ATTN = ("attn_mlp", "attn_moe", "hymba_mlp")  # blocks with an attention half
+ATTN_STACKS = ("attn_mlp", "attn_moe")  # the engines' stacks: a prefill-fillable cache
 
 FRONTEND_DIM = 1024  # stub embedding width (ViT / EnCodec feature dim)
 
@@ -87,15 +116,20 @@ def init_block(generator, cfg, block: str, dtype, lead=(), device="cpu") -> dict
     if block not in BLOCKS:
         raise ValueError(f"the port implements blocks {BLOCKS}, not {block!r}")
     lead = tuple(lead)
-    p = {
-        "norm1": _ones(lead + (cfg.d_model,), device),
-        "attn": init_attn(generator, cfg, dtype, lead, device),
-        "norm2": _ones(lead + (cfg.d_model,), device),
-    }
+    p = {"norm1": _ones(lead + (cfg.d_model,), device)}
+    if block in WITH_ATTN:
+        p["attn"] = init_attn(generator, cfg, dtype, lead, device)
+        p["norm2"] = _ones(lead + (cfg.d_model,), device)
+    if block == "hymba_mlp":
+        p["ssm"] = init_ssm(generator, cfg, dtype, lead, device)
+    if block in ("attn_mlp", "hymba_mlp"):
+        p["mlp"] = init_mlp(generator, cfg, dtype, lead, device)
     if block == "attn_moe":
         p["moe"] = init_moe(generator, cfg, dtype, lead, device)
-    else:
-        p["mlp"] = init_mlp(generator, cfg, dtype, lead, device)
+    if block == "mlstm":
+        p["mlstm"] = init_mlstm(generator, cfg, dtype, lead, device)
+    if block == "slstm":
+        p["slstm"] = init_slstm(generator, cfg, dtype, lead, device)
     return p
 
 
@@ -104,13 +138,12 @@ def init_params(cfg, generator=None, *, device="cuda", num_chains=None) -> dict:
     from ``generator`` (a ``torch.Generator`` on that device; seed 0 when
     None).  ``num_chains`` adds the leading chain axis of a bank; ``None``
     gives one chain without it.  On the ``meta`` device nothing is drawn
-    (shapes only — :meth:`ArchConfig.param_count` counts from that)."""
+    (shapes only — :meth:`ArchConfig.param_count` counts from that).  One
+    block kind gives a layer-stacked ``stack``; a heterogeneous pattern a
+    ``layers`` list, layer i of kind ``block_pattern[i % len]``."""
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
-    if len(cfg.block_pattern) != 1:
-        raise ValueError("the port implements homogeneous stacks "
-                         f"(one block kind), got {cfg.block_pattern}")
     dtype = dtype_of(cfg)
     lead = () if num_chains is None else (int(num_chains),)
     params: dict = {
@@ -124,20 +157,20 @@ def init_params(cfg, generator=None, *, device="cuda", num_chains=None) -> dict:
     if cfg.frontend:
         params["frontend"] = {"proj": dense_init(
             generator, lead + (FRONTEND_DIM, cfg.d_model), dtype, device=dev)}
-    params["stack"] = init_block(generator, cfg, cfg.block_pattern[0], dtype,
-                                 lead + (cfg.num_layers,), dev)
+    pattern = cfg.block_pattern
+    if len(pattern) == 1:
+        params["stack"] = init_block(generator, cfg, pattern[0], dtype,
+                                     lead + (cfg.num_layers,), dev)
+    else:
+        params["layers"] = [init_block(generator, cfg, pattern[i % len(pattern)],
+                                       dtype, lead, dev)
+                            for i in range(cfg.num_layers)]
     return params
 
 
 # ===========================================================================
 # block application (chain bank: params (C, ...), activations (C, B, ...))
 # ===========================================================================
-def _per_chain(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """A per-chain vector ``(C, n)`` shaped to broadcast against ``like``
-    ``(C, ..., n)``."""
-    return w.reshape(w.shape[0], *([1] * (like.dim() - 2)), w.shape[-1])
-
-
 def _qkv(p, x, cfg, positions):
     """Projections, qk-norm and rope: x (C, B, S, d) -> q (C, B, S, H, hd),
     k, v (C, B, S, KV, hd)."""
@@ -146,15 +179,15 @@ def _qkv(p, x, cfg, positions):
     k = bank_matmul(x, p["wk"])
     v = bank_matmul(x, p["wv"])
     if cfg.qkv_bias:
-        q = q + _per_chain(p["bq"], q)
-        k = k + _per_chain(p["bk"], k)
-        v = v + _per_chain(p["bv"], v)
+        q = q + per_chain(p["bq"], q)
+        k = k + per_chain(p["bk"], k)
+        v = v + per_chain(p["bv"], v)
     q = q.reshape(C, B, S, cfg.num_heads, cfg.head_dim)
     k = k.reshape(C, B, S, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(C, B, S, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
-        q = head_rms_norm(q, _per_chain(p["q_norm"], q), cfg.norm_eps)
-        k = head_rms_norm(k, _per_chain(p["k_norm"], k), cfg.norm_eps)
+        q = head_rms_norm(q, per_chain(p["q_norm"], q), cfg.norm_eps)
+        k = head_rms_norm(k, per_chain(p["k_norm"], k), cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -211,7 +244,7 @@ def apply_paged_attn(p, x, cfg, pages, tables, positions):
 def _ffn(p, x, cfg, block: str):
     """The block's second half: returns (x, aux) with aux the MoE's
     load-balance loss per chain ``(C,)``, None for a dense block."""
-    h2 = rms_norm(x, _per_chain(p["norm2"], x), cfg.norm_eps)
+    h2 = rms_norm(x, per_chain(p["norm2"], x), cfg.norm_eps)
     if block == "attn_moe":
         ff, aux = apply_moe(p["moe"], h2, cfg)
     else:
@@ -223,9 +256,9 @@ def apply_paged_block(p, x, cfg, block: str, pages, tables, positions):
     """One decode step of an attention block against the paged pool: the
     residual/norm/MLP ops of :func:`apply_block` with
     :func:`apply_paged_attn` in place of the ring-cache attention."""
-    if block not in BLOCKS:
+    if block not in ATTN_STACKS:
         raise ValueError(f"paged decode needs an attention block, got {block!r}")
-    h = rms_norm(x, _per_chain(p["norm1"], x), cfg.norm_eps)
+    h = rms_norm(x, per_chain(p["norm1"], x), cfg.norm_eps)
     attn_out, pages = apply_paged_attn(p["attn"], h, cfg, pages, tables, positions)
     x = x + cfg.residual_scale * attn_out
     return _ffn(p, x, cfg, block)[0], pages
@@ -233,22 +266,58 @@ def apply_paged_block(p, x, cfg, block: str, pages, tables, positions):
 
 def apply_block(p, x, cfg, block: str, positions, *, cache=None, cur_pos=None):
     """Returns (x, aux_loss, new_cache) — ``aux_loss`` the MoE's ``(C,)``
-    (None for a dense block), ``new_cache`` ``{"attn": ..}`` when decoding,
-    else this layer's prefill (k, v)."""
+    (None for other blocks); ``new_cache`` this layer's decode state
+    (updated in place) when decoding, else the attention's prefill (k, v)
+    (None for an xLSTM block)."""
     if block not in BLOCKS:
         raise ValueError(f"unknown block {block!r}")
-    h = rms_norm(x, _per_chain(p["norm1"], x), cfg.norm_eps)
+    h = rms_norm(x, per_chain(p["norm1"], x), cfg.norm_eps)
+    if block in ("mlstm", "slstm"):
+        apply, state_cls = ((apply_mlstm, MLSTMState) if block == "mlstm"
+                            else (apply_slstm, SLSTMState))
+        if cache is None:
+            return x + cfg.residual_scale * apply(p[block], h, cfg), None, None
+        names = [f"{block}_{f}" for f in state_cls._fields]
+        out, new = apply(p[block], h, cfg,
+                         state=state_cls(*(cache[n] for n in names)))
+        for n, t in zip(names, new):
+            cache[n].copy_(t)
+        return x + cfg.residual_scale * out, None, cache
     attn_out, kv = apply_attn(p["attn"], h, cfg, positions,
                               window=cfg.sliding_window,
                               cache=None if cache is None else cache["attn"],
                               cur_pos=cur_pos)
+    if block == "hymba_mlp":
+        if cache is None:
+            ssm_out = apply_ssm(p["ssm"], h, cfg)
+        else:
+            ssm_out, new = apply_ssm(p["ssm"], h, cfg, state=SSMState(
+                cache["ssm_h"], cache["ssm_conv"]))
+            cache["ssm_h"].copy_(new.h)
+            cache["ssm_conv"].copy_(new.conv)
+        attn_out = 0.5 * (attn_out + ssm_out)
     x = x + cfg.residual_scale * attn_out
     x, aux = _ffn(p, x, cfg, block)
-    return x, aux, ({"attn": kv} if cache is not None else kv)
+    return x, aux, (cache if cache is not None else kv)
 
 
 def _layer(stack: dict, i: int) -> dict:
     return tree_map(lambda a: a[:, i], stack)
+
+
+def _block(cfg, i: int) -> str:
+    return cfg.block_pattern[i % len(cfg.block_pattern)]
+
+
+def _layer_cache(cache, i: int) -> dict:
+    """Layer i's decode state: views of a stack's layer-major tensors, or
+    the i-th dict of an xLSTM list (written in place either way)."""
+    if isinstance(cache, list):
+        return cache[i]
+    out = {name: t[i] for name, t in cache.items() if name != "attn"}
+    if "attn" in cache:
+        out["attn"] = {name: t[i] for name, t in cache["attn"].items()}
+    return out
 
 
 # ===========================================================================
@@ -290,30 +359,44 @@ class Model:
     def unembed(self, params, x):
         w = (params["embed"]["w"].transpose(-1, -2) if self.cfg.tie_embeddings
              else params["lm_head"]["w"])
-        x = rms_norm(x, _per_chain(params["final_norm"], x), self.cfg.norm_eps)
+        x = rms_norm(x, per_chain(params["final_norm"], x), self.cfg.norm_eps)
         return bank_matmul(x, w)
 
     # -- forward over layers --------------------------------------------------
-    def hidden(self, params, batch, want_kv: bool = False, layers=None):
+    def _layers(self, params, layers=None):
+        """(block kind, layer parameters) for each layer: ``layers[i]`` when
+        given, else the slice of ``params["stack"]`` or ``params["layers"][i]``."""
+        for i in range(self.cfg.num_layers):
+            if layers is not None:
+                layer = layers[i]
+            elif "stack" in params:
+                layer = _layer(params["stack"], i)
+            else:
+                layer = params["layers"][i]
+            yield _block(self.cfg, i), layer
+
+    def hidden(self, params, batch, want_kv: bool = False, layers=None, tap=None):
         """The layers without the unembedding: returns (x (C, B, S, d), kv,
         aux) with kv ``(k, v)`` stacked ``(L, C, B, S, KV, hd)`` when
-        ``want_kv``, else None, and aux each chain's load-balance loss
-        summed over the layers, ``(C,)`` float32 (0 for dense blocks).
-        ``layers`` (optional) gives each layer's parameters in place of the
-        slices of ``params["stack"]``."""
-        cfg = self.cfg
+        ``want_kv`` (an attention stack's), else None, and aux each chain's
+        load-balance loss summed over the layers, ``(C,)`` float32 (0 for
+        blocks without a router).  ``layers`` (optional) gives each layer's
+        parameters in place of ``params["stack"]`` / ``params["layers"]``.
+        ``tap`` (optional), as :meth:`serve_step`'s."""
         x, positions = self.embed(params, batch)
-        block = cfg.block_pattern[0]
         aux_total = torch.zeros(x.shape[0], device=self.device)
         ks, vs = [], []
-        for i in range(cfg.num_layers):
-            layer = _layer(params["stack"], i) if layers is None else layers[i]
-            x, aux, (k, v) = apply_block(layer, x, cfg, block, positions)
+        for i, (block, layer) in enumerate(self._layers(params, layers)):
+            if tap is not None:
+                x = tap(i, x)
+            x, aux, kv = apply_block(layer, x, self.cfg, block, positions)
             if aux is not None:
                 aux_total = aux_total + aux
             if want_kv:
-                ks.append(k)
-                vs.append(v)
+                ks.append(kv[0])
+                vs.append(kv[1])
+        if tap is not None:
+            x = tap(self.cfg.num_layers, x)
         kv = (torch.stack(ks), torch.stack(vs)) if want_kv else None
         return x, kv, aux_total
 
@@ -322,9 +405,10 @@ class Model:
         (C,), kv): aux each chain's ``aux_total / num_layers`` (the
         reference's per-chain value; 0 for dense blocks), kv ``(k, v)``
         stacked ``(L, C, B, S, KV, hd)`` when ``want_kv``.  ``layers``
-        (optional) gives each layer's parameters in place of the slices of
-        ``params["stack"]`` — the training path passes per-layer autograd
-        leaves (:func:`repro_torch.train.loop.make_grad_fn`)."""
+        (optional) gives each layer's parameters in place of
+        ``params["stack"]`` / ``params["layers"]`` — the training path
+        passes per-layer autograd leaves
+        (:func:`repro_torch.train.loop.make_grad_fn`)."""
         x, kv, aux = self.hidden(params, batch, want_kv, layers)
         return self.unembed(params, x), aux / self.cfg.num_layers, kv
 
@@ -332,11 +416,17 @@ class Model:
         """Full-prompt forward; returns (last-position logits (C, B, 1, V),
         cache), the reference's ``Model.prefill`` over the bank.
 
-        The cache is ``{"attn": {"k", "v": (L, C, B, S, KV, hd), "pos":
-        (S,) int32}}``, cut to the last ``sliding_window`` positions when the
-        prompt is longer (every block the port implements is an attention
-        block).  Only the last position is unembedded."""
+        For an attention stack the cache is ``{"attn": {"k", "v": (L, C, B,
+        S, KV, hd), "pos": (S,) int32}}``, cut to the last
+        ``sliding_window`` positions when the prompt is longer.  The
+        recurrent stacks (hymba, xLSTM) return None: their state is rebuilt
+        by replaying the prompt through :meth:`serve_step` from
+        :meth:`init_cache`, as in the reference.  Only the last position is
+        unembedded."""
         cfg = self.cfg
+        if not self._attention_stack():
+            x, _, _ = self.hidden(params, batch)
+            return self.unembed(params, x[:, :, -1:]), None
         x, (k, v), _ = self.hidden(params, batch, want_kv=True)
         logits = self.unembed(params, x[:, :, -1:])
         S, window = k.shape[3], cfg.sliding_window
@@ -348,46 +438,79 @@ class Model:
         return logits, {"attn": {"k": k, "v": v, "pos": pos}}
 
     # -- ring-cache decode ----------------------------------------------------
+    def _attention_stack(self) -> bool:
+        pattern = self.cfg.block_pattern
+        return len(pattern) == 1 and pattern[0] in ATTN_STACKS
+
     def _require_stacked_attention(self, what: str):
         cfg = self.cfg
-        if len(cfg.block_pattern) != 1 or cfg.block_pattern[0] not in BLOCKS:
-            raise ValueError(f"{what} needs a homogeneous attention stack "
-                             f"{BLOCKS}, got {cfg.block_pattern}")
+        if not self._attention_stack():
+            raise ValueError(
+                f"{what} needs a homogeneous attention stack "
+                f"(block_pattern ('attn_mlp',) or ('attn_moe',)), got "
+                f"{cfg.block_pattern}; SSM/xLSTM states have no prefill-"
+                "fillable KV cache")
         if cfg.frontend:
             raise ValueError(f"{what} serves token prompts only "
                              f"(frontend={cfg.frontend!r})")
 
     def init_cache_bank(self, num_chains: int, batch_size: int, max_seq: int,
                         prefill_len: int = 0):
-        """Chain-bank decode cache: ``{"attn": {"k", "v": (L, C, B, smax,
-        KV, hd), "pos": (L, smax)}}``.  ``pos`` holds each ring slot's
-        absolute position (-1 empty); the chains share it, since they decode
-        one token stream.  The engines' banks serve token prompts only: a
-        frontend config is refused, as in the reference."""
+        """The engines' chain-bank decode cache: :meth:`init_cache` of
+        ``num_chains`` chains, ``{"attn": {"k", "v": (L, C, B, smax, KV,
+        hd), "pos": (L, smax)}}``.  ``pos`` holds each ring slot's absolute
+        position (-1 empty); the chains share it, since they decode one
+        token stream.  The engines serve homogeneous attention stacks of
+        token prompts only: the recurrent stacks and the frontend configs
+        are refused, as in the reference."""
         self._require_stacked_attention("init_cache_bank")
-        return self._cache(num_chains, batch_size, max_seq, prefill_len)
+        return self.init_cache(batch_size, max_seq, prefill_len, num_chains)
 
-    def init_cache(self, batch_size: int, max_seq: int, prefill_len: int = 0):
-        """:meth:`init_cache_bank` for a bank of one chain, for every
-        config the port runs — frontend configs too, as the reference's
-        ``Model.init_cache`` (their stub positions are prefilled by the
-        caller; decoding reads tokens only)."""
-        return self._cache(1, batch_size, max_seq, prefill_len)
+    def init_cache(self, batch_size: int, max_seq: int, prefill_len: int = 0,
+                   num_chains: int = 1):
+        """The decode cache of every config the port runs — frontend
+        configs too, as the reference's ``Model.init_cache`` (their stub
+        positions are prefilled by the caller; decoding reads tokens only),
+        and the recurrent stacks, served by replay — for a bank of
+        ``num_chains`` chains (one by default).
 
-    def _cache(self, num_chains: int, batch_size: int, max_seq: int,
-               prefill_len: int):
+        A stack's cache is layer-major: an attention block's ring
+        ``{"attn": ...}`` as :meth:`init_cache_bank` gives it, and hymba's
+        SSD state beside it, ``ssm_h`` ``(L, C, B, H, p, n)`` float32 and
+        ``ssm_conv`` ``(L, C, B, K-1, di)`` in the model's dtype.  An xLSTM
+        stack's is a list of per-layer dicts: ``mlstm_{c,n,m}`` ``(C, B, H,
+        dk, dk)``, ``(C, B, H, dk)``, ``(C, B, H)``, or ``slstm_{c,n,m,h}``
+        ``(C, B, d)``, float32.  :meth:`init_cache_bank` is this cache
+        behind the engines' refusal of the stacks they cannot serve."""
         cfg = self.cfg
+        L, lead = cfg.num_layers, (num_chains,)
+        if len(cfg.block_pattern) > 1:
+            return [self._recurrent_state(_block(cfg, i), lead, batch_size)
+                    for i in range(L)]
         window = cfg.sliding_window
         smax = min(max_seq, window) if window else max_seq
-        shape = (cfg.num_layers, num_chains, batch_size, smax,
-                 cfg.num_kv_heads, cfg.head_dim)
+        shape = (L, num_chains, batch_size, smax, cfg.num_kv_heads, cfg.head_dim)
         ar = torch.arange(smax, device=self.device, dtype=torch.int32)
         pos = torch.where(ar < prefill_len, ar, -1)
-        return {"attn": {
+        cache = {"attn": {
             "k": torch.zeros(shape, dtype=dtype_of(cfg), device=self.device),
             "v": torch.zeros(shape, dtype=dtype_of(cfg), device=self.device),
-            "pos": pos[None].repeat(cfg.num_layers, 1),
+            "pos": pos[None].repeat(L, 1),
         }}
+        if cfg.block_pattern[0] == "hymba_mlp":
+            cache.update(self._recurrent_state("hymba_mlp", (L,) + lead, batch_size))
+        return cache
+
+    def _recurrent_state(self, block: str, lead, batch_size: int) -> dict:
+        cfg, dev = self.cfg, self.device
+        if block == "hymba_mlp":
+            st = init_ssm_state(cfg, batch_size, dtype_of(cfg), lead, dev)
+            return {"ssm_h": st.h, "ssm_conv": st.conv}
+        if block == "mlstm":
+            st = init_mlstm_state(cfg, batch_size, lead, dev)
+        else:
+            st = init_slstm_state(cfg, batch_size, lead, dev)
+        return {f"{block}_{f}": t for f, t in zip(st._fields, st)}
 
     def prefill_cache(self, params, tokens, cache, prompt_len: int):
         """Padded-prompt prefill *into* the decode cache, in place.
@@ -413,19 +536,24 @@ class Model:
         c["pos"][:] = torch.where(ar < prompt_len, ar, -1)
         return self.unembed(params, x[:, :, prompt_len - 1]), cache
 
-    def serve_step(self, params, cache, tokens, cur_pos: int):
-        """One decode step, updating ``cache`` in place.  tokens: (B, 1);
-        cur_pos: host int.  Returns (logits (C, B, 1, V), cache)."""
-        cfg = self.cfg
+    def serve_step(self, params, cache, tokens, cur_pos: int, tap=None):
+        """One decode step, updating ``cache`` (from :meth:`init_cache` or a
+        prefill) in place.  tokens: (B, 1); cur_pos: host int.  Returns
+        (logits (C, B, 1, V), cache).
+
+        ``tap`` (optional), ``tap(i, x) -> x``, sees the input to layer i
+        (i = L: the last layer's output) and returns what the layer takes
+        instead: a caller feeds each layer another stream's activations
+        (teacher forcing) or reads them."""
         x = params["embed"]["w"][:, self._tokens(tokens)]  # (C, B, 1, d)
         positions = torch.tensor([cur_pos], device=self.device)
-        c = cache["attn"]
-        block = cfg.block_pattern[0]
-        for i in range(cfg.num_layers):
-            layer_cache = {"attn": {"k": c["k"][i], "v": c["v"][i],
-                                    "pos": c["pos"][i]}}
-            x, _, _ = apply_block(_layer(params["stack"], i), x, cfg, block,
-                                  positions, cache=layer_cache, cur_pos=cur_pos)
+        for i, (block, layer) in enumerate(self._layers(params)):
+            if tap is not None:
+                x = tap(i, x)
+            x, _, _ = apply_block(layer, x, self.cfg, block, positions,
+                                  cache=_layer_cache(cache, i), cur_pos=cur_pos)
+        if tap is not None:
+            x = tap(self.cfg.num_layers, x)
         return self.unembed(params, x), cache
 
     # -- paged decode ---------------------------------------------------------

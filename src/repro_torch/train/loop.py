@@ -10,7 +10,9 @@ stacked leaf for every layer.  So the oracle differentiates per-layer
 leaves instead — views of the parameters, detached — whose ``.grad`` is
 preset to the matching view of one zeroed gradient tree: each layer's
 gradient is accumulated in place where it belongs, and the whole gradient
-costs one parameter-sized tree.
+costs one parameter-sized tree.  A heterogeneous stack's ``layers`` list
+(xLSTM) needs no slicing: each entry's leaves are autograd leaves as they
+are.
 """
 
 from __future__ import annotations
@@ -46,18 +48,23 @@ def make_grad_fn(model: Model, num_microbatches: int = 1):
     metrics ``{"ce", "aux", "loss"}`` are 0-d tensors on the device."""
 
     def single(params, batch):
-        stack = params["stack"]
-        gstack = tree_zeros_like(stack)
-        L = model.cfg.num_layers
-        layers = [tree_map(lambda p, g, i=i: _leaf(p[:, i], g[:, i]), stack, gstack)
-                  for i in range(L)]
-        top = {k: tree_map(_leaf, v) for k, v in params.items() if k != "stack"}
+        if "stack" in params:
+            gstack = tree_zeros_like(params["stack"])
+            layers = [tree_map(lambda p, g, i=i: _leaf(p[:, i], g[:, i]),
+                               params["stack"], gstack)
+                      for i in range(model.cfg.num_layers)]
+        else:
+            layers = tree_map(_leaf, params["layers"])
+        top = {k: tree_map(_leaf, v) for k, v in params.items()
+               if k not in ("stack", "layers")}
         with torch.enable_grad():
-            loss, metrics = loss_fn(model, {**top, "stack": stack}, batch,
-                                    layers=layers)
+            loss, metrics = loss_fn(model, top, batch, layers=layers)
             loss.backward()
         grads = {k: tree_map(lambda v: v.grad, t) for k, t in top.items()}
-        grads["stack"] = gstack
+        if "stack" in params:
+            grads["stack"] = gstack
+        else:
+            grads["layers"] = tree_map(lambda v: v.grad, layers)
         return grads, dict(metrics, loss=loss.detach())
 
     if num_microbatches <= 1:

@@ -1,6 +1,8 @@
 """The port's model zoo against the JAX package: the twin of
-``tests/test_archs_smoke.py`` over the configs the port runs (the seven
-homogeneous attention stacks of this slice and qwen3-4b).
+``tests/test_archs_smoke.py`` over every config of the reference: the
+attention stacks, hymba-1.5b (attention and SSD heads in parallel, a
+sliding window) and xlstm-1.3b (a heterogeneous ``layers`` list of mLSTM
+and sLSTM blocks).
 
 Each architecture's REDUCED variant in float32 (2 layers, d_model 256;
 the MoE configs 4 experts, top-2; the frontend configs 16 or 8 stub
@@ -90,6 +92,9 @@ def _paths(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _paths(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{prefix}{i}/")
     else:
         yield prefix[:-1], tree
 
@@ -107,11 +112,16 @@ def test_configs_match_the_reference(arch):
     assert red[1].active_param_count() == red[0].active_param_count()
 
 
-def test_registry_refuses_the_next_slices_archs():
-    """hymba-1.5b and xlstm-1.3b (SSM / xLSTM blocks) are not registered."""
+def test_registry_equals_the_references():
+    """The port registers every architecture of the reference, under the
+    same ids and aliases (hymba-1.5b and xlstm-1.3b included); an unknown
+    id is refused at lookup."""
+    assert ARCH_IDS == jconfigs.ARCH_IDS
+    assert ALIASES == jconfigs.ALIASES
     for arch in ("hymba-1.5b", "xlstm-1.3b"):
-        with pytest.raises(ValueError, match="no architecture"):
-            configs.get_arch(arch)
+        assert configs.get_arch(arch).name == arch
+    with pytest.raises(ValueError, match="no architecture"):
+        configs.get_arch("mamba-3b")
 
 
 def test_forward_logits_match(setup):
@@ -167,9 +177,10 @@ def test_sync_sgld_step_updates_params(setup):
 
 
 def test_serve_step_from_init_cache_matches(setup):
-    """Four cached decode steps from an empty ``init_cache`` ring (frontend
-    configs too, as the reference's ``init_cache`` allows), teacher-forced
-    with the same tokens, against the reference's unfused ``serve_step``."""
+    """Four cached decode steps from an empty ``init_cache`` (frontend
+    configs too, as the reference's ``init_cache`` allows; the recurrent
+    stacks' SSD / xLSTM state), teacher-forced with the same tokens, against
+    the reference's unfused ``serve_step``: logits and every cache leaf."""
     arch, jcfg, tcfg, jparams, tparams, batch = setup
     feed = np.random.default_rng(2).integers(0, jcfg.vocab_size, (4, B, 1)).astype(np.int32)
     jm = JaxModel(jcfg, remat=False)
@@ -180,9 +191,13 @@ def test_serve_step_from_init_cache_matches(setup):
         tl, tcache = tm.serve_step(tparams, tcache, tok, t)
         assert tl.shape == (1, B, 1, jcfg.vocab_size)
         np.testing.assert_allclose(_np(tl[0]), np.asarray(jl), **TOL)
-    for name in ("k", "v"):  # the port's cache is layer-major (L, C, ...)
-        np.testing.assert_allclose(_np(tcache["attn"][name][:, 0]),
-                                   np.asarray(jcache["attn"][name]), **TOL)
+    want = dict(_paths(jax.tree_util.tree_map(np.asarray, jcache)))
+    got = dict(_paths(tcache))
+    assert got.keys() == want.keys()
+    for name, t in got.items():
+        # a stack's cache is layer-major (L, C, ...), a list's entries (C, ...)
+        t = t if name.endswith("pos") else (t[0] if isinstance(tcache, list) else t[:, 0])
+        np.testing.assert_allclose(_np(t), want[name], **TOL, err_msg=name)
 
 
 @pytest.mark.parametrize("arch", IDS)

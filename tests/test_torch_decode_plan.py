@@ -144,11 +144,12 @@ def test_decode_wrapper_takes_a_16384_slot_ring_past_its_checks():
                        torch.ones(smax, dtype=torch.int32), 3)
 
 
-@pytest.mark.parametrize("G,compiled", [(3, True), (5, False), (7, True)])
+@pytest.mark.parametrize("G,compiled", [(3, True), (5, True), (6, False), (7, True)])
 def test_decode_wrappers_take_the_compiled_groups(G, compiled):
-    """Groups 3 (12 query heads over 4 KV heads) and 7 (internvl2-1b's 14
-    over 2) pass both wrappers' checks and stop only at the device; group
-    5 (hymba-1.5b, still to port) is refused as not compiled."""
+    """Groups 3 (12 query heads over 4 KV heads), 5 (hymba-1.5b's 25 over
+    5) and 7 (internvl2-1b's 14 over 2) pass both wrappers' checks and stop
+    only at the device; group 6 (no config has it) is refused as not
+    compiled."""
     KV, hd, smax = 4, 64, 32
     q = torch.zeros(2, KV, G, hd)
     kn = torch.zeros(2, KV, hd)

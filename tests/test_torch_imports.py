@@ -51,7 +51,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.cluster.executor, repro_torch.data.pipeline\n"
         "import repro_torch.checkpoint, repro_torch.faults\n"
         "import repro_torch.cluster.serve, repro_torch.models.predictive\n"
-        "import repro_torch.models.moe\n"
+        "import repro_torch.models.moe, repro_torch.models.ssm\n"
+        "import repro_torch.models.xlstm\n"
         "from repro_torch.configs.base import ALIASES, get_arch, get_reduced\n"
         "assert all(get_arch(a).name == a and get_reduced(a) for a in ALIASES)\n"
         f"sys.path.insert(0, {str(ROOT / 'examples')!r})\n"

@@ -179,9 +179,10 @@ def test_paged_kernel_at_group_3_matches_plain_on_card(cuda, dtype, pos, maxp):
 # (KV heads, query heads a KV head, head_dim) the model zoo adds: kimi-k2's
 # head_dim 112 at G 8 and stablelm-12b's 160 at G 4 (rows of 14 or 20 bf16
 # copies, which do not divide the block; 7 or 10 mma row tiles over 4
-# warps), internvl2-1b's group of 7 at head_dim 64
+# warps), internvl2-1b's group of 7 and hymba-1.5b's group of 5 at
+# head_dim 64
 NEW_SHAPES = {"hd112-g8": (8, 8, 112), "hd160-g4": (8, 4, 160),
-              "hd64-g7": (2, 7, 64)}
+              "hd64-g7": (2, 7, 64), "hd64-g5": (5, 5, 64)}
 
 
 @pytest.mark.cuda
@@ -230,9 +231,9 @@ def test_paged_kernel_at_new_shapes_matches_plain_on_card(cuda, dtype, shape,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,hd", [(5, 64), (4, 96)])
+@pytest.mark.parametrize("G,hd", [(6, 64), (4, 96)])
 def test_uncompiled_shapes_raise_on_card(cuda, G, hd):
-    """Group 5 and head_dim 96 are not compiled: both wrappers raise on
+    """Group 6 and head_dim 96 are not compiled: both wrappers raise on
     the card's tensors, before any launch and with no plain fallback."""
     q, kn, vn, kc, vc = (torch.zeros(*s, device=cuda) for s in
                          ((2, 2, G, hd), (2, 2, hd), (2, 2, hd),
