@@ -184,7 +184,27 @@ library) and runs, failing on the first phase that fails:
    fused W-Icon commits at tau 2, batch 8 x 128; xlstm at gamma 1e-7): ms
    a commit, peak GB, the SGLD kernels once a leaf a commit; the sLSTM
    loop's operations a layer; and xlstm's gradient at init, a layer's
-   largest.  Phase 11's seconds and the script's so far are logged.
+   largest.  Phase 11's seconds and the script's so far are logged;
+12. the tooling, at qwen3-4b's published widths with the depth cut to 4
+   layers (as the cluster-full cell's): (1) the decode and paged cells'
+   traffic on a 4-chain bank, warmed up, then replayed under
+   ``instrument()`` with the tracer on: ``stream_flags()`` empty (no new
+   rung, no pad scratch), the decode and paged timelines written under
+   ``smoke_out/tooling/`` and valid (``validate_chrome_trace``), their
+   summaries logged; (2) three fused W-Icon ``ClusterEngine`` commits (C 4,
+   tau 2) under ``instrument(transfer_guard="error")``, which the
+   fault-free path passes (it reads nothing back), while the same commits
+   under ``health_check`` (a flag read a commit) must raise; the run's
+   cluster timeline valid; (3) the launcher's training cell at 4 layers
+   fed by ``Prefetcher`` (pinned memory, a side stream) and without it in
+   one call: the batches bitwise the same, ms a commit of each and the
+   share of the batch time hidden (the training thread's time getting a
+   prefetched batch against making one inline); (4) the train cell's ``mfu``
+   (``launch.roofline.model_flops`` over phase 6's ms a commit and the
+   H100's dense bf16 peak), a ``--all`` dry run on ``meta`` timed, and at
+   depth 1 the FLOPs counted on the card for one real training step equal
+   to the dry run's.  Phase 12's seconds and the script's so far are
+   logged.
 
 Before it, one JSON object with the paper path's numbers (phase 7c).
 The line before the last is one JSON object with each kernel's numbers;
@@ -2776,6 +2796,314 @@ def recurrent_reference_check(torch, np, lu, dg, ds) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the tooling — instrumentation, timelines, the prefetcher, the
+# roofline and the dry run
+# ---------------------------------------------------------------------------
+TOOLING_LAYERS = 4  # qwen3-4b's widths, depth cut as the cluster-full cell's
+TOOLING_OUT = ROOT / "smoke_out" / "tooling"  # timelines and dry-run JSONs
+PREFETCH_STEPS, PREFETCH_CHUNK = 6, 3
+
+
+def _timeline(name: str, trace: dict) -> dict:
+    """Write a timeline under TOOLING_OUT, validate it, log its summary."""
+    from repro_torch.obs.timeline import summarize, validate_chrome_trace, write_chrome_trace
+
+    TOOLING_OUT.mkdir(parents=True, exist_ok=True)
+    write_chrome_trace(TOOLING_OUT / f"{name}.timeline.json", trace)
+    problems = validate_chrome_trace(trace)
+    check(problems == [], f"tooling: the {name} timeline is invalid: {problems[:3]}")
+    s = summarize(trace)
+    n_events = sum(ev.get("ph") == "X" for ev in trace["traceEvents"])
+    check(n_events > 0, f"tooling: the {name} timeline is empty")
+    crit = s["critical"]
+    log(f"tooling: {name} timeline: {n_events} spans, makespan {s['makespan_s']:.3f} s, "
+        f"critical row {crit['label']} busy {crit['busy_s']:.3f} s; "
+        f"tokens by rung {s['tokens_by_rung']}; staleness {s['staleness_hist']}")
+    return {"spans": n_events, "makespan_s": s["makespan_s"], "critical": crit["label"]}
+
+
+def tooling_streams(torch, np, ds, cfg) -> dict:
+    """(1) The decode and paged cells' traffic on a 4-chain bank at
+    TOOLING_LAYERS layers, warmed up, then replayed under ``instrument()``
+    with the tracer on: no new rung, no pad scratch, both timelines valid."""
+    from repro_torch.analysis import instrument
+    from repro_torch.cluster import DecodeEngine, PagedDecodeEngine, Request
+    from repro_torch.models.transformer import init_params
+    from repro_torch.obs.timeline import decode_timeline, paged_timeline
+    from repro_torch.obs.trace import tracer
+
+    C, L, V = 4, cfg.num_layers, cfg.vocab_size
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", num_chains=C)
+    r = np.random.default_rng(0)
+    prompts = r.integers(0, V, (4, 32)).astype(np.int32)
+    lens = [8, 96, 17, 64, 33, 8, 80, 45, 12, 96, 24, 50]
+    budgets = [32, 4, 16, 24, 8, 32, 12, 4, 20, 16, 28, 6]
+    reqs = [r.integers(0, V, (t,)).astype(np.int32) for t in lens]
+    dec = DecodeEngine(cfg, params, max_seq=256, device="cuda")
+    pag = PagedDecodeEngine(cfg, params, num_slots=8, page_size=16, max_seq=256,
+                            decode_chunk=8, device="cuda")
+
+    def decode_stream():
+        dec.generate(prompts, 16)
+        dec.generate(prompts[:1], 16, key=1234)
+
+    def paged_stream():
+        early = []
+        for i, (p, n) in enumerate(zip(reqs, budgets)):
+            if i == 10:
+                early = pag.step()  # slots full: the priority requests preempt
+            pag.submit(Request(tokens=p, max_new_tokens=n, priority=int(i >= 10),
+                               key=None if i % 3 else 77 + i))
+        return early + pag.drain()
+
+    out = {}
+    tr = tracer()
+    for name, stream, timeline in (("decode", decode_stream, decode_timeline),
+                                   ("paged", paged_stream, paged_timeline)):
+        stream()  # warm-up: every rung met, every scratch made
+        torch.cuda.synchronize()
+        ds.decode_step.launches = ds.paged_decode_step.launches = 0
+        tr.clear()
+        tr.enable()
+        try:
+            with instrument() as rep:
+                stream()
+        finally:
+            tr.disable()
+        flags = rep.stream_flags()
+        check(flags == {"retraced_in_stream": False, "pad_allocs_in_stream": 0},
+              f"tooling: the warm {name} stream met new rungs: {rep.to_dict()}")
+        launches = {"decode_step": ds.decode_step.launches,
+                    "paged_decode_step": ds.paged_decode_step.launches}
+        kernel = "decode_step" if name == "decode" else "paged_decode_step"
+        check(launches[kernel] > 0 and launches[kernel] % L == 0
+              and sum(launches.values()) == launches[kernel],
+              f"tooling: {name} stream launches {launches}")
+        out[name] = {"stream_flags": flags, "report": rep.to_dict(), "launches": launches,
+                     "timeline": _timeline(name, timeline(tr.drain()))}
+        log(f"tooling: warm {name} stream under instrument(): {flags}; launches {launches}")
+    del dec, pag, params
+    return out
+
+
+def tooling_cluster(torch, np, kernels, cfg) -> dict:
+    """(2) Three fused W-Icon ClusterEngine commits (C 4, tau 2) under
+    ``instrument(transfer_guard="error")``: the fault-free path reads
+    nothing back, so the region passes; the same commits under
+    ``health_check`` (one (C,) flag read a commit) must raise; the run's
+    cluster timeline is valid."""
+    from repro_torch import samplers
+    from repro_torch.analysis import instrument
+    from repro_torch.cluster import ClusterEngine, ensemble_async
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import WorkerModel
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import rng
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.obs.timeline import cluster_timeline
+    from repro_torch.train.loop import make_grad_fn
+    from repro_torch.utils import tree_leaves
+
+    C, steps, tau = 4, 3, 2
+    shape = ShapeConfig("cluster", seq_len=128, global_batch=8, kind="train")
+    model = Model(cfg, device="cuda")
+    sampler = samplers.sgld("inconsistent", make_grad_fn(model), gamma=1e-3,
+                            sigma=1e-5, tau=tau, has_aux=True, fused=True)
+    schedules = ensemble_async(WorkerModel(num_workers=8), steps, C, seed=0)
+
+    def engine(health):
+        return ClusterEngine(sampler, num_chains=C, chunk_size=steps, health_check=health,
+                             batch_fn=lambda gen: make_batch(cfg, shape, gen, "train"))
+
+    eng = engine(False)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", num_chains=1)
+    state = eng.init(params, rng.PRNGKey(0))
+    del params
+    state, _ = eng.run(state, steps=1, schedule=ensemble_async(
+        WorkerModel(num_workers=8), 1, C, seed=1), key=1)  # warm-up
+    torch.cuda.synchronize()
+    _reset(kernels)
+    t0 = time.perf_counter()
+    with instrument(transfer_guard="error") as rep:
+        state, _ = eng.run(state, steps=steps, schedule=schedules, key=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _counts(kernels)
+    want = dict.fromkeys(kernels, 0)
+    want.update(langevin_update=len(tree_leaves(state.params)) * steps,
+                wicon_read=len(tree_leaves(state.params)) * steps)
+    check(got == want, f"tooling: guarded commits launched {got}, want {want}")
+    log(f"tooling: {steps} fused W-Icon commits of {C} chains under "
+        f"transfer_guard='error' passed in {wall:.3f} s; launches {got}")
+    raised = None
+    try:
+        with instrument(transfer_guard="error"):
+            engine(True).run(state, steps=steps, schedule=schedules, key=0)
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0][:160]
+    check(raised is not None, "tooling: the health_check commits read the flags back "
+          "under transfer_guard='error' and did not raise")
+    log(f"tooling: the same commits under health_check raised: {raised}")
+    tl = _timeline("cluster", cluster_timeline(schedules, max_chains=None))
+    del state, eng
+    return {"launches": got, "wall_s": wall, "guarded_ms_per_commit": wall * 1e3 / steps,
+            "report": rep.to_dict(), "health_check_raised": raised, "timeline": tl}
+
+
+def tooling_prefetch(torch, np, kernels) -> dict:
+    """(3) The launcher's training cell at TOOLING_LAYERS layers, one run
+    fed by ``Prefetcher`` (batches made on a thread, copied from pinned
+    memory on a side stream) and one without it, in this call: the batches
+    bitwise the same, ms a commit of each (the second chunk), and the share
+    of the batch time hidden — one minus the training thread's time getting
+    a prefetched batch over its time making one inline."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import Prefetcher, make_batch
+    from repro_torch.kernels import rng
+    from repro_torch.launch import train as launch
+    from repro_torch.utils import tree_leaves
+
+    args = launch.parser().parse_args(
+        ["--arch", "qwen3-4b", "--layers", str(TOOLING_LAYERS), "--seq", "128",
+         "--mode", "inconsistent", "--fused", "--tau", "2", "--batch", "8",
+         "--steps", str(PREFETCH_STEPS), "--chunk", str(PREFETCH_CHUNK)])
+    cfg, _, state, engine, delays = launch.build(args)
+    shape = ShapeConfig("cli", seq_len=args.seq, global_batch=args.batch, kind="train")
+
+    def batch_fn(key):
+        return make_batch(cfg, shape, torch.Generator().manual_seed(rng.seed_int(key)),
+                          "train")
+
+    def host_batches(key):
+        while True:
+            key, sub = rng.split(key)
+            yield batch_fn(sub)
+
+    out = {}
+    seen, fetch = {}, {}
+    for name in ("prefetched", "inline", "prefetched_again"):
+        pf = None
+        if name.startswith("prefetched"):
+            pf = Prefetcher(batch_fn, rng.PRNGKey(7), device="cuda", depth=PREFETCH_CHUNK)
+            source = pf
+        else:
+            source = host_batches(rng.PRNGKey(7))
+        seen[name], fetch[name] = [], []
+
+        def draw(_gen, source=source, rec=seen[name], waited=fetch[name]):
+            t = time.perf_counter()
+            b = next(source)  # inline: made here; prefetched: waited for
+            waited.append(time.perf_counter() - t)
+            rec.append(b["tokens"])
+            return b
+
+        ends = []
+
+        def timer(_end, _state, _aux):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+
+        engine.batch_fn = draw
+        engine.hooks = [timer]
+        _reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = engine.run(state, steps=PREFETCH_STEPS, delays=delays, key=0)
+        if pf is not None:
+            pf.close()
+        ms = (ends[-1] - ends[0]) * 1e3 / (PREFETCH_STEPS - PREFETCH_CHUNK)
+        out[name] = {"ms_per_commit": ms, "first_chunk_s": ends[0] - t0,
+                     "launches": _counts(kernels),
+                     "batch_ms": sum(fetch[name]) * 1e3 / PREFETCH_STEPS}
+        n = len(tree_leaves(state.params)) * PREFETCH_STEPS
+        want = dict(dict.fromkeys(kernels, 0), langevin_update=n, wicon_read=n)
+        check(out[name]["launches"] == want,
+              f"tooling: training {name} launched {out[name]['launches']}, want {want}")
+        log(f"tooling: training {name}: {ms:.2f} ms/commit after the first chunk "
+            f"({ends[0] - t0:.3f} s), {out[name]['batch_ms']:.4f} ms a commit on the "
+            f"host getting its batch; launches {out[name]['launches']}")
+    same = all(torch.equal(a.cpu(), b.cpu()) for name in ("prefetched", "prefetched_again")
+               for a, b in zip(seen[name], seen["inline"]))
+    check(same and all(len(v) == PREFETCH_STEPS for v in seen.values()),
+          "tooling: prefetched batches differ from the inline ones")
+    pf_ms = (out["prefetched"]["batch_ms"] + out["prefetched_again"]["batch_ms"]) / 2
+    hidden = 1.0 - pf_ms / out["inline"]["batch_ms"]
+    out["hidden_share"] = hidden
+    log(f"tooling: prefetched batches bitwise the inline ones; the training thread "
+        f"spends {out['inline']['batch_ms']:.4f} ms a commit making its batch inline, "
+        f"{pf_ms:.4f} waiting for a prefetched one: {hidden:.3f} of the batch time hidden")
+    del state, engine
+    return out
+
+
+def tooling_roofline(torch, np, tp: dict) -> dict:
+    """(4) The train cell's mfu from phase 6's measured ms a commit; a
+    ``--all`` dry run on meta, timed; at depth 1 the FLOPs counted on the
+    card for one real training step equal the dry run's at its shape."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import rng
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.flop_cost import step_cost
+    from repro_torch.launch.steps import build_model, make_sgld_train_step
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_arch("qwen3-4b")
+    cell = ShapeConfig("train_cell", seq_len=128, global_batch=8, kind="train")
+    mf = roofline.model_flops(cfg, cell)
+    mfu = roofline.mfu(mf, tp["ms_per_commit"] / 1e3)
+    log(f"tooling: train cell {cfg.name} {cfg.active_param_count() / 1e9:.3f} B x "
+        f"{8 * 128} tokens: model_flops {mf:.4g}, {tp['ms_per_commit']:.2f} ms a commit "
+        f"(phase 6) -> mfu {mfu:.4f} against {roofline.PEAK_FLOPS:.4g} FLOP/s "
+        f"({roofline.CARD})")
+    t0 = time.perf_counter()
+    rc = dryrun.main(["--all", "--out", str(TOOLING_OUT / "dryrun")])
+    dry_s = time.perf_counter() - t0
+    check(rc == 0, "tooling: the --all dry run failed")
+    log(f"tooling: --all dry run on meta (40 combinations) in {dry_s:.1f} s")
+    one = replace(cfg, num_layers=1)
+    meta_step, meta_args, _, _ = dryrun.step_and_args(one, cell)
+    meta = step_cost(meta_step, *meta_args)
+    model, _ = build_model(one, cell, device="cuda")
+    params = init_params(one, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", num_chains=1)
+    batch = make_batch(one, cell, torch.Generator().manual_seed(0))
+    real = step_cost(make_sgld_train_step(model, cell), params, batch, rng.PRNGKey(0))
+    check((real.flops, real.matmul_flops) == (meta.flops, meta.matmul_flops),
+          f"tooling: FLOPs on the card {real.flops:.6g} / {real.matmul_flops:.6g} "
+          f"against the dry run's {meta.flops:.6g} / {meta.matmul_flops:.6g}")
+    log(f"tooling: depth 1, {cell.global_batch} x {cell.seq_len}: one training step "
+        f"counts {real.flops:.6g} FLOPs ({real.matmul_flops:.6g} in matmuls) on the "
+        f"card, as on meta; bytes {real.bytes:.4g} (card) / {meta.bytes:.4g} (meta)")
+    del params, model
+    return {"model_flops": mf, "ms_per_commit": tp["ms_per_commit"], "mfu": mfu,
+            "peak_flops": roofline.PEAK_FLOPS, "dryrun_all_s": dry_s,
+            "depth1_flops": real.flops, "depth1_matmul_flops": real.matmul_flops,
+            "depth1_bytes_card": real.bytes, "depth1_bytes_meta": meta.bytes}
+
+
+def tooling_path(torch, np, ds, kernels, tp: dict) -> dict:
+    """Phase 12: (1) the instrumented decode / paged streams and their
+    timelines, (2) the guarded cluster commits, (3) the prefetcher, (4) the
+    roofline and the dry run."""
+    from repro_torch.configs import get_arch
+
+    cfg = replace(get_arch("qwen3-4b"), num_layers=TOOLING_LAYERS)
+    log(f"tooling: {cfg.name} at its published widths, depth cut 36 -> {TOOLING_LAYERS}")
+    out = {"layers": TOOLING_LAYERS, "streams": tooling_streams(torch, np, ds, cfg)}
+    _free(torch)
+    out["cluster"] = tooling_cluster(torch, np, kernels, cfg)
+    _free(torch)
+    out["prefetch"] = tooling_prefetch(torch, np, kernels)
+    _free(torch)
+    out["roofline"] = tooling_roofline(torch, np, tp)
+    _free(torch)
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2924,6 +3252,18 @@ def main() -> int:
     hybrid_train = {"launches": {k: sum(r["launches"][k] for r in rtrain)
                                  for k in rtrain[0]["launches"]}}
     hybrid = {"serve": rsrv[0]["launches"], "window": hwin["launches"]}
+    # phase 12: the tooling
+    t12 = time.perf_counter()
+    tool = tooling_path(torch, np, ds, sgld_kernels, tp)
+    phase12_s = time.perf_counter() - t12
+    log(f"phase 12: {phase12_s:.1f} s; the script so far {time.perf_counter() - T_START:.1f} s "
+        "of its 1,200")
+    tool_runs = [tool["cluster"]] + [tool["prefetch"][n] for n in
+                                     ("prefetched", "inline", "prefetched_again")]
+    tooling_train = {"launches": {k: sum(r["launches"][k] for r in tool_runs)
+                                  for k in sgld_kernels}}
+    tool_decode = tool["streams"]["decode"]["launches"]["decode_step"]
+    tool_paged = tool["streams"]["paged"]["launches"]["paged_decode_step"]
 
     def cases(runs):
         return [{k: r[k] for k in ("dtype", "heads", "rows", "smax", "valid", "maxp", "pos",
@@ -2940,13 +3280,13 @@ def main() -> int:
          "replaces": "src/repro/kernels/decode_step.py:63",
          "launches": (mp["decode"]["launches"] + mp["serve"]["decoder"]["launches"]
                       + tl["launches"] + sum(z["launches"] for z in zoo)
-                      + srv["decode"]["launches"] + sum(hybrid.values())),
+                      + srv["decode"]["launches"] + sum(hybrid.values()) + tool_decode),
          "launches_by_path": {"decode": mp["decode"]["launches"],
                               "serve_decoder": mp["serve"]["decoder"]["launches"],
                               "train_lm_decode_group3": tl["launches"],
                               "zoo": {z["arch"]: z["launches"] for z in zoo},
                               "moe_serve": srv["decode"]["launches"],
-                              "hybrid": hybrid},
+                              "hybrid": hybrid, "tooling": tool_decode},
          "max_abs_err": d["max_abs_err"],
          "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
          "bound_by": d["bound_by"], "library_ms": d["library_ms"],
@@ -2961,11 +3301,13 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/decode_step.cuh",
          "replaces": "src/repro/kernels/decode_step.py:150",
          "launches": (mp["paged"]["launches"] + srv["paged"]["launches"]
-                      + sum(z["paged"]["launches"] for z in zoo if "paged" in z)),
+                      + sum(z["paged"]["launches"] for z in zoo if "paged" in z)
+                      + tool_paged),
          "launches_by_path": {"paged": mp["paged"]["launches"],
                               "zoo": {z["arch"]: z["paged"]["launches"]
                                       for z in zoo if "paged" in z},
-                              "moe_serve": srv["paged"]["launches"]},
+                              "moe_serve": srv["paged"]["launches"],
+                              "tooling": tool_paged},
          "max_abs_err": p["max_abs_err"],
          "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
          "bound_by": p["bound_by"], "library_ms": p["library_ms"],
@@ -3000,7 +3342,8 @@ def main() -> int:
                    for path, run in (("train", tp), ("paper", pp), ("paper_fused", pf),
                                      ("cluster", cp), ("faults", fa), ("fault_path", fb),
                                      ("run_checkpoint", fc), ("zoo_train", zoo_train),
-                                     ("hybrid_train", hybrid_train))}
+                                     ("hybrid_train", hybrid_train),
+                                     ("tooling", tooling_train))}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
@@ -3022,6 +3365,7 @@ def main() -> int:
     log(json.dumps({"recurrent": {"reference": rref, "serve": rsrv, "window": hwin,
                                   "train": rtrain, "slstm_loop": sloop,
                                   "xlstm_grad_at_init": xgrad, "seconds": phase11_s}}))
+    log(json.dumps({"tooling": {**tool, "seconds": phase12_s}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,13 @@ potentials and theory in :mod:`repro_torch.core`, the W2 and KL metrics in
 :mod:`repro_torch.metrics`, the §3.2 regression and §3.3 RICA runs in
 :mod:`repro_torch.experiments`), the multi-chain
 :class:`~repro_torch.cluster.executor.ClusterEngine` with its faults and
-self-healing (:mod:`repro_torch.faults`), and checkpoints in the JAX
-package's file format (:mod:`repro_torch.checkpoint`).  All four kernels
+self-healing (:mod:`repro_torch.faults`), checkpoints in the JAX
+package's file format (:mod:`repro_torch.checkpoint`), and the tooling:
+the instrumentation bus (:mod:`repro_torch.analysis`), Chrome-trace
+timelines (:mod:`repro_torch.obs.timeline`), the batch prefetcher
+(:class:`~repro_torch.data.pipeline.Prefetcher`), and the launch tools —
+step builders, the ``meta``-device dry run with its FLOP count and the
+H100 roofline (:mod:`repro_torch.launch`).  All four kernels
 of the JAX package — the two decode steps, the fused Langevin update and
 the W-Icon delay gather — are written in CUDA C++ for ``sm_90a``.
 

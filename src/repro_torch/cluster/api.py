@@ -9,7 +9,9 @@
 - :class:`Endpoint` — the shared ``submit()`` / ``drain()`` surface, with
   ``max_waiting`` backpressure;
 - :class:`BankEngine` — the plumbing every chain-bank engine shares: bank
-  validation, chain counting, host pad scratch and the request queue, and
+  validation, chain counting, the instrument counters
+  (:func:`~repro_torch.analysis.instrument.counters`), host pad scratch and
+  the request queue, and
   the constructors from a cluster state (``from_cluster``, serving degraded
   from the healthy chains) and from a checkpoint (``from_checkpoint``),
   which bind the engine's front argument (``model`` on the decode engines,
@@ -32,6 +34,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.instrument import Counters as _Counters
+from repro_torch.analysis.instrument import counters as _counters
 from repro_torch.obs.metrics import registry as _registry
 from repro_torch.obs.trace import now as _now
 from repro_torch.utils import resolve_device, tree_leaves, tree_map
@@ -103,11 +107,15 @@ class Completion:
 class HostScratch:
     """Reusable host-side pad buffers, one per (bucket rung, leaf), so a
     steady request stream allocates nothing on the padding path
-    (``allocs`` stops growing once every rung has been seen)."""
+    (``allocs`` stops growing once every rung has been seen).  Every
+    buffer creation is reported to ``counters`` (a
+    :class:`~repro_torch.analysis.instrument.Counters` handle) when one is
+    given."""
 
-    def __init__(self):
+    def __init__(self, counters: Optional[_Counters] = None):
         self._bufs: dict = {}
         self.allocs = 0  # scratch-buffer creations, NOT per-request work
+        self._counters = counters
 
     def get(self, key, shape, dtype) -> np.ndarray:
         """The scratch buffer for ``key`` (caller fills it)."""
@@ -117,6 +125,8 @@ class HostScratch:
             buf = np.empty(shape, dtype)
             self._bufs[k] = buf
             self.allocs += 1
+            if self._counters is not None:
+                self._counters.pad_alloc()
         return buf
 
     def pad(self, x: np.ndarray, n: int, key=0) -> np.ndarray:
@@ -245,6 +255,7 @@ class BankEngine(Endpoint):
 
     def _init_bank(self) -> None:
         """Validate the bank, count chains, sort the prompt ladder, and wire
+        the instrument counters (labelled with the engine's class name),
         the host pad scratch and the request queue."""
         leaves = tree_leaves(self.params)
         if not leaves:
@@ -258,14 +269,30 @@ class BankEngine(Endpoint):
             ladder = getattr(self, name, None)
             if ladder is not None:
                 setattr(self, name, sorted(int(b) for b in ladder))
-        self._scratch = HostScratch()
+        self._counters = _counters(type(self).__name__)
+        self._scratch = HostScratch(self._counters)
         self._pending: list = []
+        self._rungs: set = set()
+
+    def _see_rung(self, program: str, rung) -> None:
+        """Report ``rung`` of ``program`` to the counters the first time the
+        engine meets it: what the JAX package's engines count as a jit
+        trace (the port compiles nothing per shape)."""
+        if (program, rung) not in self._rungs:
+            self._rungs.add((program, rung))
+            self._counters.trace(program)
+
+    @property
+    def num_traces(self) -> int:
+        """Shape rungs met so far, over every program — the JAX engine's
+        trace count; a view over the engine's instrument counters."""
+        return self._counters.traces
 
     @property
     def num_host_pad_allocs(self) -> int:
         """Host scratch-buffer creations so far (one per rung, not per
-        request)."""
-        return self._scratch.allocs
+        request); a view over the engine's instrument counters."""
+        return self._counters.pad_allocs
 
 
 def _looks_like_front(x) -> bool:

@@ -209,6 +209,7 @@ class DecodeEngine(BankEngine):
         B, T = tokens.shape
         b_rung = bucket_size(B, self.buckets)
         t_rung = bucket_size(T, self.prompt_buckets)
+        self._see_rung("decode", (b_rung, t_rung, int(max_new_tokens), key is None))
         t_start = _now()
         with _span("decode.generate", B=B, T=T, b_rung=b_rung, t_rung=t_rung,
                    new_tokens=int(max_new_tokens), chains=self.num_chains):

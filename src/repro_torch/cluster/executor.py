@@ -51,6 +51,7 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.instrument import counters as _counters
 from repro_torch.cluster.ensemble import init_ensemble, worker_keys
 from repro_torch.cluster.schedule import (
     WorkerSchedule,
@@ -215,7 +216,8 @@ class ClusterEngine:
         if self.mesh is not None:
             raise ValueError("ClusterEngine: mesh= (chains sharded over several "
                              "cards) is left out of the port: one card cannot "
-                             "test it (ROADMAP Queue 1 items 2 and 9)")
+                             "test it (ROADMAP Queue 1)")
+        self._counters = _counters("ClusterEngine")
         reg = _registry()
         self._m_staleness = reg.histogram(
             "cluster.staleness", STALENESS_BUCKETS,
@@ -239,8 +241,15 @@ class ClusterEngine:
     def num_traces(self) -> int:
         """Distinct chunk layouts run so far — (batch layout, chunk length),
         and for masked windows (ladder rung, chunk length) — what the JAX
-        engine counts as jit traces."""
-        return len(self._layouts)
+        engine counts as jit traces; a view over the engine's instrument
+        counters."""
+        return self._counters.traces
+
+    def _see_layout(self, program: str, layout) -> None:
+        """Report a chunk layout to the counters the first time it runs."""
+        if layout not in self._layouts:
+            self._layouts.add(layout)
+            self._counters.trace(program)
 
     # -- init / export ----------------------------------------------------------
     def init(self, params: PyTree, key, *, jitter: float = 0.0) -> SamplerState:
@@ -659,7 +668,7 @@ class ClusterEngine:
                 a = pos[0]
                 pos[0] += n
                 pad = bucket_size(int(sizes[a:a + n].max()), self.buckets)
-                self._layouts.add(("masked", pad, n))
+                self._see_layout(f"masked_chunk[pad={pad}]", ("masked", pad, n))
                 out = []
                 for k in range(a, a + n):
                     idx = torch.remainder(to_device(offs[k], device)[:, None]
@@ -688,7 +697,7 @@ class ClusterEngine:
             def gen(key, n):
                 a = pos[0]
                 pos[0] += n
-                self._layouts.add((layout, n))
+                self._see_layout(f"chunk[{layout}]", (layout, n))
                 out = []
                 for k in range(a, a + n):
                     if batches is not None:

@@ -198,6 +198,7 @@ class PagedDecodeEngine(BankEngine):
         host tokens ``(steps, S)`` (-1 where a slot was inactive) and the
         BMA log-probs ``(steps, S, V)`` when ``return_logits``."""
         dev = self.device
+        self._see_rung("paged_step", ())  # slot churn never changes a shape
         tables = torch.from_numpy(self._tables).to(dev)
         seeds = torch.from_numpy(self._keys).to(dev)
         greedy = torch.from_numpy(self._greedy).to(dev)
@@ -341,6 +342,7 @@ class PagedDecodeEngine(BankEngine):
     def _admit_one(self, s: int, req: Request) -> Optional[Completion]:
         T = int(req.tokens.shape[0])
         t_rung = bucket_size(T, self.prompt_buckets)
+        self._see_rung("paged_prefill", t_rung)
         n_pages = cdiv(max(t_rung, T + req.max_new_tokens), self.page_size)
         pages = self._allocator.alloc(n_pages)
         if pages is None:

@@ -23,8 +23,9 @@ Differences from the JAX package, by design:
 - no ``mesh`` / ``chain_axis``: the bank lives on one card;
 - no ``donate``: nothing is jitted, so no buffer is donated, and the
   caller's buffer is never written;
-- no ``num_traces``: nothing is traced (counting CUDA-graph captures is
-  tooling still to port).
+- ``num_traces`` counts the shape rungs met (bucket x query structure):
+  nothing is traced, and a rung's first sight is what the JAX engine's
+  trace counter counts.
 """
 
 from __future__ import annotations
@@ -224,8 +225,11 @@ class ServeEngine(BankEngine):
         """The batch-level program: pad one query batch to its bucket, run
         every chain's forward and the reduction on the device, trim on
         the host."""
-        q = int(tree_leaves(queries)[0].shape[0])
+        leaves = tree_leaves(queries)
+        q = int(leaves[0].shape[0])
         n = bucket_size(q, self.buckets)
+        self._see_rung("stats", (n, tuple((tuple(x.shape[1:]), str(x.dtype))
+                                          for x in leaves)))
         t0 = _now()
         with _span("serve.request", Q=q, bucket=n, chains=self.num_chains):
             padded = _pad_queries(queries, n, scratch=self._scratch,

@@ -1,8 +1,10 @@
 """Architecture config dataclass and the registry (port of
 ``repro.configs.base``).
 
-Only the fields and helpers the ported slices need are kept (no mesh or
-sharding fields); the port registers every architecture of the reference:
+Only the fields and helpers the ported slices need are kept (of the
+sharding fields, ``param_sharding``, which the partition rules read; none
+of the reference's performance switches); the port registers every
+architecture of the reference:
 the attention stacks (``attn_mlp``, ``attn_moe``, with the vision and audio
 frontend stubs), the hybrid attention + SSD stack (``hymba_mlp``) and the
 heterogeneous xLSTM stack (``mlstm`` / ``slstm``).
@@ -84,6 +86,10 @@ class ArchConfig:
     num_frontend_tokens: int = 0    # prepended stub-embedding positions
     dtype: str = "bfloat16"
 
+    # distribution: the layout :func:`repro_torch.models.common.partition_tree`
+    # gives ("tp" | "fsdp_tp", 2-D for trillion-scale | "fsdp_full")
+    param_sharding: str = "tp"
+
     def __post_init__(self):
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
@@ -131,6 +137,16 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str            # "train" | "prefill" | "decode"
+    num_microbatches: int = 1
+
+
+#: the assigned input shapes (the reference's ``SHAPES``)
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train", num_microbatches=4),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 def _module(name: str):
@@ -147,6 +163,14 @@ def get_arch(name: str) -> ArchConfig:
 
 def get_reduced(name: str) -> ArchConfig:
     return _module(name).reduced()
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def all_archs() -> list[ArchConfig]:
+    return [get_arch(a) for a in ARCH_IDS]
 
 
 def _reduce_common(cfg: ArchConfig, **over) -> ArchConfig:

@@ -3,8 +3,10 @@
 Published widths: 61L d_model=7168 64H (GQA kv=8) d_ff=2048(per expert)
 vocab=163840, MoE 384 experts top-8 (+1 shared, DeepSeek-V3 lineage).
 At 1T total parameters (2.09 TB in bf16) one card holds one layer of it:
-one layer's 384 x 3 experts of 7168 x 2048 are 33.8 GB.  The reference's
-2-D sharding field (``param_sharding``) has no counterpart in the port.
+one layer's 384 x 3 experts of 7168 x 2048 are 33.8 GB.  Its 2-D
+sharding (``param_sharding="fsdp_tp"``) is the reference's; the port's
+partition rules (:func:`repro_torch.models.common.partition_tree`) read it,
+and nothing applies them to several cards yet.
 """
 
 from repro_torch.configs.base import ArchConfig, _reduce_common
@@ -24,6 +26,7 @@ CONFIG = ArchConfig(
     experts_per_token=8,
     num_shared_experts=1,
     block_pattern=("attn_moe",),
+    param_sharding="fsdp_tp",
 )
 
 

@@ -1,21 +1,30 @@
-"""Data streams for the sampler zoo (port of ``repro.data.pipeline``'s
-:func:`ar1_stream`; the prefetcher is not ported yet).
+"""Host-side data pipeline: double-buffered prefetch and the dependent
+minibatch stream (port of ``repro.data.pipeline``).
 
+:class:`Prefetcher` makes the next batch on a background thread while the
+current step runs; on a card it also copies it there, from pinned host
+memory on a side stream, off the training stream's critical path.
 :func:`ar1_stream` generates the dependent (non-i.i.d.) minibatch sequence
 of the Chau-et-al.-shaped scenario, with its normals drawn by
 :func:`~repro_torch.kernels.rng.jax_normal`, so a key gives the JAX
-package's stream.
+package's stream.  The reference's ``mesh`` / ``batch_axes`` placement
+(batches sharded over several cards) is not ported: one card.
 """
 
 from __future__ import annotations
 
 import math
+import queue
+import threading
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import rng
-from repro_torch.utils import resolve_device
+from repro_torch.utils import resolve_device, tree_leaves, tree_map
+
+PyTree = Any
 
 
 def ar1_stream(key, *, steps: int, batch: int, d: int, rho: float = 0.9,
@@ -56,3 +65,96 @@ def ar1_stream(key, *, steps: int, batch: int, d: int, rho: float = 0.9,
                 e = rng._fma(innov, xi[t], rng._fma(rho_t, e - mean_t, mean_t))
             out[t + 1] = e
     return out
+
+
+class Prefetcher:
+    """Wrap a batch-making callable into a prefetching iterator.
+
+    ``batch_fn(key) -> batch`` (a tree of tensors or numpy arrays, made on
+    the host); the keys are the reference's sequence: ``key, sub =
+    rng.split(key)`` before each batch, ``batch_fn(sub)`` — bit for bit
+    ``jax.random.split``, so one key gives the JAX package's keys in order.
+    A background thread keeps up to ``depth`` batches ready.
+
+    On a CUDA ``device`` (the default) each batch's host leaves are pinned
+    and copied on a side stream, and an event marks the copy's end;
+    ``next()`` makes the caller's current stream wait on that event before
+    it hands the batch over, and records the batch's tensors on that
+    stream (``record_stream``), so the allocator cannot reuse their memory
+    while the consumer's work is pending.  Leaves already on the card pass
+    through.  On the CPU the batches come back as tensors, unmoved.
+
+    A ``batch_fn`` that raises re-raises from ``next()``; :meth:`close`
+    stops the thread and joins it.
+    """
+
+    def __init__(self, batch_fn: Callable[[tuple], PyTree], key, *,
+                 device="cuda", depth: int = 2):
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        self.batch_fn = batch_fn
+        self.key = rng.key_bits(key)
+        self.device = resolve_device(device)
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self.stop = threading.Event()
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self.thread = threading.Thread(target=self._worker, daemon=True)
+        self.thread.start()
+
+    def _place(self, batch: PyTree):
+        """-> (batch on the device, copy-done event or None)."""
+        batch = tree_map(lambda x: x if torch.is_tensor(x) else torch.as_tensor(x),
+                         batch)
+        if self._stream is None:
+            return batch, None
+        with torch.cuda.stream(self._stream):
+            out = tree_map(lambda x: x if x.device.type == "cuda" else
+                           x.pin_memory().to(self.device, non_blocking=True),
+                           batch)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        return out, done
+
+    def _put(self, item) -> None:
+        while not self.stop.is_set():
+            try:
+                self.q.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def _worker(self):
+        key = self.key
+        while not self.stop.is_set():
+            key, sub = rng.split(key)
+            try:
+                item = self._place(self.batch_fn(sub))
+            except BaseException as e:  # noqa: BLE001 — re-raised by next()
+                self._put(e)
+                return
+            self._put(item)
+
+    def __iter__(self) -> Iterator[PyTree]:
+        return self
+
+    def __next__(self) -> PyTree:
+        item = self.q.get()
+        if isinstance(item, BaseException):
+            raise item
+        batch, done = item
+        if done is not None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(done)
+            for t in tree_leaves(batch):
+                t.record_stream(consumer)
+        return batch
+
+    def close(self):
+        self.stop.set()
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass
+        self.thread.join(timeout=2.0)

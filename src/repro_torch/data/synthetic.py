@@ -1,5 +1,10 @@
 """Synthetic data: token streams and frontend-embedding stubs (port of
-``repro.data.synthetic``'s ``token_stream`` and ``make_batch``).
+``repro.data.synthetic``).
+
+``make_batch`` returns real tensors (smoke tests, examples, the
+launcher); ``make_specs`` returns tensors on the ``meta`` device in place
+of the reference's ``ShapeDtypeStruct`` stand-ins, with the same shapes
+and dtypes (the dry run: no memory, no device).
 
 Batches are drawn on the CPU from a ``torch.Generator``, so one seed gives
 the same batches whichever device trains on them (the model moves them to
@@ -53,5 +58,27 @@ def make_batch(cfg, shape, generator: torch.Generator, kind: str | None = None):
     if kind == "decode":
         return {"tokens": torch.randint(0, cfg.vocab_size, (B, 1),
                                         generator=generator, dtype=torch.int32),
+                "cur_pos": shape.seq_len - 1}
+    raise ValueError(kind)
+
+
+def make_specs(cfg, shape, kind: str | None = None):
+    """``make_batch``'s structure on the ``meta`` device (shapes and dtypes
+    only; the dry run's inputs).  ``decode``'s ``cur_pos`` is the host int
+    ``seq_len - 1``, as ``make_batch`` gives it: the decode step takes its
+    position on the host."""
+    kind = kind or shape.kind
+    B = shape.global_batch
+    meta = torch.device("meta")
+    if kind in ("train", "prefill"):
+        extra = 1 if kind == "train" else 0
+        batch = {"tokens": torch.empty((B, _text_len(cfg, shape) + extra),
+                                       dtype=torch.int32, device=meta)}
+        if cfg.frontend:
+            batch["frontend"] = torch.empty((B, cfg.num_frontend_tokens, FRONTEND_DIM),
+                                            dtype=torch.float32, device=meta)
+        return batch
+    if kind == "decode":
+        return {"tokens": torch.empty((B, 1), dtype=torch.int32, device=meta),
                 "cur_pos": shape.seq_len - 1}
     raise ValueError(kind)

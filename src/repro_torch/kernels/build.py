@@ -6,7 +6,8 @@ a plain C interface, compiled for ``sm_90a`` (Hopper) on first use into
 carries a hash of its source, the shared headers (``csrc/*.cuh``) and the
 flags, so an edited source is rebuilt and a stale library is never
 loaded.  :func:`build` starts one ``nvcc`` per out-of-date source, all at
-once, and waits for them together.
+once, and waits for them together; each library's build wall time goes to
+:func:`repro_torch.analysis.instrument.record_build`.
 
 Nothing here runs at import: the CPU tests import every module, and this
 container has no ``nvcc``.
@@ -19,7 +20,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from repro_torch.analysis.instrument import record_build
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -71,15 +75,16 @@ def build(names=None) -> dict:
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
-                      tmp, out)
+                      tmp, out, time.perf_counter())
     logs, failed = {}, []
-    for name, (proc, tmp, out) in jobs.items():
+    for name, (proc, tmp, out, t0) in jobs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
             failed.append(name)
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)  # atomic: a reader never sees half a file
+            record_build(name, time.perf_counter() - t0)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))

@@ -12,6 +12,14 @@ decode_step`, :mod:`~repro_torch.kernels.langevin_update`,
 there is no fallback; on a CPU tensor it is the plain version
 (:mod:`repro_torch.kernels.ref`).  Either way caches, pools and the
 updated parameters change in place.
+
+On a ``meta`` tensor (the dry run, :mod:`repro_torch.launch.dryrun`) an
+op returns its outputs' shapes and launches nothing; on ``meta`` and on a
+card it reports its work to any open cost count
+(:func:`repro_torch.analysis.cost.record_kernel`), from the formulas
+``chip_smoke.py`` bounds the kernels with — the kernels are reached
+through ``ctypes``, where no dispatch mode sees them.  A device other
+than these three raises.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.analysis import cost as _cost
 from repro_torch.kernels import decode_step as ds
 from repro_torch.kernels import delay_gather as dg
 from repro_torch.kernels import langevin_update as lu
@@ -38,6 +47,36 @@ def _route(t, kernel, plain):
     raise ValueError(f"no kernel for device {t.device}")
 
 
+def _counted(t) -> bool:
+    """Whether an op on ``t`` reports its formula cost: on a card or on
+    ``meta``, while a count is open (on the CPU the plain version's ATen
+    ops are counted as they run)."""
+    return t.device.type != "cpu" and _cost.counting()
+
+
+def _record_decode(q, k_cache) -> None:
+    """The ring step's FLOPs and bytes, every slot read (chip_smoke.py's
+    decode bound with all ``smax`` slots valid)."""
+    N, KV, G, hd = q.shape
+    smax, es = k_cache.shape[1], q.element_size()
+    row = KV * hd * es
+    _cost.record_kernel(4.0 * N * KV * G * hd * smax,
+                        q.numel() * es * 2 + 2 * N * row + smax * 4
+                        + 2 * N * (smax - 1) * row + 2 * N * row)
+
+
+def _record_paged(q, k_pages, tables) -> None:
+    """The paged step's FLOPs and bytes, every position of a slot's table
+    read (chip_smoke.py's paged bound with each slot at its last
+    position)."""
+    C, S, KV, G, hd = q.shape
+    ps, es = k_pages.shape[2], q.element_size()
+    row, win = KV * hd * es, tables.shape[1] * ps
+    _cost.record_kernel(4.0 * C * KV * G * hd * S * win,
+                        q.numel() * es * 2 + 2 * C * S * row + tables.numel() * 4
+                        + S * 4 + 2 * C * S * (win - 1) * row + 2 * C * S * row)
+
+
 def fused_decode_step(q, k_new, v_new, k_cache, v_cache, valid, slot: int):
     """Ring-cache decode step.
 
@@ -48,9 +87,14 @@ def fused_decode_step(q, k_new, v_new, k_cache, v_cache, valid, slot: int):
     """
     N, H, hd = q.shape
     KV = k_cache.shape[2]
+    q4 = q.reshape(N, KV, H // KV, hd)
+    if _counted(q):
+        _record_decode(q4, k_cache)
+    if q.device.type == "meta":
+        return torch.empty_like(q), k_cache, v_cache
     step = _route(q, ds.decode_step, ref.decode_step_ref)
-    o, kc, vc = step(q.reshape(N, KV, H // KV, hd), k_new.contiguous(),
-                     v_new.contiguous(), k_cache, v_cache, valid, slot)
+    o, kc, vc = step(q4, k_new.contiguous(), v_new.contiguous(), k_cache,
+                     v_cache, valid, slot)
     return o.reshape(N, H, hd), kc, vc
 
 
@@ -64,9 +108,14 @@ def fused_paged_decode_step(q, k_new, v_new, k_pages, v_pages, tables, pos):
     """
     C, S, H, hd = q.shape
     KV = k_pages.shape[3]
+    q5 = q.reshape(C, S, KV, H // KV, hd)
+    if _counted(q):
+        _record_paged(q5, k_pages, tables)
+    if q.device.type == "meta":
+        return torch.empty_like(q), k_pages, v_pages
     step = _route(q, ds.paged_decode_step, ref.paged_decode_step_ref)
-    o, kp, vp = step(q.reshape(C, S, KV, H // KV, hd), k_new.contiguous(),
-                     v_new.contiguous(), k_pages, v_pages, tables, pos)
+    o, kp, vp = step(q5, k_new.contiguous(), v_new.contiguous(), k_pages,
+                     v_pages, tables, pos)
     return o.reshape(C, S, H, hd), kp, vp
 
 
@@ -99,6 +148,12 @@ def fused_langevin_update(params: PyTree, grads: PyTree, seeds, gammas,
     if len(gleaves) != len(leaves):
         raise ValueError(f"{len(gleaves)} gradient leaves for {len(leaves)} "
                          "parameter leaves")
+    if leaves and _counted(leaves[0]):
+        for x in leaves:
+            _cost.record_kernel(_cost.LANGEVIN_OPS * x.numel(),
+                                3 * x.element_size() * x.numel())
+    if leaves and leaves[0].device.type == "meta":
+        return params
     seeds_by_leaf = [[rng.leaf_seed(s, i) for s in seeds] for i in range(len(leaves))]
     if leaves and leaves[0].device.type == "cuda":
         table = _table(np.stack([lu.chain_rows(sl, gammas, scales, skip)
@@ -131,6 +186,10 @@ def coordinate_delays(like, keys, maxvals, table=None):
     ``table``: this leaf's rows of :func:`randint_tables` (made here when
     not given)."""
     n = like[0].numel()
+    if _counted(like):
+        _cost.record_kernel(_cost.DELAY_OPS * like.shape[0] * n, 4 * like.shape[0] * n)
+    if like.device.type == "meta":
+        return torch.empty((like.shape[0], n), dtype=torch.int32, device="meta")
     if like.device.type == "cuda":
         if table is None:
             table = _table(dg.randint_rows(keys, maxvals), like.device)
@@ -145,6 +204,11 @@ def delay_gather(history, delays, heads):
     *shape)``, element ``i`` of chain c from snapshot ``(heads[c] -
     delays[c, i]) mod depth`` (``heads``: C host ints)."""
     C, depth, shape = history.shape[0], history.shape[1], history.shape[2:]
+    n = shape.numel()
+    if _counted(history):
+        _cost.record_kernel(4 * C * n, C * n * (4 + 2 * history.element_size()))
+    if history.device.type == "meta":
+        return torch.empty((C, *shape), dtype=history.dtype, device="meta")
     gather = _route(history, dg.delay_gather, ref.delay_gather_ref)
     out = gather(history.reshape(C, depth, -1), delays.reshape(C, -1),
                  [int(h) for h in heads])
@@ -163,6 +227,11 @@ def wicon_read(history, keys, maxvals, heads, table=None):
     C, depth, shape = history.shape[0], history.shape[1], history.shape[2:]
     h = history.reshape(C, depth, -1)
     heads = [int(v) for v in heads]
+    if _counted(history):
+        n = C * shape.numel()
+        _cost.record_kernel(_cost.DELAY_OPS * n, 2 * history.element_size() * n)
+    if history.device.type == "meta":
+        return torch.empty((C, *shape), dtype=history.dtype, device="meta")
     if history.device.type == "cuda":
         if table is None:
             table = _table(dg.randint_rows(keys, maxvals, heads), history.device)

@@ -1,6 +1,10 @@
-"""Shared model components: norms, activations, rotary embeddings, init.
+"""Shared model components: norms, activations, rotary embeddings, init,
+and the sharding rules.
 
-Port of ``repro.models.common``.  Parameters are plain nested dicts of
+Port of ``repro.models.common``.  The sharding rules (:func:`partition_rules`,
+:func:`partition_tree`) are pure functions of leaf path names that return
+tuples of mesh axis names; nothing in the port applies them to several
+cards yet.  Parameters are plain nested dicts of
 tensors, as in the JAX package; initialisers draw from an explicit
 ``torch.Generator`` (the numbers differ from ``jax.random``'s — a test that
 needs both packages on the same weights carries them over with
@@ -10,9 +14,12 @@ needs both packages on the same weights carries them over with
 from __future__ import annotations
 
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+PyTree = Any
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -118,3 +125,135 @@ def bank_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     C, d = x.shape[0], x.shape[-1]
     y = torch.bmm(x.reshape(C, -1, d), w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# sharding rules: leaf-path regexp-free suffix matching
+# ---------------------------------------------------------------------------
+# Each rule: (path_suffix, spec). First match wins.  A spec is a tuple of
+# mesh axis names, one entry a dimension: the reference's PartitionSpec as
+# a plain tuple.  "mdl" = tensor axis, "fsdp_axes" used only under
+# param_sharding == "fsdp_tp".
+def _P(*parts) -> tuple:
+    return tuple(parts)
+
+
+def partition_rules(param_sharding: str, fsdp_axes=("data",), cfg=None,
+                    model_size: int | None = None):
+    mdl = "model"
+    fsdp = fsdp_axes  # secondary axes for trillion-scale 2-D sharding
+    two_d = param_sharding == "fsdp_tp"
+    if param_sharding == "fsdp_full":
+        # pure FSDP/ZeRO-3: every weight sharded over ALL data-like+model
+        # axes (gathered per layer), batch over all axes, no
+        # tensor-parallel activation all-reduces at all
+        mdl = tuple(fsdp_axes) + ("model",)
+    # head-sharded layout (the reference's opt_attn_head_shard switch; no
+    # config of the port sets it): q heads shard over model (when
+    # divisible), k/v params replicate
+    head_shard = bool(cfg is not None and getattr(cfg, "opt_attn_head_shard",
+                                                  False))
+    q_shardable = bool(head_shard and model_size
+                       and cfg.num_heads % model_size == 0)
+    # Never shard an attention projection finer than its head boundary:
+    # splitting one head's head_dim across devices forces cross-shard
+    # resharding inside rope/norm/attention.  Unknown cfg/model_size keeps
+    # the always-shard rule.
+    q_head_ok = bool(cfg is None or not model_size
+                     or cfg.num_heads % model_size == 0)
+    kv_head_ok = bool(cfg is None or not model_size
+                      or cfg.num_kv_heads % model_size == 0)
+    if head_shard:
+        wq_spec = _P(None, mdl) if q_shardable else _P(None, None)
+        wo_spec = _P(mdl, None) if q_shardable else _P(None, None)
+        kv_spec = _P(None, None)
+        kvb_spec = _P(None)
+        qb_spec = _P(mdl) if q_shardable else _P(None)
+    else:
+        wq_spec = _P(None, mdl) if q_head_ok else _P(None, None)
+        wo_spec = _P(mdl, None) if q_head_ok else _P(None, None)
+        kv_spec = _P(None, mdl) if kv_head_ok else _P(None, None)
+        kvb_spec = _P(mdl) if kv_head_ok else _P(None)
+        qb_spec = _P(mdl) if q_head_ok else _P(None)
+    rules = [
+        # embeddings / head
+        ("embed/w", _P(mdl, None)),
+        ("lm_head/w", _P(None, mdl)),
+        # attention
+        ("attn/wq", wq_spec),
+        ("attn/wk", kv_spec),
+        ("attn/wv", kv_spec),
+        ("attn/wo", wo_spec),
+        ("attn/bq", qb_spec),
+        ("attn/bk", kvb_spec),
+        ("attn/bv", kvb_spec),
+        ("attn/q_norm", _P(None)),
+        ("attn/k_norm", _P(None)),
+        # dense mlp
+        ("mlp/w_gate", _P(None, mdl)),
+        ("mlp/w_up", _P(None, mdl)),
+        ("mlp/w_down", _P(mdl, None)),
+        # moe: experts over model axis; optionally d_ff over data axis (2-D)
+        ("moe/w_gate", _P(mdl, None, fsdp if two_d else None)),
+        ("moe/w_up", _P(mdl, None, fsdp if two_d else None)),
+        ("moe/w_down", _P(mdl, fsdp if two_d else None, None)),
+        ("moe/router", _P(None, None)),
+        ("moe/shared_w_gate", _P(None, mdl)),
+        ("moe/shared_w_up", _P(None, mdl)),
+        ("moe/shared_w_down", _P(mdl, None)),
+        # mamba / hymba ssm heads
+        ("ssm/in_proj", _P(None, mdl)),
+        ("ssm/conv_w", _P(mdl, None)),
+        ("ssm/dt_w", _P(None, mdl)),
+        ("ssm/dt_bias", _P(mdl)),
+        ("ssm/bc_proj", _P(None, None)),
+        ("ssm/a_log", _P(mdl)),
+        ("ssm/d_skip", _P(mdl)),
+        ("ssm/out_proj", _P(mdl, None)),
+        # xlstm: batch-parallel with replicated params, as the reference
+        # lays them out (its tensor-parallel layouts resharded the (B,S,H,dk)
+        # <-> (B,S,di) views at each layer)
+        ("mlstm/", _P(None)),
+        ("slstm/", _P(None)),
+        # frontend projector stub
+        ("frontend/proj", _P(None, mdl)),
+        # norms & everything 1-D replicated
+        ("norm", _P(None)),
+    ]
+    return rules
+
+
+def spec_for_path(path: str, rules) -> tuple:
+    for suffix, spec in rules:
+        if suffix in path:
+            return spec
+    return ()  # replicate
+
+
+def partition_tree(params: PyTree, param_sharding: str = "tp",
+                   fsdp_axes=("data",), cfg=None,
+                   model_size: int | None = None) -> PyTree:
+    """Spec tree matching ``params`` (one chain's, without the chain axis,
+    as the reference's) by leaf path: each leaf's spec a tuple of mesh
+    axis names, one entry a dimension (``None`` = replicated, a tuple =
+    several axes)."""
+    rules = partition_rules(param_sharding, fsdp_axes, cfg, model_size)
+
+    def visit(path, leaf):
+        spec = spec_for_path(path, rules)
+        # stacked-layer params carry a leading L axis -> prepend None
+        ndim = len(leaf.shape)
+        if len(spec) < ndim and "/stack/" in "/" + path + "/":
+            spec = (None,) + spec
+        return spec[:ndim]
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}" if path else str(k))
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, f"{path}/{i}" if path else str(i))
+                              for i, v in enumerate(tree))
+        return visit(path, tree)
+
+    return walk(params, "")

@@ -79,6 +79,8 @@ def reset_dropped() -> None:
 
 
 def _count_dropped(keep: torch.Tensor) -> None:
+    if keep.device.type == "meta":  # no values to count (the dry run)
+        return
     n = (~keep).sum()
     prev = _DROPPED.get(keep.device)
     _DROPPED[keep.device] = n if prev is None else prev + n

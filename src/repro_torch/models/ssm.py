@@ -4,7 +4,9 @@
 Scalar decay per head per step, so a sequence chunk is two matmul-shaped
 contractions (the intra-chunk "attention-like" term and the inter-chunk
 state carry) and the recurrence runs only across chunks: a Python loop over
-``S / chunk`` chunks, as the reference's ``lax.scan``.  The reference
+``S / chunk`` chunks, as the reference's ``lax.scan`` (on ``meta`` one
+chunk, counted ``S / chunk`` times by :func:`~repro_torch.analysis.cost.
+repeated`).  The reference
 computes the scan in plain ``jnp``, outside any Pallas kernel; here it is
 plain torch.
 
@@ -26,6 +28,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.cost import repeated
 from repro_torch.kernels.rng import _xla_log
 from repro_torch.models.common import (
     bank_matmul,
@@ -118,8 +121,8 @@ def _ssd_chunk_scan(xh, bt, ct, dt, a, chunk: int):
     la = dt * a  # log decay per step (negative), (N, S, H)
     tri = torch.tril(torch.ones(c, c, dtype=torch.bool, device=xh.device))
     h = torch.zeros(N, H, p, n, dtype=torch.float32, device=xh.device)
-    ys = []
-    for j in range(S // c):
+
+    def step(j: int, h):
         sl = slice(j * c, (j + 1) * c)
         xb = xh[:, sl].float()
         bb, cb = bt[:, sl].float(), ct[:, sl].float()
@@ -141,7 +144,16 @@ def _ssd_chunk_scan(xh, bt, ct, dt, a, chunk: int):
         w_end = torch.exp(seg_end - seg) * dtb  # (N, c, H)
         h = (torch.exp(seg_end[:, 0, :])[:, :, None, None] * h
              + torch.einsum("bch,bchp,bcn->bhpn", w_end, xb, bb))
-        ys.append(y_intra + y_inter)
+        return y_intra + y_inter, h
+
+    trips = S // c
+    if xh.device.type == "meta" and trips > 1:  # counted once, times the trips
+        y, h = repeated(trips, step, 0, h)
+        return y[:, None].expand(N, trips, c, H, p).reshape(N, S, H, p), h
+    ys = []
+    for j in range(trips):
+        y, h = step(j, h)
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 

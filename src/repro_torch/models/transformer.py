@@ -49,6 +49,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.analysis.cost import repeated
 from repro_torch.kernels.ops import fused_decode_step, fused_paged_decode_step
 from repro_torch.models.attention import attention_any
 from repro_torch.models.common import (
@@ -386,7 +387,27 @@ class Model:
         x, positions = self.embed(params, batch)
         aux_total = torch.zeros(x.shape[0], device=self.device)
         ks, vs = [], []
-        for i, (block, layer) in enumerate(self._layers(params, layers)):
+        steps = list(self._layers(params, layers))
+        period = len(self.cfg.block_pattern)
+        if x.device.type == "meta" and tap is None and len(steps) > period \
+                and len(steps) % period == 0:
+            # every period of the block pattern is alike: on meta (the dry
+            # run) one period, counted num_layers / period times
+            def one_period(x):
+                aux_p, kvs = torch.zeros_like(aux_total), []
+                for block, layer in steps[:period]:
+                    x, aux, kv = apply_block(layer, x, self.cfg, block, positions)
+                    aux_p = aux_p if aux is None else aux_p + aux
+                    kvs.append(kv)
+                return x, aux_p, kvs
+
+            x, aux, kvs = repeated(len(steps) // period, one_period, x)
+            aux_total = aux_total + aux
+            if want_kv:
+                ks = [kv[0] for kv in kvs] * (len(steps) // period)
+                vs = [kv[1] for kv in kvs] * (len(steps) // period)
+            steps = []
+        for i, (block, layer) in enumerate(steps):
             if tap is not None:
                 x = tap(i, x)
             x, aux, kv = apply_block(layer, x, self.cfg, block, positions)

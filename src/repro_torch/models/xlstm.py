@@ -5,9 +5,11 @@ of ``repro.models.xlstm``).
 The mLSTM recurrence ``C_t = f_t C_{t-1} + i_t k_t v_t^T`` runs chunkwise:
 within a chunk the work is matmul-shaped, and only the carry between
 chunks is sequential (a Python loop over ``S / chunk`` chunks, as the
-reference's ``lax.scan``).  The exponential gating is stabilised in log
+reference's ``lax.scan``; on ``meta`` one chunk, counted ``S / chunk``
+times by :func:`~repro_torch.analysis.cost.repeated`).  The exponential gating is stabilised in log
 space with a carried max-state ``m``.  The sLSTM feeds ``h_{t-1}`` through
-its recurrent weights, so it is a Python loop over the sequence.  The
+its recurrent weights, so it is a Python loop over the sequence (one step,
+counted ``S`` times, on ``meta``).  The
 reference computes both in plain ``jnp``, outside any Pallas kernel; here
 they are plain torch.
 
@@ -28,6 +30,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.cost import repeated
 from repro_torch.models.common import (
     activation,
     bank_matmul,
@@ -110,9 +113,8 @@ def _mlstm_chunk(q, k, v, lf, li, chunk: int, state: MLSTMState):
     assert S % c == 0, f"seq {S} not divisible by mlstm chunk {c}"
     rs = math.sqrt(dk)
     tri = torch.tril(torch.ones(c, c, dtype=torch.bool, device=q.device))
-    C, n, m = state
-    ys = []
-    for j in range(S // c):
+
+    def step(j: int, C, n, m):
         sl = slice(j * c, (j + 1) * c)
         qb, kb, vb, lib = q[:, sl], k[:, sl], v[:, sl], li[:, sl]
         seg = torch.cumsum(lf[:, sl], dim=1)  # (N, c, H)
@@ -132,7 +134,7 @@ def _mlstm_chunk(q, k, v, lf, li, chunk: int, state: MLSTMState):
         den_inter = torch.einsum("bthd,bhd->bth", qb, n) * inter_scale / rs
         num = num_intra + num_inter
         den = den_intra + den_inter
-        ys.append(num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None])
+        y = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
         # the state at the chunk's end
         seg_end = seg[:, -1, :]  # (N, H)
         m_new = torch.maximum(seg_end + m,
@@ -143,6 +145,18 @@ def _mlstm_chunk(q, k, v, lf, li, chunk: int, state: MLSTMState):
              + torch.einsum("bchd,bche->bhde", w_end[..., None] * kb, vb))
         n = carry[:, :, None] * n + torch.einsum("bch,bchd->bhd", w_end, kb)
         m = m_new
+        return y, C, n, m
+
+    trips = S // c
+    if q.device.type == "meta" and trips > 1:  # counted once, times the trips
+        y, C, n, m = repeated(trips, step, 0, *state)
+        return (y[:, None].expand(N, trips, c, H, dk).reshape(N, S, H, dk),
+                MLSTMState(c=C, n=n, m=m))
+    C, n, m = state
+    ys = []
+    for j in range(trips):
+        y, C, n, m = step(j, C, n, m)
+        ys.append(y)
     return torch.cat(ys, dim=1), MLSTMState(c=C, n=n, m=m)
 
 
@@ -243,11 +257,15 @@ def apply_slstm(params, x, cfg, *, state: SLSTMState | None = None):
     C, B, S, d = x.shape
     xg = bank_matmul(x, params["wx"])  # (C, B, S, 4d)
     st = state if state is not None else init_slstm_state(cfg, B, (C,), x.device)
-    hs = []
-    for t in range(S):
-        st = _slstm_cell(params, cfg, xg[:, :, t], st)
-        hs.append(st.h)
-    y = torch.stack(hs, dim=2).to(x.dtype)  # (C, B, S, d)
+    if x.device.type == "meta" and S > 1:  # counted once, times the positions
+        st = repeated(S, lambda st: _slstm_cell(params, cfg, xg[:, :, 0], st), st)
+        y = st.h[:, :, None].expand(C, B, S, d).to(x.dtype)
+    else:
+        hs = []
+        for t in range(S):
+            st = _slstm_cell(params, cfg, xg[:, :, t], st)
+            hs.append(st.h)
+        y = torch.stack(hs, dim=2).to(x.dtype)  # (C, B, S, d)
     y = rms_norm(y, per_chain(params["norm"], y), cfg.norm_eps)
     a, b = bank_matmul(y, params["ffn_up"]).chunk(2, dim=-1)
     out = bank_matmul(activation("gelu")(a) * b, params["ffn_down"])

@@ -15,7 +15,9 @@ append; parents are linked through a per-thread stack, so concurrent
 serving threads get independent span trees over one shared buffer.
 
 Timestamps are seconds on a process-local monotonic clock
-(``perf_counter`` minus the module-import epoch).
+(``perf_counter`` minus the module-import epoch); the Chrome-trace exporter
+(:mod:`repro_torch.obs.timeline`) converts them to the microsecond ``ts``
+Perfetto expects.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ from __future__ import annotations
 import itertools
 import threading
 import time
-from typing import Optional
+from typing import Callable, Iterator, Optional
 
-__all__ = ["Span", "Tracer", "disable", "enable", "now", "span", "tracer"]
+__all__ = ["Span", "Tracer", "disable", "enable", "iter_spans", "now", "span",
+           "trace_hook", "tracer"]
 
 _EPOCH = time.perf_counter()
 
@@ -217,3 +220,33 @@ def enable() -> Tracer:
 def disable() -> Tracer:
     """Turn off the process-global tracer; returns it."""
     return _GLOBAL.disable()
+
+
+def trace_hook(name: str = "engine.chunk",
+               to: Optional[Tracer] = None) -> Callable:
+    """An :class:`~repro_torch.train.engine.Engine` or
+    :class:`~repro_torch.cluster.executor.ClusterEngine` hook emitting one
+    span per chunk boundary.
+
+    Hooks run between chunks, so each span covers the host interval
+    from the previous boundary (or hook creation) to this one — dispatch,
+    device wait, and sibling hooks included.  Attributes carry the commit
+    range.  This is the sanctioned way to see chunk timing without touching
+    the commit loop.
+    """
+    target = to if to is not None else _GLOBAL
+    prev = [now(), 0]  # [boundary time, step at that boundary]
+
+    def hook(step_end: int, _state, _aux) -> None:
+        t = now()
+        target.record(name, prev[0], t, start=prev[1], end=step_end)
+        prev[0], prev[1] = t, step_end
+
+    return hook
+
+
+def iter_spans(spans) -> Iterator[dict]:
+    """Normalize ``Span`` objects / dicts into dicts (shared by the timeline
+    exporter and ``scripts/torch_obstool.py``)."""
+    for sp in spans:
+        yield sp.to_dict() if isinstance(sp, Span) else sp

@@ -119,6 +119,9 @@ def noise_like(key, params: PyTree, scale, dtype, noise: str = "torch") -> PyTre
     leaves, treedef = tree_flatten(params)
     out = []
     for k, p in zip(leaf_keys(key, leaves), leaves):
+        if p.device.type == "meta":  # shapes only (the dry run): nothing to draw
+            out.append(torch.empty_like(p))
+            continue
         if noise == "jax":
             z = rng.jax_normal(k, p.shape, p.device)
             out.append((torch.tensor(np.float32(scale)) * z).to(p.dtype))

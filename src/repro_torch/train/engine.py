@@ -7,7 +7,8 @@ place where the sampler does.  What stays the same:
 
 - delays enter as an int tensor (host int32), read once per commit;
 - ``num_traces`` counts distinct chunk lengths — what the JAX counter
-  counts as traces;
+  counts as traces — through the engine's
+  :func:`~repro_torch.analysis.instrument.counters` handle;
 - a delay trace that demands staler reads than the iterate ring holds is
   refused before the run (``validate_staleness``);
 - host-side concerns (logging) are hooks that run between chunks, and
@@ -26,6 +27,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.instrument import counters as _counters
 from repro_torch.core.delay import validate_staleness
 from repro_torch.core.delay_model import DelayTrace
 from repro_torch.obs.metrics import registry as _registry
@@ -202,14 +204,18 @@ class Engine:
     def __post_init__(self):
         if self.chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size}")
+        self._counters = _counters("Engine")
 
     @property
     def num_traces(self) -> int:
-        """Distinct chunk lengths run so far (the JAX engine's trace count)."""
-        return len(self._lengths)
+        """Distinct chunk lengths run so far (the JAX engine's trace count);
+        a view over the engine's instrument counters."""
+        return self._counters.traces
 
     def _run_chunk(self, state: SamplerState, batches, delays):
-        self._lengths.add(len(delays))
+        if len(delays) not in self._lengths:
+            self._lengths.add(len(delays))
+            self._counters.trace("chunk")
         auxs = []
         for j, d in enumerate(delays.tolist()):
             state, aux = self.sampler.step(

@@ -22,11 +22,12 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import samplers
+from repro_torch.analysis.cost import repeated
 from repro_torch.core.sgld import SGLDConfig
 from repro_torch.kernels import rng
 from repro_torch.models.transformer import Model, loss_fn
 from repro_torch.train.engine import Engine, log_hook
-from repro_torch.utils import tree_add_scaled, tree_map, tree_zeros_like
+from repro_torch.utils import tree_add_scaled, tree_leaves, tree_map, tree_zeros_like
 
 PyTree = Any
 
@@ -64,15 +65,22 @@ def make_grad_fn(model: Model, num_microbatches: int = 1):
         if "stack" in params:
             grads["stack"] = gstack
         else:
-            grads["layers"] = tree_map(lambda v: v.grad, layers)
+            # a layer the dry run counts through another has no gradient on meta
+            grads["layers"] = tree_map(lambda v: torch.zeros_like(v) if v.grad is None
+                                       else v.grad, layers)
         return grads, dict(metrics, loss=loss.detach())
 
     if num_microbatches <= 1:
         return single
 
     def accumulated(params, batch):
+        mbs = _split_microbatch(batch, num_microbatches)
+        if tree_leaves(params)[0].device.type == "meta":
+            # the microbatches are alike: on meta (the dry run) one, counted
+            # num_microbatches times
+            return repeated(num_microbatches, single, params, mbs[0])
         g_acc, m_acc = None, None
-        for mb in _split_microbatch(batch, num_microbatches):
+        for mb in mbs:
             g, m = single(params, mb)
             if g_acc is None:
                 g_acc = tree_zeros_like(g)

@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
-port's examples (``examples/torch_*.py``) import neither ``jax`` nor
-anything of the JAX package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py``, the port's
+examples (``examples/torch_*.py``) and its timeline CLI
+(``scripts/torch_obstool.py``) import neither ``jax`` nor anything of the
+JAX package ``repro``."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted(ROOT.glob("examples/torch_*.py")))
+              + sorted(ROOT.glob("examples/torch_*.py"))
+              + [ROOT / "scripts" / "torch_obstool.py"])
 
 
 def _imported_modules(path: Path):
@@ -53,6 +55,16 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.cluster.serve, repro_torch.models.predictive\n"
         "import repro_torch.models.moe, repro_torch.models.ssm\n"
         "import repro_torch.models.xlstm\n"
+        "import repro_torch.analysis, repro_torch.analysis.instrument\n"
+        "import repro_torch.analysis.cost, repro_torch.obs.timeline\n"
+        "import repro_torch.launch.steps, repro_torch.launch.flop_cost\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.mesh\n"
+        "from repro_torch.data import Prefetcher, make_specs\n"
+        "from repro_torch.configs import SHAPES, all_archs, get_shape\n"
+        "from repro_torch.models.common import partition_tree\n"
+        f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"
+        "import torch_obstool\n"
         "from repro_torch.configs.base import ALIASES, get_arch, get_reduced\n"
         "assert all(get_arch(a).name == a and get_reduced(a) for a in ALIASES)\n"
         f"sys.path.insert(0, {str(ROOT / 'examples')!r})\n"

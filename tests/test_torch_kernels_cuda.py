@@ -851,3 +851,54 @@ def test_table_copies_do_not_stall_the_host(cuda):
     assert not done.query()  # the host did not wait for the matmuls
     torch.cuda.synchronize()
     assert _bitwise(x, want)
+
+
+@pytest.mark.cuda
+def test_transfer_guard_turns_a_host_sync_into_an_error(cuda):
+    """``instrument(transfer_guard="error")`` sets the sync debug mode for
+    its region, nested regions included, and restores it on exit; a host
+    read of a card tensor inside raises, one outside does not; ``"warn"``
+    records it."""
+    from repro_torch.analysis import instrument
+
+    x = torch.arange(4.0, device=cuda)
+    before = torch.cuda.get_sync_debug_mode()
+    with pytest.raises(RuntimeError):
+        with instrument(transfer_guard="error"):
+            x[1].item()
+    assert torch.cuda.get_sync_debug_mode() == before
+    with instrument(transfer_guard="error"):
+        with instrument(transfer_guard="warn") as inner:
+            x.sum().item()  # the inner mode: warned, not raised
+        assert torch.cuda.get_sync_debug_mode() == 2
+        y = x * 2  # no host read: passes
+    assert torch.cuda.get_sync_debug_mode() == before
+    assert len(inner.sync_warnings) >= 1
+    assert y.cpu().tolist() == [0.0, 2.0, 4.0, 6.0]
+
+
+@pytest.mark.cuda
+def test_prefetcher_copies_on_a_side_stream(cuda):
+    """On the card the prefetched batches are the CPU batches, key for key,
+    copied from pinned memory on a side stream the consumer waits on."""
+    from repro_torch.data import Prefetcher
+    from repro_torch.kernels import rng
+
+    def batch_fn(key):
+        return {"u": rng.jax_uniform(key, (256, 64), device="cpu"),
+                "k": np.asarray(key, np.uint32)}
+
+    pf = Prefetcher(batch_fn, rng.PRNGKey(5), device=cuda, depth=2)
+    cpu = Prefetcher(batch_fn, rng.PRNGKey(5), device="cpu", depth=2)
+    try:
+        for _ in range(5):
+            got, want = next(pf), next(cpu)
+            assert got["u"].device.type == "cuda"
+            busy = torch.randn(2048, 2048, device=cuda)
+            (busy @ busy).sum()  # the consumer stream has work of its own
+            assert torch.equal(got["u"].cpu(), want["u"])
+            assert torch.equal(got["k"].cpu(), want["k"])
+    finally:
+        pf.close()
+        cpu.close()
+    assert pf._stream is not None and pf._stream != torch.cuda.current_stream(cuda)
