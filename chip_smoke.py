@@ -109,9 +109,10 @@ library) and runs, failing on the first phase that fails:
    workers, 600 commits): ``sgld``, ``svrg`` and ``sghmc`` W-Con, the
    inverse-speed half, then the 32 chains through the fused W-Icon preset
    (one update and one read launch a commit for all 32): final W2, wall
-   seconds, commits a second; (d) the torch serve quickstart at its own
-   settings (32 chains, 8 workers, 4,000 W-Con commits of the polynomial
-   regression, ``save_ensemble``, ``ServeEngine.from_checkpoint``): means
+   seconds, commits a second; (d) the torch serve quickstart (32 chains, 8
+   workers, W-Con commits of the polynomial regression cut from its 4,000
+   to SERVE_QUICKSTART_COMMITS, ``save_ensemble``,
+   ``ServeEngine.from_checkpoint``): means
    and 90% intervals against the closed-form posterior predictive
    (``torch_serve_quickstart.check``); (c) a 4-chain ensemble of qwen3-4b at its
    published widths, depth cut to 4 layers (bf16, drawn on the card),
@@ -204,7 +205,22 @@ library) and runs, failing on the first phase that fails:
    H100's dense bf16 peak), a ``--all`` dry run on ``meta`` timed, and at
    depth 1 the FLOPs counted on the card for one real training step equal
    to the dry run's.  Phase 12's seconds and the script's so far are
-   logged.
+   logged;
+13. placement over a device mesh, the chain axis, in a world of one NCCL
+   rank (``launch.mesh.init_world("cuda")`` over a ``FileStore``, a
+   ``data`` 1 x ``model`` 1 mesh), at phase 12's widths: (a) three fused
+   W-Icon ``ClusterEngine`` commits (C 4, tau 2) unplaced and placed from
+   the same start, bitwise equal, launching the same kernels; (b) the
+   decode and paged cells' traffic (4 x 32-token prompts, 16 new tokens,
+   then a sampled one; 12 requests over 8 slots of 16-token pages, two of
+   them preempting) on a bank placed and unplaced: tokens and log-probs
+   bitwise equal, the same launches; (c) one ``ServeEngine`` request of 8 x
+   128-token prompts: statistics bitwise equal; (d) a 64-wide quadratic's
+   8 chains under ``health_check`` with poisoned chains healed, a run
+   checkpoint resumed, and ``save_ensemble`` restored placed, each bitwise
+   the unplaced engine's.  The placed runs' launches join the kernels
+   line; phase 13's seconds are logged and the process group is
+   destroyed.
 
 Before it, one JSON object with the paper path's numbers (phase 7c).
 The line before the last is one JSON object with each kernel's numbers;
@@ -1665,9 +1681,10 @@ def cluster_quickstart(torch, np, kernels) -> dict:
 
 
 def serve_quickstart(torch, np, kernels, ds) -> dict:
-    """(d) The torch serve quickstart at its own settings (32 chains, 8
-    workers, 4,000 W-Con commits of the polynomial regression, the bank
-    saved and restored into a ``ServeEngine``): the served means and 90%
+    """(d) The torch serve quickstart (32 chains, 8 workers, W-Con commits
+    of the polynomial regression cut from its 4,000 to
+    SERVE_QUICKSTART_COMMITS, the bank saved and restored into a
+    ``ServeEngine``): the served means and 90%
     intervals against the closed-form posterior predictive
     (``torch_serve_quickstart.check``); no kernel of this repo runs
     (unfused W-Con, a predictive path)."""
@@ -1677,7 +1694,7 @@ def serve_quickstart(torch, np, kernels, ds) -> dict:
     every = {**kernels, "decode_step": ds.decode_step,
              "paged_decode_step": ds.paged_decode_step}
     _reset(every)
-    out = sq.run(device="cuda", commits=sq.COMMITS)
+    out = sq.run(device="cuda", commits=SERVE_QUICKSTART_COMMITS)
     got = _counts(every)
     verdict = sq.check(out)
     check(verdict["ok"], f"serve quickstart: against the closed form {verdict}")
@@ -2801,6 +2818,10 @@ def recurrent_reference_check(torch, np, lu, dg, ds) -> dict:
 # roofline and the dry run
 # ---------------------------------------------------------------------------
 TOOLING_LAYERS = 4  # qwen3-4b's widths, depth cut as the cluster-full cell's
+# phase 8d: the serve quickstart's commits, cut from its 4,000 (a host-bound
+# phase) to the CPU recipe's 1,000: past the chains' start, where a missing
+# or mis-scaled noise term fails torch_serve_quickstart.check (PERF.md §4)
+SERVE_QUICKSTART_COMMITS = 1000
 TOOLING_OUT = ROOT / "smoke_out" / "tooling"  # timelines and dry-run JSONs
 PREFETCH_STEPS, PREFETCH_CHUNK = 6, 3
 
@@ -3104,6 +3125,275 @@ def tooling_path(torch, np, ds, kernels, tp: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: placement over a device mesh — the chain axis — in a world of one
+# NCCL rank: the placed engines' code, their collectives and the kernels on
+# the card, held against the unplaced engines
+# ---------------------------------------------------------------------------
+def _to_host(torch, tree):
+    """A tree's tensors gathered (a placed one) and copied to the host."""
+    from repro_torch.utils import gather_chains, tree_map
+
+    return tree_map(lambda t: t.cpu(), gather_chains(tree))
+
+
+def _trees_equal(torch, a, b) -> bool:
+    from repro_torch.utils import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def placement_cluster(torch, np, kernels, cfg, mesh, device="cuda") -> dict:
+    """(a) Three fused W-Icon commits of 4 chains at tau 2 (after a one-commit
+    warm-up), unplaced and then placed, from the same start: the final
+    parameters bitwise equal and the same launches."""
+    from repro_torch import samplers
+    from repro_torch.cluster import ClusterEngine, ensemble_async
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import WorkerModel
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import rng
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.train.loop import make_grad_fn
+    from repro_torch.utils import is_placed, local, tree_leaves
+
+    C, steps, tau = 4, 3, 2
+    shape = ShapeConfig("cluster", seq_len=128, global_batch=8, kind="train")
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sampler = samplers.sgld("inconsistent", make_grad_fn(Model(cfg, device=device)),
+                            gamma=1e-3, sigma=1e-5, tau=tau, has_aux=True, fused=True)
+    warm = ensemble_async(WorkerModel(num_workers=8), 1, C, seed=1)
+    schedules = ensemble_async(WorkerModel(num_workers=8), steps, C, seed=0)
+    out, finals = {}, {}
+    for name, m in (("unplaced", None), ("placed", mesh)):
+        eng = ClusterEngine(sampler, num_chains=C, chunk_size=steps, mesh=m,
+                            batch_fn=lambda gen: make_batch(cfg, shape, gen, "train"))
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                             device=device, num_chains=1)
+        state = eng.init(params, rng.PRNGKey(0))
+        del params
+        state, _ = eng.run(state, steps=1, schedule=warm, key=1)
+        sync()
+        _reset(kernels)
+        t0 = time.perf_counter()
+        state, _ = eng.run(state, steps=steps, schedule=schedules, key=0)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = _counts(kernels)
+        if m is not None:
+            leaves = tree_leaves(state.params)
+            check(all(is_placed(x) for x in leaves)
+                  and all(t.shape[0] == C for t in tree_leaves(local(state.params))),
+                  "placement (a): the placed state is not a DTensor tree of C chains")
+        finals[name] = _to_host(torch, state.params)
+        out[name] = {"ms_per_commit": wall * 1e3 / steps, "launches": launches}
+        del state, eng
+        _free(torch)
+    check(out["placed"]["launches"] == out["unplaced"]["launches"],
+          f"placement (a): launches {out['placed']['launches']} placed, "
+          f"{out['unplaced']['launches']} unplaced")
+    check(_trees_equal(torch, finals["placed"], finals["unplaced"]),
+          "placement (a): the placed commits are not bitwise the unplaced ones")
+    log(f"placement (a): {steps} fused W-Icon commits of {C} chains, placed bitwise "
+        f"the unplaced: {out['placed']['ms_per_commit']:.2f} ms a commit placed, "
+        f"{out['unplaced']['ms_per_commit']:.2f} unplaced; launches "
+        f"{out['placed']['launches']}")
+    out["launches"] = out["placed"]["launches"]
+    return out
+
+
+def placement_faults(torch, np, kernels, mesh, device="cuda") -> dict:
+    """(d) The placed engine's fault and file paths, against the unplaced
+    engine from the same start: 8 chains of a 64-wide quadratic, fused
+    W-Icon at tau 8 under ``health_check``, 20 commits in chunks of 5 with
+    chains 0-3 poisoned at commit 3 and chain 6 at commit 12 — the healed
+    state bitwise (parameters, keys, health); a run checkpoint after 10
+    commits resumed to 20, bitwise the uninterrupted run; ``save_ensemble``'s
+    file equal to the unplaced one's, and restored placed through
+    ``restore_ensemble`` bitwise the state.  The gathers of the health mask,
+    keys and ring heads, the checkpoint's gather to the origin and its
+    barrier run on the card's collectives."""
+    from repro_torch import samplers
+    from repro_torch.checkpoint import restore_ensemble
+    from repro_torch.cluster import ClusterEngine, ensemble_async
+    from repro_torch.core import Quadratic, WorkerModel
+    from repro_torch.kernels import rng
+    from repro_torch.utils import gather_rows, is_placed
+
+    C, D, steps = 8, 64, 20
+    quad = Quadratic.make(rng.PRNGKey(0), d=D, m=1.0, L=3.0, device=device)
+    sampler = samplers.sgld("inconsistent", lambda p, b: quad.grad(p, b), gamma=0.01,
+                            sigma=0.5, tau=8, fused=True)
+    scheds = ensemble_async(WorkerModel(num_workers=4, seed=1), steps, C, seed=0)
+    poison = np.zeros((steps, C), bool)
+    poison[3, :C // 2] = True
+    poison[12, 6] = True
+    run = dict(schedule=scheds, poison=poison)
+
+    def engine(m):
+        return ClusterEngine(sampler, num_chains=C, chunk_size=5, health_check=True,
+                             mesh=m)
+
+    def start(m):
+        return engine(m).init(torch.zeros(D, device=device), rng.PRNGKey(6), jitter=1.0)
+
+    def host(carry, m):
+        keys = torch.tensor(carry.state.key, dtype=torch.int64)
+        if m is not None:
+            keys = gather_rows(keys, m, "data")
+        return (_to_host(torch, carry.state.params), keys, np.asarray(carry.health))
+
+    def same(a, b):
+        return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                and np.array_equal(a[2], b[2]))
+
+    got, launches = {}, {}
+    with _ckpt_dir() as tmp:
+        for name, m in (("unplaced", None), ("placed", mesh)):
+            _reset(kernels)
+            full, _ = engine(m).run(start(m), steps=steps, **run)
+            ck, bank = str(Path(tmp) / f"run_{name}.npz"), str(Path(tmp) / f"{name}.npz")
+            engine(m).run(start(m), steps=10, schedule=scheds, poison=poison[:10],
+                          checkpoint_path=ck)
+            resumed, _ = engine(m).resume(ck, start(m), steps=steps, **run)
+            engine(m).save_ensemble(full.state, bank)
+            launches[name] = _counts(kernels)
+            got[name] = {"full": host(full, m), "resumed": host(resumed, m)}
+            with np.load(bank) as f:
+                got[name]["bank"] = {k: f[k] for k in f.files}
+            if m is not None:
+                back = restore_ensemble(bank, torch.zeros(D), device=device, mesh=m)
+                check(is_placed(back) and torch.equal(back.full_tensor().cpu(),
+                                                      got[name]["full"][0]),
+                      "placement (d): the placed restore_ensemble is not the state")
+            del full, resumed
+    p, u = got["placed"], got["unplaced"]
+    check(u["full"][2].all() and same(p["full"], u["full"]),
+          "placement (d): the placed heal is not bitwise the unplaced one")
+    check(same(p["resumed"], p["full"]) and same(u["resumed"], u["full"]),
+          "placement (d): a resumed run is not bitwise the uninterrupted one")
+    check(p["bank"].keys() == u["bank"].keys()
+          and all(np.array_equal(p["bank"][k], u["bank"][k]) for k in u["bank"]),
+          "placement (d): save_ensemble's placed file differs from the unplaced one")
+    check(launches["placed"] == launches["unplaced"],
+          f"placement (d): launches {launches}")
+    log(f"placement (d): a heal of chains 0-3 and 6, a run checkpoint resumed and "
+        f"save_ensemble, placed bitwise the unplaced; launches {launches['placed']}")
+    return {"launches": launches["placed"]}
+
+
+def placement_serving(torch, np, ds, cfg, mesh, device="cuda") -> dict:
+    """(b) The decode and paged cells' traffic and (c) one predictive request
+    of 8 x 128 tokens, on a 4-chain bank, unplaced and then placed over the
+    mesh, each stream run once to warm its engine and then timed: tokens,
+    log-probs and statistics bitwise equal, the same launches."""
+    from repro_torch.cluster import DecodeEngine, PagedDecodeEngine, Request, ServeEngine
+    from repro_torch.models import transformer_next_token_predict
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.utils import place_chains
+
+    C, V = 4, cfg.vocab_size
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device, num_chains=C)
+    r = np.random.default_rng(0)
+    prompts = r.integers(0, V, (4, 32)).astype(np.int32)
+    lens = [8, 96, 17, 64, 33, 8, 80, 45, 12, 96, 24, 50]
+    budgets = [32, 4, 16, 24, 8, 32, 12, 4, 20, 16, 28, 6]
+    reqs = [r.integers(0, V, (t,)).astype(np.int32) for t in lens]
+    queries = {"tokens": r.integers(0, V, (8, 128)).astype(np.int32)}
+    predict = transformer_next_token_predict(Model(cfg, device=device))
+    counters = {"decode_step": ds.decode_step, "paged_decode_step": ds.paged_decode_step}
+    got, out = {}, {}
+    for name, m in (("unplaced", None), ("placed", mesh)):
+        bank = params if m is None else place_chains(params, m, "data")
+        dec = DecodeEngine(cfg, bank, max_seq=256, return_logits=True, device=device, mesh=m)
+        pag = PagedDecodeEngine(cfg, bank, num_slots=8, page_size=16, max_seq=256,
+                                decode_chunk=8, return_logits=True, device=device, mesh=m)
+        srv = ServeEngine(predict_fn=predict, params=bank, device=device, mesh=m)
+        runs = {}
+        for what, stream in (
+                ("decode", lambda: [dec.generate(prompts, 16),
+                                    dec.generate(prompts[:1], 16, key=1234)]),
+                ("paged", lambda: _paged_stream(pag, Request, reqs, budgets)),
+                ("serve", lambda: [srv(queries)])):
+            stream()  # warm-up: the engine's rungs, caches and scratch made
+            sync()
+            _reset(counters)
+            t0 = time.perf_counter()
+            res = stream()
+            sync()
+            runs[what] = {"s": time.perf_counter() - t0, "launches": _counts(counters)}
+            got[(name, what)] = res
+        out[name] = runs
+        del dec, pag, srv, bank
+        _free(torch)
+    del params
+    for what in ("decode", "paged", "serve"):
+        a, b = got[("placed", what)], got[("unplaced", what)]
+        same = all(np.array_equal(x, y) for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+        check(same, f"placement ({what}): placed is not bitwise the unplaced")
+        check(out["placed"][what]["launches"] == out["unplaced"][what]["launches"],
+              f"placement ({what}): launches {out['placed'][what]['launches']} placed, "
+              f"{out['unplaced'][what]['launches']} unplaced")
+    lp, lu = out["placed"], out["unplaced"]
+    check(lp["decode"]["launches"]["decode_step"] > 0
+          and lp["paged"]["launches"]["paged_decode_step"] > 0,
+          f"placement: the decode kernels did not run placed: {lp}")
+    log(f"placement (b): decode / paged streams placed bitwise the unplaced in "
+        f"{lp['decode']['s']:.3f} / {lp['paged']['s']:.3f} s (unplaced "
+        f"{lu['decode']['s']:.3f} / {lu['paged']['s']:.3f} s); (c) an 8 x 128 request "
+        f"in {lp['serve']['s'] * 1e3:.1f} ms placed, {lu['serve']['s'] * 1e3:.1f} "
+        f"unplaced; launches {lp['decode']['launches']}, {lp['paged']['launches']}")
+    out["launches"] = {k: lp["decode"]["launches"][k] + lp["paged"]["launches"][k]
+                       + lp["serve"]["launches"][k] for k in counters}
+    return out
+
+
+def _paged_stream(pag, Request, reqs, budgets) -> list:
+    """Phase 12's paged traffic: ten requests fill the slots, the last two
+    arrive at a higher priority and preempt; -> [(tokens, logits)] by
+    request."""
+    ids, early = [], []
+    for i, (p, n) in enumerate(zip(reqs, budgets)):
+        if i == 10:
+            early = pag.step()
+        ids.append(pag.submit(Request(tokens=p, max_new_tokens=n, priority=int(i >= 10),
+                                      key=None if i % 3 else 77 + i)))
+    done = {c.request_id: c for c in early + pag.drain()}
+    return [(done[i].tokens, done[i].logits) for i in ids]
+
+
+def placement_path(torch, np, ds, kernels, cfg=None, device="cuda") -> dict:
+    """Phase 13: a world of one NCCL rank over a ``FileStore``, a ``data`` 1
+    x ``model`` 1 mesh, (a)-(c) at phase 12's widths and (d) (``cfg``, ``device``:
+    a rehearsal on the CPU, a gloo rank); the group destroyed at the end,
+    whatever happened."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import init_world, make_debug_mesh
+
+    cfg = cfg or replace(get_arch("qwen3-4b"), num_layers=TOOLING_LAYERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world(device, str(Path(tmp) / "store"), rank=0, world_size=1)
+        try:
+            mesh = make_debug_mesh(data=1, model=1)
+            log(f"placement: {mesh} over a {dist.get_backend()} group of "
+                f"{dist.get_world_size()}; {cfg.name}, {cfg.num_layers} layers")
+            out = {"cluster": placement_cluster(torch, np, kernels, cfg, mesh, device)}
+            _free(torch)
+            out["faults"] = placement_faults(torch, np, kernels, mesh, device)
+            out["serving"] = placement_serving(torch, np, ds, cfg, mesh, device)
+            _free(torch)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3264,6 +3554,15 @@ def main() -> int:
                                   for k in sgld_kernels}}
     tool_decode = tool["streams"]["decode"]["launches"]["decode_step"]
     tool_paged = tool["streams"]["paged"]["launches"]["paged_decode_step"]
+    # phase 13: placement over a device mesh
+    t13 = time.perf_counter()
+    place = placement_path(torch, np, ds, sgld_kernels)
+    phase13_s = time.perf_counter() - t13
+    log(f"phase 13: {phase13_s:.1f} s; the script so far {time.perf_counter() - T_START:.1f} s "
+        "of its 1,200")
+    place_serve = place["serving"]["launches"]
+    placement_train = {"launches": {k: place["cluster"]["launches"][k]
+                                    + place["faults"]["launches"][k] for k in sgld_kernels}}
 
     def cases(runs):
         return [{k: r[k] for k in ("dtype", "heads", "rows", "smax", "valid", "maxp", "pos",
@@ -3280,13 +3579,15 @@ def main() -> int:
          "replaces": "src/repro/kernels/decode_step.py:63",
          "launches": (mp["decode"]["launches"] + mp["serve"]["decoder"]["launches"]
                       + tl["launches"] + sum(z["launches"] for z in zoo)
-                      + srv["decode"]["launches"] + sum(hybrid.values()) + tool_decode),
+                      + srv["decode"]["launches"] + sum(hybrid.values()) + tool_decode
+                      + place_serve["decode_step"]),
          "launches_by_path": {"decode": mp["decode"]["launches"],
                               "serve_decoder": mp["serve"]["decoder"]["launches"],
                               "train_lm_decode_group3": tl["launches"],
                               "zoo": {z["arch"]: z["launches"] for z in zoo},
                               "moe_serve": srv["decode"]["launches"],
-                              "hybrid": hybrid, "tooling": tool_decode},
+                              "hybrid": hybrid, "tooling": tool_decode,
+                              "placement": place_serve["decode_step"]},
          "max_abs_err": d["max_abs_err"],
          "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
          "bound_by": d["bound_by"], "library_ms": d["library_ms"],
@@ -3302,12 +3603,13 @@ def main() -> int:
          "replaces": "src/repro/kernels/decode_step.py:150",
          "launches": (mp["paged"]["launches"] + srv["paged"]["launches"]
                       + sum(z["paged"]["launches"] for z in zoo if "paged" in z)
-                      + tool_paged),
+                      + tool_paged + place_serve["paged_decode_step"]),
          "launches_by_path": {"paged": mp["paged"]["launches"],
                               "zoo": {z["arch"]: z["paged"]["launches"]
                                       for z in zoo if "paged" in z},
                               "moe_serve": srv["paged"]["launches"],
-                              "tooling": tool_paged},
+                              "tooling": tool_paged,
+                              "placement": place_serve["paged_decode_step"]},
          "max_abs_err": p["max_abs_err"],
          "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
          "bound_by": p["bound_by"], "library_ms": p["library_ms"],
@@ -3343,7 +3645,8 @@ def main() -> int:
                                      ("cluster", cp), ("faults", fa), ("fault_path", fb),
                                      ("run_checkpoint", fc), ("zoo_train", zoo_train),
                                      ("hybrid_train", hybrid_train),
-                                     ("tooling", tooling_train))}
+                                     ("tooling", tooling_train),
+                                     ("placement", placement_train))}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
@@ -3366,6 +3669,7 @@ def main() -> int:
                                   "train": rtrain, "slstm_loop": sloop,
                                   "xlstm_grad_at_init": xgrad, "seconds": phase11_s}}))
     log(json.dumps({"tooling": {**tool, "seconds": phase12_s}}))
+    log(json.dumps({"placement": {**place, "seconds": phase13_s}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,18 @@ Differences from the JAX package: ``Request.key`` is an int seed (``None``
 :func:`sample_tokens`, a counter-based Gumbel-max whose noise is a hash of
 (seed, absolute position, token id) — deterministic on any device, so a
 preempted request replays identically.  The sampled tokens are not the
-JAX package's.  There is no mesh: the bank lives on one card.
+JAX package's.
+
+Placement (``mesh=``, a ``torch.distributed.device_mesh.DeviceMesh``): the
+bank's chains are split over ``chain_axis`` and replicated over the other
+mesh axes (:meth:`BankEngine._shard_bank`); each rank runs every chain of
+its block, and the per-chain block of a step — logits ``(C, B, V)``,
+predictions ``(C, Q, ...)`` — is all-gathered over the chain axis before
+the same replicated reduce runs on every rank
+(:meth:`BankEngine._all_chains`, the JAX package's ``_wrap_bma``), so every
+rank takes the same token.  Every rank of the mesh submits the same
+requests in the same order.  ``shard_params`` (each chain's tensors split
+over ``model`` too) is not ported.
 """
 
 from __future__ import annotations
@@ -38,7 +49,18 @@ from repro_torch.analysis.instrument import Counters as _Counters
 from repro_torch.analysis.instrument import counters as _counters
 from repro_torch.obs.metrics import registry as _registry
 from repro_torch.obs.trace import now as _now
-from repro_torch.utils import resolve_device, tree_leaves, tree_map
+from repro_torch.utils import (
+    chain_block,
+    chain_placements,
+    gather_rows,
+    is_placed,
+    local,
+    map_local,
+    place_chains,
+    resolve_device,
+    tree_leaves,
+    tree_map,
+)
 
 PyTree = Any
 
@@ -188,11 +210,11 @@ class Endpoint:
 
 
 class BankEngine(Endpoint):
-    """Shared plumbing for engines serving a chain-stacked parameter bank on
-    one device: the engines are dataclasses with ``params`` / ``device``
-    fields and a front field, :attr:`_FRONT_FIELD` (``model`` on the decode
-    engines, ``predict_fn`` on the predictive one), which the constructors'
-    ``front`` argument binds."""
+    """Shared plumbing for engines serving a chain-stacked parameter bank:
+    the engines are dataclasses with ``params`` / ``device`` / ``mesh`` /
+    ``chain_axis`` fields and a front field, :attr:`_FRONT_FIELD`
+    (``model`` on the decode engines, ``predict_fn`` on the predictive
+    one), which the constructors' ``front`` argument binds."""
 
     #: the dataclass field the constructors' ``front`` argument binds to
     _FRONT_FIELD = "model"
@@ -209,13 +231,28 @@ class BankEngine(Endpoint):
         A :class:`~repro_torch.cluster.executor.HealthState` (any state
         carrying a ``health`` mask) serves **degraded**: quarantined chains
         are dropped from the bank and the BMA averages the survivors.  An
-        all-quarantined bank raises."""
+        all-quarantined bank raises.
+
+        A placed state (a placed ``ClusterEngine``'s) serves placed, on its
+        own mesh unless ``mesh=`` is given; each rank keeps its rows.  A
+        placed state with quarantined chains is refused: respawn heals it
+        first."""
         params = getattr(state, "params", state)
         health = getattr(state, "health", None)
+        leaf = tree_leaves(params)[0]
+        if is_placed(leaf) and "mesh" not in kw:
+            kw["mesh"] = leaf.device_mesh
+            kw["chain_axis"] = leaf.device_mesh.mesh_dim_names[
+                next(i for i, p in enumerate(leaf.placements) if p.is_shard())]
         if health is not None:
             h = np.asarray(health, bool)
             if not h.any():
                 raise ValueError("every chain is quarantined — no healthy bank to serve")
+            if not h.all() and is_placed(leaf):
+                raise ValueError(
+                    f"{int((~h).sum())} of the placed state's chains are "
+                    "quarantined: a placed bank serves whole (run the cluster "
+                    "with respawn=True, which heals them at the next chunk)")
             if not h.all():
                 keep = np.flatnonzero(h)
                 params = tree_map(lambda x: x[torch.from_numpy(keep).to(x.device)],
@@ -223,7 +260,7 @@ class BankEngine(Endpoint):
                 _registry().gauge("chains.unhealthy", "chains currently "
                                   "quarantined").set(float(h.size - keep.size))
         if isinstance(params, dict) and "embed" in params and params["embed"]["w"].dim() == 4:
-            params = tree_map(lambda t: t[:, 0], params)  # (C, 1, ...) -> (C, ...)
+            params = map_local(lambda t: t[:, 0], params)  # (C, 1, ...) -> (C, ...)
         if front is not None:
             kw.setdefault(cls._FRONT_FIELD, front)
         return cls(params=params, **kw)
@@ -240,7 +277,9 @@ class BankEngine(Endpoint):
         front argument — a model or config, or a predict fn — also by
         keyword.  The other order, ``(path, front, like)``, is recognised
         (a model, config or function in the ``like`` seat) and swapped.
-        The bank is restored onto the engine's ``device``."""
+        The bank is restored onto the engine's ``device``; with ``mesh=``
+        each rank reads the file one leaf at a time and keeps only its
+        rows."""
         from repro_torch.checkpoint import restore_ensemble
         from repro_torch.weights import drop_unit_chain
 
@@ -250,7 +289,8 @@ class BankEngine(Endpoint):
             kw.setdefault(cls._FRONT_FIELD, front)
         dev = resolve_device(kw.get("device", "cuda"))
         params = restore_ensemble(path, drop_unit_chain(like), num_chains=num_chains,
-                                  device=dev)
+                                  device=dev, mesh=kw.get("mesh"),
+                                  chain_axis=kw.get("chain_axis", "data"))
         return cls(params=params, **kw)
 
     def _init_bank(self) -> None:
@@ -273,6 +313,53 @@ class BankEngine(Endpoint):
         self._scratch = HostScratch(self._counters)
         self._pending: list = []
         self._rungs: set = set()
+
+    def _shard_bank(self) -> None:
+        """Place the bank (the JAX package's ``_shard_bank``).  Without a
+        mesh the bank serves as it is.  With one, the chain count must
+        divide over ``chain_axis`` (the JAX package's message); a placed
+        bank (``from_cluster`` of a placed state, a placed restore) is
+        kept, a whole one is cut to the rank's rows.  ``_bank`` is the
+        rank's local bank the model runs on, ``_local_chains`` its chain
+        count."""
+        if getattr(self, "shard_params", False):
+            raise NotImplementedError(
+                "shard_params=True (a 2-D bank: each chain's tensors split over "
+                "the 'model' axis as well) belongs to the model-axis slice "
+                "(ROADMAP Queue 1); the port places the chain axis only")
+        leaves = tree_leaves(self.params)
+        placed = [is_placed(x) for x in leaves]
+        self._bank, self._local_chains = self.params, self.num_chains
+        if self.mesh is None:
+            if any(placed):
+                raise ValueError("a placed bank needs the engine's mesh= (and "
+                                 "chain_axis=) to serve from")
+            return
+        block = chain_block(self.mesh, self.chain_axis, self.num_chains)
+        if all(placed):
+            want = chain_placements(self.mesh, self.chain_axis)
+            for x in leaves:
+                if x.device_mesh != self.mesh or list(x.placements) != want:
+                    raise ValueError(f"the bank is placed {x.placements} over "
+                                     f"{x.device_mesh}, the engine wants {want} over "
+                                     f"{self.mesh}")
+        elif any(placed):
+            raise ValueError("the bank mixes placed and whole leaves")
+        else:  # a whole bank: keep the rank's rows
+            self.params = place_chains(tree_map(lambda x: x[block].clone(), self.params),
+                                       self.mesh, self.chain_axis)
+        self._bank = local(self.params)
+        self._local_chains = block.stop - block.start
+
+    def _all_chains(self, per_chain: torch.Tensor) -> torch.Tensor:
+        """A step's per-chain block — logits ``(C, B, V)`` on the decode
+        engines, predictions ``(C, Q, ...)`` on the predictive one — of
+        every chain: placed, the rank's rows all-gathered over the chain
+        axis (one collective), so every rank runs the identical replicated
+        reduce; unplaced, the block itself."""
+        if self.mesh is None:
+            return per_chain
+        return gather_rows(per_chain, self.mesh, self.chain_axis)
 
     def _see_rung(self, program: str, rung) -> None:
         """Report ``rung`` of ``program`` to the counters the first time the

@@ -21,6 +21,11 @@ bma_logits`), and the chosen token feeds back into every chain's cache.
 
 ``submit()`` / ``drain()`` stack compatible requests (same prompt length,
 budget and seed) back into one batch; ``generate()`` is a shim over them.
+
+With ``mesh=`` the bank's chains are split over ``chain_axis``: each
+rank's KV-cache bank holds only its chains, and each step's per-chain
+logits are all-gathered over the chain axis before the BMA reduce
+(:class:`~repro_torch.cluster.api.BankEngine`).
 """
 
 from __future__ import annotations
@@ -72,7 +77,9 @@ class DecodeEngine(BankEngine):
     ``"cuda"``, which needs a card).  ``generate(tokens, n)`` pads the
     prompt batch up the bucket ladder, prefills the rung's persistent
     KV-cache bank, and decodes ``n`` tokens; ``key=None`` decodes greedily,
-    an int seed samples from the BMA token law.
+    an int seed samples from the BMA token law.  ``mesh`` /
+    ``chain_axis`` place the bank (``shard_params`` is refused: not
+    ported).
     """
 
     model: Any
@@ -83,6 +90,9 @@ class DecodeEngine(BankEngine):
     return_logits: bool = False
     max_cache_rungs: int = 8
     device: Any = "cuda"
+    mesh: Any = None
+    chain_axis: str = "data"
+    shard_params: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -90,6 +100,7 @@ class DecodeEngine(BankEngine):
         self._model = Model(cfg, device=self.device)
         self._model._require_stacked_attention("DecodeEngine")
         self._init_bank()
+        self._shard_bank()
         self._cache: OrderedDict = OrderedDict()  # B rung -> KV-cache bank
         reg = _registry()
         self._m_requests = reg.counter("decode.requests", "generate() calls")
@@ -121,14 +132,14 @@ class DecodeEngine(BankEngine):
         Returns device tensors (tokens (B, max_new), logits or None)."""
         model = self._model
         seeds = None if seed is None else _row_seeds(seed, tokens.shape[0])
-        last, cache = model.prefill_cache(self.params, tokens, cache, prompt_len)
-        logp = bma_logits(last)  # (B, V)
+        last, cache = model.prefill_cache(self._bank, tokens, cache, prompt_len)
+        logp = bma_logits(self._all_chains(last))  # (B, V)
         tok = self._select(logp, seeds, prompt_len)
         toks, logps = [tok], [logp]
         pos = prompt_len
         for _ in range(max_new - 1):
-            per_chain, cache = model.serve_step(self.params, cache, tok[:, None], pos)
-            logp = bma_logits(per_chain[:, :, 0])
+            per_chain, cache = model.serve_step(self._bank, cache, tok[:, None], pos)
+            logp = bma_logits(self._all_chains(per_chain[:, :, 0]))
             pos += 1
             tok = self._select(logp, seeds, pos)
             toks.append(tok)
@@ -142,7 +153,7 @@ class DecodeEngine(BankEngine):
     def _rung_cache(self, b_rung: int):
         cache = self._cache.pop(b_rung, None)
         if cache is None:
-            cache = self._model.init_cache_bank(self.num_chains, b_rung,
+            cache = self._model.init_cache_bank(self._local_chains, b_rung,
                                                 self.max_seq)
         return cache
 

@@ -30,7 +30,13 @@ from repro_torch.metrics.wasserstein import sinkhorn_w2, w2_empirical_1d
 from repro_torch.obs.metrics import registry as _registry
 from repro_torch.samplers.base import Sampler, SamplerState
 from repro_torch.samplers.transform import chain_at, map_tensors
-from repro_torch.utils import tree_broadcast_leading, tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.utils import (
+    gather_chains,
+    tree_broadcast_leading,
+    tree_flatten,
+    tree_leaves,
+    tree_unflatten,
+)
 
 PyTree = Any
 
@@ -58,7 +64,7 @@ def _stack_inits(init: Callable, stacked: PyTree, num_chains: int):
 
 def init_ensemble(sampler: Sampler, params: PyTree, key=None, *,
                   num_chains: int | None = None, keys=None,
-                  jitter: float = 0.0) -> SamplerState:
+                  jitter: float = 0.0, chains: slice | None = None) -> SamplerState:
     """C chains from one start: every tensor of the
     :class:`~repro_torch.samplers.base.SamplerState` gains a leading chain
     axis (the ring's leaves are ``(C, depth, *leaf)``); ``step`` stays one
@@ -70,6 +76,12 @@ def init_ensemble(sampler: Sampler, params: PyTree, key=None, *,
     start (float32 leaves): the JAX package's draw under ``fold_in(key,
     0x6A17)`` (``fold_in(keys[0], ...)`` with explicit keys), leaf ``i``
     under its ``i``-th split.
+
+    ``chains`` (a slice of the C chains) builds only that block — the
+    rows a rank holds when the chains are placed over a device mesh
+    (:func:`repro_torch.utils.chain_block`): chain ``c`` keeps its key and
+    its jitter rows, so the blocks, stacked, are the whole state bit for
+    bit.
     """
     if keys is None:
         if key is None or num_chains is None:
@@ -79,6 +91,10 @@ def init_ensemble(sampler: Sampler, params: PyTree, key=None, *,
     else:
         keys = [rng.key_bits(k) for k in keys]
         k_jitter = rng.fold_in(keys[0], _JITTER_TAG)
+    rows = range(len(keys))[chains if chains is not None else slice(None)]
+    if rows.step != 1:
+        raise ValueError(f"chains must be a contiguous block, got {chains}")
+    keys = keys[rows.start:rows.stop]
     C = len(keys)
     stacked = tree_broadcast_leading(params, C)
     if jitter > 0.0:
@@ -87,7 +103,8 @@ def init_ensemble(sampler: Sampler, params: PyTree, key=None, *,
         for k, x in zip(rng.split(k_jitter, len(leaves)), leaves):
             if x.dtype != torch.float32:
                 raise ValueError(f"jitter draws float32 starts, got a {x.dtype} leaf")
-            n = rng.jax_normal(k, x.shape, x.device)
+            # the block's rows of the whole (C, *leaf) draw
+            n = rng.jax_normal(k, x.shape, x.device, start=rows.start * x[0].numel())
             out.append(rng._fma(torch.tensor(np.float32(jitter)), n, x))
         stacked = tree_unflatten(treedef, out)
     return SamplerState(params=stacked, step=0, key=keys,
@@ -144,8 +161,10 @@ def ensemble_step(sampler: Sampler, *, batch_axis: Optional[int] = None,
 
 def chain_positions(tree: PyTree) -> torch.Tensor:
     """Flatten per-chain params ``(C, ...)`` into the cloud ``(C, d)``
-    (float32, leaves in JAX's order)."""
-    leaves = tree_leaves(tree)
+    (float32, leaves in JAX's order).  Placed params are gathered first
+    (:func:`~repro_torch.utils.gather_chains`): a hook sees all C
+    chains."""
+    leaves = tree_leaves(gather_chains(tree))
     c = leaves[0].shape[0]
     return torch.cat([x.reshape(c, -1).float() for x in leaves], dim=1)
 

@@ -1,4 +1,4 @@
-"""ClusterEngine: the multi-chain async-SGLD executor on one card (port of
+"""ClusterEngine: the multi-chain async-SGLD executor (port of
 ``repro.cluster.executor``).
 
 The same contract as :class:`repro_torch.train.engine.Engine` — chunks,
@@ -38,8 +38,18 @@ fault knob is opt-in: without them a commit launches what it launched
 before and the host reads nothing back; ``health_check`` costs one ``(C,)``
 read of the commit's non-finite flags a commit.
 
-``mesh=`` (chains sharded over several cards) is left out of the port:
-one card cannot test it.
+With ``mesh=`` (a ``torch.distributed.device_mesh.DeviceMesh``) the chains
+are split in contiguous blocks over ``chain_axis`` (default ``"data"``) and
+replicated over the other mesh axes, as ``P(chain_axis)`` splits them in the
+JAX package: the state's tensors are ``DTensor`` leaves (``Shard(0)`` on the
+chain axis), each rank builds and advances only its block — the chunk body
+runs unchanged on the local rows (:func:`~repro_torch.utils.local`, the
+counterpart of ``shard_map``), with the block's columns of the schedules —
+and the per-chain host values (keys, ring heads) are the rank's own.  A
+commit holds no cross-chain traffic, so a chain's trajectory is bitwise
+the same placed or not.  Cross-chain traffic is where the JAX package has
+it: the health mask gathered once a chunk under ``health_check``, a
+respawn's donor rows, hooks that read the chain cloud, and checkpoints.
 """
 
 from __future__ import annotations
@@ -69,7 +79,17 @@ from repro_torch.samplers.base import Sampler, SamplerState
 from repro_torch.samplers.transform import chain_at, map_tensors
 from repro_torch.samplers.transforms import MaskedBatch
 from repro_torch.train.engine import Hook, _to_host, drive_chunks
-from repro_torch.utils import bucket_size, to_device, tree_leaves, tree_map
+from repro_torch.utils import (
+    bucket_size,
+    chain_block,
+    gather_rows,
+    is_placed,
+    local,
+    place_chains,
+    to_device,
+    tree_leaves,
+    tree_map,
+)
 
 PyTree = Any
 BatchFn = Callable[[torch.Generator], PyTree]  # generator -> one chain's batch
@@ -184,6 +204,13 @@ class ClusterEngine:
     quarantined — its later commits are masked — and, with
     ``respawn=True``, recloned from a healthy donor chain with a fresh
     ``fold_in`` key at the next chunk boundary.  Both default off.
+
+    ``mesh`` (a ``DeviceMesh`` with a ``chain_axis`` axis that divides
+    ``num_chains``) places the chains over several ranks; every rank of
+    the mesh calls the same methods with the same arguments.  A placed
+    state's ``params`` and transform state are ``DTensor`` leaves, its
+    ``key`` the rank's block of keys; a :class:`HealthState`'s mask holds
+    every chain between chunks.
     """
 
     sampler: Sampler
@@ -199,6 +226,7 @@ class ClusterEngine:
     health_check: bool = False
     respawn: bool = True
     mesh: Any = None
+    chain_axis: str = "data"
     _layouts: set = field(default_factory=set, init=False, repr=False)
 
     def __post_init__(self):
@@ -213,10 +241,9 @@ class ClusterEngine:
             raise ValueError(
                 "batch_fn generates fixed-shape minibatches; heterogeneous "
                 "batch policies consume a `data=` stream passed to run()")
+        self._block = slice(0, self.num_chains)
         if self.mesh is not None:
-            raise ValueError("ClusterEngine: mesh= (chains sharded over several "
-                             "cards) is left out of the port: one card cannot "
-                             "test it (ROADMAP Queue 1)")
+            self._block = chain_block(self.mesh, self.chain_axis, self.num_chains)
         self._counters = _counters("ClusterEngine")
         reg = _registry()
         self._m_staleness = reg.histogram(
@@ -253,9 +280,26 @@ class ClusterEngine:
 
     # -- init / export ----------------------------------------------------------
     def init(self, params: PyTree, key, *, jitter: float = 0.0) -> SamplerState:
-        """C-chain ensemble state; chain ``c``'s key is ``split(key, C)[c]``."""
-        return init_ensemble(self.sampler, params, key,
-                             num_chains=self.num_chains, jitter=jitter)
+        """C-chain ensemble state; chain ``c``'s key is ``split(key, C)[c]``.
+        Placed, each rank builds only its block of chains."""
+        state = init_ensemble(self.sampler, params, key, num_chains=self.num_chains,
+                              jitter=jitter, chains=self._block)
+        return self._place(state)
+
+    # -- placement -------------------------------------------------------------------
+    def _place(self, tree):
+        """The rank's rows placed over the mesh (unchanged without one)."""
+        if self.mesh is None:
+            return tree
+        return place_chains(tree, self.mesh, self.chain_axis)
+
+    def _gather_host(self, rows: np.ndarray, dim: int = 0) -> np.ndarray:
+        """A host array of the rank's chains (on axis ``dim``) gathered
+        over the chain axis: every rank gets every chain's."""
+        if self.mesh is None:
+            return rows
+        t = torch.from_numpy(np.ascontiguousarray(rows))
+        return gather_rows(t, self.mesh, self.chain_axis, dim).numpy()
 
     def save_ensemble(self, state, path: str) -> None:
         """Export the chain bank: the chain-stacked parameters in the
@@ -266,7 +310,8 @@ class ClusterEngine:
         from repro_torch.checkpoint import save_checkpoint
         from repro_torch.weights import drop_unit_chain
 
-        save_checkpoint(path, drop_unit_chain(state.params), step=int(state.step))
+        params = self._place(drop_unit_chain(local(state.params)))
+        save_checkpoint(path, params, step=int(state.step))
 
     # -- schedule normalisation ---------------------------------------------------
     def _compile_schedule(self, schedule: ScheduleLike, steps: int):
@@ -358,7 +403,7 @@ class ClusterEngine:
             s, health = carry.state, carry.health
         else:
             s, health = carry, None
-        C = self.num_chains
+        C = len(s.key)  # the rank's chains when placed
         delays = s.step - ex["rv"]  # endogenous
         keys = None
         if self.worker_rng:
@@ -443,6 +488,22 @@ class ClusterEngine:
                 auxs.append(aux)
         return carry, _to_host(auxs)
 
+    def _run_placed_chunk(self, carry, batches: list, extra: dict):
+        """One chunk of a placed run: the chunk body on the rank's local
+        rows (its block of the health mask), placed back after; under
+        ``health_check`` the mask is gathered over the chain axis (one
+        collective a chunk), and a collected aux likewise."""
+        health = isinstance(carry, HealthState)
+        state = local(carry.state if health else carry)
+        lc = HealthState(state, carry.health[self._block]) if health else state
+        lc, aux = self._run_chunk(lc, batches, extra)
+        out = self._place(lc.state if health else lc)
+        if health:
+            out = HealthState(out, self._gather_host(lc.health))
+        if aux is not None:  # (n, C_local, ...) host arrays
+            aux = tree_map(lambda a: self._gather_host(a, dim=1), aux)
+        return out, aux
+
     # -- fault tolerance --------------------------------------------------------------
     def _as_carry(self, state):
         """The carry :meth:`run` drives: under ``health_check`` a
@@ -472,35 +533,69 @@ class ClusterEngine:
             return carry  # total loss: nothing healthy left to clone
         donor = donors[np.arange(sick.size) % donors.size]
         state = carry.state
-
-        def clone(t):
-            for a, b in zip(sick, donor):
-                t[a].copy_(t[b])
-            return t
+        lo, hi = self._block.start, self._block.stop
 
         with _span("faults.respawn", chains=[int(i) for i in sick],
                    donors=[int(i) for i in donor]):
-            tree_map(clone, state.params)
-            map_tensors(clone, state.inner)
+            self._move_rows(local((state.params, state.inner)), sick, donor)
             keys = list(state.key)
-            for a in sick:
-                keys[a] = rng.fold_in(keys[a], _RESPAWN_TAG)
+            for a in sick:  # the rank that holds a sick chain mints its key
+                if lo <= a < hi:
+                    keys[a - lo] = rng.fold_in(keys[a - lo], _RESPAWN_TAG)
             healed = SamplerState(state.params, state.step, keys, state.inner)
             health = np.ones_like(health)
         self._m_respawned.inc(int(sick.size))
         prev_health[0] = health
         return HealthState(healed, health)
 
+    def _move_rows(self, tensors, sick, donor) -> None:
+        """Respawn's copies: each sick chain's rows of every (local) tensor
+        — its ring head, on the host, too — replaced by its donor's.  A
+        donor on the sick chain's own rank (every donor, unplaced) is
+        copied there; otherwise the donor's rank broadcasts the row over the
+        chain axis and the sick chain's rank takes it — every rank walks the
+        same pairs, in order."""
+        import torch.distributed as dist
+
+        per = self._block.stop - self._block.start
+        me = self._block.start // per
+        rows: list = []
+        map_tensors(lambda t: rows.append(t), tensors)
+        for a, b in zip(sick, donor):
+            ra, rb = int(a) // per, int(b) // per
+            if ra == rb:
+                if me == ra:
+                    for t in rows:
+                        t[a - ra * per].copy_(t[b - rb * per])
+                continue
+            group = self.mesh.get_group(self.chain_axis)
+            src = dist.get_global_rank(group, rb)
+            for t in rows:
+                buf = (t[b - rb * per] if me == rb else t[0]).contiguous()
+                buf = buf.to(self.mesh.device_type, copy=True)
+                dist.broadcast(buf, src=src, group=group)
+                if me == ra:
+                    t[a - ra * per].copy_(buf)
+
     def _carry_tree(self, carry):
         """The carry in the JAX package's layout, for a run checkpoint: the
         commit counter as a ``(C,)`` int32, the keys as ``(C, 2)`` uint32,
         ring heads as int32; paths ``carry##.state##.params...``,
-        ``carry##.health`` as the JAX carry's."""
+        ``carry##.health`` as the JAX carry's.  Placed, the keys and ring
+        heads are gathered over the chain axis (the placed tensors stay
+        placed: the checkpoint gathers them)."""
         s = carry.state if isinstance(carry, HealthState) else carry
         C = self.num_chains
+
+        def heads(t):  # placed: the plain tensors are the rank's ring heads
+            if self.mesh is None or is_placed(t):
+                return _as_saved_ints(t)
+            return _as_saved_ints(torch.from_numpy(self._gather_host(t.numpy())))
+
+        keys = self._gather_host(np.asarray(s.key, np.int64).reshape(-1, 2))
         state = SamplerState(params=s.params, step=np.full(C, s.step, np.int32),
-                             key=np.asarray(s.key, np.uint32).reshape(C, 2),
-                             inner=map_tensors(_as_saved_ints, s.inner))
+                             key=keys.astype(np.uint32),
+                             inner=map_tensors(heads, s.inner))
         if isinstance(carry, HealthState):
             return HealthState(state, np.asarray(carry.health, bool))
         return state
@@ -521,16 +616,25 @@ class ClusterEngine:
         template = self._as_carry(state)
         like = {"carry": self._carry_tree(template), "manifest": {
             "done": np.zeros((), np.int64), "base": np.zeros(self.num_chains, np.int64)}}
-        tree = restore_checkpoint(path, like, device="cpu")
+        placed = self.mesh is not None
+        tree = restore_checkpoint(path, like, device=None if placed else "cpu")
         saved, dst = tree["carry"], template
         if isinstance(template, HealthState):
             saved, dst = saved.state, template.state
         steps = saved.step.numpy()
         if not (steps == steps[0]).all():
             raise ValueError(f"{path}: the chains' commit counters differ: {steps}")
-        tree_map(lambda d, r: d.copy_(r), dst.params, saved.params)
-        map_tensors(lambda d, r: d.copy_(r), dst.inner, saved.inner)
-        keys = [tuple(int(v) for v in row) for row in saved.key.numpy().astype(np.uint32)]
+        block = self._block
+
+        def put(d, r):  # placed: the rank's rows (a ring head: its block of heads)
+            if is_placed(d):
+                return d.to_local().copy_(r.to_local())
+            return d.copy_(r[block] if placed and d.dim() else r)
+
+        tree_map(put, dst.params, saved.params)
+        map_tensors(put, dst.inner, saved.inner)
+        keys = [tuple(int(v) for v in row)
+                for row in saved.key.numpy().astype(np.uint32)[block]]
         carry = SamplerState(dst.params, int(steps[0]), keys, dst.inner)
         if isinstance(template, HealthState):
             carry = HealthState(carry, tree["carry"].health.numpy().astype(bool))
@@ -628,6 +732,9 @@ class ClusterEngine:
         extra["rv"] = (extra["rv"] + base[None, :]).astype(np.int64)
         if self.worker_rng:
             extra["slot"] = (extra["slot"] + base[None, :]).astype(np.int64)
+        block = self._block  # placed: the rank's columns of every schedule input
+        extra = {k: v[:, block] for k, v in extra.items()}
+        n_local = block.stop - block.start
 
         carry = self._as_carry(state)
         use_health = isinstance(carry, HealthState)
@@ -662,6 +769,7 @@ class ClusterEngine:
             offs = offs % n_data
             self._m_grad_evals.inc(int(sizes.sum()))
             host_aux = {"grad_evals": np.cumsum(sizes.astype(np.int64), axis=0)[start:]}
+            sizes, offs = sizes[:, block], offs[:, block]
             device = tree_leaves(data)[0].device
 
             def gen(key, n):
@@ -675,7 +783,7 @@ class ClusterEngine:
                                           + torch.arange(pad, device=device), n_data)
                     rows = tree_map(lambda x: x[idx], data)  # (C, pad, ...)
                     out.append([MaskedBatch(chain_at(rows, c), int(sizes[k, c]))
-                                for c in range(C)])
+                                for c in range(n_local)])
                 return key, out
         else:
             per_chain = self.per_chain_batches if batches is not None else \
@@ -702,12 +810,14 @@ class ClusterEngine:
                 for k in range(a, a + n):
                     if batches is not None:
                         b = tree_map(lambda x: x[k], batches)
-                        out.append([chain_at(b, c) for c in range(C)]
-                                   if per_chain else [b] * C)
+                        out.append([chain_at(b, c) for c in range(block.start, block.stop)]
+                                   if per_chain else [b] * n_local)
                     elif self.batch_fn is not None:
-                        out.append([self.batch_fn(key) for _ in range(C)])
+                        # every rank draws every chain's batch (one generator
+                        # stream) and keeps its block's
+                        out.append([self.batch_fn(key) for _ in range(C)][block])
                     else:
-                        out.append([zero] * C)
+                        out.append([zero] * n_local)
                 return key, out
 
         if start:
@@ -717,7 +827,8 @@ class ClusterEngine:
             if commit_times is not None:
                 commit_times = commit_times[start:]
         return drive_chunks(
-            self._run_chunk, carry, steps=steps - start, chunk_size=self.chunk_size,
+            self._run_chunk if self.mesh is None else self._run_placed_chunk, carry,
+            steps=steps - start, chunk_size=self.chunk_size,
             hooks=self.hooks, collect_aux=self.collect_aux, extra=extra,
             gen_batches=gen, key=key, commit_times=commit_times,
             host_aux=host_aux, chunk_post=chunk_post)

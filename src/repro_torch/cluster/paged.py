@@ -25,6 +25,13 @@ tokens discarded, and its request requeued; replay is identical because
 sampled tokens are a function of (seed, absolute position).  Requests past
 ``deadline_ms`` are shed while waiting or cut short in their slot, and
 ``max_waiting`` bounds the waiting queue.
+
+With ``mesh=`` the page pool's chain axis is placed as the bank's: each
+rank's pool holds only its chains, and each micro-step's per-chain logits
+are all-gathered over the chain axis before the BMA reduce.  The
+allocator, the page tables and the scheduler are the same on every rank;
+deadlines are judged on the mesh's first rank and broadcast, so every
+rank sheds and cuts the same requests.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from repro_torch.models.predictive import bma_logits
 from repro_torch.models.transformer import Model
 from repro_torch.obs.metrics import LATENCY_MS_BUCKETS, registry as _registry
 from repro_torch.obs.trace import now as _now, span as _span, tracer as _tracer
-from repro_torch.utils import bucket_size, cdiv, resolve_device
+from repro_torch.utils import bucket_size, broadcast_from_origin, cdiv, resolve_device
 
 PyTree = Any
 
@@ -111,7 +118,8 @@ class PagedDecodeEngine(BankEngine):
     ``max_seq / page_size`` pages.  ``step()`` pumps the scheduler once;
     ``submit()`` / ``drain()`` are the request-level surface.  A request
     with ``key=None`` decodes greedily, an int seed samples from the BMA
-    law.
+    law.  ``mesh`` / ``chain_axis`` place the bank and the pool
+    (``shard_params`` is refused: not ported).
     """
 
     model: Any
@@ -124,6 +132,9 @@ class PagedDecodeEngine(BankEngine):
     return_logits: bool = False
     max_waiting: Optional[int] = None  # submit() backpressure bound
     device: Any = "cuda"
+    mesh: Any = None
+    chain_axis: str = "data"
+    shard_params: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -131,6 +142,7 @@ class PagedDecodeEngine(BankEngine):
         self._model = Model(cfg, device=self.device)
         self._model._require_paged("PagedDecodeEngine")
         self._init_bank()
+        self._shard_bank()
         if self.max_seq % self.page_size:
             raise ValueError(
                 f"max_seq={self.max_seq} must be a multiple of "
@@ -141,7 +153,7 @@ class PagedDecodeEngine(BankEngine):
         self.num_pages = self.num_slots * self.pages_per_slot + 1
         self._allocator = PageAllocator(self.num_pages)
         self._pages = self._model.init_paged_bank(
-            self.num_chains, self.num_pages, self.page_size)
+            self._local_chains, self.num_pages, self.page_size)
         S = self.num_slots
         self._tables = np.zeros((S, self.pages_per_slot), np.int32)
         self._positions = np.zeros((S,), np.int32)
@@ -183,8 +195,8 @@ class PagedDecodeEngine(BankEngine):
         """Prefill one prompt into its slot's pages; returns the first
         token (host int) and its BMA log-probs (device, (V,))."""
         last, self._pages = self._model.paged_prefill(
-            self.params, torch.from_numpy(tokens), self._pages, table, prompt_len)
-        logp = bma_logits(last)[0]  # (C, 1, V) -> (V,)
+            self._bank, torch.from_numpy(tokens), self._pages, table, prompt_len)
+        logp = bma_logits(self._all_chains(last))[0]  # (C, 1, V) -> (V,)
         if seed is None:
             tok = torch.argmax(logp)
         else:
@@ -216,8 +228,8 @@ class PagedDecodeEngine(BankEngine):
             pos = np.where(active, positions, 0).astype(np.int32)
             pos_t = torch.from_numpy(pos).to(dev)
             per_chain, self._pages = self._model.paged_step(
-                self.params, self._pages, tables, last_tok[:, None], pos_t)
-            logp = bma_logits(per_chain[:, :, 0])  # (S, V)
+                self._bank, self._pages, tables, last_tok[:, None], pos_t)
+            logp = bma_logits(self._all_chains(per_chain[:, :, 0]))  # (S, V)
             nxt = torch.argmax(logp, dim=-1).to(torch.int32)
             if sampled_any:
                 nxt = torch.where(greedy, nxt, sample_tokens(logp, seeds, pos_t + 1))
@@ -270,6 +282,21 @@ class PagedDecodeEngine(BankEngine):
             return False
         return now >= req.timing["submitted"] + req.deadline_ms * 1e-3
 
+    def _deadline_hits(self, reqs: Sequence[Request]) -> List[bool]:
+        """Which of ``reqs`` are past their deadline now.  Placed, the
+        mesh's origin rank decides and broadcasts over the mesh (one
+        broadcast a mesh dimension, only while some request carries a
+        deadline): the ranks' clocks and submission times differ, and
+        their schedules must not."""
+        if all(r.deadline_ms is None for r in reqs):
+            return [False] * len(reqs)
+        now = _now()
+        hits = [self._expired(r, now) for r in reqs]
+        if self.mesh is None:
+            return hits
+        t = torch.tensor(hits, dtype=torch.uint8, device=self.mesh.device_type)
+        return [bool(v) for v in broadcast_from_origin(t, self.mesh).tolist()]
+
     def _shed_one(self, req: Request) -> Completion:
         req.timing["finished"] = _now()
         _tracer().record("paged.shed", req.timing["submitted"],
@@ -282,17 +309,17 @@ class PagedDecodeEngine(BankEngine):
             status=STATUS_SHED)
 
     def _shed_waiting(self, finished: List[Completion]) -> None:
-        now = _now()
-        expired = [r for r in self._waiting if self._expired(r, now)]
+        hits = self._deadline_hits(self._waiting)
+        expired = [r for r, h in zip(self._waiting, hits) if h]
         if expired:
-            self._waiting = [r for r in self._waiting
-                             if not self._expired(r, now)]
+            self._waiting = [r for r, h in zip(self._waiting, hits) if not h]
             finished.extend(self._shed_one(r) for r in expired)
 
     def _expire_active(self, finished: List[Completion]) -> None:
-        now = _now()
-        for s, a in enumerate(self._slots):
-            if a is not None and self._expired(a.request, now):
+        slots = [s for s, a in enumerate(self._slots) if a is not None]
+        hits = self._deadline_hits([self._slots[s].request for s in slots])
+        for s, hit in zip(slots, hits):
+            if hit:
                 self._m_timeout.inc()
                 finished.append(self._finish(s, status=STATUS_TIMEOUT,
                                              reason=FINISH_DEADLINE))
@@ -320,7 +347,7 @@ class PagedDecodeEngine(BankEngine):
     def _admit(self, finished: List[Completion]) -> None:
         while self._waiting:
             req = self._waiting[0]
-            if self._expired(req, _now()):  # never prefill a dead request
+            if self._deadline_hits([req])[0]:  # never prefill a dead request
                 self._waiting.pop(0)
                 finished.append(self._shed_one(req))
                 continue

@@ -20,7 +20,11 @@ Differences from the JAX package, by design:
 - the predict fn is **bank-form** (:data:`~repro_torch.models.predictive.
   PredictFn`): it takes the whole bank and returns ``(C, Q, ...)``; the
   JAX engine ``vmap``-s a one-chain forward;
-- no ``mesh`` / ``chain_axis``: the bank lives on one card;
+- ``mesh`` / ``chain_axis`` place the bank's chains over a
+  ``DeviceMesh`` (each rank runs its block's forward; the per-chain
+  predictions ``(C, Q, ...)`` are all-gathered over the chain axis, then
+  every rank reduces them identically), as the JAX engine's
+  ``shard_map``; the bank is never gathered;
 - no ``donate``: nothing is jitted, so no buffer is donated, and the
   caller's buffer is never written;
 - ``num_traces`` counts the shape rungs met (bucket x query structure):
@@ -143,7 +147,8 @@ class ServeEngine(BankEngine):
     ``params`` the bank on ``device`` (default ``"cuda"``, which needs a
     card) — a :class:`ClusterEngine` state's params, or what
     ``restore_ensemble`` gives.  ``quantiles`` are the levels every answer
-    carries; ``buckets`` the query-count ladder (powers of two when None).
+    carries; ``buckets`` the query-count ladder (powers of two when None);
+    ``mesh`` / ``chain_axis`` place the bank.
     """
 
     predict_fn: PredictFn
@@ -151,12 +156,15 @@ class ServeEngine(BankEngine):
     quantiles: Sequence[float] = (0.05, 0.5, 0.95)
     buckets: Optional[Sequence[int]] = None
     device: Any = "cuda"
+    mesh: Any = None
+    chain_axis: str = "data"
 
     _FRONT_FIELD = "predict_fn"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self._init_bank()
+        self._shard_bank()
         self._qs = torch.tensor(self.quantiles, dtype=torch.float32,
                                 device=self.device)
         reg = _registry()
@@ -173,7 +181,7 @@ class ServeEngine(BankEngine):
     # -- streaming ------------------------------------------------------------
     def decoder(self, model, **kw):
         """A :class:`~repro_torch.cluster.decode.DecodeEngine` over the
-        *same* bank, bucket ladder and device: single-shot predictive
+        *same* bank, bucket ladder, device and mesh: single-shot predictive
         queries and multi-token BMA generation from one restored bank.
         ``model`` is the Model or config the bank parameterizes; extra
         ``kw`` (``max_seq``, ``return_logits``, ...) pass through."""
@@ -181,6 +189,8 @@ class ServeEngine(BankEngine):
 
         kw.setdefault("buckets", self.buckets)
         kw.setdefault("device", self.device)
+        kw.setdefault("mesh", self.mesh)
+        kw.setdefault("chain_axis", self.chain_axis)
         return DecodeEngine(model=model, params=self.params, **kw)
 
     # -- request-level endpoint -----------------------------------------------
@@ -234,13 +244,13 @@ class ServeEngine(BankEngine):
         with _span("serve.request", Q=q, bucket=n, chains=self.num_chains):
             padded = _pad_queries(queries, n, scratch=self._scratch,
                                   device=self.device)
-            preds = self.predict_fn(self.params, padded)
-            if tuple(preds.shape[:2]) != (self.num_chains, n):
+            preds = self.predict_fn(self._bank, padded)
+            if tuple(preds.shape[:2]) != (self._local_chains, n):
                 raise ValueError(
                     f"predict_fn returned {tuple(preds.shape)}; a bank-form "
-                    f"predict fn returns (chains={self.num_chains}, "
+                    f"predict fn returns (chains={self._local_chains}, "
                     f"queries={n}, ...)")
-            res = predictive_stats(preds, self._qs)
+            res = predictive_stats(self._all_chains(preds), self._qs)
             mean, var, quantiles = (x.cpu().numpy() for x in res)
         self._m_requests.inc()
         self._m_queries.inc(q)

@@ -55,12 +55,14 @@ class RingBuffer:
       history: tree; each leaf has shape ``(depth, *leaf_shape)`` (``(C,
         depth, *leaf_shape)`` stacked).
       head: slot holding each chain's most recent snapshot: a host int64
-        tensor, 0-d for one chain's ring, ``(C,)`` stacked.
+        tensor, 0-d for one chain's ring, ``(C,)`` stacked (``host``: a
+        placed ring keeps its rank's heads on the host, unplaced —
+        :func:`repro_torch.utils.place_chains`).
       depth: ``tau + 1`` (static: not a checkpoint leaf).
     """
 
     history: PyTree
-    head: torch.Tensor
+    head: torch.Tensor = field(metadata=dict(host=True))
     depth: int = field(metadata=dict(static=True))
 
 

@@ -7,8 +7,9 @@ memory on a side stream, off the training stream's critical path.
 :func:`ar1_stream` generates the dependent (non-i.i.d.) minibatch sequence
 of the Chau-et-al.-shaped scenario, with its normals drawn by
 :func:`~repro_torch.kernels.rng.jax_normal`, so a key gives the JAX
-package's stream.  The reference's ``mesh`` / ``batch_axes`` placement
-(batches sharded over several cards) is not ported: one card.
+package's stream.  With ``mesh`` / ``batch_axes`` the prefetcher places
+each batch over a device mesh, as the reference's ``_place`` does: every
+rank makes the same global batch and keeps its rows.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import rng
-from repro_torch.utils import resolve_device, tree_leaves, tree_map
+from repro_torch.utils import is_placed, mesh_axis, resolve_device, tree_leaves, tree_map
 
 PyTree = Any
 
@@ -84,17 +85,35 @@ class Prefetcher:
     while the consumer's work is pending.  Leaves already on the card pass
     through.  On the CPU the batches come back as tensors, unmoved.
 
+    With ``mesh`` (a ``DeviceMesh``) every rank makes the same global
+    batch from the same key sequence and keeps its rows: each leaf's
+    leading axis is split over the ``batch_axes`` mesh axes (``Shard(0)``
+    there, ``Replicate()`` on the others — the reference's
+    ``P(batch_axes)``) and comes back a ``DTensor``; a 0-d leaf, or any
+    leaf when ``batch_axes`` is empty, is replicated.  Only the rank's
+    rows are copied to its device, and no collective runs.
+
     A ``batch_fn`` that raises re-raises from ``next()``; :meth:`close`
     stops the thread and joins it.
     """
 
     def __init__(self, batch_fn: Callable[[tuple], PyTree], key, *,
-                 device="cuda", depth: int = 2):
+                 device="cuda", depth: int = 2, mesh=None, batch_axes=("data",)):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.batch_fn = batch_fn
         self.key = rng.key_bits(key)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.batch_axes = tuple(batch_axes)
+        if mesh is not None:
+            dims = sorted(mesh_axis(mesh, a) for a in self.batch_axes)
+            coord = mesh.get_coordinate()
+            self._split = math.prod(mesh.shape[d] for d in dims)
+            self._part = 0
+            for d in dims:  # the rank's block, the mesh's axes in order
+                self._part = self._part * mesh.shape[d] + coord[d]
+            self._dims = dims
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self.stop = threading.Event()
         self._stream = (torch.cuda.Stream(self.device)
@@ -102,10 +121,31 @@ class Prefetcher:
         self.thread = threading.Thread(target=self._worker, daemon=True)
         self.thread.start()
 
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of a leaf (all of a 0-d or replicated one)."""
+        if self.mesh is None or x.dim() == 0 or not self._dims:
+            return x
+        if x.shape[0] % self._split:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split over "
+                             f"the mesh axes {self.batch_axes} ({self._split} ways)")
+        n = x.shape[0] // self._split
+        return x[self._part * n:(self._part + 1) * n]
+
+    def _placed(self, x: torch.Tensor):
+        """A leaf of the rank's rows as a DTensor over the mesh."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        sharded = x.dim() > 0 and self._dims
+        placements = [Shard(0) if sharded and d in self._dims else Replicate()
+                      for d in range(self.mesh.ndim)]
+        return DTensor.from_local(x, self.mesh, placements, run_check=False)
+
     def _place(self, batch: PyTree):
         """-> (batch on the device, copy-done event or None)."""
-        batch = tree_map(lambda x: x if torch.is_tensor(x) else torch.as_tensor(x),
+        batch = tree_map(lambda x: self._rows(x if torch.is_tensor(x) else torch.as_tensor(x)),
                          batch)
+        if self.mesh is not None and self._stream is None:
+            return tree_map(self._placed, batch), None
         if self._stream is None:
             return batch, None
         with torch.cuda.stream(self._stream):
@@ -114,6 +154,8 @@ class Prefetcher:
                            batch)
             done = torch.cuda.Event()
             done.record(self._stream)
+        if self.mesh is not None:
+            out = tree_map(self._placed, out)
         return out, done
 
     def _put(self, item) -> None:
@@ -147,7 +189,7 @@ class Prefetcher:
             consumer = torch.cuda.current_stream(self.device)
             consumer.wait_event(done)
             for t in tree_leaves(batch):
-                t.record_stream(consumer)
+                (t.to_local() if is_placed(t) else t).record_stream(consumer)
         return batch
 
     def close(self):

@@ -19,7 +19,11 @@ card it reports its work to any open cost count
 (:func:`repro_torch.analysis.cost.record_kernel`), from the formulas
 ``chip_smoke.py`` bounds the kernels with — the kernels are reached
 through ``ctypes``, where no dispatch mode sees them.  A device other
-than these three raises.
+than these three raises, and so does a ``DTensor``: an op takes the
+local rows a rank holds (:func:`repro_torch.utils.local`), because the
+kernels, bound through ``ctypes``, would read the wrapper's storage and
+DTensor dispatch would otherwise fail in the binding or gather the whole
+tensor onto every rank.
 """
 
 from __future__ import annotations
@@ -34,9 +38,17 @@ from repro_torch.kernels import decode_step as ds
 from repro_torch.kernels import delay_gather as dg
 from repro_torch.kernels import langevin_update as lu
 from repro_torch.kernels import ref, rng
-from repro_torch.utils import to_device, tree_flatten
+from repro_torch.utils import is_placed, to_device, tree_flatten
 
 PyTree = Any
+
+
+def _local_only(op: str, *tensors) -> None:
+    """Refuse a ``DTensor`` (a tensor placed over a device mesh)."""
+    for t in tensors:
+        if is_placed(t):
+            raise TypeError(f"{op} takes a rank's local tensors, got a DTensor: "
+                            "pass its to_local() rows (repro_torch.utils.local)")
 
 
 def _route(t, kernel, plain):
@@ -85,6 +97,7 @@ def fused_decode_step(q, k_new, v_new, k_cache, v_cache, valid, slot: int):
     includes the window and the just-written slot); slot: the ring slot of
     the new token.  Returns (o (N, H, hd), k_cache, v_cache).
     """
+    _local_only("fused_decode_step", q, k_new, v_new, k_cache, v_cache)
     N, H, hd = q.shape
     KV = k_cache.shape[2]
     q4 = q.reshape(N, KV, H // KV, hd)
@@ -106,6 +119,7 @@ def fused_paged_decode_step(q, k_new, v_new, k_pages, v_pages, tables, pos):
     int32 per-slot page table, shared by the chains; pos: (S,) int32
     absolute position per slot.  Returns (o (C, S, H, hd), k_pages, v_pages).
     """
+    _local_only("fused_paged_decode_step", q, k_new, v_new, k_pages, v_pages)
     C, S, H, hd = q.shape
     KV = k_pages.shape[3]
     q5 = q.reshape(C, S, KV, H // KV, hd)
@@ -145,6 +159,7 @@ def fused_langevin_update(params: PyTree, grads: PyTree, seeds, gammas,
     ``params``."""
     leaves, _ = tree_flatten(params)
     gleaves, _ = tree_flatten(grads)
+    _local_only("fused_langevin_update", *leaves, *gleaves)
     if len(gleaves) != len(leaves):
         raise ValueError(f"{len(gleaves)} gradient leaves for {len(leaves)} "
                          "parameter leaves")
@@ -185,6 +200,7 @@ def coordinate_delays(like, keys, maxvals, table=None):
     ``jax.random.randint(keys[c], (n,), 0, maxvals[c], int32)``.
     ``table``: this leaf's rows of :func:`randint_tables` (made here when
     not given)."""
+    _local_only("coordinate_delays", like)
     n = like[0].numel()
     if _counted(like):
         _cost.record_kernel(_cost.DELAY_OPS * like.shape[0] * n, 4 * like.shape[0] * n)
@@ -203,6 +219,7 @@ def delay_gather(history, delays, heads):
     delays of ``(C, n)`` int32 (any shape with those elements) -> ``(C,
     *shape)``, element ``i`` of chain c from snapshot ``(heads[c] -
     delays[c, i]) mod depth`` (``heads``: C host ints)."""
+    _local_only("delay_gather", history, delays)
     C, depth, shape = history.shape[0], history.shape[1], history.shape[2:]
     n = shape.numel()
     if _counted(history):
@@ -224,6 +241,7 @@ def wicon_read(history, keys, maxvals, heads, table=None):
     drawing the delays in registers (no delay tensor is made); ``table``:
     this leaf's rows of :func:`randint_tables` (made here when not
     given)."""
+    _local_only("wicon_read", history)
     C, depth, shape = history.shape[0], history.shape[1], history.shape[2:]
     h = history.reshape(C, depth, -1)
     heads = [int(v) for v in heads]

@@ -98,14 +98,17 @@ def _counters(start: int, stop: int, device) -> torch.Tensor:
     return torch.arange(start, stop, dtype=torch.int64, device=device)
 
 
-def random_bits(key, n: int, device="cpu") -> torch.Tensor:
+def random_bits(key, n: int, device="cpu", start: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, (n,), uint32)``: ``x0 ^ x1`` of
-    ``threefry2x32(key, (0, i))``, as an int64 tensor of 32-bit values."""
-    if n >= 2**32:
-        raise ValueError(f"{n} elements exceed the 32-bit counter")
+    ``threefry2x32(key, (0, i))``, as an int64 tensor of 32-bit values.
+    ``start`` offsets the counters: elements ``[start, start + n)`` of a
+    longer draw under the same key (a block of a chain-stacked draw's
+    rows)."""
+    if start + n >= 2**32:
+        raise ValueError(f"{start + n} elements exceed the 32-bit counter")
     x0, x1 = threefry2x32(key[0], key[1], torch.zeros(n, dtype=torch.int64,
                                                       device=device),
-                          _counters(0, n, device))
+                          _counters(start, start + n, device))
     return x0 ^ x1
 
 
@@ -193,13 +196,14 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
 
 
 def jax_uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
-                device="cpu") -> torch.Tensor:
+                device="cpu", start: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)`` bit for
     bit: 23 random mantissa bits under exponent 0 (a float in [1, 2)),
     minus 1, then ``max(minval, u * (maxval - minval) + minval)`` with the
-    multiply-add fused (XLA contracts it on the CPU)."""
+    multiply-add fused (XLA contracts it on the CPU).  ``start``: the
+    draw's flat elements from ``start`` on (see :func:`random_bits`)."""
     shape = tuple(shape)
-    bits = random_bits(key, math.prod(shape), device)
+    bits = random_bits(key, math.prod(shape), device, start)
     u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo = np.float32(minval)
     span = np.float32(maxval) - lo
@@ -286,12 +290,13 @@ def _xla_erf_inv(x: torch.Tensor) -> torch.Tensor:
                        p * x)
 
 
-def jax_normal(key, shape, device="cpu") -> torch.Tensor:
+def jax_normal(key, shape, device="cpu", start: int = 0) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: ``sqrt(2) *
     erf_inv(u)`` with u uniform in ``(nextafter(-1, 0), 1)`` and XLA's
     ``erf_inv``, ``log1p`` and ``log``, so the draws are JAX's on the CPU:
     ``tests/test_torch_potentials.py`` holds them within 4 ulps and bit for
-    bit on 99% of draws (every draw it tests is equal)."""
+    bit on 99% of draws (every draw it tests is equal).  ``start``: the
+    draw's flat elements from ``start`` on (see :func:`random_bits`)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = jax_uniform(key, shape, lo, 1.0, device)
+    u = jax_uniform(key, shape, lo, 1.0, device, start)
     return np.float32(math.sqrt(2.0)).item() * _xla_erf_inv(u)

@@ -1,18 +1,27 @@
-"""Mesh shapes and which axes shard what (port of ``repro.launch.mesh``).
+"""Device meshes, and which axes shard what (port of ``repro.launch.mesh``).
 
-The reference builds ``jax`` device meshes of 256 or 512 TPU chips; the
-port runs on one card and builds no device mesh (a
-``torch.distributed.device_mesh.DeviceMesh`` of several cards is ROADMAP
-work).  What carries over is the arithmetic over a mesh's *shape*: which
-axes shard the batch (:func:`batch_axes_for`) and the 2-D parameter
-layout (:func:`fsdp_axes_for`), over any object with ``.shape`` (axis name
--> size) and ``.size`` — :class:`MeshShape`, or a ``DeviceMesh`` wrapped
-in one.
+The reference builds ``jax`` device meshes of TPU chips; the port builds a
+``torch.distributed.device_mesh.DeviceMesh`` over the ranks of a process
+group, one rank a card (NCCL) or one a CPU process (gloo):
+
+- :func:`init_world` starts the process group: NCCL for ``"cuda"``, gloo
+  for ``"cpu"``, over a ``FileStore`` when given one, else from
+  ``torchrun``'s environment;
+- :func:`make_debug_mesh` / :func:`make_production_mesh` are the
+  reference's meshes, with its axis names and shapes;
+- :func:`batch_axes_for` and :func:`fsdp_axes_for` say which axes shard
+  the batch and the 2-D parameter layout, over a ``DeviceMesh`` or a
+  :class:`MeshShape` (a mesh's shape without devices, which the dry run
+  uses).
+
+    torchrun --nproc-per-node 4 my_job.py   # my_job: init_world("cuda"),
+                                            # make_debug_mesh(data=4, model=1)
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 
@@ -28,11 +37,98 @@ class MeshShape:
         return math.prod(self.shape.values())
 
 
+def axis_names(mesh) -> tuple:
+    """The axis names of a :class:`MeshShape` or a ``DeviceMesh``."""
+    if isinstance(mesh.shape, dict):
+        return tuple(mesh.shape)
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def axis_size(mesh, name: str) -> int:
+    """The size of axis ``name`` of a :class:`MeshShape` or a
+    ``DeviceMesh``."""
+    if isinstance(mesh.shape, dict):
+        return mesh.shape[name]
+    return mesh.shape[axis_names(mesh).index(name)]
+
+
+def init_world(device="cuda", store_path=None, *, rank=None, world_size=None):
+    """Start this process's process group, once: NCCL for ``"cuda"`` (the
+    rank's card made current: ``LOCAL_RANK``, else the rank modulo the
+    cards), gloo for ``"cpu"``.  With ``store_path`` the ranks meet in a
+    ``FileStore`` there (``rank`` / ``world_size``, else ``RANK`` /
+    ``WORLD_SIZE`` from the environment, else a world of one); without it
+    ``torchrun``'s environment (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
+    ``WORLD_SIZE``) is read.  Returns the rank's ``torch.device``."""
+    import torch
+    import torch.distributed as dist
+
+    kind = torch.device(device).type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"init_world runs on 'cuda' (NCCL) or 'cpu' (gloo), got {device!r}")
+    if kind == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("init_world('cuda') needs a card; pass 'cpu' for a gloo world")
+    env = os.environ
+    rank = int(env.get("RANK", 0)) if rank is None else int(rank)
+    world_size = int(env.get("WORLD_SIZE", 1)) if world_size is None else int(world_size)
+    if kind == "cuda":
+        local_rank = int(env.get("LOCAL_RANK", rank % torch.cuda.device_count()))
+        torch.cuda.set_device(local_rank)
+        dev = torch.device("cuda", local_rank)
+    else:
+        dev = torch.device("cpu")
+    if dist.is_initialized():
+        return dev
+    backend = "nccl" if kind == "cuda" else "gloo"
+    if store_path is not None:
+        store = dist.FileStore(str(store_path), world_size)
+        dist.init_process_group(backend, store=store, rank=rank, world_size=world_size,
+                                **({"device_id": dev} if kind == "cuda" else {}))
+    else:
+        dist.init_process_group(backend, init_method="env://", rank=rank,
+                                world_size=world_size,
+                                **({"device_id": dev} if kind == "cuda" else {}))
+    return dev
+
+
+def _mesh(shape: tuple, names: tuple):
+    """A ``DeviceMesh`` of the first ``prod(shape)`` ranks of the world, on
+    the process group's devices (NCCL: cards, gloo: CPUs)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call init_world() (or "
+                           "torch.distributed.init_process_group) first")
+    n, have = math.prod(shape), dist.get_world_size()
+    if have < n:
+        raise RuntimeError(f"need {n} devices, have {have}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh: ``(data 16, model 16)``, or
+    ``(pod 2, data 16, model 16)`` with ``multi_pod``; a ``RuntimeError``
+    when the world has fewer ranks."""
+    if multi_pod:
+        return _mesh((2, 16, 16), ("pod", "data", "model"))
+    return _mesh((16, 16), ("data", "model"))
+
+
+def make_debug_mesh(data: int = 2, model: int = 2):
+    """A small ``(data, model)`` mesh over the first ``data * model``
+    ranks (the reference's CI mesh); a ``RuntimeError`` when the world has
+    fewer."""
+    return _mesh((data, model), ("data", "model"))
+
+
 def batch_axes_for(mesh, global_batch: int):
     """Which mesh axes shard the batch: all 'data-like' axes whose product
     divides the batch (long_500k's B=1 falls back to replication)."""
-    axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
-    size = math.prod(mesh.shape[a] for a in axes) if axes else 1
+    axes = tuple(a for a in ("pod", "data") if a in axis_names(mesh))
+    size = math.prod(axis_size(mesh, a) for a in axes) if axes else 1
     if axes and global_batch % size == 0:
         return axes
     return ()
@@ -40,4 +136,4 @@ def batch_axes_for(mesh, global_batch: int):
 
 def fsdp_axes_for(mesh):
     """Axes used for the 2-D (fsdp_tp) parameter sharding."""
-    return tuple(a for a in ("pod", "data") if a in mesh.shape)
+    return tuple(a for a in ("pod", "data") if a in axis_names(mesh))

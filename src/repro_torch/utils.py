@@ -1,14 +1,26 @@
-"""Small shared utilities: nested-dict tree helpers, shape math, devices.
+"""Small shared utilities: nested-dict tree helpers, shape math, devices,
+and the placement of chains over a device mesh.
 
 Trees are nested dicts / lists / tuples of tensors, the JAX package's
 parameter layout.  Leaves are ordered as ``jax.tree_util`` orders them —
 dict keys sorted — everywhere: the fused update folds a leaf's index into
 its noise seed, and :func:`leaf_keys` hands leaf ``i`` the ``i``-th split
 key, so any other order would give a leaf another leaf's random stream.
+
+Placement (the counterparts of the JAX package's ``shard_map`` and
+``NamedSharding(mesh, P(chain_axis))``): a chain-stacked tensor placed over
+a ``torch.distributed.device_mesh.DeviceMesh`` is a ``DTensor`` with
+``Shard(0)`` on the chain axis and ``Replicate()`` on the other mesh axes;
+each rank holds the contiguous block of chains :func:`chain_block` names.
+:func:`place_chains` wraps a rank's rows, :func:`local` unwraps them (the
+body of a ``shard_map``), :func:`gather_chains` gathers every chain
+(``np.asarray`` of a sharded JAX array) and :func:`gather_rows` all-gathers
+one local block over the chain axis.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 import numpy as np
@@ -145,3 +157,155 @@ def round_up(x: int, m: int) -> int:
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# placement over a device mesh: chains split over one mesh axis
+# ---------------------------------------------------------------------------
+def is_placed(x) -> bool:
+    """Whether ``x`` is a ``DTensor`` (a tensor placed over a device
+    mesh)."""
+    if type(x) is torch.Tensor or not torch.is_tensor(x):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def mesh_axis(mesh, axis: str) -> int:
+    """The index of the named axis ``axis`` of a ``DeviceMesh``; a
+    ``TypeError`` for anything that is not a ``DeviceMesh``, a
+    ``ValueError`` for a mesh without that axis."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError("mesh= takes a torch.distributed.device_mesh.DeviceMesh "
+                        "(repro_torch.launch.mesh.make_debug_mesh, or "
+                        f"init_device_mesh), got {type(mesh).__name__}")
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"the mesh has no axis {axis!r} to place the chains on "
+                         f"(its axes: {names})")
+    return names.index(axis)
+
+
+def chain_block(mesh, axis: str, num_chains: int) -> slice:
+    """This rank's contiguous block of ``num_chains`` chains split over the
+    mesh axis ``axis`` — the rows ``P(axis)`` gives a device; the chain
+    count must divide evenly (the JAX package's message)."""
+    i = mesh_axis(mesh, axis)
+    n = mesh.shape[i]
+    if num_chains % n:
+        raise ValueError(f"num_chains={num_chains} must be divisible by mesh "
+                         f"axis {axis!r} (size {n})")
+    per = num_chains // n
+    r = mesh.get_local_rank(i)
+    return slice(r * per, (r + 1) * per)
+
+
+def chain_placements(mesh, axis: str, dim: int = 0) -> list:
+    """``Shard(dim)`` on the mesh axis ``axis``, ``Replicate()`` on the
+    others."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    i = mesh_axis(mesh, axis)
+    return [Shard(dim) if j == i else Replicate() for j in range(mesh.ndim)]
+
+
+def map_placed(fn: Callable, tree: Any) -> Any:
+    """``fn`` over the tensors of a state tree (dicts, lists, tuples, named
+    tuples, dataclasses); a dataclass field whose metadata says ``static``
+    or ``host`` (a ring's depth, its host-side heads) is kept as it is,
+    and so is every other value."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_placed(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_placed(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_placed(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_placed(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)
+            if not (f.metadata.get("static") or f.metadata.get("host"))})
+    return tree
+
+
+def place_chains(tree: Any, mesh, axis: str) -> Any:
+    """A rank's rows placed: every tensor of ``tree`` (this rank's block of
+    chains on its leading axis) becomes a ``DTensor`` over ``mesh`` sharded
+    on ``axis`` and replicated on the other axes.  No collective runs."""
+    from torch.distributed.tensor import DTensor
+
+    placements = chain_placements(mesh, axis)
+    return map_placed(lambda t: DTensor.from_local(t, mesh, placements,
+                                                   run_check=False), tree)
+
+
+def local(tree: Any) -> Any:
+    """Every ``DTensor`` of ``tree`` as this rank's local tensor (a view:
+    in-place updates reach the placed tensor); other values unchanged."""
+    return map_placed(lambda t: t.to_local() if is_placed(t) else t, tree)
+
+
+def gather_chains(tree: Any) -> Any:
+    """Every ``DTensor`` of ``tree`` gathered whole onto every rank
+    (``full_tensor``, leaf by leaf: one all-gather a leaf); other values
+    unchanged."""
+    return map_placed(lambda t: t.full_tensor() if is_placed(t) else t, tree)
+
+
+def map_local(fn: Callable, tree: Any) -> Any:
+    """``fn`` over the tensors of ``tree``, applied to a ``DTensor``'s local
+    rows and placed back as it was placed (``fn`` keeps the placed axis)."""
+    from torch.distributed.tensor import DTensor
+
+    def one(t):
+        if not is_placed(t):
+            return fn(t)
+        return DTensor.from_local(fn(t.to_local()), t.device_mesh, t.placements,
+                                  run_check=False)
+
+    return map_placed(one, tree)
+
+
+def gather_rows(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """All-gather one local block ``x`` (this rank's chains on axis
+    ``dim``) over the mesh axis ``axis``; every rank gets the whole, in
+    chain order, on ``x``'s device (a host tensor is moved to the mesh's
+    device type for the collective and back)."""
+    from torch.distributed.tensor import DTensor
+
+    t = x if x.device.type == mesh.device_type else x.to(mesh.device_type)
+    full = DTensor.from_local(t, mesh, chain_placements(mesh, axis, dim),
+                              run_check=False).full_tensor()
+    return full.to(x.device)
+
+
+def mesh_barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits for all its others: a barrier over each
+    of the mesh's dimension groups in turn, so the ranks of the world off
+    the mesh take no part (and pass at once)."""
+    import torch.distributed as dist
+
+    if mesh.get_coordinate() is None:
+        return
+    for i in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(i))
+
+
+def broadcast_from_origin(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` as the mesh's origin rank (every coordinate 0) holds it, on
+    every rank of ``mesh``, in place: a broadcast from coordinate 0 over
+    each dimension's groups, the last dimension first (the ranks of the
+    world off the mesh take no part)."""
+    import torch.distributed as dist
+
+    if mesh.get_coordinate() is None:
+        return t
+    for i in reversed(range(mesh.ndim)):
+        group = mesh.get_group(i)
+        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    return t

@@ -326,13 +326,14 @@ def test_recorders_rows_match_reference(quads, scheds):
 
 # -- the knobs of earlier refusals ---------------------------------------------------------
 def test_refused_knobs_name_their_slice(quads, tmp_path):
-    """mesh= stays refused (one card cannot test it); the fault and
-    checkpoint knobs, refused until their slice, are accepted, and a
-    poison mask of the wrong shape is refused."""
+    """mesh= takes a torch.distributed DeviceMesh (placement over several
+    ranks: tests/test_torch_placement.py), so anything else is refused by
+    name; the fault and checkpoint knobs, refused until their slice, are
+    accepted, and a poison mask of the wrong shape is refused."""
     _, tq = quads
     s = samplers.sgld("consistent", lambda p, b: tq.grad(p, b), gamma=0.01,
                       sigma=0.5, tau=TAU)
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh= takes a torch.distributed.device_mesh.DeviceMesh"):
         ClusterEngine(s, num_chains=C, mesh=object())
     e = ClusterEngine(s, num_chains=C, chunk_size=2, health_check=True)
     st, _ = e.run(e.init(torch.zeros(D), rng.PRNGKey(0)), steps=4,

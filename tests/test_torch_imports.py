@@ -76,3 +76,40 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_placement_goes_through_torch_distributed_alone(tmp_path):
+    """``launch.mesh``, ``utils`` and the placed engines reach placement
+    through ``torch.distributed`` (a world of one gloo rank here), with JAX
+    and the JAX package blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import numpy as np, torch\n"
+        "from repro_torch.launch.mesh import init_world, make_debug_mesh\n"
+        "from repro_torch.utils import gather_chains, is_placed\n"
+        "from repro_torch import samplers\n"
+        "from repro_torch.cluster import ClusterEngine, ServeEngine\n"
+        "from repro_torch.data import Prefetcher\n"
+        f"init_world('cpu', {str(tmp_path / 'store')!r}, rank=0, world_size=1)\n"
+        "mesh = make_debug_mesh(data=1, model=1)\n"
+        "s = samplers.sgld('consistent', lambda p, b: p, gamma=0.1, sigma=0.0, tau=1)\n"
+        "e = ClusterEngine(s, num_chains=2, mesh=mesh)\n"
+        "st, _ = e.run(e.init(torch.ones(3), (0, 1)), steps=2)\n"
+        "assert is_placed(st.params) and gather_chains(st.params).shape == (2, 3)\n"
+        "srv = ServeEngine(predict_fn=lambda w, q: w @ q.T, params=torch.ones(2, 3),\n"
+        "                  device='cpu', mesh=mesh)\n"
+        "assert srv(np.ones((4, 3), np.float32)).mean.shape == (4,)\n"
+        "pf = Prefetcher(lambda k: {'x': np.zeros((2, 3))}, (0, 1), device='cpu', mesh=mesh)\n"
+        "assert is_placed(next(pf)['x'])\n"
+        "pf.close()\n"
+        "mods = {m for m in sys.modules if sys.modules[m] is not None}\n"
+        "assert {'torch.distributed.device_mesh', 'torch.distributed.tensor'} <= mods\n"
+        "assert not {m.split('.')[0] for m in mods} & {'jax', 'jaxlib', 'repro'}\n"
+        "torch.distributed.destroy_process_group()\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
