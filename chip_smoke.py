@@ -220,7 +220,28 @@ library) and runs, failing on the first phase that fails:
    checkpoint resumed, and ``save_ensemble`` restored placed, each bitwise
    the unplaced engine's.  The placed runs' launches join the kernels
    line; phase 13's seconds are logged and the process group is
-   destroyed.
+   destroyed;
+14. the model axis for serving: 2-D banks (chains x tensor-parallel) in a
+   world of 2 ranks on the one card (``init_world("cuda", backend="gloo")``
+   over a ``FileStore``: NCCL refuses two ranks on one device; a
+   ``data`` 1 x ``model`` 2 mesh), each rank a process of this script
+   (``--model-axis-rank``; the kernels were built before they start): (a)
+   qwen3-4b at its published widths and phase 12's 4 layers, a 4-chain
+   bank in bf16, the decode and paged cells' traffic (phase 13's) through
+   ``DecodeEngine`` / ``PagedDecodeEngine(shard_params=True)``, each rank
+   its query and KV heads (KV 4, G 4, head_dim 128), MLP columns and
+   vocabulary slice: every step's log-probs, teacher-forced on the placed
+   tokens, within relative L2 0.1 of rank 0's unplaced model on the same
+   card, and both ranks' tokens and log-probs identical; the same at 2
+   layers in float32, the tokens equal to rank 0's unplaced engines' and
+   the log-probs within 1e-4; (b) phi3.5-moe-42b-a6.6b at its widths and 2
+   layers, a 2-chain bank, 8 experts a rank: the decode traffic with (a)'s
+   gates and the unplaced engine's dropped pairs; (c) in this process,
+   both decode kernels at a rank's local shapes (KV 4, G 4, head_dim 128)
+   and at a K/V-replicated slice (one KV head, G 2 from G 4), held against
+   their plain versions and timed as in phase 2.  The ranks' placed
+   launches join the kernels line; ms a token placed and unplaced, each
+   rank's peak memory and phase 14's seconds are logged.
 
 Before it, one JSON object with the paper path's numbers (phase 7c).
 The line before the last is one JSON object with each kernel's numbers;
@@ -235,9 +256,15 @@ import contextlib
 import gc
 import json
 import math
+import os
+import pickle
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 from dataclasses import replace
 from pathlib import Path
 
@@ -3394,6 +3421,349 @@ def placement_path(torch, np, ds, kernels, cfg=None, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the model axis for serving — 2-D banks (chains x tensor-parallel)
+# in a world of 2 gloo ranks on the one card
+# ---------------------------------------------------------------------------
+# (c): a rank's heads at model 2 (qwen3-4b's and phi3.5-moe's 8 KV heads
+# split: 4 KV heads at G 4), and a K/V-replicated slice (qwen3-4b at model
+# 16: a rank's 2 query heads read one KV head, G 2 from G 4)
+MODEL_AXIS_HEADS = ((4, 4, 128), (1, 2, 128))
+MODEL_AXIS_RANKS = 2
+MODEL_AXIS_TIMEOUT = 420  # seconds the world may take
+MODEL_AXIS_OUT = ROOT / "smoke_out" / "model_axis"  # each rank's log and results
+LOGP_TOL_F32 = 1e-4  # the port's decode tolerance (tests/test_torch_engines.py)
+#: (name, arch, layers, dtype, chains, paged traffic too)
+MODEL_AXIS_CELLS = (("qwen3-4b", "qwen3-4b", TOOLING_LAYERS, "bfloat16", 4, True),
+                    ("qwen3-4b-f32", "qwen3-4b", 2, "float32", 4, True),
+                    ("phi3.5-moe", "phi3.5-moe-42b-a6.6b", 2, "bfloat16", 2, False))
+
+
+def _tf_rel(torch, np, model, params, prompt, tokens, logp,
+            routing=contextlib.nullcontext) -> float:
+    """The largest relative L2 error over the steps of a stream's log-probs
+    ``logp`` (n, V) — one row per prompt in ``prompt`` (B, T) and
+    ``tokens`` (B, n) — against the unplaced ``model``'s BMA of a forward
+    of the prompt and the stream's own tokens (teacher-forced), run under
+    the context ``routing()`` (an MoE's expert choices replayed)."""
+    from repro_torch.models.predictive import bma_logits
+
+    T, n = prompt.shape[1], tokens.shape[1]
+    seq = np.concatenate([prompt, tokens[:, :-1]], axis=1)
+    with torch.no_grad(), routing():
+        logits, _, _ = model.forward(params, {"tokens": seq})
+        want = torch.stack([bma_logits(logits[:, :, T - 1 + j]) for j in range(n)], 1)
+    got = torch.from_numpy(np.asarray(logp)).to(want.device).reshape(want.shape)
+    err = ((got - want).float().norm(dim=-1) / want.float().norm(dim=-1)).max()
+    return float(err)
+
+
+def _forward_routing(torch, calls: list, layers: int, gens) -> list:
+    """A decode stream's expert choices (its router calls in order: per
+    generation a prefill's ``layers`` calls, then ``layers`` a step) as a
+    teacher-forced forward of each generation takes them: per generation,
+    a list of each layer's ``(C, B * (T + n - 1), k)`` choices, positions
+    in order (``gens``: each generation's rows B, prompt length T and new
+    tokens n)."""
+    it, out = iter(calls), []
+    for B, T, n in gens:
+        pre = [next(it) for _ in range(layers)]
+        steps = [[next(it) for _ in range(layers)] for _ in range(n - 1)]
+        out.append([torch.cat([pre[i].reshape(pre[i].shape[0], B, T, -1)]
+                              + [st[i].reshape(st[i].shape[0], B, 1, -1) for st in steps],
+                              dim=2).reshape(pre[i].shape[0], B * (T + n - 1), -1)
+                    for i in range(layers)])
+    return out
+
+
+def model_axis_cell(torch, np, ds, cfg, mesh, rank: int, C: int, paged: bool,
+                    device="cuda") -> dict:
+    """One cell of phase 14 on this rank: the decode traffic (and the paged
+    traffic) through the 2-D engines — each stream once to warm its engine,
+    then timed with the launches counted — then, on rank 0, the same
+    through the unplaced engines and the teacher-forced forward of the
+    unplaced model; the ranks meet at a barrier after each part
+    (``device``: a rehearsal on the CPU, a gloo world of CPU ranks).
+
+    An MoE's top-k routing is discontinuous: in bf16 the placed and the
+    unplaced paths round differently and flip experts whose probabilities
+    nearly tie (``_routing``).  So its unplaced engine replays the placed
+    timed run's expert choices (its dropped pairs are then the placed
+    run's if capacity and ranks agree), and its teacher-forced forward
+    replays those of a placed run that keeps every pair (a decode step and
+    a forward of the whole stream take different capacities)."""
+    import torch.distributed as dist
+
+    from repro_torch.cluster import DecodeEngine, PagedDecodeEngine, Request
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.utils import tree_leaves
+
+    V, is_moe = cfg.vocab_size, bool(cfg.num_experts)
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device, num_chains=C)
+    r = np.random.default_rng(0)
+    prompts = r.integers(0, V, (4, 32)).astype(np.int32)
+    gens = ((4, 32, 16), (1, 32, 16))  # the decode stream's (rows, prompt, new tokens)
+    lens = [8, 96, 17, 64, 33, 8, 80, 45, 12, 96, 24, 50]
+    budgets = [32, 4, 16, 24, 8, 32, 12, 4, 20, 16, 28, 6]
+    reqs = [r.integers(0, V, (t,)).astype(np.int32) for t in lens]
+    counters = {"decode_step": ds.decode_step, "paged_decode_step": ds.paged_decode_step}
+
+    def engines(bank, m, shard) -> dict:
+        kw = dict(return_logits=True, device=device, mesh=m, shard_params=shard)
+        dec = DecodeEngine(cfg, bank, max_seq=256, **kw)
+        out = {"bank_gb": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(dec._bank)) / 1e9,
+               "decode": lambda: [tuple(dec.generate(prompts[:B], n, key=k))
+                                  for (B, _, n), k in zip(gens, (None, 1234))]}
+        if paged:
+            pag = PagedDecodeEngine(cfg, bank, num_slots=8, page_size=16, max_seq=256,
+                                    decode_chunk=8, **kw)
+            out["paged"] = lambda: _paged_stream(pag, Request, reqs, budgets)
+        return out
+
+    def timed(streams, routing) -> dict:
+        out = {"bank_gb": streams["bank_gb"]}
+        for what in ("decode", "paged") if paged else ("decode",):
+            streams[what]()  # warm-up: the engine's rungs, caches and scratch made
+            sync()
+            _reset(counters)
+            moe.reset_dropped()
+            t0 = time.perf_counter()
+            with routing(what):
+                res = streams[what]()
+            sync()
+            out[what] = {"s": time.perf_counter() - t0, "launches": _counts(counters),
+                         "dropped": moe.dropped_pairs(), "result": res}
+        return out
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    seen = {"decode": [], "paged": []}
+    streams = engines(params, mesh, True)
+    placed = timed(streams, lambda what: _routing(moe, record=seen[what]))
+    kept = []
+    if is_moe:  # the decode stream again, every pair kept, for the forward
+        with _keep_every_pair(moe, cfg), _routing(moe, record=kept):
+            tf_stream = streams["decode"]()
+    else:
+        tf_stream = placed["decode"]["result"]
+    got = {"placed": placed, "moe": is_moe,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None}
+    del streams
+    if rank:
+        del params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    dist.barrier()  # rank 1 waits while rank 0 runs the unplaced engines
+    if rank == 0:
+        got["unplaced"] = timed(engines(params, None, False), lambda what: _routing(
+            moe, replay=iter(seen[what])) if is_moe else contextlib.nullcontext())
+        model = Model(cfg, device=device)
+        replays = (_forward_routing(torch, kept, cfg.num_layers, gens) if is_moe
+                   else [None] * len(gens))
+
+        def routing(layers):
+            if layers is None:
+                return contextlib.nullcontext
+            return lambda: _stacked(_keep_every_pair(moe, cfg),
+                                    _routing(moe, replay=iter(layers)))
+
+        tf = [_tf_rel(torch, np, model, params, prompts[:B], toks, logp, routing(lay))
+              for (B, _, _), (toks, logp), lay in zip(gens, tf_stream, replays)]
+        for (toks, logp), p in zip(placed.get("paged", {}).get("result", []), reqs):
+            tf.append(_tf_rel(torch, np, model, params, p[None], toks[None], logp))
+        got["teacher_forced_rel"] = max(tf)
+        for what, run in placed.items():
+            if what != "bank_gb":
+                a, b = run["result"], got["unplaced"][what].pop("result")
+                run["tokens_equal"] = all(np.array_equal(x[0], y[0]) for x, y in zip(a, b))
+                run["max_abs_err"] = max(float(np.abs(x[1] - y[1]).max())
+                                         for x, y in zip(a, b))
+        del params
+    for what, run in placed.items():  # the streams' bits, without the blocks
+        if what != "bank_gb":
+            res = run.pop("result")
+            run["tokens"] = sum(int(np.asarray(t).size) for t, _ in res)
+            run["digest"] = _digest(np, res)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return got
+
+
+@contextlib.contextmanager
+def _stacked(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
+def model_axis_rank(rank: int, store: str, out: str) -> int:
+    """One rank of phase 14's world (``python3 chip_smoke.py
+    --model-axis-rank RANK STORE OUT``): the cells of
+    :data:`MODEL_AXIS_CELLS` on a ``data`` 1 x ``model`` 2 mesh over gloo on
+    the card; writes ``rank<RANK>.pkl`` to ``OUT`` (the error's traceback
+    when a cell fails) and destroys the group."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_step as ds
+    from repro_torch.launch.mesh import init_world, make_debug_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_world("cuda", store, rank=rank, world_size=MODEL_AXIS_RANKS, backend="gloo")
+    res: dict = {}
+    try:
+        mesh = make_debug_mesh(data=1, model=MODEL_AXIS_RANKS)
+        for name, arch, layers, dtype, C, paged in MODEL_AXIS_CELLS:
+            cfg = replace(get_arch(arch), num_layers=layers, dtype=dtype)
+            t0 = time.perf_counter()
+            res[name] = model_axis_cell(torch, np, ds, cfg, mesh, rank, C, paged)
+            res[name]["cell_s"] = time.perf_counter() - t0
+    except BaseException:  # noqa: BLE001 — reported to the parent, which fails the phase
+        res["error"] = traceback.format_exc()
+    with open(Path(out) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+    return 1 if "error" in res else 0
+
+
+def _spawn_model_axis_world(out: Path) -> list:
+    """Start phase 14's ranks (processes of this script, their logs in
+    ``out``), wait for them, kill every one left at the time limit, and
+    return each rank's results; fail the phase if a rank failed."""
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [open(out / f"rank{r}.log", "w") for r in range(MODEL_AXIS_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--model-axis-rank", str(r),
+             str(Path(tmp) / "store"), str(out)], stdout=logs[r], stderr=subprocess.STDOUT,
+            start_new_session=True) for r in range(MODEL_AXIS_RANKS)]
+        deadline = time.monotonic() + MODEL_AXIS_TIMEOUT
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+            for f in logs:
+                f.close()
+    tails = "\n".join((out / f"rank{r}.log").read_text()[-3000:]
+                      for r in range(MODEL_AXIS_RANKS))
+    codes = [p.returncode for p in procs]
+    got = []
+    for r in range(MODEL_AXIS_RANKS):
+        path = out / f"rank{r}.pkl"
+        got.append(pickle.loads(path.read_bytes()) if path.exists() else {})
+    errors = [g.get("error") for g in got if g.get("error")]
+    check(codes == [0] * MODEL_AXIS_RANKS and not errors,
+          f"model axis: the ranks exited {codes}\n{''.join(errors)}\n{tails}")
+    return got
+
+
+def _digest(np, stream) -> str:
+    """A SHA-256 of a stream's tokens and log-probs, bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for item in stream:
+        for a in item:
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def model_axis_path(torch, np, F, ds, ref) -> dict:
+    """Phase 14: (c) the decode kernels at the model axis' local shapes in
+    this process, then the world of 2 ranks for (a) and (b)."""
+    kern = {}
+    for heads in MODEL_AXIS_HEADS:
+        for dtype in (torch.bfloat16, torch.float32):
+            kern[("ring", heads, dtype)] = run_decode_case(
+                torch, F, ds, ref, dtype, *RING_CASES[0], True, heads=heads)
+            kern[("paged", heads, dtype)] = run_paged_case(
+                torch, F, ds, ref, dtype, True, heads=heads)
+    _free(torch)
+    shutil.rmtree(MODEL_AXIS_OUT, ignore_errors=True)
+    MODEL_AXIS_OUT.mkdir(parents=True)
+    out = model_axis_report(np, _spawn_model_axis_world(MODEL_AXIS_OUT), MODEL_AXIS_CELLS)
+    out["kernel_cases"] = kern
+    return out
+
+
+def model_axis_report(np, ranks: list, cells_run) -> dict:
+    """Phase 14's gates over the ranks' results of the cells ``cells_run``
+    (:data:`MODEL_AXIS_CELLS`' rows), and its numbers: each cell's ms a
+    token placed and unplaced, teacher-forced error, banks, peaks and
+    launches; the launches of rank 0's placed runs summed by kernel."""
+    out = {"cells": {}, "launches": {"decode_step": 0, "paged_decode_step": 0}}
+    for name, _, layers, dtype, C, paged in cells_run:
+        cells = [g[name] for g in ranks]
+        r0 = cells[0]
+        streams = ("decode", "paged") if paged else ("decode",)
+        for what in streams:
+            check(all(c["placed"][what]["digest"] == r0["placed"][what]["digest"]
+                      for c in cells[1:]),
+                  f"model axis {name} ({what}): the ranks' tokens or log-probs differ")
+            for c in cells:
+                n = c["placed"][what]["launches"]
+                k = "decode_step" if what == "decode" else "paged_decode_step"
+                check(n[k] > 0, f"model axis {name} ({what}): no {k} launch: {n}")
+        if dtype == "float32":
+            for what in streams:
+                run = r0["placed"][what]
+                check(run["tokens_equal"],
+                      f"model axis {name} ({what}): tokens differ from the unplaced engine")
+                check(run["max_abs_err"] <= LOGP_TOL_F32, f"model axis {name} ({what}): "
+                      f"log-probs {run['max_abs_err']} from the unplaced engine's (limit "
+                      f"{LOGP_TOL_F32})")
+        check(r0["teacher_forced_rel"] <= ZOO_REL_TOL,
+              f"model axis {name}: teacher-forced relative L2 {r0['teacher_forced_rel']} "
+              f"past {ZOO_REL_TOL}")
+        if r0["moe"]:
+            drops = [c["placed"]["decode"]["dropped"] for c in cells]
+            want = r0["unplaced"]["decode"]["dropped"]
+            check(drops == [want] * len(cells),
+                  f"model axis {name}: dropped pairs {drops} placed, {want} unplaced")
+        row = {"layers": layers, "dtype": dtype, "chains": C,
+               "teacher_forced_rel": r0["teacher_forced_rel"],
+               "bank_gb": {"placed": [c["placed"]["bank_gb"] for c in cells],
+                           "unplaced": r0["unplaced"]["bank_gb"]},
+               "peak_gb": [c["peak_gb"] for c in cells], "cell_s": [c["cell_s"] for c in cells]}
+        for what in streams:
+            toks = r0["placed"][what]["tokens"]
+            row[what] = {
+                "ms_per_token": {k: r0[k][what]["s"] * 1e3 / toks
+                                 for k in ("placed", "unplaced")},
+                "tokens": toks, "launches": [c["placed"][what]["launches"] for c in cells],
+                "dropped": [c["placed"][what]["dropped"] for c in cells],
+                "tokens_equal": r0["placed"][what]["tokens_equal"],
+                "max_abs_err": r0["placed"][what]["max_abs_err"]}
+            for k, v in r0["placed"][what]["launches"].items():
+                out["launches"][k] += v
+        out["cells"][name] = row
+        log(f"model axis {name} ({layers} layers, {dtype}, {C} chains): teacher-forced "
+            f"rel L2 {row['teacher_forced_rel']:.4f}; "
+            + "; ".join(f"{w} {row[w]['ms_per_token']['placed']:.2f} ms a token placed, "
+                        f"{row[w]['ms_per_token']['unplaced']:.2f} unplaced, launches "
+                        f"{row[w]['launches'][0]}" for w in streams)
+            + f"; peak GB {row['peak_gb']}")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3561,6 +3931,13 @@ def main() -> int:
     log(f"phase 13: {phase13_s:.1f} s; the script so far {time.perf_counter() - T_START:.1f} s "
         "of its 1,200")
     place_serve = place["serving"]["launches"]
+    # phase 14: the model axis for serving
+    t14 = time.perf_counter()
+    axis = model_axis_path(torch, np, F, ds, ref)
+    phase14_s = time.perf_counter() - t14
+    log(f"phase 14: {phase14_s:.1f} s; the script so far {time.perf_counter() - T_START:.1f} s "
+        "of its 1,200")
+    axis_kern = axis.pop("kernel_cases")
     placement_train = {"launches": {k: place["cluster"]["launches"][k]
                                     + place["faults"]["launches"][k] for k in sgld_kernels}}
 
@@ -3580,14 +3957,15 @@ def main() -> int:
          "launches": (mp["decode"]["launches"] + mp["serve"]["decoder"]["launches"]
                       + tl["launches"] + sum(z["launches"] for z in zoo)
                       + srv["decode"]["launches"] + sum(hybrid.values()) + tool_decode
-                      + place_serve["decode_step"]),
+                      + place_serve["decode_step"] + axis["launches"]["decode_step"]),
          "launches_by_path": {"decode": mp["decode"]["launches"],
                               "serve_decoder": mp["serve"]["decoder"]["launches"],
                               "train_lm_decode_group3": tl["launches"],
                               "zoo": {z["arch"]: z["launches"] for z in zoo},
                               "moe_serve": srv["decode"]["launches"],
                               "hybrid": hybrid, "tooling": tool_decode,
-                              "placement": place_serve["decode_step"]},
+                              "placement": place_serve["decode_step"],
+                              "model_axis": axis["launches"]["decode_step"]},
          "max_abs_err": d["max_abs_err"],
          "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
          "bound_by": d["bound_by"], "library_ms": d["library_ms"],
@@ -3597,19 +3975,23 @@ def main() -> int:
                             for t in (torch.bfloat16, torch.float32)),
          "group5_cases": cases(r for t in (torch.bfloat16, torch.float32)
                                for r in g5[("ring", t)]),
-         "group5_held": {k: r["held"] for k, r in (("serve", rsrv[0]), ("window", hwin))}},
+         "group5_held": {k: r["held"] for k, r in (("serve", rsrv[0]), ("window", hwin))},
+         "model_axis_cases": cases(axis_kern[("ring", h, t)] for h in MODEL_AXIS_HEADS
+                                   for t in (torch.bfloat16, torch.float32))},
         {"name": "paged_decode_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_step.cuh",
          "replaces": "src/repro/kernels/decode_step.py:150",
          "launches": (mp["paged"]["launches"] + srv["paged"]["launches"]
                       + sum(z["paged"]["launches"] for z in zoo if "paged" in z)
-                      + tool_paged + place_serve["paged_decode_step"]),
+                      + tool_paged + place_serve["paged_decode_step"]
+                      + axis["launches"]["paged_decode_step"]),
          "launches_by_path": {"paged": mp["paged"]["launches"],
                               "zoo": {z["arch"]: z["paged"]["launches"]
                                       for z in zoo if "paged" in z},
                               "moe_serve": srv["paged"]["launches"],
                               "tooling": tool_paged,
-                              "placement": place_serve["paged_decode_step"]},
+                              "placement": place_serve["paged_decode_step"],
+                              "model_axis": axis["launches"]["paged_decode_step"]},
          "max_abs_err": p["max_abs_err"],
          "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
          "bound_by": p["bound_by"], "library_ms": p["library_ms"],
@@ -3617,7 +3999,9 @@ def main() -> int:
          "group3_cases": cases(g3[("paged", t)] for t in (torch.bfloat16, torch.float32)),
          "zoo_cases": cases(zc[("paged", a, t)] for a in ZOO_HEADS
                             for t in (torch.bfloat16, torch.float32)),
-         "group5_cases": cases(g5[("paged", t)] for t in (torch.bfloat16, torch.float32))},
+         "group5_cases": cases(g5[("paged", t)] for t in (torch.bfloat16, torch.float32)),
+         "model_axis_cases": cases(axis_kern[("paged", h, t)] for h in MODEL_AXIS_HEADS
+                                   for t in (torch.bfloat16, torch.float32))},
     ]
     # the delay_gather entry is the one W-Icon kernel: its numbers and
     # launches are the main path's instantiation (wicon_read, delays drawn
@@ -3670,6 +4054,7 @@ def main() -> int:
                                   "xlstm_grad_at_init": xgrad, "seconds": phase11_s}}))
     log(json.dumps({"tooling": {**tool, "seconds": phase12_s}}))
     log(json.dumps({"placement": {**place, "seconds": phase13_s}}))
+    log(json.dumps({"model_axis": {**axis, "seconds": phase14_s}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3678,4 +4063,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--model-axis-rank"]:
+        sys.exit(model_axis_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -339,7 +339,8 @@ def _shape(x) -> tuple:
 
 
 def restore_ensemble(path: str, like: PyTree, *, num_chains: int | None = None,
-                     device=None, mesh=None, chain_axis: str = "data") -> PyTree:
+                     device=None, mesh=None, chain_axis: str = "data",
+                     specs: PyTree = None) -> PyTree:
     """Restore chain-stacked ("ensemble layout") parameters for serving.
 
     ``like`` is the *single-chain* parameter structure (shapes only are
@@ -356,15 +357,22 @@ def restore_ensemble(path: str, like: PyTree, *, num_chains: int | None = None,
 
     With ``mesh`` (a ``DeviceMesh``) the bank comes back placed, its
     chains split over ``chain_axis``: each rank keeps only its block's
-    rows."""
-    from repro_torch.utils import chain_block, place_chains
+    rows.  With ``specs`` too (one chain's spec tree beside ``like``, as
+    :func:`~repro_torch.models.common.model_specs` gives it: a 2-D bank)
+    each rank keeps only its block of each chain's tensors, cut from the
+    leaf as it is read."""
+    from repro_torch.utils import (chain_block, local_block, paired_leaves,
+                                   place_chains, spec_placements)
 
     def block(count: int) -> slice:
         return slice(0, count) if mesh is None else chain_block(mesh, chain_axis, count)
 
     layout, count, out = None, None, []
     with _Npz(path) as data:
-        for p, leaf in data.leaves(like):
+        items = data.leaves(like)
+        leaf_specs = (paired_leaves(like, specs) if specs is not None
+                      else [None] * len(items))
+        for (p, leaf), spec in zip(items, leaf_specs):
             a, want = data[p], _shape(leaf)
             kind = ("single" if a.shape == want else
                     "stacked" if a.ndim > 0 and a.shape[1:] == want else None)
@@ -377,6 +385,9 @@ def restore_ensemble(path: str, like: PyTree, *, num_chains: int | None = None,
             if kind == "stacked":
                 count = a.shape[0]
                 a = a[block(count)]
+            if spec is not None:  # the rank's block of each chain's tensor
+                lead = (None,) if kind == "stacked" else ()
+                a = local_block(a, mesh, spec_placements(mesh, lead + tuple(spec)))
             out.append(_to_tensor(a, p in data.bf16, _device_of(leaf, device)))
             del a
     if layout != "stacked":
@@ -388,7 +399,7 @@ def restore_ensemble(path: str, like: PyTree, *, num_chains: int | None = None,
     elif num_chains is not None and num_chains != count:
         raise ValueError(f"{path} holds {count} chains, asked for {num_chains}")
     tree = _rebuild(like, iter(out))
-    return tree if mesh is None else place_chains(tree, mesh, chain_axis)
+    return tree if mesh is None else place_chains(tree, mesh, chain_axis, specs)
 
 
 def checkpoint_step(path: str) -> int | None:

@@ -32,8 +32,20 @@ predictions ``(C, Q, ...)`` — is all-gathered over the chain axis before
 the same replicated reduce runs on every rank
 (:meth:`BankEngine._all_chains`, the JAX package's ``_wrap_bma``), so every
 rank takes the same token.  Every rank of the mesh submits the same
-requests in the same order.  ``shard_params`` (each chain's tensors split
-over ``model`` too) is not ported.
+requests in the same order.
+
+A 2-D bank (``shard_params=True`` on the decode engines) also splits each
+chain's tensors over the mesh's ``model`` axis by
+:func:`~repro_torch.models.common.partition_tree`'s specs through
+:func:`~repro_torch.models.common.sanitize_spec` (a leaf's placements
+``P(chain_axis, *spec)``): every rank runs its heads, MLP columns, experts
+and vocabulary slice (``Model(cfg, mesh=...)``), the row-parallel products
+are all-reduced over ``model``, and a step's logits are gathered over
+``model`` (the vocabulary) and then over the chain axis before the same
+reduce.  The partial sums' order is not the whole bank's, so a 2-D bank's
+log-probs agree with an unplaced one's to rounding, not bit for bit (the
+JAX package's "2-D banks trade the bitwise guarantee"); every rank still
+takes the same token, from the same gathered bits.
 """
 
 from __future__ import annotations
@@ -55,11 +67,15 @@ from repro_torch.utils import (
     gather_rows,
     is_placed,
     local,
+    local_block,
     map_local,
+    paired_leaves,
     place_chains,
     resolve_device,
+    tree_flatten,
     tree_leaves,
     tree_map,
+    tree_unflatten,
 )
 
 PyTree = Any
@@ -279,7 +295,8 @@ class BankEngine(Endpoint):
         (a model, config or function in the ``like`` seat) and swapped.
         The bank is restored onto the engine's ``device``; with ``mesh=``
         each rank reads the file one leaf at a time and keeps only its
-        rows."""
+        rows, and with ``shard_params=True`` only its block of each chain's
+        tensors too (the 2-D layout, restored straight into place)."""
         from repro_torch.checkpoint import restore_ensemble
         from repro_torch.weights import drop_unit_chain
 
@@ -288,9 +305,15 @@ class BankEngine(Endpoint):
         if front is not None:
             kw.setdefault(cls._FRONT_FIELD, front)
         dev = resolve_device(kw.get("device", "cuda"))
+        mesh, axis = kw.get("mesh"), kw.get("chain_axis", "data")
+        specs = None
+        if kw.get("shard_params") and mesh is not None:
+            from repro_torch.models.common import model_specs
+
+            cfg = kw[cls._FRONT_FIELD]
+            specs = model_specs(getattr(cfg, "cfg", cfg), mesh, axis)
         params = restore_ensemble(path, drop_unit_chain(like), num_chains=num_chains,
-                                  device=dev, mesh=kw.get("mesh"),
-                                  chain_axis=kw.get("chain_axis", "data"))
+                                  device=dev, mesh=mesh, chain_axis=axis, specs=specs)
         return cls(params=params, **kw)
 
     def _init_bank(self) -> None:
@@ -315,39 +338,64 @@ class BankEngine(Endpoint):
         self._rungs: set = set()
 
     def _shard_bank(self) -> None:
-        """Place the bank (the JAX package's ``_shard_bank``).  Without a
-        mesh the bank serves as it is.  With one, the chain count must
-        divide over ``chain_axis`` (the JAX package's message); a placed
-        bank (``from_cluster`` of a placed state, a placed restore) is
-        kept, a whole one is cut to the rank's rows.  ``_bank`` is the
-        rank's local bank the model runs on, ``_local_chains`` its chain
-        count."""
-        if getattr(self, "shard_params", False):
-            raise NotImplementedError(
-                "shard_params=True (a 2-D bank: each chain's tensors split over "
-                "the 'model' axis as well) belongs to the model-axis slice "
-                "(ROADMAP Queue 1); the port places the chain axis only")
+        """Place the bank (the JAX package's ``_shard_bank`` and
+        ``_bank_shardings``).  Without a mesh the bank serves as it is.
+        With one, the chain count must divide over ``chain_axis`` (the JAX
+        package's message), and with ``shard_params`` each leaf is also
+        split over ``model`` as its sanitized spec says
+        (:func:`~repro_torch.models.common.model_specs`; the JAX package's
+        ``_bank_shardings`` does not sanitize, where DTensor would split an
+        undivided dimension unevenly).  A placed bank (``from_cluster`` of
+        a placed state, a placed restore) is kept if every leaf is placed
+        as the engine would place it; a whole one is cut to the rank's
+        block; a bank placed on the chain axis alone (a placed cluster's
+        state) is cut to a 2-D one on each rank, from its own rows.
+        ``_bank`` is the rank's local bank the model runs on,
+        ``_local_chains`` its chain count."""
+        shard = getattr(self, "shard_params", False)
         leaves = tree_leaves(self.params)
         placed = [is_placed(x) for x in leaves]
         self._bank, self._local_chains = self.params, self.num_chains
         if self.mesh is None:
+            if shard:
+                raise ValueError("shard_params=True splits each chain over a mesh's "
+                                 "'model' axis: pass mesh=")
             if any(placed):
                 raise ValueError("a placed bank needs the engine's mesh= (and "
                                  "chain_axis=) to serve from")
             return
         block = chain_block(self.mesh, self.chain_axis, self.num_chains)
-        if all(placed):
-            want = chain_placements(self.mesh, self.chain_axis)
-            for x in leaves:
-                if x.device_mesh != self.mesh or list(x.placements) != want:
+        specs = None
+        if shard:
+            from repro_torch.models.common import model_specs
+
+            specs = model_specs(self._model.cfg, self.mesh, self.chain_axis)
+        want = [chain_placements(self.mesh, self.chain_axis, spec=s) for s in
+                (paired_leaves(self.params, specs) if shard else [None] * len(leaves))]
+        rows = chain_placements(self.mesh, self.chain_axis)
+        if all(placed) and shard and all(
+                x.device_mesh == self.mesh and list(x.placements) == rows for x in leaves):
+            # placed on the chain axis alone (a placed ClusterEngine's state):
+            # each rank holds its chains whole, so it cuts its block of each
+            # chain's tensors from its own rows, with no collective
+            from torch.distributed.tensor import DTensor, Replicate
+
+            cut = [DTensor.from_local(local_block(x.to_local(), self.mesh, [
+                       Replicate() if p.is_shard() and p.dim == 0 else p for p in w]).clone(),
+                       self.mesh, w, run_check=False) for x, w in zip(leaves, want)]
+            self.params = tree_unflatten(tree_flatten(self.params)[1], cut)
+        elif all(placed):
+            for x, w in zip(leaves, want):
+                if x.device_mesh != self.mesh or list(x.placements) != w:
                     raise ValueError(f"the bank is placed {x.placements} over "
-                                     f"{x.device_mesh}, the engine wants {want} over "
+                                     f"{x.device_mesh}, the engine wants {w} over "
                                      f"{self.mesh}")
         elif any(placed):
             raise ValueError("the bank mixes placed and whole leaves")
-        else:  # a whole bank: keep the rank's rows
-            self.params = place_chains(tree_map(lambda x: x[block].clone(), self.params),
-                                       self.mesh, self.chain_axis)
+        else:  # a whole bank: keep the rank's block
+            cut = [local_block(x, self.mesh, w).clone() for x, w in zip(leaves, want)]
+            self.params = place_chains(tree_unflatten(tree_flatten(self.params)[1], cut),
+                                       self.mesh, self.chain_axis, specs)
         self._bank = local(self.params)
         self._local_chains = block.stop - block.start
 
@@ -355,10 +403,13 @@ class BankEngine(Endpoint):
         """A step's per-chain block — logits ``(C, B, V)`` on the decode
         engines, predictions ``(C, Q, ...)`` on the predictive one — of
         every chain: placed, the rank's rows all-gathered over the chain
-        axis (one collective), so every rank runs the identical replicated
+        axis (one collective; a 2-D bank's logits first over ``model``,
+        the vocabulary), so every rank runs the identical replicated
         reduce; unplaced, the block itself."""
         if self.mesh is None:
             return per_chain
+        if getattr(self, "shard_params", False):
+            per_chain = self._model.gather_vocab(per_chain)
         return gather_rows(per_chain, self.mesh, self.chain_axis)
 
     def _see_rung(self, program: str, rung) -> None:

@@ -25,7 +25,10 @@ budget and seed) back into one batch; ``generate()`` is a shim over them.
 With ``mesh=`` the bank's chains are split over ``chain_axis``: each
 rank's KV-cache bank holds only its chains, and each step's per-chain
 logits are all-gathered over the chain axis before the BMA reduce
-(:class:`~repro_torch.cluster.api.BankEngine`).
+(:class:`~repro_torch.cluster.api.BankEngine`).  With ``shard_params=True``
+each chain's tensors are split over ``model`` too: the cache holds the
+rank's KV heads, the decode kernel runs on them, and the logits are
+gathered over ``model`` (the vocabulary) first.
 """
 
 from __future__ import annotations
@@ -78,8 +81,9 @@ class DecodeEngine(BankEngine):
     prompt batch up the bucket ladder, prefills the rung's persistent
     KV-cache bank, and decodes ``n`` tokens; ``key=None`` decodes greedily,
     an int seed samples from the BMA token law.  ``mesh`` /
-    ``chain_axis`` place the bank (``shard_params`` is refused: not
-    ported).
+    ``chain_axis`` place the bank; ``shard_params=True`` also splits each
+    chain's tensors over the mesh's ``model`` axis (a 2-D bank), and each
+    rung's KV-cache bank holds the rank's KV heads.
     """
 
     model: Any
@@ -97,7 +101,8 @@ class DecodeEngine(BankEngine):
     def __post_init__(self):
         self.device = resolve_device(self.device)
         cfg = self.model.cfg if hasattr(self.model, "cfg") else self.model
-        self._model = Model(cfg, device=self.device)
+        self._model = Model(cfg, device=self.device,
+                            mesh=self.mesh if self.shard_params else None)
         self._model._require_stacked_attention("DecodeEngine")
         self._init_bank()
         self._shard_bank()

@@ -31,7 +31,11 @@ rank's pool holds only its chains, and each micro-step's per-chain logits
 are all-gathered over the chain axis before the BMA reduce.  The
 allocator, the page tables and the scheduler are the same on every rank;
 deadlines are judged on the mesh's first rank and broadcast, so every
-rank sheds and cuts the same requests.
+rank sheds and cuts the same requests.  With ``shard_params=True`` each
+chain's tensors are split over ``model`` too: the pool holds the rank's KV
+heads and the paged kernel runs on them; the page tables, admission and
+preemption stay replicated, decided on every rank from the same requests
+and the same gathered tokens.
 """
 
 from __future__ import annotations
@@ -118,8 +122,9 @@ class PagedDecodeEngine(BankEngine):
     ``max_seq / page_size`` pages.  ``step()`` pumps the scheduler once;
     ``submit()`` / ``drain()`` are the request-level surface.  A request
     with ``key=None`` decodes greedily, an int seed samples from the BMA
-    law.  ``mesh`` / ``chain_axis`` place the bank and the pool
-    (``shard_params`` is refused: not ported).
+    law.  ``mesh`` / ``chain_axis`` place the bank and the pool;
+    ``shard_params=True`` also splits each chain's tensors over the mesh's
+    ``model`` axis (a 2-D bank), and the pool holds the rank's KV heads.
     """
 
     model: Any
@@ -139,7 +144,8 @@ class PagedDecodeEngine(BankEngine):
     def __post_init__(self):
         self.device = resolve_device(self.device)
         cfg = self.model.cfg if hasattr(self.model, "cfg") else self.model
-        self._model = Model(cfg, device=self.device)
+        self._model = Model(cfg, device=self.device,
+                            mesh=self.mesh if self.shard_params else None)
         self._model._require_paged("PagedDecodeEngine")
         self._init_bank()
         self._shard_bank()

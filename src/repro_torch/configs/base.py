@@ -89,6 +89,10 @@ class ArchConfig:
     # distribution: the layout :func:`repro_torch.models.common.partition_tree`
     # gives ("tp" | "fsdp_tp", 2-D for trillion-scale | "fsdp_full")
     param_sharding: str = "tp"
+    # the reference's head-sharded attention layout: query heads split over
+    # the model axis, the K/V projection replicated (each rank takes the KV
+    # heads its queries read)
+    opt_attn_head_shard: bool = False
 
     def __post_init__(self):
         if self.head_dim is None:

@@ -6,7 +6,10 @@ group, one rank a card (NCCL) or one a CPU process (gloo):
 
 - :func:`init_world` starts the process group: NCCL for ``"cuda"``, gloo
   for ``"cpu"``, over a ``FileStore`` when given one, else from
-  ``torchrun``'s environment;
+  ``torchrun``'s environment; ``backend="gloo"`` on ``"cuda"`` makes a
+  world of several ranks on one card (NCCL refuses two ranks a card),
+  for a check of the collectives' code on one card — a world of several
+  cards uses NCCL;
 - :func:`make_debug_mesh` / :func:`make_production_mesh` are the
   reference's meshes, with its axis names and shapes;
 - :func:`batch_axes_for` and :func:`fsdp_axes_for` say which axes shard
@@ -52,10 +55,20 @@ def axis_size(mesh, name: str) -> int:
     return mesh.shape[axis_names(mesh).index(name)]
 
 
-def init_world(device="cuda", store_path=None, *, rank=None, world_size=None):
+#: the device type of the world :func:`init_world` started (None: none yet,
+#: or a process group started elsewhere)
+_WORLD_DEVICE: list = [None]
+
+
+def init_world(device="cuda", store_path=None, *, rank=None, world_size=None,
+               backend=None):
     """Start this process's process group, once: NCCL for ``"cuda"`` (the
     rank's card made current: ``LOCAL_RANK``, else the rank modulo the
-    cards), gloo for ``"cpu"``.  With ``store_path`` the ranks meet in a
+    cards), gloo for ``"cpu"``.  ``backend="gloo"`` on ``"cuda"`` runs gloo
+    over the card's tensors, so that several ranks may share one card
+    (NCCL refuses two ranks on one device): it exercises the collectives'
+    code on one card, not NVLink; a world of several cards runs NCCL, the
+    default.  With ``store_path`` the ranks meet in a
     ``FileStore`` there (``rank`` / ``world_size``, else ``RANK`` /
     ``WORLD_SIZE`` from the environment, else a world of one); without it
     ``torchrun``'s environment (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
@@ -68,6 +81,10 @@ def init_world(device="cuda", store_path=None, *, rank=None, world_size=None):
         raise ValueError(f"init_world runs on 'cuda' (NCCL) or 'cpu' (gloo), got {device!r}")
     if kind == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_world('cuda') needs a card; pass 'cpu' for a gloo world")
+    backend = backend or ("nccl" if kind == "cuda" else "gloo")
+    if backend not in ("nccl", "gloo") or (backend == "nccl" and kind == "cpu"):
+        raise ValueError(f"init_world runs NCCL on 'cuda' or gloo on either, got "
+                         f"backend {backend!r} on {device!r}")
     env = os.environ
     rank = int(env.get("RANK", 0)) if rank is None else int(rank)
     world_size = int(env.get("WORLD_SIZE", 1)) if world_size is None else int(world_size)
@@ -79,21 +96,21 @@ def init_world(device="cuda", store_path=None, *, rank=None, world_size=None):
         dev = torch.device("cpu")
     if dist.is_initialized():
         return dev
-    backend = "nccl" if kind == "cuda" else "gloo"
+    _WORLD_DEVICE[0] = kind
+    bind = {"device_id": dev} if backend == "nccl" else {}
     if store_path is not None:
         store = dist.FileStore(str(store_path), world_size)
         dist.init_process_group(backend, store=store, rank=rank, world_size=world_size,
-                                **({"device_id": dev} if kind == "cuda" else {}))
+                                **bind)
     else:
         dist.init_process_group(backend, init_method="env://", rank=rank,
-                                world_size=world_size,
-                                **({"device_id": dev} if kind == "cuda" else {}))
+                                world_size=world_size, **bind)
     return dev
 
 
 def _mesh(shape: tuple, names: tuple):
     """A ``DeviceMesh`` of the first ``prod(shape)`` ranks of the world, on
-    the process group's devices (NCCL: cards, gloo: CPUs)."""
+    the devices :func:`init_world` chose (else NCCL's cards, gloo's CPUs)."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -104,7 +121,7 @@ def _mesh(shape: tuple, names: tuple):
     n, have = math.prod(shape), dist.get_world_size()
     if have < n:
         raise RuntimeError(f"need {n} devices, have {have}")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device_type = _WORLD_DEVICE[0] or ("cuda" if dist.get_backend() == "nccl" else "cpu")
     return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=names)
 
 

@@ -4,9 +4,12 @@
 For each (arch, shape) this module builds the step function — train,
 prefill or decode — that :mod:`repro_torch.launch.dryrun` runs on ``meta``
 tensors and ``chip_smoke.py`` runs on the card.  The reference's sharding
-helpers (``named``, ``sanitize_spec``, ``param_structs``, ``batch_specs``,
-``cache_spec_tree``) place its inputs on a mesh of many devices; the port
-runs on one card and has none of them yet (ROADMAP).
+helpers that place parameters on a mesh are here: :func:`sanitize_spec`
+(a dimension the mesh does not divide replicated), :func:`named` (a spec
+tree as ``DTensor`` placements on a ``DeviceMesh``) and
+:func:`param_structs` (a config's parameters on ``meta`` with their
+placements).  ``batch_specs`` and ``cache_spec_tree``, which place a
+training step's batch and a dry run's cache, are not ported yet (ROADMAP).
 
 SGLD modes:
   - ``sync``      the paper-faithful Sync step: the gradient of this step's
@@ -27,7 +30,8 @@ from typing import Any
 import torch
 
 from repro_torch.configs import ArchConfig, ShapeConfig
-from repro_torch.models.transformer import Model
+from repro_torch.models.common import partition_tree, sanitize_spec
+from repro_torch.models.transformer import Model, init_params
 from repro_torch.samplers.transforms import noise_like as langevin_noise
 from repro_torch.samplers.transforms import sgld_apply as apply_update
 from repro_torch.train.loop import make_grad_fn
@@ -58,6 +62,39 @@ def adapt_config(cfg: ArchConfig, shape: ShapeConfig,
         v = -(-cfg.vocab_size // 256) * 256
         cfg = replace(cfg, vocab_size=v)
     return cfg
+
+
+def named(mesh, spec_tree: PyTree) -> PyTree:
+    """Each spec of ``spec_tree`` (a tuple of mesh axis names a dimension)
+    as the ``DTensor`` placements it gives on ``mesh`` (the reference's
+    ``NamedSharding``s)."""
+    from repro_torch.utils import spec_placements
+
+    return _map_specs(lambda s: spec_placements(mesh, s), spec_tree)
+
+
+def _map_specs(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_specs(fn, v) for v in tree]
+    return fn(tree)
+
+
+def param_structs(cfg: ArchConfig, mesh, fsdp_axes=("data",)):
+    """``(params on meta, placements)`` of one chain of ``cfg`` on
+    ``mesh``: :func:`~repro_torch.models.common.partition_tree`'s specs
+    through :func:`sanitize_spec`, as :func:`named` places them (nothing
+    is allocated)."""
+    from repro_torch.launch.mesh import axis_names, axis_size
+    from repro_torch.utils import tree_map
+
+    shapes = init_params(cfg, device="meta")
+    model = axis_size(mesh, "model") if "model" in axis_names(mesh) else None
+    specs = partition_tree(shapes, cfg.param_sharding, fsdp_axes, cfg=cfg,
+                           model_size=model)
+    specs = tree_map(lambda x, s: sanitize_spec(s, tuple(x.shape), mesh), shapes, specs)
+    return shapes, named(mesh, specs)
 
 
 def build_model(cfg: ArchConfig, shape: ShapeConfig, opts: tuple = (),

@@ -3,8 +3,12 @@ and the sharding rules.
 
 Port of ``repro.models.common``.  The sharding rules (:func:`partition_rules`,
 :func:`partition_tree`) are pure functions of leaf path names that return
-tuples of mesh axis names; nothing in the port applies them to several
-cards yet.  Parameters are plain nested dicts of
+tuples of mesh axis names; :func:`sanitize_spec` replicates a dimension
+the mesh does not divide, :func:`bank_specs` gives a chain bank's 2-D
+layout (chains over the chain axis, each chain's tensors over ``model``),
+and :class:`ModelAxis` is a rank's place on the ``model`` axis: which of
+its tensors are split, its heads, and the collectives over the axis that
+the model code runs (tensor and expert parallelism).  Parameters are plain nested dicts of
 tensors, as in the JAX package; initialisers draw from an explicit
 ``torch.Generator`` (the numbers differ from ``jax.random``'s — a test that
 needs both packages on the same weights carries them over with
@@ -14,10 +18,13 @@ needs both packages on the same weights carries them over with
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch.mesh import axis_names, axis_size
 
 PyTree = Any
 
@@ -149,7 +156,7 @@ def partition_rules(param_sharding: str, fsdp_axes=("data",), cfg=None,
         # tensor-parallel activation all-reduces at all
         mdl = tuple(fsdp_axes) + ("model",)
     # head-sharded layout (the reference's opt_attn_head_shard switch; no
-    # config of the port sets it): q heads shard over model (when
+    # published config sets it): q heads shard over model (when
     # divisible), k/v params replicate
     head_shard = bool(cfg is not None and getattr(cfg, "opt_attn_head_shard",
                                                   False))
@@ -257,3 +264,172 @@ def partition_tree(params: PyTree, param_sharding: str = "tp",
         return visit(path, tree)
 
     return walk(params, "")
+
+
+# ---------------------------------------------------------------------------
+# the model axis: a spec tree applied, and a rank's place on the axis
+# ---------------------------------------------------------------------------
+MODEL_AXIS = "model"
+
+
+def _axes(entry) -> tuple:
+    """The mesh axes one spec entry names (None: none)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def sanitize_spec(spec: tuple, shape: tuple, mesh) -> tuple:
+    """``spec`` padded or cut to ``len(shape)`` entries, a dimension the
+    product of its mesh axes does not divide replicated (the reference's
+    ``sanitize_spec``: 25 heads on a 16-way axis, a 32,064 vocabulary on
+    128).  ``mesh`` is a ``DeviceMesh`` or a
+    :class:`~repro_torch.launch.mesh.MeshShape`."""
+    parts = (list(spec) + [None] * len(shape))[:len(shape)]
+    for i, entry in enumerate(parts):
+        if entry is not None and shape[i] % math.prod(
+                axis_size(mesh, a) for a in _axes(entry)):
+            parts[i] = None
+    return tuple(parts)
+
+
+def _drop_axis(spec: tuple, axis: str) -> tuple:
+    """``spec`` without the mesh axis ``axis`` (an entry left with none is
+    replicated)."""
+    out = []
+    for entry in spec:
+        kept = tuple(a for a in _axes(entry) if a != axis)
+        out.append(None if not kept else kept[0] if len(kept) == 1 else kept)
+    return tuple(out)
+
+
+def model_specs(cfg, mesh, chain_axis: str | None = None) -> PyTree:
+    """One chain's sanitized spec tree on ``mesh``: :func:`partition_tree`
+    of ``cfg``'s parameters (the reference's ``param_sharding`` and
+    ``model_size``), each spec through :func:`sanitize_spec`.  An entry
+    naming ``chain_axis`` is replicated: that axis holds the chains (the
+    reference's ``P(chain_axis, *spec)`` would name it twice, which JAX
+    refuses; ``fsdp_tp``'s experts name ``data``)."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.utils import tree_map
+
+    like = init_params(cfg, device="meta")
+    model = axis_size(mesh, MODEL_AXIS) if MODEL_AXIS in axis_names(mesh) else None
+    fsdp = tuple(a for a in ("pod", "data") if a in axis_names(mesh)) or ("data",)
+    specs = partition_tree(like, cfg.param_sharding, fsdp, cfg=cfg, model_size=model)
+    return tree_map(lambda leaf, s: sanitize_spec(
+        s if chain_axis is None else _drop_axis(s, chain_axis), tuple(leaf.shape), mesh),
+        like, specs)
+
+
+def _spec_at(specs, path: str) -> tuple:
+    node = specs
+    for k in path.split("/"):
+        node = node[k]
+    return node
+
+
+def _split(specs, path: str) -> bool:
+    """Whether the leaf at ``path`` is split over the model axis."""
+    return any(MODEL_AXIS in _axes(e) for e in _spec_at(specs, path))
+
+
+@dataclass(frozen=True)
+class ModelAxis:
+    """A rank's place on a mesh's ``model`` axis, for a model config: the
+    ``mesh``, the axis' ``size`` and this rank's index ``rank`` on it, its
+    process ``group``, and which of the model's tensors the sanitized specs
+    (:func:`model_specs`) split over it.  The model code reads:
+
+    - ``heads``: ``(H, KV, q0, kv0)`` — the rank's query heads ``[q0, q0 +
+      H)`` and KV heads ``[kv0, kv0 + KV)``; ``kv_take`` when the K/V
+      projection is replicated and the rank takes the KV heads its query
+      heads read from it (``opt_attn_head_shard``'s layout, or KV heads the
+      axis does not divide); ``attn``: the query heads are split, so the
+      output projection's rows are and its product is a partial sum;
+    - ``mlp``: the dense MLP is column- / row-parallel;
+    - ``vocab_in`` / ``vocab_out``: the embedding's rows / the head's
+      columns (or the tied embedding's rows) are the rank's slice of the
+      vocabulary;
+    - ``experts``: the experts a rank holds (0: no MoE), ``shared``: the
+      shared experts are column- / row-parallel.
+
+    Refused: a MoE whose experts the axis does not divide, and a query
+    block that straddles a group of query heads (no uniform local group
+    the decode kernels could take)."""
+
+    mesh: Any
+    size: int
+    rank: int
+    group: Any
+    heads: tuple
+    kv_take: bool
+    attn: bool
+    mlp: bool
+    vocab_in: bool
+    vocab_out: bool
+    experts: int
+    shared: bool
+
+    @classmethod
+    def of(cls, mesh, cfg) -> "ModelAxis":
+        if MODEL_AXIS not in axis_names(mesh):
+            raise ValueError(f"the mesh has no {MODEL_AXIS!r} axis to split each "
+                             f"chain's tensors over (its axes: {axis_names(mesh)})")
+        m = axis_size(mesh, MODEL_AXIS)
+        r = mesh.get_local_rank(MODEL_AXIS)
+        E = cfg.num_experts
+        if E and E % m:
+            raise ValueError(f"{cfg.name}: {E} experts do not divide over the "
+                             f"{MODEL_AXIS!r} axis of size {m} (expert parallelism "
+                             "holds E / m experts a rank)")
+        specs = model_specs(cfg, mesh)
+        H, KV = cfg.num_heads, cfg.num_kv_heads
+        heads, kv_take, attn = (H, KV, 0, 0), False, False
+        if "stack" in specs and "attn" in specs["stack"]:
+            attn = _split(specs, "stack/attn/wq")
+            if attn and _split(specs, "stack/attn/wk"):
+                heads = (H // m, KV // m, r * H // m, r * KV // m)
+            elif attn:  # K/V replicated: the KV heads the rank's queries read
+                G, h = H // KV, H // m
+                if h % G == 0:
+                    heads, kv_take = (h, h // G, r * h, r * h // G), True
+                elif G % h == 0:
+                    heads, kv_take = (h, 1, r * h, r * h // G), True
+                else:
+                    raise ValueError(
+                        f"{cfg.name}: {h} query heads a rank over groups of {G} "
+                        f"({H} query heads, {KV} KV heads, K/V replicated on the "
+                        f"{MODEL_AXIS!r} axis of size {m}): a rank's query block "
+                        "straddles a group, so no uniform local group exists for "
+                        "the decode kernels")
+        stack = specs.get("stack", {})
+        tied = cfg.tie_embeddings
+        return cls(
+            mesh=mesh, size=m, rank=r, group=mesh.get_group(MODEL_AXIS), heads=heads,
+            kv_take=kv_take, attn=attn,
+            mlp="mlp" in stack and _split(specs, "stack/mlp/w_down"),
+            vocab_in=_split(specs, "embed/w"),
+            vocab_out=_split(specs, "embed/w" if tied else "lm_head/w"),
+            experts=E // m if E else 0,
+            shared="moe" in stack and "shared_w_down" in stack["moe"]
+            and _split(specs, "stack/moe/shared_w_down"))
+
+    # -- collectives over the axis (identity on an axis of one rank) ---------
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the axis' ranks, in place (every rank gets
+        the same bits)."""
+        if self.size > 1:
+            import torch.distributed as dist
+
+            dist.all_reduce(t, group=self.group)
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``t`` concatenated along ``dim`` in rank order."""
+        if self.size == 1:
+            return t
+        from repro_torch.utils import all_gather
+
+        return all_gather(t, self.group, dim)
+

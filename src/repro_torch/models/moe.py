@@ -1,5 +1,4 @@
-"""Mixture-of-Experts FFN over a chain bank (port of ``repro.models.moe``,
-its ``mesh=None`` path).
+"""Mixture-of-Experts FFN over a chain bank (port of ``repro.models.moe``).
 
 Parameters carry the chain axis: the router ``(C, d, E)`` in float32, the
 experts ``(C, E, d, f)`` / ``(C, E, f, d)`` and the shared experts ``(C, d,
@@ -25,9 +24,23 @@ its engine ``vmap``s it over the bank:
 - the Switch load-balance loss is each chain's own, ``E * sum(frac_tokens *
   frac_probs)``, shape ``(C,)``.
 
+Expert parallelism (``mesh=``, the reference's ``shard_map`` path): a rank
+holds ``E / m`` experts of the ``model`` axis' ``m``, from ``rank * E / m``
+on, and the router whole; it routes all its tokens, and ranks every pair
+among its expert's pairs over all of them, so every rank of the axis drops
+the same pairs; only the dispatch into its own experts' buffers runs per
+rank.  Capacity comes from the rank's tokens (a batch split over
+``batch_axes`` gives each rank ``B / data`` rows).  The shared experts are
+column- and row-parallel where the specs split them.  ``out`` is summed
+over ``model``; ``aux`` is averaged over ``model`` and the batch axes.
+Experts the axis does not divide are refused (the reference divides
+without checking).
+
 The dropped pairs are counted on the device without a host sync (one
 reduction a layer); :func:`dropped_pairs` reads the count and
-:func:`reset_dropped` clears it.
+:func:`reset_dropped` clears it.  Under expert parallelism every rank
+counts every pair its tokens drop (not only its experts'), the count an
+unplaced run of the same tokens makes.
 """
 
 from __future__ import annotations
@@ -37,7 +50,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import activation, bank_matmul, dense_init
+from repro_torch.launch.mesh import axis_size
+from repro_torch.models.common import MODEL_AXIS, activation, bank_matmul, dense_init
 
 CAPACITY_FACTOR = 1.25
 
@@ -97,12 +111,15 @@ def route(params, xt, cfg):
     return probs, vals / vals.sum(dim=-1, keepdim=True), idx
 
 
-def _moe_local(params, xt, cfg, cap: int, act):
-    """Route, dispatch and compute every expert of each chain.
+def _moe_local(params, xt, cfg, cap: int, act, e_offset: int = 0):
+    """Route, dispatch and compute the experts ``params`` holds — ``e_local``
+    of them from ``e_offset`` on (all of them by default) — for each chain.
 
-    xt: (C, T, d), each chain's T tokens; returns (out (C, T, d), aux (C,))."""
+    xt: (C, T, d), each chain's T tokens; returns (out (C, T, d), the sum of
+    its experts' contributions, and aux (C,))."""
     C, T, d = xt.shape
     k, E = cfg.experts_per_token, cfg.num_experts
+    e_local = params["w_gate"].shape[-3]
 
     probs, vals, idx = route(params, xt, cfg)
     flat_e = idx.reshape(C, T * k)
@@ -110,15 +127,17 @@ def _moe_local(params, xt, cfg, cap: int, act):
     rank = seen.gather(2, flat_e[..., None])[..., 0] - 1  # (C, T * k)
     keep = rank < cap
     _count_dropped(keep)
-    # row e * cap + rank of the capacity buffers; dropped pairs go to a spare
-    # last row, never read
-    row = torch.where(keep, flat_e * cap + rank, E * cap)[..., None].expand(C, T * k, d)
+    # row e * cap + rank of the capacity buffers, e the local expert; dropped
+    # pairs and other ranks' experts' go to a spare last row, never read
+    le = flat_e - e_offset
+    mine = keep & (le >= 0) & (le < e_local)
+    row = torch.where(mine, le * cap + rank, e_local * cap)[..., None].expand(C, T * k, d)
     pairs = xt[:, :, None].expand(C, T, k, d).reshape(C, T * k, d)
-    buf = xt.new_zeros(C, E * cap + 1, d).scatter(1, row, pairs)
-    buf = buf[:, :E * cap].reshape(C, E, cap, d)
+    buf = xt.new_zeros(C, e_local * cap + 1, d).scatter(1, row, pairs)
+    buf = buf[:, :e_local * cap].reshape(C, e_local, cap, d)
 
     h = act(torch.matmul(buf, params["w_gate"])) * torch.matmul(buf, params["w_up"])
-    out_e = torch.matmul(h, params["w_down"]).reshape(C, E * cap, d)
+    out_e = torch.matmul(h, params["w_down"]).reshape(C, e_local * cap, d)
     out_e = torch.cat([out_e, out_e.new_zeros(C, 1, d)], dim=1)  # dropped: 0
     back = out_e.gather(1, row).reshape(C, T, k, d)
     contrib = (vals[..., None] * back.float()).to(xt.dtype)
@@ -142,12 +161,45 @@ def _shared_partial(params, xt, act):
     return bank_matmul(h, params["shared_w_down"])
 
 
-def apply_moe(params, x, cfg):
+def apply_moe(params, x, cfg, mesh=None, batch_axes=()):
     """x: (C, B, S, d) -> (y (C, B, S, d), aux (C,)).  Capacity from one
-    chain's ``B * S`` tokens."""
+    chain's ``B * S`` tokens.
+
+    With ``mesh`` (a ``DeviceMesh`` with a ``model`` axis) the experts are
+    parallel over ``model``: ``params`` holds the rank's ``E / m`` experts
+    (and its shared-expert columns / rows where they are split), ``x`` the
+    rank's rows (``B`` of them, the batch split over ``batch_axes``, or
+    every rank's when ``batch_axes`` is empty); ``y`` is the rank's rows of
+    the whole, every rank of the axis the same bits, ``aux`` averaged over
+    ``model`` and ``batch_axes``."""
     act = activation(cfg.act)
     C, B, S, d = x.shape
     xt = x.reshape(C, B * S, d)
-    out, aux = _moe_local(params, xt, cfg, capacity(B * S, cfg), act)
-    out = out + _shared_partial(params, xt, act)
-    return out.reshape(C, B, S, d), aux
+    if mesh is None:
+        out, aux = _moe_local(params, xt, cfg, capacity(B * S, cfg), act)
+        out = out + _shared_partial(params, xt, act)
+        return out.reshape(C, B, S, d), aux
+    m, E = axis_size(mesh, MODEL_AXIS), cfg.num_experts
+    if E % m:
+        raise ValueError(f"{cfg.name}: {E} experts do not divide over the "
+                         f"{MODEL_AXIS!r} axis of size {m}")
+    if params["w_gate"].shape[-3] != E // m:
+        raise ValueError(f"expert parallelism takes the rank's {E // m} experts, got "
+                         f"{params['w_gate'].shape[-3]}")
+    import torch.distributed as dist
+
+    r = mesh.get_local_rank(MODEL_AXIS)
+    out, aux = _moe_local(params, xt, cfg, capacity(B * S, cfg), act, r * (E // m))
+    shared = _shared_partial(params, xt, act)
+    split = ("shared_w_gate" in params and params["shared_w_gate"].shape[-1] * m
+             == cfg.d_ff * cfg.num_shared_experts)
+    if split:  # a partial sum over the rank's columns, summed with the experts'
+        out = out + shared
+    dist.all_reduce(out, group=mesh.get_group(MODEL_AXIS))
+    if not split:
+        out = out + shared
+    n = 1
+    for a in (MODEL_AXIS,) + tuple(batch_axes):  # the mean over the axes
+        n *= axis_size(mesh, a)
+        dist.all_reduce(aux, group=mesh.get_group(a))
+    return out.reshape(C, B, S, d), aux / n

@@ -35,6 +35,17 @@ attention.attention_any`, as the reference's does: naive up to 512 query
 positions, the long-prompt SDPA path above.  The prefills unembed only the
 position they return (one row of logits, not ``(C, B, S, V)``).
 
+``Model(cfg, mesh=...)`` splits each chain's tensors over the mesh's
+``model`` axis, as :class:`~repro_torch.models.common.ModelAxis` lays them
+out (the reference's ``Model(cfg, mesh=...)`` under GSPMD; the engines'
+2-D banks): the model functions take a rank's local tensors; a rank
+computes its query heads over its KV heads (its shard, or the slice of a
+replicated K/V projection its queries read), its MLP columns, its experts
+and its slice of the vocabulary; the row-parallel products and the
+embedding's masked lookup are all-reduced over ``model``, and the logits
+come back as the rank's vocabulary slice (:meth:`Model.gather_vocab`
+gathers them).  The decode caches hold the local KV heads.
+
 ``attn_moe``'s load-balance loss comes back from :meth:`Model.forward` per
 chain.  The vision and audio frontends are the reference's stub:
 precomputed ``FRONTEND_DIM``-wide embeddings ``(B, N, 1024)`` in float32,
@@ -59,6 +70,7 @@ from repro_torch.models.common import (
     dtype_of,
     embed_init,
     head_rms_norm,
+    ModelAxis,
     per_chain,
     rms_norm,
 )
@@ -172,20 +184,34 @@ def init_params(cfg, generator=None, *, device="cuda", num_chains=None) -> dict:
 # ===========================================================================
 # block application (chain bank: params (C, ...), activations (C, B, ...))
 # ===========================================================================
-def _qkv(p, x, cfg, positions):
+def _heads(cfg, tp) -> tuple:
+    """``(H, KV)``: the query and KV heads a rank computes (all of them
+    without a model axis)."""
+    return tp.heads[:2] if tp is not None else (cfg.num_heads, cfg.num_kv_heads)
+
+
+def _qkv(p, x, cfg, positions, tp=None):
     """Projections, qk-norm and rope: x (C, B, S, d) -> q (C, B, S, H, hd),
-    k, v (C, B, S, KV, hd)."""
+    k, v (C, B, S, KV, hd), the rank's heads under a model axis ``tp`` (from
+    a replicated K/V projection, the columns of the KV heads its queries
+    read)."""
     C, B, S, _ = x.shape
+    H, KV = _heads(cfg, tp)
+    hd = cfg.head_dim
+    kv = {n: p.get(n) for n in ("wk", "wv", "bk", "bv")}
+    if tp is not None and tp.kv_take:
+        cols = slice(tp.heads[3] * hd, (tp.heads[3] + KV) * hd)
+        kv = {n: None if t is None else t[..., cols] for n, t in kv.items()}
     q = bank_matmul(x, p["wq"])
-    k = bank_matmul(x, p["wk"])
-    v = bank_matmul(x, p["wv"])
+    k = bank_matmul(x, kv["wk"])
+    v = bank_matmul(x, kv["wv"])
     if cfg.qkv_bias:
         q = q + per_chain(p["bq"], q)
-        k = k + per_chain(p["bk"], k)
-        v = v + per_chain(p["bv"], v)
-    q = q.reshape(C, B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(C, B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(C, B, S, cfg.num_kv_heads, cfg.head_dim)
+        k = k + per_chain(kv["bk"], k)
+        v = v + per_chain(kv["bv"], v)
+    q = q.reshape(C, B, S, H, hd)
+    k = k.reshape(C, B, S, KV, hd)
+    v = v.reshape(C, B, S, KV, hd)
     if cfg.qk_norm:
         q = head_rms_norm(q, per_chain(p["q_norm"], q), cfg.norm_eps)
         k = head_rms_norm(k, per_chain(p["k_norm"], k), cfg.norm_eps)
@@ -194,7 +220,14 @@ def _qkv(p, x, cfg, positions):
     return q, k, v
 
 
-def apply_attn(p, x, cfg, positions, *, window, cache=None, cur_pos=None):
+def _out_proj(p, o, tp):
+    """``o @ wo``: under a model axis that splits the query heads, a
+    partial sum over the rank's heads, all-reduced over the axis."""
+    y = bank_matmul(o, p["wo"])
+    return tp.all_reduce(y) if tp is not None and tp.attn else y
+
+
+def apply_attn(p, x, cfg, positions, *, window, cache=None, cur_pos=None, tp=None):
     """x: (C, B, S, d).  Without ``cache`` (prefill) returns (y, (k, v)).
 
     With ``cache`` — this layer's ``{"k", "v": (C, B, smax, KV, hd),
@@ -202,10 +235,11 @@ def apply_attn(p, x, cfg, positions, *, window, cache=None, cur_pos=None):
     position: the decode step writes the new k/v row at ring slot
     ``cur_pos % smax`` **in place** and attends through
     :func:`~repro_torch.kernels.ops.fused_decode_step` (the CUDA kernel on a
-    card).  Returns (y, cache)."""
+    card).  Returns (y, cache).  Under a model axis ``tp`` the heads, k/v
+    and the cache are the rank's."""
     C, B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions)
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _qkv(p, x, cfg, positions, tp)
+    (H, KV), hd = _heads(cfg, tp), cfg.head_dim
     if cache is None:  # prefill: chains flatten into the batch
         o = attention_any(q.reshape(C * B, S, H, hd), k.reshape(C * B, S, KV, hd),
                           v.reshape(C * B, S, KV, hd), causal=True, window=window)
@@ -223,11 +257,10 @@ def apply_attn(p, x, cfg, positions, *, window, cache=None, cur_pos=None):
             v.reshape(C * B, KV, hd), cache["k"].view(C * B, smax, KV, hd),
             cache["v"].view(C * B, smax, KV, hd), valid.to(torch.int32), slot)
         new_kv = cache
-    y = bank_matmul(o.reshape(C, B, S, cfg.q_dim), p["wo"])
-    return y, new_kv
+    return _out_proj(p, o.reshape(C, B, S, H * hd), tp), new_kv
 
 
-def apply_paged_attn(p, x, cfg, pages, tables, positions):
+def apply_paged_attn(p, x, cfg, pages, tables, positions, tp=None):
     """Cached attention over a paged pool — one slot per row.
 
     x: (C, S, 1, d); pages: this layer's ``{"k", "v"}`` of
@@ -235,37 +268,37 @@ def apply_paged_attn(p, x, cfg, pages, tables, positions):
     place; tables: (S, maxp) int32; positions: (S,) int32 absolute position
     per slot (rope + write + validity).  Returns (y, pages)."""
     C, S, _, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions[:, None])
+    q, k, v = _qkv(p, x, cfg, positions[:, None], tp)
     o, _, _ = fused_paged_decode_step(q[:, :, 0], k[:, :, 0], v[:, :, 0],
                                       pages["k"], pages["v"], tables, positions)
-    y = bank_matmul(o.reshape(C, S, 1, cfg.q_dim), p["wo"])
-    return y, pages
+    return _out_proj(p, o.reshape(C, S, 1, -1), tp), pages
 
 
-def _ffn(p, x, cfg, block: str):
+def _ffn(p, x, cfg, block: str, tp=None):
     """The block's second half: returns (x, aux) with aux the MoE's
     load-balance loss per chain ``(C,)``, None for a dense block."""
     h2 = rms_norm(x, per_chain(p["norm2"], x), cfg.norm_eps)
     if block == "attn_moe":
-        ff, aux = apply_moe(p["moe"], h2, cfg)
+        ff, aux = apply_moe(p["moe"], h2, cfg, mesh=None if tp is None else tp.mesh)
     else:
-        ff, aux = apply_mlp(p["mlp"], h2, cfg), None
+        ff, aux = apply_mlp(p["mlp"], h2, cfg, tp), None
     return x + cfg.residual_scale * ff, aux
 
 
-def apply_paged_block(p, x, cfg, block: str, pages, tables, positions):
+def apply_paged_block(p, x, cfg, block: str, pages, tables, positions, tp=None):
     """One decode step of an attention block against the paged pool: the
     residual/norm/MLP ops of :func:`apply_block` with
     :func:`apply_paged_attn` in place of the ring-cache attention."""
     if block not in ATTN_STACKS:
         raise ValueError(f"paged decode needs an attention block, got {block!r}")
     h = rms_norm(x, per_chain(p["norm1"], x), cfg.norm_eps)
-    attn_out, pages = apply_paged_attn(p["attn"], h, cfg, pages, tables, positions)
+    attn_out, pages = apply_paged_attn(p["attn"], h, cfg, pages, tables, positions, tp)
     x = x + cfg.residual_scale * attn_out
-    return _ffn(p, x, cfg, block)[0], pages
+    return _ffn(p, x, cfg, block, tp)[0], pages
 
 
-def apply_block(p, x, cfg, block: str, positions, *, cache=None, cur_pos=None):
+def apply_block(p, x, cfg, block: str, positions, *, cache=None, cur_pos=None,
+                tp=None):
     """Returns (x, aux_loss, new_cache) — ``aux_loss`` the MoE's ``(C,)``
     (None for other blocks); ``new_cache`` this layer's decode state
     (updated in place) when decoding, else the attention's prefill (k, v)
@@ -287,7 +320,7 @@ def apply_block(p, x, cfg, block: str, positions, *, cache=None, cur_pos=None):
     attn_out, kv = apply_attn(p["attn"], h, cfg, positions,
                               window=cfg.sliding_window,
                               cache=None if cache is None else cache["attn"],
-                              cur_pos=cur_pos)
+                              cur_pos=cur_pos, tp=tp)
     if block == "hymba_mlp":
         if cache is None:
             ssm_out = apply_ssm(p["ssm"], h, cfg)
@@ -298,7 +331,7 @@ def apply_block(p, x, cfg, block: str, positions, *, cache=None, cur_pos=None):
             cache["ssm_conv"].copy_(new.conv)
         attn_out = 0.5 * (attn_out + ssm_out)
     x = x + cfg.residual_scale * attn_out
-    x, aux = _ffn(p, x, cfg, block)
+    x, aux = _ffn(p, x, cfg, block, tp)
     return x, aux, (cache if cache is not None else kv)
 
 
@@ -330,14 +363,50 @@ class Model:
     ``device`` defaults to ``"cuda"`` and raises without a card; pass
     ``device="cpu"`` for the plain path.  Methods take the bank's params
     (leading chain axis) and return tensors on ``device``; token and
-    position inputs may be numpy arrays or tensors."""
+    position inputs may be numpy arrays or tensors.
 
-    def __init__(self, cfg, device="cuda"):
+    ``mesh`` (a ``DeviceMesh`` with a ``model`` axis; attention stacks
+    only) makes the model tensor- and expert-parallel over that axis, as
+    :attr:`tp` (a :class:`~repro_torch.models.common.ModelAxis`) lays it
+    out: the methods take the rank's local tensors (a 2-D bank's
+    :func:`~repro_torch.utils.local` block), every rank of the axis calls
+    them with the same inputs, and the logits they return are the rank's
+    vocabulary slice where the head is split (:meth:`gather_vocab`)."""
+
+    def __init__(self, cfg, device="cuda", mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.tp = None
+        if mesh is not None:
+            self._require_stacked_attention("a model split over the 'model' axis")
+            self.tp = ModelAxis.of(mesh, cfg)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return to_device(tokens, self.device).long()
+
+    def _lookup(self, w, tokens) -> torch.Tensor:
+        """The embedding rows of ``tokens``: ``w[:, tokens]`` per chain.
+        With the vocabulary split over the model axis, a masked lookup of
+        the rank's rows (zeros elsewhere) summed over the axis: exactly one
+        rank adds a row, the others zeros, so the sum is the row's bits."""
+        tokens = self._tokens(tokens)
+        tp = self.tp
+        if tp is None or not tp.vocab_in:
+            return w[:, tokens]
+        n = w.shape[1]
+        t = tokens - tp.rank * n
+        inside = (t >= 0) & (t < n)
+        x = torch.where(inside[..., None], w[:, t.clamp(0, n - 1)], 0)
+        return tp.all_reduce(x)
+
+    def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """Logits ``(..., V)`` of every token from a rank's vocabulary slice
+        (the axis' slices gathered in rank order); the logits themselves
+        where the head is whole."""
+        tp = self.tp
+        if tp is None or not tp.vocab_out:
+            return logits
+        return tp.all_gather(logits, logits.dim() - 1)
 
     # -- embedding ------------------------------------------------------------
     def embed(self, params, batch):
@@ -353,7 +422,7 @@ class Model:
             parts.append(bank_matmul(fe.expand(proj.shape[0], *fe.shape),
                                      proj.float()).to(dtype_of(self.cfg)))
         if "tokens" in batch:
-            parts.append(params["embed"]["w"][:, self._tokens(batch["tokens"])])
+            parts.append(self._lookup(params["embed"]["w"], batch["tokens"]))
         x = torch.cat(parts, dim=2) if len(parts) > 1 else parts[0]
         return x, torch.arange(x.shape[2], device=self.device)
 
@@ -396,7 +465,8 @@ class Model:
             def one_period(x):
                 aux_p, kvs = torch.zeros_like(aux_total), []
                 for block, layer in steps[:period]:
-                    x, aux, kv = apply_block(layer, x, self.cfg, block, positions)
+                    x, aux, kv = apply_block(layer, x, self.cfg, block, positions,
+                                             tp=self.tp)
                     aux_p = aux_p if aux is None else aux_p + aux
                     kvs.append(kv)
                 return x, aux_p, kvs
@@ -410,7 +480,7 @@ class Model:
         for i, (block, layer) in enumerate(steps):
             if tap is not None:
                 x = tap(i, x)
-            x, aux, kv = apply_block(layer, x, self.cfg, block, positions)
+            x, aux, kv = apply_block(layer, x, self.cfg, block, positions, tp=self.tp)
             if aux is not None:
                 aux_total = aux_total + aux
             if want_kv:
@@ -510,7 +580,7 @@ class Model:
                     for i in range(L)]
         window = cfg.sliding_window
         smax = min(max_seq, window) if window else max_seq
-        shape = (L, num_chains, batch_size, smax, cfg.num_kv_heads, cfg.head_dim)
+        shape = (L, num_chains, batch_size, smax, _heads(cfg, self.tp)[1], cfg.head_dim)
         ar = torch.arange(smax, device=self.device, dtype=torch.int32)
         pos = torch.where(ar < prefill_len, ar, -1)
         cache = {"attn": {
@@ -566,13 +636,14 @@ class Model:
         (i = L: the last layer's output) and returns what the layer takes
         instead: a caller feeds each layer another stream's activations
         (teacher forcing) or reads them."""
-        x = params["embed"]["w"][:, self._tokens(tokens)]  # (C, B, 1, d)
+        x = self._lookup(params["embed"]["w"], tokens)  # (C, B, 1, d)
         positions = torch.tensor([cur_pos], device=self.device)
         for i, (block, layer) in enumerate(self._layers(params)):
             if tap is not None:
                 x = tap(i, x)
             x, _, _ = apply_block(layer, x, self.cfg, block, positions,
-                                  cache=_layer_cache(cache, i), cur_pos=cur_pos)
+                                  cache=_layer_cache(cache, i), cur_pos=cur_pos,
+                                  tp=self.tp)
         if tap is not None:
             x = tap(self.cfg.num_layers, x)
         return self.unembed(params, x), cache
@@ -593,7 +664,7 @@ class Model:
         self._require_paged("init_paged_bank")
         cfg = self.cfg
         shape = (cfg.num_layers, num_chains, num_pages, page_size,
-                 cfg.num_kv_heads, cfg.head_dim)
+                 _heads(cfg, self.tp)[1], cfg.head_dim)
         return {n: torch.zeros(shape, dtype=dtype_of(cfg), device=self.device)
                 for n in ("k", "v")}
 
@@ -632,14 +703,14 @@ class Model:
         garbage page).  Returns (logits (C, S, 1, V), pages)."""
         self._require_paged("paged_step")
         cfg = self.cfg
-        x = params["embed"]["w"][:, self._tokens(tokens)]  # (C, S, 1, d)
+        x = self._lookup(params["embed"]["w"], tokens)  # (C, S, 1, d)
         tables = torch.as_tensor(tables, device=self.device).to(torch.int32)
         positions = torch.as_tensor(positions, device=self.device).to(torch.int32)
         block = cfg.block_pattern[0]
         for i in range(cfg.num_layers):
             layer_pages = {"k": pages["k"][i], "v": pages["v"][i]}
             x, _ = apply_paged_block(_layer(params["stack"], i), x, cfg, block,
-                                     layer_pages, tables, positions)
+                                     layer_pages, tables, positions, self.tp)
         return self.unembed(params, x), pages
 
 

@@ -12,10 +12,14 @@ Placement (the counterparts of the JAX package's ``shard_map`` and
 a ``torch.distributed.device_mesh.DeviceMesh`` is a ``DTensor`` with
 ``Shard(0)`` on the chain axis and ``Replicate()`` on the other mesh axes;
 each rank holds the contiguous block of chains :func:`chain_block` names.
-:func:`place_chains` wraps a rank's rows, :func:`local` unwraps them (the
-body of a ``shard_map``), :func:`gather_chains` gathers every chain
+A 2-D bank (``shard_params``) also splits each chain's tensors over
+``model`` by a spec (``P(chain_axis, *spec)``): ``Shard(1 + i)`` on each
+mesh axis ``spec[i]`` names.  :func:`place_chains` wraps a rank's block,
+:func:`local_block` cuts it from a whole tensor, :func:`local` unwraps it
+(the body of a ``shard_map``), :func:`gather_chains` gathers the whole
 (``np.asarray`` of a sharded JAX array) and :func:`gather_rows` all-gathers
-one local block over the chain axis.
+one local block over the chain axis; :func:`all_gather` is the
+gather the chain and model axes run.
 """
 
 from __future__ import annotations
@@ -203,13 +207,63 @@ def chain_block(mesh, axis: str, num_chains: int) -> slice:
     return slice(r * per, (r + 1) * per)
 
 
-def chain_placements(mesh, axis: str, dim: int = 0) -> list:
-    """``Shard(dim)`` on the mesh axis ``axis``, ``Replicate()`` on the
-    others."""
+def spec_placements(mesh, spec) -> list:
+    """The ``DTensor`` placements of a tensor whose dimension ``d`` is split
+    over the mesh axes ``spec[d]`` names (an axis name, a tuple of them, or
+    None): ``Shard(d)`` on each such axis, ``Replicate()`` on the others."""
     from torch.distributed.tensor import Replicate, Shard
 
-    i = mesh_axis(mesh, axis)
-    return [Shard(dim) if j == i else Replicate() for j in range(mesh.ndim)]
+    names = tuple(mesh.mesh_dim_names or ())
+    out = [Replicate()] * mesh.ndim
+    for d, entry in enumerate(spec):
+        for a in ((entry,) if isinstance(entry, str) else tuple(entry or ())):
+            if a not in names:
+                raise ValueError(f"spec {spec} names {a!r}, not an axis of the mesh "
+                                 f"(its axes: {names})")
+            i = names.index(a)
+            if out[i].is_shard():
+                raise ValueError(f"spec {spec} names the mesh axis {a!r} twice")
+            out[i] = Shard(d)
+    return out
+
+
+def chain_placements(mesh, axis: str, dim: int = 0, spec=None) -> list:
+    """``Shard(dim)`` on the mesh axis ``axis``, ``Replicate()`` on the
+    others; with ``spec`` (one chain's spec, a 2-D bank) also
+    ``Shard(dim + 1 + i)`` on each mesh axis ``spec[i]`` names."""
+    mesh_axis(mesh, axis)
+    return spec_placements(mesh, (None,) * dim + (axis,) + tuple(spec or ()))
+
+
+def local_block(x, mesh, placements):
+    """The block of the whole tensor (or array) ``x`` that this rank holds
+    under ``placements``: each ``Shard(d)`` on a mesh axis of size n cuts
+    dimension ``d`` into n equal runs and keeps the rank's (a view)."""
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            n, r = mesh.shape[i], mesh.get_local_rank(i)
+            size = x.shape[pl.dim] // n
+            x = x[(slice(None),) * pl.dim + (slice(r * size, (r + 1) * size),)]
+    return x
+
+
+def paired_leaves(tree: Any, other: Any) -> list:
+    """``other``'s entries at ``tree``'s leaves, in :func:`tree_leaves`'
+    order (``other`` may hold tuples at a leaf: a spec tree)."""
+    out: list = []
+    _pair_into(tree, other, out)
+    return out
+
+
+def _pair_into(t, o, out: list) -> None:
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _pair_into(t[k], o[k], out)
+    elif isinstance(t, (list, tuple)):
+        for a, b in zip(t, o):
+            _pair_into(a, b, out)
+    else:
+        out.append(o)
 
 
 def map_placed(fn: Callable, tree: Any) -> Any:
@@ -233,12 +287,18 @@ def map_placed(fn: Callable, tree: Any) -> Any:
     return tree
 
 
-def place_chains(tree: Any, mesh, axis: str) -> Any:
-    """A rank's rows placed: every tensor of ``tree`` (this rank's block of
+def place_chains(tree: Any, mesh, axis: str, specs: Any = None) -> Any:
+    """A rank's block placed: every tensor of ``tree`` (this rank's block of
     chains on its leading axis) becomes a ``DTensor`` over ``mesh`` sharded
-    on ``axis`` and replicated on the other axes.  No collective runs."""
+    on ``axis`` and replicated on the other axes; with ``specs`` (a tree of
+    one chain's specs beside ``tree``: a 2-D bank, each leaf already the
+    rank's :func:`local_block`) also split as its spec says.  No collective
+    runs."""
     from torch.distributed.tensor import DTensor
 
+    if specs is not None:
+        return tree_map(lambda t, s: DTensor.from_local(
+            t, mesh, chain_placements(mesh, axis, spec=s), run_check=False), tree, specs)
     placements = chain_placements(mesh, axis)
     return map_placed(lambda t: DTensor.from_local(t, mesh, placements,
                                                    run_check=False), tree)
@@ -252,8 +312,8 @@ def local(tree: Any) -> Any:
 
 def gather_chains(tree: Any) -> Any:
     """Every ``DTensor`` of ``tree`` gathered whole onto every rank
-    (``full_tensor``, leaf by leaf: one all-gather a leaf); other values
-    unchanged."""
+    (``full_tensor``, leaf by leaf: one all-gather a leaf and split mesh
+    axis, so a 2-D bank comes back whole too); other values unchanged."""
     return map_placed(lambda t: t.full_tensor() if is_placed(t) else t, tree)
 
 
@@ -275,13 +335,16 @@ def gather_rows(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """All-gather one local block ``x`` (this rank's chains on axis
     ``dim``) over the mesh axis ``axis``; every rank gets the whole, in
     chain order, on ``x``'s device (a host tensor is moved to the mesh's
-    device type for the collective and back)."""
-    from torch.distributed.tensor import DTensor
-
+    device type for the collective and back).  One ``all_gather`` over the
+    axis' group (none on an axis of one rank), not DTensor's
+    ``full_tensor``: that one crashes on a gloo world over a card's
+    tensors (:func:`~repro_torch.launch.mesh.init_world`'s
+    ``backend="gloo"``), where ``all_gather`` works."""
+    i = mesh_axis(mesh, axis)
+    if mesh.shape[i] == 1:
+        return x
     t = x if x.device.type == mesh.device_type else x.to(mesh.device_type)
-    full = DTensor.from_local(t, mesh, chain_placements(mesh, axis, dim),
-                              run_check=False).full_tensor()
-    return full.to(x.device)
+    return all_gather(t, mesh.get_group(i), dim).to(x.device)
 
 
 def mesh_barrier(mesh) -> None:
@@ -309,3 +372,14 @@ def broadcast_from_origin(t: torch.Tensor, mesh) -> torch.Tensor:
         group = mesh.get_group(i)
         dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
     return t
+
+
+def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``group``'s ranks' ``t`` (one shape on every rank) concatenated along
+    ``dim`` in rank order."""
+    import torch.distributed as dist
+
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)

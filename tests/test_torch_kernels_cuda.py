@@ -11,7 +11,9 @@ head_dim 128), at the small shared cases and at the cases the split-KV
 plan makes hard (full 1024- and 16,384-slot rings, whole empty splits, a
 ring where only the slot is valid or nothing is, paged positions on chunk
 and page boundaries, position 0, the garbage page, 4,096-position windows,
-a page id outside the pool).  Outputs agree to 1e-5 in float32 (same op
+a page id outside the pool), and at the shapes a rank of the model axis
+gives them (4 KV heads at G 4, and one KV head at G 2: a K/V-replicated
+slice; head_dim 128).  Outputs agree to 1e-5 in float32 (same op
 order, summation order differs) and in bf16 to 2e-2 (one bf16 ulp of
 |o| <= 4: the kernel's fp32 result, from tensor-core products with the
 weights kept to ~16 bits, differs from the plain step's by ~1e-5 and may
@@ -183,17 +185,23 @@ def test_paged_kernel_at_group_3_matches_plain_on_card(cuda, dtype, pos, maxp):
 # head_dim 64
 NEW_SHAPES = {"hd112-g8": (8, 8, 112), "hd160-g4": (8, 4, 160),
               "hd64-g7": (2, 7, 64), "hd64-g5": (5, 5, 64)}
+# the shapes a rank of the model axis gives the kernels: qwen3-4b's (and
+# phi3.5-moe's) 8 KV heads split over model 2 (4 KV heads, G 4, head_dim
+# 128), and a K/V-replicated slice (qwen3-4b at model 16: a rank's 2 query
+# heads read one KV head, G 2 from G 4)
+LOCAL_SHAPES = {"local-kv4-g4": (4, 4, 128), "local-kv1-g2": (1, 2, 128)}
+SHAPES = {**NEW_SHAPES, **LOCAL_SHAPES}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", list(NEW_SHAPES))
+@pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("case", RING_CASES + [dict(seed=3, N=2, smax=1024,
                                                     slot=1000, n_valid=1024)],
                          ids=RING_IDS + ["full-1024"])
 def test_decode_kernel_at_new_shapes_matches_plain_on_card(cuda, dtype, shape, case):
-    kv, g, hd = NEW_SHAPES[shape]
+    kv, g, hd = SHAPES[shape]
     c = ring_case(**case, kv=kv, g=g, hd=hd)
     t = {k: _t(v, cuda, dtype if v.dtype == np.float32 else None)
          for k, v in c.items() if k != "slot"}
@@ -211,13 +219,13 @@ def test_decode_kernel_at_new_shapes_matches_plain_on_card(cuda, dtype, shape, c
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", list(NEW_SHAPES))
+@pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("pos,maxp", [([40, 95, 130, 7, None, 255], 16),
                                       ([1000, 17, None, 600], 64)],
                          ids=["cell", "long"])
 def test_paged_kernel_at_new_shapes_matches_plain_on_card(cuda, dtype, shape,
                                                           pos, maxp):
-    kv, g, hd = NEW_SHAPES[shape]
+    kv, g, hd = SHAPES[shape]
     q, kn, vn, kp, vp, tables, pos_t = _paged(cuda, dtype, pos, ps=16, maxp=maxp,
                                               KV=kv, G=g, hd=hd)
     plain = [x.clone() for x in (kp, vp)]

@@ -21,7 +21,8 @@ partition rules, and the dry run on ``meta``.
   loss within 1e-6 relative, a pipeline step's gradients within 1e-4 (the
   archs test's gradient tolerance).
 - The partition specs, leaf by leaf, for every config and every
-  ``param_sharding`` mode, against the reference's ``PartitionSpec``s.
+  ``param_sharding`` mode, against the reference's ``PartitionSpec``s, and
+  through ``sanitize_spec`` on three meshes.
 """
 
 import time
@@ -357,6 +358,33 @@ def test_partition_specs_equal_the_references(arch):
             assert len(got) == len(want)
             assert [_canon(w) for w in want] == [_canon(g) for g in got], \
                 (mode, fsdp_axes, model_size)
+
+
+@pytest.mark.parametrize("arch", IDS)
+def test_sanitized_specs_equal_the_references(arch):
+    """``sanitize_spec`` over every leaf's spec, on the production meshes
+    and a small one (a 32,064 vocabulary on ``model`` 16, 25 heads on 16, 3
+    experts' worth of rows on 4): the reference's ``sanitize_spec``, leaf
+    by leaf."""
+    from repro.launch.steps import sanitize_spec as jax_sanitize
+    from repro_torch.launch.steps import sanitize_spec
+
+    cfg, jcfg = get_arch(arch), jc.get_arch(arch)
+    params = init_params(cfg, device="meta")
+    jparams = jax.eval_shape(lambda k: jax_init(k, jcfg), jax.random.PRNGKey(0))
+    for axes in ({"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16},
+                 {"data": 2, "model": 4}):
+        fsdp = tuple(a for a in ("pod", "data") if a in axes)
+        for mode in ("tp", "fsdp_tp", "fsdp_full"):
+            specs = partition_tree(params, mode, fsdp, cfg=cfg, model_size=axes["model"])
+            jspecs = jax_partition_tree(jparams, mode, fsdp, cfg=jcfg,
+                                        model_size=axes["model"])
+            got = [sanitize_spec(sp, tuple(x.shape), mesh.MeshShape(axes))
+                   for sp, x in zip(_spec_leaves(specs), jax.tree_util.tree_leaves(params))]
+            want = [jax_sanitize(sp, x.shape, _JaxMeshShape(axes))
+                    for sp, x in zip(_jax_specs(jspecs), jax.tree_util.tree_leaves(jparams))]
+            assert [_canon(w) + (None,) * (len(g) - len(w)) for w, g in zip(want, got)] \
+                == [_canon(g) for g in got], (axes, mode)
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,10 @@ package's debug mesh (``data`` 2 x ``model`` 2) for the cluster and over
 engines beside the placed ones.  They mirror the JAX package's sharded
 scenarios (``tests/test_cluster.py``, ``tests/test_batch_policy.py``,
 ``tests/test_decode.py``, ``tests/test_paged.py``, ``tests/test_serve.py``,
-without ``shard_params``), plus a respawn from donors on another rank, a
-run checkpoint resumed, ``save_ensemble``, the prefetcher and the
-refusals.
+without ``shard_params``, which ``tests/test_torch_model_axis.py``
+covers), plus a respawn from donors on another rank, a run checkpoint
+resumed, ``save_ensemble``, the prefetcher and the refusals (the model
+axis' two among them).
 
 Tolerances: placed equals unplaced bit for bit for the cluster (a commit
 holds no cross-chain traffic).  For serving it is bitwise too where the
@@ -493,7 +494,8 @@ def test_mesh_axes_of_a_device_mesh(worlds, w):
 REFUSALS = {
     "dtensor_op": ("TypeError", "delay_gather takes a rank's local tensors"),
     "dtensor_update": ("TypeError", "fused_langevin_update takes a rank's local tensors"),
-    "shard_params": ("NotImplementedError", "model-axis slice"),
+    "experts_not_dividing": ("ValueError", "3 experts do not divide over the 'model' axis"),
+    "straddling_group": ("ValueError", "straddles a group"),
     "not_dividing": ("ValueError", "num_chains=3 must be divisible by mesh axis 'data'"),
     "no_chain_axis": ("ValueError", "no axis 'pod'"),
     "not_a_mesh": ("TypeError", "DeviceMesh"),

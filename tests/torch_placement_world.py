@@ -401,6 +401,9 @@ def refusals(mesh, out):
         return None
 
     cfg, s = get_reduced("qwen3-4b"), quad_sampler()
+    tp_mesh = make_debug_mesh(data=1, model=2)
+    moe_cfg = replace(get_reduced("phi3.5-moe-42b-a6.6b"), num_experts=3)
+    g2_cfg = replace(cfg, num_heads=6, num_kv_heads=3)  # 3 query heads a rank, G 2
     hist = place_chains(torch.zeros(C // mesh.shape[0], 3, 4), mesh, "data")
     delays = place_chains(torch.zeros(C // mesh.shape[0], 4, dtype=torch.int32), mesh, "data")
     bank = init_params(cfg, device="cpu", num_chains=C)
@@ -409,8 +412,14 @@ def refusals(mesh, out):
         "dtensor_update": caught(lambda: ops.fused_langevin_update(
             {"w": hist}, {"w": hist}, [(0, 1)] * C, [np.float32(0.1)] * C,
             [np.float32(0.1)] * C)),
-        "shard_params": caught(lambda: DecodeEngine(cfg, bank, device="cpu", mesh=mesh,
-                                                    shard_params=True)),
+        # the model axis' refusals, on the world's (data 1, model 2) mesh:
+        # experts the axis does not divide, a query block straddling a group
+        "experts_not_dividing": caught(lambda: DecodeEngine(
+            moe_cfg, init_params(moe_cfg, device="cpu", num_chains=2), device="cpu",
+            mesh=tp_mesh, shard_params=True)),
+        "straddling_group": caught(lambda: DecodeEngine(
+            g2_cfg, init_params(g2_cfg, device="cpu", num_chains=2), device="cpu",
+            mesh=tp_mesh, shard_params=True)),
         "not_dividing": caught(lambda: ClusterEngine(s, num_chains=3, mesh=mesh)),
         "no_chain_axis": caught(lambda: ClusterEngine(s, num_chains=C, mesh=mesh,
                                                       chain_axis="pod")),
