@@ -135,7 +135,7 @@ library) and runs, failing on the first phase that fails:
    ``save_ensemble`` (GB, seconds), the engine freed,
    ``DecodeEngine.from_checkpoint`` (seconds) greedy-decodes the tokens
    ``DecodeEngine.from_cluster`` decoded from memory; (c) a run checkpoint
-   at full width, cut to 2 chains at 1 layer (tau 1, ~10 GB): restored
+   at full width, cut to 1 chain at 1 layer (tau 1, ~5 GB): restored
    into a fresh carry bitwise, and resumed for one chunk bitwise the
    uninterrupted run.  Checkpoints go to a temporary directory in the
    checkout, deleted after use;
@@ -241,7 +241,28 @@ library) and runs, failing on the first phase that fails:
    and at a K/V-replicated slice (one KV head, G 2 from G 4), held against
    their plain versions and timed as in phase 2.  The ranks' placed
    launches join the kernels line; ms a token placed and unplaced, each
-   rank's peak memory and phase 14's seconds are logged.
+   rank's peak memory and phase 14's seconds are logged;
+15. training on the model axis: the ``sync`` and ``pipeline`` SGLD steps
+   (``launch.steps.make_sgld_train_step``) on ``Model(cfg, mesh=...,
+   batch_axes=("data",))`` in a world of 4 gloo ranks on the card
+   (``--model-axis-train-rank``; a ``data`` 2 x ``model`` 2 mesh), each
+   rank its block of each leaf (``place_params``) and its rows of each
+   microbatch of a global batch of 8 x 128 tokens in 2 microbatches: (a)
+   qwen3-4b at its widths and phase 12's 4 layers in bf16, 3 ``sync``
+   steps then 2 ``pipeline`` steps — each step's loss within 1e-2
+   relative, and each pipeline step's gradient, leaf by leaf, within
+   relative L2 0.05 of rank 0's unplaced step on the same card; (b) the
+   same at 2 layers in float32, one step of each mode — 1e-5, 1e-4, and
+   the new parameters within 1e-6; (c) phi3.5-moe-42b-a6.6b at its widths
+   and 1 layer, 8 experts a rank, one step of each mode, gated as (a)
+   against the unplaced step on each data shard's rows averaged (under
+   the placed run's expert choices).  In every cell the noise blocks are
+   the unplaced draw's (rank 0's bit for bit, the others' by a checksum of
+   their bits), every rank's loss is the same bits, and the data shards'
+   blocks agree.  This
+   path runs no kernel of the TPU's (the reference's step reaches none).
+   ms a step placed and unplaced, the collectives a step by kind, each
+   rank's peak memory and phase 15's seconds are logged.
 
 Before it, one JSON object with the paper path's numbers (phase 7c).
 The line before the last is one JSON object with each kernel's numbers;
@@ -2041,8 +2062,9 @@ def cluster_fault_path(torch, np, kernels, base: dict) -> dict:
 
 
 def run_checkpoint_path(torch, np, kernels) -> dict:
-    """(c) A run checkpoint at full width, cut to 2 chains of qwen3-4b's
-    widths at 1 layer, fused W-Icon, tau 1, health_check, one commit a
+    """(c) A run checkpoint at full width, cut to 1 chain of qwen3-4b's
+    widths at 1 layer (the file's writes and reads, on the host, are most
+    of this phase's time), fused W-Icon, tau 1, health_check, one commit a
     chunk: the run's checkpoint after commit 1 restores into a fresh carry
     bitwise (every tensor, key, head and the health mask), and resuming it
     for one chunk is bitwise the uninterrupted 2-commit run.  Files go to a
@@ -2057,7 +2079,7 @@ def run_checkpoint_path(torch, np, kernels) -> dict:
     from repro_torch.train.loop import make_grad_fn
     from repro_torch.utils import tree_leaves
 
-    C, tau, steps = 2, 1, 2
+    C, tau, steps = 1, 1, 2
     cfg = replace(get_arch("qwen3-4b"), num_layers=1)
     shape = ShapeConfig("ckpt", seq_len=128, global_batch=8, kind="train")
     sampler = samplers.sgld("inconsistent", make_grad_fn(Model(cfg, device="cuda")),
@@ -3639,17 +3661,18 @@ def model_axis_rank(rank: int, store: str, out: str) -> int:
     return 1 if "error" in res else 0
 
 
-def _spawn_model_axis_world(out: Path) -> list:
-    """Start phase 14's ranks (processes of this script, their logs in
-    ``out``), wait for them, kill every one left at the time limit, and
-    return each rank's results; fail the phase if a rank failed."""
+def _spawn_world(out: Path, flag: str, n: int, timeout: float, what: str) -> list:
+    """Start a world's ``n`` ranks (processes of this script run with
+    ``flag``, their logs in ``out``), wait for them, kill every one left at
+    the time limit, and return each rank's results; fail the phase if a
+    rank failed."""
     with tempfile.TemporaryDirectory() as tmp:
-        logs = [open(out / f"rank{r}.log", "w") for r in range(MODEL_AXIS_RANKS)]
+        logs = [open(out / f"rank{r}.log", "w") for r in range(n)]
         procs = [subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--model-axis-rank", str(r),
+            [sys.executable, str(Path(__file__).resolve()), flag, str(r),
              str(Path(tmp) / "store"), str(out)], stdout=logs[r], stderr=subprocess.STDOUT,
-            start_new_session=True) for r in range(MODEL_AXIS_RANKS)]
-        deadline = time.monotonic() + MODEL_AXIS_TIMEOUT
+            start_new_session=True) for r in range(n)]
+        deadline = time.monotonic() + timeout
         try:
             for p in procs:
                 p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -3662,16 +3685,15 @@ def _spawn_model_axis_world(out: Path) -> list:
                     p.wait()
             for f in logs:
                 f.close()
-    tails = "\n".join((out / f"rank{r}.log").read_text()[-3000:]
-                      for r in range(MODEL_AXIS_RANKS))
+    tails = "\n".join((out / f"rank{r}.log").read_text()[-3000:] for r in range(n))
     codes = [p.returncode for p in procs]
     got = []
-    for r in range(MODEL_AXIS_RANKS):
+    for r in range(n):
         path = out / f"rank{r}.pkl"
         got.append(pickle.loads(path.read_bytes()) if path.exists() else {})
     errors = [g.get("error") for g in got if g.get("error")]
-    check(codes == [0] * MODEL_AXIS_RANKS and not errors,
-          f"model axis: the ranks exited {codes}\n{''.join(errors)}\n{tails}")
+    check(codes == [0] * n and not errors,
+          f"{what}: the ranks exited {codes}\n{''.join(errors)}\n{tails}")
     return got
 
 
@@ -3699,7 +3721,9 @@ def model_axis_path(torch, np, F, ds, ref) -> dict:
     _free(torch)
     shutil.rmtree(MODEL_AXIS_OUT, ignore_errors=True)
     MODEL_AXIS_OUT.mkdir(parents=True)
-    out = model_axis_report(np, _spawn_model_axis_world(MODEL_AXIS_OUT), MODEL_AXIS_CELLS)
+    out = model_axis_report(np, _spawn_world(MODEL_AXIS_OUT, "--model-axis-rank",
+                                             MODEL_AXIS_RANKS, MODEL_AXIS_TIMEOUT,
+                                             "model axis"), MODEL_AXIS_CELLS)
     out["kernel_cases"] = kern
     return out
 
@@ -3762,6 +3786,390 @@ def model_axis_report(np, ranks: list, cells_run) -> dict:
                         f"{row[w]['launches'][0]}" for w in streams)
             + f"; peak GB {row['peak_gb']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: training on the model axis — the sync and pipeline SGLD steps on
+# a data 2 x model 2 mesh of 4 gloo ranks on the one card
+# ---------------------------------------------------------------------------
+MODEL_AXIS_TRAIN_MESH = (2, 2)  # (data, model)
+MODEL_AXIS_TRAIN_TIMEOUT = 420  # seconds the world may take
+MODEL_AXIS_TRAIN_OUT = ROOT / "smoke_out" / "model_axis_train"
+TRAIN_AXIS_BATCH, TRAIN_AXIS_SEQ, TRAIN_AXIS_MICRO = 8, 128, 2
+TRAIN_AXIS_STEPS = (("sync", 3), ("pipeline", 2))
+# (b) and (c) take one step of each mode: every rank draws its block of the
+# "jax" noise in elementwise torch ops, ~1.4 ns an element, so four ranks on
+# one card spend ~4 s a step on it (scripts/torch_model_axis_train_probe.py)
+SHORT_AXIS_STEPS = (("sync", 1), ("pipeline", 1))
+TRAIN_AXIS_GAMMA, TRAIN_AXIS_SIGMA = 1e-3, 1e-5  # phase 6's
+#: (name, arch, layers, dtype, steps, loss rtol, gradient relative L2, new
+#: params' atol or None); phi3.5-moe's is held against the per-shard oracle
+MODEL_AXIS_TRAIN_CELLS = (
+    ("qwen3-4b", "qwen3-4b", TOOLING_LAYERS, "bfloat16", TRAIN_AXIS_STEPS, 1e-2, 0.05,
+     None),
+    ("qwen3-4b-f32", "qwen3-4b", 2, "float32", SHORT_AXIS_STEPS, 1e-5, 1e-4, 1e-6),
+    ("phi3.5-moe", "phi3.5-moe-42b-a6.6b", 1, "bfloat16", SHORT_AXIS_STEPS, 1e-2, 0.05,
+     None))
+
+
+def _shard_rows(np, batch: int, micro: int, d: int, D: int):
+    """Data shard ``d``'s rows of a global batch, microbatch by microbatch,
+    as GSPMD splits each microbatch over ``data`` (the per-shard oracle's
+    batch)."""
+    per = batch // micro
+    sub = per // D
+    return np.concatenate([np.arange(i * per + d * sub, i * per + (d + 1) * sub)
+                           for i in range(micro)])
+
+
+def _unplaced_step(torch, step_of, grad_fn, noise_like, sgld_apply, params, pending,
+                   tokens, key, mode: str, shards: int, shard_rows, routes=None):
+    """Rank 0's unplaced step on the whole chain: the step itself
+    (``step_of(mode)``), or for an MoE over ``shards`` data shards the
+    unplaced gradient function on each shard's rows (``shard_rows(d)``,
+    under the placed run's expert choices ``routes[d]``), averaged, then
+    the ``"jax"`` noise and the update — what GSPMD computes.  Returns
+    ``(new params, gradient or None, loss)``."""
+    if shards == 1:
+        if mode == "sync":
+            new, loss = step_of(mode)(params, {"tokens": tokens}, key)
+            return new, None, loss
+        return step_of(mode)(params, pending, {"tokens": tokens}, key)
+    from repro_torch.models import moe
+    from repro_torch.utils import tree_map
+
+    g_acc, loss = None, 0.0
+    for d in range(shards):
+        with _routing(moe, replay=iter(routes[d])):
+            g, m = grad_fn(params, {"tokens": tokens[shard_rows(d)]})
+        g_acc = g if g_acc is None else tree_map(lambda a, b: a.add_(b), g_acc, g)
+        loss = loss + m["loss"] / shards
+    grads = tree_map(lambda a: a / shards, g_acc)
+    scale = (2.0 * TRAIN_AXIS_SIGMA * TRAIN_AXIS_GAMMA) ** 0.5
+    z = noise_like(key, params, scale, torch.float32, "jax")
+    new = sgld_apply(params, grads if mode == "sync" else pending, TRAIN_AXIS_GAMMA, z)
+    return new, grads, loss
+
+
+def _whole_on_rank0(torch, t, mesh, rank: int):
+    """The placed leaf ``t`` whole on rank 0 (None on the others): the
+    other model ranks of data shard 0 each broadcast their block over the
+    ``model`` group (only rank 0 needs it: one block's bytes a rank, where
+    an all-gather moves the whole to every rank)."""
+    import torch.distributed as dist
+
+    loc = t.to_local()
+    pl = t.placements[mesh.mesh_dim_names.index("model")]
+    if not pl.is_shard():
+        return loc if rank == 0 else None
+    group, me = mesh.get_group("model"), mesh.get_local_rank("model")
+    parts = [loc]
+    for r in range(1, mesh.size(mesh.mesh_dim_names.index("model"))):
+        buf = loc if me == r else torch.empty_like(loc)
+        dist.broadcast(buf, src=dist.get_global_rank(group, r), group=group)
+        parts.append(buf)
+    return torch.cat(parts, dim=pl.dim) if rank == 0 else None
+
+
+def _held_against(torch, tree, ref, mesh, rank: int, metric) -> tuple:
+    """Each placed leaf of ``tree`` against rank 0's unplaced ``ref``: the
+    ranks of data shard 0 bring each leaf whole to rank 0, which computes
+    ``metric(whole, ref leaf)``, and the data shards' blocks are held bit
+    for bit the same by a checksum of their bits.  Returns (``{path:
+    metric}`` on rank 0, whether the shards agree)."""
+    from repro_torch.checkpoint.io import leaf_paths
+    from repro_torch.utils import all_gather
+
+    out, agree = {}, True
+    refs = dict(leaf_paths(ref)) if ref is not None else {}
+    data_group = mesh.get_group("data")
+    for path, t in leaf_paths(tree):
+        if mesh.get_local_rank("data") == 0:
+            whole = _whole_on_rank0(torch, t, mesh, rank)
+            if rank == 0:
+                out[path] = metric(whole, refs[path])
+            del whole
+        sigs = all_gather(_checksum(torch, t.to_local())[None], data_group, 0)
+        agree &= bool((sigs == sigs[0]).all())
+    return out, agree
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _checksum(torch, t):
+    """Two int64 sums over the bits of ``t`` (of each element's bits, and of
+    their squares): equal blocks give equal sums."""
+    bits = t.contiguous().view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    b = bits.to(torch.int64)
+    return torch.stack([b.sum(), (b * b).sum()]).cpu()
+
+
+def _noise_blocks_bitwise(torch, np, params, ref_params, key, mesh, rank) -> bool:
+    """Each rank's block of the step's ``"jax"`` noise (``noise_like`` on the
+    placed chain) against rank 0's unplaced ``noise_like`` of the whole
+    chain: rank 0's own block bit for bit, every other rank's by a checksum
+    of its bits (gathered, 16 bytes a leaf) against the same block of the
+    whole draw.  True on every rank but rank 0, which returns the verdict."""
+    from repro_torch.samplers.transforms import noise_like
+    from repro_torch.utils import all_gather, tree_leaves
+
+    scale = (2.0 * TRAIN_AXIS_SIGMA * TRAIN_AXIS_GAMMA) ** 0.5
+    placed = tree_leaves(noise_like(key, params, scale, torch.float32, "jax"))
+    sigs = all_gather(torch.stack([_checksum(torch, z.to_local()) for z in placed])[None],
+                      None, 0)  # (ranks, leaves, 2)
+    if rank:
+        return True
+    whole = tree_leaves(noise_like(key, ref_params, scale, torch.float32, "jax"))
+    ok = True
+    for i, (z, w) in enumerate(zip(placed, whole)):
+        ok &= torch.equal(z.to_local(), w[_rank_block(z, mesh, 0)])
+        for q in range(1, sigs.shape[0]):
+            ok &= torch.equal(sigs[q, i], _checksum(torch, w[_rank_block(z, mesh, q)]))
+    return ok
+
+
+def _rank_block(t, mesh, q: int) -> tuple:
+    """The slices of the placed ``t``'s whole shape that rank ``q`` of
+    ``mesh`` holds."""
+    coord = [int(c) for c in (mesh.mesh == q).nonzero()[0]]
+    out = [slice(0, n) for n in t.shape]
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard():
+            size = t.shape[pl.dim] // mesh.shape[i]
+            out[pl.dim] = slice(coord[i] * size, (coord[i] + 1) * size)
+    return tuple(out)
+
+
+def model_axis_train_cell(torch, np, cfg, mesh, rank: int, tol: tuple,
+                          device="cuda", batch=TRAIN_AXIS_BATCH, seq=TRAIN_AXIS_SEQ,
+                          micro=TRAIN_AXIS_MICRO, steps=TRAIN_AXIS_STEPS) -> dict:
+    """One cell of phase 15 on this rank: the placed chain (``place_params``
+    of one drawn from seed 0 on every rank) through ``steps`` (3 ``sync``,
+    then 2 ``pipeline`` from a zero ``pending``) of ``make_sgld_train_step``
+    on ``Model(cfg, mesh=mesh, batch_axes=("data",))`` with a global batch of
+    ``batch`` x ``seq`` tokens in ``micro`` microbatches, a new batch a
+    step; on rank 0 the unplaced chain through the same steps (an MoE's per
+    data shard, under the placed run's expert choices: top-k routing flips
+    near-ties between two bf16 paths).  Each step: the loss of every rank
+    (the same bits), the pipeline steps' gradients and (``tol[2]``) the new
+    parameters against rank 0's unplaced ones, the data shards' blocks the
+    same bits; the first step's noise blocks bit for bit; ms a step placed
+    and unplaced, the collectives a step, each rank's peak GB
+    (``device="cpu"``: a rehearsal in a gloo world of CPU ranks)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import rng
+    from repro_torch.launch.steps import make_sgld_train_step, place_params
+    from repro_torch.models import common, moe
+    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.samplers.transforms import noise_like, sgld_apply
+    from repro_torch.train.loop import make_grad_fn
+    from repro_torch.utils import all_gather, local, place_like, tree_leaves, tree_zeros_like
+
+    on_card = device == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    D = mesh.shape[0]
+    shards = D if cfg.num_experts else 1
+    shape = ShapeConfig("axis", seq, batch, "train", num_microbatches=micro)
+    whole = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                        num_chains=1)
+    model = Model(cfg, device=dev, mesh=mesh, batch_axes=("data",))
+    params = place_params(whole, model)
+    pending = place_like(tree_zeros_like(local(params)), params)
+    if rank:
+        del whole
+    else:
+        ref_model = Model(cfg, device=dev)
+        ref_steps = {m: make_sgld_train_step(ref_model, shape, m, TRAIN_AXIS_GAMMA,
+                                             TRAIN_AXIS_SIGMA, noise="jax")
+                     for m, _ in steps}
+        ref_grad_fn = make_grad_fn(ref_model, micro)
+        ref_params, ref_pending = whole, tree_zeros_like(whole)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    placed_steps = {m: make_sgld_train_step(model, shape, m, TRAIN_AXIS_GAMMA,
+                                            TRAIN_AXIS_SIGMA) for m, _ in steps}
+    data_group = mesh.get_group("data")
+    r = np.random.default_rng(5)
+    got = {"steps": [], "block_gb": sum(t.to_local().numel() * t.to_local().element_size()
+                                        for t in tree_leaves(params)) / 1e9}
+    k = 0
+    for mode, n in steps:
+        for _ in range(n):
+            tokens = torch.from_numpy(r.integers(0, cfg.vocab_size, (batch, seq + 1))
+                                      .astype(np.int32))
+            key = rng.PRNGKey(100 + k)
+            if k == 0:
+                got["noise_bitwise"] = _noise_blocks_bitwise(
+                    torch, np, params, None if rank else ref_params, key, mesh, rank)
+            routes: list = []
+            common.reset_collectives()
+            sync()
+            t0 = time.perf_counter()
+            with _routing(moe, record=routes):
+                if mode == "sync":
+                    new, loss = placed_steps[mode](params, {"tokens": tokens}, key)
+                    grads = None
+                else:
+                    new, grads, loss = placed_steps[mode](params, pending,
+                                                          {"tokens": tokens}, key)
+            sync()
+            row = {"mode": mode, "ms": (time.perf_counter() - t0) * 1e3,
+                   "collectives": dict(common.COLLECTIVES), "loss": loss.item()}
+            # the expert choices of each data shard, gathered for rank 0's oracle
+            shard_routes = None
+            if shards > 1:
+                shard_routes = [[] for _ in range(D)]
+                for idx in routes:
+                    parts = all_gather(idx.cpu(), data_group, 0).to(dev)
+                    for d in range(D):
+                        shard_routes[d].append(parts[d:d + 1])
+            ref_new = ref_grads = None
+            if rank == 0:
+                sync()
+                t0 = time.perf_counter()
+                ref_new, ref_grads, ref_loss = _unplaced_step(
+                    torch, lambda m: ref_steps[m], ref_grad_fn, noise_like, sgld_apply,
+                    ref_params, ref_pending, tokens, key, mode, shards,
+                    lambda d: torch.from_numpy(_shard_rows(np, batch, micro, d, D)),
+                    shard_routes)
+                sync()
+                row["unplaced_ms"] = (time.perf_counter() - t0) * 1e3
+                row["loss_ref"] = float(ref_loss)
+            if grads is not None:
+                row["grad_rel"], row["grads_agree"] = _held_against(
+                    torch, grads, ref_grads, mesh, rank, _rel_l2)
+            if tol[2] is not None:
+                row["new_abs"], row["new_agree"] = _held_against(
+                    torch, new, ref_new, mesh, rank, _max_abs)
+            got["steps"].append(row)
+            params = new
+            if grads is not None:
+                pending = grads
+            if rank == 0:
+                ref_params = ref_new
+                if ref_grads is not None:
+                    ref_pending = ref_grads
+            del new, grads, ref_new, ref_grads
+            k += 1
+            dist.barrier()
+    got["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    del params, pending
+    if rank == 0:
+        del ref_params, ref_pending
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return got
+
+
+def model_axis_train_rank(rank: int, store: str, out: str) -> int:
+    """One rank of phase 15's world (``python3 chip_smoke.py
+    --model-axis-train-rank RANK STORE OUT``): the cells of
+    :data:`MODEL_AXIS_TRAIN_CELLS` on a ``data`` 2 x ``model`` 2 mesh over
+    gloo on the card; writes ``rank<RANK>.pkl`` to ``OUT`` (the error's
+    traceback when a cell fails) and destroys the group."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import init_world, make_debug_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = math.prod(MODEL_AXIS_TRAIN_MESH)
+    init_world("cuda", store, rank=rank, world_size=world, backend="gloo")
+    res: dict = {}
+    try:
+        mesh = make_debug_mesh(*MODEL_AXIS_TRAIN_MESH)
+        for name, arch, layers, dtype, steps, *tol in MODEL_AXIS_TRAIN_CELLS:
+            cfg = replace(get_arch(arch), num_layers=layers, dtype=dtype)
+            t0 = time.perf_counter()
+            res[name] = model_axis_train_cell(torch, np, cfg, mesh, rank, tuple(tol),
+                                              steps=steps)
+            res[name]["cell_s"] = time.perf_counter() - t0
+    except BaseException:  # noqa: BLE001 — reported to the parent, which fails the phase
+        res["error"] = traceback.format_exc()
+    with open(Path(out) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+    return 1 if "error" in res else 0
+
+
+def model_axis_train_report(ranks: list, cells_run) -> dict:
+    """Phase 15's gates over the ranks' results of the cells ``cells_run``
+    (:data:`MODEL_AXIS_TRAIN_CELLS`' rows), and its numbers."""
+    out = {}
+    for name, _, layers, dtype, _, loss_rtol, grad_rel, new_atol in cells_run:
+        cells = [g[name] for g in ranks]
+        r0 = cells[0]
+        check(all(c["noise_bitwise"] for c in cells),
+              f"model axis train {name}: a rank's noise block is not the unplaced draw's")
+        for i, row in enumerate(r0["steps"]):
+            where = f"model axis train {name} step {i} ({row['mode']})"
+            losses = [c["steps"][i]["loss"] for c in cells]
+            check(len(set(losses)) == 1,
+                  f"{where}: the ranks' losses differ: {losses}")
+            check(abs(row["loss"] - row["loss_ref"]) <= loss_rtol * abs(row["loss_ref"]),
+                  f"{where}: loss {row['loss']} against the unplaced {row['loss_ref']} "
+                  f"(limit {loss_rtol} relative)")
+            if "grad_rel" in row:
+                bad = {p: v for p, v in row["grad_rel"].items() if not v <= grad_rel}
+                check(not bad, f"{where}: gradients past relative L2 {grad_rel}: {bad}")
+                check(all(c["steps"][i]["grads_agree"] for c in cells),
+                      f"{where}: the data shards' gradient blocks differ")
+            if new_atol is not None:
+                bad = {p: v for p, v in row["new_abs"].items() if not v <= new_atol}
+                check(not bad, f"{where}: new parameters past {new_atol}: {bad}")
+                check(all(c["steps"][i]["new_agree"] for c in cells),
+                      f"{where}: the data shards' new parameters differ")
+        rows = r0["steps"]
+        row = {"layers": layers, "dtype": dtype,
+               "ms_placed": [[c["steps"][i]["ms"] for c in cells] for i in range(len(rows))],
+               "ms_unplaced": [s["unplaced_ms"] for s in rows],
+               "loss": [s["loss"] for s in rows], "loss_ref": [s["loss_ref"] for s in rows],
+               "grad_rel_max": max((max(s["grad_rel"].values()) for s in rows
+                                    if "grad_rel" in s), default=None),
+               "new_abs_max": max((max(s["new_abs"].values()) for s in rows
+                                   if "new_abs" in s), default=None),
+               "collectives": [s["collectives"] for s in rows],
+               "block_gb": [c["block_gb"] for c in cells],
+               "peak_gb": [c["peak_gb"] for c in cells],
+               "cell_s": [c["cell_s"] for c in cells]}
+        out[name] = row
+        log(f"model axis train {name} ({layers} layers, {dtype}): loss "
+            f"{row['loss'][-1]:.5f} / unplaced {row['loss_ref'][-1]:.5f}; gradient rel L2 "
+            f"<= {row['grad_rel_max']}; new params <= {row['new_abs_max']}; ms a step "
+            f"placed {[round(max(m), 1) for m in row['ms_placed']]}, unplaced "
+            f"{[round(m, 1) for m in row['ms_unplaced']]}; collectives a step "
+            f"{row['collectives'][-1]}; peak GB {row['peak_gb']}")
+    return out
+
+
+def model_axis_train_path(torch, np) -> dict:
+    """Phase 15: the world of 4 ranks (data 2 x model 2) for the cells of
+    :data:`MODEL_AXIS_TRAIN_CELLS`."""
+    _free(torch)
+    shutil.rmtree(MODEL_AXIS_TRAIN_OUT, ignore_errors=True)
+    MODEL_AXIS_TRAIN_OUT.mkdir(parents=True)
+    ranks = _spawn_world(MODEL_AXIS_TRAIN_OUT, "--model-axis-train-rank",
+                         math.prod(MODEL_AXIS_TRAIN_MESH), MODEL_AXIS_TRAIN_TIMEOUT,
+                         "model axis train")
+    return model_axis_train_report(ranks, MODEL_AXIS_TRAIN_CELLS)
 
 
 def main() -> int:
@@ -3938,6 +4346,12 @@ def main() -> int:
     log(f"phase 14: {phase14_s:.1f} s; the script so far {time.perf_counter() - T_START:.1f} s "
         "of its 1,200")
     axis_kern = axis.pop("kernel_cases")
+    # phase 15: training on the model axis
+    t15 = time.perf_counter()
+    axis_train = model_axis_train_path(torch, np)
+    phase15_s = time.perf_counter() - t15
+    log(f"phase 15: {phase15_s:.1f} s; the script so far {time.perf_counter() - T_START:.1f} s "
+        "of its 1,200")
     placement_train = {"launches": {k: place["cluster"]["launches"][k]
                                     + place["faults"]["launches"][k] for k in sgld_kernels}}
 
@@ -4055,6 +4469,7 @@ def main() -> int:
     log(json.dumps({"tooling": {**tool, "seconds": phase12_s}}))
     log(json.dumps({"placement": {**place, "seconds": phase13_s}}))
     log(json.dumps({"model_axis": {**axis, "seconds": phase14_s}}))
+    log(json.dumps({"model_axis_train": {"cells": axis_train, "seconds": phase15_s}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4065,4 +4480,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--model-axis-rank"]:
         sys.exit(model_axis_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--model-axis-train-rank"]:
+        sys.exit(model_axis_train_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

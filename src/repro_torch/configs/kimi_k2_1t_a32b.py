@@ -6,9 +6,12 @@ At 1T total parameters (2.09 TB in bf16) one card holds one layer of it:
 one layer's 384 x 3 experts of 7168 x 2048 are 33.8 GB.  Its 2-D
 sharding (``param_sharding="fsdp_tp"``) is the reference's; the port's
 partition rules (:func:`repro_torch.models.common.partition_tree`) read it.
-A 2-D serving bank applies its ``model`` entries (experts over ``model``);
-its ``data`` entries (d_ff over ``data``, FSDP) wait for training on the
-model axis, since a bank's ``data`` axis holds the chains.
+A 2-D serving bank and a chain trained on the model axis
+(``launch.steps.place_params``) apply its ``model`` entries (experts over
+``model``); its ``data`` entries (d_ff over ``data``, FSDP, all-gathered a
+layer in the reference) are replicated, since ``data`` holds a bank's
+chains and a training step's batch: the same numbers, a rank holding the
+experts' whole ``d_ff``.  FSDP itself is not ported yet.
 """
 
 from repro_torch.configs.base import ArchConfig, _reduce_common

@@ -10,6 +10,11 @@ Two kinds of operand, one code path:
   (PyTorch has no uint32 arithmetic there).  Every add and shift is
   masked back to 32 bits, so the bits equal JAX's ``uint32`` bits.
 
+The long draws (:func:`jax_uniform`, :func:`jax_normal`, a placed leaf's
+noise) run the same rounds on int32 tensors that hold the words' bits
+(:func:`_threefry32`: adds wrap, right shifts are masked), at half the
+bytes.
+
 A key is a ``(k0, k1)`` tuple of 32-bit ints — the two words of a raw JAX
 ``PRNGKey``.  JAX here runs with ``jax_threefry_partitionable`` (the
 default since 0.5), under which ``split(key, n)[i]`` and the random bits of
@@ -98,6 +103,11 @@ def _counters(start: int, stop: int, device) -> torch.Tensor:
     return torch.arange(start, stop, dtype=torch.int64, device=device)
 
 
+def _bits_at(key, counters: torch.Tensor) -> torch.Tensor:
+    x0, x1 = threefry2x32(key[0], key[1], torch.zeros_like(counters), counters)
+    return x0 ^ x1
+
+
 def random_bits(key, n: int, device="cpu", start: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, (n,), uint32)``: ``x0 ^ x1`` of
     ``threefry2x32(key, (0, i))``, as an int64 tensor of 32-bit values.
@@ -106,10 +116,95 @@ def random_bits(key, n: int, device="cpu", start: int = 0) -> torch.Tensor:
     rows)."""
     if start + n >= 2**32:
         raise ValueError(f"{start + n} elements exceed the 32-bit counter")
-    x0, x1 = threefry2x32(key[0], key[1], torch.zeros(n, dtype=torch.int64,
-                                                      device=device),
-                          _counters(start, start + n, device))
-    return x0 ^ x1
+    return _bits_at(key, _counters(start, start + n, device))
+
+
+def _signed(v: int) -> int:
+    """A 32-bit value as the int32 that holds its bits."""
+    v &= M32
+    return v - 2**32 if v >= 2**31 else v
+
+
+def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x << r) | ((x >> (32 - r)) & ((1 << r) - 1))
+
+
+def _threefry32(key0, key1, x0: torch.Tensor, x1: torch.Tensor) -> tuple:
+    """:func:`threefry2x32` on int32 tensors that hold the uint32 words'
+    bits: adds wrap as uint32 adds do, and a right shift is masked to a
+    logical one — half the bytes of the int64 form, for the long draws."""
+    k0, k1 = int(key0) & M32, int(key1) & M32
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = x0 + _signed(ks[0])
+    x1 = x1 + _signed(ks[1])
+    for block in range(5):
+        for r in _ROTATIONS[block % 2]:
+            x0 += x1
+            x1 = _rotl32(x1, r).bitwise_xor_(x0)
+        x0 += _signed(ks[(block + 1) % 3])
+        x1 += _signed(ks[(block + 2) % 3] + block + 1)
+    return x0, x1
+
+
+def _bits32_at(key, counters: torch.Tensor) -> torch.Tensor:
+    """``x0 ^ x1`` of ``threefry2x32(key, (0, c))`` for int64 counters
+    below 2**32, as int32 bit patterns."""
+    c = counters.to(torch.int32)  # the low 32 bits
+    x0, x1 = _threefry32(key[0], key[1], torch.zeros_like(c), c)
+    return x0.bitwise_xor_(x1)
+
+
+def _block_of(shape: tuple, block) -> list:
+    """``block`` (a slice a dimension of ``shape``, unit steps; None: the
+    whole draw) as ``[(first, length)]`` a dimension."""
+    if block is None:
+        return [(0, n) for n in shape]
+    if len(block) != len(shape):
+        raise ValueError(f"block {block} does not name each dimension of {shape}")
+    out = []
+    for sl, n in zip(block, shape):
+        a, b, step = (sl if isinstance(sl, slice) else slice(sl)).indices(n)
+        if step != 1:
+            raise ValueError(f"block {block} takes unit steps only")
+        out.append((a, max(b - a, 0)))
+    return out
+
+
+def _flat_counters(shape: tuple, parts: list, start: int, a: int, b: int,
+                   device) -> torch.Tensor:
+    """The counters of the block's elements ``[a, b)`` (the block in
+    row-major order): each one's flat index in ``shape``, plus ``start``."""
+    if all(first == 0 and length == n for (first, length), n in zip(parts, shape)):
+        return _counters(start + a, start + b, device)
+    j = _counters(a, b, device)
+    idx = torch.full_like(j, start)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        first, length = parts[d]
+        idx += (j % length + first) * stride
+        j = j // length
+        stride *= shape[d]
+    return idx
+
+
+def _draw(key, shape, device, start: int, block, values) -> torch.Tensor:
+    """``values(bits)`` (float32, elementwise, from int32 bit patterns) of a
+    draw of ``shape`` under ``key``, or of its ``block``: the block of the
+    whole draw, bit for bit, by each element's global counter.  Works in
+    slices of :data:`CHUNK` elements, so the temporaries stay bounded."""
+    shape = tuple(int(n) for n in shape)
+    total = math.prod(shape)
+    if start + total >= 2**32:
+        raise ValueError(f"{start + total} elements exceed the 32-bit counter")
+    parts = _block_of(shape, block)
+    out_shape = tuple(length for _, length in parts)
+    n = math.prod(out_shape)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    for a in range(0, n, CHUNK):
+        b = min(n, a + CHUNK)
+        out[a:b] = values(_bits32_at(key, _flat_counters(shape, parts, start, a, b,
+                                                         device)))
+    return out.reshape(out_shape)
 
 
 def randint_params(key, maxval: int) -> tuple:
@@ -195,19 +290,26 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     return (_f64(a) * _f64(b) + _f64(c)).float()
 
 
+def _uniform_values(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    """Uniforms from int32 bit patterns (:func:`_bits32_at`)."""
+    u = (((bits >> 9) & 0x7FFFFF) | 0x3F800000).view(torch.float32) - 1.0
+    lo = np.float32(minval)
+    span = np.float32(maxval) - lo
+    return torch.clamp_min(_fma(u, span, lo), float(lo))
+
+
 def jax_uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
-                device="cpu", start: int = 0) -> torch.Tensor:
+                device="cpu", start: int = 0, block=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)`` bit for
     bit: 23 random mantissa bits under exponent 0 (a float in [1, 2)),
     minus 1, then ``max(minval, u * (maxval - minval) + minval)`` with the
     multiply-add fused (XLA contracts it on the CPU).  ``start``: the
-    draw's flat elements from ``start`` on (see :func:`random_bits`)."""
-    shape = tuple(shape)
-    bits = random_bits(key, math.prod(shape), device, start)
-    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = np.float32(minval)
-    span = np.float32(maxval) - lo
-    return torch.clamp_min(_fma(u, span, lo), float(lo)).reshape(shape)
+    draw's flat elements from ``start`` on (see :func:`random_bits`).
+    ``block`` (a slice a dimension of ``shape``): that block of the draw
+    alone, each element at its counter in the whole — a placed leaf's
+    block, bit for bit the whole draw's."""
+    return _draw(key, shape, device, start, block,
+                 lambda bits: _uniform_values(bits, minval, maxval))
 
 
 # XLA's float32 log: Cephes' logf on the mantissa in [sqrt(1/2), sqrt(2))
@@ -249,19 +351,27 @@ def _xla_log(x: torch.Tensor) -> torch.Tensor:
     x2 = m * m
     x3 = x2 * m
     p = [_f32(c) for c in _LOG_P]
-    y = _fma(_fma(m, p[0], p[1]), m, p[2])
-    y1 = _fma(_fma(m, p[3], p[4]), m, p[5])
-    y2 = _fma(_fma(m, p[6], p[7]), m, p[8])
-    y = _fma(_fma(_fma(y, x3, y1), x3, y2), x3, e * _f32(_LOG_Q1))
+    m64 = m.double()
+    y, y1, y2 = (_fma_chain(torch.full_like(m, p[i]), m64, p[i + 1:i + 3])
+                 for i in (0, 3, 6))
+    y = _fma_chain(y, x3.double(), [y1, y2, e * _f32(_LOG_Q1)])
     m = m - 0.5 * x2
     return (m + y) + e * _f32(_LOG_Q2)
 
 
+def _fma_chain(p: torch.Tensor, x64: torch.Tensor, coeffs) -> torch.Tensor:
+    """``p = fma(p, x, c)`` for each ``c`` of ``coeffs`` in turn (float32
+    values, each step rounded once as :func:`_fma`), with ``x`` converted
+    to float64 once: ``x64``.  ``coeffs`` are floats or float64 tensors
+    broadcasting against ``x``."""
+    for c in coeffs:
+        p = p.double().mul_(x64).add_(c).float()
+    return p
+
+
 def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
     p = torch.full_like(x, _f32(coeffs[0]))
-    for c in coeffs[1:]:
-        p = _fma(p, x, _f32(c))
-    return p
+    return _fma_chain(p, x.double(), [_f32(c) for c in coeffs[1:]])
 
 
 def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
@@ -281,22 +391,26 @@ def _xla_erf_inv(x: torch.Tensor) -> torch.Tensor:
     lt = w < 5.0
     # sqrt in float64 then rounded: correctly rounded, as XLA's is
     w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
-    lo = torch.tensor([_f32(c) for c in _ERFINV_LT5], device=x.device)
-    hi = torch.tensor([_f32(c) for c in _ERFINV_GE5], device=x.device)
-    p = torch.where(lt, lo[0], hi[0])
-    for i in range(1, len(_ERFINV_LT5)):
-        p = _fma(p, w, torch.where(lt, lo[i], hi[i]))
+    lo = torch.tensor([_f32(c) for c in _ERFINV_LT5], dtype=torch.float64,
+                      device=x.device)
+    hi = torch.tensor([_f32(c) for c in _ERFINV_GE5], dtype=torch.float64,
+                      device=x.device)
+    p = torch.where(lt, lo[0], hi[0]).float()
+    p = _fma_chain(p, w.double(), (torch.where(lt, lo[i], hi[i])
+                                   for i in range(1, len(_ERFINV_LT5))))
     return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
                        p * x)
 
 
-def jax_normal(key, shape, device="cpu", start: int = 0) -> torch.Tensor:
+def jax_normal(key, shape, device="cpu", start: int = 0, block=None) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: ``sqrt(2) *
     erf_inv(u)`` with u uniform in ``(nextafter(-1, 0), 1)`` and XLA's
     ``erf_inv``, ``log1p`` and ``log``, so the draws are JAX's on the CPU:
     ``tests/test_torch_potentials.py`` holds them within 4 ulps and bit for
-    bit on 99% of draws (every draw it tests is equal).  ``start``: the
-    draw's flat elements from ``start`` on (see :func:`random_bits`)."""
+    bit on 99% of draws (every draw it tests is equal).  ``start`` and
+    ``block`` as :func:`jax_uniform`'s: a placed leaf draws its block of
+    the whole leaf's draw, never the whole."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = jax_uniform(key, shape, lo, 1.0, device, start)
-    return np.float32(math.sqrt(2.0)).item() * _xla_erf_inv(u)
+    root2 = np.float32(math.sqrt(2.0)).item()
+    return _draw(key, shape, device, start, block,
+                 lambda bits: root2 * _xla_erf_inv(_uniform_values(bits, lo, 1.0)))

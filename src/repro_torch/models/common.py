@@ -18,6 +18,7 @@ needs both packages on the same weights carries them over with
 from __future__ import annotations
 
 import math
+from collections import Counter
 from dataclasses import dataclass
 from typing import Any
 
@@ -303,13 +304,15 @@ def _drop_axis(spec: tuple, axis: str) -> tuple:
     return tuple(out)
 
 
-def model_specs(cfg, mesh, chain_axis: str | None = None) -> PyTree:
+def model_specs(cfg, mesh, chain_axis=None) -> PyTree:
     """One chain's sanitized spec tree on ``mesh``: :func:`partition_tree`
     of ``cfg``'s parameters (the reference's ``param_sharding`` and
     ``model_size``), each spec through :func:`sanitize_spec`.  An entry
-    naming ``chain_axis`` is replicated: that axis holds the chains (the
-    reference's ``P(chain_axis, *spec)`` would name it twice, which JAX
-    refuses; ``fsdp_tp``'s experts name ``data``)."""
+    naming ``chain_axis`` (an axis name or a tuple of them) is replicated:
+    that axis holds the chains of a 2-D bank (the reference's
+    ``P(chain_axis, *spec)`` would name it twice, which JAX refuses;
+    ``fsdp_tp``'s experts name ``data``), or the batch of a training step
+    on the model axis (``fsdp_tp``'s FSDP over ``data`` is not ported)."""
     from repro_torch.models.transformer import init_params
     from repro_torch.utils import tree_map
 
@@ -317,9 +320,15 @@ def model_specs(cfg, mesh, chain_axis: str | None = None) -> PyTree:
     model = axis_size(mesh, MODEL_AXIS) if MODEL_AXIS in axis_names(mesh) else None
     fsdp = tuple(a for a in ("pod", "data") if a in axis_names(mesh)) or ("data",)
     specs = partition_tree(like, cfg.param_sharding, fsdp, cfg=cfg, model_size=model)
-    return tree_map(lambda leaf, s: sanitize_spec(
-        s if chain_axis is None else _drop_axis(s, chain_axis), tuple(leaf.shape), mesh),
-        like, specs)
+    drop = (() if chain_axis is None else (chain_axis,) if isinstance(chain_axis, str)
+            else tuple(chain_axis))
+
+    def one(leaf, s):
+        for a in drop:
+            s = _drop_axis(s, a)
+        return sanitize_spec(s, tuple(leaf.shape), mesh)
+
+    return tree_map(one, like, specs)
 
 
 def _spec_at(specs, path: str) -> tuple:
@@ -352,7 +361,24 @@ class ModelAxis:
       columns (or the tied embedding's rows) are the rank's slice of the
       vocabulary;
     - ``experts``: the experts a rank holds (0: no MoE), ``shared``: the
-      shared experts are column- / row-parallel.
+      shared experts are column- / row-parallel;
+    - ``batch_axes``: the mesh axes a training batch is split over (the
+      MoE's capacity and aux are a shard's; empty for a 2-D serving bank,
+      whose other axis holds chains);
+    - ``summed``: the paths (one chain's, ``"stack/attn/q_norm"``) of the
+      leaves that are replicated on the axis but that a rank uses on its
+      part only — the qk-norms on its heads, a replicated K/V projection's
+      columns under ``kv_take``, the router beside its experts — whose
+      gradient is a rank's part, summed over the axis by the gradient
+      function (:func:`repro_torch.train.loop.make_grad_fn`).  A replicated
+      leaf whose computation is replicated (the norms of the residual
+      stream, a projection :func:`sanitize_spec` replicated) has its whole
+      gradient on every rank.
+
+    The collectives are differentiable (:func:`copy_to` at the entry of a
+    column-parallel region, :func:`reduce_from` at a row-parallel exit and
+    after the vocabulary-parallel lookup, :func:`gather_from`), so a loss
+    over the model's outputs backpropagates to every rank's block.
 
     Refused: a MoE whose experts the axis does not divide, and a query
     block that straddles a group of query heads (no uniform local group
@@ -370,12 +396,18 @@ class ModelAxis:
     vocab_out: bool
     experts: int
     shared: bool
+    summed: frozenset = frozenset()
+    batch_axes: tuple = ()
 
     @classmethod
-    def of(cls, mesh, cfg) -> "ModelAxis":
+    def of(cls, mesh, cfg, batch_axes=()) -> "ModelAxis":
         if MODEL_AXIS not in axis_names(mesh):
             raise ValueError(f"the mesh has no {MODEL_AXIS!r} axis to split each "
                              f"chain's tensors over (its axes: {axis_names(mesh)})")
+        batch_axes = tuple(batch_axes)
+        if any(a not in axis_names(mesh) or a == MODEL_AXIS for a in batch_axes):
+            raise ValueError(f"batch_axes {batch_axes} must name axes of the mesh other "
+                             f"than {MODEL_AXIS!r} (its axes: {axis_names(mesh)})")
         m = axis_size(mesh, MODEL_AXIS)
         r = mesh.get_local_rank(MODEL_AXIS)
         E = cfg.num_experts
@@ -405,6 +437,11 @@ class ModelAxis:
                         "the decode kernels")
         stack = specs.get("stack", {})
         tied = cfg.tie_embeddings
+        summed = [f"attn/{n}" for n in ("q_norm", "k_norm") if attn] \
+            + [f"attn/{n}" for n in ("wk", "wv", "bk", "bv") if kv_take] \
+            + (["moe/router"] if E else [])
+        summed = frozenset(f"stack/{n}" for n in summed
+                           if n.split("/")[1] in stack.get(n.split("/")[0], {}))
         return cls(
             mesh=mesh, size=m, rank=r, group=mesh.get_group(MODEL_AXIS), heads=heads,
             kv_take=kv_take, attn=attn,
@@ -413,23 +450,123 @@ class ModelAxis:
             vocab_out=_split(specs, "embed/w" if tied else "lm_head/w"),
             experts=E // m if E else 0,
             shared="moe" in stack and "shared_w_down" in stack["moe"]
-            and _split(specs, "stack/moe/shared_w_down"))
+            and _split(specs, "stack/moe/shared_w_down"),
+            summed=summed, batch_axes=batch_axes)
 
     # -- collectives over the axis (identity on an axis of one rank) ---------
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the axis' ranks, in place (every rank gets
-        the same bits)."""
-        if self.size > 1:
-            import torch.distributed as dist
+    def copy_to(self, t: torch.Tensor) -> torch.Tensor:
+        """The entry of a column-parallel region: ``t`` itself, its gradient
+        summed over the axis (:func:`copy_to`)."""
+        return copy_to(t, self.group) if self.size > 1 else t
 
-            dist.all_reduce(t, group=self.group)
-        return t
+    def reduce_from(self, t: torch.Tensor) -> torch.Tensor:
+        """The exit of a row-parallel region: the sum of ``t`` over the
+        axis' ranks, every rank the same bits, its gradient passed through
+        (:func:`reduce_from`)."""
+        return reduce_from(t, self.group) if self.size > 1 else t
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
-        """The ranks' ``t`` concatenated along ``dim`` in rank order."""
-        if self.size == 1:
-            return t
+        """The ranks' ``t`` concatenated along ``dim`` in rank order; the
+        gradient of the rank's slice is its slice of the whole's
+        (:func:`gather_from`)."""
+        return gather_from(t, self.group, dim) if self.size > 1 else t
+
+
+# ---------------------------------------------------------------------------
+# collectives with gradients (Megatron-LM's tensor-parallel mappings)
+# ---------------------------------------------------------------------------
+# The ranks of an axis compute one loss, the same bits on every rank.  A
+# replicated tensor that enters a region where each rank computes its part
+# (its heads, columns, experts, vocabulary slice) goes through copy_to:
+# each rank's gradient of it is its part's, and the backward sums them.  A
+# region's partial results leave it through reduce_from: the forward sums
+# them, and the gradient of the sum reaches every rank's part whole.  A
+# ``dist.all_reduce`` alone has no autograd formula: PyTorch would treat it
+# as the identity in the backward and leave out the sum over the ranks.
+#: the collectives the model's code has issued since :func:`reset_collectives`,
+#: by kind: ``forward`` (row-parallel exits, the lookup, the MoE's aux, a
+#: gather), ``backward`` (column-parallel entries), ``loss`` (the
+#: vocabulary-parallel cross-entropy's), ``model sum`` and ``data mean``
+#: (the gradient function's, once a step)
+COLLECTIVES: Counter = Counter()
+
+
+def count_collective(kind: str, n: int = 1) -> None:
+    COLLECTIVES[kind] += n
+
+
+def reset_collectives() -> None:
+    COLLECTIVES.clear()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone(memory_format=torch.contiguous_format)
+        count_collective("backward")
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _SumFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, n):
+        import torch.distributed as dist
+
+        out = t.clone(memory_format=torch.contiguous_format)
+        count_collective("forward")
+        dist.all_reduce(out, group=group)
+        return out if n == 1 else out / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        import torch.distributed as dist
+
         from repro_torch.utils import all_gather
 
-        return all_gather(t, self.group, dim)
+        ctx.dim, ctx.n = dim, t.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        count_collective("forward")
+        return all_gather(t, group, dim)
 
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+def copy_to(t: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; backward, the gradient summed over ``group``."""
+    return _CopyTo.apply(t, group)
+
+
+def reduce_from(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group`` (one ``dist.all_reduce``, every rank
+    the same bits); backward, the gradient passed through."""
+    return _SumFrom.apply(t, group, 1)
+
+
+def mean_value(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The mean of ``t`` over the ``n`` ranks of ``group`` (a batch axis);
+    backward, each rank's gradient of its own ``t``, which the caller
+    averages over the axis with the rest of the gradient
+    (:func:`repro_torch.train.loop.make_grad_fn`)."""
+    return _SumFrom.apply(t, group, n)
+
+
+def gather_from(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``group``'s ranks' ``t`` concatenated along ``dim``; backward, the
+    rank's slice of the gradient."""
+    return _GatherFrom.apply(t, group, dim)

@@ -5,7 +5,8 @@ layers); :func:`apply_mlp` takes one layer of a chain bank: weights
 ``(C, d, f)`` and activations ``(C, ..., d)``.  Under a model axis whose
 layout splits the MLP (:class:`~repro_torch.models.common.ModelAxis`),
 ``w_gate`` / ``w_up`` are the rank's columns and ``w_down`` its rows: the
-product is a partial sum, all-reduced over the axis.
+input enters through ``copy_to`` (its gradient summed over the axis) and
+the product, a partial sum, leaves through ``reduce_from``.
 """
 
 from __future__ import annotations
@@ -23,10 +24,13 @@ def init_mlp(generator, cfg, dtype, lead=(), device="cpu") -> dict:
 
 
 def apply_mlp(params: dict, x, cfg, tp=None):
+    split = tp is not None and tp.mlp
+    if split:
+        x = tp.copy_to(x)
     act = activation(cfg.act)
     if "w_gate" in params:
         h = act(bank_matmul(x, params["w_gate"])) * bank_matmul(x, params["w_up"])
     else:
         h = act(bank_matmul(x, params["w_up"]))
     y = bank_matmul(h, params["w_down"])
-    return tp.all_reduce(y) if tp is not None and tp.mlp else y
+    return tp.reduce_from(y) if split else y

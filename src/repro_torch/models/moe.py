@@ -32,7 +32,13 @@ the same pairs; only the dispatch into its own experts' buffers runs per
 rank.  Capacity comes from the rank's tokens (a batch split over
 ``batch_axes`` gives each rank ``B / data`` rows).  The shared experts are
 column- and row-parallel where the specs split them.  ``out`` is summed
-over ``model``; ``aux`` is averaged over ``model`` and the batch axes.
+over ``model``; ``aux`` is averaged over ``model`` and the batch axes.  The
+collectives are differentiable (:func:`~repro_torch.models.common.copy_to`
+at the entry of the rank's part, ``reduce_from`` at its exit): a rank's
+router gradient is its experts' part and its share of the aux, summed
+over ``model`` by the gradient function; over a batch axis the aux's value
+is the shards' mean and its gradient each shard's own, as the gradient is
+averaged over the shards after the step.
 Experts the axis does not divide are refused (the reference divides
 without checking).
 
@@ -51,7 +57,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.launch.mesh import axis_size
-from repro_torch.models.common import MODEL_AXIS, activation, bank_matmul, dense_init
+from repro_torch.models.common import (
+    MODEL_AXIS,
+    activation,
+    bank_matmul,
+    copy_to,
+    dense_init,
+    mean_value,
+    reduce_from,
+)
 
 CAPACITY_FACTOR = 1.25
 
@@ -186,20 +200,21 @@ def apply_moe(params, x, cfg, mesh=None, batch_axes=()):
     if params["w_gate"].shape[-3] != E // m:
         raise ValueError(f"expert parallelism takes the rank's {E // m} experts, got "
                          f"{params['w_gate'].shape[-3]}")
-    import torch.distributed as dist
-
-    r = mesh.get_local_rank(MODEL_AXIS)
-    out, aux = _moe_local(params, xt, cfg, capacity(B * S, cfg), act, r * (E // m))
-    shared = _shared_partial(params, xt, act)
+    r, group = mesh.get_local_rank(MODEL_AXIS), mesh.get_group(MODEL_AXIS)
     split = ("shared_w_gate" in params and params["shared_w_gate"].shape[-1] * m
              == cfg.d_ff * cfg.num_shared_experts)
+    # the router, the rank's experts and its shared-expert columns compute
+    # the rank's part: their input's gradient is summed over the axis
+    xin = copy_to(xt, group) if m > 1 else xt
+    out, aux = _moe_local(params, xin, cfg, capacity(B * S, cfg), act, r * (E // m))
     if split:  # a partial sum over the rank's columns, summed with the experts'
-        out = out + shared
-    dist.all_reduce(out, group=mesh.get_group(MODEL_AXIS))
+        out = out + _shared_partial(params, xin, act)
+    if m > 1:
+        out = reduce_from(out, group)
+        aux = reduce_from(aux, group)
     if not split:
-        out = out + shared
-    n = 1
-    for a in (MODEL_AXIS,) + tuple(batch_axes):  # the mean over the axes
-        n *= axis_size(mesh, a)
-        dist.all_reduce(aux, group=mesh.get_group(a))
-    return out.reshape(C, B, S, d), aux / n
+        out = out + _shared_partial(params, xt, act)
+    for a in batch_axes:  # the value the mean over the shards, the gradient each's
+        if axis_size(mesh, a) > 1:
+            aux = mean_value(aux, mesh.get_group(a), axis_size(mesh, a))
+    return out.reshape(C, B, S, d), aux / m

@@ -44,7 +44,11 @@ replicated K/V projection its queries read), its MLP columns, its experts
 and its slice of the vocabulary; the row-parallel products and the
 embedding's masked lookup are all-reduced over ``model``, and the logits
 come back as the rank's vocabulary slice (:meth:`Model.gather_vocab`
-gathers them).  The decode caches hold the local KV heads.
+gathers them).  The decode caches hold the local KV heads.  The
+collectives are differentiable (Megatron-LM's mappings,
+:func:`~repro_torch.models.common.copy_to` and its neighbours) and
+:func:`loss_fn`'s cross-entropy is vocabulary-parallel, so a placed
+model trains: :func:`repro_torch.launch.steps.make_sgld_train_step`.
 
 ``attn_moe``'s load-balance loss comes back from :meth:`Model.forward` per
 chain.  The vision and audio frontends are the reference's stub:
@@ -66,6 +70,7 @@ from repro_torch.models.attention import attention_any
 from repro_torch.models.common import (
     apply_rope,
     bank_matmul,
+    count_collective,
     dense_init,
     dtype_of,
     embed_init,
@@ -198,6 +203,8 @@ def _qkv(p, x, cfg, positions, tp=None):
     C, B, S, _ = x.shape
     H, KV = _heads(cfg, tp)
     hd = cfg.head_dim
+    if tp is not None and tp.attn:  # a column-parallel region: the rank's heads
+        x = tp.copy_to(x)
     kv = {n: p.get(n) for n in ("wk", "wv", "bk", "bv")}
     if tp is not None and tp.kv_take:
         cols = slice(tp.heads[3] * hd, (tp.heads[3] + KV) * hd)
@@ -222,9 +229,9 @@ def _qkv(p, x, cfg, positions, tp=None):
 
 def _out_proj(p, o, tp):
     """``o @ wo``: under a model axis that splits the query heads, a
-    partial sum over the rank's heads, all-reduced over the axis."""
+    partial sum over the rank's heads, summed over the axis."""
     y = bank_matmul(o, p["wo"])
-    return tp.all_reduce(y) if tp is not None and tp.attn else y
+    return tp.reduce_from(y) if tp is not None and tp.attn else y
 
 
 def apply_attn(p, x, cfg, positions, *, window, cache=None, cur_pos=None, tp=None):
@@ -279,7 +286,8 @@ def _ffn(p, x, cfg, block: str, tp=None):
     load-balance loss per chain ``(C,)``, None for a dense block."""
     h2 = rms_norm(x, per_chain(p["norm2"], x), cfg.norm_eps)
     if block == "attn_moe":
-        ff, aux = apply_moe(p["moe"], h2, cfg, mesh=None if tp is None else tp.mesh)
+        ff, aux = apply_moe(p["moe"], h2, cfg, mesh=None if tp is None else tp.mesh,
+                            batch_axes=() if tp is None else tp.batch_axes)
     else:
         ff, aux = apply_mlp(p["mlp"], h2, cfg, tp), None
     return x + cfg.residual_scale * ff, aux
@@ -371,15 +379,27 @@ class Model:
     out: the methods take the rank's local tensors (a 2-D bank's
     :func:`~repro_torch.utils.local` block), every rank of the axis calls
     them with the same inputs, and the logits they return are the rank's
-    vocabulary slice where the head is split (:meth:`gather_vocab`)."""
+    vocabulary slice where the head is split (:meth:`gather_vocab`).
 
-    def __init__(self, cfg, device="cuda", mesh=None):
+    ``batch_axes`` (the reference's; with ``mesh`` only, empty by default,
+    as a 2-D serving bank's other axis holds chains) are the mesh axes a
+    training batch is split over: the methods take the rank's rows, the
+    MoE's capacity is a shard's and its aux the mean over the shards
+    (:func:`repro_torch.train.loop.make_grad_fn` averages the gradient
+    over them).  The model's collectives are differentiable, so
+    :func:`loss_fn` backpropagates to every rank's block."""
+
+    def __init__(self, cfg, device="cuda", mesh=None, batch_axes=()):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.tp = None
+        self.batch_axes = tuple(batch_axes)
+        if mesh is None and self.batch_axes:
+            raise ValueError(f"batch_axes {self.batch_axes} split a batch over a mesh: "
+                             "pass mesh=")
         if mesh is not None:
             self._require_stacked_attention("a model split over the 'model' axis")
-            self.tp = ModelAxis.of(mesh, cfg)
+            self.tp = ModelAxis.of(mesh, cfg, self.batch_axes)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return to_device(tokens, self.device).long()
@@ -397,7 +417,7 @@ class Model:
         t = tokens - tp.rank * n
         inside = (t >= 0) & (t < n)
         x = torch.where(inside[..., None], w[:, t.clamp(0, n - 1)], 0)
-        return tp.all_reduce(x)
+        return tp.reduce_from(x)
 
     def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
         """Logits ``(..., V)`` of every token from a rank's vocabulary slice
@@ -430,6 +450,8 @@ class Model:
         w = (params["embed"]["w"].transpose(-1, -2) if self.cfg.tie_embeddings
              else params["lm_head"]["w"])
         x = rms_norm(x, per_chain(params["final_norm"], x), self.cfg.norm_eps)
+        if self.tp is not None and self.tp.vocab_out:  # the rank's vocabulary columns
+            x = self.tp.copy_to(x)
         return bank_matmul(x, w)
 
     # -- forward over layers --------------------------------------------------
@@ -717,6 +739,44 @@ class Model:
 # ===========================================================================
 # loss
 # ===========================================================================
+class _VocabParallelCE(torch.autograd.Function):
+    """Each token's log-likelihood ``log p(label)`` from a rank's vocabulary
+    slice of the logits (Megatron-LM's vocabulary-parallel cross-entropy):
+    the row's max and its sum of exponentials summed over the axis, the
+    label's logit from the rank that holds it; backward, the one-hot minus
+    the softmax on the rank's slice.  The whole ``(..., V)`` logits are
+    never gathered, and every rank gets the same bits."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, group):
+        import torch.distributed as dist
+
+        x = logits.float()
+        n = x.shape[-1]
+        top = x.amax(dim=-1)
+        count_collective("loss", 3)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(x - top[..., None])
+        total = e.sum(dim=-1)
+        dist.all_reduce(total, group=group)
+        t = labels - start
+        inside = (t >= 0) & (t < n)
+        t = t.clamp(0, n - 1)
+        picked = torch.where(inside, x.gather(-1, t[..., None])[..., 0], 0.0)
+        dist.all_reduce(picked, group=group)
+        e /= total[..., None]  # the softmax of the rank's slice
+        ctx.save_for_backward(e, t, inside)
+        ctx.dtype = logits.dtype
+        return (picked - top) - torch.log(total)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, t, inside = ctx.saved_tensors
+        grad = p * -g[..., None]
+        grad.scatter_add_(-1, t[..., None], (g * inside)[..., None])
+        return grad.to(ctx.dtype), None, None, None
+
+
 def loss_fn(model: Model, params, batch, layers=None):
     """Next-token cross-entropy plus the MoE aux, as
     ``repro.models.transformer.loss_fn``.
@@ -728,16 +788,22 @@ def loss_fn(model: Model, params, batch, layers=None):
     ``router_aux_coef`` times its aux (0 for dense blocks); over a chain
     bank the loss is the sum of the chains' totals, so each chain's
     gradient is its own, and for a bank of one chain it is the reference's
-    loss.  Returns ``(total, {"ce": ce, "aux": aux})``, 0-d tensors summed
+    loss.  Under a model axis that splits the head, the log-softmax is
+    vocabulary-parallel (:class:`_VocabParallelCE`), the same bits on every
+    rank.  Returns ``(total, {"ce": ce, "aux": aux})``, 0-d tensors summed
     over the chains likewise."""
     tokens = model._tokens(batch["tokens"])
     logits, aux, _ = model.forward(params, {**batch, "tokens": tokens[:, :-1]},
                                    layers=layers)
     labels = tokens[:, 1:]
     logits = logits[:, :, -labels.shape[1]:]  # skip the frontend positions
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels.expand(logits.shape[0], *labels.shape)
-                      [..., None])[..., 0]
+    labels = labels.expand(logits.shape[0], *labels.shape)
+    tp = model.tp
+    if tp is not None and tp.vocab_out and tp.size > 1:
+        ll = _VocabParallelCE.apply(logits, labels, tp.rank * logits.shape[-1], tp.group)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None])[..., 0]
     ce = -ll.mean(dim=(-2, -1))
     total = (ce + model.cfg.router_aux_coef * aux).sum()
     return total, {"ce": ce.sum().detach(), "aux": aux.sum().detach()}

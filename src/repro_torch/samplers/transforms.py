@@ -39,7 +39,10 @@ from repro_torch.samplers.transform import (
     stateless,
 )
 from repro_torch.utils import (
+    block_slices,
+    is_placed,
     leaf_keys,
+    place_like,
     to_device,
     tree_flatten,
     tree_leaves,
@@ -113,7 +116,16 @@ def noise_like(key, params: PyTree, scale, dtype, noise: str = "torch") -> PyTre
     (leaf order and keys as ``repro.samplers.transforms``): a
     ``torch.Generator`` seeded from it (``noise="torch"``), or
     ``jax.random.normal`` under it in float32 (``noise="jax"``), the JAX
-    package's numbers."""
+    package's numbers.
+
+    A placed leaf (a ``DTensor``, a chain split over the ``model`` axis)
+    draws only its block of the whole leaf's ``jax.random.normal``, each
+    element at its counter in the whole (:func:`~repro_torch.kernels.rng.
+    jax_normal`'s ``block``), and comes back placed as the leaf is: the
+    rank's block of the unplaced draw, bit for bit.  ``noise="torch"`` is
+    refused there: a ``torch.Generator`` cannot start at a block's
+    counters, and drawing the whole leaf on every rank is what placement
+    avoids."""
     if noise not in NOISE:
         raise ValueError(f"noise must be one of {NOISE}, got {noise!r}")
     leaves, treedef = tree_flatten(params)
@@ -121,6 +133,17 @@ def noise_like(key, params: PyTree, scale, dtype, noise: str = "torch") -> PyTre
     for k, p in zip(leaf_keys(key, leaves), leaves):
         if p.device.type == "meta":  # shapes only (the dry run): nothing to draw
             out.append(torch.empty_like(p))
+            continue
+        if is_placed(p):
+            if noise != "jax":
+                raise ValueError(
+                    f"noise={noise!r} on a placed leaf: a torch.Generator cannot draw "
+                    "a block of a leaf at the whole leaf's counters; pass noise='jax' "
+                    "(each rank draws its block of jax.random.normal's numbers)")
+            loc = p.to_local()
+            z = rng.jax_normal(k, tuple(p.shape), loc.device,
+                               block=block_slices(p.shape, p.device_mesh, p.placements))
+            out.append(place_like((torch.tensor(np.float32(scale)) * z).to(loc.dtype), p))
             continue
         if noise == "jax":
             z = rng.jax_normal(k, p.shape, p.device)

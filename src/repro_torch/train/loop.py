@@ -17,6 +17,7 @@ are.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable
 
 import torch
@@ -25,9 +26,18 @@ from repro_torch import samplers
 from repro_torch.analysis.cost import repeated
 from repro_torch.core.sgld import SGLDConfig
 from repro_torch.kernels import rng
+from repro_torch.launch.mesh import axis_size
+from repro_torch.models.common import count_collective
 from repro_torch.models.transformer import Model, loss_fn
 from repro_torch.train.engine import Engine, log_hook
-from repro_torch.utils import tree_add_scaled, tree_leaves, tree_map, tree_zeros_like
+from repro_torch.utils import (
+    local,
+    place_like,
+    tree_add_scaled,
+    tree_leaves,
+    tree_map,
+    tree_zeros_like,
+)
 
 PyTree = Any
 
@@ -44,9 +54,72 @@ def _split_microbatch(batch: PyTree, n: int) -> list:
                      batch) for i in range(n)]
 
 
+def microbatch_rows(model: Model, batch_size: int, n: int, i: int) -> slice:
+    """The rows of a global batch of ``batch_size`` that this rank takes in
+    microbatch ``i`` of ``n``, as the reference splits them under GSPMD:
+    microbatch ``i`` is rows ``[i B/n, (i+1) B/n)`` (a reshape), split over
+    ``model.batch_axes`` in mesh order, so data rank ``d`` of ``D`` takes
+    ``[i B/n + d B/(nD), i B/n + (d+1) B/(nD))``.  Without batch axes, the
+    whole microbatch."""
+    tp = model.tp
+    axes = () if tp is None else tp.batch_axes
+    D, d = 1, 0
+    for a in axes:
+        size = axis_size(tp.mesh, a)
+        D, d = D * size, d * size + tp.mesh.get_local_rank(a)
+    if batch_size % n or (batch_size // n) % D:
+        raise ValueError(f"a global batch of {batch_size} does not split into {n} "
+                         f"microbatches over {D} shards of {axes}")
+    per, sub = batch_size // n, batch_size // n // D
+    return slice(i * per + d * sub, i * per + (d + 1) * sub)
+
+
+def _reduce_placed(model: Model, grads: PyTree, metrics: dict) -> dict:
+    """Once a step, in place: the leaves of ``model.tp.summed`` summed over
+    ``model`` (a rank's part of their gradient), then every leaf and the
+    metrics averaged over the batch axes, every rank the same bits."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.io import leaf_paths
+
+    tp = model.tp
+    axes = [a for a in tp.batch_axes if axis_size(tp.mesh, a) > 1]
+    D = math.prod(axis_size(tp.mesh, a) for a in axes)
+    for path, g in leaf_paths(grads):
+        if tp.size > 1 and path.replace("##", "/") in tp.summed:
+            count_collective("model sum")
+            dist.all_reduce(g, group=tp.group)
+        for a in axes:
+            count_collective("data mean")
+            dist.all_reduce(g, group=tp.mesh.get_group(a))
+        if D > 1:
+            g.div_(D)
+    if not axes:
+        return metrics
+    names = sorted(metrics)
+    vals = torch.stack([metrics[k].float() for k in names])
+    for a in axes:
+        count_collective("data mean")
+        dist.all_reduce(vals, group=tp.mesh.get_group(a))
+    vals = vals / D
+    return {k: vals[i] for i, k in enumerate(names)}
+
+
 def make_grad_fn(model: Model, num_microbatches: int = 1):
     """grad_fn(params, batch) -> (grads, metrics) for the SGLD sampler;
-    metrics ``{"ce", "aux", "loss"}`` are 0-d tensors on the device."""
+    metrics ``{"ce", "aux", "loss"}`` are 0-d tensors on the device.
+
+    On a model split over a mesh (``Model(cfg, mesh=..., batch_axes=...)``)
+    ``params`` are the rank's blocks (placed ``DTensor``s or local tensors)
+    and ``batch`` the whole global batch on every rank: each rank takes its
+    rows of each microbatch (:func:`microbatch_rows`), runs the forward and
+    backward of its part, and accumulates locally; after the last
+    microbatch the leaves a rank computed from its part alone
+    (``model.tp.summed``) are summed over ``model``, and every leaf and the
+    metrics are averaged over the batch axes.  The gradients come back
+    placed as ``params`` are, the metrics the same bits on every rank.
+    This is what the reference's GSPMD step computes; its MoE gives each
+    data shard its own capacity."""
 
     def single(params, batch):
         if "stack" in params:
@@ -70,6 +143,17 @@ def make_grad_fn(model: Model, num_microbatches: int = 1):
                                        else v.grad, layers)
         return grads, dict(metrics, loss=loss.detach())
 
+    if model.tp is not None:
+        def placed(params, batch):
+            size, n = tree_leaves(batch)[0].shape[0], max(1, num_microbatches)
+            rows = [microbatch_rows(model, size, n, i) for i in range(n)]
+            grads, metrics = _accumulate(single, local(params),
+                                         [tree_map(lambda x, r=r: x[r], batch) for r in rows])
+            metrics = _reduce_placed(model, grads, metrics)
+            return place_like(grads, params), metrics
+
+        return placed
+
     if num_microbatches <= 1:
         return single
 
@@ -79,17 +163,27 @@ def make_grad_fn(model: Model, num_microbatches: int = 1):
             # the microbatches are alike: on meta (the dry run) one, counted
             # num_microbatches times
             return repeated(num_microbatches, single, params, mbs[0])
-        g_acc, m_acc = None, None
-        for mb in mbs:
-            g, m = single(params, mb)
-            if g_acc is None:
-                g_acc = tree_zeros_like(g)
-                m_acc = tree_zeros_like(m)
-            g_acc = tree_add_scaled(g_acc, g, 1.0 / num_microbatches)
-            m_acc = tree_map(lambda a, b: a + b / num_microbatches, m_acc, m)
-        return g_acc, m_acc
+        return _accumulate(single, params, mbs)
 
     return accumulated
+
+
+def _accumulate(single, params, mbs: list) -> tuple:
+    """``single``'s gradients and metrics averaged over the microbatches
+    ``mbs``, accumulated as the reference's scan does (from zeros, each
+    scaled by ``1 / n``); one microbatch's as they are."""
+    if len(mbs) == 1:
+        return single(params, mbs[0])
+    g_acc, m_acc = None, None
+    for mb in mbs:
+        g, m = single(params, mb)
+        if g_acc is None:
+            g_acc = tree_zeros_like(g)
+            m_acc = tree_zeros_like(m)
+        g_acc = tree_add_scaled(g_acc, g, 1.0 / len(mbs))
+        m_acc = tree_map(lambda a, b: a + b / len(mbs), m_acc, m)
+        del g  # not held through the next microbatch's backward
+    return g_acc, m_acc
 
 
 def make_train_step(model: Model, sgld_cfg: SGLDConfig,

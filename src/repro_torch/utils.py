@@ -14,12 +14,15 @@ a ``torch.distributed.device_mesh.DeviceMesh`` is a ``DTensor`` with
 each rank holds the contiguous block of chains :func:`chain_block` names.
 A 2-D bank (``shard_params``) also splits each chain's tensors over
 ``model`` by a spec (``P(chain_axis, *spec)``): ``Shard(1 + i)`` on each
-mesh axis ``spec[i]`` names.  :func:`place_chains` wraps a rank's block,
-:func:`local_block` cuts it from a whole tensor, :func:`local` unwraps it
-(the body of a ``shard_map``), :func:`gather_chains` gathers the whole
-(``np.asarray`` of a sharded JAX array) and :func:`gather_rows` all-gathers
-one local block over the chain axis; :func:`all_gather` is the
-gather the chain and model axes run.
+mesh axis ``spec[i]`` names; a chain trained on the model axis (a bank of
+one) replicates the chain axis, its other axes holding the batch.
+:func:`place_chains` wraps a rank's block, :func:`local_block` cuts it from
+a whole tensor (:func:`block_slices` names it), :func:`local` unwraps it
+(the body of a ``shard_map``), :func:`place_like` places local results as
+their inputs were, :func:`gather_chains` gathers the whole (``np.asarray``
+of a sharded JAX array) and :func:`gather_rows` all-gathers one local
+block over the chain axis; :func:`all_gather` is the gather the chain and
+model axes run.
 """
 
 from __future__ import annotations
@@ -227,12 +230,28 @@ def spec_placements(mesh, spec) -> list:
     return out
 
 
-def chain_placements(mesh, axis: str, dim: int = 0, spec=None) -> list:
+def chain_placements(mesh, axis, dim: int = 0, spec=None) -> list:
     """``Shard(dim)`` on the mesh axis ``axis``, ``Replicate()`` on the
     others; with ``spec`` (one chain's spec, a 2-D bank) also
-    ``Shard(dim + 1 + i)`` on each mesh axis ``spec[i]`` names."""
-    mesh_axis(mesh, axis)
+    ``Shard(dim + 1 + i)`` on each mesh axis ``spec[i]`` names.  ``axis``
+    None replicates the chains (a training chain on the model axis, whose
+    other axes hold its batch)."""
+    if axis is not None:
+        mesh_axis(mesh, axis)
     return spec_placements(mesh, (None,) * dim + (axis,) + tuple(spec or ()))
+
+
+def block_slices(shape, mesh, placements) -> tuple:
+    """The slice a dimension of the whole ``shape`` that this rank holds
+    under ``placements`` (:func:`local_block`'s cut)."""
+    out = [slice(0, n) for n in shape]
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            n, r = mesh.shape[i], mesh.get_local_rank(i)
+            sl = out[pl.dim]
+            size = (sl.stop - sl.start) // n
+            out[pl.dim] = slice(sl.start + r * size, sl.start + (r + 1) * size)
+    return tuple(out)
 
 
 def local_block(x, mesh, placements):
@@ -287,13 +306,14 @@ def map_placed(fn: Callable, tree: Any) -> Any:
     return tree
 
 
-def place_chains(tree: Any, mesh, axis: str, specs: Any = None) -> Any:
+def place_chains(tree: Any, mesh, axis, specs: Any = None) -> Any:
     """A rank's block placed: every tensor of ``tree`` (this rank's block of
     chains on its leading axis) becomes a ``DTensor`` over ``mesh`` sharded
     on ``axis`` and replicated on the other axes; with ``specs`` (a tree of
     one chain's specs beside ``tree``: a 2-D bank, each leaf already the
-    rank's :func:`local_block`) also split as its spec says.  No collective
-    runs."""
+    rank's :func:`local_block`) also split as its spec says.  ``axis``
+    None: the chains replicated (a bank of one trained on the model axis,
+    :func:`~repro_torch.launch.steps.place_params`).  No collective runs."""
     from torch.distributed.tensor import DTensor
 
     if specs is not None:
@@ -310,11 +330,33 @@ def local(tree: Any) -> Any:
     return map_placed(lambda t: t.to_local() if is_placed(t) else t, tree)
 
 
+def place_like(tree: Any, like: Any) -> Any:
+    """Each tensor of ``tree`` (a rank's local blocks) placed as the leaf of
+    ``like`` beside it is; where that one is a plain tensor, as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return tree_map(lambda t, ref: DTensor.from_local(
+        t, ref.device_mesh, ref.placements, run_check=False) if is_placed(ref) else t,
+        tree, like)
+
+
 def gather_chains(tree: Any) -> Any:
-    """Every ``DTensor`` of ``tree`` gathered whole onto every rank
-    (``full_tensor``, leaf by leaf: one all-gather a leaf and split mesh
-    axis, so a 2-D bank comes back whole too); other values unchanged."""
-    return map_placed(lambda t: t.full_tensor() if is_placed(t) else t, tree)
+    """Every ``DTensor`` of ``tree`` gathered whole onto every rank, leaf by
+    leaf: one all-gather a leaf and split mesh axis, the last axis first,
+    so a 2-D bank comes back whole too; other values unchanged.  Through
+    :func:`all_gather` rather than DTensor's ``full_tensor``, which crashes
+    on a gloo world over a card's tensors."""
+    def whole(t):
+        if not is_placed(t):
+            return t
+        x, mesh = t.to_local(), t.device_mesh
+        for i in reversed(range(mesh.ndim)):
+            pl = t.placements[i]
+            if pl.is_shard() and mesh.shape[i] > 1:
+                x = all_gather(x, mesh.get_group(i), pl.dim)
+        return x
+
+    return map_placed(whole, tree)
 
 
 def map_local(fn: Callable, tree: Any) -> Any:

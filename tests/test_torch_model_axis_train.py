@@ -1,0 +1,395 @@
+"""The port's training on the model axis — the ``sync`` and ``pipeline``
+SGLD steps on a ``(data, model)`` mesh with a tensor- and expert-parallel
+model, a vocabulary-parallel loss, the batch over ``data`` and the noise
+at each element's global counter — in gloo worlds on the CPU, against the
+JAX package's unplaced step.
+
+Two worlds are spawned once for the module
+(``tests/torch_model_axis_train_world.py``, each rank a process that
+imports no JAX, meeting at a ``FileStore``): 2 ranks over ``data`` 1 x
+``model`` 2, and 4 ranks over ``data`` 2 x ``model`` 2 and ``data`` 1 x
+``model`` 4.  The cases are the reference test's step (qwen3-4b reduced in
+float32, ``seq_len`` 64, a global batch of 4 in 2 microbatches) and its
+layouts: the head-sharded attention (K/V replicated, each rank the columns
+of the KV heads its queries read), 6 query heads (replicated over
+``model`` 4), a 511-word vocabulary (embedding and head replicated),
+phi3.5-moe reduced at the production capacity factor, and kimi-k2 reduced
+with its shared expert.  The fixtures and the JAX package's results are
+made here, the results while the worlds run.
+
+The oracle is the JAX package's unplaced ``make_sgld_train_step``: under
+``jit`` a placement does not change what the step computes, except in the
+MoE block's ``shard_map``, where each data shard takes its own capacity;
+for a MoE over ``data`` 2 it is the unplaced step's gradient function on
+each shard's rows of each microbatch, the gradients and losses averaged,
+then the reference's noise and update.  (The reference's own sharded step
+test is one of its known failures on XLA's CPU.)  Gates: the loss within
+1e-5 relative, every leaf's gradient block within 1e-4 relative L2, the
+new parameters within 1e-6, each noise block the block of the port's
+unplaced ``noise="jax"`` draw bit for bit, every rank's loss the same
+bits.
+"""
+
+import os
+import pickle
+import signal
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor, as_completed
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import torch_model_axis_train_world as world
+from repro.configs import ShapeConfig as JShapeConfig
+from repro.configs import get_arch as jax_arch
+from repro.configs import get_reduced as jax_reduced
+from repro.configs import get_shape as jax_shape
+from repro.launch import steps as jax_steps
+from repro.models.transformer import Model as JModel
+from repro.models.transformer import init_params as jax_init
+from repro.samplers.transforms import noise_like as jax_noise_like
+from repro.samplers.transforms import sgld_apply as jax_sgld_apply
+from repro.train.loop import make_grad_fn as jax_grad_fn
+from repro_torch.checkpoint import save_checkpoint
+from repro_torch.configs import get_arch, get_shape
+from repro_torch.kernels import rng
+from repro_torch.launch import steps
+from repro_torch.weights import from_jax_params
+
+HERE = Path(__file__).parent
+WORLD_TIMEOUT = 300  # seconds for both worlds, spawned together
+WORLDS = [2, 4]
+LOSS_RTOL, GRAD_REL, NEW_ATOL = 1e-5, 1e-4, 1e-6
+#: every (world, mesh shape, case) the worlds train
+TRAINED = [(w, shape, case) for w in WORLDS for shape, cases in world.MESHES[w]
+           for case in cases]
+TRAINED_IDS = [f"{w} ranks-{shape[0]}x{shape[1]}-{case}" for w, shape, case in TRAINED]
+#: the oracles the worlds wait for: (case, data shards)
+ORACLES = sorted({(world.oracle_case(case), world.shards(case, shape))
+                  for _, shape, case in TRAINED})
+
+
+def _jcfg(case):
+    return world.config(case, jax_reduced)
+
+
+def _jparams(case):
+    return jax_init(jax.random.PRNGKey(0), _jcfg(case))
+
+
+def _pending(jparams):
+    g = np.random.default_rng(7)
+    return jax.tree_util.tree_map(
+        lambda p: jnp.asarray((0.01 * g.standard_normal(p.shape)).astype(np.float32),
+                              p.dtype), jparams)
+
+
+def _tokens(case):
+    vocab = _jcfg(case).vocab_size
+    return np.random.default_rng(11).integers(
+        0, vocab, (world.BATCH, world.SEQ + 1)).astype(np.int32)
+
+
+def _port(tree):
+    return from_jax_params(jax.tree_util.tree_map(np.asarray, tree), device="cpu")
+
+
+def _shard_rows(d, D):
+    """Data shard ``d``'s rows of the global batch, microbatch by
+    microbatch, as GSPMD splits each microbatch over ``data``."""
+    per = world.BATCH // world.MICRO
+    sub = per // D
+    return np.concatenate([np.arange(i * per + d * sub, i * per + (d + 1) * sub)
+                           for i in range(world.MICRO)])
+
+
+def _oracle(case, D):
+    """The JAX package's step on ``case``: ``(loss, grads, new params of
+    sync, of pipeline)``.  ``D`` > 1 (a MoE over ``data``): the unplaced
+    gradient function on each shard's rows, averaged, then the reference's
+    noise and update."""
+    cfg = _jcfg(case)
+    jshape = JShapeConfig("t", world.SEQ, world.BATCH, "train",
+                          num_microbatches=world.MICRO)
+    model = JModel(cfg, remat=False)
+    params = _jparams(case)
+    pend = _pending(params)
+    tokens = _tokens(case)
+    keys = {m: jax.random.PRNGKey(s) for m, s in world.KEYS.items()}
+    if D == 1:
+        sync, pipe = (jax_steps.make_sgld_train_step(model, jshape, mode, world.GAMMA,
+                                                     world.SIGMA)
+                      for mode in ("sync", "pipeline"))
+        both = jax.jit(lambda p, q, b: (sync(p, b, keys["sync"]),
+                                        pipe(p, q, b, keys["pipeline"])))
+        (new_sync, loss), (new_pipe, grads, _) = both(params, pend,
+                                                      {"tokens": jnp.asarray(tokens)})
+        return float(loss), grads, new_sync, new_pipe
+    grad_fn = jax.jit(jax_grad_fn(model, world.MICRO))
+    outs = [grad_fn(params, {"tokens": jnp.asarray(tokens[_shard_rows(d, D)])})
+            for d in range(D)]
+    grads = jax.tree_util.tree_map(lambda *g: sum(g) / D, *[o[0] for o in outs])
+    loss = sum(float(o[1]["loss"]) for o in outs) / D
+    scale = jnp.float32((2.0 * world.SIGMA * world.GAMMA) ** 0.5)
+    gamma = jnp.float32(world.GAMMA)
+
+    def update(g, key):
+        return jax_sgld_apply(params, g, gamma,
+                              jax_noise_like(key, params, scale, jnp.float32))
+
+    return loss, grads, update(grads, keys["sync"]), update(pend, keys["pipeline"])
+
+
+def _save_oracle(root, name, loss, grads, new_sync, new_pipe):
+    save_checkpoint(str(root / f"{name}_oracle.npz"),
+                    {"grads": _port(grads), "sync": _port(new_sync),
+                     "pipeline": _port(new_pipe)})
+    np.save(root / f"{name}_loss.npy", np.float64(loss))
+    (root / f"{name}.done").touch()
+
+
+# ---------------------------------------------------------------------------
+# the worlds
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """Write the fixtures, spawn both worlds, write the JAX package's
+    results while they run, wait for them (killing every rank on
+    timeout), and load each rank's results: ``{world: ([each rank's], log
+    text)}``."""
+    root = tmp_path_factory.mktemp("model_axis_train")
+    for case in world.CASES:
+        params = _jparams(case)
+        save_checkpoint(str(root / f"{case}.npz"), _port(params))
+        save_checkpoint(str(root / f"{case}_pending.npz"), _port(_pending(params)))
+        np.save(root / f"{case}_tokens.npy", _tokens(case))
+    procs = {}
+    for w in WORLDS:
+        out = root / f"world{w}"
+        out.mkdir()
+        procs[w] = [subprocess.Popen(
+            [sys.executable, str(HERE / "torch_model_axis_train_world.py"), str(r), str(w),
+             str(root / f"store{w}"), str(out), str(root)],
+            stdout=open(out / f"log{r}.txt", "w"), stderr=subprocess.STDOUT,
+            start_new_session=True) for r in range(w)]
+    deadline = time.monotonic() + WORLD_TIMEOUT
+    try:
+        with ThreadPoolExecutor(4) as pool:  # while the worlds run (XLA frees the GIL)
+            jobs = {pool.submit(_oracle, case, D): (case, D) for case, D in ORACLES}
+            results = ((jobs[f], f.result()) for f in as_completed(jobs))
+            for (case, D), (loss, grads, new_sync, new_pipe) in results:
+                _save_oracle(root, world.oracle_name(case, D), loss, grads, new_sync,
+                             new_pipe)
+        timed_out = False
+        for ps in procs.values():
+            for p in ps:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        timed_out = True
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+    loaded = {}
+    for w, ps in procs.items():
+        out = root / f"world{w}"
+        logs = "\n".join((out / f"log{r}.txt").read_text()[-3000:] for r in range(w))
+        if timed_out or any(p.returncode for p in ps):
+            loaded[w] = (None, f"timed out: {timed_out}; exit codes "
+                         f"{[p.returncode for p in ps]}\n{logs}")
+            continue
+        ranks = []
+        for r in range(w):
+            with open(out / f"world{w}_rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        loaded[w] = (ranks, logs)
+    return loaded
+
+
+def _got(worlds, w, shape, case):
+    ranks, logs = worlds[w]
+    if ranks is None:
+        pytest.fail(f"the {w}-rank world failed:\n{logs}")
+    return [r[(shape, case)] for r in ranks]
+
+
+# ---------------------------------------------------------------------------
+# the step against the JAX package's
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("w,shape,case", TRAINED, ids=TRAINED_IDS)
+def test_the_loss_matches_the_jax_packages_step(worlds, w, shape, case):
+    for got in _got(worlds, w, shape, case):
+        for mode in ("sync", "pipeline"):
+            assert abs(got["loss"][mode] - got["loss_ref"]) <= \
+                LOSS_RTOL * abs(got["loss_ref"]), (mode, got["loss"], got["loss_ref"])
+
+
+@pytest.mark.parametrize("w,shape,case", TRAINED, ids=TRAINED_IDS)
+def test_every_leafs_gradient_matches_jax_grad(worlds, w, shape, case):
+    """The pipeline step's returned gradient, each rank's block of each
+    leaf, against ``jax.grad``'s through the JAX package's step: a leaf
+    counted ``m`` times or ``1/m`` times over ``model``, or a sum over the
+    ranks missing from the backward, fails here."""
+    for got in _got(worlds, w, shape, case):
+        bad = {p: r for p, r in got["grads"].items() if not r <= GRAD_REL}
+        assert not bad, bad
+
+
+@pytest.mark.parametrize("w,shape,case", TRAINED, ids=TRAINED_IDS)
+def test_the_new_parameters_match_the_jax_packages_step(worlds, w, shape, case):
+    for got in _got(worlds, w, shape, case):
+        bad = {k: d for k, d in got["new"].items() if not d <= NEW_ATOL}
+        assert not bad, bad
+        assert got["gathered"] <= NEW_ATOL  # the blocks gathered whole
+
+
+@pytest.mark.parametrize("w,shape,case", TRAINED, ids=TRAINED_IDS)
+def test_each_noise_block_is_the_unplaced_draws_block_bit_for_bit(worlds, w, shape, case):
+    for got in _got(worlds, w, shape, case):
+        assert all(got["noise_bitwise"].values()), got["noise_bitwise"]
+
+
+@pytest.mark.parametrize("w,shape,case", TRAINED, ids=TRAINED_IDS)
+def test_every_rank_has_the_same_loss_bits(worlds, w, shape, case):
+    got = _got(worlds, w, shape, case)
+    assert all(g["loss"] == got[0]["loss"] for g in got[1:])
+
+
+@pytest.mark.parametrize("w,shape,case", TRAINED, ids=TRAINED_IDS)
+def test_no_rank_holds_more_than_its_block(worlds, w, shape, case):
+    """Each leaf's parameters, gradient, noise and new parameters on a rank
+    are the global leaf cut by its placements: the chain axis replicated,
+    ``data`` replicated (it holds the batch), the sanitized spec on
+    ``model``."""
+    axes = {"data": shape[0], "model": shape[1]}
+    for got in _got(worlds, w, shape, case):
+        for path, (pl, glob, held) in got["held"].items():
+            assert pl[0] == "R" and "S(0)" not in pl, (path, pl)
+            want = list(glob)
+            for axis, p in zip(("data", "model"), pl):
+                if p.startswith("S("):
+                    want[int(p[2:-1])] //= axes[axis]
+            assert all(list(s) == want for s in held.values()), (path, held, want)
+
+
+@pytest.mark.parametrize("w,shape,case", TRAINED, ids=TRAINED_IDS)
+def test_noise_torch_is_refused_on_a_placed_step(worlds, w, shape, case):
+    for got in _got(worlds, w, shape, case):
+        for what, msg in got["refused"].items():
+            assert msg is not None and "'jax'" in msg, (what, msg)
+
+
+# ---------------------------------------------------------------------------
+# the layouts
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("w,shape,case,summed", [
+    (2, (1, 2), "qwen3", ["stack/attn/k_norm", "stack/attn/q_norm"]),
+    (2, (1, 2), "head-shard", ["stack/attn/bk", "stack/attn/bv", "stack/attn/k_norm",
+                               "stack/attn/q_norm", "stack/attn/wk", "stack/attn/wv"]),
+    (4, (1, 4), "qwen3", ["stack/attn/k_norm", "stack/attn/q_norm", "stack/attn/wk",
+                          "stack/attn/wv"]),
+    (4, (1, 4), "heads6", []),
+    (2, (1, 2), "phi-moe", ["stack/moe/router"]),
+    (4, (2, 2), "kimi-moe", ["stack/moe/router"]),
+], ids=["qwen3-1x2", "head-shard-1x2", "qwen3-1x4", "heads6-1x4", "phi-moe-1x2",
+        "kimi-moe-2x2"])
+def test_the_leaves_summed_over_model(worlds, w, shape, case, summed):
+    """The leaves a rank uses on its part only, whose gradient is summed
+    over ``model``: the qk-norms on a rank's heads; a replicated K/V
+    projection under ``kv_take`` (qwen3's 2 KV heads over ``model`` 4:
+    two ranks read each); the router beside a rank's experts.  With the
+    attention replicated (6 heads over 4) nothing is summed: every rank's
+    gradient is already whole.  (The reduced configs have no qkv bias, so
+    ``bk`` / ``bv`` are absent but named where the layout would sum them.)"""
+    for got in _got(worlds, w, shape, case):
+        present = {p.replace("##", "/") for p in got["held"]}
+        assert got["summed"] == [p for p in summed if p in present]
+
+
+def test_kimi_k2s_fsdp_entries_are_replicated_in_training(worlds):
+    """A difference by design: ``fsdp_tp``'s experts name ``data`` for
+    their ``d_ff`` (FSDP, all-gathered a layer in the reference); the port
+    trains with ``data`` holding the batch and those entries replicated
+    (the numbers are the same; FSDP proper is not ported)."""
+    for got in _got(worlds, 4, (2, 2), "kimi-moe"):
+        for name in ("w_gate", "w_up", "w_down"):
+            assert got["held"][f"stack##moe##{name}"][0] == ("R", "S(2)")
+
+
+def test_the_batch_specs_split_the_rows_over_data(worlds):
+    for got in _got(worlds, 4, (2, 2), "qwen3"):
+        assert got["batch_specs"] == {"tokens": ("S(0)", "R")}
+
+
+# ---------------------------------------------------------------------------
+# the pieces that need no world
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape,block", [
+    ((1, 6, 10), (slice(None), slice(2, 4), slice(3, 7))),
+    ((3, 5, 8, 4), (slice(1, 2), slice(None), slice(4, 8), slice(0, 2))),
+    ((257,), (slice(128, 257),)),
+], ids=["strided", "4-d", "rows"])
+def test_a_block_draw_is_the_block_of_jaxs_draw(monkeypatch, shape, block):
+    """``rng.jax_normal`` / ``jax_uniform`` of a block of a global shape:
+    the block of ``jax.random``'s draw of the whole, bit for bit, through
+    slices smaller than the block (``CHUNK`` cut to 7)."""
+    monkeypatch.setattr(rng, "CHUNK", 7)
+    key = (0, 42)
+    jkey = jax.random.PRNGKey(42)
+    want = np.asarray(jax.random.normal(jkey, shape, jnp.float32))[block]
+    np.testing.assert_array_equal(rng.jax_normal(key, shape, block=block).numpy(), want)
+    want = np.asarray(jax.random.uniform(jkey, shape, jnp.float32, -1.0, 2.0))[block]
+    np.testing.assert_array_equal(
+        rng.jax_uniform(key, shape, -1.0, 2.0, block=block).numpy(), want)
+
+
+def test_the_counter_limit_is_still_refused():
+    with pytest.raises(ValueError, match="32-bit counter"):
+        rng.jax_normal((0, 1), (2**16, 2**16), block=(slice(0, 1), slice(0, 1)))
+
+
+def test_adapt_config_takes_attn_shard_as_the_reference():
+    """``"attn_shard"`` sets ``opt_attn_head_shard``, as the reference's
+    ``adapt_config`` does; ``"fsdp"`` stays refused."""
+    for arch in ("qwen3-4b", "phi3.5-moe-42b-a6.6b"):
+        got = steps.adapt_config(get_arch(arch), get_shape("train_4k"), ("attn_shard",))
+        want = jax_steps.adapt_config(jax_arch(arch), jax_shape("train_4k"),
+                                      ("attn_shard",))
+        assert got.opt_attn_head_shard is want.opt_attn_head_shard is True
+    with pytest.raises(ValueError, match="fsdp"):
+        steps.adapt_config(get_arch("qwen3-4b"), get_shape("train_4k"), ("fsdp",))
+
+
+def test_the_shard_rows_are_the_gspmd_split():
+    """The oracle's rows of each data shard: microbatch i's rows split
+    over ``data`` (rows 0, 2 and 1, 3 of a batch of 4 in 2 microbatches)."""
+    assert _shard_rows(0, 2).tolist() == [0, 2]
+    assert _shard_rows(1, 2).tolist() == [1, 3]
+
+
+def test_phase_15s_cells_run_on_the_cpu(worlds):
+    """``chip_smoke.py`` phase 15's cells rehearsed on the CPU over ``data`` 2
+    x ``model`` 2 at the reduced widths (phi3.5-moe in bf16 against the
+    per-shard oracle under the placed run's expert choices, qwen3-4b in
+    f32), through the script's own report and gates; a step's collectives
+    by kind."""
+    import chip_smoke
+
+    ranks, logs = worlds[4]
+    if ranks is None:
+        pytest.fail(f"the 4-rank world failed:\n{logs}")
+    rows = [(name, arch, 2, dtype, None, *tol) for name, arch, dtype, tol in world.PHASE15]
+    out = chip_smoke.model_axis_train_report([r["phase15"] for r in ranks], rows)
+    f32 = out["qwen3-4b-f32"]["collectives"][-1]
+    # 2 microbatches: the lookup and 2 a layer forward, a column-parallel
+    # entry each backward, 3 the loss; the qk-norms summed; 14 leaves and
+    # the metrics averaged over data
+    assert f32 == {"forward": 10, "backward": 10, "loss": 6, "model sum": 2,
+                   "data mean": 15}
