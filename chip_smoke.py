@@ -202,10 +202,14 @@ library) and runs, failing on the first phase that fails:
    share of the batch time hidden (the training thread's time getting a
    prefetched batch against making one inline); (4) the train cell's ``mfu``
    (``launch.roofline.model_flops`` over phase 6's ms a commit and the
-   H100's dense bf16 peak), a ``--all`` dry run on ``meta`` timed, and at
+   H100's dense bf16 peak), a ``--all`` dry run on ``meta`` timed, at
    depth 1 the FLOPs counted on the card for one real training step equal
-   to the dry run's.  Phase 12's seconds and the script's so far are
-   logged;
+   to the dry run's, and the placed dry run of qwen3-4b and kimi-k2
+   (``train_4k``, ``decode_32k``; each config's own layout and ``"fsdp"``,
+   kimi-k2's refused as a MoE) on the reference's 16 x 16 mesh, rank 0 of a
+   fake world of 256 in this process: the per-card figures (counted on
+   ``meta``, not measured) and its seconds logged, no process group left.
+   Phase 12's seconds and the script's so far are logged;
 13. placement over a device mesh, the chain axis, in a world of one NCCL
    rank (``launch.mesh.init_world("cuda")`` over a ``FileStore``, a
    ``data`` 1 x ``model`` 1 mesh), at phase 12's widths: (a) three fused
@@ -247,22 +251,37 @@ library) and runs, failing on the first phase that fails:
    batch_axes=("data",))`` in a world of 4 gloo ranks on the card
    (``--model-axis-train-rank``; a ``data`` 2 x ``model`` 2 mesh), each
    rank its block of each leaf (``place_params``) and its rows of each
-   microbatch of a global batch of 8 x 128 tokens in 2 microbatches: (a)
-   qwen3-4b at its widths and phase 12's 4 layers in bf16, 3 ``sync``
-   steps then 2 ``pipeline`` steps — each step's loss within 1e-2
-   relative, and each pipeline step's gradient, leaf by leaf, within
-   relative L2 0.05 of rank 0's unplaced step on the same card; (b) the
-   same at 2 layers in float32, one step of each mode — 1e-5, 1e-4, and
-   the new parameters within 1e-6; (c) phi3.5-moe-42b-a6.6b at its widths
-   and 1 layer, 8 experts a rank, one step of each mode, gated as (a)
-   against the unplaced step on each data shard's rows averaged (under
-   the placed run's expert choices).  In every cell the noise blocks are
-   the unplaced draw's (rank 0's bit for bit, the others' by a checksum of
-   their bits), every rank's loss is the same bits, and the data shards'
-   blocks agree.  This
-   path runs no kernel of the TPU's (the reference's step reaches none).
-   ms a step placed and unplaced, the collectives a step by kind, each
-   rank's peak memory and phase 15's seconds are logged.
+   microbatch of a global batch of 8 x 128 tokens in 2 microbatches, one
+   ``sync`` step then one ``pipeline`` step a cell (cut from 3 + 2 for
+   (d) and (e)): (a) qwen3-4b at its widths and phase 12's 4 layers in
+   bf16 — each step's loss within 1e-2 relative, and the pipeline step's
+   gradient, leaf by leaf, within relative L2 0.05 of rank 0's unplaced
+   step on the same card; (b) the same at 2 layers in float32 — 1e-5,
+   1e-4, and the new parameters within 1e-6; (c) phi3.5-moe-42b-a6.6b at
+   its widths and 1 layer, 8 experts a rank, gated as (a) against the
+   unplaced step on each data shard's rows averaged (under the placed
+   run's expert choices); (d) (a)'s chain under ``fsdp_full`` (the
+   ``"fsdp"`` option: every weight split over both axes, a rank a quarter
+   of each divisible leaf, gathered where it is used and again in each
+   layer's recomputed backward; the batch over all four ranks, one row a
+   rank a microbatch), trained beside (a) on its batches and keys and held
+   against (a)'s unplaced step with (a)'s gates; (e) (c)'s layer under
+   ``fsdp_tp`` (kimi-k2's layout: a rank's 8 experts with half their
+   ``d_ff``, gathered over ``data`` for the layer), beside (c), against
+   (c)'s per-shard oracle with its gates, its expert choices (c)'s.  In
+   every cell the noise blocks are the unplaced draw's (rank 0's bit for
+   bit, the others' by a checksum of their bits), every rank's loss is the
+   same bits, the ranks that hold one block agree, and each rank's
+   parameter bytes are its block's.  This path runs no kernel of the
+   TPU's (the reference's placed step draws its noise through
+   ``noise_like``, no kernel).  ms a step placed and unplaced, the
+   collectives a step by kind, the gathered bytes alive at most, each
+   rank's peak memory (allocated and reserved), the card's used memory at
+   its highest (every process on it, sampled every 0.5 s) and phase 15's
+   seconds are logged.  The four ranks share the card's 80 GB, so each
+   returns its free blocks after every step and the holds' checksums are
+   taken in chunks; a failed world's message ends with each rank's exit
+   code and last error line.
 
 Before it, one JSON object with the paper path's numbers (phase 7c).
 The line before the last is one JSON object with each kernel's numbers;
@@ -2187,7 +2206,10 @@ def _routing(moe, record=None, replay=None):
     experts whose probabilities nearly tie, and a flipped expert moves the
     logits as far as a wrong token would (phi3.5-moe at 16 layers: 1.28
     relative L2).  So phase 10a compares the paths under the decode's
-    routing."""
+    routing.  A layer recomputed for its backward (an FSDP layout's
+    checkpoint) routes again and is not recorded twice."""
+    from repro_torch.models.common import replaying
+
     route = moe.route
 
     def wrapped(params, xt, cfg):
@@ -2196,7 +2218,7 @@ def _routing(moe, record=None, replay=None):
             idx = next(replay)
             vals = probs.gather(-1, idx)
             vals = vals / vals.sum(dim=-1, keepdim=True)
-        if record is not None:
+        if record is not None and not replaying():  # a checkpoint's recompute: seen
             record.append(idx)
         return probs, vals, idx
 
@@ -3134,6 +3156,7 @@ def tooling_roofline(torch, np, tp: dict) -> dict:
     dry_s = time.perf_counter() - t0
     check(rc == 0, "tooling: the --all dry run failed")
     log(f"tooling: --all dry run on meta (40 combinations) in {dry_s:.1f} s")
+    placed = tooling_placed_dryrun(torch)
     one = replace(cfg, num_layers=1)
     meta_step, meta_args, _, _ = dryrun.step_and_args(one, cell)
     meta = step_cost(meta_step, *meta_args)
@@ -3151,8 +3174,58 @@ def tooling_roofline(torch, np, tp: dict) -> dict:
     del params, model
     return {"model_flops": mf, "ms_per_commit": tp["ms_per_commit"], "mfu": mfu,
             "peak_flops": roofline.PEAK_FLOPS, "dryrun_all_s": dry_s,
+            "placed_dryrun": placed,
             "depth1_flops": real.flops, "depth1_matmul_flops": real.matmul_flops,
             "depth1_bytes_card": real.bytes, "depth1_bytes_meta": meta.bytes}
+
+
+#: the placed dry run's combinations: (arch, shape, opts) on 16 x 16
+PLACED_DRYRUN = tuple((a, s, o) for a in ("qwen3-4b", "kimi-k2-1t-a32b")
+                      for s in ("train_4k", "decode_32k") for o in ((), ("fsdp",)))
+
+
+def tooling_placed_dryrun(torch) -> dict:
+    """The placed dry run of qwen3-4b and kimi-k2 (``train_4k``,
+    ``decode_32k``; the config's own layout and ``"fsdp"``) on the
+    reference's 16 x 16 mesh: rank 0's step on ``meta`` in a fake world of
+    256 ranks in this process, the per-card figures logged (counted, not
+    measured) and written to ``smoke_out/tooling/dryrun_placed/``; kimi-k2
+    under ``"fsdp"`` is a refusal (a MoE), every other combination counted;
+    no process group is left for phase 13."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+
+    out, t0 = {}, time.perf_counter()
+    with dryrun.placed((16, 16)) as mesh:
+        for arch, shape, opts in PLACED_DRYRUN:
+            res = dryrun.run_combo(arch, shape, mesh=mesh, opts=opts, verbose=False)
+            dryrun.save_result(res, str(TOOLING_OUT / "dryrun_placed"))
+            label = f"{arch} {shape} {'+'.join(opts) or 'own layout'}"
+            moe_fsdp = bool(opts) and get_arch(arch).num_experts > 0
+            check(("refused" in res) == moe_fsdp,
+                  f"tooling: placed dry run {label}: {res.get('refused', 'counted')}")
+            out[label] = res
+            if "refused" in res:
+                log(f"tooling: placed dry run {label} on 16x16: refused ({res['refused']})")
+                continue
+            mem, r = res["memory"], res["roofline"]
+            log(f"tooling: placed dry run {label} on 16x16 ({res['param_sharding']}), a "
+                f"card (counted on meta): params {mem['param_bytes'] / 1e9:.3f} GB, cache "
+                f"{mem.get('cache_bytes', 0) / 1e9:.3f} GB, batch "
+                f"{mem['batch_bytes'] / 1e6:.3f} MB; {r['flops_per_device']:.4g} FLOPs, "
+                f"{r['bytes_per_device']:.4g} bytes, collectives "
+                f"{r['collective_bytes_per_device'] / 1e9:.3f} GB "
+                f"({', '.join(f'{k} {v['bytes'] / 1e9:.3f}' for k, v in res['collectives'].items())}); "
+                f"t_compute {r['t_compute'] * 1e3:.3f} ms, t_memory {r['t_memory'] * 1e3:.3f} "
+                f"ms, t_collective {r['t_collective'] * 1e3:.3f} ms ({r['link']}) -> "
+                f"{r['dominant']}; {res['seconds']:.2f} s")
+    check(not dist.is_initialized(), "tooling: the placed dry run left a process group")
+    secs = time.perf_counter() - t0
+    log(f"tooling: placed dry run, {len(PLACED_DRYRUN)} combinations on 16x16, in "
+        f"{secs:.1f} s")
+    return {"seconds": secs, "combos": out}
 
 
 def tooling_path(torch, np, ds, kernels, tp: dict) -> dict:
@@ -3666,18 +3739,21 @@ def _spawn_world(out: Path, flag: str, n: int, timeout: float, what: str) -> lis
     ``flag``, their logs in ``out``), wait for them, kill every one left at
     the time limit, and return each rank's results; fail the phase if a
     rank failed."""
+    # the ranks share the one card: segments that grow in place keep a
+    # rank's cached-but-free memory small (the card is full when each rank's
+    # cache holds its own high-water mark)
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": os.environ.get(
+        "PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")}
     with tempfile.TemporaryDirectory() as tmp:
         logs = [open(out / f"rank{r}.log", "w") for r in range(n)]
         procs = [subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), flag, str(r),
              str(Path(tmp) / "store"), str(out)], stdout=logs[r], stderr=subprocess.STDOUT,
-            start_new_session=True) for r in range(n)]
+            start_new_session=True, env=env) for r in range(n)]
         deadline = time.monotonic() + timeout
         try:
-            for p in procs:
-                p.wait(timeout=max(1.0, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            pass
+            with open(out / "card_used.tsv", "w") as series:
+                mem = _watch_world(procs, deadline, series)
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -3692,9 +3768,58 @@ def _spawn_world(out: Path, flag: str, n: int, timeout: float, what: str) -> lis
         path = out / f"rank{r}.pkl"
         got.append(pickle.loads(path.read_bytes()) if path.exists() else {})
     errors = [g.get("error") for g in got if g.get("error")]
+    log(f"{what}: {mem}")
+    # the codes, memory and each rank's last error line come last: a reader
+    # of the end of the output sees which rank failed first, and why
+    last = [(g.get("error") or "").strip().splitlines()[-1:] for g in got]
     check(codes == [0] * n and not errors,
-          f"{what}: the ranks exited {codes}\n{''.join(errors)}\n{tails}")
+          f"{what}: the ranks exited {codes}\n{''.join(errors)}\n{tails}\n"
+          f"{what}: the ranks exited {codes}; {mem}; each rank's last error line "
+          f"{last} (a rank with no line and a code < 0 was killed)")
     return got
+
+
+def _watch_world(procs: list, deadline: float, series=None) -> dict:
+    """Wait for ``procs`` until ``deadline`` and sample, every 0.5 s, the
+    host's available memory, the ranks' resident set and the card's used
+    memory (``torch.cuda.mem_get_info``, every process on it): their
+    extremes, in GB."""
+    import torch
+
+    def meminfo(key: str) -> float:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith(key + ":"):
+                    return int(line.split()[1]) * 1024 / 1e9
+        return float("nan")
+
+    def rss(pid: int) -> float:
+        try:
+            with open(f"/proc/{pid}/status") as f:
+                for line in f:
+                    if line.startswith("VmRSS:"):
+                        return int(line.split()[1]) * 1024 / 1e9
+        except OSError:
+            pass
+        return 0.0
+
+    total = meminfo("MemTotal")
+    low_avail, high_rss, high_card, high_at = total, 0.0, 0.0, 0.0
+    t0 = time.monotonic()
+    while time.monotonic() < deadline and any(p.poll() is None for p in procs):
+        low_avail = min(low_avail, meminfo("MemAvailable"))
+        high_rss = max(high_rss, sum(rss(p.pid) for p in procs))
+        free, size = torch.cuda.mem_get_info()
+        if series is not None:
+            series.write(f"{time.time():.2f}\t{(size - free) / 1e9:.3f}\n")
+        if (size - free) / 1e9 > high_card:
+            high_card, high_at = (size - free) / 1e9, time.monotonic() - t0
+        time.sleep(0.5)
+    return {"host_gb": round(total, 2), "host_available_low_gb": round(low_avail, 2),
+            "ranks_rss_high_gb": round(high_rss, 2), "self_rss_gb": round(rss(os.getpid()), 2),
+            "self_card_reserved_gb": round(torch.cuda.memory_reserved() / 1e9, 2),
+            "card_used_high_gb": round(high_card, 2), "card_used_high_at_s": round(high_at, 1),
+            "card_gb": round(torch.cuda.mem_get_info()[1] / 1e9, 2)}
 
 
 def _digest(np, stream) -> str:
@@ -3796,20 +3921,23 @@ MODEL_AXIS_TRAIN_MESH = (2, 2)  # (data, model)
 MODEL_AXIS_TRAIN_TIMEOUT = 420  # seconds the world may take
 MODEL_AXIS_TRAIN_OUT = ROOT / "smoke_out" / "model_axis_train"
 TRAIN_AXIS_BATCH, TRAIN_AXIS_SEQ, TRAIN_AXIS_MICRO = 8, 128, 2
-TRAIN_AXIS_STEPS = (("sync", 3), ("pipeline", 2))
-# (b) and (c) take one step of each mode: every rank draws its block of the
+# one step of each mode in every cell: every rank draws its block of the
 # "jax" noise in elementwise torch ops, ~1.4 ns an element, so four ranks on
-# one card spend ~4 s a step on it (scripts/torch_model_axis_train_probe.py)
-SHORT_AXIS_STEPS = (("sync", 1), ("pipeline", 1))
+# one card spend ~4 s a step on it (scripts/torch_model_axis_train_probe.py),
+# and the script's time stays inside its budget with (d) and (e) beside (a)
+# and (c) (cut from 3 sync + 2 pipeline steps)
+TRAIN_AXIS_STEPS = (("sync", 1), ("pipeline", 1))
 TRAIN_AXIS_GAMMA, TRAIN_AXIS_SIGMA = 1e-3, 1e-5  # phase 6's
 #: (name, arch, layers, dtype, steps, loss rtol, gradient relative L2, new
-#: params' atol or None); phi3.5-moe's is held against the per-shard oracle
+#: params' atol or None, the other layouts trained beside the
+#: tensor-parallel one and held against the same unplaced step); phi3.5-moe's
+#: is held against the per-shard oracle
 MODEL_AXIS_TRAIN_CELLS = (
     ("qwen3-4b", "qwen3-4b", TOOLING_LAYERS, "bfloat16", TRAIN_AXIS_STEPS, 1e-2, 0.05,
-     None),
-    ("qwen3-4b-f32", "qwen3-4b", 2, "float32", SHORT_AXIS_STEPS, 1e-5, 1e-4, 1e-6),
-    ("phi3.5-moe", "phi3.5-moe-42b-a6.6b", 1, "bfloat16", SHORT_AXIS_STEPS, 1e-2, 0.05,
-     None))
+     None, ("fsdp_full",)),
+    ("qwen3-4b-f32", "qwen3-4b", 2, "float32", TRAIN_AXIS_STEPS, 1e-5, 1e-4, 1e-6, ()),
+    ("phi3.5-moe", "phi3.5-moe-42b-a6.6b", 1, "bfloat16", TRAIN_AXIS_STEPS, 1e-2, 0.05,
+     None, ("fsdp_tp",)))
 
 
 def _shard_rows(np, batch: int, micro: int, d: int, D: int):
@@ -3844,53 +3972,69 @@ def _unplaced_step(torch, step_of, grad_fn, noise_like, sgld_apply, params, pend
             g, m = grad_fn(params, {"tokens": tokens[shard_rows(d)]})
         g_acc = g if g_acc is None else tree_map(lambda a, b: a.add_(b), g_acc, g)
         loss = loss + m["loss"] / shards
-    grads = tree_map(lambda a: a / shards, g_acc)
+        del g
+    grads = tree_map(lambda a: a.div_(shards), g_acc)
     scale = (2.0 * TRAIN_AXIS_SIGMA * TRAIN_AXIS_GAMMA) ** 0.5
     z = noise_like(key, params, scale, torch.float32, "jax")
     new = sgld_apply(params, grads if mode == "sync" else pending, TRAIN_AXIS_GAMMA, z)
     return new, grads, loss
 
 
-def _whole_on_rank0(torch, t, mesh, rank: int):
-    """The placed leaf ``t`` whole on rank 0 (None on the others): the
-    other model ranks of data shard 0 each broadcast their block over the
-    ``model`` group (only rank 0 needs it: one block's bytes a rank, where
-    an all-gather moves the whole to every rank)."""
-    import torch.distributed as dist
-
-    loc = t.to_local()
-    pl = t.placements[mesh.mesh_dim_names.index("model")]
-    if not pl.is_shard():
-        return loc if rank == 0 else None
-    group, me = mesh.get_group("model"), mesh.get_local_rank("model")
-    parts = [loc]
-    for r in range(1, mesh.size(mesh.mesh_dim_names.index("model"))):
-        buf = loc if me == r else torch.empty_like(loc)
-        dist.broadcast(buf, src=dist.get_global_rank(group, r), group=group)
-        parts.append(buf)
-    return torch.cat(parts, dim=pl.dim) if rank == 0 else None
+def _pair_group(mesh, q: int):
+    """The smallest process group over which rank ``q`` of ``mesh`` can send
+    to rank 0, and whether this rank is in it: ``q``'s group along the one
+    mesh axis on which it differs from rank 0 (the origin), else the
+    world."""
+    coord = [int(c) for c in (mesh.mesh == q).nonzero()[0]]
+    differ = [i for i, c in enumerate(coord) if c]
+    if len(differ) != 1:
+        return None, True
+    mine = mesh.get_coordinate()
+    inside = all(c == 0 for i, c in enumerate(mine) if i != differ[0])
+    return (mesh.get_group(differ[0]) if inside else None), inside
 
 
 def _held_against(torch, tree, ref, mesh, rank: int, metric) -> tuple:
-    """Each placed leaf of ``tree`` against rank 0's unplaced ``ref``: the
-    ranks of data shard 0 bring each leaf whole to rank 0, which computes
-    ``metric(whole, ref leaf)``, and the data shards' blocks are held bit
-    for bit the same by a checksum of their bits.  Returns (``{path:
-    metric}`` on rank 0, whether the shards agree)."""
+    """Each placed leaf of ``tree`` against rank 0's unplaced ``ref``: each
+    distinct block (the first rank that holds it) is broadcast to rank 0
+    (over the one mesh axis between them where there is one), which puts
+    the leaf together and computes ``metric(whole, ref leaf)``; the ranks
+    that hold the same block (a replicated axis) are held bit for bit the
+    same by a checksum of their bits.  Returns (``{path: metric}`` on rank
+    0, whether those ranks agree)."""
+    import torch.distributed as dist
+
     from repro_torch.checkpoint.io import leaf_paths
     from repro_torch.utils import all_gather
 
     out, agree = {}, True
     refs = dict(leaf_paths(ref)) if ref is not None else {}
-    data_group = mesh.get_group("data")
     for path, t in leaf_paths(tree):
-        if mesh.get_local_rank("data") == 0:
-            whole = _whole_on_rank0(torch, t, mesh, rank)
+        loc = t.to_local()
+        sigs = all_gather(_checksum(torch, loc)[None], None, 0)
+        first: dict = {}
+        for q in range(mesh.mesh.numel()):
+            blk = _rank_block(t, mesh, q)
+            key = tuple((s.start, s.stop) for s in blk)
+            if key in first:
+                agree &= bool(torch.equal(sigs[q], sigs[first[key][0]]))
+            else:
+                first[key] = (q, blk)
+        whole = torch.empty(t.shape, dtype=loc.dtype, device=loc.device) if rank == 0 \
+            else None
+        for q, blk in first.values():
+            group, inside = _pair_group(mesh, q) if q else (None, False)
+            if q and not inside:
+                continue
+            buf = loc if rank == q else torch.empty_like(loc)
+            if q:
+                dist.broadcast(buf, src=q, group=group)
             if rank == 0:
-                out[path] = metric(whole, refs[path])
-            del whole
-        sigs = all_gather(_checksum(torch, t.to_local())[None], data_group, 0)
-        agree &= bool((sigs == sigs[0]).all())
+                whole[blk] = buf
+            del buf
+        if rank == 0:
+            out[path] = metric(whole, refs[path])
+        del whole
     return out, agree
 
 
@@ -3903,20 +4047,26 @@ def _max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def _checksum(torch, t):
+def _checksum(torch, t, chunk: int = 1 << 24):
     """Two int64 sums over the bits of ``t`` (of each element's bits, and of
-    their squares): equal blocks give equal sums."""
+    their squares): equal blocks give equal sums.  Taken ``chunk`` elements
+    at a time, so that the int64 copies stay small beside ``t``."""
     bits = t.contiguous().view({2: torch.int16, 4: torch.int32}[t.element_size()])
-    b = bits.to(torch.int64)
-    return torch.stack([b.sum(), (b * b).sum()]).cpu()
+    bits = bits.reshape(-1)
+    sums = torch.zeros(2, dtype=torch.int64, device=t.device)
+    for i in range(0, bits.numel(), chunk):
+        b = bits[i:i + chunk].to(torch.int64)
+        sums += torch.stack([b.sum(), (b * b).sum()])
+    return sums.cpu()
 
 
-def _noise_blocks_bitwise(torch, np, params, ref_params, key, mesh, rank) -> bool:
+def _noise_blocks_bitwise(torch, np, params, whole, key, mesh, rank) -> bool:
     """Each rank's block of the step's ``"jax"`` noise (``noise_like`` on the
     placed chain) against rank 0's unplaced ``noise_like`` of the whole
-    chain: rank 0's own block bit for bit, every other rank's by a checksum
-    of its bits (gathered, 16 bytes a leaf) against the same block of the
-    whole draw.  True on every rank but rank 0, which returns the verdict."""
+    chain (``whole``: those leaves, drawn once for every layout): rank 0's
+    own block bit for bit, every other rank's by a checksum of its bits
+    (gathered, 16 bytes a leaf) against the same block of the whole draw.
+    True on every rank but rank 0, which returns the verdict."""
     from repro_torch.samplers.transforms import noise_like
     from repro_torch.utils import all_gather, tree_leaves
 
@@ -3926,7 +4076,6 @@ def _noise_blocks_bitwise(torch, np, params, ref_params, key, mesh, rank) -> boo
                       None, 0)  # (ranks, leaves, 2)
     if rank:
         return True
-    whole = tree_leaves(noise_like(key, ref_params, scale, torch.float32, "jax"))
     ok = True
     for i, (z, w) in enumerate(zip(placed, whole)):
         ok &= torch.equal(z.to_local(), w[_rank_block(z, mesh, 0)])
@@ -3937,54 +4086,113 @@ def _noise_blocks_bitwise(torch, np, params, ref_params, key, mesh, rank) -> boo
 
 def _rank_block(t, mesh, q: int) -> tuple:
     """The slices of the placed ``t``'s whole shape that rank ``q`` of
-    ``mesh`` holds."""
+    ``mesh`` holds (a dimension split over several mesh axes is cut by each
+    in mesh order, the first major)."""
     coord = [int(c) for c in (mesh.mesh == q).nonzero()[0]]
     out = [slice(0, n) for n in t.shape]
     for i, pl in enumerate(t.placements):
         if pl.is_shard():
-            size = t.shape[pl.dim] // mesh.shape[i]
-            out[pl.dim] = slice(coord[i] * size, (coord[i] + 1) * size)
+            s = out[pl.dim]
+            size = (s.stop - s.start) // mesh.shape[i]
+            out[pl.dim] = slice(s.start + coord[i] * size, s.start + (coord[i] + 1) * size)
     return tuple(out)
+
+
+def _layout_config(cfg, shape, layout: str):
+    """``cfg`` laid out as ``layout``: the ``"fsdp"`` option's
+    ``fsdp_full`` (``launch.steps.adapt_config``), or ``param_sharding``
+    set (``"fsdp_tp"``: kimi-k2's layout on another config's widths)."""
+    from repro_torch.launch.steps import adapt_config
+
+    if layout == "fsdp_full":
+        return adapt_config(cfg, shape, ("fsdp",))
+    return replace(cfg, param_sharding=layout)
 
 
 def model_axis_train_cell(torch, np, cfg, mesh, rank: int, tol: tuple,
                           device="cuda", batch=TRAIN_AXIS_BATCH, seq=TRAIN_AXIS_SEQ,
-                          micro=TRAIN_AXIS_MICRO, steps=TRAIN_AXIS_STEPS) -> dict:
+                          micro=TRAIN_AXIS_MICRO, steps=TRAIN_AXIS_STEPS,
+                          layouts=()) -> dict:
     """One cell of phase 15 on this rank: the placed chain (``place_params``
-    of one drawn from seed 0 on every rank) through ``steps`` (3 ``sync``,
-    then 2 ``pipeline`` from a zero ``pending``) of ``make_sgld_train_step``
+    of one drawn from seed 0 on every rank) through ``steps`` (``sync``,
+    then ``pipeline`` from a zero ``pending``) of ``make_sgld_train_step``
     on ``Model(cfg, mesh=mesh, batch_axes=("data",))`` with a global batch of
     ``batch`` x ``seq`` tokens in ``micro`` microbatches, a new batch a
     step; on rank 0 the unplaced chain through the same steps (an MoE's per
     data shard, under the placed run's expert choices: top-k routing flips
     near-ties between two bf16 paths).  Each step: the loss of every rank
     (the same bits), the pipeline steps' gradients and (``tol[2]``) the new
-    parameters against rank 0's unplaced ones, the data shards' blocks the
-    same bits; the first step's noise blocks bit for bit; ms a step placed
-    and unplaced, the collectives a step, each rank's peak GB
-    (``device="cpu"``: a rehearsal in a gloo world of CPU ranks)."""
+    parameters against rank 0's unplaced ones, the ranks that hold the same
+    block the same bits; the first step's noise blocks bit for bit; ms a
+    step placed and unplaced, the collectives a step, each rank's peak GB
+    (``device="cpu"``: a rehearsal in a gloo world of CPU ranks).
+
+    ``layouts``: other layouts of the same chain (``"fsdp_full"``,
+    ``"fsdp_tp"``: :func:`_layout_config`), placed from the same parameters
+    (``launch.steps.build_model``: a ``fsdp_full`` batch over every axis)
+    and trained after it through the same steps, batches and keys, each held
+    with the same gates against the unplaced step's outputs that rank 0
+    saved from the first run (no unplaced step is added), under
+    ``got["also"]``.  A MoE's expert choices there must be the first run's
+    (the oracle replayed those), and in every layout each rank's parameter
+    bytes are its block's (``launch.steps.param_bytes``)."""
     import torch.distributed as dist
 
     from repro_torch.configs import ShapeConfig
     from repro_torch.kernels import rng
-    from repro_torch.launch.steps import make_sgld_train_step, place_params
+    from repro_torch.launch.steps import (
+        build_model,
+        make_sgld_train_step,
+        param_bytes,
+        place_params,
+    )
     from repro_torch.models import common, moe
     from repro_torch.models.transformer import Model, init_params
     from repro_torch.samplers.transforms import noise_like, sgld_apply
     from repro_torch.train.loop import make_grad_fn
     from repro_torch.utils import all_gather, local, place_like, tree_leaves, tree_zeros_like
 
+    t_cell = time.perf_counter()
     on_card = device == "cuda"
     dev = torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")
+
+    def mark(what: str) -> None:
+        # to the rank's log: when each part of the cell ended, and the card
+        # memory this rank holds then (GB allocated / reserved)
+        held = (f" {torch.cuda.memory_allocated() / 1e9:.2f} / "
+                f"{torch.cuda.memory_reserved() / 1e9:.2f} GB") if on_card else ""
+        print(f"{time.time():.2f} {cfg.name} {what}{held}", flush=True)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     D = mesh.shape[0]
     shards = D if cfg.num_experts else 1
     shape = ShapeConfig("axis", seq, batch, "train", num_microbatches=micro)
+    r = np.random.default_rng(5)
+    schedule = [(mode, torch.from_numpy(r.integers(0, cfg.vocab_size, (batch, seq + 1))
+                                        .astype(np.int32)), rng.PRNGKey(100 + k))
+                for k, mode in enumerate(m for m, n in steps for _ in range(n))]
     whole = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
                         num_chains=1)
-    model = Model(cfg, device=dev, mesh=mesh, batch_axes=("data",))
-    params = place_params(whole, model)
-    pending = place_like(tree_zeros_like(local(params)), params)
+    scale = (2.0 * TRAIN_AXIS_SIGMA * TRAIN_AXIS_GAMMA) ** 0.5
+    noise0 = None if rank else tree_leaves(noise_like(schedule[0][2], whole, scale,
+                                                      torch.float32, "jax"))
+    runs = []  # (layout, model, params, pending, got)
+    for layout in ("tp",) + tuple(layouts):
+        if layout == "tp":
+            model = Model(cfg, device=dev, mesh=mesh, batch_axes=("data",))
+        else:
+            model, _ = build_model(_layout_config(cfg, shape, layout), shape, device=dev,
+                                   mesh=mesh)
+        params = place_params(whole, model)
+        held = sum(t.to_local().numel() * t.to_local().element_size()
+                   for t in tree_leaves(params))
+        got = {"steps": [], "layout": model.cfg.param_sharding,
+               "batch_axes": model.batch_axes, "block_gb": held / 1e9,
+               "held_is_block": held == param_bytes(model.cfg, mesh),
+               "noise_bitwise": _noise_blocks_bitwise(
+                   torch, np, params, noise0, schedule[0][2], mesh, rank)}
+        runs.append([layout, model, params,
+                     place_like(tree_zeros_like(local(params)), params), got])
+    del noise0
     if rank:
         del whole
     else:
@@ -3994,25 +4202,21 @@ def model_axis_train_cell(torch, np, cfg, mesh, rank: int, tol: tuple,
                      for m, _ in steps}
         ref_grad_fn = make_grad_fn(ref_model, micro)
         ref_params, ref_pending = whole, tree_zeros_like(whole)
+        del whole
     gc.collect()
+    setup = {"setup_s": time.perf_counter() - t_cell,
+             "setup_reserved_gb": torch.cuda.max_memory_reserved() / 1e9 if on_card else None}
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    placed_steps = {m: make_sgld_train_step(model, shape, m, TRAIN_AXIS_GAMMA,
-                                            TRAIN_AXIS_SIGMA) for m, _ in steps}
+    mark("set up")
     data_group = mesh.get_group("data")
-    r = np.random.default_rng(5)
-    got = {"steps": [], "block_gb": sum(t.to_local().numel() * t.to_local().element_size()
-                                        for t in tree_leaves(params)) / 1e9}
-    k = 0
-    for mode, n in steps:
-        for _ in range(n):
-            tokens = torch.from_numpy(r.integers(0, cfg.vocab_size, (batch, seq + 1))
-                                      .astype(np.int32))
-            key = rng.PRNGKey(100 + k)
-            if k == 0:
-                got["noise_bitwise"] = _noise_blocks_bitwise(
-                    torch, np, params, None if rank else ref_params, key, mesh, rank)
+    saved = []  # a step: the first run's expert choices; rank 0: the oracle's outputs
+    for li, run in enumerate(runs):
+        layout, model, params, pending, got = run
+        placed_steps = {m: make_sgld_train_step(model, shape, m, TRAIN_AXIS_GAMMA,
+                                                TRAIN_AXIS_SIGMA) for m, _ in steps}
+        for k, (mode, tokens, key) in enumerate(schedule):
             routes: list = []
             common.reset_collectives()
             sync()
@@ -4026,48 +4230,75 @@ def model_axis_train_cell(torch, np, cfg, mesh, rank: int, tol: tuple,
                                                           {"tokens": tokens}, key)
             sync()
             row = {"mode": mode, "ms": (time.perf_counter() - t0) * 1e3,
-                   "collectives": dict(common.COLLECTIVES), "loss": loss.item()}
-            # the expert choices of each data shard, gathered for rank 0's oracle
-            shard_routes = None
-            if shards > 1:
-                shard_routes = [[] for _ in range(D)]
-                for idx in routes:
-                    parts = all_gather(idx.cpu(), data_group, 0).to(dev)
-                    for d in range(D):
-                        shard_routes[d].append(parts[d:d + 1])
-            ref_new = ref_grads = None
-            if rank == 0:
-                sync()
-                t0 = time.perf_counter()
-                ref_new, ref_grads, ref_loss = _unplaced_step(
-                    torch, lambda m: ref_steps[m], ref_grad_fn, noise_like, sgld_apply,
-                    ref_params, ref_pending, tokens, key, mode, shards,
-                    lambda d: torch.from_numpy(_shard_rows(np, batch, micro, d, D)),
-                    shard_routes)
-                sync()
-                row["unplaced_ms"] = (time.perf_counter() - t0) * 1e3
-                row["loss_ref"] = float(ref_loss)
+                   "collectives": dict(common.COLLECTIVES), "loss": loss.item(),
+                   "gathered_gb": common.GATHERED["peak"] / 1e9}
+            if on_card:  # the step's free blocks go back to the card for rank 0's oracle
+                torch.cuda.empty_cache()
+            mark(f"{layout} step {k} ({mode})")
+            if li == 0:
+                # the expert choices of each data shard, gathered for rank 0's oracle
+                shard_routes = None
+                if shards > 1:
+                    shard_routes = [[] for _ in range(D)]
+                    for idx in routes:
+                        parts = all_gather(idx.cpu(), data_group, 0).to(dev)
+                        for d in range(D):
+                            shard_routes[d].append(parts[d:d + 1])
+                ref = {"routes": routes}
+                if rank == 0:
+                    sync()
+                    t0 = time.perf_counter()
+                    ref_new, ref_grads, ref_loss = _unplaced_step(
+                        torch, lambda m: ref_steps[m], ref_grad_fn, noise_like, sgld_apply,
+                        ref_params, ref_pending, tokens, key, mode, shards,
+                        lambda d: torch.from_numpy(_shard_rows(np, batch, micro, d, D)),
+                        shard_routes)
+                    sync()
+                    ref.update(unplaced_ms=(time.perf_counter() - t0) * 1e3,
+                               loss_ref=float(ref_loss), grads=ref_grads)
+                    if tol[2] is not None:  # kept only where the new parameters are held
+                        ref["new"] = ref_new
+                    ref_params = ref_new
+                    if ref_grads is not None:
+                        ref_pending = ref_grads
+                    mark(f"unplaced step {k}")
+                saved.append(ref)
+            else:
+                ref = saved[k]
+                row["routes_equal"] = len(routes) == len(ref["routes"]) and all(
+                    torch.equal(a, b) for a, b in zip(routes, ref["routes"]))
+            row.update({n: ref[n] for n in ("unplaced_ms", "loss_ref") if n in ref})
             if grads is not None:
                 row["grad_rel"], row["grads_agree"] = _held_against(
-                    torch, grads, ref_grads, mesh, rank, _rel_l2)
+                    torch, grads, ref.get("grads"), mesh, rank, _rel_l2)
             if tol[2] is not None:
                 row["new_abs"], row["new_agree"] = _held_against(
-                    torch, new, ref_new, mesh, rank, _max_abs)
+                    torch, new, ref.get("new"), mesh, rank, _max_abs)
             got["steps"].append(row)
             params = new
             if grads is not None:
                 pending = grads
-            if rank == 0:
-                ref_params = ref_new
-                if ref_grads is not None:
-                    ref_pending = ref_grads
-            del new, grads, ref_new, ref_grads
-            k += 1
+            del new, grads
+            if not layouts[li:]:  # no later run holds against this step's outputs
+                ref.pop("grads", None)
+                ref.pop("new", None)
+            if on_card:  # nor does a rank keep the oracle's or the holds' free blocks
+                torch.cuda.empty_cache()
+            mark(f"{layout} step {k} held")
             dist.barrier()
-    got["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
-    del params, pending
-    if rank == 0:
-        del ref_params, ref_pending
+        got["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+        got["reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9 if on_card else None
+        run[2] = run[3] = params = pending = None
+        if li == 0 and rank == 0:
+            del ref_params, ref_pending, ref_steps, ref_grad_fn, ref_model
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    got = runs[0][4]
+    got["also"] = {layout: g for layout, _, _, _, g in runs[1:]}
+    got.update(setup)
+    del runs, saved
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -4096,11 +4327,11 @@ def model_axis_train_rank(rank: int, store: str, out: str) -> int:
     res: dict = {}
     try:
         mesh = make_debug_mesh(*MODEL_AXIS_TRAIN_MESH)
-        for name, arch, layers, dtype, steps, *tol in MODEL_AXIS_TRAIN_CELLS:
+        for name, arch, layers, dtype, steps, *tol, layouts in MODEL_AXIS_TRAIN_CELLS:
             cfg = replace(get_arch(arch), num_layers=layers, dtype=dtype)
             t0 = time.perf_counter()
             res[name] = model_axis_train_cell(torch, np, cfg, mesh, rank, tuple(tol),
-                                              steps=steps)
+                                              steps=steps, layouts=layouts)
             res[name]["cell_s"] = time.perf_counter() - t0
     except BaseException:  # noqa: BLE001 — reported to the parent, which fails the phase
         res["error"] = traceback.format_exc()
@@ -4110,53 +4341,79 @@ def model_axis_train_rank(rank: int, store: str, out: str) -> int:
     return 1 if "error" in res else 0
 
 
+def _train_gates(name: str, cells: list, loss_rtol, grad_rel, new_atol) -> None:
+    """One layout's gates over every rank's results of a cell."""
+    r0 = cells[0]
+    check(all(c["noise_bitwise"] for c in cells),
+          f"model axis train {name}: a rank's noise block is not the unplaced draw's")
+    check(all(c["held_is_block"] for c in cells),
+          f"model axis train {name}: a rank holds more than its block of the chain")
+    for i, row in enumerate(r0["steps"]):
+        where = f"model axis train {name} step {i} ({row['mode']})"
+        losses = [c["steps"][i]["loss"] for c in cells]
+        check(len(set(losses)) == 1,
+              f"{where}: the ranks' losses differ: {losses}")
+        check(abs(row["loss"] - row["loss_ref"]) <= loss_rtol * abs(row["loss_ref"]),
+              f"{where}: loss {row['loss']} against the unplaced {row['loss_ref']} "
+              f"(limit {loss_rtol} relative)")
+        check(all(c["steps"][i].get("routes_equal", True) for c in cells),
+              f"{where}: the expert choices differ from the first layout's")
+        if "grad_rel" in row:
+            bad = {p: v for p, v in row["grad_rel"].items() if not v <= grad_rel}
+            check(not bad, f"{where}: gradients past relative L2 {grad_rel}: {bad}")
+            check(all(c["steps"][i]["grads_agree"] for c in cells),
+                  f"{where}: the ranks that hold one gradient block differ")
+        if new_atol is not None:
+            bad = {p: v for p, v in row["new_abs"].items() if not v <= new_atol}
+            check(not bad, f"{where}: new parameters past {new_atol}: {bad}")
+            check(all(c["steps"][i]["new_agree"] for c in cells),
+                  f"{where}: the ranks that hold one block of new parameters differ")
+
+
 def model_axis_train_report(ranks: list, cells_run) -> dict:
     """Phase 15's gates over the ranks' results of the cells ``cells_run``
-    (:data:`MODEL_AXIS_TRAIN_CELLS`' rows), and its numbers."""
+    (:data:`MODEL_AXIS_TRAIN_CELLS`' rows; each layout a cell trained, the
+    first and those under ``"also"``), and its numbers."""
     out = {}
-    for name, _, layers, dtype, _, loss_rtol, grad_rel, new_atol in cells_run:
-        cells = [g[name] for g in ranks]
-        r0 = cells[0]
-        check(all(c["noise_bitwise"] for c in cells),
-              f"model axis train {name}: a rank's noise block is not the unplaced draw's")
-        for i, row in enumerate(r0["steps"]):
-            where = f"model axis train {name} step {i} ({row['mode']})"
-            losses = [c["steps"][i]["loss"] for c in cells]
-            check(len(set(losses)) == 1,
-                  f"{where}: the ranks' losses differ: {losses}")
-            check(abs(row["loss"] - row["loss_ref"]) <= loss_rtol * abs(row["loss_ref"]),
-                  f"{where}: loss {row['loss']} against the unplaced {row['loss_ref']} "
-                  f"(limit {loss_rtol} relative)")
-            if "grad_rel" in row:
-                bad = {p: v for p, v in row["grad_rel"].items() if not v <= grad_rel}
-                check(not bad, f"{where}: gradients past relative L2 {grad_rel}: {bad}")
-                check(all(c["steps"][i]["grads_agree"] for c in cells),
-                      f"{where}: the data shards' gradient blocks differ")
-            if new_atol is not None:
-                bad = {p: v for p, v in row["new_abs"].items() if not v <= new_atol}
-                check(not bad, f"{where}: new parameters past {new_atol}: {bad}")
-                check(all(c["steps"][i]["new_agree"] for c in cells),
-                      f"{where}: the data shards' new parameters differ")
-        rows = r0["steps"]
-        row = {"layers": layers, "dtype": dtype,
-               "ms_placed": [[c["steps"][i]["ms"] for c in cells] for i in range(len(rows))],
-               "ms_unplaced": [s["unplaced_ms"] for s in rows],
-               "loss": [s["loss"] for s in rows], "loss_ref": [s["loss_ref"] for s in rows],
-               "grad_rel_max": max((max(s["grad_rel"].values()) for s in rows
-                                    if "grad_rel" in s), default=None),
-               "new_abs_max": max((max(s["new_abs"].values()) for s in rows
-                                   if "new_abs" in s), default=None),
-               "collectives": [s["collectives"] for s in rows],
-               "block_gb": [c["block_gb"] for c in cells],
-               "peak_gb": [c["peak_gb"] for c in cells],
-               "cell_s": [c["cell_s"] for c in cells]}
-        out[name] = row
-        log(f"model axis train {name} ({layers} layers, {dtype}): loss "
-            f"{row['loss'][-1]:.5f} / unplaced {row['loss_ref'][-1]:.5f}; gradient rel L2 "
-            f"<= {row['grad_rel_max']}; new params <= {row['new_abs_max']}; ms a step "
-            f"placed {[round(max(m), 1) for m in row['ms_placed']]}, unplaced "
-            f"{[round(m, 1) for m in row['ms_unplaced']]}; collectives a step "
-            f"{row['collectives'][-1]}; peak GB {row['peak_gb']}")
+    for name, _, layers, dtype, _, loss_rtol, grad_rel, new_atol, *_ in cells_run:
+        layouts = [(name, [g[name] for g in ranks])]
+        layouts += [(f"{name} {lay}", [g[name]["also"][lay] for g in ranks])
+                    for lay in ranks[0][name].get("also", {})]
+        for label, cells in layouts:
+            _train_gates(label, cells, loss_rtol, grad_rel, new_atol)
+            rows = cells[0]["steps"]
+            row = {"layers": layers, "dtype": dtype, "layout": cells[0]["layout"],
+                   "batch_axes": list(cells[0]["batch_axes"]),
+                   "ms_placed": [[c["steps"][i]["ms"] for c in cells]
+                                 for i in range(len(rows))],
+                   "ms_unplaced": [s["unplaced_ms"] for s in rows],
+                   "loss": [s["loss"] for s in rows],
+                   "loss_ref": [s["loss_ref"] for s in rows],
+                   "grad_rel_max": max((max(s["grad_rel"].values()) for s in rows
+                                        if "grad_rel" in s), default=None),
+                   "new_abs_max": max((max(s["new_abs"].values()) for s in rows
+                                       if "new_abs" in s), default=None),
+                   "collectives": [s["collectives"] for s in rows],
+                   "gathered_gb": [max(c["steps"][i]["gathered_gb"] for c in cells)
+                                   for i in range(len(rows))],
+                   "block_gb": [c["block_gb"] for c in cells],
+                   "peak_gb": [c["peak_gb"] for c in cells],
+                   "reserved_gb": [c["reserved_gb"] for c in cells],
+                   "cell_s": [g[name]["cell_s"] for g in ranks],
+                   "setup_s": [g[name]["setup_s"] for g in ranks],
+                   "setup_reserved_gb": [g[name]["setup_reserved_gb"] for g in ranks]}
+            out[label] = row
+            log(f"model axis train {label} ({layers} layers, {dtype}, {row['layout']}, "
+                f"batch over {row['batch_axes']}): loss {row['loss'][-1]:.5f} / unplaced "
+                f"{row['loss_ref'][-1]:.5f}; gradient rel L2 <= {row['grad_rel_max']}; new "
+                f"params <= {row['new_abs_max']}; ms a step placed "
+                f"{[round(max(m), 1) for m in row['ms_placed']]}, unplaced "
+                f"{[round(m, 1) for m in row['ms_unplaced']]}; collectives a step "
+                f"{row['collectives'][-1]}; a rank's block {max(row['block_gb']):.3f} GB, "
+                f"gathered at once <= {max(row['gathered_gb']):.3f} GB; peak GB "
+                f"{row['peak_gb']}, reserved {row['reserved_gb']}; the cell's set-up "
+                f"{[round(t, 1) for t in row['setup_s']]} s, reserved "
+                f"{row['setup_reserved_gb']} GB; the cell {[round(t, 1) for t in row['cell_s']]} s")
     return out
 
 

@@ -102,7 +102,8 @@ class DecodeEngine(BankEngine):
         self.device = resolve_device(self.device)
         cfg = self.model.cfg if hasattr(self.model, "cfg") else self.model
         self._model = Model(cfg, device=self.device,
-                            mesh=self.mesh if self.shard_params else None)
+                            mesh=self.mesh if self.shard_params else None,
+                            chain_axis=self.chain_axis if self.shard_params else None)
         self._model._require_stacked_attention("DecodeEngine")
         self._init_bank()
         self._shard_bank()

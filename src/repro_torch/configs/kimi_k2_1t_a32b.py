@@ -6,12 +6,13 @@ At 1T total parameters (2.09 TB in bf16) one card holds one layer of it:
 one layer's 384 x 3 experts of 7168 x 2048 are 33.8 GB.  Its 2-D
 sharding (``param_sharding="fsdp_tp"``) is the reference's; the port's
 partition rules (:func:`repro_torch.models.common.partition_tree`) read it.
-A 2-D serving bank and a chain trained on the model axis
-(``launch.steps.place_params``) apply its ``model`` entries (experts over
-``model``); its ``data`` entries (d_ff over ``data``, FSDP, all-gathered a
-layer in the reference) are replicated, since ``data`` holds a bank's
-chains and a training step's batch: the same numbers, a rank holding the
-experts' whole ``d_ff``.  FSDP itself is not ported yet.
+A chain trained on a mesh (``launch.steps.place_params``) applies both:
+its ``model`` entries (experts over ``model``) and its ``data`` entries
+(``d_ff`` over the data axes, FSDP: a rank holds half its experts' ``d_ff``
+on ``data`` 2, gathered for the layer and again for its recomputed
+backward, as the reference all-gathers them in its ``shard_map``).  A 2-D
+serving bank replicates the ``data`` entries, since ``data`` holds its
+chains.
 """
 
 from repro_torch.configs.base import ArchConfig, _reduce_common

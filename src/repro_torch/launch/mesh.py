@@ -13,9 +13,15 @@ group, one rank a card (NCCL) or one a CPU process (gloo):
 - :func:`make_debug_mesh` / :func:`make_production_mesh` are the
   reference's meshes, with its axis names and shapes;
 - :func:`batch_axes_for` and :func:`fsdp_axes_for` say which axes shard
-  the batch and the 2-D parameter layout, over a ``DeviceMesh`` or a
-  :class:`MeshShape` (a mesh's shape without devices, which the dry run
-  uses).
+  the batch and the 2-D parameter layout, and :func:`fsdp_full_axes_for`
+  the axes a ``fsdp_full`` step splits its batch and every weight over,
+  over a ``DeviceMesh`` or a :class:`MeshShape` (a mesh's shape without
+  devices, which the dry run uses);
+- :func:`axes_group` is the process group of several mesh axes taken
+  together (the world's for a mesh that covers it), for a collective over
+  a spec entry that names them all;
+- :func:`fake_world` starts a world of any size in one process, for a dry
+  run that places a step on ``meta`` tensors.
 
     torchrun --nproc-per-node 4 my_job.py   # my_job: init_world("cuda"),
                                             # make_debug_mesh(data=4, model=1)
@@ -23,6 +29,7 @@ group, one rank a card (NCCL) or one a CPU process (gloo):
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from dataclasses import dataclass
@@ -154,3 +161,66 @@ def batch_axes_for(mesh, global_batch: int):
 def fsdp_axes_for(mesh):
     """Axes used for the 2-D (fsdp_tp) parameter sharding."""
     return tuple(a for a in ("pod", "data") if a in axis_names(mesh))
+
+
+def fsdp_full_axes_for(mesh):
+    """The axes a ``fsdp_full`` step splits its batch and each weight over:
+    the reference's ``("pod", "data", "model")`` present in the mesh."""
+    return tuple(a for a in ("pod", "data", "model") if a in axis_names(mesh))
+
+
+#: (mesh id, axes) -> (the mesh, this rank's process group over the axes)
+_GROUPS: dict = {}
+
+
+def axes_group(mesh, axes: tuple):
+    """The process group of this rank's ranks of ``mesh`` that differ only
+    along ``axes`` (a ``DeviceMesh``'s axis names, in mesh order), ranked
+    as the axes flatten, the first major: a spec entry ``("data",
+    "model")`` splits one dimension over that order.  One axis is its
+    mesh group; every axis of a mesh that covers the world is the world.
+    Other sets are made once, each rank making only its own group."""
+    import torch.distributed as dist
+
+    names = axis_names(mesh)
+    axes = tuple(axes)
+    if any(a not in names for a in axes) or list(axes) != sorted(axes, key=names.index):
+        raise ValueError(f"axes {axes} are not axes of the mesh in its order {names}")
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    ranks = mesh.mesh
+    if len(axes) == len(names) and ranks.numel() == dist.get_world_size() \
+            and ranks.flatten().tolist() == list(range(ranks.numel())):
+        return dist.group.WORLD
+    key = (id(mesh), axes)
+    if key not in _GROUPS:
+        coord = mesh.get_coordinate()
+        idx = tuple(slice(None) if n in axes else coord[i] for i, n in enumerate(names))
+        mine = ranks[idx].flatten().tolist()
+        if mine != sorted(mine):
+            raise ValueError(f"the ranks of {axes} do not rise in mesh order: {mine}")
+        _GROUPS[key] = (mesh, dist.new_group(mine, use_local_synchronization=True))
+    return _GROUPS[key][1]
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """A world of ``world_size`` ranks in this process, this process rank 0,
+    over torch's fake process group: its collectives return at once
+    without moving data (``meta`` tensors go through), so a dry run can
+    build rank 0's placed model and step on a mesh of any size.  The group
+    is destroyed on exit; a process that already runs one is refused."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already running in this process; "
+                           "the fake world of a dry run needs its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    _WORLD_DEVICE[0] = "cpu"
+    try:
+        yield
+    finally:
+        _GROUPS.clear()
+        _WORLD_DEVICE[0] = None
+        dist.destroy_process_group()

@@ -1,23 +1,33 @@
-"""Roofline terms of a step against one H100 (port of
+"""Roofline terms of a step against the H100 (port of
 ``repro.launch.roofline``).
 
-Two terms per (arch x shape), per device of a nominal mesh:
+Three terms per (arch x shape x mesh), per device:
 
-    compute = counted FLOPs per device / the card's peak FLOP rate
-    memory  = counted bytes per device / the card's memory rate
+    compute    = counted FLOPs per device / the card's peak FLOP rate
+    memory     = counted bytes per device / the card's memory rate
+    collective = collective bytes per device / the link rate
 
 The counts come from :func:`repro_torch.launch.flop_cost.step_cost` on
-``meta`` tensors.  The reference's third term, collective bytes parsed
-from XLA's post-SPMD HLO, and its ``memory_report(compiled)`` have no
-counterpart without XLA: memory is the parameter, state and cache bytes of
-the ``meta`` tensors (:func:`tree_bytes`), and on the card
-``torch.cuda.max_memory_allocated``.
+``meta`` tensors: of the whole step on one card, or of rank 0's placed
+step on a mesh (:mod:`repro_torch.launch.dryrun`, in a fake world), whose
+collective bytes are what the port's collective helpers send
+(:data:`repro_torch.models.common.TRAFFIC`: an all-reduce's buffer, an
+all-gather's result, the reference's per-device result-buffer bytes).
+The reference parses XLA's post-SPMD HLO for them and reads
+``memory_report(compiled)``; without XLA, memory is the parameter, state,
+cache and batch bytes of the rank's ``meta`` blocks (:func:`tree_bytes`),
+and on the card ``torch.cuda.max_memory_allocated``.
 
 The card's constants are the NVIDIA H100 SXM5 data sheet's (80 GB HBM3,
 board power up to 700 W): dense bf16 tensor-core peak 989.4 TFLOP/s (no
 sparsity) and 3.35 TB/s of HBM3.  A card run below 700 W (its power limit,
-``nvidia-smi --query-gpu=name,power.limit``) may not reach them.  A step's
-model FLOPs over its measured wall time and this peak is its ``mfu``.
+``nvidia-smi --query-gpu=name,power.limit``) may not reach them.  The link
+rates are data-sheet figures too, not measured (no multi-card run exists
+yet): NVLink 4 within a node of 8 cards, 450 GB/s each way a card (18
+links; "900 GB/s" counts both ways), and between nodes one 400 Gb/s NDR
+InfiniBand port a card, 50 GB/s (the DGX H100's eight ConnectX-7); a mesh
+of more than 8 cards is bounded by the second.  A step's model FLOPs over
+its measured wall time and the peak is its ``mfu``.
 """
 
 from __future__ import annotations
@@ -27,6 +37,17 @@ from dataclasses import dataclass
 CARD = "NVIDIA H100 SXM5 80GB HBM3, 700 W (data sheet)"
 PEAK_FLOPS = 989.4e12    # dense bf16 tensor-core FLOP/s, one card
 HBM_BW = 3.35e12         # bytes/s of HBM3, one card
+NVLINK_BW = 450e9        # bytes/s each way a card, NVLink 4 (data sheet)
+IB_BW = 50e9             # bytes/s a card between nodes, NDR 400 Gb/s (data sheet)
+NODE_CARDS = 8           # cards a node's NVLink joins
+
+
+def link(num_devices: int) -> tuple:
+    """``(bytes/s, name)`` of the link a mesh of ``num_devices`` cards is
+    bounded by: NVLink within one node, InfiniBand across nodes."""
+    if num_devices <= NODE_CARDS:
+        return NVLINK_BW, "NVLink 4, 450 GB/s each way (data sheet)"
+    return IB_BW, "InfiniBand NDR 400 Gb/s a card (data sheet)"
 
 
 @dataclass
@@ -40,29 +61,40 @@ class Roofline:
     model_flops_global: float
     counted_flops_global: float
     useful_ratio: float
+    collective_bytes_per_device: float = 0.0
+    t_collective: float = 0.0
+    link: str = ""
     card: str = CARD
 
     def summary(self) -> str:
         return (f"{self.name}: compute {self.t_compute*1e3:.3f}ms, "
-                f"memory {self.t_memory*1e3:.3f}ms "
+                f"memory {self.t_memory*1e3:.3f}ms, "
+                f"collective {self.t_collective*1e3:.3f}ms "
                 f"-> {self.dominant}-bound; useful={self.useful_ratio:.2f} "
                 f"({self.card})")
 
 
-def analyze(name: str, cost, num_devices: int,
-            model_flops_global: float) -> Roofline:
-    """``cost``: a :class:`~repro_torch.launch.flop_cost.Cost` of the whole
-    step (global); split evenly over ``num_devices`` cards."""
+def analyze(name: str, cost, model_flops_global: float, num_devices: int = 1,
+            collective_bytes: float = 0.0) -> Roofline:
+    """``cost``: a :class:`~repro_torch.launch.flop_cost.Cost` of one
+    device's step (the whole step on one card, rank 0's on a mesh of
+    ``num_devices``); ``collective_bytes``: what that device's collectives
+    moved.  The global counted FLOPs are the device's times the mesh's
+    size (rank 0 stands for every rank)."""
     n = max(num_devices, 1)
-    flops, byts = float(cost.flops) / n, float(cost.bytes) / n
+    flops, byts = float(cost.flops), float(cost.bytes)
+    rate, link_name = link(n)
     t_c, t_m = flops / PEAK_FLOPS, byts / HBM_BW
+    t_x = float(collective_bytes) / rate if n > 1 else 0.0
+    terms = {"compute": t_c, "memory": t_m, "collective": t_x}
     return Roofline(
         name=name, flops_per_device=flops, bytes_per_device=byts,
-        t_compute=t_c, t_memory=t_m,
-        dominant="compute" if t_c >= t_m else "memory",
+        t_compute=t_c, t_memory=t_m, dominant=max(terms, key=terms.get),
         model_flops_global=model_flops_global,
-        counted_flops_global=float(cost.flops),
-        useful_ratio=(model_flops_global / float(cost.flops)) if cost.flops else 0.0)
+        counted_flops_global=flops * n,
+        useful_ratio=(model_flops_global / (flops * n)) if flops else 0.0,
+        collective_bytes_per_device=float(collective_bytes), t_collective=t_x,
+        link=link_name if n > 1 else "")
 
 
 def model_flops(cfg, shape) -> float:

@@ -8,9 +8,10 @@ helpers are here: :func:`sanitize_spec` (a dimension the mesh does not
 divide replicated), :func:`named` (a spec tree as ``DTensor`` placements
 on a ``DeviceMesh``), :func:`param_structs` (a config's parameters on
 ``meta`` with their placements) and :func:`batch_specs` (a step's batch
-with its placements over the batch axes); :func:`place_params` places a
-training chain on a ``(data, model)`` mesh.  ``cache_spec_tree``, which
-places a dry run's decode cache, is not ported yet (ROADMAP).
+with its placements over the batch axes), :func:`cache_spec_tree` (a
+decode cache on ``meta`` with its placements); :func:`place_params` places
+a training chain on a mesh, tensor-parallel, ``fsdp_tp`` or ``fsdp_full``
+(the ``"fsdp"`` option: every weight over every axis, the batch too).
 
 SGLD modes:
   - ``sync``      the paper-faithful Sync step: the gradient of this step's
@@ -29,12 +30,14 @@ global batch on every rank, and return the new parameters (and
 
 from __future__ import annotations
 
+import math
 from dataclasses import replace
 from typing import Any
 
 import torch
 
 from repro_torch.configs import ArchConfig, ShapeConfig
+from repro_torch.models.common import MODEL_AXIS as MODEL
 from repro_torch.models.common import partition_tree, sanitize_spec
 from repro_torch.models.transformer import Model, init_params
 from repro_torch.samplers.transforms import noise_like as langevin_noise
@@ -45,9 +48,10 @@ from repro_torch.utils import local, place_like
 PyTree = Any
 
 LONG_CONTEXT_WINDOW = 8192  # sliding window applied to attention archs @500k
-#: the reference's switches that change how XLA or a mesh lays the step
-#: out, which the port does not have: FSDP (``"fsdp"``) waits for its slice
-_MESH_OPTS = ("window_slice", "fsdp", "unroll")
+#: the reference's switches that change how XLA lays the step out, which
+#: the port does not have
+_XLA_OPTS = ("window_slice", "unroll")
+OPTS = ("attn_shard", "fsdp", "padvocab")
 
 
 def adapt_config(cfg: ArchConfig, shape: ShapeConfig,
@@ -55,19 +59,28 @@ def adapt_config(cfg: ArchConfig, shape: ShapeConfig,
     """Shape-dependent config changes, as the reference's: an attention
     architecture without a window gets an 8,192-token one at
     ``long_500k``; ``"attn_shard"`` sets ``opt_attn_head_shard`` (the
-    query heads over ``model``, K/V replicated); ``"padvocab"`` pads the
-    vocabulary to a multiple of 256.  The reference's other mesh and XLA
-    switches are refused."""
+    query heads over ``model``, K/V replicated); ``"fsdp"`` sets
+    ``param_sharding="fsdp_full"`` (every weight over every axis, gathered
+    where it is used; the batch over every axis) and clears
+    ``opt_attn_head_shard`` — for dense configs only, a MoE is refused as
+    the reference asserts; ``"padvocab"`` pads the vocabulary to a multiple
+    of 256.  The reference's XLA switches (``"window_slice"``,
+    ``"unroll"``) are refused."""
     if shape.name == "long_500k" and cfg.family not in ("ssm",) \
             and cfg.sliding_window is None:
         cfg = replace(cfg, sliding_window=LONG_CONTEXT_WINDOW)
-    unknown = [o for o in opts if o not in ("padvocab", "attn_shard")]
+    unknown = [o for o in opts if o not in OPTS]
     if unknown:
         raise ValueError(f"opts {unknown}: of the reference's switches the "
-                         f"port has 'attn_shard' and 'padvocab' (the others, "
-                         f"{_MESH_OPTS}, lay a step out over a mesh)")
+                         f"port has {OPTS} (the others, {_XLA_OPTS}, lay a step "
+                         "out for XLA)")
     if "attn_shard" in opts:
         cfg = replace(cfg, opt_attn_head_shard=True)
+    if "fsdp" in opts:
+        if cfg.num_experts:
+            raise ValueError(f"{cfg.name}: the 'fsdp' option is for dense configs "
+                             f"({cfg.num_experts} experts)")
+        cfg = replace(cfg, param_sharding="fsdp_full", opt_attn_head_shard=False)
     if "padvocab" in opts:
         v = -(-cfg.vocab_size // 256) * 256
         cfg = replace(cfg, vocab_size=v)
@@ -136,34 +149,141 @@ def build_model(cfg: ArchConfig, shape: ShapeConfig, opts: tuple = (),
     (``"meta"`` for the dry run).  With ``mesh`` (a ``DeviceMesh`` with a
     ``model`` axis) the model is split over it, its batch over the axes
     :func:`~repro_torch.launch.mesh.batch_axes_for` gives
-    (``model.batch_axes``)."""
-    from repro_torch.launch.mesh import batch_axes_for
+    (``model.batch_axes``) — under ``fsdp_full`` over every axis
+    (:func:`~repro_torch.launch.mesh.fsdp_full_axes_for`) when the global
+    batch divides by the mesh's size, as the reference's."""
+    from repro_torch.launch.mesh import (
+        axis_size,
+        batch_axes_for,
+        fsdp_full_axes_for,
+    )
 
     cfg = adapt_config(cfg, shape, opts)
     if mesh is None:
         return Model(cfg, device=device), cfg
-    return Model(cfg, device=device, mesh=mesh,
-                 batch_axes=batch_axes_for(mesh, shape.global_batch)), cfg
+    baxes = batch_axes_for(mesh, shape.global_batch)
+    every = fsdp_full_axes_for(mesh)
+    if cfg.param_sharding == "fsdp_full" and \
+            shape.global_batch % math.prod(axis_size(mesh, a) for a in every) == 0:
+        baxes = every
+    return Model(cfg, device=device, mesh=mesh, batch_axes=baxes), cfg
 
 
-def place_params(params: PyTree, model: Model) -> PyTree:
-    """A whole bank of one placed for ``model``'s mesh: each leaf cut to the
-    rank's block by its sanitized spec (:func:`~repro_torch.models.common.
-    model_specs`; an entry naming a batch axis replicated — ``fsdp_tp``'s
-    experts' ``data``, whose FSDP is not ported) with the chain axis
-    replicated, copied (the whole may be freed), and placed as a
-    ``DTensor``.  No collective runs."""
+def param_blocks(params: PyTree, model: Model) -> tuple:
+    """``(blocks, specs)``: each leaf of a whole bank of one cut to this
+    rank's block for ``model``'s mesh by its sanitized spec
+    (:func:`~repro_torch.models.common.model_specs`, every entry kept:
+    ``fsdp_tp``'s and ``fsdp_full``'s data entries are FSDP) with the chain
+    axis replicated, copied (the whole may be freed)."""
     from repro_torch.models.common import model_specs
-    from repro_torch.utils import chain_placements, local_block, place_chains, tree_map
+    from repro_torch.utils import chain_placements, local_block, tree_map
 
     tp = model.tp
     if tp is None:
         raise ValueError("place_params places a chain for a model split over a mesh: "
                          "build it with mesh=")
-    specs = model_specs(model.cfg, tp.mesh, ("pod", "data"))
+    specs = model_specs(model.cfg, tp.mesh)
     blocks = tree_map(lambda x, spec: local_block(
         x, tp.mesh, chain_placements(tp.mesh, None, spec=spec)).clone(), params, specs)
-    return place_chains(blocks, tp.mesh, None, specs)
+    return blocks, specs
+
+
+def param_bytes(cfg: ArchConfig, mesh) -> int:
+    """One chain's parameter bytes a rank holds on ``mesh`` (a
+    ``DeviceMesh`` or a :class:`~repro_torch.launch.mesh.MeshShape`): each
+    leaf's block under its sanitized spec (:func:`~repro_torch.models.
+    common.model_specs`), what :func:`param_blocks` cuts."""
+    from repro_torch.launch.mesh import axis_size
+    from repro_torch.models.common import model_specs
+    from repro_torch.utils import paired_leaves, tree_leaves
+
+    like = init_params(cfg, device="meta")
+    specs = model_specs(cfg, mesh)
+    return sum(t.numel() * t.element_size() // math.prod(
+        axis_size(mesh, a) for e in spec if e for a in ((e,) if isinstance(e, str) else e))
+        for t, spec in zip(tree_leaves(like), paired_leaves(like, specs)))
+
+
+def place_params(params: PyTree, model: Model) -> PyTree:
+    """A whole bank of one placed for ``model``'s mesh: each leaf cut to the
+    rank's block (:func:`param_blocks`) and placed as a ``DTensor``: under
+    ``fsdp_full`` a rank holds ``1 / (pod · data · model)`` of each leaf the
+    mesh divides, under ``fsdp_tp`` its experts with their ``d_ff`` over
+    the data axes.  No collective runs."""
+    from repro_torch.utils import place_chains
+
+    blocks, specs = param_blocks(params, model)
+    return place_chains(blocks, model.tp.mesh, None, specs)
+
+
+def cache_specs(model: Model, cfg: ArchConfig, shape: ShapeConfig, mesh,
+                batch_axes) -> tuple:
+    """``(cache on meta, sanitized specs)`` of the decode cache of ``shape``
+    (``model.init_cache(global_batch, seq_len, prefill_len=seq_len - 1)``
+    of one chain, whole) on ``mesh`` (a ``DeviceMesh`` or a
+    :class:`~repro_torch.launch.mesh.MeshShape`): the reference's
+    ``cache_spec_tree`` rules on the port's tree, whose leaves carry a
+    chain axis (``(L, C, ...)`` for a stack, ``(C, ...)`` for an xLSTM
+    layer; the ring's ``pos`` has none) — the rows over ``batch_axes``,
+    the SSD heads, the conv channels, the mLSTM ``dv``, the sLSTM width
+    over ``model``.  One difference by design: the attention ring splits
+    its KV heads over ``model``, not ``head_dim`` as the reference's does,
+    since the port's ring cache and page pool hold a rank's KV heads whole
+    (each decode kernel reads whole heads); :func:`sanitize_spec` then
+    replicates them where ``model`` does not divide them.  Where the rows
+    are split over ``model`` too (a ``fsdp_full`` batch over every axis) the
+    ``model`` entries are replicated: the reference's spec would name
+    ``model`` twice, which JAX refuses."""
+    cache = Model(cfg, device="meta").init_cache(shape.global_batch, shape.seq_len,
+                                                 prefill_len=shape.seq_len - 1)
+    bd = tuple(batch_axes) or None
+    stacked = len(cfg.block_pattern) == 1
+
+    def spec_for(path: str, nd: int) -> tuple:
+        name = path.rsplit("/", 1)[-1]
+        lead = (None, None) if stacked else (None,)  # (L, C) or (C,)
+        if name == "pos":
+            return (None,) * nd
+        if path.startswith("attn/") or "/attn/" in path:  # (L, C, B, S, KV, hd)
+            parts = lead + (bd, None, MODEL, None)
+        elif name == "ssm_h":  # (L, C, B, H, p, n)
+            parts = lead + (bd, MODEL, None, None)
+        elif name == "ssm_conv":  # (L, C, B, K-1, di)
+            parts = lead + (bd, None, MODEL)
+        elif name == "mlstm_c":  # (C, B, H, dk, dv)
+            parts = lead + (bd, None, None, MODEL)
+        elif name.startswith(("mlstm_", "slstm_")):
+            parts = lead + (bd,) + ((MODEL,) if name.startswith("slstm_") else ())
+        else:
+            parts = ()
+        if bd and MODEL in bd:  # a fsdp_full batch over every axis holds model already
+            parts = tuple(None if e == MODEL else e for e in parts)
+        return (tuple(parts) + (None,) * nd)[:nd]
+
+    specs = _map_paths(lambda path, x: sanitize_spec(spec_for(path, x.dim()),
+                                                     tuple(x.shape), mesh), cache)
+    return cache, specs
+
+
+def cache_spec_tree(model: Model, cfg: ArchConfig, shape: ShapeConfig, mesh,
+                    batch_axes) -> tuple:
+    """``(decode cache on meta, placements)`` on the ``DeviceMesh``
+    ``mesh``: :func:`cache_specs`' specs as :func:`named` places them
+    (the reference's ``cache_spec_tree``)."""
+    cache, specs = cache_specs(model, cfg, shape, mesh, batch_axes)
+    return cache, named(mesh, specs)
+
+
+def _map_paths(fn, tree, path: str = ""):
+    """``fn(path, leaf)`` over a tree of dicts and lists, ``path`` the keys
+    and indices joined by ``/``."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_paths(fn, v, f"{path}/{i}" if path else str(i))
+                for i, v in enumerate(tree)]
+    return fn(path, tree)
 
 
 # ---------------------------------------------------------------------------

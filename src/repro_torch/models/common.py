@@ -8,7 +8,10 @@ the mesh does not divide, :func:`bank_specs` gives a chain bank's 2-D
 layout (chains over the chain axis, each chain's tensors over ``model``),
 and :class:`ModelAxis` is a rank's place on the ``model`` axis: which of
 its tensors are split, its heads, and the collectives over the axis that
-the model code runs (tensor and expert parallelism).  Parameters are plain nested dicts of
+the model code runs (tensor and expert parallelism), and which leaves are
+split for FSDP and gathered where they are used (``fsdp_full``: every
+weight over every axis; ``fsdp_tp``: the experts' ``d_ff`` over the data
+axes; :func:`gather_blocks`).  Parameters are plain nested dicts of
 tensors, as in the JAX package; initialisers draw from an explicit
 ``torch.Generator`` (the numbers differ from ``jax.random``'s — a test that
 needs both packages on the same weights carries them over with
@@ -17,7 +20,9 @@ needs both packages on the same weights carries them over with
 
 from __future__ import annotations
 
+import contextlib
 import math
+import weakref
 from collections import Counter
 from dataclasses import dataclass
 from typing import Any
@@ -25,7 +30,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import axis_names, axis_size
+from repro_torch.analysis.cost import multiplier
+from repro_torch.launch.mesh import axes_group, axis_names, axis_size
 
 PyTree = Any
 
@@ -311,8 +317,9 @@ def model_specs(cfg, mesh, chain_axis=None) -> PyTree:
     naming ``chain_axis`` (an axis name or a tuple of them) is replicated:
     that axis holds the chains of a 2-D bank (the reference's
     ``P(chain_axis, *spec)`` would name it twice, which JAX refuses;
-    ``fsdp_tp``'s experts name ``data``), or the batch of a training step
-    on the model axis (``fsdp_tp``'s FSDP over ``data`` is not ported)."""
+    ``fsdp_tp``'s experts name ``data``).  A training chain keeps every
+    entry: ``fsdp_tp``'s and ``fsdp_full``'s data entries are FSDP, the
+    leaf gathered where it is used."""
     from repro_torch.models.transformer import init_params
     from repro_torch.utils import tree_map
 
@@ -334,13 +341,26 @@ def model_specs(cfg, mesh, chain_axis=None) -> PyTree:
 def _spec_at(specs, path: str) -> tuple:
     node = specs
     for k in path.split("/"):
-        node = node[k]
+        node = node[int(k)] if isinstance(node, list) else node[k]
     return node
 
 
 def _split(specs, path: str) -> bool:
     """Whether the leaf at ``path`` is split over the model axis."""
     return any(MODEL_AXIS in _axes(e) for e in _spec_at(specs, path))
+
+
+def _gathered(cfg, mesh, entry):
+    """The mesh axes (of more than one rank) one spec entry splits a leaf
+    over for FSDP — gathered where the leaf is used — or None: under
+    ``fsdp_full`` every entry; otherwise an entry that does not name
+    ``model`` (``fsdp_tp``'s experts' ``d_ff`` over the data axes), a
+    ``model`` entry being tensor or expert parallelism."""
+    axes = _axes(entry)
+    if cfg.param_sharding != "fsdp_full" and MODEL_AXIS in axes:
+        return None
+    axes = tuple(a for a in axes if axis_size(mesh, a) > 1)
+    return axes or None
 
 
 @dataclass(frozen=True)
@@ -373,7 +393,22 @@ class ModelAxis:
       function (:func:`repro_torch.train.loop.make_grad_fn`).  A replicated
       leaf whose computation is replicated (the norms of the residual
       stream, a projection :func:`sanitize_spec` replicated) has its whole
-      gradient on every rank.
+      gradient on every rank;
+    - ``gathers``: one chain's tree beside the parameters, each leaf's
+      entry a dimension the mesh axes its block is split over for FSDP
+      (:func:`_gathered`; None: not gathered), and ``fsdp`` whether any
+      leaf is.  The model gathers a block whole where it uses it
+      (:meth:`gather`, :func:`gather_blocks`: an all-gather, its backward
+      the gradient summed over the axes, each rank its block) — a layer's
+      leaves as the layer runs, under a checkpoint, so that no rank holds
+      two layers gathered.
+
+    On an axis of one rank nothing is tensor-parallel: the model computes
+    the unplaced path.  Under ``fsdp_full`` (the reference's ``"fsdp"``
+    option) the model is not tensor-parallel either: every weight is split over every axis of the mesh
+    and gathered where it is used, the batch over every axis, no collective
+    on the activations; ``model`` may be a batch axis.  A MoE is refused
+    there, as the reference's option is for dense configs.
 
     The collectives are differentiable (:func:`copy_to` at the entry of a
     column-parallel region, :func:`reduce_from` at a row-parallel exit and
@@ -398,25 +433,52 @@ class ModelAxis:
     shared: bool
     summed: frozenset = frozenset()
     batch_axes: tuple = ()
+    gathers: Any = None
+    fsdp: bool = False
 
     @classmethod
-    def of(cls, mesh, cfg, batch_axes=()) -> "ModelAxis":
+    def of(cls, mesh, cfg, batch_axes=(), chain_axis=None) -> "ModelAxis":
+        """``chain_axis``: the mesh axis a 2-D serving bank holds its chains
+        on, whose spec entries are replicated (:func:`model_specs`); None
+        for a training chain."""
+        from repro_torch.models.transformer import init_params
+        from repro_torch.utils import paired_leaves, tree_map
+
         if MODEL_AXIS not in axis_names(mesh):
             raise ValueError(f"the mesh has no {MODEL_AXIS!r} axis to split each "
                              f"chain's tensors over (its axes: {axis_names(mesh)})")
+        full = cfg.param_sharding == "fsdp_full"
         batch_axes = tuple(batch_axes)
-        if any(a not in axis_names(mesh) or a == MODEL_AXIS for a in batch_axes):
+        if any(a not in axis_names(mesh) or (a == MODEL_AXIS and not full)
+               for a in batch_axes):
             raise ValueError(f"batch_axes {batch_axes} must name axes of the mesh other "
-                             f"than {MODEL_AXIS!r} (its axes: {axis_names(mesh)})")
+                             f"than {MODEL_AXIS!r} (its axes: {axis_names(mesh)}; "
+                             f"only fsdp_full splits the batch over {MODEL_AXIS!r})")
         m = axis_size(mesh, MODEL_AXIS)
         r = mesh.get_local_rank(MODEL_AXIS)
         E = cfg.num_experts
+        if full and E:
+            raise ValueError(f"{cfg.name}: fsdp_full is for dense configs ({E} experts; "
+                             "the reference's 'fsdp' option asserts the same)")
+        if full and chain_axis is not None:
+            raise ValueError(f"{cfg.name}: fsdp_full lays out a training chain, not a "
+                             f"2-D bank whose {chain_axis!r} axis holds chains")
         if E and E % m:
             raise ValueError(f"{cfg.name}: {E} experts do not divide over the "
                              f"{MODEL_AXIS!r} axis of size {m} (expert parallelism "
                              "holds E / m experts a rank)")
-        specs = model_specs(cfg, mesh)
+        specs = model_specs(cfg, mesh, chain_axis)
+        like = init_params(cfg, device="meta")
+        gathers = tree_map(lambda _, s: tuple(_gathered(cfg, mesh, e) for e in s),
+                           like, specs)
+        fsdp = any(any(g) for g in paired_leaves(like, gathers))
         H, KV = cfg.num_heads, cfg.num_kv_heads
+        common = dict(mesh=mesh, size=m, rank=r, group=mesh.get_group(MODEL_AXIS),
+                      batch_axes=batch_axes, gathers=gathers, fsdp=fsdp)
+        if full or m == 1:  # nothing tensor-parallel: gathered, or an axis of one
+            return cls(heads=(H, KV, 0, 0), kv_take=False, attn=False, mlp=False,
+                       vocab_in=False, vocab_out=False, experts=E, shared=False,
+                       **common)
         heads, kv_take, attn = (H, KV, 0, 0), False, False
         if "stack" in specs and "attn" in specs["stack"]:
             attn = _split(specs, "stack/attn/wq")
@@ -443,15 +505,14 @@ class ModelAxis:
         summed = frozenset(f"stack/{n}" for n in summed
                            if n.split("/")[1] in stack.get(n.split("/")[0], {}))
         return cls(
-            mesh=mesh, size=m, rank=r, group=mesh.get_group(MODEL_AXIS), heads=heads,
-            kv_take=kv_take, attn=attn,
+            heads=heads, kv_take=kv_take, attn=attn,
             mlp="mlp" in stack and _split(specs, "stack/mlp/w_down"),
             vocab_in=_split(specs, "embed/w"),
             vocab_out=_split(specs, "embed/w" if tied else "lm_head/w"),
             experts=E // m if E else 0,
             shared="moe" in stack and "shared_w_down" in stack["moe"]
             and _split(specs, "stack/moe/shared_w_down"),
-            summed=summed, batch_axes=batch_axes)
+            summed=summed, **common)
 
     # -- collectives over the axis (identity on an axis of one rank) ---------
     def copy_to(self, t: torch.Tensor) -> torch.Tensor:
@@ -471,9 +532,29 @@ class ModelAxis:
         (:func:`gather_from`)."""
         return gather_from(t, self.group, dim) if self.size > 1 else t
 
+    # -- FSDP ----------------------------------------------------------------
+    def gather(self, tree, gathers, skip: int = 0):
+        """``tree``'s leaves (a rank's blocks with the chain axis in front)
+        whole where ``gathers`` (the matching subtree of :attr:`gathers`)
+        names FSDP axes; ``skip`` leading spec entries are absent from the
+        tensors (1 for one layer of a stack: its ``L``)."""
+        from repro_torch.utils import tree_map
+
+        def one(t, g):
+            for d, axes in enumerate(g[skip:]):
+                if axes:
+                    t = gather_blocks(t, axes_group(self.mesh, axes), 1 + d, axes)
+            return t
+
+        return tree_map(one, tree, gathers)
+
+    def gathered_axes(self, path: str) -> tuple:
+        """The FSDP axes the leaf at ``path`` (one chain's) is split over."""
+        return tuple(a for g in _spec_at(self.gathers, path) if g for a in g)
+
 
 # ---------------------------------------------------------------------------
-# collectives with gradients (Megatron-LM's tensor-parallel mappings)
+# collectives with gradients (Megatron-LM's tensor-parallel mappings, FSDP)
 # ---------------------------------------------------------------------------
 # The ranks of an axis compute one loss, the same bits on every rank.  A
 # replicated tensor that enters a region where each rank computes its part
@@ -487,47 +568,93 @@ class ModelAxis:
 #: by kind: ``forward`` (row-parallel exits, the lookup, the MoE's aux, a
 #: gather), ``backward`` (column-parallel entries), ``loss`` (the
 #: vocabulary-parallel cross-entropy's), ``model sum`` and ``data mean``
-#: (the gradient function's, once a step)
+#: (the gradient function's, once a step), ``fsdp gather`` and ``fsdp
+#: reduce`` (FSDP's gather of a leaf and its backward)
 COLLECTIVES: Counter = Counter()
+#: what those collectives moved on this rank, by ``(op, axes)`` —
+#: ``op`` ``"all_reduce"`` (the buffer's bytes) or ``"all_gather"`` (the
+#: result's), ``axes`` the mesh axes of the group — as ``[calls, bytes]``,
+#: each times the loop multiplier of a count on ``meta``
+#: (:func:`repro_torch.analysis.cost.repeated`): the dry run's collective
+#: term
+TRAFFIC: dict = {}
+#: FSDP's gathered bytes alive now and at most since
+#: :func:`reset_collectives` (each gathered tensor counted until it is freed)
+GATHERED = {"alive": 0, "peak": 0}
+_REPLAY = [False]
 
 
-def count_collective(kind: str, n: int = 1) -> None:
+def count_collective(kind: str, n: int = 1, op: str | None = None, axes=(),
+                     t: torch.Tensor | None = None) -> None:
+    """One more collective of ``kind`` (``n`` of them); with ``op``, its
+    bytes (``t``'s) over the mesh ``axes`` go to :data:`TRAFFIC`."""
     COLLECTIVES[kind] += n
+    if op is not None:
+        entry = TRAFFIC.setdefault((op, tuple(axes)), [0, 0])
+        m = multiplier()
+        entry[0] += n * m
+        entry[1] += n * m * t.numel() * t.element_size()
 
 
 def reset_collectives() -> None:
     COLLECTIVES.clear()
+    TRAFFIC.clear()
+    GATHERED.update(alive=GATHERED["alive"], peak=GATHERED["alive"])
+
+
+def replaying() -> bool:
+    """True while a checkpointed layer is recomputed for its backward: what
+    counts an event once a step (the MoE's dropped pairs) counts nothing."""
+    return _REPLAY[0]
+
+
+@contextlib.contextmanager
+def replay(on: bool = True):
+    prev = _REPLAY[0]
+    _REPLAY[0] = on
+    try:
+        yield
+    finally:
+        _REPLAY[0] = prev
+
+
+def all_reduce(t: torch.Tensor, group, axes, kind: str, op=None) -> torch.Tensor:
+    """``dist.all_reduce`` of ``t`` in place over ``group`` (the mesh
+    ``axes``), counted as ``kind``."""
+    import torch.distributed as dist
+
+    count_collective(kind, 1, "all_reduce", axes, t)
+    dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def _release(nbytes: int) -> None:
+    GATHERED["alive"] -= nbytes
 
 
 class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
+    def forward(ctx, t, group, axes):
+        ctx.group, ctx.axes = group, axes
         return t.view_as(t)
 
     @staticmethod
     def backward(ctx, g):
-        import torch.distributed as dist
-
         g = g.clone(memory_format=torch.contiguous_format)
-        count_collective("backward")
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        all_reduce(g, ctx.group, ctx.axes, "backward")
+        return g, None, None
 
 
 class _SumFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, group, n):
-        import torch.distributed as dist
-
+    def forward(ctx, t, group, n, axes):
         out = t.clone(memory_format=torch.contiguous_format)
-        count_collective("forward")
-        dist.all_reduce(out, group=group)
+        all_reduce(out, group, axes, "forward")
         return out if n == 1 else out / n
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
 
 
 class _GatherFrom(torch.autograd.Function):
@@ -539,34 +666,73 @@ class _GatherFrom(torch.autograd.Function):
 
         ctx.dim, ctx.n = dim, t.shape[dim]
         ctx.rank = dist.get_rank(group)
-        count_collective("forward")
-        return all_gather(t, group, dim)
+        out = all_gather(t, group, dim)
+        count_collective("forward", 1, "all_gather", (MODEL_AXIS,), out)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
 
 
-def copy_to(t: torch.Tensor, group) -> torch.Tensor:
-    """Identity forward; backward, the gradient summed over ``group``."""
-    return _CopyTo.apply(t, group)
+class _GatherBlocks(torch.autograd.Function):
+    """FSDP's gather of a leaf: forward, the group's blocks concatenated
+    along ``dim`` in rank order; backward, the rank's block of the
+    gradient summed over the group.  The sum is one all-reduce of the whole
+    gradient and the rank's slice of it — a reduce-scatter's result, from
+    the collective that both gloo on a card's tensors and NCCL take."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim, axes):
+        import torch.distributed as dist
+
+        from repro_torch.utils import all_gather
+
+        ctx.group, ctx.dim, ctx.n, ctx.axes = group, dim, t.shape[dim], axes
+        ctx.rank = dist.get_rank(group)
+        out = all_gather(t, group, dim)
+        count_collective("fsdp gather", 1, "all_gather", axes, out)
+        nbytes = out.numel() * out.element_size()
+        GATHERED["alive"] += nbytes
+        GATHERED["peak"] = max(GATHERED["peak"], GATHERED["alive"])
+        weakref.finalize(out, _release, nbytes)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        all_reduce(g, ctx.group, ctx.axes, "fsdp reduce")
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None
 
 
-def reduce_from(t: torch.Tensor, group) -> torch.Tensor:
+def copy_to(t: torch.Tensor, group, axes=(MODEL_AXIS,)) -> torch.Tensor:
+    """Identity forward; backward, the gradient summed over ``group`` (the
+    mesh ``axes``)."""
+    return _CopyTo.apply(t, group, tuple(axes))
+
+
+def reduce_from(t: torch.Tensor, group, axes=(MODEL_AXIS,)) -> torch.Tensor:
     """The sum of ``t`` over ``group`` (one ``dist.all_reduce``, every rank
     the same bits); backward, the gradient passed through."""
-    return _SumFrom.apply(t, group, 1)
+    return _SumFrom.apply(t, group, 1, tuple(axes))
 
 
-def mean_value(t: torch.Tensor, group, n: int) -> torch.Tensor:
+def mean_value(t: torch.Tensor, group, n: int, axes=()) -> torch.Tensor:
     """The mean of ``t`` over the ``n`` ranks of ``group`` (a batch axis);
     backward, each rank's gradient of its own ``t``, which the caller
     averages over the axis with the rest of the gradient
     (:func:`repro_torch.train.loop.make_grad_fn`)."""
-    return _SumFrom.apply(t, group, n)
+    return _SumFrom.apply(t, group, n, tuple(axes))
 
 
 def gather_from(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """``group``'s ranks' ``t`` concatenated along ``dim``; backward, the
     rank's slice of the gradient."""
     return _GatherFrom.apply(t, group, dim)
+
+
+def gather_blocks(t: torch.Tensor, group, dim: int, axes) -> torch.Tensor:
+    """FSDP's gather: ``group``'s blocks of a leaf (over the mesh ``axes``,
+    the first major) concatenated along ``dim``; backward, the gradient
+    summed over ``group``, each rank its block (:class:`_GatherBlocks`)."""
+    return _GatherBlocks.apply(t, group, dim, tuple(axes))

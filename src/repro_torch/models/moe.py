@@ -40,7 +40,11 @@ over ``model`` by the gradient function; over a batch axis the aux's value
 is the shards' mean and its gradient each shard's own, as the gradient is
 averaged over the shards after the step.
 Experts the axis does not divide are refused (the reference divides
-without checking).
+without checking).  Under ``fsdp_tp`` a rank holds its experts' ``d_ff``
+split over the data axes too (FSDP); the model gathers them whole for the
+layer (``Model``'s layer gather, the reference's ``all_gather`` over
+``fsdp_axes`` inside its ``shard_map``) before they reach
+:func:`apply_moe`, which sees the rank's experts whole.
 
 The dropped pairs are counted on the device without a host sync (one
 reduction a layer); :func:`dropped_pairs` reads the count and
@@ -65,6 +69,7 @@ from repro_torch.models.common import (
     dense_init,
     mean_value,
     reduce_from,
+    replaying,
 )
 
 CAPACITY_FACTOR = 1.25
@@ -107,7 +112,7 @@ def reset_dropped() -> None:
 
 
 def _count_dropped(keep: torch.Tensor) -> None:
-    if keep.device.type == "meta":  # no values to count (the dry run)
+    if keep.device.type == "meta" or replaying():  # no values / counted already
         return
     n = (~keep).sum()
     prev = _DROPPED.get(keep.device)
@@ -216,5 +221,5 @@ def apply_moe(params, x, cfg, mesh=None, batch_axes=()):
         out = out + _shared_partial(params, xt, act)
     for a in batch_axes:  # the value the mean over the shards, the gradient each's
         if axis_size(mesh, a) > 1:
-            aux = mean_value(aux, mesh.get_group(a), axis_size(mesh, a))
-    return out.reshape(C, B, S, d), aux / m
+            aux = mean_value(aux, mesh.get_group(a), axis_size(mesh, a), (a,))
+    return out.reshape(C, B, S, d), aux / m if m > 1 else aux

@@ -44,7 +44,14 @@ replicated K/V projection its queries read), its MLP columns, its experts
 and its slice of the vocabulary; the row-parallel products and the
 embedding's masked lookup are all-reduced over ``model``, and the logits
 come back as the rank's vocabulary slice (:meth:`Model.gather_vocab`
-gathers them).  The decode caches hold the local KV heads.  The
+gathers them).  The decode caches hold the local KV heads.  Under FSDP
+(``fsdp_full``: every weight split over every axis; ``fsdp_tp``: the
+experts' ``d_ff`` over the data axes) a rank holds its block of each such
+leaf, and the model gathers it whole where it is used: the embedding and
+the head as they are reached, a layer's leaves as the layer runs — under
+``torch.utils.checkpoint`` when a gradient is taken, so a layer's gathered
+weights are freed with its forward and gathered again for its backward
+(ZeRO-3's gather a layer).  The
 collectives are differentiable (Megatron-LM's mappings,
 :func:`~repro_torch.models.common.copy_to` and its neighbours) and
 :func:`loss_fn`'s cross-entropy is vocabulary-parallel, so a placed
@@ -68,15 +75,17 @@ from repro_torch.analysis.cost import repeated
 from repro_torch.kernels.ops import fused_decode_step, fused_paged_decode_step
 from repro_torch.models.attention import attention_any
 from repro_torch.models.common import (
+    MODEL_AXIS,
+    all_reduce,
     apply_rope,
     bank_matmul,
-    count_collective,
     dense_init,
     dtype_of,
     embed_init,
     head_rms_norm,
     ModelAxis,
     per_chain,
+    replay,
     rms_norm,
 )
 from repro_torch.models.mlp import apply_mlp, init_mlp
@@ -387,9 +396,16 @@ class Model:
     MoE's capacity is a shard's and its aux the mean over the shards
     (:func:`repro_torch.train.loop.make_grad_fn` averages the gradient
     over them).  The model's collectives are differentiable, so
-    :func:`loss_fn` backpropagates to every rank's block."""
+    :func:`loss_fn` backpropagates to every rank's block.
 
-    def __init__(self, cfg, device="cuda", mesh=None, batch_axes=()):
+    ``chain_axis`` (with ``mesh``): the axis a 2-D serving bank holds its
+    chains on, whose spec entries the bank replicates (an ``fsdp_tp``
+    config's experts stay whole there).  A ``fsdp_full`` config
+    (``launch.steps.adapt_config(..., ("fsdp",))``) is gathered leaf by
+    leaf and runs every block kind; the tensor-parallel layouts take
+    homogeneous attention stacks."""
+
+    def __init__(self, cfg, device="cuda", mesh=None, batch_axes=(), chain_axis=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.tp = None
@@ -398,11 +414,52 @@ class Model:
             raise ValueError(f"batch_axes {self.batch_axes} split a batch over a mesh: "
                              "pass mesh=")
         if mesh is not None:
-            self._require_stacked_attention("a model split over the 'model' axis")
-            self.tp = ModelAxis.of(mesh, cfg, self.batch_axes)
+            if cfg.param_sharding != "fsdp_full":
+                self._require_stacked_attention("a model split over the 'model' axis")
+            self.tp = ModelAxis.of(mesh, cfg, self.batch_axes, chain_axis)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return to_device(tokens, self.device).long()
+
+    # -- FSDP: a rank's blocks gathered where they are used --------------------
+    def _top(self, params, name: str):
+        """``params[name]`` (the embedding, the head, the frontend's
+        projection) whole: its FSDP blocks gathered."""
+        tp = self.tp
+        if tp is None or not tp.fsdp:
+            return params[name]
+        return tp.gather(params[name], tp.gathers[name])
+
+    def _gather_layer(self, i: int, layer: dict) -> dict:
+        tp = self.tp
+        if tp is None or not tp.fsdp:
+            return layer
+        if "stack" in tp.gathers:
+            return tp.gather(layer, tp.gathers["stack"], skip=1)
+        return tp.gather(layer, tp.gathers["layers"][i])
+
+    def _run_layer(self, i: int, block: str, layer: dict, x, positions):
+        """:func:`apply_block` of layer ``i``.  Under FSDP its leaves are
+        gathered for it, inside a checkpoint when a gradient is taken: the
+        gathered weights are freed with the layer's forward and gathered
+        again when its backward recomputes it (under :func:`~repro_torch.
+        models.common.replay`, so once-a-step counts are not taken twice)."""
+        tp = self.tp
+        if tp is None or not tp.fsdp:
+            return apply_block(layer, x, self.cfg, block, positions, tp=tp)
+        calls: list = []
+
+        def body(x):
+            with replay(len(calls) > 0):
+                calls.append(1)
+                return apply_block(self._gather_layer(i, layer), x, self.cfg, block,
+                                   positions, tp=tp)
+
+        if not torch.is_grad_enabled():
+            return body(x)
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
 
     def _lookup(self, w, tokens) -> torch.Tensor:
         """The embedding rows of ``tokens``: ``w[:, tokens]`` per chain.
@@ -438,17 +495,17 @@ class Model:
         parts = []
         if self.cfg.frontend:
             fe = to_device(batch["frontend"], self.device).float()
-            proj = params["frontend"]["proj"]
+            proj = self._top(params, "frontend")["proj"]
             parts.append(bank_matmul(fe.expand(proj.shape[0], *fe.shape),
                                      proj.float()).to(dtype_of(self.cfg)))
         if "tokens" in batch:
-            parts.append(self._lookup(params["embed"]["w"], batch["tokens"]))
+            parts.append(self._lookup(self._top(params, "embed")["w"], batch["tokens"]))
         x = torch.cat(parts, dim=2) if len(parts) > 1 else parts[0]
         return x, torch.arange(x.shape[2], device=self.device)
 
     def unembed(self, params, x):
-        w = (params["embed"]["w"].transpose(-1, -2) if self.cfg.tie_embeddings
-             else params["lm_head"]["w"])
+        w = (self._top(params, "embed")["w"].transpose(-1, -2) if self.cfg.tie_embeddings
+             else self._top(params, "lm_head")["w"])
         x = rms_norm(x, per_chain(params["final_norm"], x), self.cfg.norm_eps)
         if self.tp is not None and self.tp.vocab_out:  # the rank's vocabulary columns
             x = self.tp.copy_to(x)
@@ -486,9 +543,8 @@ class Model:
             # run) one period, counted num_layers / period times
             def one_period(x):
                 aux_p, kvs = torch.zeros_like(aux_total), []
-                for block, layer in steps[:period]:
-                    x, aux, kv = apply_block(layer, x, self.cfg, block, positions,
-                                             tp=self.tp)
+                for i, (block, layer) in enumerate(steps[:period]):
+                    x, aux, kv = self._run_layer(i, block, layer, x, positions)
                     aux_p = aux_p if aux is None else aux_p + aux
                     kvs.append(kv)
                 return x, aux_p, kvs
@@ -502,7 +558,7 @@ class Model:
         for i, (block, layer) in enumerate(steps):
             if tap is not None:
                 x = tap(i, x)
-            x, aux, kv = apply_block(layer, x, self.cfg, block, positions, tp=self.tp)
+            x, aux, kv = self._run_layer(i, block, layer, x, positions)
             if aux is not None:
                 aux_total = aux_total + aux
             if want_kv:
@@ -658,12 +714,12 @@ class Model:
         (i = L: the last layer's output) and returns what the layer takes
         instead: a caller feeds each layer another stream's activations
         (teacher forcing) or reads them."""
-        x = self._lookup(params["embed"]["w"], tokens)  # (C, B, 1, d)
+        x = self._lookup(self._top(params, "embed")["w"], tokens)  # (C, B, 1, d)
         positions = torch.tensor([cur_pos], device=self.device)
         for i, (block, layer) in enumerate(self._layers(params)):
             if tap is not None:
                 x = tap(i, x)
-            x, _, _ = apply_block(layer, x, self.cfg, block, positions,
+            x, _, _ = apply_block(self._gather_layer(i, layer), x, self.cfg, block, positions,
                                   cache=_layer_cache(cache, i), cur_pos=cur_pos,
                                   tp=self.tp)
         if tap is not None:
@@ -725,13 +781,14 @@ class Model:
         garbage page).  Returns (logits (C, S, 1, V), pages)."""
         self._require_paged("paged_step")
         cfg = self.cfg
-        x = self._lookup(params["embed"]["w"], tokens)  # (C, S, 1, d)
+        x = self._lookup(self._top(params, "embed")["w"], tokens)  # (C, S, 1, d)
         tables = torch.as_tensor(tables, device=self.device).to(torch.int32)
         positions = torch.as_tensor(positions, device=self.device).to(torch.int32)
         block = cfg.block_pattern[0]
         for i in range(cfg.num_layers):
             layer_pages = {"k": pages["k"][i], "v": pages["v"][i]}
-            x, _ = apply_paged_block(_layer(params["stack"], i), x, cfg, block,
+            x, _ = apply_paged_block(self._gather_layer(i, _layer(params["stack"], i)), x,
+                                     cfg, block,
                                      layer_pages, tables, positions, self.tp)
         return self.unembed(params, x), pages
 
@@ -754,16 +811,15 @@ class _VocabParallelCE(torch.autograd.Function):
         x = logits.float()
         n = x.shape[-1]
         top = x.amax(dim=-1)
-        count_collective("loss", 3)
-        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        all_reduce(top, group, (MODEL_AXIS,), "loss", op=dist.ReduceOp.MAX)
         e = torch.exp(x - top[..., None])
         total = e.sum(dim=-1)
-        dist.all_reduce(total, group=group)
+        all_reduce(total, group, (MODEL_AXIS,), "loss")
         t = labels - start
         inside = (t >= 0) & (t < n)
         t = t.clamp(0, n - 1)
         picked = torch.where(inside, x.gather(-1, t[..., None])[..., 0], 0.0)
-        dist.all_reduce(picked, group=group)
+        all_reduce(picked, group, (MODEL_AXIS,), "loss")
         e /= total[..., None]  # the softmax of the rank's slice
         ctx.save_for_backward(e, t, inside)
         ctx.dtype = logits.dtype

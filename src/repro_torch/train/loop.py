@@ -27,7 +27,7 @@ from repro_torch.analysis.cost import repeated
 from repro_torch.core.sgld import SGLDConfig
 from repro_torch.kernels import rng
 from repro_torch.launch.mesh import axis_size
-from repro_torch.models.common import count_collective
+from repro_torch.models.common import MODEL_AXIS, all_reduce
 from repro_torch.models.transformer import Model, loss_fn
 from repro_torch.train.engine import Engine, log_hook
 from repro_torch.utils import (
@@ -54,53 +54,72 @@ def _split_microbatch(batch: PyTree, n: int) -> list:
                      batch) for i in range(n)]
 
 
-def microbatch_rows(model: Model, batch_size: int, n: int, i: int) -> slice:
-    """The rows of a global batch of ``batch_size`` that this rank takes in
-    microbatch ``i`` of ``n``, as the reference splits them under GSPMD:
-    microbatch ``i`` is rows ``[i B/n, (i+1) B/n)`` (a reshape), split over
-    ``model.batch_axes`` in mesh order, so data rank ``d`` of ``D`` takes
-    ``[i B/n + d B/(nD), i B/n + (d+1) B/(nD))``.  Without batch axes, the
-    whole microbatch."""
+def microbatch_rows(model: Model, batch_size: int, n: int) -> list:
+    """The rows of a global batch of ``batch_size`` that this rank takes,
+    one slice a microbatch, as the reference splits them under GSPMD:
+    microbatch ``i`` of ``n`` is rows ``[i B/n, (i+1) B/n)`` (a reshape),
+    split over ``model.batch_axes`` in mesh order, so data rank ``d`` of
+    ``D`` takes ``[i B/n + d B/(nD), i B/n + (d+1) B/(nD))``.  Without
+    batch axes, the whole microbatches.
+
+    Where a microbatch does not split over the ``D`` shards but the batch
+    does (a ``fsdp_full`` batch over every axis: ``train_4k``'s 64-row
+    microbatches over 256 ranks), a dense model's rank takes its ``B / D``
+    rows of the batch as GSPMD lays it out, in ``gcd(n, B / D)``
+    microbatches: every microbatch the same size, the mean over them and
+    the shards is the mean over the batch, as the reference's.  A MoE's
+    capacity is a shard's, so there it is refused."""
     tp = model.tp
     axes = () if tp is None else tp.batch_axes
     D, d = 1, 0
     for a in axes:
         size = axis_size(tp.mesh, a)
         D, d = D * size, d * size + tp.mesh.get_local_rank(a)
-    if batch_size % n or (batch_size // n) % D:
+    if batch_size % n == 0 and (batch_size // n) % D == 0:
+        per, sub = batch_size // n, batch_size // n // D
+        return [slice(i * per + d * sub, i * per + (d + 1) * sub) for i in range(n)]
+    if batch_size % D or model.cfg.num_experts:
         raise ValueError(f"a global batch of {batch_size} does not split into {n} "
                          f"microbatches over {D} shards of {axes}")
-    per, sub = batch_size // n, batch_size // n // D
-    return slice(i * per + d * sub, i * per + (d + 1) * sub)
+    own = batch_size // D
+    m = math.gcd(n, own)
+    return [slice(d * own + i * (own // m), d * own + (i + 1) * (own // m))
+            for i in range(m)]
 
 
 def _reduce_placed(model: Model, grads: PyTree, metrics: dict) -> dict:
     """Once a step, in place: the leaves of ``model.tp.summed`` summed over
     ``model`` (a rank's part of their gradient), then every leaf and the
-    metrics averaged over the batch axes, every rank the same bits."""
-    import torch.distributed as dist
+    metrics averaged over the batch axes, every rank the same bits.
 
+    An FSDP leaf's gradient came back from its gather's backward already
+    summed over the axes its block is split over: it is all-reduced only
+    over the batch axes outside those (never twice), and divided by the
+    batch shards and by the ranks of those axes that hold the same rows
+    (an axis that splits the leaf but not the batch, ``model`` when a
+    ``fsdp_full`` batch does not divide over it)."""
     from repro_torch.checkpoint.io import leaf_paths
 
     tp = model.tp
     axes = [a for a in tp.batch_axes if axis_size(tp.mesh, a) > 1]
     D = math.prod(axis_size(tp.mesh, a) for a in axes)
     for path, g in leaf_paths(grads):
-        if tp.size > 1 and path.replace("##", "/") in tp.summed:
-            count_collective("model sum")
-            dist.all_reduce(g, group=tp.group)
+        path = path.replace("##", "/")
+        if tp.size > 1 and path in tp.summed:
+            all_reduce(g, tp.group, (MODEL_AXIS,), "model sum")
+        summed = tp.gathered_axes(path)
         for a in axes:
-            count_collective("data mean")
-            dist.all_reduce(g, group=tp.mesh.get_group(a))
-        if D > 1:
-            g.div_(D)
+            if a not in summed:
+                all_reduce(g, tp.mesh.get_group(a), (a,), "data mean")
+        n = D * math.prod(axis_size(tp.mesh, a) for a in summed if a not in axes)
+        if n > 1:
+            g.div_(n)
     if not axes:
         return metrics
     names = sorted(metrics)
     vals = torch.stack([metrics[k].float() for k in names])
     for a in axes:
-        count_collective("data mean")
-        dist.all_reduce(vals, group=tp.mesh.get_group(a))
+        all_reduce(vals, tp.mesh.get_group(a), (a,), "data mean")
     vals = vals / D
     return {k: vals[i] for i, k in enumerate(names)}
 
@@ -145,10 +164,13 @@ def make_grad_fn(model: Model, num_microbatches: int = 1):
 
     if model.tp is not None:
         def placed(params, batch):
-            size, n = tree_leaves(batch)[0].shape[0], max(1, num_microbatches)
-            rows = [microbatch_rows(model, size, n, i) for i in range(n)]
-            grads, metrics = _accumulate(single, local(params),
-                                         [tree_map(lambda x, r=r: x[r], batch) for r in rows])
+            size = tree_leaves(batch)[0].shape[0]
+            rows = microbatch_rows(model, size, max(1, num_microbatches))
+            mbs = [tree_map(lambda x, r=r: x[r], batch) for r in rows]
+            if tree_leaves(params)[0].device.type == "meta":  # alike: one, n times
+                grads, metrics = repeated(len(mbs), single, local(params), mbs[0])
+            else:
+                grads, metrics = _accumulate(single, local(params), mbs)
             metrics = _reduce_placed(model, grads, metrics)
             return place_like(grads, params), metrics
 

@@ -23,6 +23,13 @@ partition rules, and the dry run on ``meta``.
 - The partition specs, leaf by leaf, for every config and every
   ``param_sharding`` mode, against the reference's ``PartitionSpec``s, and
   through ``sanitize_spec`` on three meshes.
+- The placed dry run (a fake world in this process, destroyed after): each
+  config's per-device parameter bytes on the production meshes, ``tp`` and
+  ``"fsdp"``, against the reference's specs; a 1 x 1 mesh gives the
+  unplaced figures; every config finishes on a 2 x 2 mesh.
+- ``cache_spec_tree``: the reference's cache specs leaf by leaf through the
+  port's chain axis, but the attention ring's, which splits KV heads
+  (named here) where the reference splits ``head_dim``.
 """
 
 import time
@@ -122,8 +129,9 @@ def test_adapt_config_matches_the_references():
                 (want.sliding_window, want.vocab_size), (arch, name)
     assert steps.adapt_config(get_arch("qwen3-4b"), get_shape("long_500k")) \
         .sliding_window == steps.LONG_CONTEXT_WINDOW == 8192
-    with pytest.raises(ValueError, match="mesh"):
-        steps.adapt_config(get_arch("qwen3-4b"), get_shape("train_4k"), ("fsdp",))
+    for opt in ("window_slice", "unroll"):  # XLA's layout switches
+        with pytest.raises(ValueError, match="XLA"):
+            steps.adapt_config(get_arch("qwen3-4b"), get_shape("train_4k"), (opt,))
 
 
 # ---------------------------------------------------------------------------
@@ -262,9 +270,18 @@ def test_kernel_formulas_are_chip_smokes():
 
 
 def test_roofline_terms_and_mfu():
-    r = roofline.analyze("x", Cost(flops=989.4e12, bytes=3.35e12), 2, 494.7e12)
+    """One device's counts over the card's rates, its collective bytes over
+    the link a mesh of that size is bounded by (NVLink within a node of 8,
+    InfiniBand beyond); the global FLOPs the device's times the mesh's
+    size."""
+    r = roofline.analyze("x", Cost(flops=494.7e12, bytes=1.675e12), 494.7e12, 2,
+                         collective_bytes=0.45e12)
     assert (r.flops_per_device, r.t_compute, r.t_memory) == (494.7e12, 0.5, 0.5)
     assert r.useful_ratio == 0.5 and "H100" in r.card
+    assert r.t_collective == 1.0 and r.dominant == "collective" and "NVLink" in r.link
+    r = roofline.analyze("x", Cost(flops=1.0, bytes=1.0), 1.0, 256, collective_bytes=50e9)
+    assert r.t_collective == 1.0 and "InfiniBand" in r.link
+    assert roofline.analyze("x", Cost(flops=1.0, bytes=1.0), 1.0).t_collective == 0.0
     assert roofline.mfu(989.4e12, 2.0) == 0.5
 
 
@@ -390,22 +407,135 @@ def test_sanitized_specs_equal_the_references(arch):
 # ---------------------------------------------------------------------------
 # the dry run
 # ---------------------------------------------------------------------------
+#: the configs the tensor-parallel layouts refuse (not an attention stack of
+#: token prompts): placed under the "fsdp" option instead
+FSDP_ONLY = ("hymba-1.5b", "xlstm-1.3b", "internvl2-1b", "musicgen-medium")
+
+
 @pytest.mark.parametrize("arch", IDS)
 def test_dry_run_of_every_arch_finishes_on_meta(arch, tmp_path):
+    """Each config's train, prefill and decode steps placed on a ``data`` 2 x
+    ``model`` 2 mesh (a fake world of 4 in this process): rank 0's step
+    counted, its figures per device; a config the tensor-parallel layouts
+    refuse is written as a refusal with its reason, and placed under
+    ``"fsdp"`` instead."""
     t0 = time.perf_counter()
-    for kind in ("train", "prefill", "decode"):
-        shape = ShapeConfig(f"ci_{kind}", 128, 2, kind, num_microbatches=2 if kind == "train" else 1)
-        res = dryrun.run_combo(arch, shape.name, shape=shape, cfg0=get_reduced(arch),
-                               num_devices=4, verbose=False)
-        r = res["roofline"]
-        assert res["counted"]["flops"] > 0 and r["flops_per_device"] * 4 == \
-            pytest.approx(res["counted"]["flops"])
-        assert r["dominant"] in ("compute", "memory") and "H100" in r["card"]
-        assert res["memory"]["param_bytes"] > 0
-        if kind == "decode":
-            assert res["memory"]["cache_bytes"] > 0
-        assert dryrun.save_result(res, str(tmp_path)).endswith(".json")
+    opts = ("fsdp",) if get_arch(arch).name in FSDP_ONLY else ()
+    with dryrun.placed((2, 2)) as m:
+        for kind in ("train", "prefill", "decode"):
+            shape = ShapeConfig(f"ci_{kind}", 128, 4, kind,
+                                num_microbatches=2 if kind == "train" else 1)
+            if opts:
+                res = dryrun.run_combo(arch, shape.name, shape=shape,
+                                       cfg0=get_reduced(arch), mesh=m, verbose=False)
+                assert "attention stack" in res["refused"] or "frontend" in res["refused"]
+                assert res["memory"]["param_bytes"] > 0
+            res = dryrun.run_combo(arch, shape.name, shape=shape, cfg0=get_reduced(arch),
+                                   mesh=m, opts=opts, verbose=False)
+            r = res["roofline"]
+            assert "refused" not in res and res["num_devices"] == 4
+            assert res["counted"]["flops"] > 0 and r["flops_per_device"] * 4 == \
+                pytest.approx(r["counted_flops_global"])
+            assert r["dominant"] in ("compute", "memory", "collective") and "H100" in r["card"]
+            assert res["memory"]["param_bytes"] > 0 and r["collective_bytes_per_device"] > 0
+            if kind == "decode":
+                assert res["memory"]["cache_bytes"] > 0
+            assert dryrun.save_result(res, str(tmp_path)).endswith(".json")
+    assert not torch.distributed.is_initialized()
     assert time.perf_counter() - t0 < 60
+
+
+def _jax_param_bytes(arch, axes, opts):
+    """One chain's parameter bytes a device holds on a mesh of ``axes``,
+    from the JAX package's ``adapt_config``, ``partition_tree`` and
+    ``sanitize_spec`` (a namespace whose ``shape`` is the axis dict stands
+    in for the mesh; they read nothing else); None where the reference
+    refuses the option."""
+    from repro.launch.steps import sanitize_spec as jax_sanitize
+
+    try:
+        jcfg = jax_steps.adapt_config(jc.get_arch(arch), jc.get_shape("train_4k"), opts)
+    except AssertionError:
+        return None
+    jm = _JaxMeshShape(axes)
+    params = jax.eval_shape(lambda k: jax_init(k, jcfg), jax.random.PRNGKey(0))
+    specs = jax_partition_tree(params, jcfg.param_sharding, jax_mesh.fsdp_axes_for(jm),
+                               cfg=jcfg, model_size=axes["model"])
+    total = 0
+    for sp, x in zip(_jax_specs(specs), jax.tree_util.tree_leaves(params)):
+        sp = jax_sanitize(sp, x.shape, jm)
+        split = int(np.prod([axes[a] for e in sp if e is not None
+                             for a in ((e,) if isinstance(e, str) else e)]))
+        total += int(np.prod(x.shape)) * x.dtype.itemsize // split
+    return total
+
+
+@pytest.mark.parametrize("arch", IDS)
+def test_placed_param_bytes_equal_the_references_specs(arch):
+    """Per-device parameter bytes of the placed dry run (rank 0's blocks, or
+    a refusal's spec bytes) on the 16 x 16 and 2 x 16 x 16 production
+    meshes, ``tp`` (the config's own layout) and ``"fsdp"``: equal to those
+    the JAX package's own specs give; ``"fsdp"`` on a MoE refused by
+    both."""
+    shape = get_shape("train_4k")
+    for dims in ((16, 16), (2, 16, 16)):
+        axes = dict(zip(("pod", "data", "model")[-len(dims):], dims))
+        with dryrun.placed(dims) as m:
+            for opts in ((), ("fsdp",)):
+                want = _jax_param_bytes(arch, axes, opts)
+                if want is None:
+                    with pytest.raises(ValueError, match="dense"):
+                        steps.adapt_config(get_arch(arch), shape, opts)
+                    continue
+                res = dryrun.run_combo(arch, shape.name, mesh=m, opts=opts, verbose=False)
+                # a tensor-parallel layout the placed model refuses: the specs' bytes
+                assert ("refused" in res) == (get_arch(arch).name in FSDP_ONLY and not opts)
+                assert res["memory"]["param_bytes"] == want, (dims, opts)
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "kimi-k2-1t-a32b"])
+def test_a_placed_dry_run_on_one_card_is_the_unplaced_one(arch, kind):
+    """On a 1 x 1 mesh the placed model splits nothing: rank 0's step
+    counts the FLOPs, bytes and memory of the unplaced step, and sends no
+    collective."""
+    cfg = replace(get_reduced(arch), dtype="float32")
+    shape = ShapeConfig("t", 32, 4, kind, num_microbatches=2 if kind == "train" else 1)
+    one = dryrun.run_combo(arch, "t", shape=shape, cfg0=cfg, verbose=False)
+    with dryrun.placed((1, 1)) as m:
+        placed = dryrun.run_combo(arch, "t", shape=shape, cfg0=cfg, mesh=m, verbose=False)
+    assert placed["mesh"] == "1x1" and one["mesh"] == "1"
+    for k in ("memory", "counted"):
+        assert placed[k] == one[k], k
+    assert placed["collectives"] == {} == one["collectives"]
+
+
+def test_a_placed_dry_run_counts_the_collectives_by_axis():
+    """Reduced qwen3-4b trained on ``data`` 2 x ``model`` 2: the
+    tensor-parallel layout sends all-reduces over ``model`` (the row-parallel
+    exits, the loss) and over ``data`` (the gradient's mean); under
+    ``"fsdp"`` every weight is gathered over both axes (twice a layer: the
+    forward and its recompute) and its gradient summed over them, and
+    nothing runs on the activations."""
+    cfg = replace(get_reduced("qwen3-4b"), dtype="float32")
+    shape = ShapeConfig("t", 32, 8, "train", num_microbatches=2)
+    with dryrun.placed((2, 2)) as m:
+        tp = dryrun.run_combo("qwen3-4b", "t", shape=shape, cfg0=cfg, mesh=m,
+                              verbose=False)
+        fsdp = dryrun.run_combo("qwen3-4b", "t", shape=shape, cfg0=cfg, mesh=m,
+                                opts=("fsdp",), verbose=False)
+    assert set(tp["collectives"]) == {"all_reduce over model", "all_reduce over data"}
+    assert set(fsdp["collectives"]) == {"all_gather over data+model",
+                                        "all_reduce over data+model",
+                                        "all_reduce over data", "all_reduce over model"}
+    gathers = fsdp["collectives"]["all_gather over data+model"]
+    # 2 microbatches x (2 layers x 7 weights x 2 + the embedding and the head)
+    assert gathers["calls"] == 2 * (2 * 7 * 2 + 2)
+    whole = roofline.tree_bytes(init_params(cfg, device="meta"))
+    assert fsdp["memory"]["param_bytes"] * 4 == pytest.approx(whole, rel=0.01)  # 1/4 each
+    assert fsdp["memory"]["param_bytes"] < tp["memory"]["param_bytes"] < whole
+    assert fsdp["param_sharding"] == "fsdp_full"
 
 
 def test_dryrun_cli(tmp_path, capsys):
@@ -413,3 +543,107 @@ def test_dryrun_cli(tmp_path, capsys):
                         "--out", str(tmp_path)]) == 0
     assert "OK: 1 combinations" in capsys.readouterr().out
     assert len(list(tmp_path.glob("*.json"))) == 1
+
+
+def test_dryrun_cli_places_on_a_mesh_and_leaves_no_world(tmp_path, capsys):
+    """``--mesh`` and ``--opts fsdp``: a MoE's refusal is written with its
+    reason; no process group is left in the process."""
+    import json
+
+    assert dryrun.main(["--arch", "kimi-k2-1t-a32b", "--shape", "decode_32k",
+                        "--mesh", "16x16", "--opts", "fsdp", "--out", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "0 counted, 1 refused" in out and "dense" in out
+    (path,) = tmp_path.glob("*.json")
+    assert "dense" in json.loads(path.read_text())["refused"]
+    assert not torch.distributed.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# cache_spec_tree
+# ---------------------------------------------------------------------------
+def _without_chain(path: str, spec: tuple, stacked: bool) -> tuple:
+    """The port's cache spec with its chain axis' entry taken out (the ring's
+    ``pos`` has none)."""
+    if path.endswith("pos"):
+        return spec
+    i = 1 if stacked else 0
+    assert spec[i] is None
+    return spec[:i] + spec[i + 1:]
+
+
+def _paths(tree, path=""):
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k], f"{path}/{k}" if path
+                                                           else k)]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in _paths(v, f"{path}/{i}" if path
+                                                              else str(i))]
+    return [(path, tree)]
+
+
+@pytest.mark.parametrize("arch", IDS)
+def test_cache_specs_equal_the_references(arch):
+    """The port's decode-cache specs against the reference's
+    ``cache_spec_tree`` on a 1 x 1 ``jax.make_mesh`` (nothing sanitized
+    away), leaf by leaf through the port's chain axis, the rows over
+    ``data``; the one difference by design is the attention ring's: the
+    port splits its KV heads over ``model`` (its ring cache and page pool
+    hold a rank's KV heads whole), the reference ``head_dim``."""
+    cfg, jcfg = get_reduced(arch), jc.get_reduced(arch)
+    shape = ShapeConfig("d", 64, 4, "decode")
+    jshape = jc.ShapeConfig("d", 64, 4, "decode")
+    jm = jax.make_mesh((1, 1), ("data", "model"))
+    _, jshard = jax_steps.cache_spec_tree(JaxModel(jcfg, mesh=None), jcfg, jshape, jm,
+                                          ("data",))
+    model, _ = steps.build_model(cfg, shape, device="meta")
+    cache, specs = steps.cache_specs(model, cfg, shape, mesh.MeshShape({"data": 1,
+                                                                        "model": 1}),
+                                     ("data",))
+    want = dict(_paths(jax.tree_util.tree_map(lambda s: s.spec, jshard)))
+    got = dict(_paths(specs, ""))
+    assert set(got) == set(want)
+    stacked = len(cfg.block_pattern) == 1
+    for path, spec in got.items():
+        spec = _canon(_without_chain(path, spec, stacked))
+        ref = _canon(tuple(want[path]))
+        ref = ref + (None,) * (len(spec) - len(ref))
+        if "attn/" in path and not path.endswith("pos"):  # (L, B, S, KV, hd)
+            assert ref[-2:] == (None, "model") and spec[-2:] == ("model", None), path
+            spec, ref = spec[:-2], ref[:-2]
+        assert spec == ref, (path, spec, ref)
+
+
+def test_the_attention_cache_splits_kv_heads_not_head_dim():
+    """The named difference, per card: qwen3-4b's ``decode_32k`` ring on
+    16 x 16 (8 KV heads, ``model`` 16): the reference splits ``head_dim``
+    128 into 16, the port's KV heads do not divide, so its spec replicates
+    them (16 times the reference's bytes a card); on ``model`` 8 both split
+    the ring eight ways, the same bytes a card."""
+    cfg, shape = get_arch("qwen3-4b"), get_shape("decode_32k")
+    model, _ = steps.build_model(cfg, shape, device="meta")
+    for model_size, ratio in ((16, 16), (8, 1)):
+        m = mesh.MeshShape({"data": 16, "model": model_size})
+        cache, specs = steps.cache_specs(model, cfg, shape, m, ("data",))
+        k, spec = cache["attn"]["k"], specs["attn"]["k"]
+        L, C, B, S, KV, hd = k.shape
+        held = k.numel() // 16 // (model_size if spec[4] == "model" else 1)
+        reference = L * C * (B // 16) * S * KV * (hd // model_size)
+        assert held == ratio * reference, (model_size, spec)
+
+
+def test_cache_spec_tree_places_the_cache():
+    """``cache_spec_tree`` is ``cache_specs``' specs as ``named`` places
+    them on a ``DeviceMesh`` (a fake world of 4, destroyed after)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    cfg, shape = get_reduced("hymba-1.5b"), ShapeConfig("d", 64, 4, "decode")
+    model, _ = steps.build_model(cfg, shape, device="meta")
+    with dryrun.placed((2, 2)) as m:
+        cache, placed = steps.cache_spec_tree(model, cfg, shape, m, ("data",))
+        _, specs = steps.cache_specs(model, cfg, shape, m, ("data",))
+        assert placed == steps.named(m, specs)
+    assert placed["attn"]["k"] == [Shard(2), Shard(4)]  # rows, KV heads
+    assert placed["attn"]["pos"] == [Replicate(), Replicate()]
+    assert placed["ssm_h"] == [Shard(2), Shard(3)]  # rows, SSD heads
+    assert not torch.distributed.is_initialized()

@@ -7,15 +7,19 @@ JAX package's unplaced step.
 Two worlds are spawned once for the module
 (``tests/torch_model_axis_train_world.py``, each rank a process that
 imports no JAX, meeting at a ``FileStore``): 2 ranks over ``data`` 1 x
-``model`` 2, and 4 ranks over ``data`` 2 x ``model`` 2 and ``data`` 1 x
-``model`` 4.  The cases are the reference test's step (qwen3-4b reduced in
-float32, ``seq_len`` 64, a global batch of 4 in 2 microbatches) and its
-layouts: the head-sharded attention (K/V replicated, each rank the columns
-of the KV heads its queries read), 6 query heads (replicated over
-``model`` 4), a 511-word vocabulary (embedding and head replicated),
-phi3.5-moe reduced at the production capacity factor, and kimi-k2 reduced
-with its shared expert.  The fixtures and the JAX package's results are
-made here, the results while the worlds run.
+``model`` 2, and 4 ranks over ``data`` 2 x ``model`` 2, ``data`` 1 x
+``model`` 4 and ``pod`` 2 x ``data`` 1 x ``model`` 2.  The cases are the
+reference test's step (qwen3-4b reduced in float32, ``seq_len`` 64, a
+global batch of 4 in 2 microbatches) and its layouts: the head-sharded
+attention (K/V replicated, each rank the columns of the KV heads its
+queries read), 6 query heads (replicated over ``model`` 4), a 511-word
+vocabulary (embedding and head replicated), phi3.5-moe reduced at the
+production capacity factor, kimi-k2 reduced with its shared expert under
+its own ``fsdp_tp`` (the experts' ``d_ff`` over ``data``, gathered a
+layer), and ``fsdp_full`` (the ``"fsdp"`` option: every weight over every
+axis, gathered where it is used, the batch over every axis; at a global
+batch of 8 and of 4).  The fixtures and the JAX package's results are made
+here, the results while the worlds run.
 
 The oracle is the JAX package's unplaced ``make_sgld_train_step``: under
 ``jit`` a placement does not change what the step computes, except in the
@@ -68,7 +72,7 @@ LOSS_RTOL, GRAD_REL, NEW_ATOL = 1e-5, 1e-4, 1e-6
 #: every (world, mesh shape, case) the worlds train
 TRAINED = [(w, shape, case) for w in WORLDS for shape, cases in world.MESHES[w]
            for case in cases]
-TRAINED_IDS = [f"{w} ranks-{shape[0]}x{shape[1]}-{case}" for w, shape, case in TRAINED]
+TRAINED_IDS = [f"{w} ranks-{'x'.join(map(str, shape))}-{case}" for w, shape, case in TRAINED]
 #: the oracles the worlds wait for: (case, data shards)
 ORACLES = sorted({(world.oracle_case(case), world.shards(case, shape))
                   for _, shape, case in TRAINED})
@@ -92,7 +96,7 @@ def _pending(jparams):
 def _tokens(case):
     vocab = _jcfg(case).vocab_size
     return np.random.default_rng(11).integers(
-        0, vocab, (world.BATCH, world.SEQ + 1)).astype(np.int32)
+        0, vocab, (world.batch_of(case), world.SEQ + 1)).astype(np.int32)
 
 
 def _port(tree):
@@ -114,7 +118,7 @@ def _oracle(case, D):
     gradient function on each shard's rows, averaged, then the reference's
     noise and update."""
     cfg = _jcfg(case)
-    jshape = JShapeConfig("t", world.SEQ, world.BATCH, "train",
+    jshape = JShapeConfig("t", world.SEQ, world.batch_of(case), "train",
                           num_microbatches=world.MICRO)
     model = JModel(cfg, remat=False)
     params = _jparams(case)
@@ -247,7 +251,7 @@ def test_the_new_parameters_match_the_jax_packages_step(worlds, w, shape, case):
     for got in _got(worlds, w, shape, case):
         bad = {k: d for k, d in got["new"].items() if not d <= NEW_ATOL}
         assert not bad, bad
-        assert got["gathered"] <= NEW_ATOL  # the blocks gathered whole
+        assert got["gathered_whole"] <= NEW_ATOL  # the blocks gathered whole
 
 
 @pytest.mark.parametrize("w,shape,case", TRAINED, ids=TRAINED_IDS)
@@ -266,17 +270,23 @@ def test_every_rank_has_the_same_loss_bits(worlds, w, shape, case):
 def test_no_rank_holds_more_than_its_block(worlds, w, shape, case):
     """Each leaf's parameters, gradient, noise and new parameters on a rank
     are the global leaf cut by its placements: the chain axis replicated,
-    ``data`` replicated (it holds the batch), the sanitized spec on
-    ``model``."""
-    axes = {"data": shape[0], "model": shape[1]}
+    the sanitized spec on each mesh axis — ``model`` in the
+    tensor-parallel layouts (the batch axes then hold only rows), every
+    axis under ``fsdp_full``, ``data`` too for ``fsdp_tp``'s experts."""
     for got in _got(worlds, w, shape, case):
+        axes = got["axes"]
+        split = set()
         for path, (pl, glob, held) in got["held"].items():
-            assert pl[0] == "R" and "S(0)" not in pl, (path, pl)
+            assert "S(0)" not in pl, (path, pl)
             want = list(glob)
-            for axis, p in zip(("data", "model"), pl):
+            for axis, p in zip(axes, pl):
                 if p.startswith("S("):
                     want[int(p[2:-1])] //= axes[axis]
+                    if axes[axis] > 1:
+                        split.add(axis)
             assert all(list(s) == want for s in held.values()), (path, held, want)
+        fsdp = case in world.FSDP and axes["data"] > 1 or case.startswith("fsdp")
+        assert (split - {"model"} != set()) == fsdp, (split, case)
 
 
 @pytest.mark.parametrize("w,shape,case", TRAINED, ids=TRAINED_IDS)
@@ -313,19 +323,49 @@ def test_the_leaves_summed_over_model(worlds, w, shape, case, summed):
         assert got["summed"] == [p for p in summed if p in present]
 
 
-def test_kimi_k2s_fsdp_entries_are_replicated_in_training(worlds):
-    """A difference by design: ``fsdp_tp``'s experts name ``data`` for
-    their ``d_ff`` (FSDP, all-gathered a layer in the reference); the port
-    trains with ``data`` holding the batch and those entries replicated
-    (the numbers are the same; FSDP proper is not ported)."""
+def test_kimi_k2s_experts_split_d_ff_over_data_in_training(worlds):
+    """kimi-k2's own ``fsdp_tp``: a rank holds its experts over ``model``
+    with their ``d_ff`` halved over ``data`` (``w_gate`` / ``w_up`` on
+    their last dimension, ``w_down`` on its rows), gathered for the layer
+    as the reference's ``shard_map`` all-gathers them."""
     for got in _got(worlds, 4, (2, 2), "kimi-moe"):
-        for name in ("w_gate", "w_up", "w_down"):
-            assert got["held"][f"stack##moe##{name}"][0] == ("R", "S(2)")
+        for name, dim in (("w_gate", 4), ("w_up", 4), ("w_down", 3)):
+            pl, glob, held = got["held"][f"stack##moe##{name}"]
+            assert pl == (f"S({dim})", "S(2)"), (name, pl)
+            assert held["params"][dim] * 2 == glob[dim]
+            assert held["params"][2] * 2 == glob[2]  # the experts over model
+
+
+@pytest.mark.parametrize("w,shape,case", [t for t in TRAINED if t[2] in world.FSDP],
+                         ids=[i for t, i in zip(TRAINED, TRAINED_IDS) if t[2] in world.FSDP])
+def test_fsdp_holds_one_layer_gathered_at_a_time(worlds, w, shape, case):
+    """FSDP's gathered bytes alive at once (counted in the gather itself,
+    each gathered tensor until it is freed) never exceed the largest
+    layer's leaves plus the embedding and the head — each layer's weights
+    are freed with its forward and gathered again for its backward — and
+    stay under the whole model's two layers; a layout with nothing to
+    gather (``data`` 1) gathers nothing."""
+    for got in _got(worlds, w, shape, case):
+        g = got["gathered"]
+        if got["axes"]["data"] == 1 and not case.startswith("fsdp"):
+            assert g["peak"] == 0
+            continue
+        assert 0 < g["peak"] <= g["layer_and_ends"] < g["model"], g
 
 
 def test_the_batch_specs_split_the_rows_over_data(worlds):
     for got in _got(worlds, 4, (2, 2), "qwen3"):
         assert got["batch_specs"] == {"tokens": ("S(0)", "R")}
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 1, 2)], ids=["2x2", "2x1x2"])
+def test_a_fsdp_full_batch_is_split_over_every_axis(worlds, shape):
+    """``build_model`` gives a ``fsdp_full`` model every axis as its batch
+    axes when the global batch divides by the mesh's size, as the
+    reference's does."""
+    for got in _got(worlds, 4, shape, "fsdp"):
+        assert got["batch_axes"] == world.axis_names(shape)
+        assert got["batch_specs"] == {"tokens": ("S(0)",) * len(shape)}
 
 
 # ---------------------------------------------------------------------------
@@ -356,15 +396,35 @@ def test_the_counter_limit_is_still_refused():
 
 
 def test_adapt_config_takes_attn_shard_as_the_reference():
-    """``"attn_shard"`` sets ``opt_attn_head_shard``, as the reference's
-    ``adapt_config`` does; ``"fsdp"`` stays refused."""
+    """``"attn_shard"`` sets ``opt_attn_head_shard`` and ``"fsdp"`` sets
+    ``param_sharding="fsdp_full"`` (clearing the head-sharded layout), as
+    the reference's ``adapt_config`` does, field for field (but the
+    reference's XLA switches, which the port's config lacks); ``"fsdp"`` on a
+    MoE is refused as the reference asserts; the XLA switches
+    ``"window_slice"`` / ``"unroll"`` stay refused."""
+    from dataclasses import asdict
+
     for arch in ("qwen3-4b", "phi3.5-moe-42b-a6.6b"):
         got = steps.adapt_config(get_arch(arch), get_shape("train_4k"), ("attn_shard",))
         want = jax_steps.adapt_config(jax_arch(arch), jax_shape("train_4k"),
                                       ("attn_shard",))
         assert got.opt_attn_head_shard is want.opt_attn_head_shard is True
-    with pytest.raises(ValueError, match="fsdp"):
-        steps.adapt_config(get_arch("qwen3-4b"), get_shape("train_4k"), ("fsdp",))
+    for arch in ("qwen3-4b", "minicpm-2b", "hymba-1.5b"):
+        for opts in (("fsdp",), ("attn_shard", "fsdp")):
+            got = steps.adapt_config(get_arch(arch), get_shape("train_4k"), opts)
+            want = jax_steps.adapt_config(jax_arch(arch), jax_shape("train_4k"), opts)
+            want = {k: v for k, v in asdict(want).items()
+                    if not k.startswith(("opt_unroll", "opt_window"))}  # XLA's switches
+            assert asdict(got) == want
+            assert got.param_sharding == "fsdp_full" and not got.opt_attn_head_shard
+    for arch in ("kimi-k2-1t-a32b", "phi3.5-moe-42b-a6.6b"):
+        with pytest.raises(ValueError, match="dense"):
+            steps.adapt_config(get_arch(arch), get_shape("train_4k"), ("fsdp",))
+        with pytest.raises(AssertionError, match="dense"):
+            jax_steps.adapt_config(jax_arch(arch), jax_shape("train_4k"), ("fsdp",))
+    for opt in ("window_slice", "unroll"):
+        with pytest.raises(ValueError, match=opt):
+            steps.adapt_config(get_arch("qwen3-4b"), get_shape("train_4k"), (opt,))
 
 
 def test_the_shard_rows_are_the_gspmd_split():
@@ -385,7 +445,8 @@ def test_phase_15s_cells_run_on_the_cpu(worlds):
     ranks, logs = worlds[4]
     if ranks is None:
         pytest.fail(f"the 4-rank world failed:\n{logs}")
-    rows = [(name, arch, 2, dtype, None, *tol) for name, arch, dtype, tol in world.PHASE15]
+    rows = [(name, arch, 2, dtype, None, *tol, layouts)
+            for name, arch, dtype, tol, layouts in world.PHASE15]
     out = chip_smoke.model_axis_train_report([r["phase15"] for r in ranks], rows)
     f32 = out["qwen3-4b-f32"]["collectives"][-1]
     # 2 microbatches: the lookup and 2 a layer forward, a column-parallel
@@ -393,3 +454,16 @@ def test_phase_15s_cells_run_on_the_cpu(worlds):
     # the metrics averaged over data
     assert f32 == {"forward": 10, "backward": 10, "loss": 6, "model sum": 2,
                    "data mean": 15}
+    # (d) at reduced widths: the batch over both axes, one row a rank, every
+    # weight gathered for its use (the embedding, the head, 7 a layer and
+    # again in its recompute) and its gradient summed over the four ranks,
+    # the 5 norms and the metrics averaged over each axis; nothing on the
+    # activations
+    fsdp = out["qwen3-4b-f32 fsdp_full"]
+    assert fsdp["layout"] == "fsdp_full" and fsdp["batch_axes"] == ["data", "model"]
+    assert fsdp["collectives"][-1] == {"fsdp gather": 30, "fsdp reduce": 16,
+                                       "data mean": 12}
+    # (e): phi3.5-moe's experts' d_ff over data, gathered a layer
+    tp = out["phi3.5-moe fsdp_tp"]
+    assert tp["layout"] == "fsdp_tp" and tp["collectives"][-1]["fsdp gather"] > 0
+    assert max(tp["block_gb"]) < max(out["phi3.5-moe"]["block_gb"])

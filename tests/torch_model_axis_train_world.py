@@ -16,15 +16,20 @@ step on each shard's rows, averaged) are written by the test while the
 worlds run; a rank waits for the ``.done`` marker beside them.
 
 A world of 2 ranks trains over ``data`` 1 x ``model`` 2; a world of 4 over
-``data`` 2 x ``model`` 2 and then ``data`` 1 x ``model`` 4.  Each case runs
-one ``sync`` and one ``pipeline`` step on the placed chain; every rank
+``data`` 2 x ``model`` 2, then ``data`` 1 x ``model`` 4, then ``pod`` 2 x
+``data`` 1 x ``model`` 2.  The FSDP cases: ``fsdp_full`` (every weight over
+every axis, the batch too; at a global batch of 8 each microbatch's rows
+split over the four ranks, at 4 each rank its one row of the batch) and
+kimi-k2's own ``fsdp_tp`` (its experts' ``d_ff`` over ``data``).  Each case
+runs one ``sync`` and one ``pipeline`` step on the placed chain; every rank
 reports each leaf's block against the oracle's (the gradient's relative
 L2, the new parameters' largest difference), its noise block against the
 block of the port's unplaced ``noise_like(..., noise="jax")``, bit for
 bit, its loss, its local shapes and placements, the refusals of
-``noise="torch"``, and the collectives a step.  The world of 4 also
-rehearses ``chip_smoke.py`` phase 15's cells at the reduced widths.  When
-run as a script, this process imports no JAX.
+``noise="torch"``, the collectives a step, and FSDP's gathered bytes alive
+at most against one layer's leaves and the embedding and the head.  The
+world of 4 also rehearses ``chip_smoke.py`` phase 15's cells at the
+reduced widths.  When run as a script, this process imports no JAX.
 """
 
 import os
@@ -39,7 +44,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: case -> (reduced config, its changes)
+#: case -> (reduced config, its changes); kimi-k2's config is ``fsdp_tp``
 CASES = {
     "qwen3": ("qwen3-4b", {}),
     "head-shard": ("qwen3-4b", {"opt_attn_head_shard": True}),
@@ -47,20 +52,27 @@ CASES = {
     "vocab511": ("qwen3-4b", {"vocab_size": 511}),
     "phi-moe": ("phi3.5-moe-42b-a6.6b", {}),
     "kimi-moe": ("kimi-k2-1t-a32b", {}),
+    "fsdp": ("qwen3-4b", {"param_sharding": "fsdp_full"}),
+    "fsdp-b4": ("qwen3-4b", {"param_sharding": "fsdp_full"}),
 }
 MOE = ("phi-moe", "kimi-moe")
-#: world -> the (data, model) meshes it trains over, each with its cases
+FSDP = ("fsdp", "fsdp-b4", "kimi-moe")
+#: world -> the meshes it trains over (``(data, model)``, or ``(pod, data,
+#: model)``), each with its cases
 MESHES = {
     2: [((1, 2), ["qwen3", "head-shard", "heads6", "vocab511", "phi-moe", "kimi-moe"])],
-    4: [((2, 2), ["qwen3", "phi-moe", "kimi-moe"]),
-        ((1, 4), ["qwen3", "head-shard", "heads6", "vocab511", "phi-moe"])],
+    4: [((2, 2), ["qwen3", "phi-moe", "kimi-moe", "fsdp", "fsdp-b4"]),
+        ((1, 4), ["qwen3", "head-shard", "heads6", "vocab511", "phi-moe"]),
+        ((2, 1, 2), ["fsdp"])],
 }
 #: chip_smoke.py phase 15's cells rehearsed on the CPU over data 2 x model 2:
 #: (name, reduced config, dtype, its gates: loss rtol, gradient rel L2,
-#: new parameters' atol)
-PHASE15 = (("phi3.5-moe", "phi3.5-moe-42b-a6.6b", "bfloat16", (1e-2, 0.05, None)),
-           ("qwen3-4b-f32", "qwen3-4b", "float32", (1e-5, 1e-4, 1e-6)))
+#: new parameters' atol, the layouts trained beside the tensor-parallel one)
+PHASE15 = (("phi3.5-moe", "phi3.5-moe-42b-a6.6b", "bfloat16", (1e-2, 0.05, None),
+            ("fsdp_tp",)),
+           ("qwen3-4b-f32", "qwen3-4b", "float32", (1e-5, 1e-4, 1e-6), ("fsdp_full",)))
 SEQ, BATCH, MICRO = 64, 4, 2  # the reference test's step: seq_len 64, batch 4, 2 microbatches
+BATCHES = {"fsdp": 8}  # a case's global batch, where it is not BATCH
 GAMMA, SIGMA = 1e-3, 1e-4
 KEYS = {"sync": 3, "pipeline": 4}  # PRNGKey seeds of the two steps' noise
 ORACLE_WAIT = 240  # seconds a rank waits for the JAX package's results
@@ -71,6 +83,21 @@ def config(case, get_reduced):
     return replace(get_reduced(arch), dtype="float32", **changes)
 
 
+def batch_of(case):
+    return BATCHES.get(case, BATCH)
+
+
+def axis_names(shape):
+    return ("pod", "data", "model")[-len(shape):]
+
+
+def mesh_of(shape):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh("cpu", torch.arange(int(np.prod(shape))).reshape(shape),
+                      mesh_dim_names=axis_names(shape))
+
+
 def shards(case, shape):
     """The data shards the oracle averages over: a MoE's capacity is a
     shard's, a dense model does not notice the split."""
@@ -79,9 +106,9 @@ def shards(case, shape):
 
 def oracle_case(case):
     """The case whose JAX results ``case`` is held against: the head-sharded
-    layout is qwen3's unplaced step (the reference's switch acts only on a
-    mesh)."""
-    return "qwen3" if case == "head-shard" else case
+    layout and ``fsdp_full`` at qwen3's batch are qwen3's unplaced step (the
+    reference's switches act only on a mesh)."""
+    return "qwen3" if case in ("head-shard", "fsdp-b4") else case
 
 
 def oracle_name(case, d):
@@ -106,15 +133,20 @@ def train_case(case, mesh, shape, fixtures) -> dict:
     from repro_torch.checkpoint.io import leaf_paths
     from repro_torch.configs import ShapeConfig, get_reduced
     from repro_torch.kernels import rng
-    from repro_torch.launch.steps import batch_specs, make_sgld_train_step, place_params
+    from repro_torch.launch.steps import (
+        batch_specs,
+        build_model,
+        make_sgld_train_step,
+        place_params,
+    )
     from repro_torch.models import common
-    from repro_torch.models.transformer import Model, init_params
+    from repro_torch.models.transformer import init_params
     from repro_torch.samplers.transforms import noise_like
     from repro_torch.utils import block_slices, gather_chains, local
 
     cfg = config(case, get_reduced)
-    step_shape = ShapeConfig("t", SEQ, BATCH, "train", num_microbatches=MICRO)
-    model = Model(cfg, device="cpu", mesh=mesh, batch_axes=("data",))
+    step_shape = ShapeConfig("t", SEQ, batch_of(case), "train", num_microbatches=MICRO)
+    model, _ = build_model(cfg, step_shape, device="cpu", mesh=mesh)
     like = init_params(cfg, device="meta", num_chains=1)
     whole = restore_checkpoint(os.path.join(fixtures, f"{case}.npz"), like, device="cpu")
     pend = restore_checkpoint(os.path.join(fixtures, f"{case}_pending.npz"), like,
@@ -124,12 +156,23 @@ def train_case(case, mesh, shape, fixtures) -> dict:
     params, pending = place_params(whole, model), place_params(pend, model)
 
     got = {"heads": model.tp.heads, "summed": sorted(model.tp.summed),
+           "batch_axes": model.batch_axes,
+           "axes": dict(zip(axis_names(shape), shape)),
            "batch_specs": {k: tuple(str(x) for x in pl) for k, pl in
-                           batch_specs(cfg, step_shape, mesh, ("data",))[1].items()}}
+                           batch_specs(cfg, step_shape, mesh, model.batch_axes)[1].items()}}
     common.reset_collectives()
     sync = make_sgld_train_step(model, step_shape, "sync", GAMMA, SIGMA)
     new_sync, loss_sync = sync(params, batch, rng.PRNGKey(KEYS["sync"]))
     got["collectives"] = dict(common.COLLECTIVES)
+    # FSDP's gathered bytes alive at most, against one layer's leaves (the
+    # largest) and the embedding and the head, whole
+    layer = max(sum(t.numel() * t.element_size() // t.shape[1]
+                    for p, t in leaf_paths(whole) if p.startswith("stack")), 0)
+    top = sum(t.numel() * t.element_size() for p, t in leaf_paths(whole)
+              if p.split("##")[0] in ("embed", "lm_head"))
+    got["gathered"] = {"peak": common.GATHERED["peak"], "layer_and_ends": layer + top,
+                       "model": sum(t.numel() * t.element_size()
+                                    for _, t in leaf_paths(whole))}
     pipe = make_sgld_train_step(model, step_shape, "pipeline", GAMMA, SIGMA)
     new_pipe, grads, loss_pipe = pipe(params, pending, batch, rng.PRNGKey(KEYS["pipeline"]))
     got["loss"] = {"sync": loss_sync.item(), "pipeline": loss_pipe.item()}
@@ -179,7 +222,7 @@ def train_case(case, mesh, shape, fixtures) -> dict:
             blk = rt[block_slices(t.shape, t.device_mesh, t.placements)]
             got["new"][(mode, p)] = float((t.to_local() - blk).abs().max())
     # the new parameters gathered whole: every rank's blocks put together
-    got["gathered"] = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
+    got["gathered_whole"] = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
         leaf_paths(gather_chains(new_sync)), leaf_paths(ref["sync"])))
     got["local_tree"] = all(not hasattr(t, "placements") for t in
                             [x for _, x in leaf_paths(local(new_sync))])
@@ -195,12 +238,12 @@ def phase15_cells(mesh, rank, out):
     from repro_torch.configs import get_reduced
 
     res = {}
-    for name, arch, dtype, tol in PHASE15:
+    for name, arch, dtype, tol, layouts in PHASE15:
         cfg = replace(get_reduced(arch), dtype=dtype)
         t0 = time.perf_counter()
         res[name] = chip_smoke.model_axis_train_cell(
             torch, np, cfg, mesh, rank, tol, device="cpu", batch=4, seq=16, micro=2,
-            steps=(("sync", 1), ("pipeline", 1)))
+            steps=(("sync", 1), ("pipeline", 1)), layouts=layouts)
         res[name]["cell_s"] = time.perf_counter() - t0
     out["phase15"] = res
 
@@ -208,7 +251,7 @@ def phase15_cells(mesh, rank, out):
 def main() -> int:
     sys.modules["jax"] = None  # the port must not reach for JAX
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.launch.mesh import init_world, make_debug_mesh
+    from repro_torch.launch.mesh import init_world
 
     rank, world, store, outdir, fixtures = sys.argv[1:6]
     rank, world = int(rank), int(world)
@@ -217,7 +260,7 @@ def main() -> int:
     out: dict = {}
     try:
         for shape, cases in MESHES[world]:
-            mesh = make_debug_mesh(*shape)
+            mesh = mesh_of(shape)
             for case in cases:
                 out[(shape, case)] = train_case(case, mesh, shape, fixtures)
             if shape == (2, 2):
