@@ -59,8 +59,14 @@
 // multiple of 16, so n is a whole number of vectors.  Otherwise (a leaf of
 // odd size has misaligned rows) every element takes the scalar code, the
 // same selection one element a thread.
-// Indices are 32-bit (n <= 2^32, and the flat index is randint's counter);
-// a row is addressed by one 64-bit offset, slot * n.
+// Indices.  The flat index within a chain's row is randint's counter, a
+// 64-bit value split into a high and a low word as JAX splits it.  A row of
+// at most 2^32 elements is indexed with 32-bit integers (the high word is
+// then 0 and folds away); a longer row with 64-bit ones.  The index type is
+// a template argument chosen once a launch, so every row up to 2^32
+// elements runs the 32-bit code: a 64-bit loop counter would add integer
+// operations an element on the pipe that already bounds the drawn read.  A
+// row is addressed by one 64-bit offset, slot * n.
 //
 // The chain axis.  Every launch reads C chains (C = 1 for a single chain):
 // the rings are (C, depth, n) and the output (C, n), one block row
@@ -108,9 +114,9 @@ __device__ __forceinline__ int slot_of(int head, int d, int depth) {
 // both streams.  The launcher picks one for the launch.
 enum Source { kArray, kZero, kLow, kBoth };
 
-template <int kSrc>
+template <int kSrc, typename I>
 __device__ __forceinline__ int delay_at(const int32_t* __restrict__ delays,
-                                        const RandintKey& key, uint32_t i, int depth) {
+                                        const RandintKey& key, I i, int depth) {
   if constexpr (kSrc == kArray) {
     return wrap_delay(delays[i], depth);
   } else if constexpr (kSrc == kZero) {
@@ -121,8 +127,9 @@ __device__ __forceinline__ int delay_at(const int32_t* __restrict__ delays,
 }
 
 // One ring's read (history (depth, n) -> out (n,)) by the threads of one
-// block row: thread tid of stride.
-template <typename W, int kSrc>
+// block row: thread tid of stride.  I indexes the row (uint32_t up to 2^32
+// elements, else unsigned long long).
+template <typename W, int kSrc, typename I>
 __device__ __forceinline__ void wicon_row(const W* __restrict__ hist,
                                           const int32_t* __restrict__ delays,
                                           W* __restrict__ out, unsigned long long n, int depth,
@@ -130,8 +137,8 @@ __device__ __forceinline__ void wicon_row(const W* __restrict__ hist,
                                           uint32_t tid, uint32_t stride) {
   constexpr int V = 16 / sizeof(W);  // lanes of a 16-byte vector
   if (!vec) {
-    const uint32_t last = (uint32_t)(n - 1);
-    for (uint32_t i = tid; i <= last; i += stride) {  // the unaligned case
+    const I last = (I)(n - 1);
+    for (I i = tid; i <= last; i += stride) {  // the unaligned case
       const int d = delay_at<kSrc>(delays, key, i, depth);
       out[i] = hist[(unsigned long long)slot_of(head, d, depth) * n + i];
       if (last - i < stride) break;  // i + stride would pass last (or wrap)
@@ -142,13 +149,13 @@ __device__ __forceinline__ void wicon_row(const W* __restrict__ hist,
     uint4 v;
     W e[V];
   };
-  const uint32_t nv = (uint32_t)(n / V);  // n % V == 0: the rows are aligned
+  const I nv = (I)(n / V);  // n % V == 0: the rows are aligned
   const W* row[kSelectRows];  // row[j]: the snapshot of delay j
 #pragma unroll
   for (int j = 0; j < kSelectRows; ++j)
     row[j] = hist + (unsigned long long)slot_of(head, j < rows ? j : 0, depth) * n;
-  for (uint32_t v = tid; v < nv; v += stride) {
-    const uint32_t base = v * V;
+  for (I v = tid; v < nv; v += stride) {
+    const I base = v * V;
     int d[V];
     if constexpr (kSrc == kArray) {
 #pragma unroll
@@ -184,12 +191,12 @@ __device__ __forceinline__ void wicon_row(const W* __restrict__ hist,
   }
 }
 
-template <bool kBoth>
+template <bool kBoth, typename I>
 __device__ __forceinline__ void delays_row(int32_t* __restrict__ out, unsigned long long n,
                                            const RandintKey& key, uint32_t tid,
                                            uint32_t stride) {
-  const uint32_t last = (uint32_t)(n - 1);
-  for (uint32_t i = tid; i <= last; i += stride) {
+  const I last = (I)(n - 1);
+  for (I i = tid; i <= last; i += stride) {
     out[i] = (int32_t)randint_at<kBoth>(key, i);
     if (last - i < stride) break;
   }
@@ -219,7 +226,7 @@ __device__ __forceinline__ RandintKey chain_key(const ChainKey* __restrict__ tab
 // are delays[c] (n,) int32 and the head heads[c]; else they are drawn
 // under table row c, which also holds the head, the draw picked from the
 // row (one branch a block).
-template <typename W, bool kFromArray>
+template <typename W, bool kFromArray, typename I>
 __global__ void __launch_bounds__(kThreads)
     wicon_kernel(const W* __restrict__ hist, const int32_t* __restrict__ delays,
                  W* __restrict__ out, unsigned long long n, int depth,
@@ -230,21 +237,22 @@ __global__ void __launch_bounds__(kThreads)
   W* o = out + c * n;
   const uint32_t tid = blockIdx.x * kThreads + threadIdx.x, stride = gridDim.x * kThreads;
   if constexpr (kFromArray) {
-    wicon_row<W, kArray>(h, delays + c * n, o, n, depth, heads[c], depth, RandintKey(), vec,
+    wicon_row<W, kArray, I>(h, delays + c * n, o, n, depth, heads[c], depth, RandintKey(), vec,
                          tid, stride);
   } else {
     const int head = (int)table[c].head;
     const RandintKey key = chain_key(table);
     if (key.span == 1u) {
-      wicon_row<W, kZero>(h, nullptr, o, n, depth, head, 1, key, vec, tid, stride);
+      wicon_row<W, kZero, I>(h, nullptr, o, n, depth, head, 1, key, vec, tid, stride);
     } else if (key.mult == 0u) {
-      wicon_row<W, kLow>(h, nullptr, o, n, depth, head, (int)key.span, key, vec, tid, stride);
+      wicon_row<W, kLow, I>(h, nullptr, o, n, depth, head, (int)key.span, key, vec, tid, stride);
     } else {
-      wicon_row<W, kBoth>(h, nullptr, o, n, depth, head, (int)key.span, key, vec, tid, stride);
+      wicon_row<W, kBoth, I>(h, nullptr, o, n, depth, head, (int)key.span, key, vec, tid, stride);
     }
   }
 }
 
+template <typename I>
 __global__ void __launch_bounds__(kThreads)
     coordinate_delays_kernel(int32_t* __restrict__ out, unsigned long long n,
                              const ChainKey* __restrict__ table) {
@@ -252,9 +260,9 @@ __global__ void __launch_bounds__(kThreads)
   int32_t* o = out + (unsigned long long)blockIdx.y * n;
   const uint32_t tid = blockIdx.x * kThreads + threadIdx.x, stride = gridDim.x * kThreads;
   if (key.mult == 0u) {
-    delays_row<false>(o, n, key, tid, stride);
+    delays_row<false, I>(o, n, key, tid, stride);
   } else {
-    delays_row<true>(o, n, key, tid, stride);
+    delays_row<true, I>(o, n, key, tid, stride);
   }
 }
 
@@ -266,8 +274,29 @@ dim3 chain_grid(unsigned long long work, int chains) {
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
+// A row of at most 2^32 elements is indexed with 32-bit integers.
+constexpr unsigned long long kIndex32 = 1ULL << 32;
+// The longest row: every offset c * depth * n below 2^63 is checked on the
+// host; this bounds a row alone.
+constexpr unsigned long long kMaxRow = 1ULL << 62;
+
 bool bad_ring(unsigned long long n, int chains, int depth) {
-  return n < 1 || n > (1ULL << 32) || chains < 1 || chains > 65535 || depth < 1;
+  return n < 1 || n > kMaxRow || chains < 1 || chains > 65535 || depth < 1;
+}
+
+template <typename W, bool kFromArray>
+void launch_wicon(dim3 grid, const void* hist, const int32_t* delays, void* out,
+                  unsigned long long n, int depth, const int32_t* heads, const ChainKey* table,
+                  int vec, cudaStream_t s) {
+  if (n <= kIndex32) {
+    wicon_kernel<W, kFromArray, uint32_t><<<grid, kThreads, 0, s>>>(
+        static_cast<const W*>(hist), delays, static_cast<W*>(out), n, depth, heads, table,
+        vec);
+  } else {
+    wicon_kernel<W, kFromArray, unsigned long long><<<grid, kThreads, 0, s>>>(
+        static_cast<const W*>(hist), delays, static_cast<W*>(out), n, depth, heads, table,
+        vec);
+  }
 }
 
 template <bool kFromArray>
@@ -278,13 +307,9 @@ int launch(const void* hist, const int32_t* delays, void* out, unsigned long lon
                    (!kFromArray || aligned16(delays));
   const dim3 grid = chain_grid(vec ? n / (16 / elem_bytes) : n, chains);
   if (elem_bytes == 2) {
-    wicon_kernel<uint16_t, kFromArray><<<grid, kThreads, 0, s>>>(
-        static_cast<const uint16_t*>(hist), delays, static_cast<uint16_t*>(out), n, depth,
-        heads, table, vec);
+    launch_wicon<uint16_t, kFromArray>(grid, hist, delays, out, n, depth, heads, table, vec, s);
   } else if (elem_bytes == 4) {
-    wicon_kernel<uint32_t, kFromArray><<<grid, kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(hist), delays, static_cast<uint32_t*>(out), n, depth,
-        heads, table, vec);
+    launch_wicon<uint32_t, kFromArray>(grid, hist, delays, out, n, depth, heads, table, vec, s);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -299,8 +324,8 @@ int launch(const void* hist, const int32_t* delays, void* out, unsigned long lon
 // (chains, 9) 32-bit words on the device: hk0, hk1, lk0, lk1, span, mult,
 // magic low, magic high (rng.randint_params, rng.fastmod_magic), and the
 // chain's head.  The caller checks 1 <= span <= depth, span < 2^16 and
-// 0 <= head < depth for every chain.  1 <= n <= 2^32,
-// 1 <= chains <= 65535.
+// 0 <= head < depth for every chain, and chains * depth * n < 2^63.
+// 1 <= n <= 2^62, 1 <= chains <= 65535.
 extern "C" int wicon_read_launch(const void* hist, void* out, unsigned long long n, int chains,
                                  int depth, const void* table, int elem_bytes, void* stream) {
   if (bad_ring(n, chains, depth)) return cudaErrorInvalidValue;
@@ -322,12 +347,19 @@ extern "C" int delay_gather_launch(const void* hist, const void* delays, void* o
 }
 
 // out (chains, n) int32 in [0, span_c), chain c's row drawn under table
-// row c (the caller checks 1 <= span < 2^16).  1 <= n <= 2^32,
-// 1 <= chains <= 65535.
+// row c (the caller checks 1 <= span < 2^16 and chains * n < 2^63).
+// 1 <= n <= 2^62, 1 <= chains <= 65535.
 extern "C" int coordinate_delays_launch(void* out, unsigned long long n, int chains,
                                         const void* table, void* stream) {
-  if (n < 1 || n > (1ULL << 32) || chains < 1 || chains > 65535) return cudaErrorInvalidValue;
-  coordinate_delays_kernel<<<chain_grid(n, chains), kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<int32_t*>(out), n, static_cast<const ChainKey*>(table));
+  if (n < 1 || n > kMaxRow || chains < 1 || chains > 65535) return cudaErrorInvalidValue;
+  const dim3 grid = chain_grid(n, chains);
+  int32_t* o = static_cast<int32_t*>(out);
+  const ChainKey* t = static_cast<const ChainKey*>(table);
+  if (n <= kIndex32) {
+    coordinate_delays_kernel<uint32_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(o, n, t);
+  } else {
+    coordinate_delays_kernel<unsigned long long><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        o, n, t);
+  }
   return cudaGetLastError();
 }

@@ -1,9 +1,10 @@
 // jax.random.randint(key, (n,), 0, span, int32), element by element, as
 // src/repro/core/delay.py (sample_coordinate_delays) draws the W-Icon
 // delays under jax_threefry_partitionable: two 32-bit streams,
-// threefry2x32(k_hi, (0, i)) and threefry2x32(k_lo, (0, i)) with
-// (k_hi, k_lo) = split(key), each folded x0 ^ x1, reduced mod span and
-// recombined with mult = 2^32 mod span.  The host computes the subkeys,
+// threefry2x32(k_hi, (i >> 32, i)) and threefry2x32(k_lo, (i >> 32, i))
+// with (k_hi, k_lo) = split(key), each folded x0 ^ x1, reduced mod span and
+// recombined with mult = 2^32 mod span.  The counter is the element's
+// 64-bit flat index, split into a high and a low word, as JAX splits it.  The host computes the subkeys,
 // span, mult and the remainder constant (rng.randint_params).
 //
 // Included by delay_gather.cu, whose two kernels that draw delays (the
@@ -34,21 +35,33 @@ __device__ __forceinline__ uint32_t fastmod_u32(uint32_t x, unsigned long long m
   return (uint32_t)__umul64hi(frac, (unsigned long long)d);
 }
 
+// The high word of counter i: 0 for a 32-bit index (a row of at most 2^32
+// elements), so that path computes no shift and no extra register.
+template <typename I>
+__device__ __forceinline__ uint32_t counter_hi(I i) {
+  if constexpr (sizeof(I) > 4) {
+    return (uint32_t)((unsigned long long)i >> 32);
+  } else {
+    return 0u;
+  }
+}
+
 // Element i of the draw: an int32 in [0, span).  Where mult = 0 (span a
 // power of two, or 1) the high stream drops out of the sum, and a caller
 // takes kBoth = false: the same bits at half the work.  The choice is a
 // template argument, made once a launch, so that a loop over elements has
 // no branch between their threefry blocks to stop the compiler from
-// interleaving them.
-template <bool kBoth>
-__device__ __forceinline__ uint32_t randint_at(const RandintKey& k, uint32_t i) {
-  uint32_t l0 = 0u, l1 = i;
+// interleaving them.  I, the index type, is uint32_t for rows of at most
+// 2^32 elements and unsigned long long past that, also chosen once a launch.
+template <bool kBoth, typename I>
+__device__ __forceinline__ uint32_t randint_at(const RandintKey& k, I i) {
+  uint32_t l0 = counter_hi(i), l1 = (uint32_t)i;
   threefry2x32(k.lk0, k.lk1, l0, l1);
   const uint32_t lo = fastmod_u32(l0 ^ l1, k.magic, k.span);
   if constexpr (!kBoth) {
     return lo;
   } else {
-    uint32_t h0 = 0u, h1 = i;
+    uint32_t h0 = counter_hi(i), h1 = (uint32_t)i;
     threefry2x32(k.hk0, k.hk1, h0, h1);
     const uint32_t hi = fastmod_u32(h0 ^ h1, k.magic, k.span);
     // hi * mult + lo < span^2 < 2^32: no overflow

@@ -13,7 +13,8 @@ with the delays read from an int32 array (any value, the slot taken with
 ``torch.remainder``'s semantics): the counterpart of
 ``repro.kernels.delay_gather.delay_gather_1d``.  :func:`coordinate_delays`
 draws the delays alone, bit for bit ``jax.random.randint`` (the same
-device function).  :func:`wicon_read` and :func:`coordinate_delays` draw
+device function), at any counter: a chain's row may pass 2^32 elements,
+each drawn at its 64-bit flat index, as JAX draws it.  :func:`wicon_read` and :func:`coordinate_delays` draw
 chain c under row c of a device table (:func:`randint_rows` builds the
 rows on the host, for each chain's key, maxval and head; the caller copies
 every leaf's table to the card at once), and :func:`wicon_read` reads
@@ -42,6 +43,9 @@ from repro_torch.utils import to_device
 
 _GATHER_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 ROW_WORDS = 9
+#: the longest row the kernels index (``csrc/delay_gather.cu``: 32-bit
+#: indices up to 2^32 elements, 64-bit past that)
+MAX_ROW = 2**62
 
 
 def _lib():
@@ -87,9 +91,9 @@ def _check_ring(history, what: str):
     if not history.is_contiguous():
         raise ValueError(f"{what}: history must be contiguous")
     C, depth, n = history.shape
-    if not 1 <= C <= 65535 or not 1 <= n <= 2**32:
+    if not 1 <= C <= 65535 or not 1 <= n <= MAX_ROW or C * depth * n >= 2**63:
         raise ValueError(f"{what}: {C} chains (1 .. 65535) of {n} elements "
-                         "(1 .. 2^32)")
+                         f"(1 .. 2^62, and the ring's {C * depth * n} below 2^63)")
     return C, depth, n
 
 
@@ -171,15 +175,16 @@ def coordinate_delays(table: torch.Tensor, n: int, maxvals) -> torch.Tensor:
     """Per-coordinate delays of C chains in one launch: row c is
     ``jax.random.randint(key_c, (n,), 0, maxvals[c], int32)`` bit for bit.
     table: (C, 9) 32-bit words on a CUDA device, :func:`randint_rows` of
-    the chains' keys and ``maxvals`` (each 1 .. 2^16 - 1), n <= 2^32;
+    the chains' keys and ``maxvals`` (each 1 .. 2^16 - 1), n <= 2^62 (past
+    2^32 the counter's high word is the index's, as JAX's);
     returns (C, n) int32 there."""
     build.require_cuda(table, "coordinate_delays")
     C = len(maxvals)
     _check_table(table, C, table.device, "coordinate_delays")
-    if not 1 <= C <= 65535 or not 1 <= n <= 2**32 or not all(
+    if not 1 <= C <= 65535 or not 1 <= n <= MAX_ROW or C * n >= 2**63 or not all(
             1 <= int(m) < 2**16 for m in maxvals):
         raise ValueError(f"coordinate_delays: {C} chains (1 .. 65535), n {n} "
-                         f"(1 .. 2^32), maxvals {list(maxvals)} (1 .. 2^16-1)")
+                         f"(1 .. 2^62), maxvals {list(maxvals)} (1 .. 2^16-1)")
     out = torch.empty((C, n), dtype=torch.int32, device=table.device)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream

@@ -18,8 +18,9 @@ bytes.
 A key is a ``(k0, k1)`` tuple of 32-bit ints — the two words of a raw JAX
 ``PRNGKey``.  JAX here runs with ``jax_threefry_partitionable`` (the
 default since 0.5), under which ``split(key, n)[i]`` and the random bits of
-element ``i`` of a shape are both ``threefry2x32(key, (0, i))``: the
-counter is the flat index, split into a high and a low word.
+element ``i`` of a shape are both ``threefry2x32(key, (i >> 32, i &
+0xFFFFFFFF))``: the counter is the flat index, split into a high and a low
+word (the high word is 0 below 2**32 elements).
 
 The CUDA kernels (``csrc/threefry.cuh``) compute the same functions in
 native ``uint32``; the tests hold this module against ``jax.random``.
@@ -103,19 +104,26 @@ def _counters(start: int, stop: int, device) -> torch.Tensor:
     return torch.arange(start, stop, dtype=torch.int64, device=device)
 
 
+def _check_counter(stop: int) -> None:
+    if stop > 2**63:
+        raise ValueError(f"{stop} elements exceed the 64-bit counter (an int64 "
+                         "tensor holds it)")
+
+
 def _bits_at(key, counters: torch.Tensor) -> torch.Tensor:
-    x0, x1 = threefry2x32(key[0], key[1], torch.zeros_like(counters), counters)
+    """``x0 ^ x1`` of ``threefry2x32(key, (c >> 32, c & 0xFFFFFFFF))`` for
+    int64 counters ``c``."""
+    x0, x1 = threefry2x32(key[0], key[1], counters >> 32, counters & M32)
     return x0 ^ x1
 
 
 def random_bits(key, n: int, device="cpu", start: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, (n,), uint32)``: ``x0 ^ x1`` of
-    ``threefry2x32(key, (0, i))``, as an int64 tensor of 32-bit values.
-    ``start`` offsets the counters: elements ``[start, start + n)`` of a
-    longer draw under the same key (a block of a chain-stacked draw's
-    rows)."""
-    if start + n >= 2**32:
-        raise ValueError(f"{start + n} elements exceed the 32-bit counter")
+    ``threefry2x32(key, (i >> 32, i & 0xFFFFFFFF))``, as an int64 tensor of
+    32-bit values.  ``start`` offsets the counters: elements ``[start,
+    start + n)`` of a longer draw under the same key (a block of a
+    chain-stacked draw's rows), past 2**32 too."""
+    _check_counter(start + n)
     return _bits_at(key, _counters(start, start + n, device))
 
 
@@ -147,10 +155,11 @@ def _threefry32(key0, key1, x0: torch.Tensor, x1: torch.Tensor) -> tuple:
 
 
 def _bits32_at(key, counters: torch.Tensor) -> torch.Tensor:
-    """``x0 ^ x1`` of ``threefry2x32(key, (0, c))`` for int64 counters
-    below 2**32, as int32 bit patterns."""
-    c = counters.to(torch.int32)  # the low 32 bits
-    x0, x1 = _threefry32(key[0], key[1], torch.zeros_like(c), c)
+    """``x0 ^ x1`` of ``threefry2x32(key, (c >> 32, c & 0xFFFFFFFF))`` for
+    int64 counters ``c``, as int32 bit patterns: both words go in as the
+    int32 that holds their bits."""
+    hi = (counters >> 32).to(torch.int32)
+    x0, x1 = _threefry32(key[0], key[1], hi, counters.to(torch.int32))  # low 32 bits
     return x0.bitwise_xor_(x1)
 
 
@@ -193,9 +202,7 @@ def _draw(key, shape, device, start: int, block, values) -> torch.Tensor:
     whole draw, bit for bit, by each element's global counter.  Works in
     slices of :data:`CHUNK` elements, so the temporaries stay bounded."""
     shape = tuple(int(n) for n in shape)
-    total = math.prod(shape)
-    if start + total >= 2**32:
-        raise ValueError(f"{start + total} elements exceed the 32-bit counter")
+    _check_counter(start + math.prod(shape))
     parts = _block_of(shape, block)
     out_shape = tuple(length for _, length in parts)
     n = math.prod(out_shape)
@@ -225,23 +232,24 @@ def fastmod_magic(span: int) -> int:
     return ((2**64 - 1) // int(span) + 1) % 2**64
 
 
-def randint(key, n: int, maxval: int, device="cpu") -> torch.Tensor:
+def randint(key, n: int, maxval: int, device="cpu", start: int = 0) -> torch.Tensor:
     """``jax.random.randint(key, (n,), 0, maxval, int32)`` bit for bit, for
     ``1 <= maxval < 2**16`` (the span of a coordinate delay): two bit
     streams from the split key, each reduced mod span, recombined with
-    ``2**32 mod span``.  Returns int32; works in slices of :data:`CHUNK`."""
+    ``2**32 mod span``.  ``start`` offsets the counters, as
+    :func:`random_bits`' does: elements ``[start, start + n)`` of a longer
+    draw, past 2**32 too.  Returns int32; works in slices of
+    :data:`CHUNK`."""
     if not 1 <= int(maxval) < 2**16:
         raise ValueError(f"maxval {maxval} outside [1, 2**16)")
+    _check_counter(start + n)
     k_hi, k_lo, span, mult = randint_params(key, maxval)
     out = torch.empty(n, dtype=torch.int32, device=device)
     for a in range(0, n, CHUNK):
         b = min(n, a + CHUNK)
-        c = _counters(a, b, device)
-        z = torch.zeros_like(c)
-        h0, h1 = threefry2x32(k_hi[0], k_hi[1], z, c)
-        l0, l1 = threefry2x32(k_lo[0], k_lo[1], z, c)
-        off = (((h0 ^ h1) % span) * mult + (l0 ^ l1) % span) % span
-        out[a:b] = off.to(torch.int32)
+        c = _counters(start + a, start + b, device)
+        hi = (_bits_at(k_hi, c) % span) * mult
+        out[a:b] = ((hi + _bits_at(k_lo, c) % span) % span).to(torch.int32)
     return out
 
 
@@ -263,7 +271,11 @@ def normal_from_counter(seed0, seed1, counter: torch.Tensor) -> torch.Tensor:
 
 
 def normal(seed, start: int, stop: int, device="cpu") -> torch.Tensor:
-    """The noise of flat elements ``[start, stop)`` under ``seed``."""
+    """The noise of flat elements ``[start, stop)`` under ``seed``.  Refused
+    past 2**32 elements: this is the fused update's plain version, and the
+    reference's Pallas kernel takes a ``uint32`` counter, which wraps
+    there (``repro.kernels.langevin_update``) — a difference by design of
+    that kernel, not of the draws above."""
     if stop > 2**32:
         raise ValueError(f"{stop} elements exceed the 32-bit counter")
     return normal_from_counter(seed[0], seed[1], _counters(start, stop, device))

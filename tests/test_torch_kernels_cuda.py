@@ -32,7 +32,10 @@ float32 ulp), on its vector code (16-byte aligned, a tail of 1-7
 elements) and its scalar code (a tensor one element off 16 bytes); the
 delay draw, the gather (out-of-range delays included) and the one-pass
 W-Icon read are equal bit for bit, the read on aligned rows (vectors) and
-on misaligned ones (scalar code) over rings of depth 1-5.
+on misaligned ones (scalar code) over rings of depth 1-5; the draw and
+the read of one chain of 2^32 + 2^20 elements (the 64-bit index path,
+counters with a high word) equal the plain draw at their counters, and
+the fused update still refuses a chain past 2^32.
 
 One launch for C chains: chain c is bit for bit the same kernel on chain
 c alone (C = 1, an aligned copy) with its parameters, and agrees with the
@@ -611,6 +614,65 @@ def test_wicon_read_kernel_equals_plain_on_card(cuda, dtype, depth):
                     assert dg.wicon_read.launches == before + 1
                     assert got.dtype == dtype
                     assert _bitwise(got, want), (n, off, head, maxval)
+
+
+#: a chain of 2^32 + 2^20 elements: its row runs the kernels' 64-bit index
+#: path, and its last 2^20 draws have counters with a high word of 1
+LONG_ROW = 2**32 + 2**20
+#: windows of that row held against the plain draw at their counters:
+#: the first elements, the 2^20 below 2^32 and the last 2^20 (above it)
+LONG_WINDOWS = [(0, 2**16), (2**32 - 2**20, 2**32), (2**32, LONG_ROW)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("maxval", [3, 4])
+def test_coordinate_delays_past_2_32_equal_the_plain_draw(cuda, maxval):
+    """One chain of 2^32 + 2^20 delays (17.2 GB of int32): the elements
+    on both sides of 2^32 and the last 2^20 equal ``rng.randint`` at their
+    counters (``start=``), where JAX's counter has a high word; both
+    streams (maxval 3) and the low one alone (4)."""
+    key = (0x1234, 0x5678)
+    got = dg.coordinate_delays(_draw_table(key, maxval, cuda), LONG_ROW, [maxval])
+    for a, b in LONG_WINDOWS:
+        want = rng.randint(key, b - a, maxval, cuda, start=a)
+        assert torch.equal(got[0, a:b], want), (a, b)
+    del got
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_wicon_read_past_2_32_equals_the_plain_draw(cuda):
+    """The one-pass read of a bfloat16 ring of depth 3 over 2^32 + 2^20
+    elements (25.8 GB, and 8.6 GB out): row d holds ``i mod 64 + 64 d``
+    (exact in bfloat16), so each element read names its own index and
+    its slot; on the windows of :data:`LONG_WINDOWS` the slot is ``(head -
+    d_i) mod 3`` with ``d`` the plain draw at those counters."""
+    depth, head, maxval, key = 3, 1, 3, (0xBEEF, 0x0F0F)
+    hist = torch.empty((1, depth, LONG_ROW), dtype=torch.bfloat16, device=cuda)
+    tile = torch.arange(64, dtype=torch.float32, device=cuda)
+    for d in range(depth):
+        hist[0, d].view(-1, 64).copy_((tile + 64 * d).to(torch.bfloat16))
+    got = dg.wicon_read(hist, _draw_table(key, maxval, cuda, head), [maxval], [head])
+    del hist
+    for a, b in LONG_WINDOWS:
+        d = rng.randint(key, b - a, maxval, cuda, start=a).long()
+        idx = torch.arange(a, b, device=cuda)
+        want = (idx % 64 + 64 * ((head - d) % depth)).to(torch.bfloat16)
+        assert torch.equal(got[0, a:b], want), (a, b)
+    del got
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_the_fused_update_still_refuses_past_2_32(cuda):
+    """The fused update keeps its 2^32 limit a chain: the reference's
+    Pallas counter is uint32 and wraps there (a difference by design)."""
+    x = torch.zeros((1, 2**32 + 8), dtype=torch.bfloat16, device=cuda)
+    table = torch.zeros((1, lu.ROW_WORDS), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="2\\^32"):
+        lu.langevin_update(x, x, table)
+    del x
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda

@@ -391,8 +391,14 @@ def test_a_block_draw_is_the_block_of_jaxs_draw(monkeypatch, shape, block):
 
 
 def test_the_counter_limit_is_still_refused():
-    with pytest.raises(ValueError, match="32-bit counter"):
-        rng.jax_normal((0, 1), (2**16, 2**16), block=(slice(0, 1), slice(0, 1)))
+    """A leaf's draw takes counters past 2^32 (its block of a 2^32-element
+    leaf, at the whole leaf's counters: ``tests/test_torch_rng.py`` holds
+    them bit for bit against JAX's); past the 64-bit counter it is
+    refused."""
+    z = rng.jax_normal((0, 1), (2**16, 2**16), block=(slice(2**16 - 1, None), slice(0, 2)))
+    assert z.shape == (1, 2) and np.isfinite(z.numpy()).all()
+    with pytest.raises(ValueError, match="64-bit counter"):
+        rng.jax_normal((0, 1), (2**32, 2**32), block=(slice(0, 1), slice(0, 1)))
 
 
 def test_adapt_config_takes_attn_shard_as_the_reference():

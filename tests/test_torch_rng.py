@@ -3,7 +3,9 @@ against the JAX package.
 
 - Bits: threefry2x32, ``split``, ``key_data``, ``random_bits`` and
   ``randint`` equal JAX's bit for bit (JAX 0.9 with
-  ``jax_threefry_partitionable``, its default).
+  ``jax_threefry_partitionable``, its default), past 2^32 elements too,
+  where the counter's high word is the flat index's (held against JAX's
+  threefry primitive at those counters: no array of 2^32 elements).
 - Normals: the Box-Muller floats agree within 1e-6 — the bits are equal,
   but ``log``/``cos`` are ATen's, not XLA's, and differ in the last ulp.
 - The plain Langevin update agrees with the Pallas kernel (interpret mode)
@@ -102,6 +104,157 @@ def test_randint_equals_jax(maxval):
     got = rng.randint(rng.PRNGKey(21), 37 * 41, maxval)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(np.asarray(want).reshape(-1), got.numpy())
+
+
+# ---------------------------------------------------------------------------
+# counters past 2^32: JAX draws element i at (i >> 32, i & 0xFFFFFFFF)
+# ---------------------------------------------------------------------------
+#: counters on both sides of 2^32 and near 2^40
+PAST_2_32 = [2**32 - 3, 2**32 + 5, 2**40 - 2, 2**40 + 9]
+
+
+def _jax_bits_at(key, counters):
+    """``x0 ^ x1`` of JAX's threefry2x32 primitive at the 64-bit counters,
+    split into their high and low words: the bits ``jax.random.bits``
+    gives element i of a shape (held against it below 2^32 by
+    :func:`test_the_counter_construction_is_jaxs`)."""
+    from jax.extend.random import threefry2x32_p
+
+    c = np.asarray(counters, np.uint64)
+    x0, x1 = threefry2x32_p.bind(jnp.uint32(key[0]), jnp.uint32(key[1]),
+                                 jnp.asarray((c >> np.uint64(32)).astype(np.uint32)),
+                                 jnp.asarray((c & np.uint64(0xFFFFFFFF)).astype(np.uint32)))
+    return np.asarray(x0 ^ x1)
+
+
+@jax.jit
+def _floats(bits, lo, hi):
+    """Bits to ``jax.random.uniform``'s float32 in ``[lo, hi)``, as it turns
+    them into floats (jitted: XLA contracts the multiply-add as there)."""
+    u = jax.lax.bitcast_convert_type((bits >> 9) | jnp.uint32(0x3F800000),
+                                     jnp.float32) - 1.0
+    return jnp.maximum(lo, u * (hi - lo) + lo)
+
+
+def _jax_uniform_at(key, counters, lo, hi):
+    """``jax.random.uniform``'s float32 at those counters."""
+    return _floats(jnp.asarray(_jax_bits_at(key, counters)), jnp.float32(lo),
+                   jnp.float32(hi))
+
+
+def _jax_normal_at(key, counters):
+    """``jax.random.normal``'s float32 at those counters: ``sqrt(2)
+    erf_inv(u)``, u uniform in ``(nextafter(-1, 0), 1)``."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = _jax_uniform_at(key, counters, lo, 1.0)
+    return np.asarray(jax.jit(lambda u: jnp.float32(np.sqrt(2.0)) * jax.lax.erf_inv(u))(u))
+
+
+def test_the_counter_construction_is_jaxs():
+    """Below 2^32 the construction the tests past it use is
+    ``jax.random``'s own: bits, uniforms and normals of a shape."""
+    jkey = jax.random.PRNGKey(5)
+    key = tuple(int(k) for k in jax.random.key_data(jkey))
+    c = np.arange(3000)
+    np.testing.assert_array_equal(_jax_bits_at(key, c),
+                                  _u32(jax.random.bits(jkey, (3000,), jnp.uint32)))
+    np.testing.assert_array_equal(np.asarray(_jax_uniform_at(key, c, -1.0, 2.0)),
+                                  np.asarray(jax.random.uniform(jkey, (3000,),
+                                                                jnp.float32, -1.0, 2.0)))
+    np.testing.assert_array_equal(_jax_normal_at(key, c),
+                                  np.asarray(jax.random.normal(jkey, (3000,), jnp.float32)))
+
+
+@pytest.mark.parametrize("start", PAST_2_32)
+def test_host_bits_past_2_32_equal_jax(start):
+    """``_bits_at``, ``_bits32_at`` and ``random_bits(start=)`` at counters
+    past 2^32: the high word goes in, bit for bit JAX's."""
+    key = rng.PRNGKey(77)
+    c = np.arange(start, start + 64)
+    want = _jax_bits_at(key, c)
+    ct = torch.from_numpy(c.astype(np.int64))
+    np.testing.assert_array_equal(rng._bits_at(key, ct).numpy().astype(np.uint32), want)
+    np.testing.assert_array_equal(rng._bits32_at(key, ct).numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(
+        rng.random_bits(key, 64, start=start).numpy().astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("start", PAST_2_32)
+@pytest.mark.parametrize("maxval", [1, 3, 4, 7])
+def test_randint_past_2_32_equals_jax(start, maxval):
+    """``randint(start=)`` past 2^32: ``jax.random.randint``'s two streams
+    from the split key at those counters, reduced as it reduces them
+    (``test_randint_equals_jax`` holds the reduction against
+    ``jax.random.randint`` itself); ``start=0`` is the unshifted draw."""
+    jkey = jax.random.PRNGKey(31)
+    key = tuple(int(k) for k in jax.random.key_data(jkey))
+    k_hi, k_lo = (tuple(int(w) for w in k)
+                  for k in np.asarray(jax.random.key_data(jax.random.split(jkey))))
+    c = np.arange(start, start + 96)
+    span = np.uint64(maxval)
+    mult = np.uint64((2**32 % maxval) if maxval > 1 else 0)
+    hi = _jax_bits_at(k_hi, c).astype(np.uint64) % span
+    lo = _jax_bits_at(k_lo, c).astype(np.uint64) % span
+    want = ((hi * mult + lo) % span).astype(np.int32)
+    got = rng.randint(key, 96, maxval, start=start)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(rng.randint(key, 10, maxval, start=5).numpy(),
+                                  rng.randint(key, 15, maxval).numpy()[5:])
+
+
+PHI_EXPERTS = (32, 16, 6400, 4096)  # phi3.5-moe's expert stack, 1.34e10 elements
+
+
+@pytest.mark.parametrize("block", [
+    (slice(10, 11), slice(3, 4), slice(5375, 5377), slice(4090, 4096)),
+    (slice(31, 32), slice(15, 16), slice(6399, 6400), slice(4000, 4096)),
+], ids=["across-2^32", "last"])
+def test_a_block_of_phi_moes_expert_stack_draws_jaxs_numbers(block):
+    """A block of a ``(32, 16, 6400, 4096)`` draw — phi3.5-moe's expert
+    stack, past 2^32 elements — draws without a ``ValueError``, each
+    element ``jax.random.normal`` / ``uniform``'s at its flat counter: the
+    first block holds both sides of 2^32 (element ``(10, 3, 5376, 0)`` is
+    counter 2^32), the second the stack's last elements."""
+    key = rng.PRNGKey(9)
+    grids = np.meshgrid(*[np.arange(s.start, s.stop) for s in block], indexing="ij")
+    c = np.ravel_multi_index([g.ravel() for g in grids], PHI_EXPERTS).astype(np.uint64)
+    shape = tuple(s.stop - s.start for s in block)
+    if block[0].start == 10:
+        assert c.min() < 2**32 <= c.max()
+    np.testing.assert_array_equal(rng.jax_normal(key, PHI_EXPERTS, block=block).numpy(),
+                                  _jax_normal_at(key, c).reshape(shape))
+    np.testing.assert_array_equal(
+        rng.jax_uniform(key, PHI_EXPERTS, -1.0, 2.0, block=block).numpy(),
+        np.asarray(_jax_uniform_at(key, c, -1.0, 2.0)).reshape(shape))
+
+
+@pytest.mark.parametrize("start", [2**32 - 100, 2**40 - 50])
+def test_jax_normal_with_a_start_past_2_32_is_jaxs(start):
+    """``jax_normal`` / ``jax_uniform`` with ``start`` so that the draw
+    crosses 2^32 or runs near 2^40: JAX's numbers at those counters."""
+    key = rng.PRNGKey(13)
+    c = np.arange(start, start + 200)
+    np.testing.assert_array_equal(rng.jax_normal(key, (200,), start=start).numpy(),
+                                  _jax_normal_at(key, c))
+    np.testing.assert_array_equal(rng.jax_uniform(key, (200,), start=start).numpy(),
+                                  np.asarray(_jax_uniform_at(key, c, 0.0, 1.0)))
+
+
+def test_the_fused_updates_noise_still_refuses_past_2_32():
+    """``normal`` — the fused update's plain noise — keeps its 2^32
+    refusal: the reference's Pallas counter is uint32 and wraps there, a
+    difference by design of that kernel (its CUDA wrapper refuses too:
+    ``tests/test_torch_kernels_cuda.py``).  The other draws refuse only
+    past the 64-bit counter."""
+    with pytest.raises(ValueError, match="32-bit counter"):
+        rng.normal((5, 9), 2**32 - 4, 2**32 + 4)
+    assert rng.normal((5, 9), 2**32 - 4, 2**32).shape == (4,)
+    for draw in (lambda: rng.random_bits((0, 1), 4, start=2**63 - 2),
+                 lambda: rng.randint((0, 1), 4, 3, start=2**63 - 2),
+                 lambda: rng.jax_normal((0, 1), (2**32, 2**32),
+                                        block=(slice(0, 1), slice(0, 1)))):
+        with pytest.raises(ValueError, match="64-bit counter"):
+            draw()
 
 
 def test_normals_within_1e6_of_jax():
