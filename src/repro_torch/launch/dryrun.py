@@ -32,10 +32,12 @@ a fake world).  The cache bytes are the rank's block of
 :func:`~repro_torch.launch.steps.cache_spec_tree`'s placements; the step
 itself decodes from the placed model's own cache (``cache_bytes_step``
 where the two differ: a replicated K/V projection's rank keeps the KV
-heads its queries read).  A combination the port's placed model refuses
-(an architecture the tensor-parallel layouts do not take, a MoE under
-``fsdp``) is written with ``"refused"`` and its reason, and counted as
-such — never skipped.
+heads its queries read).  The placed model takes every config of the
+registry in its own layout — hymba's SSD heads split by channel, the
+xLSTM blocks replicated, a frontend's projection column-parallel — so a
+combination is refused only where the port's placed model refuses it (a
+MoE under ``fsdp``, as the reference asserts); it is then written with
+``"refused"`` and its reason, and counted as such — never skipped.
 
 Attention above 512 query positions (``prefill_32k``, ``train_4k``) goes
 through ``scaled_dot_product_attention``, which the count prices as a full

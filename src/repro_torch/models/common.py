@@ -226,7 +226,8 @@ def partition_rules(param_sharding: str, fsdp_axes=("data",), cfg=None,
         ("ssm/out_proj", _P(mdl, None)),
         # xlstm: batch-parallel with replicated params, as the reference
         # lays them out (its tensor-parallel layouts resharded the (B,S,H,dk)
-        # <-> (B,S,di) views at each layer)
+        # <-> (B,S,di) views at each layer); the port's placed model computes
+        # each block whole on every rank of the model axis
         ("mlstm/", _P(None)),
         ("slstm/", _P(None)),
         # frontend projector stub
@@ -392,8 +393,21 @@ class ModelAxis:
       gradient is a rank's part, summed over the axis by the gradient
       function (:func:`repro_torch.train.loop.make_grad_fn`).  A replicated
       leaf whose computation is replicated (the norms of the residual
-      stream, a projection :func:`sanitize_spec` replicated) has its whole
-      gradient on every rank;
+      stream, a projection :func:`sanitize_spec` replicated, an xLSTM
+      block) has its whole gradient on every rank;
+    - ``ssm``: ``(c0, c1)``, the SSD channels ``[c0, c1)`` of ``di = 2
+      d_model`` the rank computes (None: no SSD heads, or not split), a
+      run of ``di / m`` that may cut a head; ``ssm_gather``: the SSD
+      leaves whose block is split over ``model`` by the reference's
+      specs, each name with the dimension of one layer's ``(C, ...)``
+      tensor it is split on.  A rank gathers those whole where the layer
+      runs (``in_proj``'s ``[xi | z]`` columns, ``conv_w``'s taps,
+      ``dt_w``'s heads and the per-head vectors: the reference's blocks
+      lay them out over another dimension than the channels; the gather's
+      backward sums the ranks' parts) and uses its channels of every SSD
+      leaf; ``out_proj``'s rows are its channels already (row-parallel).
+      The replicated SSD leaves (``bc_proj``, ``conv_b``, ``norm``, and
+      those the axis does not divide) join ``summed``;
     - ``gathers``: one chain's tree beside the parameters, each leaf's
       entry a dimension the mesh axes its block is split over for FSDP
       (:func:`_gathered`; None: not gathered), and ``fsdp`` whether any
@@ -435,6 +449,8 @@ class ModelAxis:
     batch_axes: tuple = ()
     gathers: Any = None
     fsdp: bool = False
+    ssm: tuple | None = None
+    ssm_gather: Any = None
 
     @classmethod
     def of(cls, mesh, cfg, batch_axes=(), chain_axis=None) -> "ModelAxis":
@@ -499,12 +515,13 @@ class ModelAxis:
                         "the decode kernels")
         stack = specs.get("stack", {})
         tied = cfg.tie_embeddings
+        ssm, ssm_gather, ssm_summed = _ssm_split(cfg, stack.get("ssm"), m, r)
         summed = [f"attn/{n}" for n in ("q_norm", "k_norm") if attn] \
             + [f"attn/{n}" for n in ("wk", "wv", "bk", "bv") if kv_take] \
-            + (["moe/router"] if E else [])
+            + (["moe/router"] if E else []) + [f"ssm/{n}" for n in ssm_summed]
         summed = frozenset(f"stack/{n}" for n in summed
                            if n.split("/")[1] in stack.get(n.split("/")[0], {}))
-        return cls(
+        return cls(ssm=ssm, ssm_gather=ssm_gather,
             heads=heads, kv_take=kv_take, attn=attn,
             mlp="mlp" in stack and _split(specs, "stack/mlp/w_down"),
             vocab_in=_split(specs, "embed/w"),
@@ -532,6 +549,32 @@ class ModelAxis:
         (:func:`gather_from`)."""
         return gather_from(t, self.group, dim) if self.size > 1 else t
 
+    def all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of the ranks' partial ``t`` (every rank the same bits),
+        entering a region where each rank computes its part: forward and
+        backward one all-reduce each (:func:`reduce_from`, then
+        :func:`copy_to`)."""
+        return self.copy_to(self.reduce_from(t))
+
+    # -- the SSD heads split by channel ----------------------------------------
+    def ssm_leaves(self, layer: dict) -> dict:
+        """One layer's SSD leaves ``(C, ...)``, those of :attr:`ssm_gather`
+        gathered whole over the axis (their gradient's backward summed over
+        it, each rank its block), the others as they are."""
+        return {name: gather_blocks(t, self.group, self.ssm_gather[name], (MODEL_AXIS,),
+                                    fsdp=False)
+                if name in self.ssm_gather else t for name, t in layer.items()}
+
+    def rms_norm(self, x: torch.Tensor, scale: torch.Tensor, width: int,
+                 eps: float) -> torch.Tensor:
+        """:func:`rms_norm` over a last axis of ``width`` split over the
+        axis, ``x`` the rank's run of it: the sum of squares all-reduced in
+        float32 (:meth:`all_sum`)."""
+        dt = x.dtype
+        x = x.float()
+        var = self.all_sum((x * x).sum(dim=-1, keepdim=True)) / width
+        return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dt)
+
     # -- FSDP ----------------------------------------------------------------
     def gather(self, tree, gathers, skip: int = 0):
         """``tree``'s leaves (a rank's blocks with the chain axis in front)
@@ -551,6 +594,36 @@ class ModelAxis:
     def gathered_axes(self, path: str) -> tuple:
         """The FSDP axes the leaf at ``path`` (one chain's) is split over."""
         return tuple(a for g in _spec_at(self.gathers, path) if g for a in g)
+
+
+#: the SSD leaves whose blocks split something else than the rank's run of
+#: channels; out_proj's rows are that run (row-parallel)
+_SSM_LEAVES = ("in_proj", "conv_w", "conv_b", "bc_proj", "dt_w", "dt_bias", "a_log",
+               "d_skip", "norm")
+
+
+def _ssm_split(cfg, specs, m: int, r: int) -> tuple:
+    """``(channels, gathered, summed)`` of the SSD heads on a model axis of
+    ``m`` ranks (rank ``r``), from one layer's sanitized SSD specs (with the
+    stack's ``L`` in front; None: no SSD heads): the run of ``di / m``
+    channels the rank computes, the leaves split over ``model`` (each with
+    the dimension a layer's ``(C, ...)`` tensor splits) and the replicated
+    ones the rank uses its channels of.  ``(None, None, ())`` where the
+    axis has one rank."""
+    if specs is None or m == 1:
+        return None, None, ()
+    di = 2 * cfg.d_model
+    if di % m or not any(MODEL_AXIS in _axes(e) for e in specs["out_proj"]):
+        raise ValueError(f"{cfg.name}: the SSD heads' {di} channels do not divide over "
+                         f"the {MODEL_AXIS!r} axis of size {m}")
+    gathered, summed = {}, []
+    for name in _SSM_LEAVES:
+        dims = [d for d, e in enumerate(specs[name]) if MODEL_AXIS in _axes(e)]
+        if dims:
+            gathered[name] = dims[0]  # the layer tensor's (C, ...) puts C where L was
+        else:
+            summed.append(name)
+    return (r * di // m, (r + 1) * di // m), gathered, tuple(summed)
 
 
 # ---------------------------------------------------------------------------
@@ -680,29 +753,33 @@ class _GatherBlocks(torch.autograd.Function):
     along ``dim`` in rank order; backward, the rank's block of the
     gradient summed over the group.  The sum is one all-reduce of the whole
     gradient and the rank's slice of it — a reduce-scatter's result, from
-    the collective that both gloo on a card's tensors and NCCL take."""
+    the collective that both gloo on a card's tensors and NCCL take.
+    ``fsdp`` False: a tensor-parallel region's gather (the SSD leaves),
+    counted as ``forward`` / ``backward`` and not in :data:`GATHERED`."""
 
     @staticmethod
-    def forward(ctx, t, group, dim, axes):
+    def forward(ctx, t, group, dim, axes, fsdp):
         import torch.distributed as dist
 
         from repro_torch.utils import all_gather
 
         ctx.group, ctx.dim, ctx.n, ctx.axes = group, dim, t.shape[dim], axes
         ctx.rank = dist.get_rank(group)
+        ctx.kind = "fsdp reduce" if fsdp else "backward"
         out = all_gather(t, group, dim)
-        count_collective("fsdp gather", 1, "all_gather", axes, out)
-        nbytes = out.numel() * out.element_size()
-        GATHERED["alive"] += nbytes
-        GATHERED["peak"] = max(GATHERED["peak"], GATHERED["alive"])
-        weakref.finalize(out, _release, nbytes)
+        count_collective("fsdp gather" if fsdp else "forward", 1, "all_gather", axes, out)
+        if fsdp:
+            nbytes = out.numel() * out.element_size()
+            GATHERED["alive"] += nbytes
+            GATHERED["peak"] = max(GATHERED["peak"], GATHERED["alive"])
+            weakref.finalize(out, _release, nbytes)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        all_reduce(g, ctx.group, ctx.axes, "fsdp reduce")
-        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None
+        all_reduce(g, ctx.group, ctx.axes, ctx.kind)
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None, None
 
 
 def copy_to(t: torch.Tensor, group, axes=(MODEL_AXIS,)) -> torch.Tensor:
@@ -731,8 +808,9 @@ def gather_from(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     return _GatherFrom.apply(t, group, dim)
 
 
-def gather_blocks(t: torch.Tensor, group, dim: int, axes) -> torch.Tensor:
+def gather_blocks(t: torch.Tensor, group, dim: int, axes, fsdp: bool = True) -> torch.Tensor:
     """FSDP's gather: ``group``'s blocks of a leaf (over the mesh ``axes``,
     the first major) concatenated along ``dim``; backward, the gradient
-    summed over ``group``, each rank its block (:class:`_GatherBlocks`)."""
-    return _GatherBlocks.apply(t, group, dim, tuple(axes))
+    summed over ``group``, each rank its block (:class:`_GatherBlocks`;
+    ``fsdp`` False for a tensor-parallel region's)."""
+    return _GatherBlocks.apply(t, group, dim, tuple(axes), fsdp)

@@ -18,6 +18,22 @@ batch axis of ``C * B``.
 Shapes: inner dim ``di = 2 * d_model``, heads ``H`` (the attention heads),
 head dim ``p = di / H``, state ``n`` (``cfg.ssm_state``), conv taps ``K``
 (``cfg.ssm_conv``).
+
+On a model axis (``tp``, a :class:`~repro_torch.models.common.ModelAxis`
+whose ``ssm`` is set) a rank computes a run of ``di / m`` channels: the
+recurrence is independent a channel given ``dt``, B and C, so the split is
+exact even where it cuts a head (hymba-1.5b's 25 heads of 128 channels on
+2 or 16 ranks).  The rank takes its channels' columns of ``in_proj``'s
+``x`` and ``z`` halves, its conv channels and its rows of ``bc_proj`` and
+``dt_w``; B, C and ``dt`` contract over every channel, so the ranks'
+partial products (``2n + H`` wide, float32) are all-reduced once; the
+heads its channels touch run the scan (a cut head padded with zero
+channels, which add nothing), the gated RMSNorm's sum of squares is
+all-reduced, and ``out_proj`` is row-parallel.  The reference's specs
+split ``in_proj``'s ``[x | z]`` columns, ``conv_w``'s taps and the heads
+of ``dt_w`` and the per-head vectors, which are not a run of channels: a
+rank gathers those leaves whole where the layer runs and keeps the
+reference's blocks at rest (see ``ModelAxis.ssm_gather``).
 """
 
 from __future__ import annotations
@@ -77,15 +93,27 @@ class SSMState(NamedTuple):
     conv: torch.Tensor  # (C, B, K-1, di) the last inputs of the depthwise conv
 
 
-def init_ssm_state(cfg, batch: int, dtype, lead, device="cpu") -> SSMState:
-    """Zero decode state for ``batch`` rows; ``lead`` are the axes before
-    the rows (the chains, and a layer stack's ``L`` before them)."""
+def channel_heads(cfg, channels=None) -> tuple:
+    """``(c0, c1, h0, h1)``: the run of channels ``[c0, c1)`` (all of
+    them when ``channels`` is None) and the heads ``[h0, h1)`` it touches."""
     di = 2 * cfg.d_model
-    H, n, K = cfg.num_heads, cfg.ssm_state, cfg.ssm_conv
+    p = di // cfg.num_heads
+    c0, c1 = channels or (0, di)
+    return c0, c1, c0 // p, -(-c1 // p)
+
+
+def init_ssm_state(cfg, batch: int, dtype, lead, device="cpu", channels=None) -> SSMState:
+    """Zero decode state for ``batch`` rows; ``lead`` are the axes before
+    the rows (the chains, and a layer stack's ``L`` before them).
+    ``channels`` (a rank's run, ``ModelAxis.ssm``): the state of its
+    channels, ``h`` over the heads they touch."""
+    c0, c1, h0, h1 = channel_heads(cfg, channels)
+    n, K = cfg.ssm_state, cfg.ssm_conv
+    p = 2 * cfg.d_model // cfg.num_heads
     lead = tuple(lead) + (batch,)
     return SSMState(
-        h=torch.zeros(lead + (H, di // H, n), dtype=torch.float32, device=device),
-        conv=torch.zeros(lead + (K - 1, di), dtype=dtype, device=device),
+        h=torch.zeros(lead + (h1 - h0, p, n), dtype=torch.float32, device=device),
+        conv=torch.zeros(lead + (K - 1, c1 - c0), dtype=dtype, device=device),
     )
 
 
@@ -157,24 +185,41 @@ def _ssd_chunk_scan(xh, bt, ct, dt, a, chunk: int):
     return torch.cat(ys, dim=1), h
 
 
-def apply_ssm(params, x, cfg, *, chunk: int = 64, state: SSMState | None = None):
+def apply_ssm(params, x, cfg, *, chunk: int = 64, state: SSMState | None = None,
+              tp=None):
     """Full-sequence SSD block over a chain bank: x (C, B, S, d) -> (C, B,
     S, d).  With ``state`` (decode) S is 1, the recurrence is one step, and
-    the result is ``(out, new state)``."""
+    the result is ``(out, new state)``.  Under a model axis ``tp`` that
+    splits the channels the rank computes its run (the module's header),
+    and ``state`` is its channels'."""
     C, B, S, d = x.shape
     di = 2 * d
-    H = cfg.num_heads
-    p = di // H
+    p = di // cfg.num_heads
+    split = tp is not None and tp.ssm is not None
+    c0, c1, h0, h1 = channel_heads(cfg, tp.ssm if split else None)
+    H = h1 - h0  # the heads the channels touch (all of them unsplit)
+    ch = slice(c0, c1)
+    if split:
+        params = tp.ssm_leaves(params)
+        x = tp.copy_to(x)
+    w_in = params["in_proj"]  # (C, d, 2 di): [x | z]
+    if split:
+        w_in = torch.cat([w_in[..., ch], w_in[..., di + c0:di + c1]], dim=-1)
 
-    xi, z = bank_matmul(x, params["in_proj"]).chunk(2, dim=-1)  # (C, B, S, di)
-    xi, new_conv = _depthwise_conv(xi, params["conv_w"], params["conv_b"],
+    xi, z = bank_matmul(x, w_in).chunk(2, dim=-1)  # (C, B, S, di)
+    xi, new_conv = _depthwise_conv(xi, params["conv_w"][..., ch], params["conv_b"][..., ch],
                                    None if state is None else state.conv)
     xi = F.silu(xi)
-    bt, ct = bank_matmul(xi, params["bc_proj"]).chunk(2, dim=-1)  # (C, B, S, n)
-    dt = softplus(bank_matmul(xi, params["dt_w"]).float()
-                  + per_chain(params["dt_bias"], xi))  # (C, B, S, H)
-    a = -torch.exp(params["a_log"])  # (C, H), negative
-    xh = xi.reshape(C, B, S, H, p)
+    bc = bank_matmul(xi, params["bc_proj"][..., ch, :])  # (C, B, S, 2n)
+    dt = bank_matmul(xi, params["dt_w"][..., ch, :]).float()  # (C, B, S, H)
+    if split:  # the ranks' partial products over their channels, summed once
+        both = tp.all_sum(torch.cat([bc.float(), dt], dim=-1))
+        bc, dt = both[..., :bc.shape[-1]].to(xi.dtype), both[..., bc.shape[-1]:]
+    bt, ct = bc.chunk(2, dim=-1)
+    dt = softplus(dt + per_chain(params["dt_bias"], xi))[..., h0:h1]
+    a = -torch.exp(params["a_log"][:, h0:h1])  # (C, H), negative
+    pad = (c0 - h0 * p, h1 * p - c1)  # a cut head's channels off the rank: zeros
+    xh = (F.pad(xi, pad) if any(pad) else xi).reshape(C, B, S, H, p)
 
     if state is None:
         n = bt.shape[-1]
@@ -192,10 +237,15 @@ def apply_ssm(params, x, cfg, *, chunk: int = 64, state: SSMState | None = None)
         y = torch.einsum("cbhpn,cbn->cbhp", h_new, ct[:, :, 0].float())[:, :, None]
         new_state = SSMState(h=h_new, conv=new_conv)
 
-    y = y + params["d_skip"][:, None, None, :, None] * xh.float()
-    y = y.reshape(C, B, S, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), per_chain(params["norm"], y), cfg.norm_eps)
-    out = bank_matmul(y, params["out_proj"])
+    y = y + params["d_skip"][:, None, None, h0:h1, None] * xh.float()
+    y = y.reshape(C, B, S, H * p)[..., pad[0]:pad[0] + c1 - c0].to(x.dtype)
+    norm = per_chain(params["norm"][..., ch], y)
+    if split:
+        y = tp.rms_norm(y * F.silu(z), norm, di, cfg.norm_eps)
+        out = tp.reduce_from(bank_matmul(y, params["out_proj"]))  # row-parallel
+    else:
+        y = rms_norm(y * F.silu(z), norm, cfg.norm_eps)
+        out = bank_matmul(y, params["out_proj"])
     if state is None:
         return out
     return out, new_state

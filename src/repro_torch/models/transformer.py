@@ -340,10 +340,10 @@ def apply_block(p, x, cfg, block: str, positions, *, cache=None, cur_pos=None,
                               cur_pos=cur_pos, tp=tp)
     if block == "hymba_mlp":
         if cache is None:
-            ssm_out = apply_ssm(p["ssm"], h, cfg)
+            ssm_out = apply_ssm(p["ssm"], h, cfg, tp=tp)
         else:
             ssm_out, new = apply_ssm(p["ssm"], h, cfg, state=SSMState(
-                cache["ssm_h"], cache["ssm_conv"]))
+                cache["ssm_h"], cache["ssm_conv"]), tp=tp)
             cache["ssm_h"].copy_(new.h)
             cache["ssm_conv"].copy_(new.conv)
         attn_out = 0.5 * (attn_out + ssm_out)
@@ -382,13 +382,18 @@ class Model:
     (leading chain axis) and return tensors on ``device``; token and
     position inputs may be numpy arrays or tensors.
 
-    ``mesh`` (a ``DeviceMesh`` with a ``model`` axis; attention stacks
-    only) makes the model tensor- and expert-parallel over that axis, as
-    :attr:`tp` (a :class:`~repro_torch.models.common.ModelAxis`) lays it
-    out: the methods take the rank's local tensors (a 2-D bank's
+    ``mesh`` (a ``DeviceMesh`` with a ``model`` axis; every config) makes
+    the model tensor- and expert-parallel over that axis, as :attr:`tp` (a
+    :class:`~repro_torch.models.common.ModelAxis`) lays it out: the methods
+    take the rank's local tensors (a 2-D bank's
     :func:`~repro_torch.utils.local` block), every rank of the axis calls
     them with the same inputs, and the logits they return are the rank's
     vocabulary slice where the head is split (:meth:`gather_vocab`).
+    hymba's SSD heads are split by channel (:mod:`~repro_torch.models.
+    ssm`), an xLSTM block is computed whole on every rank (its leaves are
+    replicated, as the reference lays them out), and a frontend's
+    projection is column-parallel, its output gathered before it is put
+    in front of the tokens.
 
     ``batch_axes`` (the reference's; with ``mesh`` only, empty by default,
     as a 2-D serving bank's other axis holds chains) are the mesh axes a
@@ -402,8 +407,10 @@ class Model:
     chains on, whose spec entries the bank replicates (an ``fsdp_tp``
     config's experts stay whole there).  A ``fsdp_full`` config
     (``launch.steps.adapt_config(..., ("fsdp",))``) is gathered leaf by
-    leaf and runs every block kind; the tensor-parallel layouts take
-    homogeneous attention stacks."""
+    leaf.  The engines' banks (:meth:`init_cache_bank`, the paged pool)
+    stay refused for the recurrent stacks and the frontend configs, placed
+    or not, as the reference's engines refuse them; :meth:`init_cache`
+    and :meth:`serve_step` serve them (replay)."""
 
     def __init__(self, cfg, device="cuda", mesh=None, batch_axes=(), chain_axis=None):
         self.cfg = cfg
@@ -414,8 +421,6 @@ class Model:
             raise ValueError(f"batch_axes {self.batch_axes} split a batch over a mesh: "
                              "pass mesh=")
         if mesh is not None:
-            if cfg.param_sharding != "fsdp_full":
-                self._require_stacked_attention("a model split over the 'model' axis")
             self.tp = ModelAxis.of(mesh, cfg, self.batch_axes, chain_axis)
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -491,13 +496,18 @@ class Model:
         batch carries ``"frontend"`` stub embeddings ``(B, N, FRONTEND_DIM)``
         in float32: projected per chain, in float32 as JAX promotes ``fe @
         proj`` (proj upcast, fe kept), cast to the model's dtype and put
-        before the tokens' embeddings."""
+        before the tokens' embeddings.  Where the model axis splits the
+        projection's columns, each rank projects onto its columns and the
+        ranks' columns are gathered (column-parallel)."""
         parts = []
         if self.cfg.frontend:
             fe = to_device(batch["frontend"], self.device).float()
             proj = self._top(params, "frontend")["proj"]
-            parts.append(bank_matmul(fe.expand(proj.shape[0], *fe.shape),
-                                     proj.float()).to(dtype_of(self.cfg)))
+            y = bank_matmul(fe.expand(proj.shape[0], *fe.shape),
+                            proj.float()).to(dtype_of(self.cfg))
+            if self.tp is not None and proj.shape[-1] < self.cfg.d_model:
+                y = self.tp.all_gather(y, y.dim() - 1)
+            parts.append(y)
         if "tokens" in batch:
             parts.append(self._lookup(self._top(params, "embed")["w"], batch["tokens"]))
         x = torch.cat(parts, dim=2) if len(parts) > 1 else parts[0]
@@ -646,7 +656,9 @@ class Model:
         A stack's cache is layer-major: an attention block's ring
         ``{"attn": ...}`` as :meth:`init_cache_bank` gives it, and hymba's
         SSD state beside it, ``ssm_h`` ``(L, C, B, H, p, n)`` float32 and
-        ``ssm_conv`` ``(L, C, B, K-1, di)`` in the model's dtype.  An xLSTM
+        ``ssm_conv`` ``(L, C, B, K-1, di)`` in the model's dtype.  Under a
+        model axis the ring holds the rank's KV heads, and the SSD state
+        its run of channels (``ssm_h`` over the heads they touch).  An xLSTM
         stack's is a list of per-layer dicts: ``mlstm_{c,n,m}`` ``(C, B, H,
         dk, dk)``, ``(C, B, H, dk)``, ``(C, B, H)``, or ``slstm_{c,n,m,h}``
         ``(C, B, d)``, float32.  :meth:`init_cache_bank` is this cache
@@ -673,7 +685,8 @@ class Model:
     def _recurrent_state(self, block: str, lead, batch_size: int) -> dict:
         cfg, dev = self.cfg, self.device
         if block == "hymba_mlp":
-            st = init_ssm_state(cfg, batch_size, dtype_of(cfg), lead, dev)
+            st = init_ssm_state(cfg, batch_size, dtype_of(cfg), lead, dev,
+                                channels=None if self.tp is None else self.tp.ssm)
             return {"ssm_h": st.h, "ssm_conv": st.conv}
         if block == "mlstm":
             st = init_mlstm_state(cfg, batch_size, lead, dev)

@@ -407,40 +407,41 @@ def test_sanitized_specs_equal_the_references(arch):
 # ---------------------------------------------------------------------------
 # the dry run
 # ---------------------------------------------------------------------------
-#: the configs the tensor-parallel layouts refuse (not an attention stack of
-#: token prompts): placed under the "fsdp" option instead
-FSDP_ONLY = ("hymba-1.5b", "xlstm-1.3b", "internvl2-1b", "musicgen-medium")
+#: the configs with a tensor-parallel layout of their own (not an attention
+#: stack of token prompts): hymba's SSD heads split by channel, the xLSTM
+#: blocks replicated, a frontend's projection column-parallel; each is also
+#: placed under the "fsdp" option beside it
+OWN_LAYOUTS = ("hymba-1.5b", "xlstm-1.3b", "internvl2-1b", "musicgen-medium")
 
 
 @pytest.mark.parametrize("arch", IDS)
 def test_dry_run_of_every_arch_finishes_on_meta(arch, tmp_path):
     """Each config's train, prefill and decode steps placed on a ``data`` 2 x
     ``model`` 2 mesh (a fake world of 4 in this process): rank 0's step
-    counted, its figures per device; a config the tensor-parallel layouts
-    refuse is written as a refusal with its reason, and placed under
-    ``"fsdp"`` instead."""
+    counted in the config's own layout, its figures per device; the
+    configs with a layout of their own are counted under ``"fsdp"``
+    beside it too."""
     t0 = time.perf_counter()
-    opts = ("fsdp",) if get_arch(arch).name in FSDP_ONLY else ()
+    layouts = [(), ("fsdp",)] if get_arch(arch).name in OWN_LAYOUTS else [()]
     with dryrun.placed((2, 2)) as m:
         for kind in ("train", "prefill", "decode"):
             shape = ShapeConfig(f"ci_{kind}", 128, 4, kind,
                                 num_microbatches=2 if kind == "train" else 1)
-            if opts:
+            for opts in layouts:
                 res = dryrun.run_combo(arch, shape.name, shape=shape,
-                                       cfg0=get_reduced(arch), mesh=m, verbose=False)
-                assert "attention stack" in res["refused"] or "frontend" in res["refused"]
-                assert res["memory"]["param_bytes"] > 0
-            res = dryrun.run_combo(arch, shape.name, shape=shape, cfg0=get_reduced(arch),
-                                   mesh=m, opts=opts, verbose=False)
-            r = res["roofline"]
-            assert "refused" not in res and res["num_devices"] == 4
-            assert res["counted"]["flops"] > 0 and r["flops_per_device"] * 4 == \
-                pytest.approx(r["counted_flops_global"])
-            assert r["dominant"] in ("compute", "memory", "collective") and "H100" in r["card"]
-            assert res["memory"]["param_bytes"] > 0 and r["collective_bytes_per_device"] > 0
-            if kind == "decode":
-                assert res["memory"]["cache_bytes"] > 0
-            assert dryrun.save_result(res, str(tmp_path)).endswith(".json")
+                                       cfg0=get_reduced(arch), mesh=m, opts=opts,
+                                       verbose=False)
+                r = res["roofline"]
+                assert "refused" not in res and res["num_devices"] == 4, res.get("refused")
+                assert res["counted"]["flops"] > 0 and r["flops_per_device"] * 4 == \
+                    pytest.approx(r["counted_flops_global"])
+                assert r["dominant"] in ("compute", "memory", "collective") \
+                    and "H100" in r["card"]
+                assert res["memory"]["param_bytes"] > 0 and \
+                    r["collective_bytes_per_device"] > 0
+                if kind == "decode":
+                    assert res["memory"]["cache_bytes"] > 0
+                assert dryrun.save_result(res, str(tmp_path)).endswith(".json")
     assert not torch.distributed.is_initialized()
     assert time.perf_counter() - t0 < 60
 
@@ -472,13 +473,13 @@ def _jax_param_bytes(arch, axes, opts):
 
 @pytest.mark.parametrize("arch", IDS)
 def test_placed_param_bytes_equal_the_references_specs(arch):
-    """Per-device parameter bytes of the placed dry run (rank 0's blocks, or
-    a refusal's spec bytes) on the 16 x 16 and 2 x 16 x 16 production
-    meshes, ``tp`` (the config's own layout) and ``"fsdp"``: equal to those
-    the JAX package's own specs give; ``"fsdp"`` on a MoE refused by
-    both."""
+    """Per-device parameter bytes of the placed dry run (rank 0's blocks) on
+    the 16 x 16 and 2 x 16 x 16 production meshes and on 2 x 2, ``tp`` (the
+    config's own layout: hymba's SSD leaves keep the reference's blocks at
+    rest) and ``"fsdp"``: equal to those the JAX package's own specs give;
+    ``"fsdp"`` on a MoE refused by both, and nothing else refused."""
     shape = get_shape("train_4k")
-    for dims in ((16, 16), (2, 16, 16)):
+    for dims in ((2, 2), (16, 16), (2, 16, 16)):
         axes = dict(zip(("pod", "data", "model")[-len(dims):], dims))
         with dryrun.placed(dims) as m:
             for opts in ((), ("fsdp",)):
@@ -488,8 +489,7 @@ def test_placed_param_bytes_equal_the_references_specs(arch):
                         steps.adapt_config(get_arch(arch), shape, opts)
                     continue
                 res = dryrun.run_combo(arch, shape.name, mesh=m, opts=opts, verbose=False)
-                # a tensor-parallel layout the placed model refuses: the specs' bytes
-                assert ("refused" in res) == (get_arch(arch).name in FSDP_ONLY and not opts)
+                assert "refused" not in res, res.get("refused")
                 assert res["memory"]["param_bytes"] == want, (dims, opts)
     assert not torch.distributed.is_initialized()
 

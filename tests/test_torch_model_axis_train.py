@@ -99,6 +99,16 @@ def _tokens(case):
         0, vocab, (world.batch_of(case), world.SEQ + 1)).astype(np.int32)
 
 
+def _batch(case):
+    """The case's global batch: its tokens, and a frontend config's stub
+    embeddings ``(B, FRONTEND_N, 1024)`` float32."""
+    batch = {"tokens": _tokens(case)}
+    if _jcfg(case).frontend:
+        batch["frontend"] = np.random.default_rng(12).standard_normal(
+            (world.batch_of(case), world.FRONTEND_N, 1024)).astype(np.float32)
+    return batch
+
+
 def _port(tree):
     return from_jax_params(jax.tree_util.tree_map(np.asarray, tree), device="cpu")
 
@@ -123,7 +133,7 @@ def _oracle(case, D):
     model = JModel(cfg, remat=False)
     params = _jparams(case)
     pend = _pending(params)
-    tokens = _tokens(case)
+    batch = {k: jnp.asarray(v) for k, v in _batch(case).items()}
     keys = {m: jax.random.PRNGKey(s) for m, s in world.KEYS.items()}
     if D == 1:
         sync, pipe = (jax_steps.make_sgld_train_step(model, jshape, mode, world.GAMMA,
@@ -131,11 +141,10 @@ def _oracle(case, D):
                       for mode in ("sync", "pipeline"))
         both = jax.jit(lambda p, q, b: (sync(p, b, keys["sync"]),
                                         pipe(p, q, b, keys["pipeline"])))
-        (new_sync, loss), (new_pipe, grads, _) = both(params, pend,
-                                                      {"tokens": jnp.asarray(tokens)})
+        (new_sync, loss), (new_pipe, grads, _) = both(params, pend, batch)
         return float(loss), grads, new_sync, new_pipe
     grad_fn = jax.jit(jax_grad_fn(model, world.MICRO))
-    outs = [grad_fn(params, {"tokens": jnp.asarray(tokens[_shard_rows(d, D)])})
+    outs = [grad_fn(params, {k: v[_shard_rows(d, D)] for k, v in batch.items()})
             for d in range(D)]
     grads = jax.tree_util.tree_map(lambda *g: sum(g) / D, *[o[0] for o in outs])
     loss = sum(float(o[1]["loss"]) for o in outs) / D
@@ -171,7 +180,8 @@ def worlds(tmp_path_factory):
         params = _jparams(case)
         save_checkpoint(str(root / f"{case}.npz"), _port(params))
         save_checkpoint(str(root / f"{case}_pending.npz"), _port(_pending(params)))
-        np.save(root / f"{case}_tokens.npy", _tokens(case))
+        for name, a in _batch(case).items():
+            np.save(root / f"{case}_{name}.npy", a)
     procs = {}
     for w in WORLDS:
         out = root / f"world{w}"
@@ -308,16 +318,30 @@ def test_noise_torch_is_refused_on_a_placed_step(worlds, w, shape, case):
     (4, (1, 4), "heads6", []),
     (2, (1, 2), "phi-moe", ["stack/moe/router"]),
     (4, (2, 2), "kimi-moe", ["stack/moe/router"]),
+    (2, (1, 2), "hymba", ["stack/ssm/bc_proj", "stack/ssm/conv_b", "stack/ssm/norm"]),
+    (2, (1, 2), "hymba-cut", ["stack/ssm/a_log", "stack/ssm/bc_proj", "stack/ssm/conv_b",
+                              "stack/ssm/d_skip", "stack/ssm/dt_bias", "stack/ssm/dt_w",
+                              "stack/ssm/norm"]),
+    (4, (1, 4), "hymba", ["stack/attn/wk", "stack/attn/wv", "stack/ssm/bc_proj",
+                          "stack/ssm/conv_b", "stack/ssm/norm"]),
+    (4, (2, 2), "xlstm", []),
+    (4, (1, 4), "internvl2", ["stack/attn/bk", "stack/attn/bv", "stack/attn/wk",
+                              "stack/attn/wv"]),
 ], ids=["qwen3-1x2", "head-shard-1x2", "qwen3-1x4", "heads6-1x4", "phi-moe-1x2",
-        "kimi-moe-2x2"])
+        "kimi-moe-2x2", "hymba-1x2", "hymba-cut-1x2", "hymba-1x4", "xlstm-2x2",
+        "internvl2-1x4"])
 def test_the_leaves_summed_over_model(worlds, w, shape, case, summed):
     """The leaves a rank uses on its part only, whose gradient is summed
     over ``model``: the qk-norms on a rank's heads; a replicated K/V
     projection under ``kv_take`` (qwen3's 2 KV heads over ``model`` 4:
     two ranks read each); the router beside a rank's experts.  With the
     attention replicated (6 heads over 4) nothing is summed: every rank's
-    gradient is already whole.  (The reduced configs have no qkv bias, so
-    ``bk`` / ``bv`` are absent but named where the layout would sum them.)"""
+    gradient is already whole.  (Reduced qwen3 has no qkv bias, so ``bk`` /
+    ``bv`` are absent but named where the layout would sum them.)  hymba's
+    SSD heads: the replicated leaves a rank uses its channels of
+    (``bc_proj``, ``conv_b``, ``norm``; with 5 heads on 2 ranks also
+    ``dt_w`` and the per-head vectors, which the axis does not divide); an
+    xLSTM block is computed whole on every rank: nothing summed."""
     for got in _got(worlds, w, shape, case):
         present = {p.replace("##", "/") for p in got["held"]}
         assert got["summed"] == [p for p in summed if p in present]
@@ -356,6 +380,73 @@ def test_fsdp_holds_one_layer_gathered_at_a_time(worlds, w, shape, case):
 def test_the_batch_specs_split_the_rows_over_data(worlds):
     for got in _got(worlds, 4, (2, 2), "qwen3"):
         assert got["batch_specs"] == {"tokens": ("S(0)", "R")}
+    for got in _got(worlds, 4, (2, 2), "internvl2"):  # the stub embeddings' rows too
+        assert got["batch_specs"] == {"tokens": ("S(0)", "R"), "frontend": ("S(0)", "R")}
+
+
+# ---------------------------------------------------------------------------
+# the configs with a layout of their own
+# ---------------------------------------------------------------------------
+OWN = [t for t in TRAINED if t[2] in world.OWN_LAYOUTS]
+OWN_IDS = [i for t, i in zip(TRAINED, TRAINED_IDS) if t[2] in world.OWN_LAYOUTS]
+
+
+@pytest.mark.parametrize("w,shape,case", OWN, ids=OWN_IDS)
+def test_the_placed_model_decodes_like_the_unplaced_one(worlds, w, shape, case):
+    """hymba (its SSD state of the rank's channels, a cut head's too), xLSTM
+    (replicated blocks) and the frontend configs (the stub positions
+    prefilled, then tokens): the log-probs of a teacher-forced replay
+    through the placed ``Model.serve_step`` within 1e-4 (f32) of the
+    unplaced model's (which ``tests/test_torch_recurrent.py`` and
+    ``test_torch_archs.py`` hold against the JAX package)."""
+    for got in _got(worlds, w, shape, case):
+        assert got["decode"] <= 1e-4, got["decode"]
+
+
+@pytest.mark.parametrize("w,shape,case", OWN, ids=OWN_IDS)
+def test_the_engines_still_refuse_recurrent_and_frontend_stacks_placed(worlds, w, shape,
+                                                                         case):
+    """The engines' banks stay refused on a mesh as off it: the recurrent
+    stacks have no prefill-fillable cache, the frontend configs serve
+    token prompts only."""
+    want = "token prompts only" if case in ("internvl2", "musicgen") \
+        else "homogeneous attention stack"
+    for got in _got(worlds, w, shape, case):
+        for what, msg in got["refused_bank"].items():
+            assert msg is not None and want in msg, (what, msg)
+
+
+@pytest.mark.parametrize("w,shape,case", OWN, ids=OWN_IDS)
+def test_a_placed_chain_round_trips_to_the_whole_leaves(worlds, w, shape, case):
+    """Every leaf's block (hymba's ``in_proj`` ``[x | z]``, ``conv_w``'s
+    taps and ``dt_w``'s heads as the reference's specs cut them) gathered
+    over ``model`` is the whole leaf; ``gather_chains`` gives the whole
+    chain; a placed checkpoint reads back whole and placed, bit for bit."""
+    for got in _got(worlds, w, shape, case):
+        assert all(got["round_trip"].values()), got["round_trip"]
+
+
+@pytest.mark.parametrize("w,shape,case,channels,gathered,state", [
+    (2, (1, 2), "hymba", [(0, 256), (256, 512)],
+     ["a_log", "conv_w", "d_skip", "dt_bias", "dt_w", "in_proj"],
+     [((2, 1, 2, 2, 128, 16), (2, 1, 2, 3, 256))] * 2),
+    (2, (1, 2), "hymba-cut", [(0, 320), (320, 640)], ["conv_w", "in_proj"],
+     [((2, 1, 2, 3, 128, 16), (2, 1, 2, 3, 320))] * 2),
+    (4, (1, 4), "hymba-cut", [(0, 160), (160, 320), (320, 480), (480, 640)],
+     ["conv_w", "in_proj"],
+     [((2, 1, 2, 2, 128, 16), (2, 1, 2, 3, 160))] * 4),
+    (4, (2, 2), "xlstm", [None] * 2, [], [None] * 2),
+], ids=["hymba-1x2", "hymba-cut-1x2", "hymba-cut-1x4", "xlstm-2x2"])
+def test_the_ssd_heads_split_by_channel(worlds, w, shape, case, channels, gathered, state):
+    """Each rank's run of ``di / m`` SSD channels (in rank order along
+    ``model``), the leaves whose reference blocks are not that run and are
+    gathered where the layer runs, and the rank's decode state: ``ssm_h``
+    over the heads its channels touch (a cut head on both ranks),
+    ``ssm_conv`` over its channels."""
+    for r, got in enumerate(_got(worlds, w, shape, case)):
+        m = r % shape[-1]
+        assert got["ssm"] == (channels[m], gathered)
+        assert got.get("ssm_state") == state[m]
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (2, 1, 2)], ids=["2x2", "2x1x2"])

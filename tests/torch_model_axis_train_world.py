@@ -54,15 +54,30 @@ CASES = {
     "kimi-moe": ("kimi-k2-1t-a32b", {}),
     "fsdp": ("qwen3-4b", {"param_sharding": "fsdp_full"}),
     "fsdp-b4": ("qwen3-4b", {"param_sharding": "fsdp_full"}),
+    "hymba": ("hymba-1.5b", {}),
+    # 5 heads of 128 SSD channels: model 2 cuts a head (2.5 a rank), as 25
+    # heads on 2 or 16 do at the published widths; its attention replicated
+    "hymba-cut": ("hymba-1.5b", {"d_model": 320, "num_heads": 5, "num_kv_heads": 5}),
+    "xlstm": ("xlstm-1.3b", {}),
+    "internvl2": ("internvl2-1b", {}),
+    "musicgen": ("musicgen-medium", {}),
 }
+#: the configs with a layout of their own: decoded through the placed
+#: ``Model.serve_step`` against the unplaced one, and the engines' refusals
+OWN_LAYOUTS = ("hymba", "hymba-cut", "xlstm", "internvl2", "musicgen")
+FRONTEND_N = 8  # stub positions of a frontend config's batch
+DECODE = (2, 6)  # rows and tokens decoded by replay (after the stub positions)
 MOE = ("phi-moe", "kimi-moe")
 FSDP = ("fsdp", "fsdp-b4", "kimi-moe")
 #: world -> the meshes it trains over (``(data, model)``, or ``(pod, data,
 #: model)``), each with its cases
 MESHES = {
-    2: [((1, 2), ["qwen3", "head-shard", "heads6", "vocab511", "phi-moe", "kimi-moe"])],
-    4: [((2, 2), ["qwen3", "phi-moe", "kimi-moe", "fsdp", "fsdp-b4"]),
-        ((1, 4), ["qwen3", "head-shard", "heads6", "vocab511", "phi-moe"]),
+    2: [((1, 2), ["qwen3", "head-shard", "heads6", "vocab511", "phi-moe", "kimi-moe",
+                  "hymba", "hymba-cut", "xlstm", "internvl2", "musicgen"])],
+    4: [((2, 2), ["qwen3", "phi-moe", "kimi-moe", "fsdp", "fsdp-b4", "hymba", "xlstm",
+                  "internvl2"]),
+        ((1, 4), ["qwen3", "head-shard", "heads6", "vocab511", "phi-moe", "hymba",
+                  "hymba-cut", "internvl2", "musicgen"]),
         ((2, 1, 2), ["fsdp"])],
 }
 #: chip_smoke.py phase 15's cells rehearsed on the CPU over data 2 x model 2:
@@ -153,6 +168,9 @@ def train_case(case, mesh, shape, fixtures) -> dict:
                               device="cpu")
     tokens = torch.from_numpy(np.load(os.path.join(fixtures, f"{case}_tokens.npy")))
     batch = {"tokens": tokens}
+    if cfg.frontend:
+        batch["frontend"] = torch.from_numpy(
+            np.load(os.path.join(fixtures, f"{case}_frontend.npy")))
     params, pending = place_params(whole, model), place_params(pend, model)
 
     got = {"heads": model.tp.heads, "summed": sorted(model.tp.summed),
@@ -226,6 +244,91 @@ def train_case(case, mesh, shape, fixtures) -> dict:
         leaf_paths(gather_chains(new_sync)), leaf_paths(ref["sync"])))
     got["local_tree"] = all(not hasattr(t, "placements") for t in
                             [x for _, x in leaf_paths(local(new_sync))])
+    if case in OWN_LAYOUTS:
+        got.update(own_layout(cfg, model, whole, params, batch, mesh, fixtures))
+    return got
+
+
+def _decode(model, params, batch):
+    """Log-probs ``(B, T, V)`` float64 of :data:`DECODE`'s tokens fed one by
+    one through ``model.serve_step`` (teacher-forced), the rank's
+    vocabulary slices gathered; a frontend config's stub positions (and the
+    first token) prefilled into a cache with room for the rest, as a caller
+    of ``init_cache`` prefills them."""
+    B, T = DECODE
+    tokens = batch["tokens"][:B, :T]
+    out = []
+    if model.cfg.frontend:
+        fe = batch["frontend"][:B]
+        logits, pre = model.prefill(params, {"frontend": fe, "tokens": tokens[:, :1]})
+        S = pre["attn"]["k"].shape[3]
+        cache = model.init_cache(B, S + T, prefill_len=S)
+        for name in ("k", "v"):
+            cache["attn"][name][:, :, :, :S] = pre["attn"][name]
+        out.append(logits)
+        start, first = S, 1
+    else:
+        cache = model.init_cache(B, 2 * T)
+        start, first = 0, 0
+    for t in range(first, T):
+        logits, cache = model.serve_step(params, cache, tokens[:, t:t + 1], start + t - first)
+        out.append(logits)
+    logits = model.gather_vocab(torch.cat(out, dim=2)[0])
+    return torch.log_softmax(logits.double(), dim=-1)
+
+
+def own_layout(cfg, model, whole, params, batch, mesh, fixtures) -> dict:
+    """A config with a layout of its own: decoding through the placed model
+    against the unplaced one, the engines' refusals on the placed model, the
+    rank's SSD channels and decode state, and the placed chain's round trip
+    (``gather_rows``, ``gather_chains``, a placed checkpoint)."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.checkpoint.io import leaf_paths
+    from repro_torch.cluster import DecodeEngine
+    from repro_torch.models.transformer import Model
+    from repro_torch.utils import gather_chains, gather_rows, local
+
+    got = {}
+    with torch.no_grad():
+        placed = _decode(model, local(params), batch)
+        unplaced = _decode(Model(cfg, device="cpu"), whole, batch)
+    got["decode"] = float((placed - unplaced).abs().max())
+    got["refused_bank"] = {}
+    for what, call in (("init_cache_bank", lambda: model.init_cache_bank(1, 2, 8)),
+                       ("DecodeEngine", lambda: DecodeEngine(cfg, whole, device="cpu", mesh=mesh,
+                                                             shard_params=True))):
+        try:
+            call()
+            got["refused_bank"][what] = None
+        except ValueError as e:
+            got["refused_bank"][what] = str(e)
+    tp = model.tp
+    got["ssm"] = (tp.ssm, sorted(tp.ssm_gather or {}))
+    if cfg.block_pattern == ("hymba_mlp",):
+        st = model.init_cache(2, 8)
+        got["ssm_state"] = (tuple(st["ssm_h"].shape), tuple(st["ssm_conv"].shape))
+    # the round trip: each placed leaf's blocks gathered over model, whole
+    # chains gathered, and a placed checkpoint written and read back
+    trip = {}
+    for p, t in leaf_paths(params):
+        pl = [x for x in t.placements if x.is_shard()]
+        back = (gather_rows(t.to_local(), mesh, "model", pl[0].dim) if pl
+                else t.to_local())
+        trip[p] = torch.equal(back, dict(leaf_paths(whole))[p])
+    whole_again = gather_chains(params)
+    trip["gather_chains"] = all(torch.equal(a, b) for (_, a), (_, b) in
+                                zip(leaf_paths(whole_again), leaf_paths(whole)))
+    path = os.path.join(fixtures, f"placed_{cfg.name}_{mesh.mesh.numel()}_"
+                        f"{'x'.join(map(str, mesh.mesh.shape))}.npz")
+    save_checkpoint(path, params)
+    saved = restore_checkpoint(path, whole, device="cpu")
+    trip["checkpoint_whole"] = all(torch.equal(a, b) for (_, a), (_, b) in
+                                   zip(leaf_paths(saved), leaf_paths(whole)))
+    again = restore_checkpoint(path, params)
+    trip["checkpoint_placed"] = all(
+        torch.equal(a.to_local(), b.to_local()) and a.placements == b.placements
+        for (_, a), (_, b) in zip(leaf_paths(again), leaf_paths(params)))
+    got["round_trip"] = trip
     return got
 
 
