@@ -557,13 +557,21 @@ class ModelAxis:
         return self.copy_to(self.reduce_from(t))
 
     # -- the SSD heads split by channel ----------------------------------------
-    def ssm_leaves(self, layer: dict) -> dict:
+    def ssm_leaves(self, layer: dict, keep=()) -> dict:
         """One layer's SSD leaves ``(C, ...)``, those of :attr:`ssm_gather`
-        gathered whole over the axis (their gradient's backward summed over
-        it, each rank its block), the others as they are."""
+        but ``keep`` gathered whole over the axis (their gradient's
+        backward summed over it, each rank its block), the others as they
+        are."""
         return {name: gather_blocks(t, self.group, self.ssm_gather[name], (MODEL_AXIS,),
                                     fsdp=False)
-                if name in self.ssm_gather else t for name, t in layer.items()}
+                if name in self.ssm_gather and name not in keep else t
+                for name, t in layer.items()}
+
+    def gather_columns(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' column blocks of ``t`` concatenated along its last
+        axis, each rank using its part of the whole: backward, the
+        gradient summed over the axis, each rank its block."""
+        return gather_blocks(t, self.group, t.dim() - 1, (MODEL_AXIS,), fsdp=False)
 
     def rms_norm(self, x: torch.Tensor, scale: torch.Tensor, width: int,
                  eps: float) -> torch.Tensor:

@@ -33,7 +33,10 @@ all-reduced, and ``out_proj`` is row-parallel.  The reference's specs
 split ``in_proj``'s ``[x | z]`` columns, ``conv_w``'s taps and the heads
 of ``dt_w`` and the per-head vectors, which are not a run of channels: a
 rank gathers those leaves whole where the layer runs and keeps the
-reference's blocks at rest (see ``ModelAxis.ssm_gather``).
+reference's blocks at rest (see ``ModelAxis.ssm_gather``) — but for
+``in_proj`` in a decode step, where it gathers the ``[x | z]`` columns its
+block gives the step's rows instead (``2 di`` a row, against ``d · 2 di``
+of weights).
 """
 
 from __future__ import annotations
@@ -199,14 +202,21 @@ def apply_ssm(params, x, cfg, *, chunk: int = 64, state: SSMState | None = None,
     c0, c1, h0, h1 = channel_heads(cfg, tp.ssm if split else None)
     H = h1 - h0  # the heads the channels touch (all of them unsplit)
     ch = slice(c0, c1)
+    decode = split and state is not None
     if split:
-        params = tp.ssm_leaves(params)
+        # a decode step projects onto in_proj's block and gathers its few
+        # rows' [x | z] columns; a sequence gathers in_proj instead, d rows
+        # against its B·S
+        params = tp.ssm_leaves(params, keep=("in_proj",) if decode else ())
         x = tp.copy_to(x)
     w_in = params["in_proj"]  # (C, d, 2 di): [x | z]
-    if split:
-        w_in = torch.cat([w_in[..., ch], w_in[..., di + c0:di + c1]], dim=-1)
-
-    xi, z = bank_matmul(x, w_in).chunk(2, dim=-1)  # (C, B, S, di)
+    if decode:
+        y = tp.gather_columns(bank_matmul(x, w_in))
+        xi, z = y[..., ch], y[..., di + c0:di + c1]
+    else:
+        if split:
+            w_in = torch.cat([w_in[..., ch], w_in[..., di + c0:di + c1]], dim=-1)
+        xi, z = bank_matmul(x, w_in).chunk(2, dim=-1)  # (C, B, S, di)
     xi, new_conv = _depthwise_conv(xi, params["conv_w"][..., ch], params["conv_b"][..., ch],
                                    None if state is None else state.conv)
     xi = F.silu(xi)

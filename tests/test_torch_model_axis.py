@@ -450,3 +450,24 @@ def test_phase_14s_moe_cell_runs_on_the_cpu(worlds):
     assert runs[0]["digest"] == runs[1]["digest"] and runs[0]["tokens"] == 80
     assert got[0]["teacher_forced_rel"] <= chip_smoke.ZOO_REL_TOL
     assert [r["dropped"] for r in runs] == [got[0]["unplaced"]["decode"]["dropped"]] * 2
+
+
+@pytest.mark.parametrize("name", [c[0] for c in world.REPLAY])
+def test_phase_14s_replay_cells_run_on_the_cpu(worlds, name):
+    """``chip_smoke.py`` phase 14 (d) rehearsed on the CPU at the reduced
+    widths in bf16 over ``model`` 2, through the script's own gates:
+    internvl2-1b's stub positions prefilled into a cache with room for the
+    stream (a rank's KV 1 at G 2), hymba-1.5b's prompt replayed (its SSD
+    channels split); greedy streams of the placed ``Model.serve_step``
+    the same bits on both ranks, teacher-forced within the card's gate of
+    the unplaced model's forward."""
+    import chip_smoke
+
+    ranks = [r["phase14_replay"] for r in _ranks(worlds, 2)]
+    row = next(c for c in world.REPLAY if c[0] == name)
+    cells = [(name, row[1], 2, "bfloat16", 2, *row[2:])]
+    out = chip_smoke.model_axis_replay_report(ranks, cells)["cells"][name]
+    assert out["teacher_forced_rel"] <= chip_smoke.ZOO_REL_TOL
+    assert out["launches"] == [0, 0]  # the plain step on the CPU: no launch
+    if name == "hymba-1.5b":
+        assert out["ssm"] == [(0, 256), (256, 512)]

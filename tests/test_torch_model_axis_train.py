@@ -66,7 +66,7 @@ from repro_torch.launch import steps
 from repro_torch.weights import from_jax_params
 
 HERE = Path(__file__).parent
-WORLD_TIMEOUT = 300  # seconds for both worlds, spawned together
+WORLD_TIMEOUT = 600  # seconds for both worlds, spawned together (a guard against a hang)
 WORLDS = [2, 4]
 LOSS_RTOL, GRAD_REL, NEW_ATOL = 1e-5, 1e-4, 1e-6
 #: every (world, mesh shape, case) the worlds train
@@ -564,3 +564,28 @@ def test_phase_15s_cells_run_on_the_cpu(worlds):
     tp = out["phi3.5-moe fsdp_tp"]
     assert tp["layout"] == "fsdp_tp" and tp["collectives"][-1]["fsdp gather"] > 0
     assert max(tp["block_gb"]) < max(out["phi3.5-moe"]["block_gb"])
+
+
+def test_phase_15s_hymba_and_xlstm_cells_run_on_the_cpu(worlds):
+    """Phase 15's (f) and (g) rehearsed at the reduced widths through the
+    script's own gates: hymba in bf16, its SSD heads split by channel (their
+    leaves gathered where the layer runs — a tensor-parallel gather, not
+    FSDP's — and the replicated ones summed over ``model``); xlstm in f32,
+    its blocks replicated (no ``model`` sum; its step at its own gamma),
+    rank 0 measuring the unplaced gradient's own spread under a reorder of
+    its sums, which stays under the f32 gate at 2 layers."""
+    import chip_smoke
+
+    ranks, logs = worlds[4]
+    if ranks is None:
+        pytest.fail(f"the 4-rank world failed:\n{logs}")
+    rows = [(name, arch, 2, dtype, None, *tol, layouts)
+            for name, arch, dtype, tol, layouts in world.PHASE15
+            if name in ("hymba-1.5b", "xlstm-1.3b")]
+    out = chip_smoke.model_axis_train_report([r["phase15"] for r in ranks], rows)
+    hymba, xlstm = (out[n]["collectives"][-1] for n in ("hymba-1.5b", "xlstm-1.3b"))
+    assert hymba["model sum"] == 3 and "fsdp gather" not in hymba  # bc_proj, conv_b, norm
+    assert "model sum" not in xlstm and max(out["xlstm-1.3b"]["gathered_gb"]) == 0
+    assert out["hymba-1.5b"]["grad_rel_max"] <= 0.05
+    assert out["xlstm-1.3b"]["grad_rel_max"] <= 1e-4
+    assert out["xlstm-1.3b"]["grad_spread_max"] <= 1e-4

@@ -85,12 +85,14 @@ MESHES = {
 #: new parameters' atol, the layouts trained beside the tensor-parallel one)
 PHASE15 = (("phi3.5-moe", "phi3.5-moe-42b-a6.6b", "bfloat16", (1e-2, 0.05, None),
             ("fsdp_tp",)),
-           ("qwen3-4b-f32", "qwen3-4b", "float32", (1e-5, 1e-4, 1e-6), ("fsdp_full",)))
+           ("qwen3-4b-f32", "qwen3-4b", "float32", (1e-5, 1e-4, 1e-6), ("fsdp_full",)),
+           ("hymba-1.5b", "hymba-1.5b", "bfloat16", (1e-2, 0.05, None), ()),
+           ("xlstm-1.3b", "xlstm-1.3b", "float32", (1e-5, 1e-4, 1e-6), ()))
 SEQ, BATCH, MICRO = 64, 4, 2  # the reference test's step: seq_len 64, batch 4, 2 microbatches
 BATCHES = {"fsdp": 8}  # a case's global batch, where it is not BATCH
 GAMMA, SIGMA = 1e-3, 1e-4
 KEYS = {"sync": 3, "pipeline": 4}  # PRNGKey seeds of the two steps' noise
-ORACLE_WAIT = 240  # seconds a rank waits for the JAX package's results
+ORACLE_WAIT = 480  # seconds a rank waits for the JAX package's results
 
 
 def config(case, get_reduced):
@@ -346,7 +348,9 @@ def phase15_cells(mesh, rank, out):
         t0 = time.perf_counter()
         res[name] = chip_smoke.model_axis_train_cell(
             torch, np, cfg, mesh, rank, tol, device="cpu", batch=4, seq=16, micro=2,
-            steps=(("sync", 1), ("pipeline", 1)), layouts=layouts)
+            steps=(("sync", 1), ("pipeline", 1)), layouts=layouts,
+            gamma=chip_smoke.TRAIN_AXIS_CELL_GAMMA.get(name, chip_smoke.TRAIN_AXIS_GAMMA),
+            spread=name in chip_smoke.TRAIN_AXIS_SPREAD_CELLS)
         res[name]["cell_s"] = time.perf_counter() - t0
     out["phase15"] = res
 

@@ -12,7 +12,8 @@ parallel block's inputs).  A world of 2 ranks serves over ``data`` 1 x
 ``model`` 2; a world of 4 over ``data`` 2 x ``model`` 2 and then over
 ``data`` 1 x ``model`` 4, and runs the MoE block over ``data`` 2 x
 ``model`` 2 with the batch split over ``data``; the world of 2 also runs
-``chip_smoke.py`` phase 14's MoE cell on the CPU.  Rank 0 also runs the
+``chip_smoke.py`` phase 14's MoE cell and its (d) — the frontend and
+recurrent configs served by the placed ``Model.serve_step`` — on the CPU.  Rank 0 also runs the
 unplaced engines on the whole bank.  Every rank reports its tokens, its
 local shapes and its leaves' placements.  When run as a script, this
 process imports no JAX.
@@ -46,6 +47,9 @@ MESHES = {
 PROMPT = (3, 5)  # the decode request: 3 prompts of 5 tokens, 6 new tokens
 NEW = 6
 PAGED = [(5, 6), (3, 4), (7, 5)]  # (prompt length, new tokens), over 2 slots
+#: chip_smoke.py phase 14 (d) at the reduced widths: (name, config, stub
+#: positions, prompt tokens, new tokens)
+REPLAY = (("internvl2-1b", "internvl2-1b", 8, 1, 4), ("hymba-1.5b", "hymba-1.5b", 0, 6, 4))
 
 
 def config(case, get_reduced):
@@ -185,6 +189,13 @@ def phase14_cell(mesh, rank, out):
     cfg = replace(get_reduced("phi3.5-moe-42b-a6.6b"), dtype="bfloat16")
     out["phase14"] = chip_smoke.model_axis_cell(torch, np, ds, cfg, mesh, rank, 2, False,
                                                 device="cpu")
+    out["phase14_replay"] = {}
+    for name, arch, stub, T, n in REPLAY:
+        cfg = replace(get_reduced(arch), dtype="bfloat16")
+        got = chip_smoke.model_axis_replay_cell(torch, np, ds, cfg, mesh, rank, 2, stub, T,
+                                                n, device="cpu")
+        got["cell_s"] = 0.0
+        out["phase14_replay"][name] = got
 
 
 def expert_parallel(mesh, fixtures, out):
