@@ -49,7 +49,9 @@ library) and runs, failing on the first phase that fails:
    elsewhere, its non-finite flags equal to ``torch.isfinite`` of the
    output and to the plain version's, and the read over a head a chain,
    on a ragged leaf and the stacked leaf, timed with the flags written and
-   with one chain skipped;
+   with one chain skipped; and the draw and the read of one chain of 2^32 +
+   2^20 elements (the 64-bit index path, counters with a high word) against
+   the plain draw at their counters on three windows, timed;
 3. the engines on a reduced float32 bank, on the card (kernels) and on the
    CPU (plain path): the same tokens and BMA log-probs within 1e-4; then
    4 fused W-Icon training commits of the reduced float32 model on both:
@@ -240,10 +242,16 @@ library) and runs, failing on the first phase that fails:
    layers in float32, the tokens equal to rank 0's unplaced engines' and
    the log-probs within 1e-4; (b) phi3.5-moe-42b-a6.6b at its widths and 2
    layers, a 2-chain bank, 8 experts a rank: the decode traffic with (a)'s
-   gates and the unplaced engine's dropped pairs; (c) in this process,
-   both decode kernels at a rank's local shapes (KV 4, G 4, head_dim 128)
-   and at a K/V-replicated slice (one KV head, G 2 from G 4), held against
-   their plain versions and timed as in phase 2.  The ranks' placed
+   gates and the unplaced engine's dropped pairs; (d) internvl2-1b (256
+   stub positions prefilled; a rank KV 1, G 7) and hymba-1.5b (a prompt
+   replayed; its SSD heads split by channel) at their widths and 2
+   layers, 2-chain banks through the placed ``Model.serve_step`` (the
+   engines refuse them), 16 greedy tokens, teacher-forced against rank 0's
+   unplaced model with (a)'s gate, the ranks' streams identical; (c) in
+   this process, both decode kernels at a rank's local shapes (KV 4, G 4,
+   head_dim 128; KV 1, G 7, head_dim 64) and at a K/V-replicated slice
+   (one KV head, G 2 from G 4), held against their plain versions and
+   timed as in phase 2.  The ranks' placed
    launches join the kernels line; ms a token placed and unplaced, each
    rank's peak memory and phase 14's seconds are logged;
 15. training on the model axis: the ``sync`` and ``pipeline`` SGLD steps
@@ -252,9 +260,9 @@ library) and runs, failing on the first phase that fails:
    (``--model-axis-train-rank``; a ``data`` 2 x ``model`` 2 mesh), each
    rank its block of each leaf (``place_params``) and its rows of each
    microbatch of a global batch of 8 x 128 tokens in 2 microbatches, one
-   ``sync`` step then one ``pipeline`` step a cell (cut from 3 + 2 for
-   (d) and (e)): (a) qwen3-4b at its widths and phase 12's 4 layers in
-   bf16 — each step's loss within 1e-2 relative, and the pipeline step's
+   ``sync`` step then one ``pipeline`` step a cell, the ``pipeline`` step
+   alone for (a), (c), (d) and (e) (cut for time): (a) qwen3-4b at its
+   widths and phase 12's 4 layers in bf16 — each step's loss within 1e-2 relative, and the pipeline step's
    gradient, leaf by leaf, within relative L2 0.05 of rank 0's unplaced
    step on the same card; (b) the same at 2 layers in float32 — 1e-5,
    1e-4, and the new parameters within 1e-6; (c) phi3.5-moe-42b-a6.6b at
@@ -268,8 +276,12 @@ library) and runs, failing on the first phase that fails:
    against (a)'s unplaced step with (a)'s gates; (e) (c)'s layer under
    ``fsdp_tp`` (kimi-k2's layout: a rank's 8 experts with half their
    ``d_ff``, gathered over ``data`` for the layer), beside (c), against
-   (c)'s per-shard oracle with its gates, its expert choices (c)'s.  In
-   every cell the noise blocks are the unplaced draw's (rank 0's bit for
+   (c)'s per-shard oracle with its gates, its expert choices (c)'s; (f)
+   hymba-1.5b at its widths and 2 layers in bf16 (its SSD heads split by
+   channel), gated as (a); (g) xlstm-1.3b at its widths and 8 layers (its
+   first sLSTM) in float32 at gamma 1e-7, gated as (b) but for its
+   gradient: (a)'s 0.05, or twice the unplaced gradient's own spread (the
+   same gradient in one microbatch) where that is larger.  In every cell the noise blocks are the unplaced draw's (rank 0's bit for
    bit, the others' by a checksum of their bits), every rank's loss is the
    same bits, the ranks that hold one block agree, and each rank's
    parameter bytes are its block's.  This path runs no kernel of the
