@@ -280,8 +280,7 @@ library) and runs, failing on the first phase that fails:
    hymba-1.5b at its widths and 2 layers in bf16 (its SSD heads split by
    channel), gated as (a); (g) xlstm-1.3b at its widths and 8 layers (its
    first sLSTM) in float32 at gamma 1e-7, gated as (b) but for its
-   gradient: (a)'s 0.05, or twice the unplaced gradient's own spread (the
-   same gradient in one microbatch) where that is larger.  In every cell the noise blocks are the unplaced draw's (rank 0's bit for
+   gradient, held at (a)'s 0.05.  In every cell the noise blocks are the unplaced draw's (rank 0's bit for
    bit, the others' by a checksum of their bits), every rank's loss is the
    same bits, the ranks that hold one block agree, and each rank's
    parameter bytes are its block's.  This path runs no kernel of the
@@ -4181,23 +4180,13 @@ MODEL_AXIS_TRAIN_CELLS = (
     # 12.5), attention replicated (25 and 5 heads on 2); (g) 8 layers, so the
     # stack holds its sLSTM: the blocks replicated, the vocabulary split; in
     # float32 with (b)'s loss and new-parameter gates and (a)'s gradient
-    # gate, widened by the gradient's own spread (TRAIN_AXIS_SPREAD)
+    # gate: its unplaced f32 gradient at init moves by up to 0.092 relative
+    # L2 under a reorder of its own sums (scripts/torch_grad_spread.py)
     ("hymba-1.5b", "hymba-1.5b", 2, "bfloat16", TRAIN_AXIS_STEPS, 1e-2, 0.05, None, ()),
     ("xlstm-1.3b", "xlstm-1.3b", 8, "float32", TRAIN_AXIS_STEPS, 1e-5, 0.05, 1e-6, ()))
 #: a cell's step size where it is not TRAIN_AXIS_GAMMA: xlstm's gradient at
 #: init is large (phase 11 trains it at RECURRENT_TRAIN_GAMMA's)
 TRAIN_AXIS_CELL_GAMMA = {"xlstm-1.3b": 1e-7}
-#: cells whose gradient is not determined to the gate by the model itself:
-#: xlstm-1.3b's at init moves by relative L2 up to 1.39 in bf16 and 0.092 in
-#: f32 under a mere reorder of its sums (1 against 2 microbatches;
-#: scripts/torch_grad_spread.py), qwen3-4b's and hymba's by 0.010 / 7e-6, so
-#: (b)'s 1e-4 cannot hold there.  Rank 0 measures that spread a pipeline step
-#: (the unplaced gradient again in one microbatch) and a leaf's gate is the
-#: larger of the cell's and TRAIN_AXIS_SPREAD times its spread: past (a)'s
-#: 0.05, the placement may move the gradient no further than twice what
-#: reordering the unplaced model's sums does
-TRAIN_AXIS_SPREAD_CELLS = ("xlstm-1.3b",)
-TRAIN_AXIS_SPREAD = 2.0
 
 
 def _shard_rows(np, batch: int, micro: int, d: int, D: int):
@@ -4374,7 +4363,7 @@ def _layout_config(cfg, shape, layout: str):
 def model_axis_train_cell(torch, np, cfg, mesh, rank: int, tol: tuple,
                           device="cuda", batch=TRAIN_AXIS_BATCH, seq=TRAIN_AXIS_SEQ,
                           micro=TRAIN_AXIS_MICRO, steps=TRAIN_AXIS_STEPS,
-                          layouts=(), gamma=TRAIN_AXIS_GAMMA, spread=False) -> dict:
+                          layouts=(), gamma=TRAIN_AXIS_GAMMA) -> dict:
     """One cell of phase 15 on this rank: the placed chain (``place_params``
     of one drawn from seed 0 on every rank) through ``steps`` (``sync``,
     then ``pipeline`` from a zero ``pending``) of ``make_sgld_train_step``
@@ -4398,13 +4387,9 @@ def model_axis_train_cell(torch, np, cfg, mesh, rank: int, tol: tuple,
     ``got["also"]``.  A MoE's expert choices there must be the first run's
     (the oracle replayed those), and in every layout each rank's parameter
     bytes are its block's (``launch.steps.param_bytes``).  ``gamma``: the
-    step size (the noise's scale follows it).  ``spread``: rank 0 also
-    takes each pipeline step's unplaced gradient in one microbatch, and
-    each leaf's relative L2 from the step's (``grad_spread``) widens its
-    gate (:data:`TRAIN_AXIS_SPREAD`)."""
+    step size (the noise's scale follows it)."""
     import torch.distributed as dist
 
-    from repro_torch.checkpoint.io import leaf_paths
     from repro_torch.configs import ShapeConfig
     from repro_torch.kernels import rng
     from repro_torch.launch.steps import (
@@ -4523,11 +4508,6 @@ def model_axis_train_cell(torch, np, cfg, mesh, rank: int, tol: tuple,
                     sync()
                     ref.update(unplaced_ms=(time.perf_counter() - t0) * 1e3,
                                loss_ref=float(ref_loss), grads=ref_grads)
-                    if spread and ref_grads is not None:  # the same sums reordered
-                        alt = make_grad_fn(ref_model, 1)(ref_params, {"tokens": tokens})[0]
-                        ref["spread"] = {p: _rel_l2(a, b) for (p, a), (_, b) in zip(
-                            leaf_paths(alt), leaf_paths(ref_grads))}
-                        del alt
                     if tol[2] is not None:  # kept only where the new parameters are held
                         ref["new"] = ref_new
                     ref_params = ref_new
@@ -4540,8 +4520,6 @@ def model_axis_train_cell(torch, np, cfg, mesh, rank: int, tol: tuple,
                 row["routes_equal"] = len(routes) == len(ref["routes"]) and all(
                     torch.equal(a, b) for a, b in zip(routes, ref["routes"]))
             row.update({n: ref[n] for n in ("unplaced_ms", "loss_ref") if n in ref})
-            if grads is not None and "spread" in ref:
-                row["grad_spread"] = ref["spread"]
             if grads is not None:
                 row["grad_rel"], row["grads_agree"] = _held_against(
                     torch, grads, ref.get("grads"), mesh, rank, _rel_l2)
@@ -4606,8 +4584,7 @@ def model_axis_train_rank(rank: int, store: str, out: str) -> int:
             t0 = time.perf_counter()
             res[name] = model_axis_train_cell(
                 torch, np, cfg, mesh, rank, tuple(tol), steps=steps, layouts=layouts,
-                gamma=TRAIN_AXIS_CELL_GAMMA.get(name, TRAIN_AXIS_GAMMA),
-                spread=name in TRAIN_AXIS_SPREAD_CELLS)
+                gamma=TRAIN_AXIS_CELL_GAMMA.get(name, TRAIN_AXIS_GAMMA))
             res[name]["cell_s"] = time.perf_counter() - t0
     except BaseException:  # noqa: BLE001 — reported to the parent, which fails the phase
         res["error"] = traceback.format_exc()
@@ -4635,11 +4612,8 @@ def _train_gates(name: str, cells: list, loss_rtol, grad_rel, new_atol) -> None:
         check(all(c["steps"][i].get("routes_equal", True) for c in cells),
               f"{where}: the expert choices differ from the first layout's")
         if "grad_rel" in row:
-            spread = row.get("grad_spread", {})
-            bad = {p: (v, spread.get(p)) for p, v in row["grad_rel"].items()
-                   if not v <= max(grad_rel, TRAIN_AXIS_SPREAD * spread.get(p, 0.0))}
-            check(not bad, f"{where}: gradients past relative L2 {grad_rel} (or "
-                  f"{TRAIN_AXIS_SPREAD} x the unplaced gradient's own spread, beside): {bad}")
+            bad = {p: v for p, v in row["grad_rel"].items() if not v <= grad_rel}
+            check(not bad, f"{where}: gradients past relative L2 {grad_rel}: {bad}")
             check(all(c["steps"][i]["grads_agree"] for c in cells),
                   f"{where}: the ranks that hold one gradient block differ")
         if new_atol is not None:
@@ -4670,8 +4644,6 @@ def model_axis_train_report(ranks: list, cells_run) -> dict:
                    "loss_ref": [s["loss_ref"] for s in rows],
                    "grad_rel_max": max((max(s["grad_rel"].values()) for s in rows
                                         if "grad_rel" in s), default=None),
-                   "grad_spread_max": max((max(s["grad_spread"].values()) for s in rows
-                                           if "grad_spread" in s), default=None),
                    "new_abs_max": max((max(s["new_abs"].values()) for s in rows
                                        if "new_abs" in s), default=None),
                    "collectives": [s["collectives"] for s in rows],
@@ -4686,8 +4658,7 @@ def model_axis_train_report(ranks: list, cells_run) -> dict:
             out[label] = row
             log(f"model axis train {label} ({layers} layers, {dtype}, {row['layout']}, "
                 f"batch over {row['batch_axes']}): loss {row['loss'][-1]:.5f} / unplaced "
-                f"{row['loss_ref'][-1]:.5f}; gradient rel L2 <= {row['grad_rel_max']} (the "
-                f"unplaced gradient's own spread <= {row['grad_spread_max']}); new "
+                f"{row['loss_ref'][-1]:.5f}; gradient rel L2 <= {row['grad_rel_max']}; new "
                 f"params <= {row['new_abs_max']}; ms a step placed "
                 f"{[round(max(m), 1) for m in row['ms_placed']]}, unplaced "
                 f"{[round(m, 1) for m in row['ms_unplaced']]}; collectives a step "

@@ -571,9 +571,7 @@ def test_phase_15s_hymba_and_xlstm_cells_run_on_the_cpu(worlds):
     script's own gates: hymba in bf16, its SSD heads split by channel (their
     leaves gathered where the layer runs — a tensor-parallel gather, not
     FSDP's — and the replicated ones summed over ``model``); xlstm in f32,
-    its blocks replicated (no ``model`` sum; its step at its own gamma),
-    rank 0 measuring the unplaced gradient's own spread under a reorder of
-    its sums, which stays under the f32 gate at 2 layers."""
+    its blocks replicated (no ``model`` sum; its step at its own gamma)."""
     import chip_smoke
 
     ranks, logs = worlds[4]
@@ -588,4 +586,3 @@ def test_phase_15s_hymba_and_xlstm_cells_run_on_the_cpu(worlds):
     assert "model sum" not in xlstm and max(out["xlstm-1.3b"]["gathered_gb"]) == 0
     assert out["hymba-1.5b"]["grad_rel_max"] <= 0.05
     assert out["xlstm-1.3b"]["grad_rel_max"] <= 1e-4
-    assert out["xlstm-1.3b"]["grad_spread_max"] <= 1e-4

@@ -349,8 +349,7 @@ def phase15_cells(mesh, rank, out):
         res[name] = chip_smoke.model_axis_train_cell(
             torch, np, cfg, mesh, rank, tol, device="cpu", batch=4, seq=16, micro=2,
             steps=(("sync", 1), ("pipeline", 1)), layouts=layouts,
-            gamma=chip_smoke.TRAIN_AXIS_CELL_GAMMA.get(name, chip_smoke.TRAIN_AXIS_GAMMA),
-            spread=name in chip_smoke.TRAIN_AXIS_SPREAD_CELLS)
+            gamma=chip_smoke.TRAIN_AXIS_CELL_GAMMA.get(name, chip_smoke.TRAIN_AXIS_GAMMA))
         res[name]["cell_s"] = time.perf_counter() - t0
     out["phase15"] = res
 
