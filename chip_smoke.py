@@ -183,7 +183,16 @@ library) and runs, failing on the first phase that fails:
    state), gated layer by layer (see ``recurrent_serve``); (b) hymba's
    window at depth 2: one 1,088-token stream through the 1,024-slot ring,
    the last 64 positions against the forward (SDPA under the window
-   mask), then held as (a); (d) ``launch.train`` of each at full width (6
+   mask), then held as (a); (f) hymba's heads on 2 prompts of 32,768
+   tokens under its window, bf16: ``attention.flash_attention`` a query
+   chunk at a time over the in-window key chunks (``window_slice``) and
+   over every chunk up to the diagonal, and one SDPA call under the full
+   ``(S, S)`` mask (the plain yardstick here only): ms forward, ms forward
+   plus backward (each first call apart: SDPA plans a new shape there),
+   peak GB above the inputs, outputs and gradients within relative L2
+   3e-2 of each other; then a 2-layer hymba-1.5b's loss at its widths on
+   2 x 4,096 tokens with ``opt_window_slice`` on and off, within 1e-3;
+   (d) ``launch.train`` of each at full width (6
    fused W-Icon commits at tau 2, batch 8 x 128; xlstm at gamma 1e-7): ms
    a commit, peak GB, the SGLD kernels once a leaf a commit; the sLSTM
    loop's operations a layer; and xlstm's gradient at init, a layer's
@@ -361,6 +370,16 @@ HYMBA_RING_CASES = ((48, 32, 31, 16), (48, 48, 47, 16), (1024, 600, 599, 1),
                     (1024, 1024, 63, 1))
 RECURRENT_CHAINS = 4
 WINDOW_LAYERS, WINDOW_TOKENS = 2, 17 * 64
+# 11f: hymba's window on the long-prompt path — 2 prompts of 32,768 tokens
+# through the attention alone (bf16), then the loss of a 2-layer model at
+# 4,096 tokens; the limits between the paths: relative L2 of outputs and
+# gradients (bf16 rounds each element at 2^-9 relative, and the paths sum
+# in other orders and over other key sets: a chunked path sums a key's dk
+# and dv from up to 3 query chunks in bf16, where terms may cancel), and
+# the losses
+WINDOWED_PROMPTS, WINDOWED_TOKENS = 2, 32_768
+WINDOWED_REL_TOL = 3e-2
+WINDOWED_LOSS_LAYERS, WINDOWED_LOSS_TOKENS, WINDOWED_LOSS_TOL = 2, 4_096, 1e-3
 # 11d's step sizes: qwen3-4b's cell's 1e-3 for hymba; xlstm's gradient at
 # its random init reaches 3e4 at 48 layers (11d measures it, xlstm_grad_scale;
 # scripts/torch_recurrent_witness.py holds it against the JAX package's at
@@ -2843,6 +2862,133 @@ def hymba_window(torch, np, ds, device="cuda") -> dict:
     return out
 
 
+def windowed_attention(torch, np, device="cuda") -> dict:
+    """(11f) hymba-1.5b's heads (25 query heads over 5 KV heads, head_dim
+    64) under its 1,024-token window, bf16, ``WINDOWED_PROMPTS`` prompts of
+    ``WINDOWED_TOKENS``: ``attention.flash_attention`` a query chunk at a
+    time over the in-window key chunks (``window_slice``) and over every
+    chunk up to the diagonal, and one SDPA call under the full ``(S, S)``
+    mask (the path before the chunks; the plain yardstick here only): ms
+    forward, ms forward plus backward and the peak GB above the inputs of
+    each, outputs and gradients held against each other.  Then the loss of
+    a ``WINDOWED_LOSS_LAYERS``-layer hymba-1.5b at its widths on 2 x
+    ``WINDOWED_LOSS_TOKENS`` tokens with ``opt_window_slice`` on and off.
+    No kernel of the port runs here."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import Model, init_params, loss_fn
+
+    full = get_arch("hymba-1.5b")
+    H, KV, hd, W = full.num_heads, full.num_kv_heads, full.head_dim, full.sliding_window
+    B, S = WINDOWED_PROMPTS, WINDOWED_TOKENS
+    gen = torch.Generator(device=device).manual_seed(41)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device=device, dtype=torch.bfloat16)
+
+    q, k, v, do = draw(B, S, H, hd), draw(B, S, KV, hd), draw(B, S, KV, hd), draw(B, S, H, hd)
+
+    def dense(q, k, v):
+        pos = torch.arange(S, device=device)
+        o = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=attention._mask_block(pos, pos, True, W), enable_gqa=True)
+        return o.transpose(1, 2)
+
+    paths = {"sliced": lambda q, k, v: attention.flash_attention(q, k, v, True, W,
+                                                                 window_slice=True),
+             "unsliced": lambda q, k, v: attention.flash_attention(q, k, v, True, W),
+             "dense_mask": dense}
+
+    def ms(fn):
+        """(ms of the first call, host clock: SDPA's backend plans a new
+        shape there; ``cuda_ms`` of two more)"""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, cuda_ms(torch, [fn], 2)
+
+    out, got = {}, {}
+    for name, fn in paths.items():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def fwd():
+            with torch.no_grad():
+                fn(q, k, v)
+
+        def fwd_bwd():
+            for t in leaves:
+                t.grad = None
+            fn(*leaves).backward(do)
+
+        f_first, f_ms = ms(fwd)
+        fb_first, fb_ms = ms(fwd_bwd)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        with torch.no_grad():
+            got[name] = [fn(q, k, v).float()] + [t.grad.float() for t in leaves]
+        out[name] = {"ms_forward": f_ms, "ms_forward_backward": fb_ms,
+                     "first_call_ms": {"forward": f_first, "forward_backward": fb_first},
+                     "peak_gb_above_inputs": peak}
+        del leaves
+        _free(torch)
+    for t in got.values():
+        check(all(bool(torch.isfinite(x).all()) for x in t), "11f: a non-finite output")
+    rel = {}
+    for a, b in (("sliced", "unsliced"), ("sliced", "dense_mask"), ("unsliced", "dense_mask")):
+        rel[f"{a}_vs_{b}"] = {n: float((x - y).norm() / y.norm()) for n, x, y in
+                              zip(("o", "dq", "dk", "dv"), got[a], got[b])}
+        worst = max(rel[f"{a}_vs_{b}"].values())
+        check(worst <= WINDOWED_REL_TOL, f"11f: {a} against {b}: relative L2 {worst:.4g}, "
+              f"limit {WINDOWED_REL_TOL}")
+    del got, q, k, v, do
+    _free(torch)
+
+    cfg = replace(full, num_layers=WINDOWED_LOSS_LAYERS)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(42),
+                         device=device, num_chains=1)
+    toks = torch.from_numpy(np.random.default_rng(43).integers(
+        0, cfg.vocab_size, (2, WINDOWED_LOSS_TOKENS + 1))).to(device)
+    losses, loss_s = {}, {}
+    with torch.no_grad():
+        for sl in (True, False):
+            model = Model(replace(cfg, opt_window_slice=sl), device=device)
+            t0 = time.perf_counter()
+            losses["sliced" if sl else "unsliced"] = float(loss_fn(model, params,
+                                                                   {"tokens": toks})[0])
+            loss_s["sliced" if sl else "unsliced"] = time.perf_counter() - t0
+    gap = abs(losses["sliced"] - losses["unsliced"])
+    check(all(math.isfinite(x) for x in losses.values()) and gap <= WINDOWED_LOSS_TOL,
+          f"11f: hymba losses {losses}, limit {WINDOWED_LOSS_TOL}")
+    del params
+    _free(torch)
+    res = {"heads": {"H": H, "KV": KV, "head_dim": hd}, "window": W,
+           "prompts": B, "tokens": S, "dtype": "bfloat16", "paths": out,
+           "rel_l2": rel, "rel_limit": WINDOWED_REL_TOL,
+           "loss": {"layers": WINDOWED_LOSS_LAYERS, "tokens": WINDOWED_LOSS_TOKENS,
+                    **losses, "limit": WINDOWED_LOSS_TOL, "seconds": loss_s},
+           "reduced": f"attention alone (no projections); the loss at depth "
+                      f"{full.num_layers} -> {WINDOWED_LOSS_LAYERS}, "
+                      f"{WINDOWED_LOSS_TOKENS} tokens"}
+    for name, r in out.items():
+        log(f"11f {name}: forward {r['ms_forward']:.2f} ms, forward+backward "
+            f"{r['ms_forward_backward']:.2f} ms (first calls {r['first_call_ms']['forward']:.0f}, "
+            f"{r['first_call_ms']['forward_backward']:.0f} ms), peak "
+            f"{r['peak_gb_above_inputs']:.3f} GB "
+            f"above the inputs ({B} x {S} tokens, hymba heads, window {W}, bf16)")
+    log(f"11f relative L2: {json.dumps(rel)}; hymba {WINDOWED_LOSS_LAYERS} layers at "
+        f"{WINDOWED_LOSS_TOKENS} tokens: loss sliced {losses['sliced']:.6f}, unsliced "
+        f"{losses['unsliced']:.6f}")
+    return res
+
+
 def slstm_launches(torch, device="cuda") -> dict:
     """The sLSTM time loop's operations on the card at the training cell's
     shape (one chain, 8 x 128 tokens, xlstm-1.3b's widths): aten operations
@@ -4819,6 +4965,10 @@ def main() -> int:
     rsrv = [recurrent_serve(torch, np, ds, "hymba-1.5b"),
             recurrent_serve(torch, np, ds, "xlstm-1.3b", gate="layers")]
     hwin = hymba_window(torch, np, ds)
+    t11f = time.perf_counter()
+    hattn = windowed_attention(torch, np)
+    hattn["seconds"] = time.perf_counter() - t11f
+    log(f"phase 11 (f): {hattn['seconds']:.1f} s")
     rtrain = [train_path(torch, np, lu, dg, ("--arch", arch, "--seq", "128", "--gamma",
                                              RECURRENT_TRAIN_GAMMA[arch]))
               for arch in ("hymba-1.5b", "xlstm-1.3b")]
@@ -4977,6 +5127,7 @@ def main() -> int:
     log(json.dumps({"faults": {"chaos": fa, "full_width": fb, "run_checkpoint": fc}}))
     log(json.dumps({"zoo": {"configs": zoo, "moe_serve": srv, "train": zt}}))
     log(json.dumps({"recurrent": {"reference": rref, "serve": rsrv, "window": hwin,
+                                  "windowed_attention": hattn,
                                   "train": rtrain, "slstm_loop": sloop,
                                   "xlstm_grad_at_init": xgrad, "seconds": phase11_s}}))
     log(json.dumps({"tooling": {**tool, "seconds": phase12_s}}))

@@ -64,6 +64,7 @@ from repro_torch.obs.trace import now as _now
 from repro_torch.utils import (
     chain_block,
     chain_placements,
+    gather_chains,
     gather_rows,
     is_placed,
     local,
@@ -250,9 +251,12 @@ class BankEngine(Endpoint):
         all-quarantined bank raises.
 
         A placed state (a placed ``ClusterEngine``'s) serves placed, on its
-        own mesh unless ``mesh=`` is given; each rank keeps its rows.  A
-        placed state with quarantined chains is refused: respawn heals it
-        first."""
+        own mesh unless ``mesh=`` is given; each rank keeps its rows.  With
+        quarantined chains its rows are gathered whole on every rank
+        (:func:`~repro_torch.utils.gather_chains`), the survivors kept and
+        placed again over the same chain axis, as the reference indexes its
+        sharded bank and places the survivors; where they do not divide
+        over the axis, the reference's ``must be divisible`` refusal."""
         params = getattr(state, "params", state)
         health = getattr(state, "health", None)
         leaf = tree_leaves(params)[0]
@@ -264,13 +268,11 @@ class BankEngine(Endpoint):
             h = np.asarray(health, bool)
             if not h.any():
                 raise ValueError("every chain is quarantined — no healthy bank to serve")
-            if not h.all() and is_placed(leaf):
-                raise ValueError(
-                    f"{int((~h).sum())} of the placed state's chains are "
-                    "quarantined: a placed bank serves whole (run the cluster "
-                    "with respawn=True, which heals them at the next chunk)")
             if not h.all():
                 keep = np.flatnonzero(h)
+                if is_placed(leaf):  # survivors that do not divide: refused before the gather
+                    chain_block(kw["mesh"], kw.get("chain_axis", "data"), keep.size)
+                    params = gather_chains(params)
                 params = tree_map(lambda x: x[torch.from_numpy(keep).to(x.device)],
                                   params)
                 _registry().gauge("chains.unhealthy", "chains currently "

@@ -93,6 +93,12 @@ class ArchConfig:
     # the model axis, the K/V projection replicated (each rank takes the KV
     # heads its queries read)
     opt_attn_head_shard: bool = False
+    # the reference's other two switches: the sliding-window flash path
+    # reads only the in-window key chunks (``models.attention``); the layers
+    # as a Python loop, each FSDP gather a layer's (the port's stack always
+    # runs so: the field is kept for the reference's configs and dry runs)
+    opt_window_slice: bool = False
+    opt_unroll_layers: bool = False
 
     def __post_init__(self):
         if self.head_dim is None:

@@ -5,7 +5,7 @@ roofline terms, per device (port of ``repro.launch.dryrun``).
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mode pipeline]
-        [--mesh 16x16 | --multi-pod] [--opts fsdp]
+        [--mesh 16x16 | --multi-pod] [--opts fsdp,window_slice,...]
 
 It runs each step once on ``meta`` tensors (no memory, no device, no
 placeholder devices, no compiler) under :func:`~repro_torch.launch.
@@ -40,13 +40,18 @@ MoE under ``fsdp``, as the reference asserts); it is then written with
 ``"refused"`` and its reason, and counted as such — never skipped.
 
 Attention above 512 query positions (``prefill_32k``, ``train_4k``) goes
-through ``scaled_dot_product_attention``, which the count prices as a full
-``S x S`` product (its causal mask computed, then discarded) — on the
-card as on ``meta``.  The reference's chunked flash scan also visits every
-(query chunk, key chunk) pair and masks, so at those lengths both count
-the full square; at up to 512 positions both use plain attention and the
-matmul FLOPs are held equal (``tests/test_torch_launch.py``).  Decode
-steps count the ring kernel at every slot of the cache.
+through ``scaled_dot_product_attention``.  Without a window it is one call,
+which the count prices as a full ``S x S`` product (its causal mask
+computed, then discarded) — on the card as on ``meta``; the reference's
+chunked flash scan also visits every (query chunk, key chunk) pair and
+masks, so at those lengths both count the full square.  With a window
+(hymba-1.5b's 1,024) the port calls SDPA a query chunk at a time over the
+key chunks up to the diagonal, and under ``--opts window_slice`` over the
+in-window ones alone, so it counts those; the reference's scan counts
+every pair unsliced, the in-window ones sliced.  At up to 512 positions
+both use plain attention and the matmul FLOPs are held equal
+(``tests/test_torch_launch.py``).  Decode steps count the ring kernel at
+every slot of the cache.
 """
 
 from __future__ import annotations
@@ -256,7 +261,8 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-pod", action="store_true",
                     help="the reference's 2x16x16 production mesh")
     ap.add_argument("--opts", default="",
-                    help="comma list of the reference's switches: attn_shard,fsdp,padvocab")
+                    help="comma list of the reference's switches: "
+                         "attn_shard,window_slice,fsdp,unroll,padvocab")
     ap.add_argument("--out", default=OUTDIR)
     args = ap.parse_args(argv)
     if args.multi_pod and args.mesh:

@@ -48,10 +48,8 @@ from repro_torch.utils import local, place_like
 PyTree = Any
 
 LONG_CONTEXT_WINDOW = 8192  # sliding window applied to attention archs @500k
-#: the reference's switches that change how XLA lays the step out, which
-#: the port does not have
-_XLA_OPTS = ("window_slice", "unroll")
-OPTS = ("attn_shard", "fsdp", "padvocab")
+#: the reference's switches, every one
+OPTS = ("attn_shard", "window_slice", "fsdp", "unroll", "padvocab")
 
 
 def adapt_config(cfg: ArchConfig, shape: ShapeConfig,
@@ -59,28 +57,32 @@ def adapt_config(cfg: ArchConfig, shape: ShapeConfig,
     """Shape-dependent config changes, as the reference's: an attention
     architecture without a window gets an 8,192-token one at
     ``long_500k``; ``"attn_shard"`` sets ``opt_attn_head_shard`` (the
-    query heads over ``model``, K/V replicated); ``"fsdp"`` sets
-    ``param_sharding="fsdp_full"`` (every weight over every axis, gathered
-    where it is used; the batch over every axis) and clears
-    ``opt_attn_head_shard`` — for dense configs only, a MoE is refused as
-    the reference asserts; ``"padvocab"`` pads the vocabulary to a multiple
-    of 256.  The reference's XLA switches (``"window_slice"``,
-    ``"unroll"``) are refused."""
+    query heads over ``model``, K/V replicated); ``"window_slice"`` sets
+    ``opt_window_slice`` (the windowed flash path reads only the in-window
+    key chunks); ``"fsdp"`` sets ``param_sharding="fsdp_full"`` (every
+    weight over every axis, gathered where it is used; the batch over every
+    axis) and clears ``opt_attn_head_shard`` — for dense configs only, a
+    MoE is refused as the reference asserts; ``"unroll"`` sets
+    ``opt_unroll_layers``, which changes no step: the port's layers are
+    always a Python loop, each FSDP gather a layer's; ``"padvocab"`` pads
+    the vocabulary to a multiple of 256.  Another name is refused."""
     if shape.name == "long_500k" and cfg.family not in ("ssm",) \
             and cfg.sliding_window is None:
         cfg = replace(cfg, sliding_window=LONG_CONTEXT_WINDOW)
     unknown = [o for o in opts if o not in OPTS]
     if unknown:
-        raise ValueError(f"opts {unknown}: of the reference's switches the "
-                         f"port has {OPTS} (the others, {_XLA_OPTS}, lay a step "
-                         "out for XLA)")
+        raise ValueError(f"opts {unknown}: the switches are {OPTS}")
     if "attn_shard" in opts:
         cfg = replace(cfg, opt_attn_head_shard=True)
+    if "window_slice" in opts:
+        cfg = replace(cfg, opt_window_slice=True)
     if "fsdp" in opts:
         if cfg.num_experts:
             raise ValueError(f"{cfg.name}: the 'fsdp' option is for dense configs "
                              f"({cfg.num_experts} experts)")
         cfg = replace(cfg, param_sharding="fsdp_full", opt_attn_head_shard=False)
+    if "unroll" in opts:
+        cfg = replace(cfg, opt_unroll_layers=True)
     if "padvocab" in opts:
         v = -(-cfg.vocab_size // 256) * 256
         cfg = replace(cfg, vocab_size=v)

@@ -4,13 +4,19 @@ package, on the CPU, in float32.
 Above 512 query positions (when both lengths divide into 512-position
 chunks) the reference's ``attention_any`` takes its chunked
 ``flash_attention`` (a ``lax.scan`` with a hand-written backward); the
-port's takes ``scaled_dot_product_attention`` with autograd's backward.
-The same numpy inputs go through both: outputs and gradients within 1e-5
-(the two sum the scores' softmax in another order).  The model-level
-tests use the reduced qwen3-4b (2 layers, d_model 256, 4 heads over 2 KV
-heads) carried over from the JAX init: last-position logits within 1e-4
-(the ROADMAP's logits tolerance), the prefill cache within 1e-5, and the
-LM loss and its gradient at 1,024 tokens within 1e-4.
+port's takes ``scaled_dot_product_attention`` with autograd's backward —
+one call without a window, a call a query chunk with one (over every key
+chunk up to the diagonal, or only the in-window ones under
+``window_slice``, each with its own chunk's mask).  The same numpy inputs
+go through both: outputs and gradients within 1e-5 (the two sum the
+scores' softmax in another order), for both ``window_slice`` settings at
+1,024 and 2,048 tokens, windows inside a chunk, of one, across chunks and
+past the sequence.  The model-level tests use the reduced qwen3-4b (2
+layers, d_model 256, 4 heads over 2 KV heads) carried over from the JAX
+init: last-position logits within 1e-4 (the ROADMAP's logits tolerance),
+the prefill cache within 1e-5, and the LM loss and its gradient at 1,024
+tokens within 1e-4; and the reduced hymba-1.5b (a window of 64) under
+``opt_window_slice`` likewise.
 """
 
 from dataclasses import replace
@@ -28,6 +34,7 @@ from repro.models.transformer import init_params as jax_init
 from repro.models.transformer import loss_fn as jloss_fn
 from repro_torch.configs import get_reduced
 from repro_torch.models import attention as tattn
+from repro_torch.models import transformer as ttransformer
 from repro_torch.models.transformer import Model, loss_fn
 from repro_torch.utils import tree_leaves
 from repro_torch.weights import from_jax_params
@@ -69,6 +76,79 @@ def test_long_path_forward_and_gradients_match_jax_flash(window, G):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **ATTN_TOL)
     for t, w in zip((tq, tk, tv), jgrads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), **ATTN_TOL)
+
+
+def _both_flash(q, k, v, do, *, window, window_slice, causal=True):
+    """The reference's and the port's windowed flash path on the same
+    inputs: ``(want, jax grads), (got, torch grads)``."""
+    def jflash(q, k, v):
+        return jattn.attention_any(q, k, v, causal=causal, window=window,
+                                   window_slice=window_slice)
+
+    want = jflash(q, k, v)
+    jgrads = jax.grad(lambda *a: jnp.sum(jflash(*a) * do), argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = tattn.attention_any(tq, tk, tv, causal=causal, window=window,
+                              window_slice=window_slice)
+    (got * torch.from_numpy(do)).sum().backward()
+    return (want, jgrads), (got, (tq.grad, tk.grad, tv.grad))
+
+
+def _assert_flash_close(want, got):
+    (w, jgrads), (g, tgrads) = want, got
+    assert g.shape == w.shape
+    np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), **ATTN_TOL)
+    for t, j in zip(tgrads, jgrads):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("window_slice", [False, True], ids=["unsliced", "sliced"])
+@pytest.mark.parametrize("window", [200, 512, 700, 1024, 4096])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("S", [1024, 2048])
+def test_windowed_path_matches_jax_flash(S, G, window, window_slice):
+    """Forward and ``dq``, ``dk``, ``dv`` against ``jax.grad`` of the
+    reference's flash path with the same ``window_slice``: windows inside a
+    chunk (200), of one (512), across two (700, 1,024) and past the
+    sequence (4,096)."""
+    q, k, v, do = _qkv(S + window + G, S, G)
+    _assert_flash_close(*_both_flash(q, k, v, do, window=window,
+                                     window_slice=window_slice))
+
+
+@pytest.mark.parametrize("window_slice", [False, True], ids=["unsliced", "sliced"])
+def test_windowed_path_without_causal_matches_jax_flash(window_slice):
+    """A window without the causal mask: every key chunk on both sides
+    (the reference slices only under ``causal``)."""
+    q, k, v, do = _qkv(31, 2048, 2)
+    _assert_flash_close(*_both_flash(q, k, v, do, window=700, window_slice=window_slice,
+                                     causal=False))
+
+
+@pytest.mark.parametrize("window_slice,keys", [(False, [512, 1024, 1536, 2048]),
+                                               (True, [512, 1024, 1024, 1024])],
+                         ids=["unsliced", "sliced"])
+def test_windowed_path_builds_no_full_mask(monkeypatch, window_slice, keys):
+    """Every mask the windowed path builds, forward and backward, is one
+    query chunk's (512 rows) over the key chunks it reads: up to the
+    diagonal, or the ``_n_win`` = 2 in-window chunks of a 512-token window
+    under ``window_slice``; never ``(Sq, Sk)``."""
+    shapes = []
+    real = tattn._mask_block
+    monkeypatch.setattr(tattn, "_mask_block", lambda qp, kp, c, w: shapes.append(
+        (qp.shape[0], kp.shape[0])) or real(qp, kp, c, w))
+    q, k, v, do = _qkv(9, 2048, 4)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tattn.flash_attention(tq, tk, tv, True, 512, window_slice=window_slice)
+    (out * torch.from_numpy(do)).sum().backward()
+    assert shapes == [(512, n) for n in keys]
+    assert tq.grad is not None and tk.grad is not None and tv.grad is not None
+
+
+def test_windowed_path_refuses_lengths_off_the_chunks():
+    q = torch.zeros(1, 1000, 2, 16)
+    with pytest.raises(ValueError, match="divide into chunks"):
+        tattn.flash_attention(q, q, q, True, 200)
 
 
 @pytest.mark.parametrize("S,long", [(256, False), (512, False), (1000, False),
@@ -174,6 +254,35 @@ def test_loss_and_gradient_at_1024_tokens_match_jax(lm):
         t.requires_grad_()
     loss, aux = loss_fn(Model(tcfg, device="cpu"), tp, {"tokens": toks})
     loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jl), **LOGIT_TOL)
+    for t, w in zip(leaves, jax.tree_util.tree_leaves(jg)):
+        np.testing.assert_allclose(t.grad[0].numpy(), np.asarray(w), **LOGIT_TOL)
+
+
+def test_hymba_loss_with_window_slice_matches_jax():
+    """The reduced hymba-1.5b (a window of 64 over 512-token chunks) under
+    ``opt_window_slice`` at 1,024 tokens: the flag reaches the attention
+    path, and the loss and every gradient meet the reference's within
+    1e-4 (``tests/test_torch_model.py``'s tolerance)."""
+    jcfg, tcfg = (replace(get("hymba-1.5b"), dtype="float32", opt_window_slice=True)
+                  for get in (jax_reduced, get_reduced))
+    jp = jax_init(jax.random.PRNGKey(3), jcfg)
+    tp = from_jax_params(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    toks = np.random.default_rng(6).integers(0, jcfg.vocab_size, (2, 1025)).astype(np.int32)
+    jm = JModel(jcfg, remat=False)
+    (jl, _), jg = jax.value_and_grad(lambda p: jloss_fn(jm, p, {"tokens": toks}),
+                                     has_aux=True)(jp)
+    leaves = tree_leaves(tp)
+    for t in leaves:
+        t.requires_grad_()
+    flags = []
+    real = ttransformer.attention_any
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttransformer, "attention_any",
+                   lambda *a, **kw: flags.append(kw["window_slice"]) or real(*a, **kw))
+        loss, _ = loss_fn(Model(tcfg, device="cpu"), tp, {"tokens": toks})
+    loss.backward()
+    assert flags == [True] * tcfg.num_layers
     np.testing.assert_allclose(loss.item(), float(jl), **LOGIT_TOL)
     for t, w in zip(leaves, jax.tree_util.tree_leaves(jg)):
         np.testing.assert_allclose(t.grad[0].numpy(), np.asarray(w), **LOGIT_TOL)

@@ -120,18 +120,48 @@ def test_model_flops_equal_the_references(arch):
 
 
 def test_adapt_config_matches_the_references():
+    """Every arch, shape and single switch (and none): the reference's
+    ``sliding_window``, ``vocab_size``, ``param_sharding`` and ``opt_*``
+    fields; ``"fsdp"`` on a MoE is refused on both sides."""
+    opt_fields = [f.name for f in fields(get_arch("qwen3-4b")) if f.name.startswith("opt_")]
+    assert opt_fields == ["opt_attn_head_shard", "opt_window_slice", "opt_unroll_layers"]
+    keys = ["sliding_window", "vocab_size", "param_sharding"] + opt_fields
     for arch in IDS:
         for name in SHAPES:
-            got = steps.adapt_config(get_arch(arch), get_shape(name), ("padvocab",))
-            want = jax_steps.adapt_config(jc.get_arch(arch), jc.get_shape(name),
-                                          ("padvocab",))
-            assert (got.sliding_window, got.vocab_size) == \
-                (want.sliding_window, want.vocab_size), (arch, name)
+            for opts in [()] + [(o,) for o in steps.OPTS]:
+                cfg, jcfg = get_arch(arch), jc.get_arch(arch)
+                if opts == ("fsdp",) and cfg.num_experts:
+                    with pytest.raises(ValueError, match="dense"):
+                        steps.adapt_config(cfg, get_shape(name), opts)
+                    with pytest.raises(AssertionError, match="dense"):
+                        jax_steps.adapt_config(jcfg, jc.get_shape(name), opts)
+                    continue
+                got = steps.adapt_config(cfg, get_shape(name), opts)
+                want = jax_steps.adapt_config(jcfg, jc.get_shape(name), opts)
+                assert {k: getattr(got, k) for k in keys} == \
+                    {k: getattr(want, k) for k in keys}, (arch, name, opts)
     assert steps.adapt_config(get_arch("qwen3-4b"), get_shape("long_500k")) \
         .sliding_window == steps.LONG_CONTEXT_WINDOW == 8192
-    for opt in ("window_slice", "unroll"):  # XLA's layout switches
-        with pytest.raises(ValueError, match="XLA"):
-            steps.adapt_config(get_arch("qwen3-4b"), get_shape("train_4k"), (opt,))
+    with pytest.raises(ValueError, match="the switches are"):
+        steps.adapt_config(get_arch("qwen3-4b"), get_shape("train_4k"), ("remat",))
+
+
+def test_dry_run_with_window_slice_counts_only_the_in_window_chunks():
+    """hymba-1.5b's ``train_4k`` on ``meta`` (a window of 1,024 over 512-token
+    chunks: 8 query chunks, ``_n_win`` 3): ``--opts window_slice`` reads 21
+    (query chunk, key chunk) pairs a layer where the unsliced path reads
+    the 36 up to the diagonal, so it counts the 15 others' products fewer
+    — two a pair forward, four backward, ``2 * 512 * 512 * 64`` FLOPs a
+    head each — at every layer and sequence; nothing else changes."""
+    cfg, shape = get_arch("hymba-1.5b"), get_shape("train_4k")
+    plain = dryrun.run_combo("hymba-1.5b", "train_4k", verbose=False)
+    sliced = dryrun.run_combo("hymba-1.5b", "train_4k", opts=("window_slice",),
+                              verbose=False)
+    assert sliced["mode"] == "sync+window_slice"
+    pairs = 15 * cfg.num_layers * shape.global_batch
+    saved = 6 * 2 * 512 * 512 * cfg.head_dim * cfg.num_heads * pairs
+    assert plain["counted"]["flops"] - sliced["counted"]["flops"] == saved
+    assert sliced["counted"]["flops"] < plain["counted"]["flops"]
 
 
 # ---------------------------------------------------------------------------

@@ -495,10 +495,9 @@ def test_the_counter_limit_is_still_refused():
 def test_adapt_config_takes_attn_shard_as_the_reference():
     """``"attn_shard"`` sets ``opt_attn_head_shard`` and ``"fsdp"`` sets
     ``param_sharding="fsdp_full"`` (clearing the head-sharded layout), as
-    the reference's ``adapt_config`` does, field for field (but the
-    reference's XLA switches, which the port's config lacks); ``"fsdp"`` on a
-    MoE is refused as the reference asserts; the XLA switches
-    ``"window_slice"`` / ``"unroll"`` stay refused."""
+    the reference's ``adapt_config`` does, field for field; ``"fsdp"`` on a
+    MoE is refused as the reference asserts; ``"window_slice"`` and
+    ``"unroll"`` set their fields as the reference's do."""
     from dataclasses import asdict
 
     for arch in ("qwen3-4b", "phi3.5-moe-42b-a6.6b"):
@@ -507,21 +506,19 @@ def test_adapt_config_takes_attn_shard_as_the_reference():
                                       ("attn_shard",))
         assert got.opt_attn_head_shard is want.opt_attn_head_shard is True
     for arch in ("qwen3-4b", "minicpm-2b", "hymba-1.5b"):
-        for opts in (("fsdp",), ("attn_shard", "fsdp")):
+        for opts in (("fsdp",), ("attn_shard", "fsdp"), ("window_slice", "unroll")):
             got = steps.adapt_config(get_arch(arch), get_shape("train_4k"), opts)
             want = jax_steps.adapt_config(jax_arch(arch), jax_shape("train_4k"), opts)
-            want = {k: v for k, v in asdict(want).items()
-                    if not k.startswith(("opt_unroll", "opt_window"))}  # XLA's switches
-            assert asdict(got) == want
-            assert got.param_sharding == "fsdp_full" and not got.opt_attn_head_shard
+            assert asdict(got) == asdict(want)
+            if "fsdp" in opts:
+                assert got.param_sharding == "fsdp_full" and not got.opt_attn_head_shard
+            else:
+                assert got.opt_window_slice and got.opt_unroll_layers
     for arch in ("kimi-k2-1t-a32b", "phi3.5-moe-42b-a6.6b"):
         with pytest.raises(ValueError, match="dense"):
             steps.adapt_config(get_arch(arch), get_shape("train_4k"), ("fsdp",))
         with pytest.raises(AssertionError, match="dense"):
             jax_steps.adapt_config(jax_arch(arch), jax_shape("train_4k"), ("fsdp",))
-    for opt in ("window_slice", "unroll"):
-        with pytest.raises(ValueError, match=opt):
-            steps.adapt_config(get_arch("qwen3-4b"), get_shape("train_4k"), (opt,))
 
 
 def test_the_shard_rows_are_the_gspmd_split():

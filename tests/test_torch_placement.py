@@ -526,3 +526,20 @@ def test_refusals_name_what_they_refuse(worlds, name):
     kind, text = REFUSALS[name]
     got = res["refusals"][name]
     assert got is not None and got[0] == kind and text in got[1], got
+
+
+def test_a_placed_state_with_quarantined_chains_serves_degraded(worlds):
+    """A placed 4-chain bank with one quarantined chain on each rank of the
+    2-rank world: the survivors gathered and placed again over ``data`` (a
+    chain a rank) stream the unplaced degraded engine's tokens, log-probs
+    within 1e-5, and the gauge counts the two; with one quarantined the 3
+    survivors do not divide over 2 ranks and are refused with the
+    reference's message."""
+    res, _ = _world(worlds, 2)
+    got, want = res["degraded"], res["degraded_ref"]
+    assert got["num_chains"] == 2 and got["mesh"] and got["local"] == [1]
+    assert got["unhealthy"] == 2.0
+    assert np.array_equal(got["tokens"], want["tokens"])
+    np.testing.assert_allclose(got["logits"], want["logits"], rtol=1e-5, atol=1e-5)
+    assert res["degraded_refusal"] == ("num_chains=3 must be divisible by mesh axis "
+                                       "'data' (size 2)")

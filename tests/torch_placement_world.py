@@ -19,6 +19,7 @@ import os
 import pickle
 import sys
 import traceback
+import types
 from dataclasses import replace
 
 sys.modules["jax"] = None  # the port must not reach for JAX
@@ -367,6 +368,40 @@ def _rows(tree, block):
     return tree[block]
 
 
+# -- degraded serving of a placed bank ---------------------------------------------------
+def degraded_scenario(mesh, rank, out, fixtures):
+    """A placed 4-chain bank with chain 1 (rank 0's) and chain 2 (rank 1's)
+    quarantined: ``from_cluster`` gathers the survivors, places them again
+    over ``data`` and serves; rank 0 also serves the whole bank degraded,
+    unplaced.  Then one chain quarantined: 3 survivors over 2 ranks are
+    refused."""
+    from repro_torch.obs.metrics import registry
+
+    cfg, bank = lm_bank(fixtures)
+    four = _rows(bank, slice(0, 4))
+    placed = place_chains(_rows(four, chain_block(mesh, "data", 4)), mesh, "data")
+    toks = np.random.default_rng(11).integers(0, cfg.vocab_size, (3, 5)).astype(np.int32)
+    kw = dict(max_seq=32, return_logits=True, device="cpu")
+    two = np.array([True, False, False, True])
+    eng = DecodeEngine.from_cluster(types.SimpleNamespace(params=placed, health=two),
+                                    cfg, **kw)
+    res = eng.generate(toks, 6)
+    out["degraded"] = {"tokens": res.tokens, "logits": res.logits,
+                       "num_chains": eng.num_chains, "mesh": eng.mesh is mesh,
+                       "local": sorted({int(t.shape[0]) for t in tree_leaves(local(eng.params))}),
+                       "unhealthy": registry().gauge("chains.unhealthy").value}
+    if rank == 0:
+        plain = DecodeEngine.from_cluster(types.SimpleNamespace(params=four, health=two),
+                                          cfg, **kw).generate(toks, 6)
+        out["degraded_ref"] = {"tokens": plain.tokens, "logits": plain.logits}
+    one = np.array([True, False, True, True])
+    try:
+        DecodeEngine.from_cluster(types.SimpleNamespace(params=placed, health=one), cfg, **kw)
+        out["degraded_refusal"] = None
+    except ValueError as e:
+        out["degraded_refusal"] = str(e)
+
+
 # -- the prefetcher ----------------------------------------------------------------------
 def prefetch_scenario(mesh, out):
     def batch_fn(key):
@@ -445,6 +480,7 @@ def main() -> int:
             cluster_scenarios(mesh, rank, out, tmp)
             serving_scenarios(mesh, rank, out, fixtures)
             prefetch_scenario(mesh, out)
+            degraded_scenario(mesh, rank, out, fixtures)
             refusals(mesh, out)
         else:
             cluster_scenarios(make_debug_mesh(data=2, model=2), rank, out, tmp)
