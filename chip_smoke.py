@@ -185,13 +185,14 @@ library) and runs, failing on the first phase that fails:
    the last 64 positions against the forward (SDPA under the window
    mask), then held as (a); (f) hymba's heads on 2 prompts of 32,768
    tokens under its window, bf16: ``attention.flash_attention`` a query
-   chunk at a time over the in-window key chunks (``window_slice``) and
-   over every chunk up to the diagonal, and one SDPA call under the full
-   ``(S, S)`` mask (the plain yardstick here only): ms forward, ms forward
-   plus backward (each first call apart: SDPA plans a new shape there),
-   peak GB above the inputs, outputs and gradients within relative L2
-   3e-2 of each other; then a 2-layer hymba-1.5b's loss at its widths on
-   2 x 4,096 tokens with ``opt_window_slice`` on and off, within 1e-3;
+   chunk at a time over the in-window key chunks, and one SDPA call under
+   the full ``(S, S)`` mask (the plain yardstick here only): ms forward,
+   ms forward plus backward (each first call apart: SDPA plans a new
+   shape there), peak GB above the inputs, outputs and gradients within
+   relative L2 3e-2 of each other; then a 2-layer hymba-1.5b's loss at
+   its widths on 2 x 4,096 tokens through the chunks with
+   ``opt_window_slice`` on and off (bit for bit) and through the
+   dense-mask call, within 1e-3;
    (d) ``launch.train`` of each at full width (6
    fused W-Icon commits at tau 2, batch 8 x 128; xlstm at gamma 1e-7): ms
    a commit, peak GB, the SGLD kernels once a leaf a commit; the sLSTM
@@ -2866,18 +2867,19 @@ def windowed_attention(torch, np, device="cuda") -> dict:
     """(11f) hymba-1.5b's heads (25 query heads over 5 KV heads, head_dim
     64) under its 1,024-token window, bf16, ``WINDOWED_PROMPTS`` prompts of
     ``WINDOWED_TOKENS``: ``attention.flash_attention`` a query chunk at a
-    time over the in-window key chunks (``window_slice``) and over every
-    chunk up to the diagonal, and one SDPA call under the full ``(S, S)``
-    mask (the path before the chunks; the plain yardstick here only): ms
-    forward, ms forward plus backward and the peak GB above the inputs of
-    each, outputs and gradients held against each other.  Then the loss of
-    a ``WINDOWED_LOSS_LAYERS``-layer hymba-1.5b at its widths on 2 x
-    ``WINDOWED_LOSS_TOKENS`` tokens with ``opt_window_slice`` on and off.
-    No kernel of the port runs here."""
+    time over the in-window key chunks, and one SDPA call under the full
+    ``(S, S)`` mask (the path before the chunks; the plain yardstick here
+    only): ms forward, ms forward plus backward and the peak GB above the
+    inputs of each, outputs and gradients held against each other.  Then
+    the loss of a ``WINDOWED_LOSS_LAYERS``-layer hymba-1.5b at its widths on
+    2 x ``WINDOWED_LOSS_TOKENS`` tokens through the chunks with
+    ``opt_window_slice`` on and off (the same path: bit for bit), and with
+    the dense-mask call in their place.  No kernel of the port runs here."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
     from repro_torch.models import attention
+    from repro_torch.models import transformer
     from repro_torch.models.transformer import Model, init_params, loss_fn
 
     full = get_arch("hymba-1.5b")
@@ -2890,16 +2892,14 @@ def windowed_attention(torch, np, device="cuda") -> dict:
 
     q, k, v, do = draw(B, S, H, hd), draw(B, S, KV, hd), draw(B, S, KV, hd), draw(B, S, H, hd)
 
-    def dense(q, k, v):
-        pos = torch.arange(S, device=device)
+    def dense(q, k, v, *, causal=True, window=W, **_):
+        pos = torch.arange(q.shape[1], device=q.device)
         o = F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=attention._mask_block(pos, pos, True, W), enable_gqa=True)
+            attn_mask=attention._mask_block(pos, pos, causal, window), enable_gqa=True)
         return o.transpose(1, 2)
 
-    paths = {"sliced": lambda q, k, v: attention.flash_attention(q, k, v, True, W,
-                                                                 window_slice=True),
-             "unsliced": lambda q, k, v: attention.flash_attention(q, k, v, True, W),
+    paths = {"chunked": lambda q, k, v: attention.flash_attention(q, k, v, True, W),
              "dense_mask": dense}
 
     def ms(fn):
@@ -2941,13 +2941,10 @@ def windowed_attention(torch, np, device="cuda") -> dict:
         _free(torch)
     for t in got.values():
         check(all(bool(torch.isfinite(x).all()) for x in t), "11f: a non-finite output")
-    rel = {}
-    for a, b in (("sliced", "unsliced"), ("sliced", "dense_mask"), ("unsliced", "dense_mask")):
-        rel[f"{a}_vs_{b}"] = {n: float((x - y).norm() / y.norm()) for n, x, y in
-                              zip(("o", "dq", "dk", "dv"), got[a], got[b])}
-        worst = max(rel[f"{a}_vs_{b}"].values())
-        check(worst <= WINDOWED_REL_TOL, f"11f: {a} against {b}: relative L2 {worst:.4g}, "
-              f"limit {WINDOWED_REL_TOL}")
+    rel = {n: float((x - y).norm() / y.norm()) for n, x, y in
+           zip(("o", "dq", "dk", "dv"), got["chunked"], got["dense_mask"])}
+    check(max(rel.values()) <= WINDOWED_REL_TOL, f"11f: chunked against dense_mask: "
+          f"relative L2 {max(rel.values()):.4g}, limit {WINDOWED_REL_TOL}")
     del got, q, k, v, do
     _free(torch)
 
@@ -2957,21 +2954,29 @@ def windowed_attention(torch, np, device="cuda") -> dict:
     toks = torch.from_numpy(np.random.default_rng(43).integers(
         0, cfg.vocab_size, (2, WINDOWED_LOSS_TOKENS + 1))).to(device)
     losses, loss_s = {}, {}
+    chunked_any = transformer.attention_any
     with torch.no_grad():
-        for sl in (True, False):
-            model = Model(replace(cfg, opt_window_slice=sl), device=device)
-            t0 = time.perf_counter()
-            losses["sliced" if sl else "unsliced"] = float(loss_fn(model, params,
-                                                                   {"tokens": toks})[0])
-            loss_s["sliced" if sl else "unsliced"] = time.perf_counter() - t0
-    gap = abs(losses["sliced"] - losses["unsliced"])
-    check(all(math.isfinite(x) for x in losses.values()) and gap <= WINDOWED_LOSS_TOL,
-          f"11f: hymba losses {losses}, limit {WINDOWED_LOSS_TOL}")
+        for name, sl, attn in (("window_slice", True, chunked_any),
+                               ("no_window_slice", False, chunked_any),
+                               ("dense_mask", False, dense)):
+            transformer.attention_any = attn
+            try:
+                model = Model(replace(cfg, opt_window_slice=sl), device=device)
+                t0 = time.perf_counter()
+                losses[name] = float(loss_fn(model, params, {"tokens": toks})[0])
+                loss_s[name] = time.perf_counter() - t0
+            finally:
+                transformer.attention_any = chunked_any
+    gap = abs(losses["window_slice"] - losses["dense_mask"])
+    check(all(math.isfinite(x) for x in losses.values()) and gap <= WINDOWED_LOSS_TOL
+          and losses["window_slice"] == losses["no_window_slice"],
+          f"11f: hymba losses {losses}: the two flags equal, the dense mask's within "
+          f"{WINDOWED_LOSS_TOL}")
     del params
     _free(torch)
     res = {"heads": {"H": H, "KV": KV, "head_dim": hd}, "window": W,
            "prompts": B, "tokens": S, "dtype": "bfloat16", "paths": out,
-           "rel_l2": rel, "rel_limit": WINDOWED_REL_TOL,
+           "rel_l2_chunked_vs_dense_mask": rel, "rel_limit": WINDOWED_REL_TOL,
            "loss": {"layers": WINDOWED_LOSS_LAYERS, "tokens": WINDOWED_LOSS_TOKENS,
                     **losses, "limit": WINDOWED_LOSS_TOL, "seconds": loss_s},
            "reduced": f"attention alone (no projections); the loss at depth "
@@ -2983,9 +2988,9 @@ def windowed_attention(torch, np, device="cuda") -> dict:
             f"{r['first_call_ms']['forward_backward']:.0f} ms), peak "
             f"{r['peak_gb_above_inputs']:.3f} GB "
             f"above the inputs ({B} x {S} tokens, hymba heads, window {W}, bf16)")
-    log(f"11f relative L2: {json.dumps(rel)}; hymba {WINDOWED_LOSS_LAYERS} layers at "
-        f"{WINDOWED_LOSS_TOKENS} tokens: loss sliced {losses['sliced']:.6f}, unsliced "
-        f"{losses['unsliced']:.6f}")
+    log(f"11f relative L2 chunked vs dense_mask: {json.dumps(rel)}; hymba "
+        f"{WINDOWED_LOSS_LAYERS} layers at {WINDOWED_LOSS_TOKENS} tokens: loss "
+        + ", ".join(f"{n} {x:.6f}" for n, x in losses.items()))
     return res
 
 

@@ -256,7 +256,10 @@ class BankEngine(Endpoint):
         (:func:`~repro_torch.utils.gather_chains`), the survivors kept and
         placed again over the same chain axis, as the reference indexes its
         sharded bank and places the survivors; where they do not divide
-        over the axis, the reference's ``must be divisible`` refusal."""
+        over the axis, the reference's ``must be divisible`` refusal.  For
+        that while each rank holds the whole bank, quarantined rows too,
+        and then its block of the survivors: a bank placed because it
+        does not fit on one rank is best healed by respawn instead."""
         params = getattr(state, "params", state)
         health = getattr(state, "health", None)
         leaf = tree_leaves(params)[0]

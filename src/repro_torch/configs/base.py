@@ -94,9 +94,10 @@ class ArchConfig:
     # heads its queries read)
     opt_attn_head_shard: bool = False
     # the reference's other two switches: the sliding-window flash path
-    # reads only the in-window key chunks (``models.attention``); the layers
-    # as a Python loop, each FSDP gather a layer's (the port's stack always
-    # runs so: the field is kept for the reference's configs and dry runs)
+    # reads only the in-window key chunks; the layers as a Python loop,
+    # each FSDP gather a layer's.  The port always runs both ways
+    # (``models.attention``, ``models.transformer``): the fields are kept
+    # for the reference's configs and dry runs, and nothing reads them
     opt_window_slice: bool = False
     opt_unroll_layers: bool = False
 

@@ -46,9 +46,9 @@ computed, then discarded) — on the card as on ``meta``; the reference's
 chunked flash scan also visits every (query chunk, key chunk) pair and
 masks, so at those lengths both count the full square.  With a window
 (hymba-1.5b's 1,024) the port calls SDPA a query chunk at a time over the
-key chunks up to the diagonal, and under ``--opts window_slice`` over the
-in-window ones alone, so it counts those; the reference's scan counts
-every pair unsliced, the in-window ones sliced.  At up to 512 positions
+in-window key chunks alone, ``--opts window_slice`` or not, so it counts
+those; the reference's scan counts every pair unsliced, the in-window
+ones sliced.  At up to 512 positions
 both use plain attention and the matmul FLOPs are held equal
 (``tests/test_torch_launch.py``).  Decode steps count the ring kernel at
 every slot of the cache.

@@ -58,8 +58,8 @@ def adapt_config(cfg: ArchConfig, shape: ShapeConfig,
     architecture without a window gets an 8,192-token one at
     ``long_500k``; ``"attn_shard"`` sets ``opt_attn_head_shard`` (the
     query heads over ``model``, K/V replicated); ``"window_slice"`` sets
-    ``opt_window_slice`` (the windowed flash path reads only the in-window
-    key chunks); ``"fsdp"`` sets ``param_sharding="fsdp_full"`` (every
+    ``opt_window_slice``, which changes no step: the port's windowed flash
+    path reads only the in-window key chunks either way; ``"fsdp"`` sets ``param_sharding="fsdp_full"`` (every
     weight over every axis, gathered where it is used; the batch over every
     axis) and clears ``opt_attn_head_shard`` — for dense configs only, a
     MoE is refused as the reference asserts; ``"unroll"`` sets

@@ -14,12 +14,13 @@ backend — flash, memory-efficient, cuDNN or math; a bf16 causal prefill
 on an H100 ran cuDNN's, and so does a windowed chunk with its mask and
 ``enable_gqa``) with autograd's backward.  Without a window it is one
 causal SDPA call.  With one it goes a query chunk at a time, as the
-reference's scan does, over the key chunks that scan reads and that can
-hold a visible key — each call with the ``(q_chunk, keys)`` mask of its
-own positions, so no ``(Sq, Sk)`` mask is built: under ``window_slice``
-(the reference's ``opt_window_slice``) the ``_n_win`` chunks up to the
-diagonal, else every chunk up to it (the reference's later chunks are
-masked whole and add exactly zero there).  A
+reference's scan does, over only the key chunks that hold a key the
+chunk's queries see — each call with the ``(q_chunk, keys)`` mask of its
+own positions, so no ``(Sq, Sk)`` mask is built.  Where the reference
+slices (``window_slice``: causal, as many query as key chunks) those are
+its in-window chunks; where it does not, its other chunks are masked
+whole and add exactly zero, so ``window_slice`` changes the port's
+result in nothing and its path not at all.  A
 difference by design: in bf16 SDPA's fused kernels feed the tensor cores
 bf16 and round the weights to bf16 for ``p . V``, where the reference
 computes the chunk in fp32; in fp32 the two agree within 1e-5.
@@ -68,22 +69,15 @@ def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def _n_win(window, k_chunk, nk):
-    """number of k chunks a q chunk can see under a sliding window."""
-    return min(nk, -(-window // k_chunk) + 1)
-
-
-def _key_chunks(q_idx, q_chunk, k_chunk, nk, causal, nwin):
-    """``(lo, hi)``: the key chunks ``lo .. hi - 1`` query chunk ``q_idx``
-    attends over.  ``nwin`` (the sliced path): the reference's in-window
-    chunks ``q_idx - nwin + 1 .. q_idx``, clipped at 0; else every chunk
-    up to the last one with a key at or before the chunk's last query
-    (every chunk without ``causal``)."""
-    if nwin is not None:
-        return max(0, q_idx - nwin + 1), q_idx + 1
+def _key_chunks(q_idx, q_chunk, k_chunk, nk, causal, window):
+    """``(lo, hi)``: the key chunks ``lo .. hi - 1`` holding a key that a
+    query of chunk ``q_idx`` sees: from the chunk of the first query's
+    earliest in-window key to the chunk of the last query's own position
+    under ``causal`` (to the last chunk without)."""
+    lo = max(0, (q_idx * q_chunk - window + 1) // k_chunk)
     if not causal:
-        return 0, nk
-    return 0, min(nk, ((q_idx + 1) * q_chunk - 1) // k_chunk + 1)
+        return lo, nk
+    return lo, min(nk, ((q_idx + 1) * q_chunk - 1) // k_chunk + 1)
 
 
 def flash_attention(q, k, v, causal=True, window=None, q_chunk=512, k_chunk=512,
@@ -92,11 +86,11 @@ def flash_attention(q, k, v, causal=True, window=None, q_chunk=512, k_chunk=512,
     multiple of KV -> (B, Sq, H, hd) in q's dtype.  Positions count from 0
     on both axes, as in the reference's chunks.  Without a window, one SDPA
     call under its own causal mask.  With one, a call a query chunk over
-    the key chunks :func:`_key_chunks` gives (the sliced ones under
-    ``window_slice`` where the reference slices: ``causal`` and as many
-    query as key chunks), each with the :func:`_mask_block` of its own
-    positions; the lengths must divide into chunks.  The KV heads are
-    shared through ``enable_gqa``, never repeated."""
+    the key chunks :func:`_key_chunks` gives, each with the
+    :func:`_mask_block` of its own positions; the lengths must divide into
+    chunks.  ``window_slice`` is the reference's signature: the port reads
+    only the in-window chunks either way.  The KV heads are shared through
+    ``enable_gqa``, never repeated."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, heads, S, hd)
     if window is None:
         o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -106,12 +100,9 @@ def flash_attention(q, k, v, causal=True, window=None, q_chunk=512, k_chunk=512,
     if Sq % q_chunk or Sk % k_chunk:
         raise ValueError(f"a windowed flash_attention takes lengths that divide into "
                          f"chunks: Sq={Sq} over {q_chunk}, Sk={Sk} over {k_chunk}")
-    nq, nk = Sq // q_chunk, Sk // k_chunk
-    sliced = window_slice and causal and nq == nk
-    nwin = _n_win(window, k_chunk, nk) if sliced else None
     outs = []
     for i, qb in enumerate(qt.split(q_chunk, dim=2)):
-        lo, hi = _key_chunks(i, q_chunk, k_chunk, nk, causal, nwin)
+        lo, hi = _key_chunks(i, q_chunk, k_chunk, Sk // k_chunk, causal, window)
         q_pos = torch.arange(i * q_chunk, (i + 1) * q_chunk, device=q.device)
         k_pos = torch.arange(lo * k_chunk, hi * k_chunk, device=q.device)
         keys = slice(lo * k_chunk, hi * k_chunk)

@@ -258,8 +258,7 @@ def apply_attn(p, x, cfg, positions, *, window, cache=None, cur_pos=None, tp=Non
     (H, KV), hd = _heads(cfg, tp), cfg.head_dim
     if cache is None:  # prefill: chains flatten into the batch
         o = attention_any(q.reshape(C * B, S, H, hd), k.reshape(C * B, S, KV, hd),
-                          v.reshape(C * B, S, KV, hd), causal=True, window=window,
-                          window_slice=cfg.opt_window_slice)
+                          v.reshape(C * B, S, KV, hd), causal=True, window=window)
         new_kv = (k, v)
     else:  # decode: S == 1
         smax = cache["k"].shape[2]

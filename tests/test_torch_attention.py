@@ -5,18 +5,18 @@ Above 512 query positions (when both lengths divide into 512-position
 chunks) the reference's ``attention_any`` takes its chunked
 ``flash_attention`` (a ``lax.scan`` with a hand-written backward); the
 port's takes ``scaled_dot_product_attention`` with autograd's backward —
-one call without a window, a call a query chunk with one (over every key
-chunk up to the diagonal, or only the in-window ones under
-``window_slice``, each with its own chunk's mask).  The same numpy inputs
-go through both: outputs and gradients within 1e-5 (the two sum the
-scores' softmax in another order), for both ``window_slice`` settings at
+one call without a window, a call a query chunk with one (over only the
+in-window key chunks, each with its own chunk's mask, whatever
+``window_slice`` says).  The same numpy inputs go through both: outputs
+and gradients within 1e-5 (the two sum the scores' softmax in another
+order), against both of the reference's ``window_slice`` settings at
 1,024 and 2,048 tokens, windows inside a chunk, of one, across chunks and
 past the sequence.  The model-level tests use the reduced qwen3-4b (2
 layers, d_model 256, 4 heads over 2 KV heads) carried over from the JAX
 init: last-position logits within 1e-4 (the ROADMAP's logits tolerance),
 the prefill cache within 1e-5, and the LM loss and its gradient at 1,024
-tokens within 1e-4; and the reduced hymba-1.5b (a window of 64) under
-``opt_window_slice`` likewise.
+tokens within 1e-4; and the reduced hymba-1.5b (a window of 64) against
+the reference's under ``opt_window_slice`` likewise.
 """
 
 from dataclasses import replace
@@ -34,7 +34,6 @@ from repro.models.transformer import init_params as jax_init
 from repro.models.transformer import loss_fn as jloss_fn
 from repro_torch.configs import get_reduced
 from repro_torch.models import attention as tattn
-from repro_torch.models import transformer as ttransformer
 from repro_torch.models.transformer import Model, loss_fn
 from repro_torch.utils import tree_leaves
 from repro_torch.weights import from_jax_params
@@ -108,7 +107,8 @@ def _assert_flash_close(want, got):
 @pytest.mark.parametrize("S", [1024, 2048])
 def test_windowed_path_matches_jax_flash(S, G, window, window_slice):
     """Forward and ``dq``, ``dk``, ``dv`` against ``jax.grad`` of the
-    reference's flash path with the same ``window_slice``: windows inside a
+    reference's flash path with each ``window_slice`` (its unsliced scan
+    adds the out-of-window chunks masked whole): windows inside a
     chunk (200), of one (512), across two (700, 1,024) and past the
     sequence (4,096)."""
     q, k, v, do = _qkv(S + window + G, S, G)
@@ -118,21 +118,20 @@ def test_windowed_path_matches_jax_flash(S, G, window, window_slice):
 
 @pytest.mark.parametrize("window_slice", [False, True], ids=["unsliced", "sliced"])
 def test_windowed_path_without_causal_matches_jax_flash(window_slice):
-    """A window without the causal mask: every key chunk on both sides
-    (the reference slices only under ``causal``)."""
+    """A window without the causal mask: the port reads from the chunk of
+    each query chunk's earliest in-window key to the last, the reference
+    every chunk (it slices only under ``causal``)."""
     q, k, v, do = _qkv(31, 2048, 2)
     _assert_flash_close(*_both_flash(q, k, v, do, window=700, window_slice=window_slice,
                                      causal=False))
 
 
-@pytest.mark.parametrize("window_slice,keys", [(False, [512, 1024, 1536, 2048]),
-                                               (True, [512, 1024, 1024, 1024])],
-                         ids=["unsliced", "sliced"])
-def test_windowed_path_builds_no_full_mask(monkeypatch, window_slice, keys):
+@pytest.mark.parametrize("window_slice", [False, True], ids=["unsliced", "sliced"])
+def test_windowed_path_builds_no_full_mask(monkeypatch, window_slice):
     """Every mask the windowed path builds, forward and backward, is one
-    query chunk's (512 rows) over the key chunks it reads: up to the
-    diagonal, or the ``_n_win`` = 2 in-window chunks of a 512-token window
-    under ``window_slice``; never ``(Sq, Sk)``."""
+    query chunk's (512 rows) over the key chunks it reads: the in-window
+    ones, 2 under a 512-token window (the reference's ``_n_win``), with
+    ``window_slice`` or without; never ``(Sq, Sk)``."""
     shapes = []
     real = tattn._mask_block
     monkeypatch.setattr(tattn, "_mask_block", lambda qp, kp, c, w: shapes.append(
@@ -141,8 +140,21 @@ def test_windowed_path_builds_no_full_mask(monkeypatch, window_slice, keys):
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     out = tattn.flash_attention(tq, tk, tv, True, 512, window_slice=window_slice)
     (out * torch.from_numpy(do)).sum().backward()
-    assert shapes == [(512, n) for n in keys]
+    assert shapes == [(512, n) for n in (512, 1024, 1024, 1024)]
     assert tq.grad is not None and tk.grad is not None and tv.grad is not None
+
+
+def test_windowed_path_without_causal_reads_from_the_window(monkeypatch):
+    """Without ``causal`` a query chunk reads every key chunk from the one
+    holding its first query's earliest in-window key (a 700-token window
+    over 2,048 tokens: chunk 3 starts at keys 1,024..1,535)."""
+    shapes = []
+    real = tattn._mask_block
+    monkeypatch.setattr(tattn, "_mask_block", lambda qp, kp, c, w: shapes.append(
+        (qp.shape[0], kp.shape[0])) or real(qp, kp, c, w))
+    q, k, v, _ = (torch.from_numpy(x) for x in _qkv(5, 2048, 2))
+    tattn.flash_attention(q, k, v, False, 700)
+    assert shapes == [(512, n) for n in (2048, 2048, 2048, 1536)]
 
 
 def test_windowed_path_refuses_lengths_off_the_chunks():
@@ -261,9 +273,9 @@ def test_loss_and_gradient_at_1024_tokens_match_jax(lm):
 
 def test_hymba_loss_with_window_slice_matches_jax():
     """The reduced hymba-1.5b (a window of 64 over 512-token chunks) under
-    ``opt_window_slice`` at 1,024 tokens: the flag reaches the attention
-    path, and the loss and every gradient meet the reference's within
-    1e-4 (``tests/test_torch_model.py``'s tolerance)."""
+    ``opt_window_slice`` at 1,024 tokens: the loss and every gradient meet
+    the reference's within 1e-4 (``tests/test_torch_model.py``'s
+    tolerance)."""
     jcfg, tcfg = (replace(get("hymba-1.5b"), dtype="float32", opt_window_slice=True)
                   for get in (jax_reduced, get_reduced))
     jp = jax_init(jax.random.PRNGKey(3), jcfg)
@@ -275,14 +287,8 @@ def test_hymba_loss_with_window_slice_matches_jax():
     leaves = tree_leaves(tp)
     for t in leaves:
         t.requires_grad_()
-    flags = []
-    real = ttransformer.attention_any
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(ttransformer, "attention_any",
-                   lambda *a, **kw: flags.append(kw["window_slice"]) or real(*a, **kw))
-        loss, _ = loss_fn(Model(tcfg, device="cpu"), tp, {"tokens": toks})
+    loss, _ = loss_fn(Model(tcfg, device="cpu"), tp, {"tokens": toks})
     loss.backward()
-    assert flags == [True] * tcfg.num_layers
     np.testing.assert_allclose(loss.item(), float(jl), **LOGIT_TOL)
     for t, w in zip(leaves, jax.tree_util.tree_leaves(jg)):
         np.testing.assert_allclose(t.grad[0].numpy(), np.asarray(w), **LOGIT_TOL)

@@ -148,20 +148,24 @@ def test_adapt_config_matches_the_references():
 
 def test_dry_run_with_window_slice_counts_only_the_in_window_chunks():
     """hymba-1.5b's ``train_4k`` on ``meta`` (a window of 1,024 over 512-token
-    chunks: 8 query chunks, ``_n_win`` 3): ``--opts window_slice`` reads 21
-    (query chunk, key chunk) pairs a layer where the unsliced path reads
-    the 36 up to the diagonal, so it counts the 15 others' products fewer
-    — two a pair forward, four backward, ``2 * 512 * 512 * 64`` FLOPs a
-    head each — at every layer and sequence; nothing else changes."""
+    chunks: 8 query chunks, each reading the 3 in-window key chunks up to
+    the diagonal, 21 pairs a layer): the windowed path counts the 43 other
+    (query chunk, key chunk) pairs of the full square that one SDPA call
+    without a window prices fewer — two products a pair forward, four
+    backward, ``2 * 512 * 512 * 64`` FLOPs a head each — at every layer
+    and sequence; ``--opts window_slice`` tags the record and counts the
+    same, since the port reads only the in-window chunks either way."""
     cfg, shape = get_arch("hymba-1.5b"), get_shape("train_4k")
     plain = dryrun.run_combo("hymba-1.5b", "train_4k", verbose=False)
     sliced = dryrun.run_combo("hymba-1.5b", "train_4k", opts=("window_slice",),
                               verbose=False)
+    square = dryrun.run_combo("hymba-1.5b", "train_4k", verbose=False,
+                              cfg0=replace(cfg, sliding_window=None))
     assert sliced["mode"] == "sync+window_slice"
-    pairs = 15 * cfg.num_layers * shape.global_batch
+    assert sliced["counted"] == plain["counted"]
+    pairs = 43 * cfg.num_layers * shape.global_batch
     saved = 6 * 2 * 512 * 512 * cfg.head_dim * cfg.num_heads * pairs
-    assert plain["counted"]["flops"] - sliced["counted"]["flops"] == saved
-    assert sliced["counted"]["flops"] < plain["counted"]["flops"]
+    assert square["counted"]["flops"] - plain["counted"]["flops"] == saved
 
 
 # ---------------------------------------------------------------------------
