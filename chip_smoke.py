@@ -8,6 +8,10 @@ Run from the root of a checkout, with no arguments::
 It imports only ``repro_torch`` (plus torch, numpy and the standard
 library) and runs, failing on the first phase that fails:
 
+0. the port's invariant linter (``repro_torch.analysis.lint``, pure
+   stdlib) over the tree it runs from — ``src/repro_torch``,
+   ``examples/torch_*.py``, ``scripts/torch_*.py`` and this script — with
+   its seconds; any active finding fails the run;
 1. the card's name and power limit (``nvidia-smi``), then the build of every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one
    process per source, all at once);
@@ -51,7 +55,12 @@ library) and runs, failing on the first phase that fails:
    on a ragged leaf and the stacked leaf, timed with the flags written and
    with one chain skipped; and the draw and the read of one chain of 2^32 +
    2^20 elements (the 64-bit index path, counters with a high word) against
-   the plain draw at their counters on three windows, timed;
+   the plain draw at their counters on three windows, timed; and the
+   in-place kernels' autograd bookkeeping: after one launch each of the
+   update (x and its flags), the ring decode (both caches) and the paged
+   decode (both pools), every tensor the kernel wrote has its version
+   counter advanced, and a backward through a tiny graph that saved it
+   raises, as after a torch in-place op;
 3. the engines on a reduced float32 bank, on the card (kernels) and on the
    CPU (plain path): the same tokens and BMA log-probs within 1e-4; then
    4 fused W-Icon training commits of the reduced float32 model on both:
@@ -747,6 +756,70 @@ def update_ref_one(ref, x, g, seed, gamma, scale):
     return ref.langevin_update_ref(x[None], g[None], [seed], [gamma], [scale])[0]
 
 
+def guard_saved(torch, name: str, tensors: dict, launch) -> dict:
+    """Save each floating tensor of ``tensors`` in a tiny graph of its own
+    (``sum(w * t)`` keeps ``t`` for ``w``'s gradient), run ``launch``,
+    which writes them all in place on the card, and hold the result: each
+    one's autograd version advanced, and each graph's backward refuses the
+    changed tensor.  Returns each tensor's version step."""
+    graphs = {}
+    for k, t in tensors.items():
+        loss = None
+        if t.is_floating_point():
+            w = torch.ones((), dtype=t.dtype, device=t.device, requires_grad=True)
+            loss = (w * t).sum()
+        graphs[k] = (loss, t._version)
+    launch()
+    torch.cuda.synchronize()
+    out = {}
+    for k, t in tensors.items():
+        loss, before = graphs[k]
+        out[k] = t._version - before
+        check(out[k] > 0, f"{name}: writing {k} left its autograd version at {before}")
+        if loss is None:
+            continue
+        try:
+            loss.backward()
+        except RuntimeError as e:
+            check("modified by an inplace operation" in str(e),
+                  f"{name}: backward through the saved {k} raised {e}")
+        else:
+            check(False, f"{name}: a backward that saved {k} ran after the kernel "
+                  "wrote it")
+    return out
+
+
+def run_version_checks(torch, np, lu, ds) -> dict:
+    """The in-place kernels tell autograd that they wrote: the update at a
+    4-chain bf16 leaf with flags, the ring decode on the decode cell's ring
+    and the paged decode on the paged cell (bf16, qwen3-4b's heads), one
+    launch each (:func:`guard_saved`)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    C, n = 4, 4096
+    x = torch.randn(C, n, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(C, n, generator=gen, device="cuda").to(torch.bfloat16)
+    flags = torch.zeros(C, dtype=torch.int32, device="cuda")
+    table = _device_table(torch, np, lu.chain_rows([(7, c) for c in range(C)],
+                                                   [1e-3] * C, [0.03] * C))
+    out = {"langevin_update": guard_saved(
+        torch, "langevin_update", {"x": x, "flags": flags},
+        lambda: lu.langevin_update(x, g, table, flags))}
+    c = decode_inputs(torch, gen, torch.bfloat16, 16, *RING_CASES[0])
+    out["decode_step"] = guard_saved(
+        torch, "decode_step", {"k_cache": c["k_cache"], "v_cache": c["v_cache"]},
+        lambda: ds.decode_step(c["q"], c["k_new"], c["v_new"], c["k_cache"],
+                               c["v_cache"], c["valid"], c["slot"]))
+    p = paged_inputs(torch, gen, torch.bfloat16, 4, PAGED_CELL)
+    out["paged_decode_step"] = guard_saved(
+        torch, "paged_decode_step", {"k_pages": p["k_pages"], "v_pages": p["v_pages"]},
+        lambda: ds.paged_decode_step(p["q"], p["k_new"], p["v_new"], p["k_pages"],
+                                     p["v_pages"], p["tables"], p["pos"]))
+    out["seconds"] = time.perf_counter() - t0
+    log("version counters", json.dumps(out))
+    return out
+
+
 def run_langevin_checks(torch, np, lu, ref) -> dict:
     """The fused update against the plain update: ragged bf16 / f32 (the
     vector code and its tail; one element off 16 bytes, the scalar code),
@@ -793,9 +866,10 @@ def run_langevin_checks(torch, np, lu, ref) -> dict:
     out["ops"] = LANGEVIN_OPS * n
     out["bound_ms"], out["bound_by"] = bound(out["bytes"], out["ops"], ALU_OPS)
     out["library_ms"] = None  # no PyTorch call draws threefry noise
-    # beside it, not a yardstick: randn_like + two add_ (another RNG)
+    # beside it, not a yardstick: randn_like + two add_ (another RNG); what
+    # is timed is PyTorch's own draw, whose numbers are thrown away
     out["randn_add_ms"] = cuda_ms(torch, [lambda: x.add_(g, alpha=-1e-3).add_(
-        torch.randn_like(x), alpha=float(scale))], 10)
+        torch.randn_like(x), alpha=float(scale))], 10)  # torchlint: disable=TL003
     log("langevin_update", json.dumps(out))
     return out
 
@@ -4849,6 +4923,20 @@ def main() -> int:
               "is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.analysis.lint import lint_paths
+
+    t0 = time.perf_counter()
+    lint_targets = ([SRC / "repro_torch"] + sorted(ROOT.glob("examples/torch_*.py"))
+                    + sorted(ROOT.glob("scripts/torch_*.py")) + [ROOT / "chip_smoke.py"])
+    findings = lint_paths(lint_targets)
+    active = [f for f in findings if not f.suppressed]
+    for f in active:
+        print(f.format(), file=sys.stderr)
+    log(f"torchlint: {len(active)} finding(s), {len(findings) - len(active)} suppressed, "
+        f"over {len(lint_targets)} paths in {time.perf_counter() - t0:.2f} s")
+    if active:
+        print("chip_smoke: the tree does not lint clean", file=sys.stderr)
+        return 1
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_step as ds
     from repro_torch.kernels import delay_gather as dg
@@ -4918,6 +5006,7 @@ def main() -> int:
                                               heads=HYMBA_HEADS)
     torch.cuda.empty_cache()
     lang = run_langevin_checks(torch, np, lu, ref)
+    run_version_checks(torch, np, lu, ds)
     wic, gat, dly = run_gather_checks(torch, np, dg, ref)
     torch.cuda.empty_cache()
     long_row = run_long_row_checks(torch, np, dg)
@@ -5139,6 +5228,7 @@ def main() -> int:
     log(json.dumps({"placement": {**place, "seconds": phase13_s}}))
     log(json.dumps({"model_axis": {**axis, "seconds": phase14_s}}))
     log(json.dumps({"model_axis_train": {"cells": axis_train, "seconds": phase15_s}}))
+    log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,7 @@ def rank_main(rank: int, store: str, variant: str) -> None:
     dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
                             world_size=2, timeout=datetime.timedelta(seconds=30))
     dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(rank)
 
     def attempt(name, fn):
         try:
@@ -78,9 +79,10 @@ def rank_main(rank: int, store: str, variant: str) -> None:
             attempt(f"broadcast {dt}", bcast)
         for dt in (torch.float32, torch.bfloat16):
             attempt(f"all_reduce ms, 4 x 4 x 2560 {dt}", lambda dt=dt: timed(
-                dist.all_reduce, torch.randn(4, 4, 2560, device=dev).to(dt), 50))
+                dist.all_reduce,
+                torch.randn(4, 4, 2560, device=dev, generator=gen).to(dt), 50))
             attempt(f"all_gather ms, 4 x 4 x 75968 {dt}", lambda dt=dt: timed(
-                gather, torch.randn(4, 4, 75968, device=dev).to(dt), 10))
+                gather, torch.randn(4, 4, 75968, device=dev, generator=gen).to(dt), 10))
     else:
         from torch.distributed.device_mesh import DeviceMesh
         from torch.distributed.tensor import DTensor, Replicate, Shard

@@ -375,7 +375,7 @@ class ClusterEngine:
         return batch_info
 
     # -- one commit, with the fault guards -------------------------------------------
-    def _advance(self, carry, batches: list, ex: dict):
+    def _advance(self, carry, batches: list, ex: dict):  # torchlint: hot
         """One population commit.  ``ex``: this commit's row of every
         schedule input (``rv``, and ``wid`` / ``slot`` / ``alive`` /
         ``poison`` where present).
@@ -430,7 +430,8 @@ class ClusterEngine:
             bad = np.zeros(C, bool) if poison is None else poison.copy()
             if flags is None:  # no fused commit: test the chain-stacked result
                 flags = ~_finite_chains(new.params)
-            bad |= flags.cpu().numpy().astype(bool) & run  # the commit's host read
+            # the commit's one host read, by design: quarantine decides on the host
+            bad |= flags.cpu().numpy().astype(bool) & run  # torchlint: disable=TL004
             health = health & ~bad
             keep &= health
         if alive is not None:

@@ -1,6 +1,6 @@
 """Core: the paper's contribution — delayed-gradient SGLD's ring buffer,
-delay model, potentials, schedules, configuration and theory (port of
-``repro.core``; the deprecated ``SGLDSampler`` shim is not ported)."""
+delay model, potentials, schedules, configuration (with the deprecated
+``SGLDSampler`` shim) and theory (port of ``repro.core``)."""
 
 from repro_torch.core.delay import (  # noqa: F401
     RingBuffer,
@@ -27,7 +27,12 @@ from repro_torch.core.delay_model import (  # noqa: F401
 )
 from repro_torch.core.potentials import PolyRegression, Quadratic, RICA  # noqa: F401
 from repro_torch.core.schedules import clip_to_theory, constant, poly_decay, wsd  # noqa: F401
-from repro_torch.core.sgld import SGLDConfig  # noqa: F401
+from repro_torch.core.sgld import (  # noqa: F401
+    SGLDConfig,
+    SGLDSampler,
+    SGLDState,
+    make_minibatch_grad,
+)
 from repro_torch.core.theory import (  # noqa: F401
     ProblemConstants,
     gamma_eps_kl,

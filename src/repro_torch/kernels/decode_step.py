@@ -31,7 +31,8 @@ The wrappers take CUDA tensors only: they check device, dtype (bfloat16 or
 float32), shapes, contiguity and alignment, raise on anything else, launch
 on the current stream, allocate the output and an fp32 scratch buffer for
 the splits' partial results with ``torch.empty``, update the caches /
-pools **in place**, and raise if the launch fails.  The per-(row, head)
+pools **in place** and bump their autograd version counters (as the plain
+versions' slice assignments do), and raise if the launch fails.  The per-(row, head)
 arrival counters live in one zeroed int32 buffer a device of
 :data:`MAX_HEADS` counters, made on the first call and never replaced: the
 kernel's last block of each (row, head) resets its counter, so every call
@@ -226,6 +227,10 @@ def decode_step(q, k_new, v_new, k_cache, v_cache, valid, slot: int):
             counters.data_ptr(), slot, N, smax, KV, G, hd,
             _DTYPES[dt], splits, chunk, 1.0 / math.sqrt(hd), stream)
     build.check_launch(err, "decode_step")
+    # the new row went in through raw pointers: bump the caches' version
+    # counters as the plain step's slice assignment does
+    torch.autograd.graph.increment_version(k_cache)
+    torch.autograd.graph.increment_version(v_cache)
     decode_step.launches += 1
     return o, k_cache, v_cache
 
@@ -278,6 +283,8 @@ def paged_decode_step(q, k_new, v_new, k_pages, v_pages, tables, pos):
             _DTYPES[dt], splits, paged_min_pages(ps), max_pages,
             1.0 / math.sqrt(hd), stream)
     build.check_launch(err, "paged_decode_step")
+    torch.autograd.graph.increment_version(k_pages)
+    torch.autograd.graph.increment_version(v_pages)
     paged_decode_step.launches += 1
     return o, k_pages, v_pages
 

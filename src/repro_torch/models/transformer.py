@@ -718,7 +718,7 @@ class Model:
         c["pos"][:] = torch.where(ar < prompt_len, ar, -1)
         return self.unembed(params, x[:, :, prompt_len - 1]), cache
 
-    def serve_step(self, params, cache, tokens, cur_pos: int, tap=None):
+    def serve_step(self, params, cache, tokens, cur_pos: int, tap=None):  # torchlint: hot
         """One decode step, updating ``cache`` (from :meth:`init_cache` or a
         prefill) in place.  tokens: (B, 1); cur_pos: host int.  Returns
         (logits (C, B, 1, V), cache).

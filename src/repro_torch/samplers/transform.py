@@ -78,7 +78,7 @@ def stateless(update_ctx: Callable[[StepContext], StepContext]) -> SamplerTransf
         del params
         return ()
 
-    def update(ctx, state):
+    def update(ctx, state):  # torchlint: hot
         return update_ctx(ctx), state
 
     return SamplerTransform(init, update)
@@ -90,7 +90,7 @@ def chain(*transforms: SamplerTransform) -> SamplerTransform:
     def init(params):
         return tuple(t.init(params) for t in transforms)
 
-    def update(ctx, state):
+    def update(ctx, state):  # torchlint: hot
         new_state = []
         for t, s in zip(transforms, state):
             ctx, s = t.update(ctx, s)

@@ -189,7 +189,7 @@ def gradients(grad_fn: GradFn, has_aux: bool = False) -> SamplerTransform:
     """Evaluate the gradient oracle at every chain's (possibly stale) read
     point: one oracle call a chain."""
 
-    def update(ctx: StepContext) -> StepContext:
+    def update(ctx: StepContext) -> StepContext:  # torchlint: hot
         def oracle(c):
             out = grad_fn(chain_at(ctx.x_hat, c), ctx.batch[c])
             return out if has_aux else (out, None)
@@ -244,7 +244,7 @@ def masked_gradients(grad_fn: GradFn, has_aux: bool = False) -> SamplerTransform
     raises a ``TypeError`` here).
     """
 
-    def update(ctx: StepContext) -> StepContext:
+    def update(ctx: StepContext) -> StepContext:  # torchlint: hot
         if not all(isinstance(b, MaskedBatch) for b in ctx.batch):
             raise TypeError("masked_gradients needs a MaskedBatch (did you "
                             "mean gradients(), or forget batch_policy=?)")
@@ -262,7 +262,7 @@ def batch_scaled_gamma(base_batch: int) -> SamplerTransform:
     ``ctx.gamma`` downstream and scales accordingly).  A scale of exactly
     1.0 when ``b == base_batch``."""
 
-    def update(ctx: StepContext) -> StepContext:
+    def update(ctx: StepContext) -> StepContext:  # torchlint: hot
         if not all(isinstance(b, MaskedBatch) for b in ctx.batch):
             raise TypeError("batch_scaled_gamma needs a MaskedBatch upstream")
         sizes = np.array([int(b.size) for b in ctx.batch], np.float32)
@@ -281,7 +281,7 @@ def langevin_noise(sigma: float, schedule=None, noise_dtype=torch.float32,
     if noise not in NOISE:
         raise ValueError(f"noise must be one of {NOISE}, got {noise!r}")
 
-    def update(ctx: StepContext) -> StepContext:
+    def update(ctx: StepContext) -> StepContext:  # torchlint: hot
         C = len(ctx.key_noise)
         gammas = [schedule(ctx.step)] * C if schedule is not None else ctx.gamma
         return ctx._replace(noise=stack_chains([
@@ -296,7 +296,7 @@ def apply_sgld_update() -> SamplerTransform:
     """Commit ``X_{k+1} = X_k - gamma_k grad + noise`` (unfused path): one
     elementwise pass a leaf, chain c's gamma broadcast over its row."""
 
-    def update(ctx: StepContext) -> StepContext:
+    def update(ctx: StepContext) -> StepContext:  # torchlint: hot
         if ctx.grads is None:
             raise ValueError("apply_sgld_update needs a gradients() stage first")
         noise = ctx.noise if ctx.noise is not None else tree_zeros_like(ctx.params)
@@ -315,7 +315,7 @@ def fused_update(sigma: float) -> SamplerTransform:
     ``ctx.check`` the launches report non-finite chains in
     ``ctx.nonfinite`` (``(C,)`` int32, one buffer for every leaf)."""
 
-    def update(ctx: StepContext) -> StepContext:
+    def update(ctx: StepContext) -> StepContext:  # torchlint: hot
         if ctx.grads is None:
             raise ValueError("fused_update needs a gradients() stage first")
         flags = None
@@ -361,7 +361,7 @@ def svrg_gradients(grad_fn: GradFn, full_grad_fn: Callable[[PyTree], PyTree],
         return SVRGState(anchor=tree_map(torch.clone, params),
                          anchor_grad=tree_zeros_like(params))
 
-    def update(ctx: StepContext, state: SVRGState):
+    def update(ctx: StepContext, state: SVRGState):  # torchlint: hot
         C = len(ctx.batch)
         if ctx.step % anchor_every == 0:  # one commit counter for every chain
             state = SVRGState(
@@ -400,7 +400,7 @@ def stale_correction(strength: float = 1.0,
     def fix(g, x, xh):
         return g + torch.tensor(strength, dtype=g.dtype) * g * g * (x - xh).to(g.dtype)
 
-    def update(ctx: StepContext) -> StepContext:
+    def update(ctx: StepContext) -> StepContext:  # torchlint: hot
         if ctx.grads is None:
             raise ValueError("stale_correction needs a gradients() stage first")
         delay = np.asarray(ctx.delay, np.int64)
@@ -460,7 +460,7 @@ def sghmc_update(sigma: float, *, friction: float = 1.0, precond: Any = None,
                                                      device=p.device),
                         params, precond)
 
-    def update(ctx: StepContext, momentum):
+    def update(ctx: StepContext, momentum):  # torchlint: hot
         if ctx.grads is None:
             raise ValueError("sghmc_update needs a gradients() stage first")
         gamma = np.asarray(ctx.gamma, np.float32)
@@ -492,7 +492,7 @@ def pipeline_overlap() -> SamplerTransform:
     def init(params):
         return tree_zeros_like(params)
 
-    def update(ctx: StepContext, pending):
+    def update(ctx: StepContext, pending):  # torchlint: hot
         if ctx.grads is None:
             raise ValueError("pipeline_overlap needs a gradients() stage first")
         return ctx._replace(grads=pending), ctx.grads
@@ -513,7 +513,7 @@ def delay_read(policy: DelayPolicy) -> SamplerTransform:
     def init(params):
         return delay_lib.init_ring(params, policy.tau)
 
-    def update(ctx: StepContext, ring):
+    def update(ctx: StepContext, ring):  # torchlint: hot
         ring = delay_lib.push(ring, ctx.params,
                               None if ctx.skip is None else ~np.asarray(ctx.skip, bool))
         return ctx._replace(x_hat=policy.read(ctx, ring)), ring

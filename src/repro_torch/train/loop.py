@@ -140,7 +140,7 @@ def make_grad_fn(model: Model, num_microbatches: int = 1):
     This is what the reference's GSPMD step computes; its MoE gives each
     data shard its own capacity."""
 
-    def single(params, batch):
+    def single(params, batch):  # torchlint: hot
         if "stack" in params:
             gstack = tree_zeros_like(params["stack"])
             layers = [tree_map(lambda p, g, i=i: _leaf(p[:, i], g[:, i]),
@@ -163,7 +163,7 @@ def make_grad_fn(model: Model, num_microbatches: int = 1):
         return grads, dict(metrics, loss=loss.detach())
 
     if model.tp is not None:
-        def placed(params, batch):
+        def placed(params, batch):  # torchlint: hot
             size = tree_leaves(batch)[0].shape[0]
             rows = microbatch_rows(model, size, max(1, num_microbatches))
             mbs = [tree_map(lambda x, r=r: x[r], batch) for r in rows]
@@ -179,7 +179,7 @@ def make_grad_fn(model: Model, num_microbatches: int = 1):
     if num_microbatches <= 1:
         return single
 
-    def accumulated(params, batch):
+    def accumulated(params, batch):  # torchlint: hot
         mbs = _split_microbatch(batch, num_microbatches)
         if tree_leaves(params)[0].device.type == "meta":
             # the microbatches are alike: on meta (the dry run) one, counted

@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch``, ``chip_smoke.py``, the port's
-examples (``examples/torch_*.py``) and its timeline CLI
-(``scripts/torch_obstool.py``) import neither ``jax`` nor anything of the
+examples (``examples/torch_*.py``), its timeline CLI
+(``scripts/torch_obstool.py``) and its lint CLI
+(``scripts/torch_lint.py``) import neither ``jax`` nor anything of the
 JAX package ``repro``."""
 
 import ast
@@ -15,7 +16,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
               + sorted(ROOT.glob("examples/torch_*.py"))
-              + [ROOT / "scripts" / "torch_obstool.py"])
+              + [ROOT / "scripts" / "torch_obstool.py", ROOT / "scripts" / "torch_lint.py"])
 
 
 def _imported_modules(path: Path):
@@ -57,6 +58,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.models.xlstm\n"
         "import repro_torch.analysis, repro_torch.analysis.instrument\n"
         "import repro_torch.analysis.cost, repro_torch.obs.timeline\n"
+        "import repro_torch.analysis.lint\n"
         "import repro_torch.launch.steps, repro_torch.launch.flop_cost\n"
         "import repro_torch.launch.roofline, repro_torch.launch.dryrun\n"
         "import repro_torch.launch.mesh\n"

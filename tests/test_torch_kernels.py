@@ -34,6 +34,8 @@ from torch_cases import (
     RING_IDS,
     assert_pool_equal,
     garbage_writers,
+    guard_saved,
+    in_place_case,
     paged_case,
     ring_case,
 )
@@ -454,3 +456,14 @@ def test_ring_push_keeps_masked_chains_and_reads_from_each_head():
     keys = rng.split((1, 2), C)
     got = tdelay.read_inconsistent_leafwise(ring, keys, [0, 0, 0], fused=True)
     assert torch.equal(got["w"][:, 0], newest)
+
+
+@pytest.mark.parametrize("kernel", ["langevin_update", "decode_step", "paged_decode_step"])
+def test_plain_in_place_versions_bump_autograd_versions(kernel):
+    """The plain versions write with torch in-place ops, which bump each
+    written tensor's autograd version: a backward that saved it refuses
+    it.  The CUDA wrappers bump the same tensors after their launch
+    (``tests/test_torch_kernels_cuda.py``), so card and CPU agree."""
+    written, launch = in_place_case(kernel, "cpu", on_card=False)
+    steps = guard_saved(written, launch)
+    assert set(steps) == set(written)

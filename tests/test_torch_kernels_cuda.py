@@ -45,6 +45,11 @@ and read bit for bit), at C 1, 3 and 32, on rows that start off 16 bytes
 amounts (the update's all-scalar rows); an op launches each kernel once a
 leaf whatever C is, and its per-commit tables reach the card without
 stalling the host.
+
+The in-place kernels (the update, the ring and the paged decode step) bump
+the autograd version of every tensor they write, as the plain versions'
+torch in-place ops do: after one launch each written tensor's version has
+advanced and a backward through a graph that saved it raises.
 """
 
 import numpy as np
@@ -56,7 +61,15 @@ from repro_torch.kernels import decode_step as ds
 from repro_torch.kernels import delay_gather as dg
 from repro_torch.kernels import langevin_update as lu
 from repro_torch.kernels import ops, ref, rng
-from torch_cases import RING_CASES, RING_IDS, assert_pool_equal, paged_case, ring_case
+from torch_cases import (
+    RING_CASES,
+    RING_IDS,
+    assert_pool_equal,
+    guard_saved,
+    in_place_case,
+    paged_case,
+    ring_case,
+)
 
 
 def _np(t):
@@ -972,3 +985,13 @@ def test_prefetcher_copies_on_a_side_stream(cuda):
         pf.close()
         cpu.close()
     assert pf._stream is not None and pf._stream != torch.cuda.current_stream(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["langevin_update", "decode_step", "paged_decode_step"])
+def test_in_place_kernels_bump_autograd_versions_on_card(cuda, kernel):
+    written, launch = in_place_case(kernel, cuda, on_card=True)
+    launches = getattr(lu if kernel == "langevin_update" else ds, kernel).launches
+    steps = guard_saved(written, launch)
+    assert getattr(lu if kernel == "langevin_update" else ds, kernel).launches == launches + 1
+    assert set(steps) == set(written)

@@ -17,6 +17,12 @@
   W-Icon delays are its delays bit for bit.  The unfused modes run at
   sigma 0, because the port's unfused noise is a ``torch.Generator``
   draw, not ``jax.random.normal``'s numbers.
+- The deprecated ``SGLDSampler`` shim: in all four modes its trajectory
+  equals ``samplers.sgld(mode)``'s bit for bit under the same key (noise
+  on), and on a ``Quadratic`` at sigma 0 it agrees with the JAX shim
+  commit by commit within 1e-6, its aux (the loss) too; it warns;
+  ``SGLDConfig.gamma_at`` and ``make_minibatch_grad`` agree with the JAX
+  package's.
 """
 
 from dataclasses import replace
@@ -32,13 +38,14 @@ from repro.configs import get_reduced as jax_reduced
 from repro.core import delay as jdelay
 from repro.core import delay_model as jdm
 from repro.core import schedules as jschedules
+from repro.core import sgld as jsgld
 from repro.models.transformer import Model as JaxModel
 from repro.models.transformer import init_params as jax_init
 from repro.models.transformer import loss_fn as jax_loss_fn
 from repro.train.loop import make_grad_fn as jax_grad_fn
 from repro_torch import samplers
 from repro_torch.configs import get_reduced
-from repro_torch.core import delay, delay_model, schedules
+from repro_torch.core import delay, delay_model, schedules, sgld
 from repro_torch.kernels import rng
 from repro_torch.models.transformer import Model, loss_fn
 from repro_torch.samplers.transform import one_chain
@@ -220,3 +227,106 @@ def test_sgld_commits_match_jax(setup, mode, fused):
         _assert_tree_close(jstate.params, tstate.params, atol=1e-6)
         assert tstate.step == int(jstate.step)
         assert tstate.key == tuple(np.asarray(jstate.key).tolist())
+
+
+# ---------------------------------------------------------------------------
+# the deprecated SGLDSampler shim
+# ---------------------------------------------------------------------------
+SHIM_STEPS = 12
+SHIM_TAU = {"sync": 0, "consistent": 3, "inconsistent": 3, "pipeline": 0}
+
+
+@pytest.fixture(scope="module")
+def quads():
+    from repro.core import Quadratic as JQuadratic
+    from repro_torch.core import Quadratic
+
+    jq = JQuadratic.make(jax.random.PRNGKey(0), d=4, m=1.0, L=3.0)
+    tq = Quadratic(x_star=torch.from_numpy(np.array(jq.x_star)),
+                   diag=torch.from_numpy(np.array(jq.diag)))
+    return jq, tq
+
+
+def _shim_delays(tau):
+    return np.asarray(delay_model.constant_delays(tau, SHIM_STEPS).delays
+                      if tau else np.zeros(SHIM_STEPS, np.int32))
+
+
+@pytest.mark.parametrize("mode", ["sync", "consistent", "inconsistent", "pipeline"])
+def test_shim_equals_preset_bitwise(quads, mode):
+    _, tq = quads
+    cfg = sgld.SGLDConfig(mode=mode, gamma=0.05, sigma=0.5, tau=SHIM_TAU[mode])
+    grad = lambda p, b: tq.grad(p, b)  # noqa: E731
+    with pytest.warns(DeprecationWarning):
+        shim = sgld.SGLDSampler(cfg, grad)
+    preset = samplers.sgld(mode, grad, gamma=0.05, sigma=0.5, tau=SHIM_TAU[mode])
+    delays = _shim_delays(SHIM_TAU[mode])
+    batches = torch.zeros((SHIM_STEPS, 1))
+    s1, t1 = shim.run(shim.init(torch.zeros(4), rng.PRNGKey(2)), batches, delays)
+    s2, t2 = preset.run(preset.init(torch.zeros(4), rng.PRNGKey(2)), batches, delays)
+    assert torch.equal(t1, t2) and torch.equal(s1.params, s2.params)
+    assert s1.key == s2.key and s1.step == s2.step == SHIM_STEPS
+    assert not torch.equal(t1[0], t1[-1])  # the chain moved
+
+
+@pytest.mark.parametrize("mode", ["sync", "consistent", "inconsistent", "pipeline"])
+def test_shim_matches_jax_shim_at_sigma0(quads, mode):
+    """Commit by commit on a Quadratic at sigma 0 (only float arithmetic
+    differs): the iterate within 1e-6, the aux loss within 1e-6."""
+    jq, tq = quads
+    tau = SHIM_TAU[mode]
+    kw = dict(mode=mode, gamma=0.05, sigma=0.0, tau=tau)
+    with pytest.warns(DeprecationWarning):
+        js = jsgld.SGLDSampler(jsgld.SGLDConfig(**kw),
+                               lambda p, b: (jq.grad(p, b), {"loss": jq.value(p, b)}),
+                               has_aux=True)
+    with pytest.warns(DeprecationWarning):
+        ts = sgld.SGLDSampler(sgld.SGLDConfig(**kw),
+                              lambda p, b: (tq.grad(p, b), {"loss": tq.value(p, b)}),
+                              has_aux=True)
+    assert js.has_aux and ts.has_aux
+    x0 = np.linspace(-1.0, 2.0, 4, dtype=np.float32)
+    jstate = js.init(jnp.asarray(x0), jax.random.PRNGKey(5))
+    tstate = ts.init(torch.from_numpy(x0), rng.PRNGKey(5))
+    jstep = jax.jit(js.step)
+    for d in _shim_delays(tau):
+        jstate, jaux = jstep(jstate, None, int(d))
+        tstate, taux = ts.step(tstate, None, int(d))
+        np.testing.assert_allclose(tstate.params.numpy(), np.asarray(jstate.params),
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_allclose(float(taux["loss"]), float(jaux["loss"]),
+                                   rtol=1e-6, atol=1e-6)
+        assert tstate.key == tuple(np.asarray(jstate.key).tolist())
+    assert float(np.abs(np.asarray(jstate.params) - x0).max()) > 0.1
+
+
+def test_shim_surface_matches_jax():
+    """The exports, the aliases, ``SGLDConfig.gamma_at`` (a constant and a
+    schedule) and ``make_minibatch_grad`` against the JAX package's."""
+    from repro.core import PolyRegression as JPolyRegression
+    from repro_torch import core
+    from repro_torch.core import PolyRegression
+    from repro_torch.samplers.transforms import noise_like, sgld_apply
+
+    assert core.SGLDSampler is sgld.SGLDSampler
+    assert core.SGLDState is sgld.SGLDState is samplers.SamplerState
+    assert core.make_minibatch_grad is sgld.make_minibatch_grad
+    assert sgld.langevin_noise is noise_like and sgld.apply_update is sgld_apply
+    for gamma, jgamma in ((0.05, 0.05),
+                          (schedules.poly_decay(0.1, alpha=0.4, t0=10.0),
+                           jschedules.poly_decay(0.1, alpha=0.4, t0=10.0))):
+        tc = sgld.SGLDConfig(gamma=gamma)
+        jc = jsgld.SGLDConfig(gamma=jgamma)
+        for step in (0, 1, 7, 1000):
+            got, want = tc.gamma_at(step), np.asarray(jc.gamma_at(jnp.int32(step)))
+            assert got.dtype == np.float32 and got == want, (step, got, want)
+    jreg = JPolyRegression.make(jax.random.PRNGKey(0), nu_std=0.1)
+    reg = PolyRegression.make(rng.PRNGKey(0), nu_std=0.1, device="cpu")
+    jbatch = jreg.sample_batch(jax.random.PRNGKey(1), 64)
+    batch = tuple(torch.from_numpy(np.array(b)) for b in jbatch)
+    w = np.asarray([0.3, -0.2, 0.1, 0.05, 0.4], np.float32)
+    want = np.asarray(jsgld.make_minibatch_grad(jreg)(jnp.asarray(w), jbatch))
+    got = sgld.make_minibatch_grad(reg)(torch.from_numpy(w), batch)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), reg.grad(torch.from_numpy(w), batch).numpy(),
+                               rtol=1e-5, atol=1e-6)

@@ -75,3 +75,71 @@ def assert_pool_equal(got, want, shared_rows, new_rows, ps):
     for r, slots in shared_rows.items():
         cands = new_rows[:, slots]  # (C, writers, KV, hd)
         assert (cands == gf[:, r][:, None]).any(axis=1).all()
+
+
+def in_place_case(kernel: str, device, on_card: bool):
+    """Inputs of one in-place kernel at a small bf16 size, and a launch:
+    ``(written, launch)`` — ``written`` the tensors it writes in place
+    ({name: tensor}), ``launch()`` one call of the CUDA wrapper
+    (``on_card``) or of its plain version (the same arguments)."""
+    from repro_torch.kernels import decode_step as ds
+    from repro_torch.kernels import langevin_update as lu
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator().manual_seed(13)
+    r = lambda *s: torch.randn(*s, generator=gen).to(device, torch.bfloat16)  # noqa: E731
+    if kernel == "langevin_update":
+        C, n = 3, 1000
+        x, g = r(C, n), r(C, n)
+        g[1, 7] = float("nan")  # chain 1 goes non-finite: both versions write flags
+        flags = torch.zeros(C, dtype=torch.int32, device=device)
+        seeds, gammas, scales = [(7, c) for c in range(C)], [1e-3] * C, [0.03] * C
+        table = torch.from_numpy(lu.chain_rows(seeds, gammas, scales).view(np.int32))
+        if on_card:
+            table = table.to(device)
+            return {"x": x, "flags": flags}, lambda: lu.langevin_update(x, g, table, flags)
+        return {"x": x, "flags": flags}, lambda: ref.langevin_update_ref(
+            x, g, seeds, gammas, scales, flags=flags)
+    if kernel == "decode_step":
+        N, smax, slot = 3, 32, 5
+        q, kn, vn = r(N, KV, G, HD), r(N, KV, HD), r(N, KV, HD)
+        kc, vc = r(N, smax, KV, HD), r(N, smax, KV, HD)
+        valid = torch.ones(smax, dtype=torch.int32, device=device)
+        step = ds.decode_step if on_card else ref.decode_step_ref
+        return ({"k_cache": kc, "v_cache": vc},
+                lambda: step(q, kn, vn, kc, vc, valid, slot))
+    c = paged_case(13, 2)
+    t = {k: torch.from_numpy(v).to(device) for k, v in c.items()}
+    for k in ("q", "k_new", "v_new", "k_pages", "v_pages"):
+        t[k] = t[k].to(torch.bfloat16)
+    C, S = t["q"].shape[:2]
+    q = t["q"].reshape(C, S, KV, G, HD)
+    step = ds.paged_decode_step if on_card else ref.paged_decode_step_ref
+    return ({"k_pages": t["k_pages"], "v_pages": t["v_pages"]},
+            lambda: step(q, t["k_new"], t["v_new"], t["k_pages"], t["v_pages"],
+                         t["tables"], t["pos"]))
+
+
+def guard_saved(written: dict, launch) -> dict:
+    """Save each floating tensor of ``written`` in a tiny graph of its own
+    (``sum(w * t)`` keeps ``t`` for ``w``'s gradient), run ``launch``, and
+    assert what a torch in-place op gives: each tensor's autograd version
+    advanced, and each graph's backward refuses the changed tensor.
+    Returns each tensor's version step."""
+    graphs = {}
+    for k, t in written.items():
+        loss = None
+        if t.is_floating_point():
+            w = torch.ones((), dtype=t.dtype, device=t.device, requires_grad=True)
+            loss = (w * t).sum()
+        graphs[k] = (loss, t._version)
+    launch()
+    steps = {}
+    for k, t in written.items():
+        loss, before = graphs[k]
+        steps[k] = t._version - before
+        assert steps[k] > 0, f"writing {k} left its autograd version at {before}"
+        if loss is not None:
+            with pytest.raises(RuntimeError, match="modified by an inplace operation"):
+                loss.backward()
+    return steps
