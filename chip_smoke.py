@@ -756,44 +756,23 @@ def update_ref_one(ref, x, g, seed, gamma, scale):
     return ref.langevin_update_ref(x[None], g[None], [seed], [gamma], [scale])[0]
 
 
-def guard_saved(torch, name: str, tensors: dict, launch) -> dict:
-    """Save each floating tensor of ``tensors`` in a tiny graph of its own
-    (``sum(w * t)`` keeps ``t`` for ``w``'s gradient), run ``launch``,
-    which writes them all in place on the card, and hold the result: each
-    one's autograd version advanced, and each graph's backward refuses the
-    changed tensor.  Returns each tensor's version step."""
-    graphs = {}
-    for k, t in tensors.items():
-        loss = None
-        if t.is_floating_point():
-            w = torch.ones((), dtype=t.dtype, device=t.device, requires_grad=True)
-            loss = (w * t).sum()
-        graphs[k] = (loss, t._version)
-    launch()
-    torch.cuda.synchronize()
-    out = {}
-    for k, t in tensors.items():
-        loss, before = graphs[k]
-        out[k] = t._version - before
-        check(out[k] > 0, f"{name}: writing {k} left its autograd version at {before}")
-        if loss is None:
-            continue
-        try:
-            loss.backward()
-        except RuntimeError as e:
-            check("modified by an inplace operation" in str(e),
-                  f"{name}: backward through the saved {k} raised {e}")
-        else:
-            check(False, f"{name}: a backward that saved {k} ran after the kernel "
-                  "wrote it")
-    return out
-
-
 def run_version_checks(torch, np, lu, ds) -> dict:
     """The in-place kernels tell autograd that they wrote: the update at a
     4-chain bf16 leaf with flags, the ring decode on the decode cell's ring
     and the paged decode on the paged cell (bf16, qwen3-4b's heads), one
-    launch each (:func:`guard_saved`)."""
+    launch each, under ``repro_torch.analysis.inplace.guard_saved``: every
+    written tensor's version advanced, and a backward that saved it
+    raises."""
+    from repro_torch.analysis.inplace import guard_saved
+
+    def guarded(name, written, launch):
+        try:
+            steps = guard_saved(written, launch)
+        except AssertionError as e:
+            check(False, f"{name}: {e}")
+        torch.cuda.synchronize()
+        return steps
+
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(13)
     C, n = 4, 4096
@@ -802,17 +781,17 @@ def run_version_checks(torch, np, lu, ds) -> dict:
     flags = torch.zeros(C, dtype=torch.int32, device="cuda")
     table = _device_table(torch, np, lu.chain_rows([(7, c) for c in range(C)],
                                                    [1e-3] * C, [0.03] * C))
-    out = {"langevin_update": guard_saved(
-        torch, "langevin_update", {"x": x, "flags": flags},
+    out = {"langevin_update": guarded(
+        "langevin_update", {"x": x, "flags": flags},
         lambda: lu.langevin_update(x, g, table, flags))}
     c = decode_inputs(torch, gen, torch.bfloat16, 16, *RING_CASES[0])
-    out["decode_step"] = guard_saved(
-        torch, "decode_step", {"k_cache": c["k_cache"], "v_cache": c["v_cache"]},
+    out["decode_step"] = guarded(
+        "decode_step", {"k_cache": c["k_cache"], "v_cache": c["v_cache"]},
         lambda: ds.decode_step(c["q"], c["k_new"], c["v_new"], c["k_cache"],
                                c["v_cache"], c["valid"], c["slot"]))
     p = paged_inputs(torch, gen, torch.bfloat16, 4, PAGED_CELL)
-    out["paged_decode_step"] = guard_saved(
-        torch, "paged_decode_step", {"k_pages": p["k_pages"], "v_pages": p["v_pages"]},
+    out["paged_decode_step"] = guarded(
+        "paged_decode_step", {"k_pages": p["k_pages"], "v_pages": p["v_pages"]},
         lambda: ds.paged_decode_step(p["q"], p["k_new"], p["v_new"], p["k_pages"],
                                      p["v_pages"], p["tables"], p["pos"]))
     out["seconds"] = time.perf_counter() - t0

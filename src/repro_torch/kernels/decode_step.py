@@ -32,7 +32,9 @@ float32), shapes, contiguity and alignment, raise on anything else, launch
 on the current stream, allocate the output and an fp32 scratch buffer for
 the splits' partial results with ``torch.empty``, update the caches /
 pools **in place** and bump their autograd version counters (as the plain
-versions' slice assignments do), and raise if the launch fails.  The per-(row, head)
+versions' slice assignments do), return the caches / pools they wrote (the
+linter's TL005 knows a tensor written in place by the wrapper handing it
+back), and raise if the launch fails.  The per-(row, head)
 arrival counters live in one zeroed int32 buffer a device of
 :data:`MAX_HEADS` counters, made on the first call and never replaced: the
 kernel's last block of each (row, head) resets its counter, so every call

@@ -23,6 +23,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import attention as jattention
+from repro_torch.analysis.inplace import guard_saved
 from repro_torch.kernels import decode_step as ds
 from repro_torch.kernels import ops, ref
 from repro_torch.models.attention import decode_attention, paged_decode_attention
@@ -34,7 +35,6 @@ from torch_cases import (
     RING_IDS,
     assert_pool_equal,
     garbage_writers,
-    guard_saved,
     in_place_case,
     paged_case,
     ring_case,
@@ -467,3 +467,27 @@ def test_plain_in_place_versions_bump_autograd_versions(kernel):
     written, launch = in_place_case(kernel, "cpu", on_card=False)
     steps = guard_saved(written, launch)
     assert set(steps) == set(written)
+
+
+@pytest.mark.parametrize("bump", [False, True])
+def test_guard_saved_refuses_a_write_autograd_did_not_see(bump):
+    """A write through a raw pointer (``ctypes.memmove`` to ``data_ptr()``,
+    as a kernel launch writes) leaves the version alone and a saved graph
+    would read the new values: ``guard_saved`` refuses it, and passes once
+    the writer bumps the version as the CUDA wrappers do."""
+    import ctypes
+
+    x = torch.arange(4, dtype=torch.float32)
+    new = torch.full((4,), 10.0)
+
+    def launch():
+        ctypes.memmove(x.data_ptr(), new.data_ptr(), x.numel() * x.element_size())
+        if bump:
+            torch.autograd.graph.increment_version(x)
+
+    if bump:
+        assert guard_saved({"x": x}, launch) == {"x": 1}
+    else:
+        with pytest.raises(AssertionError, match="writing x left its autograd version"):
+            guard_saved({"x": x}, launch)
+    assert torch.equal(x, new)

@@ -56,6 +56,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis.inplace import guard_saved
 from repro_torch.core import delay as tdelay
 from repro_torch.kernels import decode_step as ds
 from repro_torch.kernels import delay_gather as dg
@@ -65,7 +66,6 @@ from torch_cases import (
     RING_CASES,
     RING_IDS,
     assert_pool_equal,
-    guard_saved,
     in_place_case,
     paged_case,
     ring_case,

@@ -118,28 +118,3 @@ def in_place_case(kernel: str, device, on_card: bool):
     return ({"k_pages": t["k_pages"], "v_pages": t["v_pages"]},
             lambda: step(q, t["k_new"], t["v_new"], t["k_pages"], t["v_pages"],
                          t["tables"], t["pos"]))
-
-
-def guard_saved(written: dict, launch) -> dict:
-    """Save each floating tensor of ``written`` in a tiny graph of its own
-    (``sum(w * t)`` keeps ``t`` for ``w``'s gradient), run ``launch``, and
-    assert what a torch in-place op gives: each tensor's autograd version
-    advanced, and each graph's backward refuses the changed tensor.
-    Returns each tensor's version step."""
-    graphs = {}
-    for k, t in written.items():
-        loss = None
-        if t.is_floating_point():
-            w = torch.ones((), dtype=t.dtype, device=t.device, requires_grad=True)
-            loss = (w * t).sum()
-        graphs[k] = (loss, t._version)
-    launch()
-    steps = {}
-    for k, t in written.items():
-        loss, before = graphs[k]
-        steps[k] = t._version - before
-        assert steps[k] > 0, f"writing {k} left its autograd version at {before}"
-        if loss is not None:
-            with pytest.raises(RuntimeError, match="modified by an inplace operation"):
-                loss.backward()
-    return steps
