@@ -1352,6 +1352,21 @@ def _reset(kernels) -> None:
         k.launches = 0
 
 
+def _timed_batch_fn(engine) -> list:
+    """Wrap ``engine.batch_fn`` so each call's host seconds land in the
+    returned list (the batch making a commit costs, made from its key)."""
+    inner, spent = engine.batch_fn, []
+
+    def timed(key):
+        t = time.perf_counter()
+        batch = inner(key)
+        spent.append(time.perf_counter() - t)
+        return batch
+
+    engine.batch_fn = timed
+    return spent
+
+
 def paper_reference_check(np, kernels) -> None:
     """(a) Both experiments at sigma = 0 (regression P 4, 400 steps; RICA
     patch 16, 8 features, 60 steps), all three modes, on the card and on
@@ -1504,6 +1519,7 @@ def paper_path(torch, np, kernels) -> dict:
 # ---------------------------------------------------------------------------
 def main_path(torch, np, ds, cfg, device="cuda") -> dict:
     from repro_torch.cluster import DecodeEngine, PagedDecodeEngine, Request
+    from repro_torch.kernels import rng as krng
     from repro_torch.models.predictive import bma_logits
     from repro_torch.models.transformer import Model, init_params
     from repro_torch.obs.metrics import registry
@@ -1534,7 +1550,9 @@ def main_path(torch, np, ds, cfg, device="cuda") -> dict:
     t0 = time.perf_counter()
     greedy = eng.generate(prompts, 16)
     t_greedy = time.perf_counter() - t0
+    t0 = time.perf_counter()
     sampled = eng.generate(prompts[:1], 16, key=1234)
+    t_sampled = time.perf_counter() - t0
     launches = ds.decode_step.launches
     steps = reg.counter("decode.steps").value - steps0
     steps = int(steps)
@@ -1551,6 +1569,16 @@ def main_path(torch, np, ds, cfg, device="cuda") -> dict:
               "BMA log-probs are not a distribution")
     check(np.array_equal(greedy.tokens, np.argmax(greedy.logits, -1)),
           "greedy tokens are not the argmax of the BMA law")
+    # the sampled request: jax.random.categorical under split(key, 16)[t],
+    # recomputed on the host from the card's log-probs
+    keys = krng.split(krng.PRNGKey(1234), 16)
+    host = np.stack([krng.categorical(keys[t], torch.from_numpy(sampled.logits[:, t]))
+                     .numpy() for t in range(16)], axis=1)
+    check(np.array_equal(sampled.tokens, host),
+          f"sampled decode tokens {sampled.tokens.tolist()} are not the host's "
+          f"categorical draws {host.tolist()} at the same keys")
+    draw_ms = _draw_ms(torch, np, krng, torch.from_numpy(greedy.logits[:, 0]).to(device),
+                       keys, sync)
     # decode vs one prefill over the generated stream (bf16: reported)
     stream = np.concatenate([prompts, greedy.tokens[:, :-1]], axis=1)
     with torch.no_grad():
@@ -1561,15 +1589,19 @@ def main_path(torch, np, ds, cfg, device="cuda") -> dict:
     per_tok = t_greedy * 1e3 / 16
     log(f"DecodeEngine: 4 x (32 + 16) greedy in {t_greedy:.3f} s "
         f"({per_tok:.2f} ms/token, {4 * 16 / t_greedy:.1f} tokens/s); "
-        f"sampled request ok; decode kernel launches {launches} = {L} x {steps}; "
+        f"sampled 1 x (32 + 16) in {t_sampled:.3f} s, tokens equal the host's "
+        f"jax.random.categorical draws at split(PRNGKey(1234), 16); one (4, {V}) "
+        f"draw {draw_ms:.3f} ms; decode kernel launches {launches} = {L} x {steps}; "
         f"max |logp(decode) - logp(prefill)| {dev:.3g} (bf16)")
     out["decode"] = {"launches": launches, "steps": steps, "per_token_ms": per_tok,
-                     "decode_vs_prefill_max_abs": dev}
+                     "decode_vs_prefill_max_abs": dev,
+                     "sampled_per_token_ms": t_sampled * 1e3 / 16, "draw_ms": draw_ms}
     del eng
 
     # -- PagedDecodeEngine ----------------------------------------------------
     peng = PagedDecodeEngine(cfg, params, num_slots=8, page_size=16,
-                             max_seq=256, decode_chunk=8, device=device)
+                             max_seq=256, decode_chunk=8, return_logits=True,
+                             device=device)
     lens = [8, 96, 17, 64, 33, 8, 80, 45, 12, 96, 24, 50]
     budgets = [32, 4, 16, 24, 8, 32, 12, 4, 20, 16, 28, 6]
     prio = [0] * 10 + [1, 1]
@@ -1600,17 +1632,61 @@ def main_path(torch, np, ds, cfg, device="cuda") -> dict:
           "pages still held after drain")
     evictions = sum(c.timing.get("evictions", 0) for c in comps)
     check(evictions >= 1, "the priority requests preempted nothing")
+    # every token against its log-probs: a greedy request's is the argmax, a
+    # sampled one's the host's categorical draw under fold_in(key, T + t)
+    n_sampled = 0
+    for i, (c, p) in enumerate(zip(comps, reqs)):
+        if i % 3:
+            want = np.argmax(c.logits, -1)
+        else:
+            n_sampled += 1
+            key = krng.PRNGKey(77 + i)
+            want = np.array([int(krng.categorical(krng.fold_in(key, len(p) + t),
+                                                  torch.from_numpy(c.logits[t])))
+                             for t in range(len(c.tokens))])
+        check(np.array_equal(c.tokens, want),
+              f"paged request {i} ({'greedy' if i % 3 else 'sampled'}): tokens "
+              f"{c.tokens.tolist()} are not the host's {want.tolist()}")
+    rows_ms = _draw_ms(torch, np, krng, torch.from_numpy(
+        np.stack([c.logits[0] for c in comps[:8]])).to(device), keys, sync, rows=True)
     n_tok = sum(len(c.tokens) for c in comps)
     log(f"PagedDecodeEngine: 12 requests, {n_tok} tokens in {t_paged:.3f} s "
-        f"({n_tok / t_paged:.1f} tokens/s), {micro} micro-steps, "
-        f"{evictions} evictions; paged kernel launches {launches} = {L} x {micro}")
+        f"({n_tok / t_paged:.1f} tokens/s, log-probs returned), {micro} micro-steps, "
+        f"{evictions} evictions; paged kernel launches {launches} = {L} x {micro}; "
+        f"{n_sampled} sampled requests equal the host's draws under "
+        f"fold_in(key, position); one (8, {V}) slot draw {rows_ms:.3f} ms")
     out["paged"] = {"launches": launches, "micro_steps": micro,
-                    "tokens_per_s": n_tok / t_paged, "evictions": evictions}
+                    "tokens_per_s": n_tok / t_paged, "evictions": evictions,
+                    "slot_draw_ms": rows_ms}
     del peng
     gc.collect()
     torch.cuda.empty_cache()
     out["serve"] = serve_path(torch, np, ds, cfg, params, prompts, greedy.tokens)
     return out
+
+
+def _draw_ms(torch, np, krng, logp, keys, sync, rows=False, reps=20) -> float:
+    """ms of one sampled step's draw on ``logp`` ``(B, V)`` where it lies:
+    ``rng.categorical`` under one key (the decode engine's), or with
+    ``rows`` ``categorical_rows`` under a key a row already on the device
+    (the paged engine's: it folds a chunk's keys on the host and copies
+    them once); ``reps`` draws after a warm-up, synchronised at the end."""
+    B = logp.shape[0]
+    slot_keys = krng.fold_in_rows(np.asarray(keys[:B], np.int64),
+                                  np.full(B, 33)).to(logp.device)
+
+    def draw(i):
+        if rows:
+            return krng.categorical_rows(slot_keys, logp)
+        return krng.categorical(keys[i % len(keys)], logp)
+
+    draw(0)
+    sync()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        draw(i)
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def serve_path(torch, np, ds, cfg, params, prompts, greedy) -> dict:
@@ -1733,7 +1809,7 @@ def train_path(torch, np, lu, dg, arch_args=("--arch", "qwen3-4b", "--seq", "128
          "--batch", "8", "--steps", str(steps), "--chunk", str(chunk)])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, model, state, engine, delays = launch.build(args)
+    cfg, model, state, engine, delays, key = launch.build(args)
     torch.cuda.synchronize()
     leaves = tree_leaves(state.params)
     n_params = sum(t.numel() for t in leaves)
@@ -1752,11 +1828,13 @@ def train_path(torch, np, lu, dg, arch_args=("--arch", "qwen3-4b", "--seq", "128
     counters = {"langevin_update": lu.langevin_update, "wicon_read": dg.wicon_read,
                 "delay_gather": dg.delay_gather,
                 "coordinate_delays": dg.coordinate_delays}
+    made = _timed_batch_fn(engine)
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    state, aux = engine.run(state, steps=steps, delays=delays, key=args.seed)
+    state, aux = engine.run(state, steps=steps, delays=delays, key=key)
     launches = {name: c.launches for name, c in counters.items()}
+    batch_ms = sum(made) * 1e3 / steps
     peak = torch.cuda.max_memory_allocated()
     losses = aux["loss"]
     check(losses.shape == (steps,) and np.isfinite(losses).all(),
@@ -1778,10 +1856,12 @@ def train_path(torch, np, lu, dg, arch_args=("--arch", "qwen3-4b", "--seq", "128
         f"then {ms:.2f} ms/commit, {tok_s:.1f} tokens/s; losses "
         f"{[round(float(v), 4) for v in losses]}; aux "
         f"{[round(float(v), 4) for v in aux['aux']]}; peak memory {peak / 1e9:.2f} GB; "
-        f"launches {launches}")
+        f"launches {launches}; host batch making {batch_ms:.3f} ms a commit "
+        f"(make_batch from the commit's key)")
     return {"arch": cfg.name, "reduced": cut, "params_b": n_params / 1e9,
             "leaves": len(leaves), "batch": args.batch, "gamma": args.gamma,
             "launches": launches, "ms_per_commit": ms, "tokens_per_s": tok_s,
+            "batch_ms_per_commit": batch_ms,
             "first_chunk_s": first, "peak_gb": peak / 1e9,
             "losses": [float(v) for v in losses],
             "aux": [float(v) for v in aux["aux"]]}
@@ -1942,7 +2022,7 @@ def cluster_path(torch, np, kernels, keep=()) -> dict:
     sampler = samplers.sgld("inconsistent", make_grad_fn(model), gamma=1e-3,
                             sigma=1e-5, tau=tau, has_aux=True, fused=True)
     engine = ClusterEngine(sampler, num_chains=C, chunk_size=steps, collect_aux=True,
-                           batch_fn=lambda gen: make_batch(cfg, shape, gen, "train"))
+                           batch_fn=lambda k: make_batch(cfg, shape, k, "train"))
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda", num_chains=1)
     state = engine.init(params, rng.PRNGKey(0))
@@ -1956,6 +2036,7 @@ def cluster_path(torch, np, kernels, keep=()) -> dict:
         f"{per_chain / 1e9:.3f} B parameters a chain in {len(leaves)} leaves, "
         f"state {torch.cuda.memory_allocated() / 1e9:.2f} GB, built in "
         f"{time.perf_counter() - t0:.1f} s; delays (commit x chain) {delays.tolist()}")
+    made = _timed_batch_fn(engine)
     _reset(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1965,6 +2046,8 @@ def cluster_path(torch, np, kernels, keep=()) -> dict:
     got = _counts(kernels)
     peak = torch.cuda.max_memory_allocated()
     losses = aux["loss"]
+    batch_ms = sum(made) * 1e3 / steps
+    check(len(made) == steps * C, f"cluster (c): {len(made)} batches made")
     check(losses.shape == (steps, C) and np.isfinite(losses).all(),
           f"cluster (c): losses {losses}")
     check(all(bool(torch.isfinite(t).all()) for t in leaves),
@@ -1978,8 +2061,10 @@ def cluster_path(torch, np, kernels, keep=()) -> dict:
         f"{ms:.2f} ms a commit ({ms / C:.2f} a chain-commit), "
         f"{steps * C * 8 * 128 / wall:.1f} tokens/s; losses "
         f"{np.round(losses, 4).tolist()}; peak memory {peak / 1e9:.2f} GB; "
-        f"launches {got}")
+        f"launches {got}; host batch making {batch_ms:.3f} ms a commit "
+        f"({C} batches, one key each)")
     return {"launches": got, "ms_per_commit": ms, "wall_s": wall, "peak_gb": peak / 1e9,
+            "batch_ms_per_commit": batch_ms,
             "chains": C, "layers": cfg.num_layers,
             "losses": losses.tolist(),
             "final": {c: [t[c].cpu() for t in leaves] for c in keep}}
@@ -2120,7 +2205,7 @@ def cluster_fault_path(torch, np, kernels, base: dict) -> dict:
     seen = []
     engine = ClusterEngine(sampler, num_chains=C, chunk_size=steps, collect_aux=True,
                            health_check=True,
-                           batch_fn=lambda gen: make_batch(cfg, shape, gen, "train"),
+                           batch_fn=lambda k: make_batch(cfg, shape, k, "train"),
                            hooks=[lambda n, st, aux: seen.append(st.health.copy())])
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda", num_chains=1)
@@ -2248,7 +2333,7 @@ def run_checkpoint_path(torch, np, kernels) -> dict:
     sampler = samplers.sgld("inconsistent", make_grad_fn(Model(cfg, device="cuda")),
                             gamma=1e-3, sigma=1e-5, tau=tau, has_aux=True, fused=True)
     engine = ClusterEngine(sampler, num_chains=C, chunk_size=1, health_check=True,
-                           batch_fn=lambda gen: make_batch(cfg, shape, gen, "train"))
+                           batch_fn=lambda k: make_batch(cfg, shape, k, "train"))
     schedule = WorkerSchedule.from_delays(np.array([0, 1]))
 
     def start():
@@ -3283,7 +3368,7 @@ def tooling_cluster(torch, np, kernels, cfg) -> dict:
 
     def engine(health):
         return ClusterEngine(sampler, num_chains=C, chunk_size=steps, health_check=health,
-                             batch_fn=lambda gen: make_batch(cfg, shape, gen, "train"))
+                             batch_fn=lambda k: make_batch(cfg, shape, k, "train"))
 
     eng = engine(False)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -3338,12 +3423,11 @@ def tooling_prefetch(torch, np, kernels) -> dict:
         ["--arch", "qwen3-4b", "--layers", str(TOOLING_LAYERS), "--seq", "128",
          "--mode", "inconsistent", "--fused", "--tau", "2", "--batch", "8",
          "--steps", str(PREFETCH_STEPS), "--chunk", str(PREFETCH_CHUNK)])
-    cfg, _, state, engine, delays = launch.build(args)
+    cfg, _, state, engine, delays, _ = launch.build(args)
     shape = ShapeConfig("cli", seq_len=args.seq, global_batch=args.batch, kind="train")
 
     def batch_fn(key):
-        return make_batch(cfg, shape, torch.Generator().manual_seed(rng.seed_int(key)),
-                          "train")
+        return make_batch(cfg, shape, key, "train")
 
     def host_batches(key):
         while True:
@@ -3361,7 +3445,7 @@ def tooling_prefetch(torch, np, kernels) -> dict:
             source = host_batches(rng.PRNGKey(7))
         seen[name], fetch[name] = [], []
 
-        def draw(_gen, source=source, rec=seen[name], waited=fetch[name]):
+        def draw(_key, source=source, rec=seen[name], waited=fetch[name]):
             t = time.perf_counter()
             b = next(source)  # inline: made here; prefetched: waited for
             waited.append(time.perf_counter() - t)
@@ -3439,7 +3523,7 @@ def tooling_roofline(torch, np, tp: dict) -> dict:
     model, _ = build_model(one, cell, device="cuda")
     params = init_params(one, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda", num_chains=1)
-    batch = make_batch(one, cell, torch.Generator().manual_seed(0))
+    batch = make_batch(one, cell, rng.PRNGKey(0))
     real = step_cost(make_sgld_train_step(model, cell), params, batch, rng.PRNGKey(0))
     check((real.flops, real.matmul_flops) == (meta.flops, meta.matmul_flops),
           f"tooling: FLOPs on the card {real.flops:.6g} / {real.matmul_flops:.6g} "
@@ -3566,7 +3650,7 @@ def placement_cluster(torch, np, kernels, cfg, mesh, device="cuda") -> dict:
     out, finals = {}, {}
     for name, m in (("unplaced", None), ("placed", mesh)):
         eng = ClusterEngine(sampler, num_chains=C, chunk_size=steps, mesh=m,
-                            batch_fn=lambda gen: make_batch(cfg, shape, gen, "train"))
+                            batch_fn=lambda k: make_batch(cfg, shape, k, "train"))
         params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                              device=device, num_chains=1)
         state = eng.init(params, rng.PRNGKey(0))

@@ -60,7 +60,7 @@ def main(argv=None):
     if args.sampler == "svrg":
         # the control variate's anchor: one pinned reference batch stands in
         # for "the full data" of the synthetic token stream
-        anchor = make_batch(cfg, shape, torch.Generator().manual_seed(42), "train")
+        anchor = make_batch(cfg, shape, rng.PRNGKey(42), "train")
         sampler = samplers.svrg("consistent", grad_fn, lambda p: grad_fn(p, anchor)[0],
                                 anchor_every=10, gamma=5e-4, sigma=1e-7, tau=4,
                                 has_aux=True)
@@ -77,10 +77,10 @@ def main(argv=None):
 
     key, init_key = rng.split(rng.PRNGKey(0))
     state = sampler.init(params, init_key)
-    engine = Engine(sampler, batch_fn=lambda g: make_batch(cfg, shape, g, "train"),
+    engine = Engine(sampler, batch_fn=lambda k: make_batch(cfg, shape, k, "train"),
                     chunk_size=5, hooks=[log_hook(every=5)])
     t0 = time.perf_counter()
-    state, metrics = engine.run(state, steps=STEPS, delays=delays, key=rng.seed_int(key))
+    state, metrics = engine.run(state, steps=STEPS, delays=delays, key=key)
     train_s = time.perf_counter() - t0
     print(f"final loss {float(metrics['loss'][-1]):.4f}; {STEPS} commits in "
           f"{train_s:.2f} s ({STEPS / train_s:.1f} commits/s)")

@@ -61,10 +61,10 @@ def main(argv=None):
                              num_chains=1)
         if args.warm_steps > 0:
             key, init_key = rng.split(rng.PRNGKey(c))
-            engine = Engine(sampler, batch_fn=lambda g: make_batch(cfg, shape, g, "train"),
+            engine = Engine(sampler, batch_fn=lambda k: make_batch(cfg, shape, k, "train"),
                             chunk_size=args.warm_steps)
             state, _ = engine.run(sampler.init(params, init_key), steps=args.warm_steps,
-                                  key=rng.seed_int(key))
+                                  key=key)
             params = state.params
         chains.append(params)
     bank = tree_map(lambda *xs: torch.cat(xs), *chains)  # (C, ...)

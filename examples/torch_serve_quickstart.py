@@ -42,15 +42,18 @@ WIDTH_FACTOR = 2.0  # the interval's half-width against 1.645 stds, either way
 
 def batch_fn(reg: PolyRegression, n: int):
     """Minibatches of the regression's data law, drawn on its device: the
-    executor hands ``batch_fn`` the run's ``torch.Generator``, which seeds
-    one device generator a draw (``z`` uniform on the scaled interval,
-    Gaussian observation noise, ``y`` as ``PolyRegression.sample_batch``
-    computes it; torch's draws, not ``jax.random``'s)."""
+    executor hands ``batch_fn`` one PRNG key a (commit, chain), the
+    reference's keys, and each seeds one device generator (``z`` uniform
+    on the scaled interval, Gaussian observation noise, ``y`` as
+    ``PolyRegression.sample_batch`` computes it).  The numbers are torch's
+    draws from the key, not ``jax.random``'s: ``reg.sample_batch(key, n)``
+    gives those, at about 300 small launches a batch where this takes
+    four, and the ensemble makes 32 batches a commit."""
     dev = reg.device
     g = torch.Generator(device=dev)
 
-    def draw(gen: torch.Generator):
-        g.manual_seed(int(torch.randint(0, 2**62, (1,), generator=gen)))
+    def draw(key):
+        g.manual_seed(rng.seed_int(key))
         z = reg.z_scale * (2.0 * torch.rand(n, generator=g, device=dev) - 1.0)
         phi = reg.features(z)
         eps = torch.randn(n, generator=g, device=dev)

@@ -102,10 +102,9 @@ def main(argv=None):
     hooks = [tok_log]
     if args.ckpt:
         hooks.append(checkpoint_hook(args.ckpt, every=100))
-    engine = Engine(sampler, batch_fn=lambda g: make_batch(cfg, shape, g, "train"),
+    engine = Engine(sampler, batch_fn=lambda k: make_batch(cfg, shape, k, "train"),
                     chunk_size=args.chunk, hooks=hooks)
-    state, metrics = engine.run(state, steps=args.steps, delays=delays,
-                                key=rng.seed_int(key))
+    state, metrics = engine.run(state, steps=args.steps, delays=delays, key=key)
     losses = np.asarray(metrics["loss"])
     first, last = np.mean(losses[:10]), np.mean(losses[-10:])
     print(f"loss {first:.3f} -> {last:.3f} "

@@ -115,18 +115,19 @@ def full_cell(steps: int, health: bool = False) -> dict:
     sampler = samplers.sgld("inconsistent", make_grad_fn(Model(cfg, device="cuda")),
                             gamma=1e-3, sigma=1e-5, tau=tau, has_aux=True, fused=True)
     engine = ClusterEngine(sampler, num_chains=C, chunk_size=1, health_check=health,
-                           batch_fn=lambda g: make_batch(cfg, shape, g, "train"))
+                           batch_fn=lambda k: make_batch(cfg, shape, k, "train"))
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda", num_chains=1)
     holder = [engine.init(params, rng.PRNGKey(0))]
     del params
-    gen = torch.Generator().manual_seed(0)
-    holder[0], _ = engine.run(holder[0], steps=1, key=gen)
+    keys = iter(rng.split(rng.PRNGKey(0), 2))  # a batch key stream a run
+    holder[0], _ = engine.run(holder[0], steps=1, key=next(keys))
     delays = np.minimum(np.arange(steps), tau)
 
     def run():
         holder[0], _ = engine.run(holder[0], steps=steps,
-                                  schedule=WorkerSchedule.from_delays(delays), key=gen)
+                                  schedule=WorkerSchedule.from_delays(delays),
+                                  key=next(keys))
 
     torch.cuda.reset_peak_memory_stats()
     out = profile(f"full{'-health' if health else ''}: 4 x qwen3-4b at 4 layers, "

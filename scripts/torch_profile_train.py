@@ -45,7 +45,7 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parent / "src"))
 sys.path.insert(0, str(HERE))
 
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, rng  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
 from repro_torch.utils import tree_flatten  # noqa: E402
 from torch_profile_decode import DEVICE_CATS, busy_union  # noqa: E402
@@ -81,13 +81,13 @@ def main() -> int:
     run = launch.parser().parse_args(
         ["--arch", "qwen3-4b", "--mode", "inconsistent", "--fused", "--tau", "2",
          "--batch", "8", "--seq", "128", "--steps", "1"])
-    _, _, state, engine, _ = launch.build(run)
+    _, _, state, engine, _, key = launch.build(run)
     engine.hooks = []
-    gen = torch.Generator().manual_seed(0)
-    holder = [state]
+    holder = [state, key]
 
     def commit():
-        holder[0], _ = engine.run(holder[0], steps=1, delays=[2], key=gen)
+        holder[1], k = rng.split(holder[1])  # each commit its own batch
+        holder[0], _ = engine.run(holder[0], steps=1, delays=[2], key=k)
 
     for _ in range(2):
         commit()

@@ -2,7 +2,7 @@
 ``repro.cluster.api``).
 
 - :class:`Request` — one sequence: prompt tokens, a per-request generation
-  budget, an optional sampling seed, a scheduling priority and an optional
+  budget, an optional sampling key, a scheduling priority and an optional
   deadline;
 - :class:`Completion` — its result: generated tokens, optional per-token
   BMA log-probs, a finish reason, a status and host-clock timing;
@@ -17,12 +17,14 @@
   which bind the engine's front argument (``model`` on the decode engines,
   ``predict_fn`` on :class:`~repro_torch.cluster.serve.ServeEngine`).
 
-Differences from the JAX package: ``Request.key`` is an int seed (``None``
-= greedy) where JAX carries a PRNG key, and tokens are sampled by
-:func:`sample_tokens`, a counter-based Gumbel-max whose noise is a hash of
-(seed, absolute position, token id) — deterministic on any device, so a
-preempted request replays identically.  The sampled tokens are not the
-JAX package's.
+Sampling keys are the JAX package's: ``Request.key`` is a PRNG key (the
+port's ``(k0, k1)`` pair, a ``(2,)`` uint32 array, or an int read as
+``PRNGKey(int)``; ``None`` = greedy), and a token is drawn by
+:func:`~repro_torch.kernels.rng.categorical` — ``jax.random.
+categorical``'s Gumbel-max, bit for bit — at the reference's keys, so a
+request sampled with the same key from the same bank gets the reference's
+tokens.  The paged engine folds the absolute position into the key, so a
+preempted request replays identically.
 
 Placement (``mesh=``, a ``torch.distributed.device_mesh.DeviceMesh``): the
 bank's chains are split over ``chain_axis`` and replicated over the other
@@ -59,6 +61,7 @@ import torch
 
 from repro_torch.analysis.instrument import Counters as _Counters
 from repro_torch.analysis.instrument import counters as _counters
+from repro_torch.kernels import rng
 from repro_torch.obs.metrics import registry as _registry
 from repro_torch.obs.trace import now as _now
 from repro_torch.utils import (
@@ -106,7 +109,10 @@ class Request:
     ``tokens`` is a 1-D prompt token array for decode engines, or one query
     (any tree row) for predictive engines; ``max_new_tokens`` this
     request's own generation budget (0 = predictive query).  ``key`` is
-    the sampling seed (an int; ``None`` = greedy).  Higher ``priority``
+    the sampling key (``None`` = greedy): a PRNG key or an int seed of one,
+    kept as the ``(k0, k1)`` pair (:func:`~repro_torch.kernels.rng.
+    as_key`), so requests that share a key group by its value.  Higher
+    ``priority``
     admits first and may preempt lower-priority running slots.
     ``deadline_ms`` is a host-clock latency budget from submission
     (``None`` never expires).  ``request_id`` is stamped by
@@ -115,11 +121,15 @@ class Request:
 
     tokens: Any
     max_new_tokens: int = 0
-    key: Optional[int] = None
+    key: Any = None
     priority: int = 0
     request_id: Optional[int] = None
     timing: dict = field(default_factory=dict)
     deadline_ms: Optional[float] = None
+
+    def __post_init__(self):
+        if self.key is not None:
+            self.key = rng.as_key(self.key)
 
 
 @dataclass
@@ -442,37 +452,3 @@ def _looks_like_front(x) -> bool:
     """A Model (has .cfg), a config (has .d_model) or a predict fn (a
     function) — never a parameter tree."""
     return hasattr(x, "cfg") or hasattr(x, "d_model") or callable(x)
-
-
-# ---------------------------------------------------------------------------
-# token selection
-# ---------------------------------------------------------------------------
-_M32 = 0xFFFFFFFF
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit avalanche hash on int64 tensors holding values < 2**32
-    (odd multipliers below 2**31, so no product leaves int64)."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x6C8E9CF5) & _M32
-    return x ^ (x >> 16)
-
-
-def sample_tokens(logp: torch.Tensor, seeds: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
-    """One token per row of ``logp`` (N, V), drawn from ``softmax(logp)``.
-
-    Gumbel-max with noise that is a pure function of (``seeds[i]`` mod
-    2**32, ``positions[i]``, token id): the same seed at the same absolute
-    position draws the same token on any device and after any replay."""
-    N, V = logp.shape
-    dev = logp.device
-    row = _mix32(_mix32(seeds.to(dev).long() & _M32)
-                 ^ (positions.to(dev).long() & _M32))
-    ids = torch.arange(V, device=dev, dtype=torch.int64)
-    bits = _mix32(_mix32((row[:, None] + ids[None] * 0x9E3779B1) & _M32))
-    u = ((bits >> 8).double() + 0.5) / float(1 << 24)   # (0, 1), exact
-    gumbel = -torch.log(-torch.log(u))
-    return torch.argmax(logp.double() + gumbel, dim=-1).to(torch.int32)

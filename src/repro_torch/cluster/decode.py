@@ -20,7 +20,14 @@ bma_logits`), and the chosen token feeds back into every chain's cache.
   the generation ends.
 
 ``submit()`` / ``drain()`` stack compatible requests (same prompt length,
-budget and seed) back into one batch; ``generate()`` is a shim over them.
+budget and key) back into one batch; ``generate()`` is a shim over them.
+
+A sampled generation draws as the reference's scan does: ``keys =
+split(key, max_new)``, token ``t`` by ``jax.random.categorical(keys[t],
+logp)`` over the whole ``(B, V)`` block of BMA log-probs
+(:func:`~repro_torch.kernels.rng.categorical`, bit for bit), so the same
+key and bank give the JAX package's tokens.  Placed, every rank draws the
+same token from the same gathered block.
 
 With ``mesh=`` the bank's chains are split over ``chain_axis``: each
 rank's KV-cache bank holds only its chains, and each step's per-chain
@@ -45,8 +52,8 @@ from repro_torch.cluster.api import (
     BankEngine,
     Completion,
     Request,
-    sample_tokens,
 )
+from repro_torch.kernels import rng
 from repro_torch.models.predictive import bma_logits
 from repro_torch.models.transformer import Model
 from repro_torch.obs.metrics import LATENCY_MS_BUCKETS, registry as _registry
@@ -65,12 +72,6 @@ class DecodeResult(NamedTuple):
     logits: Optional[np.ndarray]
 
 
-def _row_seeds(seed: int, rows: int) -> torch.Tensor:
-    """One sampling stream per batch row of a request group sharing a seed."""
-    return torch.tensor([(seed + r * 0x9E3779B9) & 0xFFFFFFFF
-                         for r in range(rows)], dtype=torch.int64)
-
-
 @dataclass
 class DecodeEngine(BankEngine):
     """Streaming multi-token BMA generation over a chain-stacked bank.
@@ -80,8 +81,8 @@ class DecodeEngine(BankEngine):
     ``"cuda"``, which needs a card).  ``generate(tokens, n)`` pads the
     prompt batch up the bucket ladder, prefills the rung's persistent
     KV-cache bank, and decodes ``n`` tokens; ``key=None`` decodes greedily,
-    an int seed samples from the BMA token law.  ``mesh`` /
-    ``chain_axis`` place the bank; ``shard_params=True`` also splits each
+    a PRNG key (or an int seed of one) samples from the BMA token law.
+    ``mesh`` / ``chain_axis`` place the bank; ``shard_params=True`` also splits each
     chain's tensors over the mesh's ``model`` axis (a 2-D bank), and each
     rung's KV-cache bank holds the rank's KV heads.
     """
@@ -127,27 +128,30 @@ class DecodeEngine(BankEngine):
             "KV-cache rungs dropped by the max_cache_rungs LRU cap")
 
     # -- the token loop -------------------------------------------------------
-    def _select(self, logp, seeds, pos: int):
-        if seeds is None:
+    @staticmethod
+    def _select(logp, key):
+        if key is None:
             return torch.argmax(logp, dim=-1).to(torch.int32)
-        return sample_tokens(logp, seeds, torch.full_like(seeds, pos))
+        return rng.categorical(key, logp).to(torch.int32)
 
     @torch.no_grad()
-    def _stream(self, cache, tokens, prompt_len: int, max_new: int, seed):
-        """Prefill the cache bank, then ``max_new - 1`` cached decode steps.
-        Returns device tensors (tokens (B, max_new), logits or None)."""
+    def _stream(self, cache, tokens, prompt_len: int, max_new: int, key):
+        """Prefill the cache bank, then ``max_new - 1`` cached decode steps;
+        token ``t`` is drawn under ``split(key, max_new)[t]`` (greedy when
+        ``key`` is None).  Returns device tensors (tokens (B, max_new),
+        logits or None)."""
         model = self._model
-        seeds = None if seed is None else _row_seeds(seed, tokens.shape[0])
+        keys = [None] * max_new if key is None else rng.split(key, max_new)
         last, cache = model.prefill_cache(self._bank, tokens, cache, prompt_len)
         logp = bma_logits(self._all_chains(last))  # (B, V)
-        tok = self._select(logp, seeds, prompt_len)
+        tok = self._select(logp, keys[0])
         toks, logps = [tok], [logp]
         pos = prompt_len
-        for _ in range(max_new - 1):
+        for t in range(1, max_new):
             per_chain, cache = model.serve_step(self._bank, cache, tok[:, None], pos)
             logp = bma_logits(self._all_chains(per_chain[:, :, 0]))
             pos += 1
-            tok = self._select(logp, seeds, pos)
+            tok = self._select(logp, keys[t])
             toks.append(tok)
             if self.return_logits:
                 logps.append(logp)
@@ -196,7 +200,8 @@ class DecodeEngine(BankEngine):
 
     def _drain(self, requests):
         """Stack compatible pending prompts — same length, same budget, same
-        seed — into batched :meth:`_generate_batch` calls (in first-
+        key (by value: the reference's ``id(r.key)`` for requests that share
+        one key) — into batched :meth:`_generate_batch` calls (in first-
         submission order) and hand every request its row back."""
         groups: OrderedDict = OrderedDict()
         for r in requests:
@@ -220,7 +225,7 @@ class DecodeEngine(BankEngine):
 
     # -- serving --------------------------------------------------------------
     def _generate_batch(self, tokens: np.ndarray, max_new_tokens: int,
-                        key: Optional[int]) -> DecodeResult:
+                        key: Optional[tuple]) -> DecodeResult:
         """Pad one (B, T) prompt batch up its rung pair, prefill the rung's
         cache bank, run the token loop, trim on host."""
         B, T = tokens.shape
@@ -248,12 +253,12 @@ class DecodeEngine(BankEngine):
             tokens=out,
             logits=logps.cpu().numpy()[:B] if self.return_logits else None)
 
-    def generate(self, tokens, max_new_tokens: int,
-                 key: Optional[int] = None) -> DecodeResult:
+    def generate(self, tokens, max_new_tokens: int, key=None) -> DecodeResult:
         """Stream ``max_new_tokens`` BMA tokens from a ``(B, T)`` prompt
         batch: greedy when ``key`` is None, else sampled from the BMA law
-        with the int seed ``key``.  Returns host arrays trimmed to the true
-        batch."""
+        under ``key`` (a PRNG key, or an int seed of one), the whole batch
+        one draw a step as the reference's.  Returns host arrays trimmed
+        to the true batch."""
         tokens = np.asarray(tokens)
         if tokens.ndim != 2:
             raise ValueError(f"prompt batch must be (B, T), got {tokens.shape}")

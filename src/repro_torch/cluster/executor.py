@@ -92,7 +92,7 @@ from repro_torch.utils import (
 )
 
 PyTree = Any
-BatchFn = Callable[[torch.Generator], PyTree]  # generator -> one chain's batch
+BatchFn = Callable[[tuple], PyTree]  # PRNG key -> one chain's batch
 ScheduleLike = Any  # WorkerSchedule | Sequence[WorkerSchedule] | np.ndarray | None
 
 #: fold_in tag minting a respawned chain's fresh noise stream from the
@@ -181,12 +181,14 @@ def _as_saved_ints(t: torch.Tensor) -> torch.Tensor:
 class ClusterEngine:
     """Chunked executor for a C-chain async-SGLD ensemble.
 
-    ``batch_fn(generator) -> batch`` (optional) draws an independent
-    minibatch per (commit, chain) from one ``torch.Generator`` seeded by
-    ``run``'s ``key``; explicit ``batches`` passed to :meth:`run` go to
-    every chain unless ``per_chain_batches=True`` (then their second axis
-    is the chain axis); with neither, every commit gets a ``(1,)`` zero
-    tensor (batchless oracles, as the JAX engine).
+    ``batch_fn(key) -> batch`` (optional) makes an independent minibatch
+    per (commit, chain) from its own PRNG key, the reference's: a chunk of
+    ``n`` commits takes ``key, sub = split(key)`` of ``run``'s ``key`` and
+    ``split(sub, n * C)`` in ``(commit, chain)`` order.  Explicit
+    ``batches`` passed to :meth:`run` go to every chain unless
+    ``per_chain_batches=True`` (then their second axis is the chain axis);
+    with neither, every commit gets a ``(1,)`` zero tensor (batchless
+    oracles, as the JAX engine).
 
     ``batch_policy``: ``"fixed"`` (one batch a commit), ``"inverse-speed"``
     (per-commit sizes from the schedules' ``batch_sizes``) or
@@ -661,7 +663,8 @@ class ClusterEngine:
         consumes rows ``[offset, offset + size)``, wrapping modulo the
         stream and restarting at 0 on every call, as a bucket-padded
         :class:`~repro_torch.samplers.transforms.MaskedBatch`.  ``key``: a
-        ``torch.Generator``, or an int seed of one, for ``batch_fn``.
+        PRNG key, or an int seed of one, for ``batch_fn`` (a
+        ``torch.Generator`` is refused).
 
         A run on an advanced state (a continuation) rebases the schedule's
         read versions (and, under ``worker_rng``, worker slots) onto the
@@ -693,7 +696,8 @@ class ClusterEngine:
         (writing checkpoints to the same path); a truncated or bit-flipped
         one raises :class:`~repro_torch.checkpoint.CorruptCheckpointError`.
         The remaining commits run on the same chunk grid; ``batch_fn``'s
-        generator is replayed through the draws of the commits done.
+        key stream skips one ``split`` per completed chunk, as the
+        reference's does, so the batches are the unbroken run's.
         Returns ``(state, aux)``, aux covering only the commits run."""
         if not os.path.exists(checkpoint_path):
             return self.run(state, steps=steps, checkpoint_path=checkpoint_path, **kw)
@@ -797,26 +801,31 @@ class ClusterEngine:
             elif self.batch_fn is not None:
                 if key is None:
                     raise ValueError("generating batches from batch_fn needs `key`")
-                if not isinstance(key, torch.Generator):
-                    key = torch.Generator().manual_seed(int(key))
-                for _ in range(start * C):  # resume: replay the draws made
-                    self.batch_fn(key)
+                key = rng.as_key(key)
+                for _ in range(start // self.chunk_size):
+                    # resume: one split was taken per completed chunk
+                    # (checkpoints land on chunk boundaries)
+                    key, _ = rng.split(key)
             zero = torch.zeros(1)
 
             def gen(key, n):
                 a = pos[0]
                 pos[0] += n
                 self._see_layout(f"chunk[{layout}]", (layout, n))
+                if self.batch_fn is not None and batches is None:
+                    # one key a (commit, chain), the reference's order; a
+                    # placed rank makes only its block's batches
+                    key, sub = rng.split(key)
+                    keys = rng.split(sub, n * C)
+                    return key, [[self.batch_fn(keys[j * C + c])
+                                  for c in range(block.start, block.stop)]
+                                 for j in range(n)]
                 out = []
                 for k in range(a, a + n):
                     if batches is not None:
                         b = tree_map(lambda x: x[k], batches)
                         out.append([chain_at(b, c) for c in range(block.start, block.stop)]
                                    if per_chain else [b] * n_local)
-                    elif self.batch_fn is not None:
-                        # every rank draws every chain's batch (one generator
-                        # stream) and keeps its block's
-                        out.append([self.batch_fn(key) for _ in range(C)][block])
                     else:
                         out.append([zero] * n_local)
                 return key, out

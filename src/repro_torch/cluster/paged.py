@@ -22,9 +22,15 @@ layer for every chain and slot — and completes whatever finished.  When
 every slot is busy and a strictly-higher-priority request waits, the
 lowest-priority active slot is **preempted**: its pages are freed, its
 tokens discarded, and its request requeued; replay is identical because
-sampled tokens are a function of (seed, absolute position).  Requests past
-``deadline_ms`` are shed while waiting or cut short in their slot, and
-``max_waiting`` bounds the waiting queue.
+a sampled token is drawn under ``fold_in(key, absolute position)``, as in
+the reference: the prefill's first token under ``fold_in(key,
+prompt_len)``, a micro-step's under ``fold_in(key_s, pos + 1)`` for each
+sampling slot (:func:`~repro_torch.kernels.rng.fold_in_rows`, then
+:func:`~repro_torch.kernels.rng.categorical_rows`: ``vmap(jax.random.
+categorical)``, bit for bit).  So the same key and bank give the JAX
+package's tokens, and a chunk with no sampling slot draws nothing.
+Requests past ``deadline_ms`` are shed while waiting or cut short in their
+slot, and ``max_waiting`` bounds the waiting queue.
 
 With ``mesh=`` the page pool's chain axis is placed as the bank's: each
 rank's pool holds only its chains, and each micro-step's per-chain logits
@@ -55,8 +61,8 @@ from repro_torch.cluster.api import (
     BankEngine,
     Completion,
     Request,
-    sample_tokens,
 )
+from repro_torch.kernels import rng
 from repro_torch.models.predictive import bma_logits
 from repro_torch.models.transformer import Model
 from repro_torch.obs.metrics import LATENCY_MS_BUCKETS, registry as _registry
@@ -121,9 +127,9 @@ class PagedDecodeEngine(BankEngine):
     ``num_slots`` sequences decode concurrently; each may hold up to
     ``max_seq / page_size`` pages.  ``step()`` pumps the scheduler once;
     ``submit()`` / ``drain()`` are the request-level surface.  A request
-    with ``key=None`` decodes greedily, an int seed samples from the BMA
-    law.  ``mesh`` / ``chain_axis`` place the bank and the pool;
-    ``shard_params=True`` also splits each chain's tensors over the mesh's
+    with ``key=None`` decodes greedily, a PRNG key (or an int seed of
+    one) samples from the BMA law.  ``mesh`` / ``chain_axis`` place the
+    bank and the pool; ``shard_params=True`` also splits each chain's tensors over the mesh's
     ``model`` axis (a 2-D bank), and the pool holds the rank's KV heads.
     """
 
@@ -166,7 +172,7 @@ class PagedDecodeEngine(BankEngine):
         self._positions = np.zeros((S,), np.int32)
         self._remaining = np.zeros((S,), np.int32)
         self._last_tok = np.zeros((S,), np.int32)
-        self._keys = np.zeros((S,), np.int64)
+        self._keys = np.zeros((S, 2), np.int64)
         self._greedy = np.ones((S,), bool)
         self._slots: List[Optional[_Active]] = [None] * S
         self._waiting: List[Request] = []
@@ -198,17 +204,17 @@ class PagedDecodeEngine(BankEngine):
 
     # -- device work ----------------------------------------------------------
     @torch.no_grad()
-    def _prefill(self, tokens, table, prompt_len: int, seed):
+    def _prefill(self, tokens, table, prompt_len: int, key):
         """Prefill one prompt into its slot's pages; returns the first
-        token (host int) and its BMA log-probs (device, (V,))."""
+        token (host int; drawn under ``fold_in(key, prompt_len)``, greedy
+        when ``key`` is None) and its BMA log-probs (device, (V,))."""
         last, self._pages = self._model.paged_prefill(
             self._bank, torch.from_numpy(tokens), self._pages, table, prompt_len)
         logp = bma_logits(self._all_chains(last))[0]  # (C, 1, V) -> (V,)
-        if seed is None:
+        if key is None:
             tok = torch.argmax(logp)
         else:
-            tok = sample_tokens(logp[None], torch.tensor([seed]),
-                                torch.tensor([prompt_len]))[0]
+            tok = rng.categorical(rng.fold_in(key, prompt_len), logp)
         return int(tok), logp
 
     @torch.no_grad()
@@ -219,14 +225,22 @@ class PagedDecodeEngine(BankEngine):
         dev = self.device
         self._see_rung("paged_step", ())  # slot churn never changes a shape
         tables = torch.from_numpy(self._tables).to(dev)
-        seeds = torch.from_numpy(self._keys).to(dev)
-        greedy = torch.from_numpy(self._greedy).to(dev)
-        sampled_any = not self._greedy.all()
+        sampling = np.flatnonzero(~self._greedy)  # the host knows: none, no draw
+        if sampling.size:
+            rows = torch.from_numpy(sampling).to(dev)
+            # a sampling slot's key at micro-step t: fold_in(key, pos + 1) at
+            # its position pos + t while active (an inactive slot's token is
+            # dropped), every step's at once: one copy to the device a chunk
+            t = np.arange(self.decode_chunk)[:, None]
+            keys = rng.fold_in_rows(
+                np.broadcast_to(self._keys[sampling], (t.size, sampling.size, 2)),
+                (self._positions[sampling] + t + 1).ravel(),
+            ).reshape(t.size, sampling.size, 2).to(dev)
         last_tok = torch.from_numpy(self._last_tok).to(dev)
         positions = self._positions.copy()
         remaining = self._remaining.copy()
         toks, logps = [], []
-        for _ in range(self.decode_chunk):
+        for step in range(self.decode_chunk):
             active = remaining > 0
             if not active.any():
                 break
@@ -238,8 +252,8 @@ class PagedDecodeEngine(BankEngine):
                 self._bank, self._pages, tables, last_tok[:, None], pos_t)
             logp = bma_logits(self._all_chains(per_chain[:, :, 0]))  # (S, V)
             nxt = torch.argmax(logp, dim=-1).to(torch.int32)
-            if sampled_any:
-                nxt = torch.where(greedy, nxt, sample_tokens(logp, seeds, pos_t + 1))
+            if sampling.size:
+                nxt[rows] = rng.categorical_rows(keys[step], logp[rows]).to(torch.int32)
             act = torch.from_numpy(active).to(dev)
             nxt = torch.where(act, nxt, last_tok)
             toks.append(torch.where(act, nxt, -1))
@@ -340,7 +354,7 @@ class PagedDecodeEngine(BankEngine):
 
     def _evict(self, s: int) -> None:
         """Preempt slot ``s``: free its pages, discard its tokens, requeue
-        its request (position-keyed sampling makes the replay identical)."""
+        its request (position-folded keys make the replay identical)."""
         victim = self._slots[s]
         self._allocator.free(victim.pages)
         self._tables[s] = 0
@@ -406,7 +420,7 @@ class PagedDecodeEngine(BankEngine):
         self._positions[s] = T       # tok0 is written here next micro-step
         self._remaining[s] = req.max_new_tokens - 1
         self._last_tok[s] = tok0
-        self._keys[s] = 0 if req.key is None else req.key
+        self._keys[s] = (0, 0) if req.key is None else req.key
         self._greedy[s] = req.key is None
         self._gauges()
         return None

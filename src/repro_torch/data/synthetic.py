@@ -6,10 +6,10 @@ launcher); ``make_specs`` returns tensors on the ``meta`` device in place
 of the reference's ``ShapeDtypeStruct`` stand-ins, with the same shapes
 and dtypes (the dry run: no memory, no device).
 
-Batches are drawn on the CPU from a ``torch.Generator``, so one seed gives
-the same batches whichever device trains on them (the model moves them to
-its device).  The numbers differ from ``jax.random``'s: tests that need
-both packages on one batch make it with numpy and hand it to both.
+Batches are drawn on the CPU from a PRNG key (:mod:`~repro_torch.kernels.
+rng`: ``split``, ``randint``, ``bernoulli`` as ``uniform < p``, and
+``normal``), so a key gives the JAX package's batch bit for bit, whichever
+device trains on it (the model moves it to its device).
 
 Frontend stubs, as in the reference: a vision or audio config's batches
 carry precomputed embeddings ``(B, num_frontend_tokens, FRONTEND_DIM)`` in
@@ -21,16 +21,18 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import rng
 from repro_torch.models.transformer import FRONTEND_DIM
 
 
-def token_stream(generator: torch.Generator, vocab_size: int, batch: int,
-                 length: int) -> torch.Tensor:
+def token_stream(key, vocab_size: int, batch: int, length: int) -> torch.Tensor:
     """Markov-ish synthetic tokens (not uniform — a learnable signal): about
-    half the positions copy the token before them.  (batch, length) int32."""
-    base = torch.randint(0, vocab_size, (batch, length), generator=generator,
-                         dtype=torch.int32)
-    rep = torch.rand((batch, length), generator=generator) < 0.5
+    half the positions copy the token before them.  (batch, length) int32,
+    the reference's: ``k1, k2 = split(key)``, ``randint`` under ``k1``, the
+    copies where ``bernoulli(k2, 0.5)``."""
+    k1, k2 = rng.split(rng.as_key(key))
+    base = rng.randint(k1, batch * length, vocab_size).reshape(batch, length)
+    rep = rng.jax_uniform(k2, (batch, length)) < 0.5
     shifted = torch.roll(base, 1, dims=1)
     return torch.where(rep, shifted, base)
 
@@ -39,25 +41,28 @@ def _text_len(cfg, shape) -> int:
     return shape.seq_len - (cfg.num_frontend_tokens if cfg.frontend else 0)
 
 
-def make_batch(cfg, shape, generator: torch.Generator, kind: str | None = None):
-    """Real tensors for an (arch, shape) pair; ``kind`` defaults to
-    ``shape.kind``.  ``train``: ``{"tokens": (B, S_text + 1) int32}`` (the
-    extra token is the last position's label); ``prefill``: ``(B,
-    S_text)``; both with ``"frontend"`` for a frontend config.  ``decode``:
-    ``{"tokens": (B, 1) int32, "cur_pos": seq_len - 1}``."""
+def make_batch(cfg, shape, key, kind: str | None = None):
+    """Real tensors for an (arch, shape) pair from ``key`` (a PRNG key, or
+    an int seed of one), the reference's numbers; ``kind`` defaults to
+    ``shape.kind``.  ``kf, kt = split(key)``.  ``train``: ``{"tokens": (B,
+    S_text + 1) int32}`` (the extra token is the last position's label)
+    from ``token_stream(kt)``; ``prefill``: ``(B, S_text)``; both with
+    ``"frontend"`` (``normal(kf)``) for a frontend config.  ``decode``:
+    ``{"tokens": (B, 1) int32 (randint under kt), "cur_pos": seq_len -
+    1}``."""
     kind = kind or shape.kind
     B = shape.global_batch
+    kf, kt = rng.split(rng.as_key(key))
     if kind in ("train", "prefill"):
         extra = 1 if kind == "train" else 0
-        batch = {"tokens": token_stream(generator, cfg.vocab_size, B,
+        batch = {"tokens": token_stream(kt, cfg.vocab_size, B,
                                         _text_len(cfg, shape) + extra)}
         if cfg.frontend:
-            batch["frontend"] = torch.randn(
-                (B, cfg.num_frontend_tokens, FRONTEND_DIM), generator=generator)
+            batch["frontend"] = rng.jax_normal(
+                kf, (B, cfg.num_frontend_tokens, FRONTEND_DIM))
         return batch
     if kind == "decode":
-        return {"tokens": torch.randint(0, cfg.vocab_size, (B, 1),
-                                        generator=generator, dtype=torch.int32),
+        return {"tokens": rng.randint(kt, B, cfg.vocab_size).reshape(B, 1),
                 "cur_pos": shape.seq_len - 1}
     raise ValueError(kind)
 

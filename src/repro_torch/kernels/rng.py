@@ -47,11 +47,18 @@ def _rotl(x, r: int):
     return ((x << r) & M32) | (x >> (32 - r))
 
 
+def _word(k):
+    """A key word as an int, or an int64 tensor of words (a key a row)."""
+    return k.long() & M32 if torch.is_tensor(k) else int(k) & M32
+
+
 def threefry2x32(key0, key1, x0, x1):
     """20-round threefry2x32 (JAX's schedule) of the counter pair
     ``(x0, x1)`` under the key ``(key0, key1)``.  Operands are ints or
-    int64 tensors of 32-bit values; returns the output pair likewise."""
-    k0, k1 = int(key0) & M32, int(key1) & M32
+    int64 tensors of 32-bit values (the key words too: a key a row,
+    broadcasting against the counters); returns the output pair
+    likewise."""
+    k0, k1 = _word(key0), _word(key1)
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & M32
     x1 = (x1 + ks[1]) & M32
@@ -74,8 +81,48 @@ def PRNGKey(seed: int) -> tuple:
 
 
 def split(key, num: int = 2) -> list:
-    """``jax.random.split(key, num)`` as a list of ``(k0, k1)`` keys."""
-    return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
+    """``jax.random.split(key, num)`` as a list of ``(k0, k1)`` keys (one
+    tensor pass on the host past a handful)."""
+    if num <= 8:
+        return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
+    c = torch.arange(num, dtype=torch.int64)
+    x0, x1 = threefry2x32(key[0], key[1], torch.zeros_like(c), c)
+    return list(zip(x0.tolist(), x1.tolist()))
+
+
+def _int64(x) -> torch.Tensor:
+    """A tensor, or an array or list of ints, as an int64 tensor (arrays
+    copied: they may be read-only)."""
+    return x.long() if torch.is_tensor(x) else torch.from_numpy(np.array(x, np.int64))
+
+
+def fold_in_rows(keys, data) -> torch.Tensor:
+    """``vmap(jax.random.fold_in)(keys, data)``: row ``i`` is
+    ``fold_in(keys[i], data[i])``.  ``keys`` ``(S, 2)`` and ``data`` ``(S,)``
+    (tensors or arrays of 32-bit values); returns ``(S, 2)`` int64 on
+    ``keys``' device — one tensor pass, not S host loops."""
+    keys = _int64(keys).reshape(-1, 2)
+    data = _int64(data).to(keys.device) & M32
+    x0, x1 = threefry2x32(keys[:, 0], keys[:, 1], torch.zeros_like(data), data)
+    return torch.stack([x0, x1], dim=1)
+
+
+def as_key(key) -> tuple:
+    """A PRNG key as the ``(k0, k1)`` pair of ints: a pair, or a ``(2,)``
+    uint32 array such as ``np.asarray(jax.random.PRNGKey(s))``; an int is
+    read as ``PRNGKey(int)``.  A ``torch.Generator`` is refused: the key
+    contract is the JAX package's (``batch_fn(key)``, a sampling key)."""
+    if isinstance(key, torch.Generator):
+        raise TypeError("a torch.Generator is not a PRNG key: pass "
+                        "rng.PRNGKey(seed), a (2,) uint32 key or an int seed "
+                        "(batch_fn now takes one key a batch, split from it "
+                        "as the JAX package splits)")
+    if isinstance(key, (int, np.integer)) and not isinstance(key, bool):
+        return PRNGKey(int(key))
+    words = np.asarray(key.cpu() if torch.is_tensor(key) else key).reshape(-1)
+    if words.size != 2 or words.dtype.kind not in "iu":
+        raise TypeError(f"a PRNG key is two 32-bit words, got {key!r}")
+    return int(words[0]) & M32, int(words[1]) & M32
 
 
 def fold_in(key, data: int) -> tuple:
@@ -140,18 +187,27 @@ def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
 def _threefry32(key0, key1, x0: torch.Tensor, x1: torch.Tensor) -> tuple:
     """:func:`threefry2x32` on int32 tensors that hold the uint32 words'
     bits: adds wrap as uint32 adds do, and a right shift is masked to a
-    logical one — half the bytes of the int64 form, for the long draws."""
-    k0, k1 = int(key0) & M32, int(key1) & M32
+    logical one — half the bytes of the int64 form, for the long draws.
+    The key words may be int64 tensors (a key a row, broadcasting against
+    the counters)."""
+    k0, k1 = _word(key0), _word(key1)
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0 = x0 + _signed(ks[0])
-    x1 = x1 + _signed(ks[1])
+    w = [_word32(k) for k in ks]
+    x0 = x0 + w[0]
+    x1 = x1 + w[1]
     for block in range(5):
         for r in _ROTATIONS[block % 2]:
             x0 += x1
             x1 = _rotl32(x1, r).bitwise_xor_(x0)
-        x0 += _signed(ks[(block + 1) % 3])
-        x1 += _signed(ks[(block + 2) % 3] + block + 1)
+        x0 += w[(block + 1) % 3]
+        x1 += _word32(ks[(block + 2) % 3] + block + 1)
     return x0, x1
+
+
+def _word32(k):
+    """A 32-bit word (an int, or an int64 tensor of words) as the int32
+    that holds its bits."""
+    return (k & M32).to(torch.int32) if torch.is_tensor(k) else _signed(k)
 
 
 def _bits32_at(key, counters: torch.Tensor) -> torch.Tensor:
@@ -217,10 +273,11 @@ def _draw(key, shape, device, start: int, block, values) -> torch.Tensor:
 def randint_params(key, maxval: int) -> tuple:
     """What :func:`randint` draws from, computed once on the host: the two
     subkeys of the high and low bit streams, the span and the multiplier
-    ``2**32 mod span`` (``jax.random.randint``'s double-width remainder)."""
+    ``2**32 mod span`` (``jax.random.randint``'s double-width remainder,
+    whose ``uint32`` square wraps to 0 for a span past ``2**16``)."""
     span = max(int(maxval), 1) & M32
     k_hi, k_lo = split(key, 2)
-    mult = (2**16 % span) ** 2 % span
+    mult = ((2**16 % span) ** 2 & M32) % span  # a uint32 product: 0 past 2**16
     return k_hi, k_lo, span, mult
 
 
@@ -234,22 +291,25 @@ def fastmod_magic(span: int) -> int:
 
 def randint(key, n: int, maxval: int, device="cpu", start: int = 0) -> torch.Tensor:
     """``jax.random.randint(key, (n,), 0, maxval, int32)`` bit for bit, for
-    ``1 <= maxval < 2**16`` (the span of a coordinate delay): two bit
-    streams from the split key, each reduced mod span, recombined with
-    ``2**32 mod span``.  ``start`` offsets the counters, as
-    :func:`random_bits`' does: elements ``[start, start + n)`` of a longer
-    draw, past 2**32 too.  Returns int32; works in slices of
-    :data:`CHUNK`."""
-    if not 1 <= int(maxval) < 2**16:
-        raise ValueError(f"maxval {maxval} outside [1, 2**16)")
+    ``1 <= maxval < 2**31`` (a coordinate delay's span, a vocabulary): two
+    bit streams from the split key, each reduced mod span, recombined with
+    ``2**32 mod span`` in ``uint32`` arithmetic, as JAX's.  ``start``
+    offsets the counters, as :func:`random_bits`' does: elements ``[start,
+    start + n)`` of a longer draw, past 2**32 too.  Returns int32; works in
+    slices of :data:`CHUNK`."""
+    if not 1 <= int(maxval) < 2**31:
+        raise ValueError(f"maxval {maxval} outside [1, 2**31)")
     _check_counter(start + n)
     k_hi, k_lo, span, mult = randint_params(key, maxval)
+    keys = torch.tensor([k_hi, k_lo], dtype=torch.int64, device=device)
     out = torch.empty(n, dtype=torch.int32, device=device)
     for a in range(0, n, CHUNK):
         b = min(n, a + CHUNK)
-        c = _counters(start + a, start + b, device)
-        hi = (_bits_at(k_hi, c) % span) * mult
-        out[a:b] = ((hi + _bits_at(k_lo, c) % span) % span).to(torch.int32)
+        # both streams in one pass: a key a row, at the same counters
+        bits = _bits32_at((keys[:, :1], keys[:, 1:]),
+                          _counters(start + a, start + b, device)[None]).long() & M32
+        hi = (bits[0] % span) * mult & M32
+        out[a:b] = (((hi + bits[1] % span) & M32) % span).to(torch.int32)
     return out
 
 
@@ -426,3 +486,43 @@ def jax_normal(key, shape, device="cpu", start: int = 0, block=None) -> torch.Te
     root2 = np.float32(math.sqrt(2.0)).item()
     return _draw(key, shape, device, start, block,
                  lambda bits: root2 * _xla_erf_inv(_uniform_values(bits, lo, 1.0)))
+
+
+# ---------------------------------------------------------------------------
+# jax.random.gumbel / jax.random.categorical (float32): the sampled tokens of
+# the serving engines, the reference's for the same key and log-probs
+# ---------------------------------------------------------------------------
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _gumbel_values(bits: torch.Tensor) -> torch.Tensor:
+    """``-log(-log(u))`` with ``u`` uniform in ``[tiny, 1)`` and XLA's
+    float32 ``log`` both times (``jax.random.gumbel``'s ``mode="low"``)."""
+    return -_xla_log(-_xla_log(_uniform_values(bits, _TINY, 1.0)))
+
+
+def gumbel(key, shape, device="cpu", start: int = 0, block=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` bit for bit; ``start`` and
+    ``block`` as :func:`jax_uniform`'s."""
+    return _draw(key, shape, device, start, block, _gumbel_values)
+
+
+def categorical(key, logp: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logp, axis=-1)``: the argmax of
+    ``logp + gumbel(key, logp.shape)``, added in float32.  JAX's counters
+    are flat, so row ``i`` of a ``(B, V)`` draw takes counters ``[i V, (i +
+    1) V)``.  Plain torch ops on ``logp``'s device; int64 tokens."""
+    g = gumbel(key, logp.shape, logp.device)
+    return torch.argmax(logp.float() + g, dim=-1)
+
+
+def categorical_rows(keys, logp: torch.Tensor) -> torch.Tensor:
+    """``vmap(jax.random.categorical)(keys, logp)``: row ``s`` of ``logp``
+    ``(S, V)`` drawn under its own key ``keys[s]`` (``(S, 2)``, e.g. from
+    :func:`fold_in_rows`), each at counters ``[0, V)``.  One pass over the
+    block, not S draws."""
+    dev = logp.device
+    keys = _int64(keys).reshape(-1, 2).to(dev)
+    c = torch.arange(logp.shape[-1], dtype=torch.int32, device=dev)[None]
+    x0, x1 = _threefry32(keys[:, :1], keys[:, 1:], torch.zeros_like(c), c)
+    return torch.argmax(logp.float() + _gumbel_values(x0.bitwise_xor_(x1)), dim=-1)

@@ -46,8 +46,11 @@ from repro_torch.weights import drop_unit_chain
 
 
 def build(args):
-    """Model, initial state, engine and delays of a parsed command line —
-    everything :func:`main` runs, for callers that time or inspect it."""
+    """Model, initial state, engine, delays and batch key of a parsed
+    command line — everything :func:`main` runs, for callers that time or
+    inspect it.  The key is the reference launcher's: ``key, init_key =
+    split(PRNGKey(seed))``, the state under ``init_key`` and the engine's
+    batches (``make_batch`` from each key) under ``key``."""
     dev = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
     if args.layers:
@@ -73,9 +76,9 @@ def build(args):
     hooks = [log_hook(every=10)]
     if args.save:
         hooks.append(checkpoint_hook(args.save, every=max(args.chunk, 100)))
-    engine = Engine(sampler, batch_fn=lambda g: make_batch(cfg, shape, g, "train"),
+    engine = Engine(sampler, batch_fn=lambda k: make_batch(cfg, shape, k, "train"),
                     chunk_size=args.chunk, hooks=hooks)
-    return cfg, model, state, engine, delays
+    return cfg, model, state, engine, delays, key
 
 
 def parser() -> argparse.ArgumentParser:
@@ -109,12 +112,12 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    cfg, model, state, engine, delays = build(args)
+    cfg, model, state, engine, delays, key = build(args)
     n_params = sum(t.numel() for t in tree_leaves(state.params))
     print(f"{cfg.name}: {n_params/1e6:.1f}M params, mode={args.mode}"
           f"{' (fused)' if args.fused else ''}, chunk={args.chunk}, "
           f"device={model.device}")
-    state, _ = engine.run(state, steps=args.steps, delays=delays, key=args.seed)
+    state, _ = engine.run(state, steps=args.steps, delays=delays, key=key)
     if args.save:
         save_checkpoint(args.save, drop_unit_chain(state.params), step=args.steps)
         print("saved", args.save)

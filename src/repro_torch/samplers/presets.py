@@ -166,8 +166,9 @@ def sghmc(mode: str, grad_fn: GradFn, *, gamma=1e-2, sigma: float = 1.0,
 
 
 def from_config(cfg, grad_fn: GradFn, has_aux: bool = False, *,
-                fused: bool = False) -> Sampler:
-    """Build the preset matching an ``SGLDConfig`` (duck-typed)."""
+                fused: bool = False, noise: str = "torch") -> Sampler:
+    """Build the preset matching an ``SGLDConfig`` (duck-typed); ``noise``
+    picks the unfused draw, as :func:`sgld`'s."""
     return sgld(cfg.mode, grad_fn, gamma=cfg.gamma, sigma=cfg.sigma,
                 tau=cfg.tau, has_aux=has_aux, fused=fused,
-                noise_dtype=getattr(cfg, "noise_dtype", torch.float32))
+                noise_dtype=getattr(cfg, "noise_dtype", torch.float32), noise=noise)

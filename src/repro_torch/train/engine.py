@@ -12,10 +12,12 @@ place where the sampler does.  What stays the same:
 - a delay trace that demands staler reads than the iterate ring holds is
   refused before the run (``validate_staleness``);
 - host-side concerns (logging) are hooks that run between chunks, and
-  each chunk's aux is brought to the host once, at its end.
+  each chunk's aux is brought to the host once, at its end;
+- ``batch_fn(key)`` gets the reference's keys: ``key, sub = split(key)``
+  a chunk, then one key a commit from ``split(sub, n)``.
 
     engine = Engine(sampler, batch_fn=..., hooks=[log_hook(every=10)])
-    state, metrics = engine.run(state, steps=1000, delays=trace.delays, key=gen)
+    state, metrics = engine.run(state, steps=1000, delays=trace.delays, key=key)
 """
 
 from __future__ import annotations
@@ -30,13 +32,14 @@ import torch
 from repro_torch.analysis.instrument import counters as _counters
 from repro_torch.core.delay import validate_staleness
 from repro_torch.core.delay_model import DelayTrace
+from repro_torch.kernels import rng
 from repro_torch.obs.metrics import registry as _registry
 from repro_torch.obs.trace import span as _span
 from repro_torch.samplers.base import Sampler, SamplerState
 from repro_torch.utils import tree_leaves, tree_map
 
 PyTree = Any
-BatchFn = Callable[[torch.Generator], PyTree]  # generator -> one batch
+BatchFn = Callable[[tuple], PyTree]  # PRNG key -> one batch
 #: hook(step_end, state, chunk_aux) -> None; chunk_aux is the chunk's aux
 #: stacked over its commits (numpy; index [-1] is newest)
 Hook = Callable[[int, SamplerState, Any], None]
@@ -189,10 +192,11 @@ def drive_chunks(run_chunk, state: SamplerState, *, steps: int,
 class Engine:
     """Chunked SGLD training engine over a composable sampler.
 
-    ``batch_fn(generator) -> batch`` draws one batch; pass ``batches=`` to
-    ``run`` instead for pre-made data.  ``chunk_size`` sets how often the
-    hooks run and the aux comes to the host.  The sampler's transform state
-    (delay rings, pending gradients) rides in ``state.inner``."""
+    ``batch_fn(key) -> batch`` makes one batch from a PRNG key (a
+    ``(k0, k1)`` pair); pass ``batches=`` to ``run`` instead for pre-made
+    data.  ``chunk_size`` sets how often the hooks run and the aux comes
+    to the host.  The sampler's transform state (delay rings, pending
+    gradients) rides in ``state.inner``."""
 
     sampler: Sampler
     batch_fn: Optional[BatchFn] = None
@@ -230,8 +234,11 @@ class Engine:
         per-step aux stacked over all steps (numpy), or ``None``.
 
         Give stacked ``batches`` (leading axis ``steps``), or a ``batch_fn``
-        at construction plus ``key`` here: a ``torch.Generator`` or an int
-        seed of one.  ``delays`` may be a
+        at construction plus ``key`` here: a PRNG key or an int seed of one
+        (``rng.PRNGKey(int)``; a ``torch.Generator`` is refused).  Each
+        chunk of ``n`` commits takes ``key, sub = split(key)`` and hands
+        ``batch_fn`` the keys ``split(sub, n)`` in order, as the JAX
+        engine's ``vmap(batch_fn)`` does.  ``delays`` may be a
         :class:`~repro_torch.core.delay_model.DelayTrace`, whose commit
         times then land in the aux under ``"commit_time"``.  The state's
         tensors may be updated in place."""
@@ -249,12 +256,12 @@ class Engine:
         if self.batch_fn is not None and batches is None:
             if key is None:
                 raise ValueError("generating batches from batch_fn needs `key`")
-            if not isinstance(key, torch.Generator):
-                key = torch.Generator().manual_seed(int(key))
+            key = rng.as_key(key)
 
-            def gen_batches(gen, n):
-                drawn = [self.batch_fn(gen) for _ in range(n)]
-                return gen, tree_map(lambda *xs: torch.stack(
+            def gen_batches(key, n):
+                key, sub = rng.split(key)
+                drawn = [self.batch_fn(k) for k in rng.split(sub, n)]
+                return key, tree_map(lambda *xs: torch.stack(
                     [torch.as_tensor(x) for x in xs]), *drawn)
 
         return drive_chunks(

@@ -209,10 +209,13 @@ def _accumulate(single, params, mbs: list) -> tuple:
 
 
 def make_train_step(model: Model, sgld_cfg: SGLDConfig,
-                    num_microbatches: int = 1, *, fused: bool = False):
-    """Returns (sampler, step_fn); step_fn(state, batch, delay) -> (state, metrics)."""
+                    num_microbatches: int = 1, *, fused: bool = False,
+                    noise: str = "torch"):
+    """Returns (sampler, step_fn); step_fn(state, batch, delay) -> (state, metrics).
+    ``noise`` picks the unfused draw (``"torch"`` or ``"jax"``)."""
     grad_fn = make_grad_fn(model, num_microbatches)
-    sampler = samplers.from_config(sgld_cfg, grad_fn, has_aux=True, fused=fused)
+    sampler = samplers.from_config(sgld_cfg, grad_fn, has_aux=True, fused=fused,
+                                   noise=noise)
 
     def step_fn(state, batch, delay=0):
         return sampler.step(state, batch, delay)
@@ -221,27 +224,28 @@ def make_train_step(model: Model, sgld_cfg: SGLDConfig,
 
 
 def train_loop(model: Model, params: PyTree, sgld_cfg: SGLDConfig,
-               batch_fn: Callable[[torch.Generator], PyTree], steps: int, key,
+               batch_fn: Callable[[tuple], PyTree], steps: int, key,
                delays=None, log_every: int = 10, log_fn=print,
-               num_microbatches: int = 1, chunk_size: int = 0, *, fused: bool = False):
+               num_microbatches: int = 1, chunk_size: int = 0, *, fused: bool = False,
+               noise: str = "torch"):
     """Train through the chunked :class:`~repro_torch.train.engine.Engine`,
     logging through :func:`~repro_torch.train.engine.log_hook`.
 
-    ``key`` is a JAX-style key (``rng.PRNGKey(seed)``) or an int seed of
-    one: ``key, init_key = split(key)`` as the JAX package splits it, the
-    sampler's state under ``init_key``, and ``batch_fn(generator)`` drawing
-    from a ``torch.Generator`` seeded from ``key``.  Returns ``(state,
-    history)`` with history ``[(step, loss), ...]`` at the ``log_every``
-    cadence and the last step."""
-    sampler, _ = make_train_step(model, sgld_cfg, num_microbatches, fused=fused)
-    key = rng.PRNGKey(key) if isinstance(key, int) else rng.key_bits(key)
-    key, init_key = rng.split(key)
+    ``key`` is a PRNG key (``rng.PRNGKey(seed)``) or an int seed of one:
+    ``key, init_key = split(key)`` as the JAX package splits it, the
+    sampler's state under ``init_key``, and ``batch_fn(key) -> batch`` fed
+    the engine's keys from ``key``, the reference's.  ``noise`` picks the
+    unfused draw (``"jax"``: ``jax.random.normal``'s numbers).  Returns
+    ``(state, history)`` with history ``[(step, loss), ...]`` at the
+    ``log_every`` cadence and the last step."""
+    sampler, _ = make_train_step(model, sgld_cfg, num_microbatches, fused=fused,
+                                 noise=noise)
+    key, init_key = rng.split(rng.as_key(key))
     state = sampler.init(params, init_key)
     engine = Engine(sampler, batch_fn=batch_fn,
                     chunk_size=chunk_size or max(1, log_every),
                     hooks=[log_hook(every=log_every, log_fn=log_fn)])
-    state, aux = engine.run(state, steps=steps, delays=delays,
-                            key=rng.seed_int(key))
+    state, aux = engine.run(state, steps=steps, delays=delays, key=key)
     losses = aux["loss"]
     idx = sorted(set(range(0, steps, log_every)) | {steps - 1})
     return state, [(k, float(losses[k])) for k in idx]

@@ -207,7 +207,7 @@ def test_make_batch_has_the_references_shapes(arch, kind):
     shape = ShapeConfig("t", seq_len=32, global_batch=3, kind=kind)
     want = jax_make_batch(jcfg, jconfigs.ShapeConfig("t", 32, 3, kind),
                           jax.random.PRNGKey(0))
-    got = make_batch(tcfg, shape, torch.Generator().manual_seed(0))
+    got = make_batch(tcfg, shape, np.asarray(jax.random.PRNGKey(0)))
     assert got.keys() == want.keys()
     for k, v in want.items():
         if k == "cur_pos":
@@ -282,7 +282,7 @@ def test_cluster_engine_trains_an_moe_and_a_frontend_config(arch):
     sampler = samplers.sgld("inconsistent", make_grad_fn(Model(cfg, device="cpu")),
                             gamma=1e-3, sigma=1e-5, tau=1, has_aux=True, fused=True)
     engine = ClusterEngine(sampler, num_chains=2, chunk_size=2, collect_aux=True,
-                           batch_fn=lambda g: make_batch(cfg, shape, g, "train"))
+                           batch_fn=lambda k: make_batch(cfg, shape, k, "train"))
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu", num_chains=1)
     state = engine.init(params, PRNGKey(0))
     before = tree_map(torch.clone, state.params)

@@ -269,14 +269,18 @@ def test_batches_per_chain_and_batch_fn(quads, scheds):
     want, got, _, _ = _both_engines(js, ts, scheds, per_chain_batches=True,
                                     run_kw={"batches": batches})
     assert _rel(got, want) <= 1e-6
-    # batch_fn draws one batch a (commit, chain) from the run's generator
+    # batch_fn makes one batch a (commit, chain) from its own key; an int
+    # seed is read as PRNGKey(seed), and a torch.Generator is refused
     e = ClusterEngine(ts, num_chains=C, chunk_size=10, collect_aux=True,
-                      batch_fn=lambda g: torch.randn(D, generator=g))
+                      batch_fn=lambda k: rng.jax_normal(k, (D,)))
     st, aux = e.run(e.init(torch.zeros(D), rng.PRNGKey(2)), steps=STEPS,
                     schedule=scheds[1], key=5)
     st2, _ = e.run(e.init(torch.zeros(D), rng.PRNGKey(2)), steps=STEPS,
-                   schedule=scheds[1], key=torch.Generator().manual_seed(5))
+                   schedule=scheds[1], key=rng.PRNGKey(5))
     assert torch.equal(st.params, st2.params)
+    with pytest.raises(TypeError, match="torch.Generator"):
+        e.run(e.init(torch.zeros(D), rng.PRNGKey(2)), steps=STEPS,
+              schedule=scheds[1], key=torch.Generator().manual_seed(5))
     # no aux from the oracle: only the schedule's commit times, (steps, C)
     assert set(aux) == {"commit_time"} and aux["commit_time"].shape == (STEPS, C)
 

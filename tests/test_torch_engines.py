@@ -29,6 +29,7 @@ from repro.models.transformer import Model as JaxModel
 from repro.models.transformer import init_params as jax_init
 from repro_torch.cluster import DecodeEngine, PagedDecodeEngine, Request
 from repro_torch.configs import get_reduced
+from repro_torch.kernels import rng
 from repro_torch.weights import from_jax_params
 
 C = 2
@@ -115,9 +116,9 @@ def test_paged_engine_mixed_lengths_and_preemption_match_jax(f32):
 
 
 def test_paged_sampling_is_a_function_of_seed_and_position(f32):
-    """Sampled requests: the same seed gives the same tokens alone, beside
-    other requests, and after a preemption and replay; another seed gives
-    other tokens."""
+    """Sampled requests: the same key gives the same tokens alone, beside
+    other requests, and after a preemption and replay (each token's key
+    folds in its absolute position); another key gives other tokens."""
     _, _, tcfg, tbank = f32
     p = prompts(tcfg.vocab_size, [4, 6, 3], seed=3)
 
@@ -132,15 +133,15 @@ def test_paged_sampling_is_a_function_of_seed_and_position(f32):
         done = {c.request_id: c for c in early + eng.drain()}
         return [done[i] for i in ids]
 
-    alone = run([Request(tokens=p[0], max_new_tokens=8, key=11)])[0]
-    crowd = run([Request(tokens=p[0], max_new_tokens=8, key=11),
-                 Request(tokens=p[1], max_new_tokens=8, key=12),
+    alone = run([Request(tokens=p[0], max_new_tokens=8, key=rng.PRNGKey(11))])[0]
+    crowd = run([Request(tokens=p[0], max_new_tokens=8, key=rng.PRNGKey(11)),
+                 Request(tokens=p[1], max_new_tokens=8, key=rng.PRNGKey(12)),
                  Request(tokens=p[2], max_new_tokens=5, priority=3)],
                 pump_after=2)
     assert crowd[0].timing.get("evictions", 0) + \
         crowd[1].timing.get("evictions", 0) == 1
     np.testing.assert_array_equal(crowd[0].tokens, alone.tokens)
-    other = run([Request(tokens=p[0], max_new_tokens=8, key=13)])[0]
+    other = run([Request(tokens=p[0], max_new_tokens=8, key=rng.PRNGKey(13))])[0]
     assert not np.array_equal(other.tokens, alone.tokens)
     greedy = run([Request(tokens=p[0], max_new_tokens=8)])[0]
     assert not np.array_equal(greedy.tokens, alone.tokens)
@@ -150,8 +151,8 @@ def test_decode_engine_sampling_is_reproducible(f32):
     _, _, tcfg, tbank = f32
     toks = np.stack(prompts(tcfg.vocab_size, [4, 4]))
     eng = DecodeEngine(tcfg, tbank, max_seq=16, device="cpu")
-    a = eng.generate(toks, 5, key=2)
-    b = eng.generate(toks, 5, key=2)
+    a = eng.generate(toks, 5, key=rng.PRNGKey(2))
+    b = eng.generate(toks, 5, key=rng.PRNGKey(2))
     np.testing.assert_array_equal(a.tokens, b.tokens)
     assert not np.array_equal(a.tokens[0], a.tokens[1])  # per-row streams
     assert ((a.tokens >= 0) & (a.tokens < tcfg.vocab_size)).all()

@@ -88,7 +88,7 @@ def test_make_specs_are_make_batch_on_meta():
         for kind in ("train", "prefill", "decode"):
             shape = ShapeConfig("t", 64, 2, kind)
             spec = make_specs(cfg, shape)
-            real = make_batch(cfg, shape, torch.Generator().manual_seed(0))
+            real = make_batch(cfg, shape, rng.PRNGKey(0))
             ref = jax_make_specs(jcfg, jc.ShapeConfig("t", 64, 2, kind))
             assert spec.keys() == real.keys() == ref.keys()
             for k, v in spec.items():
@@ -262,7 +262,7 @@ def test_meta_counts_equal_a_real_step_on_the_cpu():
     meta_step, meta_args, _, _ = dryrun.step_and_args(cfg, shape)
     model, _ = steps.build_model(cfg, shape, device="cpu")
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu", num_chains=1)
-    batch = make_batch(cfg, shape, torch.Generator().manual_seed(1))
+    batch = make_batch(cfg, shape, rng.PRNGKey(1))
     real = step_cost(steps.make_sgld_train_step(model, shape), params, batch,
                      rng.PRNGKey(0))
     meta = step_cost(meta_step, *meta_args)

@@ -207,6 +207,12 @@ def jax_cluster(jquad):
                        health_check=True)
     out["resume"], _ = e.run(e.init(jnp.zeros(D), jax.random.PRNGKey(6)), steps=STEPS,
                              schedule=scheds, poison=poison)
+    bs = jsamplers.sgld("consistent", lambda p, b: jquad.grad(p, None) + 0.3 * b,
+                        gamma=0.01, sigma=0.5, tau=8)
+    e = JClusterEngine(bs, num_chains=C, chunk_size=10,
+                       batch_fn=lambda k: jax.random.normal(k, (D,)))
+    out["batch"], _ = e.run(e.init(jnp.zeros(D), jax.random.PRNGKey(42), jitter=1.0),
+                            steps=STEPS, schedule=scheds, key=jax.random.PRNGKey(7))
     return out
 
 
@@ -246,15 +252,16 @@ def test_an_ensemble_block_is_its_rows_of_the_whole_ensemble(jitter):
 # ---------------------------------------------------------------------------
 # the cluster
 # ---------------------------------------------------------------------------
-CLUSTER = ["sgld", "fused", "masked", "health"]
+CLUSTER = ["sgld", "fused", "masked", "health", "batch"]
 
 
 @pytest.mark.parametrize("name", CLUSTER)
 @pytest.mark.parametrize("w", WORLDS, ids=IDS)
 def test_placed_cluster_is_bitwise_the_unplaced_run(worlds, w, name):
-    """W-Con, fused W-Icon, the masked (inverse-speed) windows and
-    ``health_check`` under poisons: the gathered placed state equals the
-    unplaced engine's in parameters, keys, commit counter and health."""
+    """W-Con, fused W-Icon, the masked (inverse-speed) windows,
+    ``health_check`` under poisons and batches from ``batch_fn`` (a key a
+    commit and chain): the gathered placed state equals the unplaced
+    engine's in parameters, keys, commit counter and health."""
     res, _ = _world(worlds, w)
     got = res[f"cluster_{name}"]
     assert np.array_equal(got["params"], got["ref_params"])

@@ -322,12 +322,6 @@ def test_from_cluster_serves_degraded_from_a_health_state(regs, bank):
                                  regression_predict(regs[1]), device="cpu")
 
 
-def _key(gen):
-    """A JAX-style key drawn from the run's ``torch.Generator`` (the port's
-    ``batch_fn`` takes a generator, ``PolyRegression.sample_batch`` a key)."""
-    return rng.PRNGKey(int(torch.randint(0, 2**31 - 1, (1,), generator=gen)))
-
-
 def _trained_banks(regs):
     """12 commits of an 8-chain W-Con ensemble in each package."""
     jreg, reg = regs
@@ -336,7 +330,7 @@ def _trained_banks(regs):
     s = samplers.sgld("consistent", lambda w, b: reg.grad(w, b), gamma=1e-4,
                       sigma=1e-3, tau=tau)
     eng = ClusterEngine(s, num_chains=C, chunk_size=6,
-                        batch_fn=lambda g: reg.sample_batch(_key(g), 32))
+                        batch_fn=lambda k: reg.sample_batch(k, 32))
     state, _ = eng.run(eng.init(torch.zeros(5), rng.PRNGKey(3), jitter=0.1),
                        steps=12, schedule=scheds, key=4)
     js = jsamplers.sgld("consistent", lambda w, b: jreg.grad(w, b), gamma=1e-4,

@@ -205,6 +205,15 @@ def cluster_scenarios(mesh, rank, out, tmp):
     out["cluster_health"] = cluster_state(st, ref, mesh)
     out["health_poison"] = poison
 
+    # batch_fn: one key a (commit, chain), the reference's order; a rank
+    # makes only its block's batches
+    quad = Quadratic.make(rng.PRNGKey(0), d=D, m=1.0, L=3.0, device="cpu")
+    bs = samplers.sgld("consistent", lambda p, b: quad.grad(p, None) + 0.3 * b,
+                       gamma=0.01, sigma=0.5, tau=8, noise="jax")
+    st, ref, _, _ = both(bs, mesh, rank, dict(steps=STEPS, schedule=scheds, key=7),
+                         chunk_size=10, batch_fn=lambda k: rng.jax_normal(k, (D,)))
+    out["cluster_batch"] = cluster_state(st, ref, mesh)
+
     # a run checkpoint and resume, stitched; the file against an unplaced run's
     s = quad_sampler("inconsistent", True)
 
