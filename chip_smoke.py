@@ -297,14 +297,21 @@ library) and runs, failing on the first phase that fails:
    ``d_ff``, gathered over ``data`` for the layer), beside (c), against
    (c)'s per-shard oracle with its gates, its expert choices (c)'s; (f)
    hymba-1.5b at its widths and 2 layers in bf16 (its SSD heads split by
-   channel), gated as (a); (g) xlstm-1.3b at its widths and 8 layers (its
-   first sLSTM) in float32 at gamma 1e-7, gated as (b) but for its
-   gradient, held at (a)'s 0.05.  In every cell the noise blocks are the unplaced draw's (rank 0's bit for
+   channel), gated as (a) but for its gradient, held at 0.03; (g)
+   xlstm-1.3b at its widths and 8 layers (its first sLSTM) in float32 at
+   gamma 1e-7, gated as (b) but for its gradient, held at 0.01; (f) and
+   (g) against the per-shard oracle as (c), without routing (a recurrent
+   gradient amplifies a reorder of the batch's sum), and each also against
+   a planted fault (the step's gradient without its ``data`` mean: shard
+   0's alone), which must read past its gate.  Where the new parameters
+   are not held (bf16), the oracle's next step starts from the placed
+   run's.  In every cell the noise blocks are the unplaced draw's (rank 0's bit for
    bit, the others' by a checksum of their bits), every rank's loss is the
    same bits, the ranks that hold one block agree, and each rank's
-   parameter bytes are its block's.  This path runs no kernel of the
-   TPU's (the reference's placed step draws its noise through
-   ``noise_like``, no kernel).  ms a step placed and unplaced, the
+   parameter bytes are its block's.  This path runs none of the four
+   ports of the TPU's kernels; its noise is the draw kernel's
+   (``noise_like``, one launch a leaf's block), each rank's draws timed
+   and counted.  ms a step placed and unplaced, the
    collectives a step by kind, the gathered bytes alive at most, each
    rank's peak memory (allocated and reserved), the card's used memory at
    its highest (every process on it, sampled every 0.5 s) and phase 15's
@@ -414,6 +421,31 @@ THREEFRY_OPS = 72
 LANGEVIN_OPS = THREEFRY_OPS + 1 + 8 + 3 + 3 + 2 + 2
 # two threefry blocks + 2 xors + 3 remainders, a multiply, an add, a convert
 DELAY_OPS = 2 * THREEFRY_OPS + 8
+# the jax.random draws (csrc/jax_random.cuh): a threefry block, the 64-bit
+# counter and the xor; the uniform's 7; XLA's log 31, log1p 34, erf_inv 52
+# (log1p included); a normal adds the sqrt(2) product, a gumbel two logs and
+# two negations; the draw kernel's scale and cast one each; the categorical
+# a column's load, convert, add and comparison
+UNIFORM_OPS = THREEFRY_OPS + 3 + 7
+NORMAL_OPS = UNIFORM_OPS + 52 + 1
+GUMBEL_OPS = UNIFORM_OPS + 2 * 31 + 2
+CATEGORICAL_OPS = GUMBEL_OPS + 6
+#: phase 2's draws: (name, whole shape, start, block, value, scale, dtype) —
+#: a ragged normal, 2^20, the largest leaf's std * normal into bf16, a block
+#: of a 4-D leaf (phase 15's rank block of the 4-layer w_up: rows 1 .. 2 of
+#: the model axis' halves) at its whole-leaf counters, a draw straddling
+#: 2^32, uniform and gumbel at a small shape
+DRAW_CASES = (
+    ("ragged", (RAGGED,), 0, None, "normal", None, "float32"),
+    ("2^20", (2**20,), 0, None, "normal", None, "float32"),
+    ("largest_leaf", (36, 2560, 9728), 0, None, "normal", 1 / 2560**0.5, "bfloat16"),
+    ("block_4d", (1, 4, 2560, 9728), 0, (slice(None), slice(None), slice(None),
+                                         slice(4864, 9728)), "normal", None, "float32"),
+    ("past_2_32", (2**20,), 2**32 - 2**19, None, "normal", None, "float32"),
+    ("uniform", (8, 4099), 0, None, "uniform", None, "float32"),
+    ("gumbel", (8, 4099), 0, None, "gumbel", None, "float32"),
+)
+VOCAB = 151_936  # qwen3-4b's: the categorical's rows
 
 # the paper's experiments at their published settings; the JAX package's
 # values there, and the band the card's must fall in, come from
@@ -1242,6 +1274,169 @@ def run_mask_checks(torch, np, lu, dg, ref) -> dict:
 # ---------------------------------------------------------------------------
 # phase 3: kernel path == plain path, end to end, on a small f32 bank
 # ---------------------------------------------------------------------------
+def _bits_equal(torch, a, b) -> bool:
+    """Equal shapes, dtypes and bits (int64 tokens compared as values)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.int64:
+        return torch.equal(a, b)
+    words = torch.int32 if a.element_size() == 4 else torch.int16
+    return torch.equal(a.view(words), b.view(words))
+
+
+def run_draw_checks(torch, np) -> dict:
+    """The draw kernels against their plain versions on the card, bit for
+    bit: ``jax_draw`` at :data:`DRAW_CASES` and a 36-row key table (a
+    layer-stacked leaf, std * normal into bf16); ``categorical`` at (4,
+    151,936) and (8, 151,936), bf16 and f32, under one key and a key a row,
+    with a row of -inf (index 0), two NaNs (the first) and two +inf (a tie:
+    the first).  Each logs the kernel's ms, the plain version's, its bound
+    (operations at ALU_OPS or bytes, whichever is larger) and, for scale
+    only, ``torch.randn``'s ms at the same size (another generator: no
+    library call computes these numbers)."""
+    from repro_torch.kernels import jax_draw as jd
+    from repro_torch.kernels import rng
+
+    dev = torch.device("cuda")
+    values = {"normal": rng._normal_values, "gumbel": rng._gumbel_values,
+              "uniform": lambda bits: rng._uniform_values(bits, -2.0, 3.0)}
+    ops = {"normal": NORMAL_OPS, "gumbel": GUMBEL_OPS, "uniform": UNIFORM_OPS}
+    key = rng.PRNGKey(7)
+    draws = []
+    for name, shape, start, block, value, scale, dt in DRAW_CASES:
+        dtype = getattr(torch, dt)
+        parts = rng._block_of(shape, block)
+        n = math.prod(length for _, length in parts)
+        op = None if scale is None else "mul"
+
+        def kernel():
+            return jd.jax_draw(key, shape, parts, value, dev, start=start, op=op,
+                               c=scale or 1.0, lo=-2.0, span=5.0, dtype=dtype)
+
+        got = kernel()
+        want, plain_ms = _timed_once(torch, lambda: rng._scaled(
+            rng._draw(key, shape, dev, start, block, values[value]), op, scale or 1.0,
+            dtype))
+        check(_bits_equal(torch, got, want),
+              f"jax_draw {name}: {int((got.float() != want.float()).sum())} of {n} "
+              "elements differ from the plain draw")
+        del got, want
+        torch.cuda.empty_cache()
+        ms = cuda_ms(torch, [kernel], 3 if n > 2**26 else 20)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        randn_ms = cuda_ms(torch, [lambda: torch.randn(n, device=dev, dtype=dtype,
+                                                       generator=gen)],
+                           3 if n > 2**26 else 20)
+        bms, by = bound(n * torch.empty((), dtype=dtype).element_size(),
+                        n * (ops[value] + (op is not None) + (dtype != torch.float32)),
+                        ALU_OPS)
+        torch.cuda.empty_cache()
+        draws.append({"case": name, "shape": list(shape), "elements": n, "dtype": dt,
+                      "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bms, "bound_by": by, "library_ms": None,
+                      "torch_randn_ms": randn_ms})
+        log(f"jax_draw {name}: {n} elements {dt}, equal bit for bit to the plain draw; "
+            f"{ms:.4f} ms (plain {plain_ms:.2f} ms, torch.randn {randn_ms:.4f} ms for "
+            f"scale), bound {bms:.4f} ms by {by}")
+    # a key a row: 36 layers' keys, each row a (256, 1024) std * normal in bf16
+    keys = torch.tensor(rng.split(rng.PRNGKey(3), 36), dtype=torch.int64)
+    got = rng.normal_rows(keys, (256, 1024), dev, op="mul", c=1 / 16, dtype=torch.bfloat16)
+    want, plain_ms = _timed_once(torch, lambda: rng.rows_plain(
+        keys, (256, 1024), dev, rng._normal_values, "mul", 1 / 16, torch.bfloat16))
+    check(_bits_equal(torch, got, want), "jax_draw: the 36-row key table differs")
+    n = got.numel()
+    table = rng._key_words(keys, dev)
+    ms = cuda_ms(torch, [lambda: jd.jax_draw_rows(table, 256 * 1024, "normal", op="mul",
+                                                  c=1 / 16, dtype=torch.bfloat16)], 20)
+    bms, by = bound(2 * n, n * (NORMAL_OPS + 2), ALU_OPS)
+    draws.append({"case": "key_table_36", "shape": [36, 256, 1024], "elements": n,
+                  "dtype": "bfloat16", "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": bms, "bound_by": by, "library_ms": None})
+    log(f"jax_draw key table: 36 rows x 262,144 bf16 equal bit for bit; {ms:.4f} ms "
+        f"(plain {plain_ms:.2f} ms), bound {bms:.4f} ms by {by}")
+    del got, want
+    cats = []
+    for B in (4, 8):
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            g = torch.Generator(device=dev).manual_seed(B)
+            logp = torch.log_softmax(torch.randn(B, VOCAB, generator=g, device=dev),
+                                     -1).to(dtype)
+            logp[1] = float("-inf")
+            logp[2, 7777] = logp[2, 9999] = float("nan")
+            logp[3, 5000] = logp[3, 100_000] = float("inf")
+            slot_keys = rng.fold_in_rows(np.asarray(rng.split(key, B), np.int64),
+                                         np.arange(B)).to(dev)
+            for mode in ("key", "rows"):
+                if mode == "key":
+                    def kernel():
+                        return rng.categorical(key, logp)
+
+                    def plain():
+                        return rng.categorical_plain(key, logp)
+                else:
+                    def kernel():
+                        return rng.categorical_rows(slot_keys, logp)
+
+                    def plain():
+                        return rng.categorical_rows_plain(slot_keys, logp)
+                got = kernel()
+                want, plain_ms = _timed_once(torch, plain)
+                check(torch.equal(got, want),
+                      f"categorical ({B}, {VOCAB}) {dt} {mode}: {got.tolist()} != "
+                      f"{want.tolist()}")
+                check(got[1:4].tolist() == [0, 7777, 5000],
+                      f"categorical: -inf row, NaN and tie gave {got[1:4].tolist()}")
+                ms = cuda_ms(torch, [kernel], 50)
+                n = B * VOCAB
+                bms, by = bound(n * logp.element_size() + 8 * B, n * CATEGORICAL_OPS,
+                                ALU_OPS)
+                cats.append({"rows": B, "dtype": dt, "mode": mode, "max_abs_err": 0.0,
+                             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                             "bound_by": by, "library_ms": None})
+                log(f"categorical ({B}, {VOCAB}) {dt}, {mode}: equal to the plain "
+                    f"draw (-inf row 0, first NaN, first tie); {ms:.4f} ms (plain "
+                    f"{plain_ms:.3f} ms), bound {bms:.4f} ms by {by}")
+    torch.cuda.empty_cache()
+    return {"draws": draws, "categorical": cats}
+
+
+def init_reference_check(torch, np) -> dict:
+    """``init_params`` on the card against the same key's on the CPU, leaf
+    for leaf: reduced qwen3-4b (a 2-chain bank), hymba-1.5b (the SSD heads:
+    a uniform and a division) and xlstm-1.3b (the head matrices' division,
+    a ``layers`` list), bit for bit but for ``dt_bias``, whose ``exp`` /
+    ``expm1`` / ``log`` are CUDA's against ATen's CPU ones (1e-6
+    relative)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import init_params
+
+    def named(tree, path=""):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in named(tree[k], f"{path}/{k}")]
+        if isinstance(tree, (list, tuple)):
+            return [x for i, t in enumerate(tree) for x in named(t, f"{path}/{i}")]
+        return [(path, tree)]
+
+    out = {}
+    for arch, C in (("qwen3-4b", 2), ("hymba-1.5b", None), ("xlstm-1.3b", None)):
+        cfg = get_reduced(arch)
+        card = named(init_params(cfg, 5, device="cuda", num_chains=C))
+        host = named(init_params(cfg, 5, device="cpu", num_chains=C))
+        n = 0
+        for (path, a), (_, b) in zip(card, host):
+            a = a.cpu()
+            if path.endswith("dt_bias"):
+                check(torch.allclose(a, b, rtol=1e-6, atol=0), f"init {arch} {path}")
+            else:
+                check(_bits_equal(torch, a, b), f"init {arch} {path}: card != CPU")
+            n += a.numel()
+        out[arch] = {"leaves": len(card), "elements": n}
+        log(f"init_params {arch} (reduced{f', {C} chains' if C else ''}): card equals "
+            f"the CPU bit for bit on {len(card)} leaves ({n} elements; dt_bias 1e-6)")
+    return out
+
+
 def reference_check(torch, np) -> None:
     from repro_torch.cluster import DecodeEngine, PagedDecodeEngine, Request
     from repro_torch.configs import get_reduced
@@ -1249,7 +1444,7 @@ def reference_check(torch, np) -> None:
     from repro_torch.utils import tree_map
 
     cfg = replace(get_reduced("qwen3-4b"), dtype="float32")
-    cpu = init_params(cfg, torch.Generator().manual_seed(3), device="cpu",
+    cpu = init_params(cfg, 3, device="cpu",
                       num_chains=4)
     gpu = tree_map(lambda t: t.to("cuda"), cpu)
     rng = np.random.default_rng(3)
@@ -1305,7 +1500,7 @@ def training_reference_check(torch, np, lu, dg, cfg=None) -> dict:
     from repro_torch.utils import tree_leaves, tree_map
 
     cfg = cfg or replace(get_reduced("qwen3-4b"), dtype="float32")
-    cpu = init_params(cfg, torch.Generator().manual_seed(4), device="cpu",
+    cpu = init_params(cfg, 4, device="cpu",
                       num_chains=1)
     n_leaves = len(tree_leaves(cpu))
     gpu = tree_map(lambda t: t.to("cuda"), cpu)
@@ -1519,6 +1714,8 @@ def paper_path(torch, np, kernels) -> dict:
 # ---------------------------------------------------------------------------
 def main_path(torch, np, ds, cfg, device="cuda") -> dict:
     from repro_torch.cluster import DecodeEngine, PagedDecodeEngine, Request
+    from repro_torch.kernels import categorical as kc
+    from repro_torch.kernels import jax_draw as jd
     from repro_torch.kernels import rng as krng
     from repro_torch.models.predictive import bma_logits
     from repro_torch.models.transformer import Model, init_params
@@ -1526,14 +1723,56 @@ def main_path(torch, np, ds, cfg, device="cuda") -> dict:
     from repro_torch.utils import tree_leaves
 
     C, L, V = 4, cfg.num_layers, cfg.vocab_size
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                         device=device, num_chains=C)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
-    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    jd.jax_draw.launches = 0
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=device, num_chains=C)
+    sync()
+    init_s = time.perf_counter() - t0
+    init_launches = jd.jax_draw.launches
+    leaves = tree_leaves(params)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    # one launch a drawn leaf (every chain and layer of it, a key a row): the
+    # drawn leaves are the config's dtype, the norms float32
+    drawn = sum(t.dtype == getattr(torch, cfg.dtype) for t in leaves)
+    check(device != "cuda" or init_launches == drawn,
+          f"init_params launched the draw kernel {init_launches} times for {drawn} "
+          "drawn leaves")
     log(f"bank: {C} x {cfg.name}, {L} layers, {n_bytes / 1e9:.2f} GB {cfg.dtype}, "
-        f"drawn in {time.perf_counter() - t0:.1f} s")
+        f"drawn from PRNGKey(0) (the reference's weights) in {init_s:.3f} s, "
+        f"{init_launches} draw-kernel launches")
+    # the unfused commit's default noise (noise="jax") over one full-width
+    # chain of the bank: one launch a leaf, sqrt(2 sigma gamma) * normal cast
+    # to the leaf's dtype; the leaf with the fewest elements held against
+    # the plain draw
+    from repro_torch.samplers.transform import chain_at
+    from repro_torch.samplers.transforms import langevin_scale, noise_like
+
+    chain = chain_at(params, 0)
+    scale = langevin_scale(1e-6, 1e-3)
+    noise_like(krng.PRNGKey(9), chain, scale, torch.float32)  # warm-up
+    sync()
+    jd.jax_draw.launches = 0
+    t0 = time.perf_counter()
+    noise = tree_leaves(noise_like(krng.PRNGKey(9), chain, scale, torch.float32))
+    sync()
+    noise_s = time.perf_counter() - t0
+    noise_launches = jd.jax_draw.launches
+    check(device != "cuda" or noise_launches == len(noise),
+          f"the default noise launched the draw kernel {noise_launches} times for "
+          f"{len(noise)} leaves")
+    small = min(range(len(noise)), key=lambda i: noise[i].numel())
+    leaf_key = krng.split(krng.PRNGKey(9), len(noise))[small]
+    want = krng._scaled(krng._draw(leaf_key, noise[small].shape, noise[small].device, 0,
+                                   None, krng._normal_values), "mul", scale,
+                        noise[small].dtype)
+    check(_bits_equal(torch, noise[small], want),
+          "the default noise is not jax.random.normal's under the leaf's key")
+    n_noise = sum(t.numel() for t in noise)
+    del noise, want, chain
+    log(f"noise: the default unfused noise (noise='jax') over one full-width chain, "
+        f"{n_noise} elements in {noise_launches} launches, {noise_s * 1e3:.2f} ms")
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, V, (4, 32)).astype(np.int32)
     reg = registry()
@@ -1550,9 +1789,11 @@ def main_path(torch, np, ds, cfg, device="cuda") -> dict:
     t0 = time.perf_counter()
     greedy = eng.generate(prompts, 16)
     t_greedy = time.perf_counter() - t0
+    kc.categorical.launches = 0
     t0 = time.perf_counter()
     sampled = eng.generate(prompts[:1], 16, key=1234)
     t_sampled = time.perf_counter() - t0
+    cat_decode = kc.categorical.launches
     launches = ds.decode_step.launches
     steps = reg.counter("decode.steps").value - steps0
     steps = int(steps)
@@ -1593,7 +1834,12 @@ def main_path(torch, np, ds, cfg, device="cuda") -> dict:
         f"jax.random.categorical draws at split(PRNGKey(1234), 16); one (4, {V}) "
         f"draw {draw_ms:.3f} ms; decode kernel launches {launches} = {L} x {steps}; "
         f"max |logp(decode) - logp(prefill)| {dev:.3g} (bf16)")
+    check(device != "cuda" or cat_decode >= 1,
+          "the sampled request never launched the categorical kernel")
+    out["init"] = {"launches": init_launches, "seconds": init_s, "drawn_leaves": drawn}
+    out["noise"] = {"launches": noise_launches, "ms": noise_s * 1e3, "elements": n_noise}
     out["decode"] = {"launches": launches, "steps": steps, "per_token_ms": per_tok,
+                     "categorical_launches": cat_decode,
                      "decode_vs_prefill_max_abs": dev,
                      "sampled_per_token_ms": t_sampled * 1e3 / 16, "draw_ms": draw_ms}
     del eng
@@ -1609,6 +1855,7 @@ def main_path(torch, np, ds, cfg, device="cuda") -> dict:
     micro0 = reg.counter("paged.micro_steps").value
     ds.decode_step.launches = 0
     ds.paged_decode_step.launches = 0
+    kc.categorical.launches = 0
     t0 = time.perf_counter()
     ids, early = [], []
     for i, (p, n, pr) in enumerate(zip(reqs, budgets, prio)):
@@ -1619,6 +1866,9 @@ def main_path(torch, np, ds, cfg, device="cuda") -> dict:
     done = {c.request_id: c for c in early + peng.drain()}
     t_paged = time.perf_counter() - t0
     launches = ds.paged_decode_step.launches
+    cat_paged = kc.categorical.launches
+    check(device != "cuda" or cat_paged >= 1,
+          "the sampled paged requests never launched the categorical kernel")
     micro = int(reg.counter("paged.micro_steps").value - micro0)
     comps = [done[i] for i in ids]
     for c, n in zip(comps, budgets):
@@ -1656,6 +1906,7 @@ def main_path(torch, np, ds, cfg, device="cuda") -> dict:
         f"{n_sampled} sampled requests equal the host's draws under "
         f"fold_in(key, position); one (8, {V}) slot draw {rows_ms:.3f} ms")
     out["paged"] = {"launches": launches, "micro_steps": micro,
+                    "categorical_launches": cat_paged,
                     "tokens_per_s": n_tok / t_paged, "evictions": evictions,
                     "slot_draw_ms": rows_ms}
     del peng
@@ -1942,9 +2193,13 @@ def cluster_reference_check(torch, np, kernels) -> dict:
 def cluster_quickstart(torch, np, kernels) -> dict:
     """(b) The torch cluster quickstart's scenario at its own settings:
     sgld, svrg, sghmc, the inverse-speed half, the fused W-Icon preset;
-    final W2, wall seconds, commits a second (each run on its own)."""
+    final W2, wall seconds, commits a second (each run on its own).  The
+    unfused runs draw their noise at the library's default (``noise="jax"``)
+    through the draw kernel, whose launches each run counts."""
     sys.path.insert(0, str(ROOT / "examples"))
     import torch_cluster_quickstart as qs
+
+    from repro_torch.kernels import jax_draw as jd
 
     out = {}
     runs = [(name, lambda name=name: qs.run_ensemble(name, device="cuda"))
@@ -1954,8 +2209,13 @@ def cluster_quickstart(torch, np, kernels) -> dict:
                                                         fused=True)))
     for name, fn in runs:
         _reset(kernels)
+        jd.jax_draw.launches = 0
         rows, engine, state, wall, _ = fn()
         got = _counts(kernels)
+        draws = jd.jax_draw.launches
+        check(name == "fused-wicon" or draws >= qs.COMMITS,
+              f"cluster (b) {name}: {draws} draw-kernel launches for the default noise "
+              f"of {qs.COMMITS} commits")
         w2 = [r["w2"] for r in rows]
         check(len(rows) == qs.COMMITS // 50 and all(math.isfinite(v) for v in w2)
               and w2[-1] < 1.0, f"cluster (b) {name}: W2 rows {w2}")
@@ -1964,9 +2224,11 @@ def cluster_quickstart(torch, np, kernels) -> dict:
             want.update(langevin_update=qs.COMMITS, wicon_read=qs.COMMITS)
         check(got == want, f"cluster (b) {name}: launches {got}, want {want}")
         out[name] = {"final_w2": w2[-1], "w2": w2, "wall_s": wall,
-                     "commits_per_s": qs.COMMITS / wall, "launches": got}
+                     "commits_per_s": qs.COMMITS / wall, "launches": got,
+                     "jax_draw_launches": draws}
         log(f"cluster (b), {name}: {qs.CHAINS} chains x {qs.COMMITS} commits, final "
-            f"W2 {w2[-1]:.4f}, {wall:.2f} s, {qs.COMMITS / wall:.1f} commits/s"
+            f"W2 {w2[-1]:.4f}, {wall:.2f} s, {qs.COMMITS / wall:.1f} commits/s; "
+            f"draw launches {draws}"
             + (f"; launches {got}" if name == "fused-wicon" else ""))
     return out
 
@@ -2023,7 +2285,7 @@ def cluster_path(torch, np, kernels, keep=()) -> dict:
                             sigma=1e-5, tau=tau, has_aux=True, fused=True)
     engine = ClusterEngine(sampler, num_chains=C, chunk_size=steps, collect_aux=True,
                            batch_fn=lambda k: make_batch(cfg, shape, k, "train"))
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+    params = init_params(cfg, 0,
                          device="cuda", num_chains=1)
     state = engine.init(params, rng.PRNGKey(0))
     del params
@@ -2207,7 +2469,7 @@ def cluster_fault_path(torch, np, kernels, base: dict) -> dict:
                            health_check=True,
                            batch_fn=lambda k: make_batch(cfg, shape, k, "train"),
                            hooks=[lambda n, st, aux: seen.append(st.health.copy())])
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+    params = init_params(cfg, 0,
                          device="cuda", num_chains=1)
     state = engine.init(params, rng.PRNGKey(0))
     del params
@@ -2290,7 +2552,7 @@ def cluster_fault_path(torch, np, kernels, base: dict) -> dict:
         del eng, state, leaves, engine, spy, advance, aux
         gc.collect()
         torch.cuda.empty_cache()
-        like = init_params(cfg, device="meta", num_chains=1)
+        like = init_params(cfg, None, device="meta", num_chains=1)
         t0 = time.perf_counter()
         eng = DecodeEngine.from_checkpoint(str(path), like, cfg, max_seq=64, device="cuda")
         torch.cuda.synchronize()
@@ -2337,7 +2599,7 @@ def run_checkpoint_path(torch, np, kernels) -> dict:
     schedule = WorkerSchedule.from_delays(np.array([0, 1]))
 
     def start():
-        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+        params = init_params(cfg, 1,
                              device="cuda", num_chains=1)
         return engine.init(params, rng.PRNGKey(1))
 
@@ -2573,7 +2835,7 @@ def zoo_config(torch, np, ds, arch: str, device="cuda") -> dict:
     B, T, n_new, V = 2, 64, 8, cfg.vocab_size
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+    params = init_params(cfg, 0,
                          device=device, num_chains=1)
     torch.cuda.synchronize()
     leaves = tree_leaves(params)
@@ -2716,7 +2978,7 @@ def moe_serve_path(torch, np, ds, device="cuda") -> dict:
     cfg = replace(full, num_layers=L)
     V = cfg.vocab_size
     torch.cuda.reset_peak_memory_stats()
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(3),
+    params = init_params(cfg, 3,
                          device=device, num_chains=C)
     gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
     rng = np.random.default_rng(12)
@@ -2829,7 +3091,7 @@ def recurrent_serve(torch, np, ds, arch: str, gate="stream", device="cuda") -> d
     C, B, P, n_new = RECURRENT_CHAINS, 4, 32, 16
     T, L, V = P + n_new, cfg.num_layers, cfg.vocab_size
     torch.cuda.reset_peak_memory_stats()
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(20),
+    params = init_params(cfg, 20,
                          device=device, num_chains=C)
     gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
     model = Model(cfg, device=device)
@@ -2952,7 +3214,7 @@ def hymba_window(torch, np, ds, device="cuda") -> dict:
     full = get_arch("hymba-1.5b")
     L, T = WINDOW_LAYERS, WINDOW_TOKENS
     cfg = replace(full, num_layers=L)
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(22),
+    params = init_params(cfg, 22,
                          device=device, num_chains=1)
     model = Model(cfg, device=device)
     stream = torch.from_numpy(np.random.default_rng(23).integers(
@@ -3087,7 +3349,7 @@ def windowed_attention(torch, np, device="cuda") -> dict:
     _free(torch)
 
     cfg = replace(full, num_layers=WINDOWED_LOSS_LAYERS)
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(42),
+    params = init_params(cfg, 42,
                          device=device, num_chains=1)
     toks = torch.from_numpy(np.random.default_rng(43).integers(
         0, cfg.vocab_size, (2, WINDOWED_LOSS_TOKENS + 1))).to(device)
@@ -3140,6 +3402,7 @@ def slstm_launches(torch, device="cuda") -> dict:
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch.configs import get_arch
+    from repro_torch.models.common import key_table
     from repro_torch.models.xlstm import apply_slstm, init_slstm
 
     views = {"view", "_unsafe_view", "t", "transpose", "expand", "slice", "select",
@@ -3155,8 +3418,7 @@ def slstm_launches(torch, device="cuda") -> dict:
             return func(*args, **(kwargs or {}))
 
     cfg = get_arch("xlstm-1.3b")
-    p = init_slstm(torch.Generator(device=device).manual_seed(24), cfg, torch.bfloat16,
-                   (1,), device)
+    p = init_slstm(key_table(24, 1), cfg, torch.bfloat16, device)
     for t in p.values():
         t.requires_grad_()
     x = torch.randn(1, 8, 128, cfg.d_model, device=device, dtype=torch.bfloat16,
@@ -3185,7 +3447,7 @@ def xlstm_grad_scale(torch, np, device="cuda") -> dict:
     from repro_torch.utils import tree_leaves
 
     cfg = get_arch("xlstm-1.3b")
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+    params = init_params(cfg, 0,
                          device=device, num_chains=1)
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 129))
     grads, metrics = make_grad_fn(Model(cfg, device=device))(params, {"tokens": tokens})
@@ -3216,7 +3478,7 @@ def recurrent_reference_check(torch, np, lu, dg, ds) -> dict:
             replace(get_reduced("xlstm-1.3b"), dtype="float32")]
     out = {}
     for cfg in cfgs:
-        cpu = init_params(cfg, torch.Generator().manual_seed(26), device="cpu",
+        cpu = init_params(cfg, 26, device="cpu",
                           num_chains=2)
         gpu = tree_map(lambda t: t.to("cuda"), cpu)
         stream = np.random.default_rng(27).integers(0, cfg.vocab_size, (2, 80))
@@ -3287,7 +3549,7 @@ def tooling_streams(torch, np, ds, cfg) -> dict:
     from repro_torch.obs.trace import tracer
 
     C, L, V = 4, cfg.num_layers, cfg.vocab_size
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+    params = init_params(cfg, 0,
                          device="cuda", num_chains=C)
     r = np.random.default_rng(0)
     prompts = r.integers(0, V, (4, 32)).astype(np.int32)
@@ -3371,7 +3633,7 @@ def tooling_cluster(torch, np, kernels, cfg) -> dict:
                              batch_fn=lambda k: make_batch(cfg, shape, k, "train"))
 
     eng = engine(False)
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+    params = init_params(cfg, 0,
                          device="cuda", num_chains=1)
     state = eng.init(params, rng.PRNGKey(0))
     del params
@@ -3488,6 +3750,25 @@ def tooling_prefetch(torch, np, kernels) -> dict:
         f"spends {out['inline']['batch_ms']:.4f} ms a commit making its batch inline, "
         f"{pf_ms:.4f} waiting for a prefetched one: {hidden:.3f} of the batch time hidden")
     del state, engine
+    # the pipeline's AR(1) minibatch stream (its two jax.random.normal draws)
+    # on the card against the CPU's, bit for bit
+    from repro_torch.data.pipeline import ar1_stream
+    from repro_torch.kernels import jax_draw as jd
+
+    jd.jax_draw.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = ar1_stream(rng.PRNGKey(3), steps=16, batch=8, d=2560, device="cuda")
+    torch.cuda.synchronize()
+    ar1_ms = (time.perf_counter() - t0) * 1e3
+    launches = jd.jax_draw.launches
+    host = ar1_stream(rng.PRNGKey(3), steps=16, batch=8, d=2560, device="cpu")
+    check(launches == 2 and torch.equal(card.cpu(), host),
+          f"tooling: the AR(1) stream on the card ({launches} draw launches) is not the "
+          "CPU's")
+    out["ar1_stream"] = {"launches": launches, "ms": ar1_ms}
+    log(f"tooling: ar1_stream (16 x 8 x 2560) on the card equals the CPU's bit for "
+        f"bit; {launches} draw launches, {ar1_ms:.2f} ms")
     return out
 
 
@@ -3521,7 +3802,7 @@ def tooling_roofline(torch, np, tp: dict) -> dict:
     meta_step, meta_args, _, _ = dryrun.step_and_args(one, cell)
     meta = step_cost(meta_step, *meta_args)
     model, _ = build_model(one, cell, device="cuda")
-    params = init_params(one, torch.Generator(device="cuda").manual_seed(0),
+    params = init_params(one, 0,
                          device="cuda", num_chains=1)
     batch = make_batch(one, cell, rng.PRNGKey(0))
     real = step_cost(make_sgld_train_step(model, cell), params, batch, rng.PRNGKey(0))
@@ -3651,7 +3932,7 @@ def placement_cluster(torch, np, kernels, cfg, mesh, device="cuda") -> dict:
     for name, m in (("unplaced", None), ("placed", mesh)):
         eng = ClusterEngine(sampler, num_chains=C, chunk_size=steps, mesh=m,
                             batch_fn=lambda k: make_batch(cfg, shape, k, "train"))
-        params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+        params = init_params(cfg, 0,
                              device=device, num_chains=1)
         state = eng.init(params, rng.PRNGKey(0))
         del params
@@ -3777,7 +4058,7 @@ def placement_serving(torch, np, ds, cfg, mesh, device="cuda") -> dict:
 
     C, V = 4, cfg.vocab_size
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+    params = init_params(cfg, 0,
                          device=device, num_chains=C)
     r = np.random.default_rng(0)
     prompts = r.integers(0, V, (4, 32)).astype(np.int32)
@@ -3970,7 +4251,7 @@ def model_axis_cell(torch, np, ds, cfg, mesh, rank: int, C: int, paged: bool,
     V, is_moe = cfg.vocab_size, bool(cfg.num_experts)
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+    params = init_params(cfg, 0,
                          device=device, num_chains=C)
     r = np.random.default_rng(0)
     prompts = r.integers(0, V, (4, 32)).astype(np.int32)
@@ -4119,7 +4400,7 @@ def model_axis_replay_cell(torch, np, ds, cfg, mesh, rank: int, C: int, stub: in
 
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    whole = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device,
+    whole = init_params(cfg, 0, device=device,
                         num_chains=C)
     r = np.random.default_rng(3)
     prompt = r.integers(0, cfg.vocab_size, (REPLAY_ROWS, T)).astype(np.int32)
@@ -4443,11 +4724,10 @@ MODEL_AXIS_TRAIN_MESH = (2, 2)  # (data, model)
 MODEL_AXIS_TRAIN_TIMEOUT = 420  # seconds the world may take
 MODEL_AXIS_TRAIN_OUT = ROOT / "smoke_out" / "model_axis_train"
 TRAIN_AXIS_BATCH, TRAIN_AXIS_SEQ, TRAIN_AXIS_MICRO = 8, 128, 2
-# one step of each mode in every cell: every rank draws its block of the
-# "jax" noise in elementwise torch ops, ~1.4 ns an element, so four ranks on
-# one card spend ~4 s a step on it (scripts/torch_model_axis_train_probe.py),
-# and the script's time stays inside its budget with (d) and (e) beside (a)
-# and (c) (cut from 3 sync + 2 pipeline steps)
+# one step of each mode in every cell (cut from 3 sync + 2 pipeline steps,
+# so that the script's time stays inside its budget with (d) and (e) beside
+# (a) and (c)); every rank draws its block of the "jax" noise in one
+# draw-kernel launch a leaf
 TRAIN_AXIS_STEPS = (("sync", 1), ("pipeline", 1))
 # (a) / (d) and (c) / (e): the pipeline step alone (its gradient is the one
 # held), cut from one of each mode to make room for (f) and (g); (b), (f)
@@ -4456,8 +4736,8 @@ TRAIN_AXIS_PIPELINE = (("pipeline", 1),)
 TRAIN_AXIS_GAMMA, TRAIN_AXIS_SIGMA = 1e-3, 1e-5  # phase 6's
 #: (name, arch, layers, dtype, steps, loss rtol, gradient relative L2, new
 #: params' atol or None, the other layouts trained beside the
-#: tensor-parallel one and held against the same unplaced step); phi3.5-moe's
-#: is held against the per-shard oracle
+#: tensor-parallel one and held against the same unplaced step); phi3.5-moe's,
+#: hymba's and xlstm's are held against the per-shard oracle
 MODEL_AXIS_TRAIN_CELLS = (
     ("qwen3-4b", "qwen3-4b", TOOLING_LAYERS, "bfloat16", TRAIN_AXIS_PIPELINE, 1e-2, 0.05,
      None, ("fsdp_full",)),
@@ -4467,14 +4747,22 @@ MODEL_AXIS_TRAIN_CELLS = (
     # (f) the SSD heads split by channel (25 heads of 128 channels: a rank
     # 12.5), attention replicated (25 and 5 heads on 2); (g) 8 layers, so the
     # stack holds its sLSTM: the blocks replicated, the vocabulary split; in
-    # float32 with (b)'s loss and new-parameter gates and (a)'s gradient
-    # gate: its unplaced f32 gradient at init moves by up to 0.092 relative
-    # L2 under a reorder of its own sums (scripts/torch_grad_spread.py)
-    ("hymba-1.5b", "hymba-1.5b", 2, "bfloat16", TRAIN_AXIS_STEPS, 1e-2, 0.05, None, ()),
-    ("xlstm-1.3b", "xlstm-1.3b", 8, "float32", TRAIN_AXIS_STEPS, 1e-5, 0.05, 1e-6, ()))
+    # float32 with (b)'s loss and new-parameter gates: its unplaced f32
+    # gradient at init moves by up to 0.092 relative L2 under a reorder of
+    # its own sums (scripts/torch_grad_spread.py), hence the per-shard
+    # oracle.  Their gradient gates sit between what a sound step reads
+    # against that oracle on the H100 (0.0178 and 0.0044) and what a step
+    # that dropped its data mean reads (0.67 and 0.79 on its least leaf)
+    ("hymba-1.5b", "hymba-1.5b", 2, "bfloat16", TRAIN_AXIS_STEPS, 1e-2, 0.03, None, ()),
+    ("xlstm-1.3b", "xlstm-1.3b", 8, "float32", TRAIN_AXIS_STEPS, 1e-5, 0.01, 1e-6, ()))
 #: a cell's step size where it is not TRAIN_AXIS_GAMMA: xlstm's gradient at
 #: init is large (phase 11 trains it at RECURRENT_TRAIN_GAMMA's)
 TRAIN_AXIS_CELL_GAMMA = {"xlstm-1.3b": 1e-7}
+
+
+def _recurrent(cfg) -> bool:
+    """Whether a config's blocks hold a recurrence (SSD heads, mLSTM, sLSTM)."""
+    return any(b in ("hymba_mlp", "mlstm", "slstm") for b in cfg.block_pattern)
 
 
 def _shard_rows(np, batch: int, micro: int, d: int, D: int):
@@ -4489,33 +4777,45 @@ def _shard_rows(np, batch: int, micro: int, d: int, D: int):
 
 def _unplaced_step(torch, step_of, grad_fn, noise_like, sgld_apply, params, pending,
                    tokens, key, mode: str, shards: int, shard_rows, routes=None,
-                   gamma=TRAIN_AXIS_GAMMA):
+                   gamma=TRAIN_AXIS_GAMMA, control: bool = False):
     """Rank 0's unplaced step on the whole chain: the step itself
-    (``step_of(mode)``), or for an MoE over ``shards`` data shards the
-    unplaced gradient function on each shard's rows (``shard_rows(d)``,
-    under the placed run's expert choices ``routes[d]``), averaged, then
-    the ``"jax"`` noise and the update — what GSPMD computes.  Returns
-    ``(new params, gradient or None, loss)``."""
+    (``step_of(mode)``), or over ``shards`` data shards (an MoE, a
+    recurrent config) the unplaced gradient function on each shard's rows
+    (``shard_rows(d)``, under the placed run's expert choices
+    ``routes[d]``), averaged, then the ``"jax"`` noise and the update —
+    what GSPMD computes.  ``control`` (a pipeline step over shards): also
+    the gradient that a step which dropped its ``data`` mean would hand on
+    (shard 0's alone), held against the averaged one leaf by leaf.
+    Returns ``(new params, gradient or None, loss, (least, largest)
+    relative L2 of that planted fault or None)``."""
     if shards == 1:
         if mode == "sync":
             new, loss = step_of(mode)(params, {"tokens": tokens}, key)
-            return new, None, loss
-        return step_of(mode)(params, pending, {"tokens": tokens}, key)
+            return new, None, loss, None
+        return (*step_of(mode)(params, pending, {"tokens": tokens}, key), None)
     from repro_torch.models import moe
-    from repro_torch.utils import tree_map
+    from repro_torch.utils import tree_leaves, tree_map
 
-    g_acc, loss = None, 0.0
+    g_acc, g0, loss = None, None, 0.0
     for d in range(shards):
         with _routing(moe, replay=iter(routes[d])):
             g, m = grad_fn(params, {"tokens": tokens[shard_rows(d)]})
+        if d == 0 and control and mode == "pipeline":
+            g0 = tree_map(torch.clone, g)
         g_acc = g if g_acc is None else tree_map(lambda a, b: a.add_(b), g_acc, g)
         loss = loss + m["loss"] / shards
         del g
     grads = tree_map(lambda a: a.div_(shards), g_acc)
+    fault = None
+    if g0 is not None:
+        rel = [_rel_l2(a, b) for a, b in zip(tree_leaves(g0), tree_leaves(grads))]
+        fault = (min(rel), max(rel))
+        del g0
     scale = (2.0 * TRAIN_AXIS_SIGMA * gamma) ** 0.5
     z = noise_like(key, params, scale, torch.float32, "jax")
-    new = sgld_apply(params, grads if mode == "sync" else pending, gamma, z)
-    return new, grads, loss
+    if mode == "sync":  # as the step: a sync step leaves no pending gradient
+        return sgld_apply(params, grads, gamma, z), None, loss, None
+    return sgld_apply(params, pending, gamma, z), grads, loss, fault
 
 
 def _pair_group(mesh, q: int):
@@ -4532,44 +4832,54 @@ def _pair_group(mesh, q: int):
     return (mesh.get_group(differ[0]) if inside else None), inside
 
 
-def _held_against(torch, tree, ref, mesh, rank: int, metric) -> tuple:
-    """Each placed leaf of ``tree`` against rank 0's unplaced ``ref``: each
-    distinct block (the first rank that holds it) is broadcast to rank 0
-    (over the one mesh axis between them where there is one), which puts
-    the leaf together and computes ``metric(whole, ref leaf)``; the ranks
-    that hold the same block (a replicated axis) are held bit for bit the
-    same by a checksum of their bits.  Returns (``{path: metric}`` on rank
-    0, whether those ranks agree)."""
+def _whole(torch, t, mesh, rank: int) -> tuple:
+    """The placed leaf ``t`` put together on rank 0: each distinct block
+    (the first rank that holds it) is broadcast to rank 0 (over the one
+    mesh axis between them where there is one); the ranks that hold the
+    same block (a replicated axis) are held bit for bit the same by a
+    checksum of their bits.  Returns (the whole leaf on rank 0, None on the
+    others; whether those ranks agree).  Every rank calls it."""
     import torch.distributed as dist
 
-    from repro_torch.checkpoint.io import leaf_paths
     from repro_torch.utils import all_gather
+
+    loc = t.to_local()
+    sigs = all_gather(_checksum(torch, loc)[None], None, 0)
+    first: dict = {}
+    agree = True
+    for q in range(mesh.mesh.numel()):
+        blk = _rank_block(t, mesh, q)
+        key = tuple((s.start, s.stop) for s in blk)
+        if key in first:
+            agree &= bool(torch.equal(sigs[q], sigs[first[key][0]]))
+        else:
+            first[key] = (q, blk)
+    whole = torch.empty(t.shape, dtype=loc.dtype, device=loc.device) if rank == 0 else None
+    for q, blk in first.values():
+        group, inside = _pair_group(mesh, q) if q else (None, False)
+        if q and not inside:
+            continue
+        buf = loc if rank == q else torch.empty_like(loc)
+        if q:
+            dist.broadcast(buf, src=q, group=group)
+        if rank == 0:
+            whole[blk] = buf
+        del buf
+    return whole, agree
+
+
+def _held_against(torch, tree, ref, mesh, rank: int, metric) -> tuple:
+    """Each placed leaf of ``tree`` against rank 0's unplaced ``ref``: the
+    leaf put together on rank 0 (:func:`_whole`), which computes
+    ``metric(whole, ref leaf)``.  Returns (``{path: metric}`` on rank 0,
+    whether the ranks that hold one block agree)."""
+    from repro_torch.checkpoint.io import leaf_paths
 
     out, agree = {}, True
     refs = dict(leaf_paths(ref)) if ref is not None else {}
     for path, t in leaf_paths(tree):
-        loc = t.to_local()
-        sigs = all_gather(_checksum(torch, loc)[None], None, 0)
-        first: dict = {}
-        for q in range(mesh.mesh.numel()):
-            blk = _rank_block(t, mesh, q)
-            key = tuple((s.start, s.stop) for s in blk)
-            if key in first:
-                agree &= bool(torch.equal(sigs[q], sigs[first[key][0]]))
-            else:
-                first[key] = (q, blk)
-        whole = torch.empty(t.shape, dtype=loc.dtype, device=loc.device) if rank == 0 \
-            else None
-        for q, blk in first.values():
-            group, inside = _pair_group(mesh, q) if q else (None, False)
-            if q and not inside:
-                continue
-            buf = loc if rank == q else torch.empty_like(loc)
-            if q:
-                dist.broadcast(buf, src=q, group=group)
-            if rank == 0:
-                whole[blk] = buf
-            del buf
+        whole, ok = _whole(torch, t, mesh, rank)
+        agree &= ok
         if rank == 0:
             out[path] = metric(whole, refs[path])
         del whole
@@ -4605,22 +4915,30 @@ def _noise_blocks_bitwise(torch, np, params, whole, key, mesh, rank,
     chain (``whole``: those leaves, drawn once for every layout): rank 0's
     own block bit for bit, every other rank's by a checksum of its bits
     (gathered, 16 bytes a leaf) against the same block of the whole draw.
-    True on every rank but rank 0, which returns the verdict."""
+    Returns ``(verdict, ms)``: True on every rank but rank 0, which returns
+    the verdict, and this rank's ms drawing its noise block (every leaf's
+    block, synchronised)."""
     from repro_torch.samplers.transforms import noise_like
     from repro_torch.utils import all_gather, tree_leaves
 
     scale = (2.0 * TRAIN_AXIS_SIGMA * gamma) ** 0.5
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
     placed = tree_leaves(noise_like(key, params, scale, torch.float32, "jax"))
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
     sigs = all_gather(torch.stack([_checksum(torch, z.to_local()) for z in placed])[None],
                       None, 0)  # (ranks, leaves, 2)
     if rank:
-        return True
+        return True, ms
     ok = True
     for i, (z, w) in enumerate(zip(placed, whole)):
         ok &= torch.equal(z.to_local(), w[_rank_block(z, mesh, 0)])
         for q in range(1, sigs.shape[0]):
             ok &= torch.equal(sigs[q, i], _checksum(torch, w[_rank_block(z, mesh, q)]))
-    return ok
+    return ok, ms
 
 
 def _rank_block(t, mesh, q: int) -> tuple:
@@ -4690,7 +5008,14 @@ def model_axis_train_cell(torch, np, cfg, mesh, rank: int, tol: tuple,
     from repro_torch.models.transformer import Model, init_params
     from repro_torch.samplers.transforms import noise_like, sgld_apply
     from repro_torch.train.loop import make_grad_fn
-    from repro_torch.utils import all_gather, local, place_like, tree_leaves, tree_zeros_like
+    from repro_torch.utils import (
+        all_gather,
+        local,
+        place_like,
+        tree_leaves,
+        tree_map,
+        tree_zeros_like,
+    )
 
     t_cell = time.perf_counter()
     on_card = device == "cuda"
@@ -4704,13 +5029,18 @@ def model_axis_train_cell(torch, np, cfg, mesh, rank: int, tol: tuple,
         print(f"{time.time():.2f} {cfg.name} {what}{held}", flush=True)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     D = mesh.shape[0]
-    shards = D if cfg.num_experts else 1
+    # the per-shard oracle for an MoE (capacity and routing are a shard's)
+    # and for the recurrent configs, whose gradient amplifies a reorder of
+    # the batch's sum past the gate (xlstm-1.3b's by up to 0.092 relative L2
+    # at init, scripts/torch_grad_spread.py): the same function, summed as
+    # the placed step sums it
+    shards = D if cfg.num_experts or _recurrent(cfg) else 1
     shape = ShapeConfig("axis", seq, batch, "train", num_microbatches=micro)
     r = np.random.default_rng(5)
     schedule = [(mode, torch.from_numpy(r.integers(0, cfg.vocab_size, (batch, seq + 1))
                                         .astype(np.int32)), rng.PRNGKey(100 + k))
                 for k, mode in enumerate(m for m, n in steps for _ in range(n))]
-    whole = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+    whole = init_params(cfg, 0, device=dev,
                         num_chains=1)
     scale = (2.0 * TRAIN_AXIS_SIGMA * gamma) ** 0.5
     noise0 = None if rank else tree_leaves(noise_like(schedule[0][2], whole, scale,
@@ -4725,11 +5055,12 @@ def model_axis_train_cell(torch, np, cfg, mesh, rank: int, tol: tuple,
         params = place_params(whole, model)
         held = sum(t.to_local().numel() * t.to_local().element_size()
                    for t in tree_leaves(params))
+        noise_ok, noise_ms = _noise_blocks_bitwise(torch, np, params, noise0,
+                                                   schedule[0][2], mesh, rank, gamma)
         got = {"steps": [], "layout": model.cfg.param_sharding,
                "batch_axes": model.batch_axes, "block_gb": held / 1e9,
                "held_is_block": held == param_bytes(model.cfg, mesh),
-               "noise_bitwise": _noise_blocks_bitwise(
-                   torch, np, params, noise0, schedule[0][2], mesh, rank, gamma)}
+               "noise_bitwise": noise_ok, "noise_ms": noise_ms}
         runs.append([layout, model, params,
                      place_like(tree_zeros_like(local(params)), params), got])
     del noise0
@@ -4788,14 +5119,16 @@ def model_axis_train_cell(torch, np, cfg, mesh, rank: int, tol: tuple,
                 if rank == 0:
                     sync()
                     t0 = time.perf_counter()
-                    ref_new, ref_grads, ref_loss = _unplaced_step(
+                    ref_new, ref_grads, ref_loss, fault = _unplaced_step(
                         torch, lambda m: ref_steps[m], ref_grad_fn, noise_like, sgld_apply,
                         ref_params, ref_pending, tokens, key, mode, shards,
                         lambda d: torch.from_numpy(_shard_rows(np, batch, micro, d, D)),
-                        shard_routes, gamma)
+                        shard_routes, gamma, control=_recurrent(cfg))
                     sync()
                     ref.update(unplaced_ms=(time.perf_counter() - t0) * 1e3,
                                loss_ref=float(ref_loss), grads=ref_grads)
+                    if fault is not None:
+                        ref["fault_rel"] = fault
                     if tol[2] is not None:  # kept only where the new parameters are held
                         ref["new"] = ref_new
                     ref_params = ref_new
@@ -4807,13 +5140,25 @@ def model_axis_train_cell(torch, np, cfg, mesh, rank: int, tol: tuple,
                 ref = saved[k]
                 row["routes_equal"] = len(routes) == len(ref["routes"]) and all(
                     torch.equal(a, b) for a, b in zip(routes, ref["routes"]))
-            row.update({n: ref[n] for n in ("unplaced_ms", "loss_ref") if n in ref})
+            row.update({n: ref[n] for n in ("unplaced_ms", "loss_ref", "fault_rel")
+                        if n in ref})
             if grads is not None:
                 row["grad_rel"], row["grads_agree"] = _held_against(
                     torch, grads, ref.get("grads"), mesh, rank, _rel_l2)
             if tol[2] is not None:
                 row["new_abs"], row["new_agree"] = _held_against(
                     torch, new, ref.get("new"), mesh, rank, _max_abs)
+            elif li == 0 and k + 1 < len(schedule):
+                # the new parameters are not held (bf16): the oracle's next
+                # step starts from the placed run's, so that its gradient is
+                # held at the same parameters, not at two chains that bf16
+                # rounding of the update has put apart
+                placed_new = tree_map(lambda t: _whole(torch, t, mesh, rank)[0], new)
+                if rank == 0:
+                    row["oracle_apart"] = max(_rel_l2(a, b) for a, b in zip(
+                        tree_leaves(ref_params), tree_leaves(placed_new)))
+                    ref_params = placed_new
+                del placed_new
             got["steps"].append(row)
             params = new
             if grads is not None:
@@ -4864,9 +5209,12 @@ def model_axis_train_rank(rank: int, store: str, out: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     world = math.prod(MODEL_AXIS_TRAIN_MESH)
     init_world("cuda", store, rank=rank, world_size=world, backend="gloo")
+    from repro_torch.kernels import jax_draw as jd
+
     res: dict = {}
     try:
         mesh = make_debug_mesh(*MODEL_AXIS_TRAIN_MESH)
+        jd.jax_draw.launches = 0
         for name, arch, layers, dtype, steps, *tol, layouts in MODEL_AXIS_TRAIN_CELLS:
             cfg = replace(get_arch(arch), num_layers=layers, dtype=dtype)
             t0 = time.perf_counter()
@@ -4874,6 +5222,7 @@ def model_axis_train_rank(rank: int, store: str, out: str) -> int:
                 torch, np, cfg, mesh, rank, tuple(tol), steps=steps, layouts=layouts,
                 gamma=TRAIN_AXIS_CELL_GAMMA.get(name, TRAIN_AXIS_GAMMA))
             res[name]["cell_s"] = time.perf_counter() - t0
+        res["jax_draw_launches"] = jd.jax_draw.launches
     except BaseException:  # noqa: BLE001 — reported to the parent, which fails the phase
         res["error"] = traceback.format_exc()
     with open(Path(out) / f"rank{rank}.pkl", "wb") as f:
@@ -4902,6 +5251,10 @@ def _train_gates(name: str, cells: list, loss_rtol, grad_rel, new_atol) -> None:
         if "grad_rel" in row:
             bad = {p: v for p, v in row["grad_rel"].items() if not v <= grad_rel}
             check(not bad, f"{where}: gradients past relative L2 {grad_rel}: {bad}")
+            if "fault_rel" in row:
+                check(row["fault_rel"][1] > grad_rel,
+                      f"{where}: a step that dropped its data mean reads "
+                      f"{row['fault_rel']}, within the gate {grad_rel}")
             check(all(c["steps"][i]["grads_agree"] for c in cells),
                   f"{where}: the ranks that hold one gradient block differ")
         if new_atol is not None:
@@ -4934,6 +5287,10 @@ def model_axis_train_report(ranks: list, cells_run) -> dict:
                                         if "grad_rel" in s), default=None),
                    "new_abs_max": max((max(s["new_abs"].values()) for s in rows
                                        if "new_abs" in s), default=None),
+                   "oracle_apart": max((s["oracle_apart"] for s in rows
+                                        if "oracle_apart" in s), default=None),
+                   "fault_rel": next((s["fault_rel"] for s in rows if "fault_rel" in s),
+                                     None),
                    "collectives": [s["collectives"] for s in rows],
                    "gathered_gb": [max(c["steps"][i]["gathered_gb"] for c in cells)
                                    for i in range(len(rows))],
@@ -4942,19 +5299,23 @@ def model_axis_train_report(ranks: list, cells_run) -> dict:
                    "reserved_gb": [c["reserved_gb"] for c in cells],
                    "cell_s": [g[name]["cell_s"] for g in ranks],
                    "setup_s": [g[name]["setup_s"] for g in ranks],
-                   "setup_reserved_gb": [g[name]["setup_reserved_gb"] for g in ranks]}
+                   "setup_reserved_gb": [g[name]["setup_reserved_gb"] for g in ranks],
+                   "noise_ms": [c["noise_ms"] for c in cells]}
             out[label] = row
             log(f"model axis train {label} ({layers} layers, {dtype}, {row['layout']}, "
                 f"batch over {row['batch_axes']}): loss {row['loss'][-1]:.5f} / unplaced "
-                f"{row['loss_ref'][-1]:.5f}; gradient rel L2 <= {row['grad_rel_max']}; new "
-                f"params <= {row['new_abs_max']}; ms a step placed "
+                f"{row['loss_ref'][-1]:.5f}; gradient rel L2 <= {row['grad_rel_max']} (a "
+                f"dropped data mean: {row['fault_rel']}); new "
+                f"params <= {row['new_abs_max']}; the oracle's chain apart from the "
+                f"placed one before it was reset to it <= {row['oracle_apart']}; ms a step placed "
                 f"{[round(max(m), 1) for m in row['ms_placed']]}, unplaced "
                 f"{[round(m, 1) for m in row['ms_unplaced']]}; collectives a step "
                 f"{row['collectives'][-1]}; a rank's block {max(row['block_gb']):.3f} GB, "
                 f"gathered at once <= {max(row['gathered_gb']):.3f} GB; peak GB "
                 f"{row['peak_gb']}, reserved {row['reserved_gb']}; the cell's set-up "
                 f"{[round(t, 1) for t in row['setup_s']]} s, reserved "
-                f"{row['setup_reserved_gb']} GB; the cell {[round(t, 1) for t in row['cell_s']]} s")
+                f"{row['setup_reserved_gb']} GB; the cell {[round(t, 1) for t in row['cell_s']]} s; "
+                f"a rank's noise block {[round(t, 2) for t in row['noise_ms']]} ms")
     return out
 
 
@@ -4967,7 +5328,10 @@ def model_axis_train_path(torch, np) -> dict:
     ranks = _spawn_world(MODEL_AXIS_TRAIN_OUT, "--model-axis-train-rank",
                          math.prod(MODEL_AXIS_TRAIN_MESH), MODEL_AXIS_TRAIN_TIMEOUT,
                          "model axis train")
-    return model_axis_train_report(ranks, MODEL_AXIS_TRAIN_CELLS)
+    out = model_axis_train_report(ranks, MODEL_AXIS_TRAIN_CELLS)
+    out["jax_draw_launches"] = sum(g["jax_draw_launches"] for g in ranks)
+    check(out["jax_draw_launches"] >= 1, "phase 15: the ranks never launched the draw kernel")
+    return out
 
 
 def main() -> int:
@@ -5001,8 +5365,10 @@ def main() -> int:
         print("chip_smoke: the tree does not lint clean", file=sys.stderr)
         return 1
     from repro_torch.kernels import build
+    from repro_torch.kernels import categorical as kc
     from repro_torch.kernels import decode_step as ds
     from repro_torch.kernels import delay_gather as dg
+    from repro_torch.kernels import jax_draw as jd
     from repro_torch.kernels import langevin_update as lu
     from repro_torch.kernels import ref
 
@@ -5022,6 +5388,14 @@ def main() -> int:
     for line in "\n".join(logs.values()).splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("ptxas:", line.strip(), file=sys.stderr)
+
+    t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"{name}: {now - t_phase:.1f} s; the script so far {now - T_START:.1f} s")
+        t_phase = now
 
     dec = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -5075,8 +5449,14 @@ def main() -> int:
     long_row = run_long_row_checks(torch, np, dg)
     chains = run_chain_checks(torch, np, lu, dg, ref)
     masks = run_mask_checks(torch, np, lu, dg, ref)
+    t2d = time.perf_counter()
+    draws = run_draw_checks(torch, np)
+    inits = init_reference_check(torch, np)
+    log(f"phase 2, the draw kernels and the weights: {time.perf_counter() - t2d:.1f} s")
+    phase_done("phase 2")
     reference_check(torch, np)
     training_reference_check(torch, np, lu, dg)
+    phase_done("phase 3")
     from repro_torch.configs import get_arch
 
     mp = main_path(torch, np, ds, get_arch("qwen3-4b"))
@@ -5084,16 +5464,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"serving bank freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         "still allocated")
+    phase_done("phases 4-5 (the serving bank)")
     tp = train_path(torch, np, lu, dg)
     gc.collect()  # the training chain and its ring went out of scope
     torch.cuda.empty_cache()
     tl = train_lm_decode(torch, np, ds)
+    phase_done("phase 6")
     sgld_kernels = {"langevin_update": lu.langevin_update, "wicon_read": dg.wicon_read,
                     "delay_gather": dg.delay_gather,
                     "coordinate_delays": dg.coordinate_delays}
     paper_reference_check(np, sgld_kernels)
     pf = paper_fused_check(np, sgld_kernels)
+    draw_kernels = {"jax_draw": jd.jax_draw, "categorical": kc.categorical}
+    t7 = time.perf_counter()
+    _reset(draw_kernels)
     pp = paper_path(torch, np, sgld_kernels)
+    paper_draws = _counts(draw_kernels)
+    check(paper_draws["jax_draw"] >= 1, "phase 7c: the paper's draws never reached the "
+          f"draw kernel ({paper_draws})")
+    log(f"phase 7c: {time.perf_counter() - t7:.1f} s; draw launches {paper_draws}")
+    phase_done("phase 7")
     ca = cluster_reference_check(torch, np, sgld_kernels)
     cq = cluster_quickstart(torch, np, sgld_kernels)
     sq = serve_quickstart(torch, np, sgld_kernels, ds)
@@ -5102,11 +5492,13 @@ def main() -> int:
     cp = cluster_path(torch, np, sgld_kernels, keep=(0, 3))
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("phase 8")
     fa = cluster_fault_check(torch, np, sgld_kernels)
     fb = cluster_fault_path(torch, np, sgld_kernels, cp)
     del cp["final"]
     fc = run_checkpoint_path(torch, np, sgld_kernels)
     _free(torch)
+    phase_done("phase 9")
     zoo = [zoo_config(torch, np, ds, arch) for arch in ZOO_DEPTH]
     srv = moe_serve_path(torch, np, ds)
     zt = [train_path(torch, np, lu, dg, ("--arch", "phi3.5-moe-42b-a6.6b", "--layers",
@@ -5116,6 +5508,7 @@ def main() -> int:
     zoo_train = {"launches": {k: sum(r["launches"][k] for r in zt)
                               for k in zt[0]["launches"]}}
     _free(torch)
+    phase_done("phase 10")
     # phase 11: the recurrent configs
     t11 = time.perf_counter()
     rref = recurrent_reference_check(torch, np, lu, dg, ds)
@@ -5167,6 +5560,7 @@ def main() -> int:
     # phase 15: training on the model axis
     t15 = time.perf_counter()
     axis_train = model_axis_train_path(torch, np)
+    axis_draws = axis_train.pop("jax_draw_launches")
     phase15_s = time.perf_counter() - t15
     log(f"phase 15: {phase15_s:.1f} s; the script so far {time.perf_counter() - T_START:.1f} s "
         "of its 1,200")
@@ -5278,6 +5672,36 @@ def main() -> int:
                            "bound_by", "library_ms")} for r in (wic, gat)]
     kernels[-2]["past_2_32"] = long_row["wicon_read"]
     kernels[-1]["past_2_32"] = long_row["coordinate_delays"]
+    # not Pallas kernels: the reference's jax.random draws, which XLA runs
+    big = next(r for r in draws["draws"] if r["case"] == "largest_leaf")
+    by_path = {"init": mp["init"]["launches"], "noise": mp["noise"]["launches"],
+               "paper": paper_draws["jax_draw"],
+               "prefetcher": tool["prefetch"]["ar1_stream"]["launches"],
+               "cluster_quickstart": sum(r["jax_draw_launches"] for r in cq.values()),
+               "phase15": axis_draws}
+    kernels.append({
+        "name": "jax_draw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/jax_draw.cu",
+        "replaces": "not Pallas: jax.random.normal / uniform "
+                    "(src/repro/models/common.py:72)",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        **{k: big[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+        "torch_randn_ms": big["torch_randn_ms"], "cases": draws["draws"],
+        "init_reference": inits})
+    cat = next(r for r in draws["categorical"]
+               if r["rows"] == 4 and r["dtype"] == "bfloat16" and r["mode"] == "key")
+    by_path = {"decode": mp["decode"]["categorical_launches"],
+               "paged": mp["paged"]["categorical_launches"]}
+    kernels.append({
+        "name": "categorical", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/categorical.cu",
+        "replaces": "not Pallas: jax.random.categorical "
+                    "(src/repro/cluster/decode.py:178)",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        **{k: cat[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+        "cases": draws["categorical"]})
     log(json.dumps({"paper": {k: v for k, v in pp.items() if k != "launches"}}))
     log(json.dumps({"cluster": {"reference": ca, "quickstart": cq, "full_width": cp}}))
     log(json.dumps({"serve": {**mp["serve"], "quickstart": sq}}))

@@ -21,9 +21,11 @@ exact full gradient as the control-variate anchor) or ``sghmc`` (a
 momentum buffer per chain).  ``run_ensemble(..., fused=True)`` runs
 ``sgld`` as W-Icon through the fused preset (on a card: one
 Langevin-update and one W-Icon-read launch a commit for all 32 chains;
-``chip_smoke.py`` phase 8b calls it so).  ``--noise jax`` draws the
-unfused noise as ``jax.random.normal`` does, so the W2 rows can be set
-beside the JAX example's.  ``--device cuda`` (the default) needs a card.
+``chip_smoke.py`` phase 8b calls it so).  The unfused noise is drawn as
+``jax.random.normal`` draws it (``noise="jax"``, the library's default), so
+the W2 rows can be set beside the JAX example's; ``--noise torch`` draws
+it from a ``torch.Generator`` instead.  ``--device cuda`` (the default)
+needs a card.
 """
 
 import argparse
@@ -50,7 +52,7 @@ def problem(device):
 
 
 def build_ensemble(sampler_name: str = "sgld", *, device="cuda", fused: bool = False,
-                   noise: str = "torch"):
+                   noise: str = "jax"):
     """The first half's engine (a W2 recorder every 50 commits), initial
     state, per-chain schedules and realized max staleness."""
     dev = resolve_device(device)
@@ -79,7 +81,7 @@ def build_ensemble(sampler_name: str = "sgld", *, device="cuda", fused: bool = F
 
 
 def run_ensemble(sampler_name: str = "sgld", *, device="cuda", fused: bool = False,
-                 noise: str = "torch"):
+                 noise: str = "jax"):
     """The first half: 32 chains, 600 commits.  Returns (W2 rows, engine,
     final state, wall seconds, realized max staleness)."""
     engine, state, schedules, tau = build_ensemble(sampler_name, device=device,
@@ -92,7 +94,7 @@ def run_ensemble(sampler_name: str = "sgld", *, device="cuda", fused: bool = Fal
     return engine.hooks[0].record, engine, state, time.perf_counter() - t0, tau
 
 
-def run_heterogeneous(*, device="cuda", noise: str = "torch"):
+def run_heterogeneous(*, device="cuda", noise: str = "jax"):
     """The second half: inverse-speed batches of a 8192 x 2 data stream,
     base batch 8, gamma 0.02.  Returns (w2 rows, engine, state, wall s)."""
     dev = resolve_device(device)
@@ -122,7 +124,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sampler", choices=("sgld", "svrg", "sghmc"), default="sgld",
                     help="zoo preset for the chain ensemble")
-    ap.add_argument("--noise", choices=("torch", "jax"), default="torch",
+    ap.add_argument("--noise", choices=("jax", "torch"), default="jax",
                     help="the unfused noise draw")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; needs a card) or cpu")

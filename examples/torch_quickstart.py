@@ -29,6 +29,7 @@ from repro_torch.models.transformer import Model, init_params
 from repro_torch.train.engine import Engine, log_hook
 from repro_torch.train.loop import make_grad_fn
 from repro_torch.utils import resolve_device, tree_leaves
+from repro_torch.weights import unit_chain
 
 ARCH = "qwen3-4b"
 STEPS = 30
@@ -47,8 +48,7 @@ def main(argv=None):
     cfg = get_reduced(ARCH)
     shape = ShapeConfig("quickstart", seq_len=128, global_batch=8, kind="train")
     model = Model(cfg, device=dev)
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
-                         num_chains=1)
+    params = unit_chain(init_params(cfg, rng.PRNGKey(0), device=dev))
     n = sum(t.numel() for t in tree_leaves(params))
     print(f"{cfg.name}: {n / 1e6:.1f}M params on {dev}")
 

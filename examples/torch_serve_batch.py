@@ -30,6 +30,7 @@ from repro_torch.models.transformer import Model, init_params
 from repro_torch.train.engine import Engine
 from repro_torch.train.loop import make_train_step
 from repro_torch.utils import resolve_device, tree_map
+from repro_torch.weights import unit_chain
 
 
 def main(argv=None):
@@ -57,8 +58,7 @@ def main(argv=None):
     sampler, _ = make_train_step(model, SGLDConfig(mode="pipeline", gamma=1e-3, sigma=1e-8),
                                  fused=True)
     for c in range(args.chains):
-        params = init_params(cfg, torch.Generator(device=dev).manual_seed(c), device=dev,
-                             num_chains=1)
+        params = unit_chain(init_params(cfg, rng.PRNGKey(c), device=dev))
         if args.warm_steps > 0:
             key, init_key = rng.split(rng.PRNGKey(c))
             engine = Engine(sampler, batch_fn=lambda k: make_batch(cfg, shape, k, "train"),

@@ -18,7 +18,6 @@ import argparse
 import time
 
 import numpy as np
-import torch
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.cluster import DecodeEngine
@@ -30,7 +29,7 @@ from repro_torch.models.transformer import Model, init_params
 from repro_torch.train.engine import Engine, checkpoint_hook
 from repro_torch.train.loop import make_train_step
 from repro_torch.utils import resolve_device, tree_leaves
-from repro_torch.weights import drop_unit_chain
+from repro_torch.weights import drop_unit_chain, unit_chain
 
 LM_100M = ArchConfig(
     name="lm-100m",
@@ -68,8 +67,7 @@ def main(argv=None):
     cfg = LM_100M
     shape = ShapeConfig("lm", seq_len=args.seq, global_batch=args.batch, kind="train")
     model = Model(cfg, device=dev)
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
-                         num_chains=1)
+    params = unit_chain(init_params(cfg, rng.PRNGKey(0), device=dev))
     n = sum(t.numel() for t in tree_leaves(params))
     print(f"{cfg.name}: {n / 1e6:.1f}M params, mode={args.mode}"
           f"{' (fused)' if args.fused else ''}, tokens/step={args.batch * args.seq}, "

@@ -3,7 +3,8 @@ how far one ulp of its weights moves it: the unplaced gradient of one batch
 taken in one microbatch and in two (the same mean, summed in another
 order), leaf by leaf, on one card, beside the one-microbatch gradient at
 weights moved by one ulp each (up or down at random) and the same
-gradient taken twice.
+gradient taken twice; in bf16 also how far it is from the float32
+gradient at the same weights.
 
 A placed step's gradient is held against the unplaced one's
 (``chip_smoke.py`` phase 15); this is the floor under any such gate. Where
@@ -11,14 +12,20 @@ the one-ulp move carries the gradient as far as the reorder does, rounding,
 amplified by the model, accounts for the reorder's spread. Usage::
 
     python3 scripts/torch_grad_spread.py [--cells xlstm-1.3b:8 hymba-1.5b:2 qwen3-4b:4]
-        [--dtypes bfloat16 float32] [--device cuda]
+        [--dtypes bfloat16 float32] [--device cuda] [--reduced] [--batch 8 --seq 128]
+
+``--reduced`` takes each config's reduced widths and layers (the CPU
+rehearsal's, ``tests/torch_model_axis_train_world.py``; a cell's layers
+are then ignored).
 
 Prints the card's name and power limit, then one JSON line a (config,
 dtype): the two losses and, for each of ``reorder`` (one microbatch
 against two), ``ulp`` (the weights moved by one ulp against not) and
-``repeat`` (the same call twice), each leaf's relative L2 between the two
-gradients (the largest, the median, the six largest); and the largest
-|gradient|. The batch is 8 x 129 tokens from ``numpy.random.default_rng(5)``;
+``repeat`` (the same call twice) and, below float32, ``vs_float32`` (the
+float32 gradient at the same weights against this one), each leaf's
+relative L2 between the two gradients (the largest, the median, the six
+largest); and the largest |gradient|. The batch is ``batch`` x ``seq + 1``
+tokens from ``numpy.random.default_rng(5)``;
 the weights are ``init_params`` from seed 0, the ulp's directions from
 seed 1. Imports no JAX.
 """
@@ -65,13 +72,17 @@ def main() -> int:
                     help="ARCH:LAYERS, each at its published widths")
     ap.add_argument("--dtypes", nargs="+", default=["bfloat16", "float32"])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the configs' reduced widths and layers")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
     args = ap.parse_args()
 
     import numpy as np
     import torch
 
     from repro_torch.checkpoint.io import leaf_paths
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import get_arch, get_reduced
     from repro_torch.models.transformer import Model, init_params
     from repro_torch.train.loop import make_grad_fn
     from repro_torch.utils import tree_map
@@ -82,14 +93,14 @@ def main() -> int:
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip(), flush=True)
     for cell in args.cells:
-        arch, layers = cell.split(":")
+        arch, _, layers = cell.partition(":")
         for dtype in args.dtypes:
             t0 = time.perf_counter()
-            cfg = replace(get_arch(arch), num_layers=int(layers), dtype=dtype)
-            params = init_params(cfg, torch.Generator(device=args.device).manual_seed(0),
-                                 device=args.device, num_chains=1)
+            cfg = (replace(get_reduced(arch), dtype=dtype) if args.reduced
+                   else replace(get_arch(arch), num_layers=int(layers), dtype=dtype))
+            params = init_params(cfg, 0, device=args.device, num_chains=1)
             tokens = torch.from_numpy(np.random.default_rng(5).integers(
-                0, cfg.vocab_size, (8, 129)))
+                0, cfg.vocab_size, (args.batch, args.seq + 1)))
             model = Model(cfg, device=args.device)
             g1, m1 = make_grad_fn(model, 1)(params, {"tokens": tokens})
             g2, m2 = make_grad_fn(model, 2)(params, {"tokens": tokens})
@@ -97,14 +108,19 @@ def main() -> int:
             moved = _one_ulp(torch, tree_map, params, args.device)
             g_ulp = make_grad_fn(model, 1)(moved, {"tokens": tokens})[0]
             del moved
+            pairs = [("reorder", g2), ("ulp", g_ulp), ("repeat", again)]
+            if dtype != "float32":
+                f32 = replace(cfg, dtype="float32")
+                pairs.append(("vs_float32", make_grad_fn(Model(f32, device=args.device), 1)(
+                    tree_map(lambda t: t.float() if t.is_floating_point() else t, params),
+                    {"tokens": tokens})[0]))
             print(json.dumps({
-                "arch": arch, "layers": int(layers), "dtype": dtype,
+                "arch": arch, "layers": cfg.num_layers, "dtype": dtype,
                 "loss": [float(m1["loss"]), float(m2["loss"])],
-                **{name: _spread(np, leaf_paths, g1, g) for name, g in (
-                    ("reorder", g2), ("ulp", g_ulp), ("repeat", again))},
+                **{name: _spread(np, leaf_paths, g1, g) for name, g in pairs},
                 "max_abs_grad": max(float(t.abs().max()) for _, t in leaf_paths(g1)),
                 "seconds": time.perf_counter() - t0}), flush=True)
-            del params, g1, g2, again, g_ulp, model
+            del params, g1, g2, again, g_ulp, model, pairs
             if args.device == "cuda":
                 torch.cuda.empty_cache()
     return 0

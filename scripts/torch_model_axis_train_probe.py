@@ -98,8 +98,7 @@ def rank_main(rank: int, store: str, layers: int, steps: int, chunk: int) -> Non
     dev = torch.device("cuda", torch.cuda.current_device())
     cfg = replace(get_arch("qwen3-4b"), num_layers=layers, dtype="bfloat16")
     shape = ShapeConfig("probe", 128, 8, "train", num_microbatches=2)
-    whole = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
-                        num_chains=1)
+    whole = init_params(cfg, 0, device=dev, num_chains=1)
     model = Model(cfg, device=dev, mesh=mesh, batch_axes=("data",))
     params = place_params(whole, model)
     del whole

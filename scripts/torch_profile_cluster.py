@@ -116,8 +116,7 @@ def full_cell(steps: int, health: bool = False) -> dict:
                             gamma=1e-3, sigma=1e-5, tau=tau, has_aux=True, fused=True)
     engine = ClusterEngine(sampler, num_chains=C, chunk_size=1, health_check=health,
                            batch_fn=lambda k: make_batch(cfg, shape, k, "train"))
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         device="cuda", num_chains=1)
+    params = init_params(cfg, rng.PRNGKey(0), device="cuda", num_chains=1)
     holder = [engine.init(params, rng.PRNGKey(0))]
     del params
     keys = iter(rng.split(rng.PRNGKey(0), 2))  # a batch key stream a run

@@ -113,8 +113,7 @@ def main() -> int:
     build.build()
     cfg = get_arch("qwen3-4b")
     C = 4
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         device="cuda", num_chains=C)
+    params = init_params(cfg, 0, device="cuda", num_chains=C)
     model = Model(cfg)
     rng = np.random.default_rng(0)
     if args.serve:

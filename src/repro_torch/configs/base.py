@@ -123,7 +123,7 @@ class ArchConfig:
         from repro_torch.models.transformer import init_params
         from repro_torch.utils import tree_leaves
 
-        params = init_params(self, device="meta")
+        params = init_params(self, None, device="meta")
         return sum(t.numel() for t in tree_leaves(params))
 
     def active_param_count(self) -> int:

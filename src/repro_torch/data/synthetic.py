@@ -6,10 +6,11 @@ launcher); ``make_specs`` returns tensors on the ``meta`` device in place
 of the reference's ``ShapeDtypeStruct`` stand-ins, with the same shapes
 and dtypes (the dry run: no memory, no device).
 
-Batches are drawn on the CPU from a PRNG key (:mod:`~repro_torch.kernels.
-rng`: ``split``, ``randint``, ``bernoulli`` as ``uniform < p``, and
-``normal``), so a key gives the JAX package's batch bit for bit, whichever
-device trains on it (the model moves it to its device).
+Batches are drawn from a PRNG key (:mod:`~repro_torch.kernels.rng`:
+``split``, ``randint``, ``bernoulli`` as ``uniform < p``, and ``normal``)
+on the device ``make_batch`` is given (the CPU by default; on a card the
+uniforms and the frontend stubs' normals are the draw kernel's), so a key
+gives the JAX package's batch bit for bit, whichever device draws it.
 
 Frontend stubs, as in the reference: a vision or audio config's batches
 carry precomputed embeddings ``(B, num_frontend_tokens, FRONTEND_DIM)`` in
@@ -25,14 +26,15 @@ from repro_torch.kernels import rng
 from repro_torch.models.transformer import FRONTEND_DIM
 
 
-def token_stream(key, vocab_size: int, batch: int, length: int) -> torch.Tensor:
+def token_stream(key, vocab_size: int, batch: int, length: int,
+                 device="cpu") -> torch.Tensor:
     """Markov-ish synthetic tokens (not uniform — a learnable signal): about
-    half the positions copy the token before them.  (batch, length) int32,
-    the reference's: ``k1, k2 = split(key)``, ``randint`` under ``k1``, the
-    copies where ``bernoulli(k2, 0.5)``."""
+    half the positions copy the token before them.  (batch, length) int32
+    on ``device``, the reference's: ``k1, k2 = split(key)``, ``randint``
+    under ``k1``, the copies where ``bernoulli(k2, 0.5)``."""
     k1, k2 = rng.split(rng.as_key(key))
-    base = rng.randint(k1, batch * length, vocab_size).reshape(batch, length)
-    rep = rng.jax_uniform(k2, (batch, length)) < 0.5
+    base = rng.randint(k1, batch * length, vocab_size, device).reshape(batch, length)
+    rep = rng.jax_uniform(k2, (batch, length), device=device) < 0.5
     shifted = torch.roll(base, 1, dims=1)
     return torch.where(rep, shifted, base)
 
@@ -41,10 +43,10 @@ def _text_len(cfg, shape) -> int:
     return shape.seq_len - (cfg.num_frontend_tokens if cfg.frontend else 0)
 
 
-def make_batch(cfg, shape, key, kind: str | None = None):
+def make_batch(cfg, shape, key, kind: str | None = None, device="cpu"):
     """Real tensors for an (arch, shape) pair from ``key`` (a PRNG key, or
-    an int seed of one), the reference's numbers; ``kind`` defaults to
-    ``shape.kind``.  ``kf, kt = split(key)``.  ``train``: ``{"tokens": (B,
+    an int seed of one), the reference's numbers, drawn on ``device``;
+    ``kind`` defaults to ``shape.kind``.  ``kf, kt = split(key)``.  ``train``: ``{"tokens": (B,
     S_text + 1) int32}`` (the extra token is the last position's label)
     from ``token_stream(kt)``; ``prefill``: ``(B, S_text)``; both with
     ``"frontend"`` (``normal(kf)``) for a frontend config.  ``decode``:
@@ -56,13 +58,13 @@ def make_batch(cfg, shape, key, kind: str | None = None):
     if kind in ("train", "prefill"):
         extra = 1 if kind == "train" else 0
         batch = {"tokens": token_stream(kt, cfg.vocab_size, B,
-                                        _text_len(cfg, shape) + extra)}
+                                        _text_len(cfg, shape) + extra, device)}
         if cfg.frontend:
             batch["frontend"] = rng.jax_normal(
-                kf, (B, cfg.num_frontend_tokens, FRONTEND_DIM))
+                kf, (B, cfg.num_frontend_tokens, FRONTEND_DIM), device)
         return batch
     if kind == "decode":
-        return {"tokens": rng.randint(kt, B, cfg.vocab_size).reshape(B, 1),
+        return {"tokens": rng.randint(kt, B, cfg.vocab_size, device).reshape(B, 1),
                 "cur_pos": shape.seq_len - 1}
     raise ValueError(kind)
 

@@ -24,6 +24,19 @@ word (the high word is 0 below 2**32 elements).
 
 The CUDA kernels (``csrc/threefry.cuh``) compute the same functions in
 native ``uint32``; the tests hold this module against ``jax.random``.
+
+The float32 draws route by device, as :mod:`repro_torch.kernels.ops`
+does: on a card :func:`jax_uniform`, :func:`jax_normal`, :func:`gumbel`,
+:func:`normal_rows` and :func:`uniform_rows` are one launch of the draw
+kernel (:mod:`~repro_torch.kernels.jax_draw`, ``csrc/jax_draw.cu``), and
+:func:`categorical` and :func:`categorical_rows` one launch of the
+categorical kernel (:mod:`~repro_torch.kernels.categorical`), with no
+fallback; on the CPU they are the plain host-style path below, the
+kernels' plain version; on ``meta`` they give shapes as the plain path
+does (nothing is drawn).  Any other device raises, and so does a
+``DTensor``.  On a card and on ``meta`` each reports its formula cost to
+any open count (:func:`repro_torch.analysis.cost.record_kernel`): its
+bytes, no FLOPs (:func:`_record`).
 """
 
 from __future__ import annotations
@@ -32,6 +45,11 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch.analysis import cost as _cost
+from repro_torch.kernels import categorical as _cat
+from repro_torch.kernels import jax_draw as _jd
+from repro_torch.utils import is_placed, to_device
 
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -252,11 +270,31 @@ def _flat_counters(shape: tuple, parts: list, start: int, a: int, b: int,
     return idx
 
 
+def _route(device, what: str) -> torch.device:
+    """The device a draw runs on: a card (the kernel), the CPU (the plain
+    path) or ``meta`` (shapes); any other raises."""
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"{what}: no kernel for device {dev}")
+    return dev
+
+
+def _record(dev: torch.device, nbytes: int) -> None:
+    """A draw's formula cost, on a card or ``meta`` while a count is open:
+    the bytes it writes (or reads), and no FLOPs — its work is integer and
+    transcendental operations outside the count's FLOP formulas, which the
+    plain path's ATen ops on the CPU do not reach either, so a step counts
+    the same FLOPs on a card, on ``meta`` and on the CPU."""
+    if dev.type != "cpu" and _cost.counting():
+        _cost.record_kernel(0.0, float(nbytes))
+
+
 def _draw(key, shape, device, start: int, block, values) -> torch.Tensor:
     """``values(bits)`` (float32, elementwise, from int32 bit patterns) of a
     draw of ``shape`` under ``key``, or of its ``block``: the block of the
     whole draw, bit for bit, by each element's global counter.  Works in
-    slices of :data:`CHUNK` elements, so the temporaries stay bounded."""
+    slices of :data:`CHUNK` elements, so the temporaries stay bounded.
+    The plain path (the CPU, and shapes on ``meta``)."""
     shape = tuple(int(n) for n in shape)
     _check_counter(start + math.prod(shape))
     parts = _block_of(shape, block)
@@ -268,6 +306,38 @@ def _draw(key, shape, device, start: int, block, values) -> torch.Tensor:
         out[a:b] = values(_bits32_at(key, _flat_counters(shape, parts, start, a, b,
                                                          device)))
     return out.reshape(out_shape)
+
+
+def _scaled(z: torch.Tensor, op, c: float, dtype) -> torch.Tensor:
+    """The plain path's epilogue: ``c * z`` (``op="mul"``) or ``z / c``
+    (``op="div"``) with float32 ``c``, each rounded once, then cast to
+    ``dtype`` (nearest even)."""
+    cf = float(np.float32(c))
+    if op == "mul":
+        z = cf * z  # a float32 product
+    elif op == "div":
+        z = z / cf  # IEEE float32 division, as XLA's (not z * (1 / c))
+    return z if dtype == torch.float32 else z.to(dtype)
+
+
+def _draw_routed(key, shape, device, start: int, block, value: str, values,
+                 lo: float = 0.0, span: float = 1.0, op=None, c: float = 1.0,
+                 dtype=torch.float32) -> torch.Tensor:
+    """:func:`_draw` of ``values`` on the CPU and ``meta``, the draw kernel's
+    ``value`` on a card (``lo``, ``span``: a uniform's float32 bounds),
+    then ``op`` with ``c`` and the cast to ``dtype``."""
+    dev = _route(device, "jax.random draw")
+    shape = tuple(int(n) for n in shape)
+    _check_counter(start + math.prod(shape))
+    parts = _block_of(shape, block)
+    n = math.prod(length for _, length in parts)
+    _record(dev, torch.empty((), dtype=dtype).element_size() * n)
+    if dev.type == "cuda":
+        return _jd.jax_draw(as_key(key), shape, parts, value, dev, start=start, op=op,
+                            c=c, lo=lo, span=span, dtype=dtype)
+    if dev.type == "meta":
+        return torch.empty(tuple(length for _, length in parts), dtype=dtype, device=dev)
+    return _scaled(_draw(key, shape, dev, start, block, values), op, c, dtype)
 
 
 def randint_params(key, maxval: int) -> tuple:
@@ -362,11 +432,17 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     return (_f64(a) * _f64(b) + _f64(c)).float()
 
 
+def _uniform_bounds(minval: float, maxval: float) -> tuple:
+    """``(lo, span)``: float32 ``minval`` and ``float32(maxval) - lo``,
+    rounded as numpy rounds them."""
+    lo = np.float32(minval)
+    return lo, np.float32(maxval) - lo
+
+
 def _uniform_values(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
     """Uniforms from int32 bit patterns (:func:`_bits32_at`)."""
     u = (((bits >> 9) & 0x7FFFFF) | 0x3F800000).view(torch.float32) - 1.0
-    lo = np.float32(minval)
-    span = np.float32(maxval) - lo
+    lo, span = _uniform_bounds(minval, maxval)
     return torch.clamp_min(_fma(u, span, lo), float(lo))
 
 
@@ -380,8 +456,9 @@ def jax_uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
     ``block`` (a slice a dimension of ``shape``): that block of the draw
     alone, each element at its counter in the whole — a placed leaf's
     block, bit for bit the whole draw's."""
-    return _draw(key, shape, device, start, block,
-                 lambda bits: _uniform_values(bits, minval, maxval))
+    lo, span = _uniform_bounds(minval, maxval)
+    return _draw_routed(key, shape, device, start, block, "uniform",
+                        lambda bits: _uniform_values(bits, minval, maxval), lo, span)
 
 
 # XLA's float32 log: Cephes' logf on the mantissa in [sqrt(1/2), sqrt(2))
@@ -474,18 +551,30 @@ def _xla_erf_inv(x: torch.Tensor) -> torch.Tensor:
                        p * x)
 
 
-def jax_normal(key, shape, device="cpu", start: int = 0, block=None) -> torch.Tensor:
+def jax_normal(key, shape, device="cpu", start: int = 0, block=None, *,
+               scale: float | None = None, dtype=torch.float32) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: ``sqrt(2) *
     erf_inv(u)`` with u uniform in ``(nextafter(-1, 0), 1)`` and XLA's
     ``erf_inv``, ``log1p`` and ``log``, so the draws are JAX's on the CPU:
     ``tests/test_torch_potentials.py`` holds them within 4 ulps and bit for
     bit on 99% of draws (every draw it tests is equal).  ``start`` and
     ``block`` as :func:`jax_uniform`'s: a placed leaf draws its block of
-    the whole leaf's draw, never the whole."""
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    root2 = np.float32(math.sqrt(2.0)).item()
-    return _draw(key, shape, device, start, block,
-                 lambda bits: root2 * _xla_erf_inv(_uniform_values(bits, lo, 1.0)))
+    the whole leaf's draw, never the whole.  ``scale`` (optional): the
+    float32 product ``scale * z``, then the cast to ``dtype`` — the
+    reference's ``(scale * normal(key, shape)).astype(dtype)``, one launch
+    on a card."""
+    return _draw_routed(key, shape, device, start, block, "normal", _normal_values,
+                        op=None if scale is None else "mul",
+                        c=1.0 if scale is None else scale, dtype=dtype)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_ROOT2 = np.float32(math.sqrt(2.0)).item()
+
+
+def _normal_values(bits: torch.Tensor) -> torch.Tensor:
+    """``sqrt(2) * erf_inv(u)`` from int32 bit patterns."""
+    return _ROOT2 * _xla_erf_inv(_uniform_values(bits, _NORMAL_LO, 1.0))
 
 
 # ---------------------------------------------------------------------------
@@ -504,25 +593,158 @@ def _gumbel_values(bits: torch.Tensor) -> torch.Tensor:
 def gumbel(key, shape, device="cpu", start: int = 0, block=None) -> torch.Tensor:
     """``jax.random.gumbel(key, shape, float32)`` bit for bit; ``start`` and
     ``block`` as :func:`jax_uniform`'s."""
-    return _draw(key, shape, device, start, block, _gumbel_values)
+    return _draw_routed(key, shape, device, start, block, "gumbel", _gumbel_values)
+
+
+def _local_logp(logp: torch.Tensor, what: str) -> torch.device:
+    """``logp``'s device, routed (:func:`_route`); refuses a ``DTensor``, as
+    :func:`repro_torch.kernels.ops._local_only` does."""
+    if is_placed(logp):
+        raise TypeError(f"{what} takes a rank's local tensors, got a DTensor: "
+                        "pass its to_local() rows (repro_torch.utils.local)")
+    return _route(logp.device, what)
+
+
+def _logp_rows(logp: torch.Tensor) -> tuple:
+    """``logp`` as the categorical kernel's contiguous ``(B, V)`` rows (in
+    its own dtype where the kernel reads it, else float32) and the batch
+    shape the tokens take."""
+    x = logp if logp.dtype in _cat.DTYPES else logp.float()
+    V = logp.shape[-1]
+    return x.reshape(-1, V).contiguous(), logp.shape[:-1]
 
 
 def categorical(key, logp: torch.Tensor) -> torch.Tensor:
     """``jax.random.categorical(key, logp, axis=-1)``: the argmax of
     ``logp + gumbel(key, logp.shape)``, added in float32.  JAX's counters
     are flat, so row ``i`` of a ``(B, V)`` draw takes counters ``[i V, (i +
-    1) V)``.  Plain torch ops on ``logp``'s device; int64 tokens."""
-    g = gumbel(key, logp.shape, logp.device)
+    1) V)``.  On a card one launch of the categorical kernel; on the CPU
+    plain torch ops.  int64 tokens."""
+    dev = _local_logp(logp, "categorical")
+    _record(dev, logp.numel() * logp.element_size())
+    if dev.type == "cuda":
+        rows, batch = _logp_rows(logp)
+        return _cat.categorical(rows, key=as_key(key)).reshape(batch)
+    return categorical_plain(key, logp)
+
+
+def categorical_plain(key, logp: torch.Tensor) -> torch.Tensor:
+    """:func:`categorical`'s plain version, plain torch ops on ``logp``'s
+    device (the CPU path; on a card, what the kernel is held against)."""
+    g = _draw(as_key(key), logp.shape, logp.device, 0, None, _gumbel_values)
     return torch.argmax(logp.float() + g, dim=-1)
 
 
 def categorical_rows(keys, logp: torch.Tensor) -> torch.Tensor:
     """``vmap(jax.random.categorical)(keys, logp)``: row ``s`` of ``logp``
     ``(S, V)`` drawn under its own key ``keys[s]`` (``(S, 2)``, e.g. from
-    :func:`fold_in_rows`), each at counters ``[0, V)``.  One pass over the
-    block, not S draws."""
+    :func:`fold_in_rows`), each at counters ``[0, V)``.  On a card one
+    launch of the categorical kernel (the keys as 32-bit words on the
+    card); on the CPU one pass over the block, not S draws."""
+    dev = _local_logp(logp, "categorical_rows")
+    _record(dev, logp.numel() * logp.element_size())
+    if dev.type == "cuda":
+        rows, batch = _logp_rows(logp)
+        return _cat.categorical(rows, keys=_key_words(keys, dev)).reshape(batch)
+    return categorical_rows_plain(keys, logp)
+
+
+def categorical_rows_plain(keys, logp: torch.Tensor) -> torch.Tensor:
+    """:func:`categorical_rows`' plain version on ``logp``'s device."""
     dev = logp.device
     keys = _int64(keys).reshape(-1, 2).to(dev)
     c = torch.arange(logp.shape[-1], dtype=torch.int32, device=dev)[None]
     x0, x1 = _threefry32(keys[:, :1], keys[:, 1:], torch.zeros_like(c), c)
     return torch.argmax(logp.float() + _gumbel_values(x0.bitwise_xor_(x1)), dim=-1)
+
+
+def _key_words(keys, device) -> torch.Tensor:
+    """Keys ``(R, 2)`` (ints, an array, or a tensor of 32-bit values) as
+    contiguous int32 words holding their bits on ``device``: one copy from
+    the host, or one conversion where they already lie there."""
+    if torch.is_tensor(keys) and keys.device == device:
+        return keys.reshape(-1, 2).to(torch.int32).contiguous()  # wraps to the bits
+    words = np.asarray(_int64(keys).cpu(), np.int64).reshape(-1, 2) & M32
+    return to_device(words.astype(np.uint32).view(np.int32), device)
+
+
+# ---------------------------------------------------------------------------
+# a key a row: the weights of init_params (a layer-stacked or chain-stacked
+# leaf, jax.vmap of a draw over keys)
+# ---------------------------------------------------------------------------
+def _rows_routed(keys, shape, device, value: str, values, op, c, dtype,
+                 lo: float = 0.0, span: float = 1.0) -> torch.Tensor:
+    dev = _route(device, "jax.random draw")
+    keys = _int64(keys).reshape(-1, 2)
+    R, shape = keys.shape[0], tuple(int(n) for n in shape)
+    n = math.prod(shape)
+    _check_counter(n)
+    _record(dev, torch.empty((), dtype=dtype).element_size() * R * n)
+    if dev.type == "cuda":
+        if R == 1:  # one key: by value, no table to copy
+            k = (int(keys[0, 0]) & M32, int(keys[0, 1]) & M32)
+            out = _jd.jax_draw(k, (n,), [(0, n)], value, dev, op=op, c=c, lo=lo,
+                               span=span, dtype=dtype)
+        else:
+            out = _jd.jax_draw_rows(_key_words(keys, dev), n, value, op=op, c=c, lo=lo,
+                                    span=span, dtype=dtype)
+        return out.reshape((R,) + shape)
+    if dev.type == "meta":
+        return torch.empty((R,) + shape, dtype=dtype, device=dev)
+    return rows_plain(keys, shape, dev, values, op, c, dtype)
+
+
+def rows_plain(keys, shape, device, values, op=None, c: float = 1.0,
+               dtype=torch.float32) -> torch.Tensor:
+    """The plain version of a draw a key a row (:func:`normal_rows`,
+    :func:`uniform_rows`), plain torch ops on ``device``: row r is
+    ``values`` of the bits under ``keys[r]``, then ``op`` and the cast.
+    The rows go through together, a ``(rows, counters)`` grid of
+    :data:`CHUNK` elements a pass, each row under its own key words."""
+    keys = _int64(keys).reshape(-1, 2).to(device)
+    R, n = keys.shape[0], math.prod(shape)
+    out = torch.empty((R, n), dtype=dtype, device=device)
+    g = max(1, CHUNK // max(n, 1))  # rows a pass
+    for r in range(0, R, g):
+        k = keys[r:r + g]
+        for a in range(0, n, CHUNK):
+            b = min(n, a + CHUNK)
+            cnt = _counters(a, b, device)[None]
+            x0, x1 = _threefry32(k[:, :1], k[:, 1:], (cnt >> 32).to(torch.int32),
+                                 cnt.to(torch.int32))
+            out[r:r + g, a:b] = _scaled(values(x0.bitwise_xor_(x1)), op, c, dtype)
+    return out.reshape((R,) + tuple(shape))
+
+
+def normal_rows(keys, shape, device="cpu", *, op=None, c: float = 1.0,
+                dtype=torch.float32) -> torch.Tensor:
+    """Row r of ``(R, *shape)``: ``jax.random.normal(keys[r], shape)`` in
+    float32, then ``c * z`` (``op="mul"``) or ``z / c`` (``op="div"``),
+    float32 ``c``, rounded once, then cast to ``dtype`` — the reference's
+    ``(std * normal(key, shape)).astype(dtype)`` under ``jax.vmap`` over
+    ``keys`` (``(R, 2)`` 32-bit words: ints, an array or a tensor).  On a
+    card one launch (one key: by value; more: a key table)."""
+    return _rows_routed(keys, shape, device, "normal", _normal_values, op, c, dtype)
+
+
+def uniform_rows(keys, shape, minval: float, maxval: float,
+                 device="cpu") -> torch.Tensor:
+    """Row r of ``(R, *shape)``: ``jax.random.uniform(keys[r], shape,
+    float32, minval, maxval)``."""
+    lo, span = _uniform_bounds(minval, maxval)
+    return _rows_routed(keys, shape, device, "uniform",
+                        lambda bits: _uniform_values(bits, minval, maxval), None, 1.0,
+                        torch.float32, lo, span)
+
+
+def split_rows(keys, num: int) -> list:
+    """``vmap(jax.random.split, (0, None))(keys, num)`` as ``num`` tables:
+    table ``i`` ``(R, 2)`` int64 holds ``split(keys[r], num)[i]`` in row r
+    (``keys`` ``(R, 2)``: ints, an array or a tensor)."""
+    keys = _int64(keys).reshape(-1, 2)
+    zero = torch.zeros(keys.shape[0], dtype=torch.int64)
+    out = []
+    for i in range(num):
+        x0, x1 = threefry2x32(keys[:, 0], keys[:, 1], zero, zero + i)
+        out.append(torch.stack([x0, x1], dim=1))
+    return out

@@ -103,7 +103,7 @@ def step_and_args(cfg0, shape, *, mode: str = "sync", mesh=None, opts: tuple = (
     from repro_torch.utils import local_block, tree_map
 
     model, cfg = build_model(cfg0, shape, opts, device="meta", mesh=mesh)
-    whole = init_params(cfg, device="meta", num_chains=1)
+    whole = init_params(cfg, None, device="meta", num_chains=1)
     params = whole if mesh is None else param_blocks(whole, model)[0]
     mem = {"param_bytes": rl.tree_bytes(params)}
     baxes = model.batch_axes
@@ -170,7 +170,7 @@ def run_combo(arch_id: str, shape_name: str, *, mode: str = "sync", mesh=None,
         with contextlib.suppress(ValueError):  # the bytes the layout would hold
             cfg = adapt_config(cfg0, shape, opts)
             result["memory"] = {"param_bytes": cfg_param_bytes(cfg, mesh) if mesh
-                                is not None else rl.tree_bytes(init_params(cfg, device="meta"))}
+                                is not None else rl.tree_bytes(init_params(cfg, None, device="meta"))}
         if verbose:
             print(json.dumps({k: result[k] for k in ("arch", "shape", "mesh", "mode",
                                                      "refused")}), flush=True)

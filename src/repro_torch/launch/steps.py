@@ -114,7 +114,7 @@ def param_structs(cfg: ArchConfig, mesh, fsdp_axes=("data",)):
     from repro_torch.launch.mesh import axis_names, axis_size
     from repro_torch.utils import tree_map
 
-    shapes = init_params(cfg, device="meta")
+    shapes = init_params(cfg, None, device="meta")
     model = axis_size(mesh, "model") if "model" in axis_names(mesh) else None
     specs = partition_tree(shapes, cfg.param_sharding, fsdp_axes, cfg=cfg,
                            model_size=model)
@@ -199,7 +199,7 @@ def param_bytes(cfg: ArchConfig, mesh) -> int:
     from repro_torch.models.common import model_specs
     from repro_torch.utils import paired_leaves, tree_leaves
 
-    like = init_params(cfg, device="meta")
+    like = init_params(cfg, None, device="meta")
     specs = model_specs(cfg, mesh)
     return sum(t.numel() * t.element_size() // math.prod(
         axis_size(mesh, a) for e in spec if e for a in ((e,) if isinstance(e, str) else e))
@@ -300,15 +300,15 @@ def make_sgld_train_step(model: Model, shape: ShapeConfig, mode: str = "sync",
 
     ``key`` is a JAX-style key (``rng.PRNGKey``); the noise is drawn per
     leaf under its split key (:func:`~repro_torch.samplers.transforms.
-    noise_like`), sqrt(2 sigma gamma) in float32: from a
-    ``torch.Generator`` (``noise="torch"``, the default without a mesh) or
-    ``jax.random.normal``'s numbers (``"jax"``).  On a model split over a
-    mesh the step takes placed parameters (:func:`place_params`) and the
-    whole batch, each rank draws its block of the ``"jax"`` noise (the
-    default there; ``"torch"`` is refused), and its new parameters are its
-    block of what the unplaced step gives, within rounding."""
+    noise_like`), sqrt(2 sigma gamma) in float32: ``jax.random.normal``'s
+    numbers (``noise="jax"``, the default) or a ``torch.Generator``'s
+    (``"torch"``).  On a model split over a mesh the step takes placed
+    parameters (:func:`place_params`) and the whole batch, each rank draws
+    its block of the ``"jax"`` noise (``"torch"`` is refused there), and its
+    new parameters are its block of what the unplaced step gives, within
+    rounding."""
     placed = model.tp is not None
-    noise = noise or ("jax" if placed else "torch")
+    noise = noise or "jax"
     if placed and noise != "jax":
         raise ValueError(f"noise={noise!r} on a model split over a mesh: each rank "
                          "draws its block of the whole leaf's noise at its counters, "

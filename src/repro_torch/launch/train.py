@@ -30,7 +30,6 @@ import argparse
 from dataclasses import replace
 
 import numpy as np
-import torch
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import ShapeConfig, get_arch, get_reduced
@@ -42,7 +41,7 @@ from repro_torch.models.transformer import Model, init_params
 from repro_torch.train.engine import Engine, checkpoint_hook, log_hook
 from repro_torch.train.loop import make_train_step
 from repro_torch.utils import resolve_device, tree_leaves
-from repro_torch.weights import drop_unit_chain
+from repro_torch.weights import drop_unit_chain, unit_chain
 
 
 def build(args):
@@ -50,7 +49,8 @@ def build(args):
     command line — everything :func:`main` runs, for callers that time or
     inspect it.  The key is the reference launcher's: ``key, init_key =
     split(PRNGKey(seed))``, the state under ``init_key`` and the engine's
-    batches (``make_batch`` from each key) under ``key``."""
+    batches (``make_batch`` from each key, drawn on the model's device)
+    under ``key``."""
     dev = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
     if args.layers:
@@ -59,8 +59,7 @@ def build(args):
                         kind="train")
     model = Model(cfg, device=dev)
     key = rng.PRNGKey(args.seed)
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed),
-                         device=dev, num_chains=1)
+    params = unit_chain(init_params(cfg, key, device=dev))  # the reference's weights
     sgld_cfg = SGLDConfig(mode=args.mode, gamma=args.gamma, sigma=args.sigma,
                           tau=args.tau if args.mode in ("consistent",
                                                         "inconsistent") else 0)
@@ -76,7 +75,7 @@ def build(args):
     hooks = [log_hook(every=10)]
     if args.save:
         hooks.append(checkpoint_hook(args.save, every=max(args.chunk, 100)))
-    engine = Engine(sampler, batch_fn=lambda k: make_batch(cfg, shape, k, "train"),
+    engine = Engine(sampler, batch_fn=lambda k: make_batch(cfg, shape, k, "train", dev),
                     chunk_size=args.chunk, hooks=hooks)
     return cfg, model, state, engine, delays, key
 

@@ -12,10 +12,14 @@ the model code runs (tensor and expert parallelism), and which leaves are
 split for FSDP and gathered where they are used (``fsdp_full``: every
 weight over every axis; ``fsdp_tp``: the experts' ``d_ff`` over the data
 axes; :func:`gather_blocks`).  Parameters are plain nested dicts of
-tensors, as in the JAX package; initialisers draw from an explicit
-``torch.Generator`` (the numbers differ from ``jax.random``'s — a test that
-needs both packages on the same weights carries them over with
-:func:`repro_torch.weights.from_jax_params`).
+tensors, as in the JAX package; initialisers take PRNG keys, as the
+reference's do, and draw the reference's numbers: ``jax.random.normal``
+(and ``uniform``) bit for bit, scaled and cast as the reference scales and
+casts them (:func:`repro_torch.kernels.rng.normal_rows`: the draw kernel on
+a card, the plain host-style path on the CPU).  A key table ``lead + (2,)``
+(32-bit words as int64) carries one key a row of a leaf's leading axes
+(chains, layers): row r of the leaf is the reference's leaf under key r,
+what ``jax.vmap`` over split keys gives (:func:`split_keys`).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.analysis.cost import multiplier
+from repro_torch.kernels import rng
 from repro_torch.launch.mesh import axes_group, axis_names, axis_size
 
 PyTree = Any
@@ -91,17 +96,71 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def dense_init(generator, shape, dtype, scale: float | None = None,
+def key_table(key, num=None) -> torch.Tensor:
+    """The key table of one key (``(2,)``; ``num`` None) or of the ``num``
+    keys ``jax.random.split(key, num)`` (``(num, 2)``), int64 words on the
+    host; ``key`` as :func:`repro_torch.kernels.rng.as_key` reads it."""
+    key = rng.as_key(key)
+    return torch.tensor(key if num is None else rng.split(key, num), dtype=torch.int64)
+
+
+def meta_keys(lead=()) -> torch.Tensor:
+    """A key table on ``meta`` (shapes only: nothing is drawn from it)."""
+    return torch.empty(tuple(lead) + (2,), dtype=torch.int64, device="meta")
+
+
+def split_keys(keys: torch.Tensor, num: int) -> list:
+    """``jax.random.split(k, num)`` of every key ``k`` of ``keys`` (``lead +
+    (2,)``): ``num`` tables of the same shape, table ``i`` the ``i``-th keys
+    (``vmap(split)``).  A table on ``meta`` splits into itself."""
+    if keys.device.type == "meta":
+        return [keys] * num
+    lead = tuple(keys.shape[:-1])
+    return [t.reshape(lead + (2,)) for t in rng.split_rows(keys.reshape(-1, 2), num)]
+
+
+def stack_keys(keys: torch.Tensor, num: int) -> torch.Tensor:
+    """``split(k, num)`` of every key of ``keys`` (``lead + (2,)``) as one
+    table ``lead + (num, 2)``: the keys of a layer-stacked leaf's rows."""
+    if keys.device.type == "meta":
+        return meta_keys(tuple(keys.shape[:-1]) + (num,))
+    return torch.stack(split_keys(keys, num), dim=-2)
+
+
+def dense_init(keys, shape, dtype, scale: float | None = None,
                device="cpu") -> torch.Tensor:
-    """N(0, std²) with std = 1/sqrt(fan_in) (or ``scale``), fan_in the
-    second-to-last axis.  Leading axes (chains, layers) are batch axes."""
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    """The reference's ``(std * normal(key, leaf)).astype(dtype)`` with std =
+    1/sqrt(fan_in) (or ``scale``), fan_in the leaf's second-to-last axis.
+    ``keys`` ``lead + (2,)``: ``shape`` is ``lead + leaf``, row r of the
+    leading axes drawn under key r."""
+    leaf = _leaf(keys, shape)
+    fan_in = leaf[-2] if len(leaf) >= 2 else leaf[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return _normal(generator, shape, dtype, std, device)
+    return _normal(keys, shape, dtype, "mul", std, device)
 
 
-def embed_init(generator, shape, dtype, device="cpu") -> torch.Tensor:
-    return _normal(generator, shape, dtype, 0.02, device)
+def embed_init(keys, shape, dtype, device="cpu") -> torch.Tensor:
+    """The reference's ``(0.02 * normal(key, leaf)).astype(dtype)``."""
+    return _normal(keys, shape, dtype, "mul", 0.02, device)
+
+
+def normal_over(keys, shape, dtype, divisor: float, device="cpu") -> torch.Tensor:
+    """The reference's ``(normal(key, leaf) / divisor).astype(dtype)``: a
+    float32 division (the SSD conv weights, the xLSTM head matrices)."""
+    return _normal(keys, shape, dtype, "div", divisor, device)
+
+
+def uniform_init(keys, shape, minval: float, maxval: float, device="cpu") -> torch.Tensor:
+    """The reference's ``uniform(key, leaf, float32, minval, maxval)``."""
+    leaf = _leaf(keys, shape)
+    return rng.uniform_rows(keys, leaf, minval, maxval, device).reshape(tuple(shape))
+
+
+def _leaf(keys, shape) -> tuple:
+    lead = tuple(keys.shape[:-1])
+    if tuple(shape[:len(lead)]) != lead:
+        raise ValueError(f"a key table of {lead} rows for a leaf of {tuple(shape)}")
+    return tuple(shape[len(lead):])
 
 
 def repeat_lead(values: torch.Tensor, lead, device="cpu") -> torch.Tensor:
@@ -115,11 +174,10 @@ def repeat_lead(values: torch.Tensor, lead, device="cpu") -> torch.Tensor:
     return out.copy_(values.to(out.device).expand_as(out))
 
 
-def _normal(generator, shape, dtype, std, device) -> torch.Tensor:
-    out = torch.empty(shape, dtype=dtype, device=device)
-    if out.device.type == "meta":  # shapes only: nothing to draw
-        return out
-    return out.normal_(0.0, std, generator=generator)
+def _normal(keys, shape, dtype, op, c, device) -> torch.Tensor:
+    leaf = _leaf(keys, shape)
+    return rng.normal_rows(keys, leaf, device, op=op, c=c, dtype=dtype).reshape(
+        tuple(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +382,7 @@ def model_specs(cfg, mesh, chain_axis=None) -> PyTree:
     from repro_torch.models.transformer import init_params
     from repro_torch.utils import tree_map
 
-    like = init_params(cfg, device="meta")
+    like = init_params(cfg, None, device="meta")
     model = axis_size(mesh, MODEL_AXIS) if MODEL_AXIS in axis_names(mesh) else None
     fsdp = tuple(a for a in ("pod", "data") if a in axis_names(mesh)) or ("data",)
     specs = partition_tree(like, cfg.param_sharding, fsdp, cfg=cfg, model_size=model)
@@ -484,7 +542,7 @@ class ModelAxis:
                              f"{MODEL_AXIS!r} axis of size {m} (expert parallelism "
                              "holds E / m experts a rank)")
         specs = model_specs(cfg, mesh, chain_axis)
-        like = init_params(cfg, device="meta")
+        like = init_params(cfg, None, device="meta")
         gathers = tree_map(lambda _, s: tuple(_gathered(cfg, mesh, e) for e in s),
                            like, specs)
         fsdp = any(any(g) for g in paired_leaves(like, gathers))

@@ -11,16 +11,18 @@ the product, a partial sum, leaves through ``reduce_from``.
 
 from __future__ import annotations
 
-from repro_torch.models.common import activation, bank_matmul, dense_init
+from repro_torch.models.common import activation, bank_matmul, dense_init, split_keys
 
 
-def init_mlp(generator, cfg, dtype, lead=(), device="cpu") -> dict:
+def init_mlp(keys, cfg, dtype, device="cpu") -> dict:
+    """The reference's ``init_mlp`` under each key of ``keys`` (``lead +
+    (2,)``): ``split(key, 2)`` for the plain GELU MLP, 3 for the gated."""
     d, f = cfg.d_model, cfg.d_ff
-    lead = tuple(lead)
+    lead = tuple(keys.shape[:-1])
     names = ("w_up", "w_down") if cfg.act == "gelu" else ("w_gate", "w_up", "w_down")
-    return {n: dense_init(generator, lead + ((f, d) if n == "w_down" else (d, f)),
-                          dtype, device=device)
-            for n in names}
+    return {n: dense_init(k, lead + ((f, d) if n == "w_down" else (d, f)), dtype,
+                          device=device)
+            for n, k in zip(names, split_keys(keys, len(names)))}
 
 
 def apply_mlp(params: dict, x, cfg, tp=None):

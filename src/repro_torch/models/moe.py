@@ -70,6 +70,7 @@ from repro_torch.models.common import (
     mean_value,
     reduce_from,
     replaying,
+    split_keys,
 )
 
 CAPACITY_FACTOR = 1.25
@@ -77,20 +78,23 @@ CAPACITY_FACTOR = 1.25
 _DROPPED: dict = {}  # device -> 0-d int64 tensor: pairs dropped since the reset
 
 
-def init_moe(generator, cfg, dtype, lead=(), device="cpu") -> dict:
+def init_moe(keys, cfg, dtype, device="cpu") -> dict:
+    """The reference's ``init_moe`` under each key of ``keys`` (``lead +
+    (2,)``): ``split(key, 7)``, the router in float32."""
     E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
-    lead = tuple(lead)
+    lead = tuple(keys.shape[:-1])
+    ks = split_keys(keys, 7)
     params = {
-        "router": dense_init(generator, lead + (d, E), torch.float32, device=device),
-        "w_gate": dense_init(generator, lead + (E, d, f), dtype, device=device),
-        "w_up": dense_init(generator, lead + (E, d, f), dtype, device=device),
-        "w_down": dense_init(generator, lead + (E, f, d), dtype, device=device),
+        "router": dense_init(ks[0], lead + (d, E), torch.float32, device=device),
+        "w_gate": dense_init(ks[1], lead + (E, d, f), dtype, device=device),
+        "w_up": dense_init(ks[2], lead + (E, d, f), dtype, device=device),
+        "w_down": dense_init(ks[3], lead + (E, f, d), dtype, device=device),
     }
     if cfg.num_shared_experts > 0:
         fs = f * cfg.num_shared_experts
-        params["shared_w_gate"] = dense_init(generator, lead + (d, fs), dtype, device=device)
-        params["shared_w_up"] = dense_init(generator, lead + (d, fs), dtype, device=device)
-        params["shared_w_down"] = dense_init(generator, lead + (fs, d), dtype, device=device)
+        params["shared_w_gate"] = dense_init(ks[4], lead + (d, fs), dtype, device=device)
+        params["shared_w_up"] = dense_init(ks[5], lead + (d, fs), dtype, device=device)
+        params["shared_w_down"] = dense_init(ks[6], lead + (fs, d), dtype, device=device)
     return params
 
 

@@ -52,9 +52,12 @@ from repro_torch.kernels.rng import _xla_log
 from repro_torch.models.common import (
     bank_matmul,
     dense_init,
+    normal_over,
     per_chain,
     repeat_lead,
     rms_norm,
+    split_keys,
+    uniform_init,
 )
 
 
@@ -64,30 +67,33 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def init_ssm(generator, cfg, dtype, lead=(), device="cpu") -> dict:
-    """Random SSD parameters with leading axes ``lead``.  The deterministic
-    leaves are the reference's bit for bit: ``a_log = log(1..H)`` (XLA's
-    float32 log), ``d_skip`` and ``norm`` ones, ``conv_b`` zeros."""
+def init_ssm(keys, cfg, dtype, device="cpu") -> dict:
+    """The reference's ``init_ssm`` under each key of ``keys`` (``lead +
+    (2,)``): ``split(key, 8)``, the drawn leaves its numbers.  The
+    deterministic leaves are the reference's bit for bit: ``a_log =
+    log(1..H)`` (XLA's float32 log), ``d_skip`` and ``norm`` ones,
+    ``conv_b`` zeros.  ``dt_bias`` is ``log(expm1(exp(u)))`` of the
+    reference's uniform ``u``, in torch's float32 ``exp``, ``expm1`` and
+    ``log`` (ATen's and XLA's may part in the last ulp)."""
     d, H, n, K = cfg.d_model, cfg.num_heads, cfg.ssm_state, cfg.ssm_conv
     di = 2 * d
-    lead = tuple(lead)
+    lead = tuple(keys.shape[:-1])
     dev = torch.device(device)
-    dt_bias = torch.empty(lead + (H,), dtype=torch.float32, device=dev)
+    ks = split_keys(keys, 8)
+    dt_bias = uniform_init(ks[4], lead + (H,), math.log(1e-3), math.log(1e-1), dev)
     if dev.type != "meta":
-        dt_bias.uniform_(math.log(1e-3), math.log(1e-1), generator=generator)
         dt_bias = torch.log(torch.expm1(torch.exp(dt_bias)))
     return {
-        "in_proj": dense_init(generator, lead + (d, 2 * di), dtype, device=dev),
-        "conv_w": dense_init(generator, lead + (K, di), dtype, scale=1.0 / math.sqrt(K),
-                             device=dev),
+        "in_proj": dense_init(ks[0], lead + (d, 2 * di), dtype, device=dev),
+        "conv_w": normal_over(ks[1], lead + (K, di), dtype, math.sqrt(K), device=dev),
         "conv_b": torch.zeros(lead + (di,), dtype=dtype, device=dev),
-        "bc_proj": dense_init(generator, lead + (di, 2 * n), dtype, device=dev),
-        "dt_w": dense_init(generator, lead + (di, H), dtype, device=dev),
+        "bc_proj": dense_init(ks[2], lead + (di, 2 * n), dtype, device=dev),
+        "dt_w": dense_init(ks[3], lead + (di, H), dtype, device=dev),
         "dt_bias": dt_bias,
         "a_log": repeat_lead(_xla_log(torch.arange(1, H + 1, dtype=torch.float32)), lead, dev),
         "d_skip": torch.ones(lead + (H,), dtype=torch.float32, device=dev),
         "norm": torch.ones(lead + (di,), dtype=torch.float32, device=dev),
-        "out_proj": dense_init(generator, lead + (di, d), dtype, device=dev),
+        "out_proj": dense_init(ks[5], lead + (di, d), dtype, device=dev),
     }
 
 

@@ -83,10 +83,14 @@ from repro_torch.models.common import (
     dtype_of,
     embed_init,
     head_rms_norm,
+    key_table,
+    meta_keys,
     ModelAxis,
     per_chain,
     replay,
     rms_norm,
+    split_keys,
+    stack_keys,
 )
 from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.models.moe import apply_moe, init_moe
@@ -119,14 +123,17 @@ def _ones(shape, device):
     return torch.ones(shape, dtype=torch.float32, device=device)
 
 
-def init_attn(generator, cfg, dtype, lead=(), device="cpu") -> dict:
+def init_attn(keys, cfg, dtype, device="cpu") -> dict:
+    """The reference's ``init_attn`` under each key of ``keys`` (``lead +
+    (2,)``): ``split(key, 4)`` for q, k, v and o."""
     d = cfg.d_model
-    lead = tuple(lead)
+    lead = tuple(keys.shape[:-1])
+    ks = split_keys(keys, 4)
     p = {
-        "wq": dense_init(generator, lead + (d, cfg.q_dim), dtype, device=device),
-        "wk": dense_init(generator, lead + (d, cfg.kv_dim), dtype, device=device),
-        "wv": dense_init(generator, lead + (d, cfg.kv_dim), dtype, device=device),
-        "wo": dense_init(generator, lead + (cfg.q_dim, d), dtype,
+        "wq": dense_init(ks[0], lead + (d, cfg.q_dim), dtype, device=device),
+        "wk": dense_init(ks[1], lead + (d, cfg.kv_dim), dtype, device=device),
+        "wv": dense_init(ks[2], lead + (d, cfg.kv_dim), dtype, device=device),
+        "wo": dense_init(ks[3], lead + (cfg.q_dim, d), dtype,
                          scale=1.0 / math.sqrt(cfg.q_dim * 2 * cfg.num_layers),
                          device=device),
     }
@@ -139,58 +146,76 @@ def init_attn(generator, cfg, dtype, lead=(), device="cpu") -> dict:
     return p
 
 
-def init_block(generator, cfg, block: str, dtype, lead=(), device="cpu") -> dict:
+def init_block(keys, cfg, block: str, dtype, device="cpu") -> dict:
+    """The reference's ``init_block`` under each key of ``keys`` (``lead +
+    (2,)``): ``split(key, 4)``, the attention half under the first, the SSD
+    heads under the second, the MLP or the experts under the third, an
+    xLSTM block under the first."""
     if block not in BLOCKS:
         raise ValueError(f"the port implements blocks {BLOCKS}, not {block!r}")
-    lead = tuple(lead)
+    lead = tuple(keys.shape[:-1])
+    ks = split_keys(keys, 4)
     p = {"norm1": _ones(lead + (cfg.d_model,), device)}
     if block in WITH_ATTN:
-        p["attn"] = init_attn(generator, cfg, dtype, lead, device)
+        p["attn"] = init_attn(ks[0], cfg, dtype, device)
         p["norm2"] = _ones(lead + (cfg.d_model,), device)
     if block == "hymba_mlp":
-        p["ssm"] = init_ssm(generator, cfg, dtype, lead, device)
+        p["ssm"] = init_ssm(ks[1], cfg, dtype, device)
     if block in ("attn_mlp", "hymba_mlp"):
-        p["mlp"] = init_mlp(generator, cfg, dtype, lead, device)
+        p["mlp"] = init_mlp(ks[2], cfg, dtype, device)
     if block == "attn_moe":
-        p["moe"] = init_moe(generator, cfg, dtype, lead, device)
+        p["moe"] = init_moe(ks[2], cfg, dtype, device)
     if block == "mlstm":
-        p["mlstm"] = init_mlstm(generator, cfg, dtype, lead, device)
+        p["mlstm"] = init_mlstm(ks[0], cfg, dtype, device)
     if block == "slstm":
-        p["slstm"] = init_slstm(generator, cfg, dtype, lead, device)
+        p["slstm"] = init_slstm(ks[0], cfg, dtype, device)
     return p
 
 
-def init_params(cfg, generator=None, *, device="cuda", num_chains=None) -> dict:
-    """Random parameters in the JAX package's layout, drawn on ``device``
-    from ``generator`` (a ``torch.Generator`` on that device; seed 0 when
-    None).  ``num_chains`` adds the leading chain axis of a bank; ``None``
-    gives one chain without it.  On the ``meta`` device nothing is drawn
-    (shapes only — :meth:`ArchConfig.param_count` counts from that).  One
-    block kind gives a layer-stacked ``stack``; a heterogeneous pattern a
-    ``layers`` list, layer i of kind ``block_pattern[i % len]``."""
+def init_params(cfg, key, *, device="cuda", num_chains=None) -> dict:
+    """The reference's ``init_params(key, cfg)`` in its layout, drawn on
+    ``device``: every drawn leaf is the reference's for the same key
+    (``jax.random.normal`` and ``uniform`` bit for bit, scaled and cast as
+    it scales and casts them), through the draw kernel on a card and the
+    plain path on the CPU.  ``key``: a PRNG key, a ``(2,)`` uint32 array or
+    an int seed (:func:`repro_torch.kernels.rng.as_key`; a
+    ``torch.Generator`` is refused).  The key tree is the reference's:
+    ``split(key, 4)`` into embed, stack, head and frontend, ``split(k_stack,
+    L)`` a layer, then each block's own splits; a layer-stacked leaf is one
+    draw of its ``L`` rows, a key a row.  ``num_chains=C`` adds the leading
+    chain axis of a bank, chain c the reference's ``init_params(split(key,
+    C)[c], cfg)`` (``jax.vmap(init_params)`` over split keys); ``None`` gives
+    one chain without it.  On the ``meta`` device nothing is drawn and
+    ``key`` is not read (``None`` will do: shapes only —
+    :meth:`ArchConfig.param_count` counts from that).  One block kind
+    gives a layer-stacked ``stack``; a heterogeneous pattern a ``layers``
+    list, layer i of kind ``block_pattern[i % len]``."""
     dev = resolve_device(device)
-    if generator is None and dev.type != "meta":
-        generator = torch.Generator(device=dev).manual_seed(0)
     dtype = dtype_of(cfg)
     lead = () if num_chains is None else (int(num_chains),)
+    if dev.type == "meta":
+        keys = meta_keys(lead)
+    else:
+        keys = key_table(key, num_chains)
+    k_embed, k_stack, k_head, k_front = split_keys(keys, 4)
     params: dict = {
-        "embed": {"w": embed_init(generator, lead + (cfg.vocab_size, cfg.d_model),
+        "embed": {"w": embed_init(k_embed, lead + (cfg.vocab_size, cfg.d_model),
                                   dtype, device=dev)},
         "final_norm": _ones(lead + (cfg.d_model,), dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense_init(
-            generator, lead + (cfg.d_model, cfg.vocab_size), dtype, device=dev)}
+            k_head, lead + (cfg.d_model, cfg.vocab_size), dtype, device=dev)}
     if cfg.frontend:
         params["frontend"] = {"proj": dense_init(
-            generator, lead + (FRONTEND_DIM, cfg.d_model), dtype, device=dev)}
+            k_front, lead + (FRONTEND_DIM, cfg.d_model), dtype, device=dev)}
     pattern = cfg.block_pattern
+    layer_keys = stack_keys(k_stack, cfg.num_layers)  # lead + (L, 2)
     if len(pattern) == 1:
-        params["stack"] = init_block(generator, cfg, pattern[0], dtype,
-                                     lead + (cfg.num_layers,), dev)
+        params["stack"] = init_block(layer_keys, cfg, pattern[0], dtype, dev)
     else:
-        params["layers"] = [init_block(generator, cfg, pattern[i % len(pattern)],
-                                       dtype, lead, dev)
+        params["layers"] = [init_block(layer_keys[..., i, :], cfg,
+                                       pattern[i % len(pattern)], dtype, dev)
                             for i in range(cfg.num_layers)]
     return params
 

@@ -35,9 +35,11 @@ from repro_torch.models.common import (
     activation,
     bank_matmul,
     dense_init,
+    normal_over,
     per_chain,
     repeat_lead,
     rms_norm,
+    split_keys,
 )
 
 NEG = -1e30
@@ -54,29 +56,31 @@ def _linspace(start: float, stop: float, num: int) -> torch.Tensor:
 # ===========================================================================
 # mLSTM
 # ===========================================================================
-def init_mlstm(generator, cfg, dtype, lead=(), device="cpu") -> dict:
+def init_mlstm(keys, cfg, dtype, device="cpu") -> dict:
+    """The reference's ``init_mlstm`` under each key of ``keys`` (``lead +
+    (2,)``): ``split(key, 8)``; the head matrices ``normal / sqrt(dk)``."""
     d = cfg.d_model
     di = 2 * d  # pre-up-projection factor 2
     H = cfg.num_heads
     dk = di // H
-    lead = tuple(lead)
+    lead = tuple(keys.shape[:-1])
     dev = torch.device(device)
+    ks = split_keys(keys, 8)
 
-    def headmat():  # block-diagonal per-head projection
-        return dense_init(generator, lead + (H, dk, dk), dtype, scale=1.0 / math.sqrt(dk),
-                          device=dev)
+    def headmat(k):  # block-diagonal per-head projection
+        return normal_over(k, lead + (H, dk, dk), dtype, math.sqrt(dk), device=dev)
 
     gates_b = torch.cat([torch.zeros(H),              # input gate bias
                          _linspace(3.0, 6.0, H)])     # forget bias (high)
     return {
-        "in_proj": dense_init(generator, lead + (d, 2 * di), dtype, device=dev),
-        "wq": headmat(),
-        "wk": headmat(),
-        "wv": headmat(),
-        "gates": dense_init(generator, lead + (di, 2 * H), dtype, device=dev),
+        "in_proj": dense_init(ks[0], lead + (d, 2 * di), dtype, device=dev),
+        "wq": headmat(ks[1]),
+        "wk": headmat(ks[6]),
+        "wv": headmat(ks[7]),
+        "gates": dense_init(ks[2], lead + (di, 2 * H), dtype, device=dev),
         "gates_b": repeat_lead(gates_b, lead, dev),
         "norm": torch.ones(lead + (di,), dtype=torch.float32, device=dev),
-        "out_proj": dense_init(generator, lead + (di, d), dtype, device=dev),
+        "out_proj": dense_init(ks[3], lead + (di, d), dtype, device=dev),
         "skip": torch.ones(lead + (di,), dtype=torch.float32, device=dev),
     }
 
@@ -192,23 +196,25 @@ def apply_mlstm(params, x, cfg, *, chunk: int = 64, state: MLSTMState | None = N
 # ===========================================================================
 # sLSTM
 # ===========================================================================
-def init_slstm(generator, cfg, dtype, lead=(), device="cpu") -> dict:
+def init_slstm(keys, cfg, dtype, device="cpu") -> dict:
+    """The reference's ``init_slstm`` under each key of ``keys`` (``lead +
+    (2,)``): ``split(key, 5)``; the recurrent heads ``normal / sqrt(dh)``."""
     d = cfg.d_model
     H = cfg.num_heads
     dh = d // H
     f = int(d * 4 / 3)
-    lead = tuple(lead)
+    lead = tuple(keys.shape[:-1])
     dev = torch.device(device)
+    ks = split_keys(keys, 5)
     bias = torch.cat([torch.zeros(d),               # i
                       _linspace(3.0, 6.0, d),       # f (high forget bias)
                       torch.zeros(2 * d)])          # z, o
     return {
-        "wx": dense_init(generator, lead + (d, 4 * d), dtype, device=dev),
-        "wr": dense_init(generator, lead + (H, dh, 4 * dh), dtype, scale=1.0 / math.sqrt(dh),
-                         device=dev),
+        "wx": dense_init(ks[0], lead + (d, 4 * d), dtype, device=dev),
+        "wr": normal_over(ks[1], lead + (H, dh, 4 * dh), dtype, math.sqrt(dh), device=dev),
         "bias": repeat_lead(bias, lead, dev),
-        "ffn_up": dense_init(generator, lead + (d, 2 * f), dtype, device=dev),
-        "ffn_down": dense_init(generator, lead + (f, d), dtype, device=dev),
+        "ffn_up": dense_init(ks[2], lead + (d, 2 * f), dtype, device=dev),
+        "ffn_down": dense_init(ks[3], lead + (f, d), dtype, device=dev),
         "norm": torch.ones(lead + (d,), dtype=torch.float32, device=dev),
     }
 

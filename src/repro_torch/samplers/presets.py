@@ -85,7 +85,7 @@ def _grad_parts(grad_fn: GradFn, has_aux: bool,
 def sgld(mode: str, grad_fn: GradFn, *, gamma=1e-2, sigma: float = 1.0,
          tau: int = 0, has_aux: bool = False,
          delay_policy: DelayPolicy | None = None, fused: bool = False,
-         noise_dtype=torch.float32, noise: str = "torch",
+         noise_dtype=torch.float32, noise: str = "jax",
          base_batch: int | None = None, stale_strength: float | None = None,
          stale_gamma_scale: float = 0.0) -> Sampler:
     """The paper's SGLD in any of its four read models.
@@ -98,7 +98,8 @@ def sgld(mode: str, grad_fn: GradFn, *, gamma=1e-2, sigma: float = 1.0,
     ``fused=True`` commits through the fused Langevin kernel (noise made in
     the kernel) and, in W-Icon mode, reads through the delay kernels;
     ``delay_policy`` overrides the mode's default policy; ``noise`` picks
-    the unfused draw (``"torch"`` or ``"jax"``, see ``noise_like``).
+    the unfused draw (``"jax"``, the default: the reference's numbers, or
+    ``"torch"``; see ``noise_like``).
 
     ``base_batch`` switches to the heterogeneous-minibatch contract:
     ``grad_fn(params, example)`` becomes a *per-example* oracle evaluated
@@ -124,7 +125,7 @@ def sgld(mode: str, grad_fn: GradFn, *, gamma=1e-2, sigma: float = 1.0,
 def svrg(mode: str, grad_fn: GradFn, full_grad_fn: Callable[[Any], Any], *,
          anchor_every: int = 64, gamma=1e-2, sigma: float = 1.0, tau: int = 0,
          has_aux: bool = False, delay_policy: DelayPolicy | None = None,
-         noise_dtype=torch.float32, noise: str = "torch",
+         noise_dtype=torch.float32, noise: str = "jax",
          base_batch: int | None = None, stale_strength: float | None = None,
          stale_gamma_scale: float = 0.0) -> Sampler:
     """SVRG-Langevin under any read model: :func:`sgld` with the gradient
@@ -148,7 +149,7 @@ def svrg(mode: str, grad_fn: GradFn, full_grad_fn: Callable[[Any], Any], *,
 def sghmc(mode: str, grad_fn: GradFn, *, gamma=1e-2, sigma: float = 1.0,
           friction: float = 1.0, precond: Any = None, tau: int = 0,
           has_aux: bool = False, delay_policy: DelayPolicy | None = None,
-          noise_dtype=torch.float32, noise: str = "torch",
+          noise_dtype=torch.float32, noise: str = "jax",
           base_batch: int | None = None, stale_strength: float | None = None,
           stale_gamma_scale: float = 0.0) -> Sampler:
     """Stochastic-gradient HMC under any read model: :func:`sgld` with the
@@ -166,7 +167,7 @@ def sghmc(mode: str, grad_fn: GradFn, *, gamma=1e-2, sigma: float = 1.0,
 
 
 def from_config(cfg, grad_fn: GradFn, has_aux: bool = False, *,
-                fused: bool = False, noise: str = "torch") -> Sampler:
+                fused: bool = False, noise: str = "jax") -> Sampler:
     """Build the preset matching an ``SGLDConfig`` (duck-typed); ``noise``
     picks the unfused draw, as :func:`sgld`'s."""
     return sgld(cfg.mode, grad_fn, gamma=cfg.gamma, sigma=cfg.sigma,

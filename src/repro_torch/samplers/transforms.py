@@ -7,11 +7,12 @@ overlap.
 
 The fused commit draws its noise bit for bit as the JAX package does
 (threefry in the kernel, keyed on the step's noise key).  The unfused
-:func:`noise_like` draws from a ``torch.Generator`` seeded by each leaf's
-key by default: the same law, not ``jax.random.normal``'s numbers;
-``noise="jax"`` draws ``jax.random.normal``'s numbers
-(:func:`~repro_torch.kernels.rng.jax_normal`, many small torch ops a
-leaf: meant for small chains).
+:func:`noise_like` draws ``jax.random.normal``'s numbers under each leaf's
+key by default (``noise="jax"``: :func:`~repro_torch.kernels.rng.
+jax_normal`, one launch of the draw kernel a leaf on a card, the plain
+host-style path on the CPU), so a default sampler gives the reference's
+chain; ``noise="torch"`` draws from a ``torch.Generator`` seeded by the
+leaf's key instead: the same law, other numbers.
 
 Every update takes C chains stacked on a leading axis
 (:mod:`repro_torch.samplers.transform`; C = 1 for a single chain): the
@@ -111,12 +112,13 @@ def _rows(values: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # raw leafwise math
 # ---------------------------------------------------------------------------
-def noise_like(key, params: PyTree, scale, dtype, noise: str = "torch") -> PyTree:
+def noise_like(key, params: PyTree, scale, dtype, noise: str = "jax") -> PyTree:
     """One chain's sqrt(2 sigma gamma) * G_k, one draw per leaf under the leaf's key
-    (leaf order and keys as ``repro.samplers.transforms``): a
-    ``torch.Generator`` seeded from it (``noise="torch"``), or
-    ``jax.random.normal`` under it in float32 (``noise="jax"``), the JAX
-    package's numbers.
+    (leaf order and keys as ``repro.samplers.transforms``):
+    ``jax.random.normal`` under it in float32, times the float32 scale, cast
+    to the leaf's dtype (``noise="jax"``, the default: the JAX package's
+    numbers, one launch a leaf on a card), or a ``torch.Generator`` seeded
+    from it (``noise="torch"``).
 
     A placed leaf (a ``DTensor``, a chain split over the ``model`` axis)
     draws only its block of the whole leaf's ``jax.random.normal``, each
@@ -141,13 +143,14 @@ def noise_like(key, params: PyTree, scale, dtype, noise: str = "torch") -> PyTre
                     "a block of a leaf at the whole leaf's counters; pass noise='jax' "
                     "(each rank draws its block of jax.random.normal's numbers)")
             loc = p.to_local()
-            z = rng.jax_normal(k, tuple(p.shape), loc.device,
-                               block=block_slices(p.shape, p.device_mesh, p.placements))
-            out.append(place_like((torch.tensor(np.float32(scale)) * z).to(loc.dtype), p))
+            out.append(place_like(rng.jax_normal(
+                k, tuple(p.shape), loc.device,
+                block=block_slices(p.shape, p.device_mesh, p.placements),
+                scale=np.float32(scale), dtype=loc.dtype), p))
             continue
         if noise == "jax":
-            z = rng.jax_normal(k, p.shape, p.device)
-            out.append((torch.tensor(np.float32(scale)) * z).to(p.dtype))
+            out.append(rng.jax_normal(k, p.shape, p.device, scale=np.float32(scale),
+                                      dtype=p.dtype))
             continue
         gen = torch.Generator(device=p.device).manual_seed(rng.seed_int(k))
         z = torch.randn(p.shape, generator=gen, dtype=dtype, device=p.device)
@@ -274,7 +277,7 @@ def batch_scaled_gamma(base_batch: int) -> SamplerTransform:
 
 
 def langevin_noise(sigma: float, schedule=None, noise_dtype=torch.float32,
-                   noise: str = "torch") -> SamplerTransform:
+                   noise: str = "jax") -> SamplerTransform:
     """Draw the injected noise ``sqrt(2 sigma gamma_k) G_k`` into
     ``ctx.noise``; ``schedule`` optionally overrides ``gamma_k`` for the
     noise scale only; ``noise`` picks the draw (:func:`noise_like`)."""
@@ -427,7 +430,7 @@ def stale_correction(strength: float = 1.0,
 
 
 def sghmc_update(sigma: float, *, friction: float = 1.0, precond: Any = None,
-                 noise_dtype=torch.float32, noise: str = "torch") -> SamplerTransform:
+                 noise_dtype=torch.float32, noise: str = "jax") -> SamplerTransform:
     """Commit one SGHMC step (Chen, Fox & Guestrin 2014; a momentum buffer
     in the transform state):
 

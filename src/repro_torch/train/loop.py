@@ -210,9 +210,10 @@ def _accumulate(single, params, mbs: list) -> tuple:
 
 def make_train_step(model: Model, sgld_cfg: SGLDConfig,
                     num_microbatches: int = 1, *, fused: bool = False,
-                    noise: str = "torch"):
+                    noise: str = "jax"):
     """Returns (sampler, step_fn); step_fn(state, batch, delay) -> (state, metrics).
-    ``noise`` picks the unfused draw (``"torch"`` or ``"jax"``)."""
+    ``noise`` picks the unfused draw (``"jax"``, the default: the
+    reference's numbers, or ``"torch"``)."""
     grad_fn = make_grad_fn(model, num_microbatches)
     sampler = samplers.from_config(sgld_cfg, grad_fn, has_aux=True, fused=fused,
                                    noise=noise)
@@ -227,7 +228,7 @@ def train_loop(model: Model, params: PyTree, sgld_cfg: SGLDConfig,
                batch_fn: Callable[[tuple], PyTree], steps: int, key,
                delays=None, log_every: int = 10, log_fn=print,
                num_microbatches: int = 1, chunk_size: int = 0, *, fused: bool = False,
-               noise: str = "torch"):
+               noise: str = "jax"):
     """Train through the chunked :class:`~repro_torch.train.engine.Engine`,
     logging through :func:`~repro_torch.train.engine.log_hook`.
 

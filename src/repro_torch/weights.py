@@ -48,6 +48,15 @@ def from_jax_params(tree: PyTree, device="cuda", dtype=None) -> PyTree:
     return out
 
 
+def unit_chain(tree: PyTree) -> PyTree:
+    """A single model's tree (``init_params(cfg, key)``, the reference's
+    ``init_params(key, cfg)``) as the port's bank of one chain: each leaf
+    with a leading axis of 1 (views, no copies), as :func:`from_jax_params`
+    carries a single chain across.  ``init_params(..., num_chains=1)``
+    draws chain 0 of ``split(key, 1)`` instead."""
+    return tree_map(lambda t: t[None], tree)
+
+
 def drop_unit_chain(tree: PyTree) -> PyTree:
     """A model tree in the JAX package's layout, for files the JAX package
     reads: the port's one chain is a bank of one (leaves ``(1, ...)``,

@@ -283,7 +283,7 @@ def test_cluster_engine_trains_an_moe_and_a_frontend_config(arch):
                             gamma=1e-3, sigma=1e-5, tau=1, has_aux=True, fused=True)
     engine = ClusterEngine(sampler, num_chains=2, chunk_size=2, collect_aux=True,
                            batch_fn=lambda k: make_batch(cfg, shape, k, "train"))
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu", num_chains=1)
+    params = init_params(cfg, PRNGKey(0), device="cpu", num_chains=1)
     state = engine.init(params, PRNGKey(0))
     before = tree_map(torch.clone, state.params)
     state, aux = engine.run(state, steps=2, schedule=np.array([0, 1]), key=3)

@@ -259,7 +259,7 @@ def test_launcher_save_is_read_by_jax_restore_ensemble(tmp_path):
     bank = jrestore_ensemble(path, like, num_chains=4)
     for a, b in zip(jax.tree_util.tree_leaves(bank), jax.tree_util.tree_leaves(like)):
         assert a.shape == (4, *b.shape) and a.dtype == b.dtype
-    ours = restore_ensemble(path, init_params(get_reduced("qwen3-4b"), device="meta"),
+    ours = restore_ensemble(path, init_params(get_reduced("qwen3-4b"), None, device="meta"),
                             num_chains=4, device="cpu")
     for a, b in zip(tree_leaves(ours), jax.tree_util.tree_leaves(bank)):
         raw = a.view(torch.int16) if a.dtype == torch.bfloat16 else a

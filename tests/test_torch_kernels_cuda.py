@@ -46,6 +46,16 @@ amounts (the update's all-scalar rows); an op launches each kernel once a
 leaf whatever C is, and its per-commit tables reach the card without
 stalling the host.
 
+The draw kernels (not Pallas: ``jax.random``'s draws) equal the plain
+host-style path of ``kernels/rng.py`` run on the card bit for bit:
+``jax_draw`` at a ragged length, 2^20, a leaf's std * normal into bf16,
+blocks of a 4-D leaf at their whole-leaf counters (inner, leading and
+middle dimensions cut), a draw straddling 2^32, uniform, gumbel, a
+division into float16, and a key a row (36 keys, and one by value);
+``categorical`` at (4, 151,936) and (8, 151,936), bf16 and f32, under one
+key and a key a row, with a row of -inf (index 0), two NaNs (the first)
+and two +inf (a tie: the first).  Each wrapper launches once a call.
+
 The in-place kernels (the update, the ring and the paged decode step) bump
 the autograd version of every tensor they write, as the plain versions'
 torch in-place ops do: after one launch each written tensor's version has
@@ -995,3 +1005,113 @@ def test_in_place_kernels_bump_autograd_versions_on_card(cuda, kernel):
     steps = guard_saved(written, launch)
     assert getattr(lu if kernel == "langevin_update" else ds, kernel).launches == launches + 1
     assert set(steps) == set(written)
+
+
+# ---------------------------------------------------------------------------
+# the jax.random draws: csrc/jax_draw.cu and csrc/categorical.cu against the
+# plain host-style path of kernels/rng.py run on the card, bit for bit
+# ---------------------------------------------------------------------------
+def _bits_equal(a, b) -> bool:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.int64:
+        return torch.equal(a, b)
+    words = torch.int32 if a.element_size() == 4 else torch.int16
+    return torch.equal(a.view(words), b.view(words))
+
+
+_VALUES = {"normal": rng._normal_values, "gumbel": rng._gumbel_values,
+           "uniform": lambda bits: rng._uniform_values(bits, -2.0, 3.0)}
+
+# (name, shape, start, block, value, op, c, dtype): a ragged length, 2^20, a
+# leaf's std * normal into bf16, blocks of a 4-D leaf at its whole-leaf
+# counters (inner, leading and middle dimensions cut), a draw straddling
+# 2^32, uniform and gumbel, a division into float16
+DRAW_CASES = [
+    ("ragged", (1_000_003,), 0, None, "normal", None, 1.0, torch.float32),
+    ("2^20", (2**20,), 0, None, "normal", None, 1.0, torch.float32),
+    ("leaf_bf16", (4, 256, 972), 0, None, "normal", "mul", 1 / 2560**0.5, torch.bfloat16),
+    ("block_inner", (3, 5, 7, 64), 0, (slice(None), slice(None), slice(None), slice(10, 41)),
+     "normal", None, 1.0, torch.float32),
+    ("block_lead", (3, 5, 7, 64), 0, (slice(1, 3), slice(None), slice(None), slice(None)),
+     "normal", "mul", 0.5, torch.bfloat16),
+    ("block_mid", (3, 5, 7, 64), 11, (slice(None), slice(2, 4), slice(1, 6), slice(None)),
+     "normal", None, 1.0, torch.float32),
+    ("past_2_32", (9000,), 2**32 - 4000, None, "normal", None, 1.0, torch.float32),
+    ("uniform", (3, 1001), 0, None, "uniform", None, 1.0, torch.float32),
+    ("gumbel", (3, 1001), 0, None, "gumbel", None, 1.0, torch.float32),
+    ("div_f16", (7, 333), 0, None, "normal", "div", 3**0.5, torch.float16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DRAW_CASES, ids=[c[0] for c in DRAW_CASES])
+def test_draw_kernel_equals_its_plain_version(cuda, case):
+    from repro_torch.kernels import jax_draw as jd
+
+    _, shape, start, block, value, op, c, dtype = case
+    key = rng.PRNGKey(7)
+    parts = rng._block_of(shape, block)
+    before = jd.jax_draw.launches
+    got = jd.jax_draw(key, shape, parts, value, cuda, start=start, op=op, c=c,
+                      lo=-2.0, span=5.0, dtype=dtype)
+    assert jd.jax_draw.launches == before + 1
+    want = rng._scaled(rng._draw(key, shape, cuda, start, block, _VALUES[value]), op, c,
+                       dtype)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+    if block is None and start == 0 and value == "normal" and op is None:
+        # the routed entry point is the kernel on a card
+        assert _bits_equal(rng.jax_normal(key, shape, cuda), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 36])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_draw_kernel_key_a_row_equals_its_plain_version(cuda, rows, dtype):
+    """A key table of 36 rows (a layer-stacked leaf's keys) and one key (by
+    value): row r is the plain draw under keys[r]."""
+    from repro_torch.kernels import jax_draw as jd
+
+    keys = rng.split_rows([[0, 42]], rows)[0] if rows == 1 else torch.tensor(
+        rng.split(rng.PRNGKey(3), rows), dtype=torch.int64)
+    before = jd.jax_draw.launches
+    got = rng.normal_rows(keys, (64, 100), cuda, op="mul", c=0.125, dtype=dtype)
+    assert jd.jax_draw.launches == before + 1
+    want = rng.rows_plain(keys, (64, 100), cuda, rng._normal_values, "mul", 0.125, dtype)
+    assert _bits_equal(got, want)
+
+
+def _logp_cases(V, B, dtype, device):
+    """Log-probs (B, V) with a row of -inf (index 0), a row with two NaNs
+    (the first wins) and a row with two +inf (a tie: the first wins)."""
+    g = torch.Generator(device=device).manual_seed(B)
+    logp = torch.log_softmax(torch.randn(B, V, generator=g, device=device), -1).to(dtype)
+    logp[1] = float("-inf")
+    logp[2, 7777] = float("nan")
+    logp[2, 9999] = float("nan")
+    logp[3, 5000] = float("inf")
+    logp[3, 100_000] = float("inf")
+    return logp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["key", "rows"])
+def test_categorical_kernel_equals_its_plain_version(cuda, B, dtype, mode):
+    from repro_torch.kernels import categorical as kc
+
+    logp = _logp_cases(151_936, B, dtype, cuda)
+    before = kc.categorical.launches
+    if mode == "key":
+        got = rng.categorical(rng.PRNGKey(11), logp)
+        want = rng.categorical_plain(rng.PRNGKey(11), logp)
+    else:
+        keys = rng.fold_in_rows(np.asarray(rng.split(rng.PRNGKey(11), B), np.int64),
+                                np.arange(B)).to(cuda)
+        got = rng.categorical_rows(keys, logp)
+        want = rng.categorical_rows_plain(keys, logp)
+    assert kc.categorical.launches == before + 1
+    assert torch.equal(got, want)
+    assert got[1] == 0 and got[2] == 7777 and got[3] == 5000

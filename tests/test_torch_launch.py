@@ -261,7 +261,7 @@ def test_meta_counts_equal_a_real_step_on_the_cpu():
     shape = ShapeConfig("t", 32, 2, "train")
     meta_step, meta_args, _, _ = dryrun.step_and_args(cfg, shape)
     model, _ = steps.build_model(cfg, shape, device="cpu")
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu", num_chains=1)
+    params = init_params(cfg, rng.PRNGKey(0), device="cpu", num_chains=1)
     batch = make_batch(cfg, shape, rng.PRNGKey(1))
     real = step_cost(steps.make_sgld_train_step(model, shape), params, batch,
                      rng.PRNGKey(0))
@@ -397,7 +397,7 @@ def _spec_leaves(tree) -> list:
 def test_partition_specs_equal_the_references(arch):
     cfg, jcfg = get_arch(arch), jc.get_arch(arch)
     assert cfg.param_sharding == jcfg.param_sharding
-    params = init_params(cfg, device="meta")
+    params = init_params(cfg, None, device="meta")
     jparams = jax.eval_shape(lambda k: jax_init(k, jcfg), jax.random.PRNGKey(0))
     for mode in ("tp", "fsdp_tp", "fsdp_full"):
         for fsdp_axes, model_size in ((("data",), None), (("pod", "data"), 16),
@@ -421,7 +421,7 @@ def test_sanitized_specs_equal_the_references(arch):
     from repro_torch.launch.steps import sanitize_spec
 
     cfg, jcfg = get_arch(arch), jc.get_arch(arch)
-    params = init_params(cfg, device="meta")
+    params = init_params(cfg, None, device="meta")
     jparams = jax.eval_shape(lambda k: jax_init(k, jcfg), jax.random.PRNGKey(0))
     for axes in ({"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16},
                  {"data": 2, "model": 4}):
@@ -566,7 +566,7 @@ def test_a_placed_dry_run_counts_the_collectives_by_axis():
     gathers = fsdp["collectives"]["all_gather over data+model"]
     # 2 microbatches x (2 layers x 7 weights x 2 + the embedding and the head)
     assert gathers["calls"] == 2 * (2 * 7 * 2 + 2)
-    whole = roofline.tree_bytes(init_params(cfg, device="meta"))
+    whole = roofline.tree_bytes(init_params(cfg, None, device="meta"))
     assert fsdp["memory"]["param_bytes"] * 4 == pytest.approx(whole, rel=0.01)  # 1/4 each
     assert fsdp["memory"]["param_bytes"] < tp["memory"]["param_bytes"] < whole
     assert fsdp["param_sharding"] == "fsdp_full"

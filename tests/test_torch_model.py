@@ -22,6 +22,7 @@ from repro.models.transformer import init_params as jax_init
 from repro_torch.configs import get_reduced
 from repro_torch.models.transformer import Model, init_params
 from repro_torch.weights import from_jax_params
+from torch_cases import one_cpu_thread  # noqa: F401
 
 C = 2
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -67,7 +68,7 @@ def test_init_params_layout_matches_jax(cfgs, banks):
     shapes, same dtypes, with the chain axis leading."""
     _, tcfg = cfgs
     _, tbank = banks
-    mine = init_params(tcfg, device="cpu", num_chains=C)
+    mine = init_params(tcfg, 0, device="cpu", num_chains=C)
     flat = lambda t: {k: v for k, v in _items(t)}  # noqa: E731
     want, got = flat(tbank), flat(mine)
     assert want.keys() == got.keys()
@@ -170,7 +171,7 @@ def test_model_needs_a_card_unless_asked_for_the_cpu(cfgs, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Model(tcfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        init_params(tcfg)
+        init_params(tcfg, 0)
     Model(tcfg, device="cpu")
 
 

@@ -565,7 +565,9 @@ def test_phase_15s_cells_run_on_the_cpu(worlds):
 
 def test_phase_15s_hymba_and_xlstm_cells_run_on_the_cpu(worlds):
     """Phase 15's (f) and (g) rehearsed at the reduced widths through the
-    script's own gates: hymba in bf16, its SSD heads split by channel (their
+    script's own gates, both against the per-shard oracle: hymba in f32
+    (the card runs it in bf16; see ``PHASE15``), its SSD heads split by
+    channel (their
     leaves gathered where the layer runs — a tensor-parallel gather, not
     FSDP's — and the replicated ones summed over ``model``); xlstm in f32,
     its blocks replicated (no ``model`` sum; its step at its own gamma)."""
@@ -581,5 +583,5 @@ def test_phase_15s_hymba_and_xlstm_cells_run_on_the_cpu(worlds):
     hymba, xlstm = (out[n]["collectives"][-1] for n in ("hymba-1.5b", "xlstm-1.3b"))
     assert hymba["model sum"] == 3 and "fsdp gather" not in hymba  # bc_proj, conv_b, norm
     assert "model sum" not in xlstm and max(out["xlstm-1.3b"]["gathered_gb"]) == 0
-    assert out["hymba-1.5b"]["grad_rel_max"] <= 0.05
+    assert out["hymba-1.5b"]["grad_rel_max"] <= 1e-4
     assert out["xlstm-1.3b"]["grad_rel_max"] <= 1e-4

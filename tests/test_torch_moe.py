@@ -23,7 +23,7 @@ from repro.models import moe as jmoe
 from repro.models.common import activation as jax_activation
 from repro_torch.configs import get_reduced
 from repro_torch.models import moe
-from repro_torch.models.common import activation
+from repro_torch.models.common import activation, key_table
 from repro_torch.utils import tree_map
 from torch_cases import one_cpu_thread  # noqa: F401
 
@@ -147,7 +147,7 @@ def test_bank_of_chains_equals_each_chain_alone():
     chain run alone: capacity and routing are per chain."""
     _, tcfg = _cfgs(KIMI, num_experts=16, experts_per_token=8)
     gen = torch.Generator().manual_seed(0)
-    bank = moe.init_moe(gen, tcfg, torch.float32, lead=(3,))
+    bank = moe.init_moe(key_table(0, 3), tcfg, torch.float32)
     x = torch.randn(3, 2, 24, tcfg.d_model, generator=gen)
     x += 3 * torch.randn(3, 1, 1, tcfg.d_model, generator=gen)  # a chain's
     # tokens lean to the same experts: some overflow
@@ -166,7 +166,7 @@ def test_bank_of_chains_equals_each_chain_alone():
 def test_shared_expert_contributes():
     _, tcfg = _cfgs(PHI, num_experts=4, experts_per_token=2, num_shared_experts=1)
     gen = torch.Generator().manual_seed(6)
-    p = moe.init_moe(gen, tcfg, torch.float32, lead=(1,))
+    p = moe.init_moe(key_table(6, 1), tcfg, torch.float32)
     x = torch.randn(1, 1, 4, tcfg.d_model, generator=gen)
     y1, _ = moe.apply_moe(p, x, tcfg)
     y2, _ = moe.apply_moe(dict(p, shared_w_down=torch.zeros_like(p["shared_w_down"])),

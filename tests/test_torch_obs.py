@@ -217,8 +217,7 @@ def test_paged_timeline_queue_wait_and_scheduler_row():
 @pytest.fixture(scope="module")
 def bank():
     cfg = replace(get_reduced("qwen3-4b"), dtype="float32")
-    return cfg, init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
-                            num_chains=2)
+    return cfg, init_params(cfg, 0, device="cpu", num_chains=2)
 
 
 def test_paged_timeline_from_live_engine(bank):

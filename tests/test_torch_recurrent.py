@@ -99,7 +99,7 @@ def test_tap_teacher_forces_each_layer(arch):
     (what ``chip_smoke.py`` phase 11c gates xlstm-1.3b on)."""
     _, tcfg = _cfgs(arch)
     L, B, T = tcfg.num_layers, 2, 16
-    params = init_params(tcfg, torch.Generator().manual_seed(0), device="cpu", num_chains=2)
+    params = init_params(tcfg, 0, device="cpu", num_chains=2)
     stream = np.random.default_rng(1).integers(0, tcfg.vocab_size, (B, T))
     tm = Model(tcfg, device="cpu")
     xs, read = [], []
@@ -193,7 +193,7 @@ def test_grad_fn_on_a_layers_list_equals_plain_autograd():
     layer's leaves are autograd leaves as they are; every gradient equals
     autograd through the plain ``loss_fn`` of the same bank, leaf by leaf."""
     _, cfg = _cfgs("xlstm-1.3b")
-    params = init_params(cfg, torch.Generator().manual_seed(4), device="cpu", num_chains=2)
+    params = init_params(cfg, 4, device="cpu", num_chains=2)
     model = Model(cfg, device="cpu")
     batch = {"tokens": torch.from_numpy(
         np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 17)).astype(np.int64))}

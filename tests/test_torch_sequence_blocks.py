@@ -26,6 +26,7 @@ from repro.models import ssm as jssm
 from repro.models import xlstm as jxlstm
 from repro_torch.configs import get_arch, get_reduced
 from repro_torch.models import ssm, xlstm
+from repro_torch.models.common import key_table
 from torch_cases import one_cpu_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -204,7 +205,7 @@ def test_deterministic_init_leaves_equal_the_references(kind, width):
         jcfg, tcfg = replace(jcfg, num_layers=1), replace(tcfg, num_layers=1)
     jp = REF[kind][0](jax.random.PRNGKey(0), jcfg, jnp.float32)
     init = {"ssm": ssm.init_ssm, "mlstm": xlstm.init_mlstm, "slstm": xlstm.init_slstm}
-    tp = init[kind](torch.Generator().manual_seed(0), tcfg, torch.float32, (2,))
+    tp = init[kind](key_table(0, 2), tcfg, torch.float32)
     for name in _DETERMINISTIC[kind]:
         want = np.asarray(jp[name])
         for c in range(2):

@@ -82,12 +82,19 @@ MESHES = {
 }
 #: chip_smoke.py phase 15's cells rehearsed on the CPU over data 2 x model 2:
 #: (name, reduced config, dtype, its gates: loss rtol, gradient rel L2,
-#: new parameters' atol, the layouts trained beside the tensor-parallel one)
+#: new parameters' atol, the layouts trained beside the tensor-parallel one);
+#: the recurrent configs in float32 with qwen3-4b-f32's gates (readings 5.3e-6
+#: and 6.3e-7; a step that dropped its data mean reads 0.44-1.9): in bf16 two
+#: sound computations of hymba's per-head SSD gradients part by up to 0.057 at
+#: these widths (dt_bias, the oracle started from the placed parameters), as
+#: far as bf16 is from float32 there (0.028-0.053; one bf16 ulp of the weights
+#: moves them by up to 0.13: scripts/torch_grad_spread.py --reduced); the card
+#: holds its bf16 cell at full width (chip_smoke.py phase 15 (f))
 PHASE15 = (("phi3.5-moe", "phi3.5-moe-42b-a6.6b", "bfloat16", (1e-2, 0.05, None),
             ("fsdp_tp",)),
            ("qwen3-4b-f32", "qwen3-4b", "float32", (1e-5, 1e-4, 1e-6), ("fsdp_full",)),
-           ("hymba-1.5b", "hymba-1.5b", "bfloat16", (1e-2, 0.05, None), ()),
-           ("xlstm-1.3b", "xlstm-1.3b", "float32", (1e-5, 0.05, 1e-6), ()))
+           ("hymba-1.5b", "hymba-1.5b", "float32", (1e-5, 1e-4, 1e-6), ()),
+           ("xlstm-1.3b", "xlstm-1.3b", "float32", (1e-5, 1e-4, 1e-6), ()))
 SEQ, BATCH, MICRO = 64, 4, 2  # the reference test's step: seq_len 64, batch 4, 2 microbatches
 BATCHES = {"fsdp": 8}  # a case's global batch, where it is not BATCH
 GAMMA, SIGMA = 1e-3, 1e-4
@@ -164,7 +171,7 @@ def train_case(case, mesh, shape, fixtures) -> dict:
     cfg = config(case, get_reduced)
     step_shape = ShapeConfig("t", SEQ, batch_of(case), "train", num_microbatches=MICRO)
     model, _ = build_model(cfg, step_shape, device="cpu", mesh=mesh)
-    like = init_params(cfg, device="meta", num_chains=1)
+    like = init_params(cfg, None, device="meta", num_chains=1)
     whole = restore_checkpoint(os.path.join(fixtures, f"{case}.npz"), like, device="cpu")
     pend = restore_checkpoint(os.path.join(fixtures, f"{case}_pending.npz"), like,
                               device="cpu")

@@ -101,7 +101,7 @@ def serving(mesh, shape, cases, rank, fixtures, out):
 
     for case in cases:
         cfg = config(case, get_reduced)
-        like = init_params(cfg, device="meta", num_chains=CASES[case][2])
+        like = init_params(cfg, None, device="meta", num_chains=CASES[case][2])
         path = os.path.join(fixtures, f"{case}.npz")
         bank = restore_checkpoint(path, like, device="cpu")
         dec, pag, got = serve(cfg, bank, mesh, True)
@@ -131,7 +131,7 @@ def qwen3_extras(cfg, bank, path, mesh, shape, rank, dec) -> dict:
 
     got = {}
     restored = DecodeEngine.from_checkpoint(
-        path, like=init_params(cfg, device="meta"), model=cfg, max_seq=32,
+        path, like=init_params(cfg, None, device="meta"), model=cfg, max_seq=32,
         device="cpu", mesh=mesh, shard_params=True, return_logits=True)
     r = restored.generate(prompts(cfg), NEW)
     got["restored"] = {"tokens": r.tokens, "logits": r.logits,

@@ -244,7 +244,7 @@ def cluster_scenarios(mesh, rank, out, tmp):
 # -- serving -----------------------------------------------------------------------------
 def lm_bank(fixtures):
     cfg = replace(get_reduced("qwen3-4b"), dtype="float32")
-    like = init_params(cfg, device="meta", num_chains=C)
+    like = init_params(cfg, None, device="meta", num_chains=C)
     bank = restore_checkpoint(os.path.join(fixtures, "bank.npz"), like, device="cpu")
     return cfg, bank
 
@@ -270,7 +270,7 @@ def serving_scenarios(mesh, rank, out, fixtures):
     note_local("decode_cache", [cache["k"], cache["v"]], dim=1)
     out["decode"] = {"tokens": res.tokens, "logits": res.logits, "sampled": sampled.tokens}
     restored = DecodeEngine.from_checkpoint(
-        os.path.join(fixtures, "bank.npz"), like=init_params(cfg, device="meta"),
+        os.path.join(fixtures, "bank.npz"), like=init_params(cfg, None, device="meta"),
         model=cfg, max_seq=32, return_logits=True, device="cpu", mesh=mesh)
     note_local("decode_restored", restored.params)
     r2 = restored.generate(toks, 6)
@@ -450,7 +450,7 @@ def refusals(mesh, out):
     g2_cfg = replace(cfg, num_heads=6, num_kv_heads=3)  # 3 query heads a rank, G 2
     hist = place_chains(torch.zeros(C // mesh.shape[0], 3, 4), mesh, "data")
     delays = place_chains(torch.zeros(C // mesh.shape[0], 4, dtype=torch.int32), mesh, "data")
-    bank = init_params(cfg, device="cpu", num_chains=C)
+    bank = init_params(cfg, 0, device="cpu", num_chains=C)
     out["refusals"] = {
         "dtensor_op": caught(lambda: ops.delay_gather(hist, delays, [0] * C)),
         "dtensor_update": caught(lambda: ops.fused_langevin_update(
@@ -459,10 +459,10 @@ def refusals(mesh, out):
         # the model axis' refusals, on the world's (data 1, model 2) mesh:
         # experts the axis does not divide, a query block straddling a group
         "experts_not_dividing": caught(lambda: DecodeEngine(
-            moe_cfg, init_params(moe_cfg, device="cpu", num_chains=2), device="cpu",
+            moe_cfg, init_params(moe_cfg, 0, device="cpu", num_chains=2), device="cpu",
             mesh=tp_mesh, shard_params=True)),
         "straddling_group": caught(lambda: DecodeEngine(
-            g2_cfg, init_params(g2_cfg, device="cpu", num_chains=2), device="cpu",
+            g2_cfg, init_params(g2_cfg, 0, device="cpu", num_chains=2), device="cpu",
             mesh=tp_mesh, shard_params=True)),
         "not_dividing": caught(lambda: ClusterEngine(s, num_chains=3, mesh=mesh)),
         "no_chain_axis": caught(lambda: ClusterEngine(s, num_chains=C, mesh=mesh,
