@@ -95,7 +95,13 @@ def predictive_stats(preds: torch.Tensor, qs: torch.Tensor) -> ServeResult:
     the mean, the population variance, and ``torch.quantile`` at ``qs``
     with its default linear interpolation (``jnp.quantile``'s).  Every
     column is reduced on its own, so a block above ``torch.quantile``'s
-    2**24 elements is taken in column chunks with the same result."""
+    2**24 elements is taken in column chunks with the same result.
+
+    The block is reduced in row-major order: a predict fn may return a
+    strided view (``vmap`` of a product gives ``(C, Q)`` with the chains
+    innermost), and a reduction along the contiguous axis sums in another
+    order than the all-gathered block of a placed engine, one ulp apart."""
+    preds = preds.contiguous()
     mean = preds.mean(dim=0)
     var = (preds - mean).square().mean(dim=0)
     qs = qs.to(device=preds.device, dtype=preds.dtype)
