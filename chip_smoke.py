@@ -60,7 +60,14 @@ library) and runs, failing on the first phase that fails:
    update (x and its flags), the ring decode (both caches) and the paged
    decode (both pools), every tensor the kernel wrote has its version
    counter advanced, and a backward through a tiny graph that saved it
-   raises, as after a torch in-place op;
+   raises, as after a torch in-place op; then the draw kernels against
+   their plain versions bit for bit (``jax_draw`` at ``DRAW_CASES``, two
+   f32 draws of 2^27 among them, and a 36-row key table; ``categorical``
+   at ``CATEGORICAL_CASES``, a V that 8 does not divide and a row offset
+   that breaks 16-byte alignment among them), each timed as device time
+   (CUDA-graph replays, the SM clock read in the window) and as call time
+   (the wrapper's enqueue inside), then ``init_params`` on the card
+   against the CPU;
 3. the engines on a reduced float32 bank, on the card (kernels) and on the
    CPU (plain path): the same tokens and BMA log-probs within 1e-4; then
    4 fused W-Icon training commits of the reduced float32 model on both:
@@ -122,7 +129,9 @@ library) and runs, failing on the first phase that fails:
    (one update and one read launch a commit for all 32): final W2, wall
    seconds, commits a second; (d) the torch serve quickstart (32 chains, 8
    workers, W-Con commits of the polynomial regression cut from its 4,000
-   to SERVE_QUICKSTART_COMMITS, ``save_ensemble``,
+   to SERVE_QUICKSTART_COMMITS, each chain's batch
+   ``PolyRegression.sample_batch``'s, two draw-kernel launches,
+   ``save_ensemble``,
    ``ServeEngine.from_checkpoint``): means
    and 90% intervals against the closed-form posterior predictive
    (``torch_serve_quickstart.check``); (c) a 4-chain ensemble of qwen3-4b at its
@@ -444,8 +453,25 @@ DRAW_CASES = (
     ("past_2_32", (2**20,), 2**32 - 2**19, None, "normal", None, "float32"),
     ("uniform", (8, 4099), 0, None, "uniform", None, "float32"),
     ("gumbel", (8, 4099), 0, None, "gumbel", None, "float32"),
+    # every float32 normal and gumbel is a function of the draw's 23 random
+    # mantissa bits: 2^27 draws reach all but about one of the 2^23 values
+    ("normal_2^27", (2**27,), 0, None, "normal", None, "float32"),
+    ("gumbel_2^27", (2**27,), 0, None, "gumbel", None, "float32"),
 )
 VOCAB = 151_936  # qwen3-4b's: the categorical's rows
+#: phase 2's categoricals: (rows, V, dtype, mode, offset) — qwen3-4b's
+#: vocabulary at 4 and 8 rows, bf16 and f32, one key and a key a row (rows
+#: 1-3 hold a row of -inf, two NaNs and two +inf); then a V that 8 does not
+#: divide (each row starts off a 16-byte boundary), logp starting 1 and 3
+#: elements past one (``offset``), and a V below a vector's width
+CATEGORICAL_CASES = tuple(
+    (B, VOCAB, dt, mode, 0) for B in (4, 8) for dt in ("bfloat16", "float32")
+    for mode in ("key", "rows")) + (
+    (4, VOCAB - 1, "bfloat16", "key", 0),
+    (4, VOCAB, "bfloat16", "key", 1),
+    (8, 32_003, "float32", "rows", 3),
+    (3, 5, "float32", "key", 1),
+)
 
 # the paper's experiments at their published settings; the JAX package's
 # values there, and the band the card's must fall in, come from
@@ -497,11 +523,9 @@ def cuda_ms(torch, fns, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def graph_ms(torch, fns, iters: int) -> float:
-    """Mean device ms of one call, as ``cuda_ms``, from replays of a CUDA
-    graph of ``iters`` calls: the host's time to enqueue a call (the
-    wrappers' checks, allocations and ctypes, tens of microseconds) is left
-    out, so a kernel shorter than that is timed, not the host."""
+def _captured(torch, fns, iters: int):
+    """A CUDA graph of ``iters`` calls cycling through ``fns``, each run
+    once first, replayed once before it is returned."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
@@ -511,14 +535,51 @@ def graph_ms(torch, fns, iters: int) -> float:
             fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def _replayed_ms(torch, graph, reps: int = 1, during=None) -> float:
+    """ms of ``reps`` back-to-back replays of ``graph`` (CUDA events);
+    ``during()`` runs on the host while they run."""
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    graph.replay()
+    for _ in range(reps):
+        graph.replay()
     stop.record()
+    if during is not None:
+        during()
     stop.synchronize()
+    return start.elapsed_time(stop)
+
+
+def graph_ms(torch, fns, iters: int) -> float:
+    """Mean device ms of one call, as ``cuda_ms``, from replays of a CUDA
+    graph of ``iters`` calls: the host's time to enqueue a call (the
+    wrappers' checks, allocations and ctypes, tens of microseconds) is left
+    out, so a kernel shorter than that is timed, not the host."""
+    graph = _captured(torch, fns, iters)
+    ms = _replayed_ms(torch, graph) / iters
     del graph
-    return start.elapsed_time(stop) / iters
+    return ms
+
+
+def graph_clock_ms(torch, fns, iters: int, min_ms: float = 300.0) -> tuple:
+    """``graph_ms``'s device ms of one call, from the graph replayed back to
+    back for at least ``min_ms``, and ``nvidia-smi``'s ``clocks.sm`` (MHz),
+    ``power.draw`` and ``power.limit`` (W), queried while that window runs
+    (``nvidia-smi`` answers in well under its length): ``(ms,
+    {"clocks.sm": ..., "power.draw": ..., "power.limit": ...})``."""
+    graph = _captured(torch, fns, iters)
+    reps = max(1, math.ceil(min_ms / max(_replayed_ms(torch, graph), 1e-3)))
+    smi = []
+    ms = _replayed_ms(torch, graph, reps, lambda: smi.append(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])) / (reps * iters)
+    del graph
+    return ms, dict(zip(("clocks.sm", "power.draw", "power.limit"),
+                        (float(v) for v in smi[0].split(","))))
 
 
 def n_sets(bytes_per_set: int) -> int:
@@ -1284,16 +1345,40 @@ def _bits_equal(torch, a, b) -> bool:
     return torch.equal(a.view(words), b.view(words))
 
 
+def categorical_logp(torch, B: int, V: int, dtype, offset: int):
+    """Log-probs ``(B, V)`` of ``dtype`` on the card, starting ``offset``
+    elements into their buffer; at qwen3-4b's vocabulary row 1 is -inf
+    (index 0 wins), row 2 holds two NaNs (the first wins) and row 3 two
+    +inf (a tie: the first wins)."""
+    g = torch.Generator(device="cuda").manual_seed(B * 1000 + V % 1000 + offset)
+    buf = torch.empty(B * V + offset, dtype=dtype, device="cuda")
+    logp = buf[offset:].view(B, V)
+    logp.copy_(torch.log_softmax(torch.randn(B, V, generator=g, device="cuda"), -1))
+    if V == VOCAB and B >= 4:
+        logp[1] = float("-inf")
+        logp[2, 7777] = logp[2, 9999] = float("nan")
+        logp[3, 5000] = logp[3, 100_000] = float("inf")
+    return logp
+
+
+def _timed_row(torch, fn, iters: int) -> dict:
+    """A draw row's times: device ms from graph replays with the clock read
+    in the window (``graph_clock_ms``), and the call's ms with its enqueue
+    (``cuda_ms``)."""
+    ms, clock = graph_clock_ms(torch, [fn], iters)
+    return {"ms": ms, "call_ms": cuda_ms(torch, [fn], iters), "clock": clock}
+
+
 def run_draw_checks(torch, np) -> dict:
     """The draw kernels against their plain versions on the card, bit for
     bit: ``jax_draw`` at :data:`DRAW_CASES` and a 36-row key table (a
-    layer-stacked leaf, std * normal into bf16); ``categorical`` at (4,
-    151,936) and (8, 151,936), bf16 and f32, under one key and a key a row,
-    with a row of -inf (index 0), two NaNs (the first) and two +inf (a tie:
-    the first).  Each logs the kernel's ms, the plain version's, its bound
-    (operations at ALU_OPS or bytes, whichever is larger) and, for scale
-    only, ``torch.randn``'s ms at the same size (another generator: no
-    library call computes these numbers)."""
+    layer-stacked leaf, std * normal into bf16); ``categorical`` at
+    :data:`CATEGORICAL_CASES`.  Each logs the kernel's device ms (graph
+    replays, ``clocks.sm`` read in the window), its call ms (the wrapper's
+    enqueue inside), the plain version's, its bound (operations at ALU_OPS
+    or bytes, whichever is larger) and, for scale only, ``torch.randn``'s
+    ms at the same size (another generator: no library call computes
+    these numbers)."""
     from repro_torch.kernels import jax_draw as jd
     from repro_torch.kernels import rng
 
@@ -1322,22 +1407,23 @@ def run_draw_checks(torch, np) -> dict:
               "elements differ from the plain draw")
         del got, want
         torch.cuda.empty_cache()
-        ms = cuda_ms(torch, [kernel], 3 if n > 2**26 else 20)
+        iters = 3 if n > 2**26 else 20
+        row = _timed_row(torch, kernel, iters)
         gen = torch.Generator(device=dev).manual_seed(0)
         randn_ms = cuda_ms(torch, [lambda: torch.randn(n, device=dev, dtype=dtype,
-                                                       generator=gen)],
-                           3 if n > 2**26 else 20)
+                                                       generator=gen)], iters)
         bms, by = bound(n * torch.empty((), dtype=dtype).element_size(),
                         n * (ops[value] + (op is not None) + (dtype != torch.float32)),
                         ALU_OPS)
         torch.cuda.empty_cache()
         draws.append({"case": name, "shape": list(shape), "elements": n, "dtype": dt,
-                      "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                      "max_abs_err": 0.0, **row, "plain_ms": plain_ms,
                       "bound_ms": bms, "bound_by": by, "library_ms": None,
                       "torch_randn_ms": randn_ms})
         log(f"jax_draw {name}: {n} elements {dt}, equal bit for bit to the plain draw; "
-            f"{ms:.4f} ms (plain {plain_ms:.2f} ms, torch.randn {randn_ms:.4f} ms for "
-            f"scale), bound {bms:.4f} ms by {by}")
+            f"{row['ms']:.4f} ms device, {row['call_ms']:.4f} ms a call (plain "
+            f"{plain_ms:.2f} ms, torch.randn {randn_ms:.4f} ms for scale), bound "
+            f"{bms:.4f} ms by {by}; {row['clock']}")
     # a key a row: 36 layers' keys, each row a (256, 1024) std * normal in bf16
     keys = torch.tensor(rng.split(rng.PRNGKey(3), 36), dtype=torch.int64)
     got = rng.normal_rows(keys, (256, 1024), dev, op="mul", c=1 / 16, dtype=torch.bfloat16)
@@ -1346,57 +1432,50 @@ def run_draw_checks(torch, np) -> dict:
     check(_bits_equal(torch, got, want), "jax_draw: the 36-row key table differs")
     n = got.numel()
     table = rng._key_words(keys, dev)
-    ms = cuda_ms(torch, [lambda: jd.jax_draw_rows(table, 256 * 1024, "normal", op="mul",
-                                                  c=1 / 16, dtype=torch.bfloat16)], 20)
+    row = _timed_row(torch, lambda: jd.jax_draw_rows(table, 256 * 1024, "normal", op="mul",
+                                                     c=1 / 16, dtype=torch.bfloat16), 20)
     bms, by = bound(2 * n, n * (NORMAL_OPS + 2), ALU_OPS)
     draws.append({"case": "key_table_36", "shape": [36, 256, 1024], "elements": n,
-                  "dtype": "bfloat16", "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                  "dtype": "bfloat16", "max_abs_err": 0.0, **row, "plain_ms": plain_ms,
                   "bound_ms": bms, "bound_by": by, "library_ms": None})
-    log(f"jax_draw key table: 36 rows x 262,144 bf16 equal bit for bit; {ms:.4f} ms "
-        f"(plain {plain_ms:.2f} ms), bound {bms:.4f} ms by {by}")
+    log(f"jax_draw key table: 36 rows x 262,144 bf16 equal bit for bit; {row['ms']:.4f} ms "
+        f"device, {row['call_ms']:.4f} ms a call (plain {plain_ms:.2f} ms), bound "
+        f"{bms:.4f} ms by {by}; {row['clock']}")
     del got, want
     cats = []
-    for B in (4, 8):
-        for dt in ("bfloat16", "float32"):
-            dtype = getattr(torch, dt)
-            g = torch.Generator(device=dev).manual_seed(B)
-            logp = torch.log_softmax(torch.randn(B, VOCAB, generator=g, device=dev),
-                                     -1).to(dtype)
-            logp[1] = float("-inf")
-            logp[2, 7777] = logp[2, 9999] = float("nan")
-            logp[3, 5000] = logp[3, 100_000] = float("inf")
-            slot_keys = rng.fold_in_rows(np.asarray(rng.split(key, B), np.int64),
-                                         np.arange(B)).to(dev)
-            for mode in ("key", "rows"):
-                if mode == "key":
-                    def kernel():
-                        return rng.categorical(key, logp)
+    for B, V, dt, mode, offset in CATEGORICAL_CASES:
+        dtype = getattr(torch, dt)
+        logp = categorical_logp(torch, B, V, dtype, offset)
+        slot_keys = rng.fold_in_rows(np.asarray(rng.split(key, B), np.int64),
+                                     np.arange(B)).to(dev)
+        if mode == "key":
+            def kernel():
+                return rng.categorical(key, logp)
 
-                    def plain():
-                        return rng.categorical_plain(key, logp)
-                else:
-                    def kernel():
-                        return rng.categorical_rows(slot_keys, logp)
+            def plain():
+                return rng.categorical_plain(key, logp)
+        else:
+            def kernel():
+                return rng.categorical_rows(slot_keys, logp)
 
-                    def plain():
-                        return rng.categorical_rows_plain(slot_keys, logp)
-                got = kernel()
-                want, plain_ms = _timed_once(torch, plain)
-                check(torch.equal(got, want),
-                      f"categorical ({B}, {VOCAB}) {dt} {mode}: {got.tolist()} != "
-                      f"{want.tolist()}")
-                check(got[1:4].tolist() == [0, 7777, 5000],
-                      f"categorical: -inf row, NaN and tie gave {got[1:4].tolist()}")
-                ms = cuda_ms(torch, [kernel], 50)
-                n = B * VOCAB
-                bms, by = bound(n * logp.element_size() + 8 * B, n * CATEGORICAL_OPS,
-                                ALU_OPS)
-                cats.append({"rows": B, "dtype": dt, "mode": mode, "max_abs_err": 0.0,
-                             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                             "bound_by": by, "library_ms": None})
-                log(f"categorical ({B}, {VOCAB}) {dt}, {mode}: equal to the plain "
-                    f"draw (-inf row 0, first NaN, first tie); {ms:.4f} ms (plain "
-                    f"{plain_ms:.3f} ms), bound {bms:.4f} ms by {by}")
+            def plain():
+                return rng.categorical_rows_plain(slot_keys, logp)
+        got = kernel()
+        want, plain_ms = _timed_once(torch, plain)
+        what = f"categorical ({B}, {V}) {dt} {mode}, offset {offset}"
+        check(torch.equal(got, want), f"{what}: {got.tolist()} != {want.tolist()}")
+        if V == VOCAB and B >= 4:
+            check(got[1:4].tolist() == [0, 7777, 5000],
+                  f"categorical: -inf row, NaN and tie gave {got[1:4].tolist()}")
+        row = _timed_row(torch, kernel, 50)
+        n = B * V
+        bms, by = bound(n * logp.element_size() + 8 * B, n * CATEGORICAL_OPS, ALU_OPS)
+        cats.append({"rows": B, "V": V, "dtype": dt, "mode": mode, "offset": offset,
+                     "max_abs_err": 0.0, **row, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": by, "library_ms": None})
+        log(f"{what}: equal to the plain draw; {row['ms']:.5f} ms device, "
+            f"{row['call_ms']:.4f} ms a call (plain {plain_ms:.3f} ms), bound {bms:.5f} ms "
+            f"by {by}; {row['clock']}")
     torch.cuda.empty_cache()
     return {"draws": draws, "categorical": cats}
 
@@ -2239,25 +2318,31 @@ def serve_quickstart(torch, np, kernels, ds) -> dict:
     SERVE_QUICKSTART_COMMITS, the bank saved and restored into a
     ``ServeEngine``): the served means and 90%
     intervals against the closed-form posterior predictive
-    (``torch_serve_quickstart.check``); no kernel of this repo runs
-    (unfused W-Con, a predictive path)."""
+    (``torch_serve_quickstart.check``); of this repo's kernels only the
+    draw kernel runs (``reg.sample_batch``: two launches a chain's batch;
+    unfused W-Con, a predictive path)."""
+    from repro_torch.kernels import jax_draw as jd
+
     sys.path.insert(0, str(ROOT / "examples"))
     import torch_serve_quickstart as sq
 
     every = {**kernels, "decode_step": ds.decode_step,
              "paged_decode_step": ds.paged_decode_step}
     _reset(every)
+    jd.jax_draw.launches = 0
     out = sq.run(device="cuda", commits=SERVE_QUICKSTART_COMMITS)
-    got = _counts(every)
+    got, draws = _counts(every), jd.jax_draw.launches
     verdict = sq.check(out)
     check(verdict["ok"], f"serve quickstart: against the closed form {verdict}")
     check(got == dict.fromkeys(every, 0), f"serve quickstart: launches {got}")
+    check(draws >= 2 * sq.CHAINS * out["commits"],
+          f"serve quickstart: {draws} draw launches, not two a chain's batch")
     log(f"serve quickstart: {sq.CHAINS} chains x {out['commits']} commits in "
-        f"{out['train_s']:.2f} s ({out['commits'] / out['train_s']:.1f} commits/s); "
-        f"{sq.QUERIES} queries served in {out['serve_ms']:.2f} ms; against the closed "
-        f"form {verdict}")
+        f"{out['train_s']:.2f} s ({out['commits'] / out['train_s']:.1f} commits/s, "
+        f"{draws} draw launches); {sq.QUERIES} queries served in {out['serve_ms']:.2f} ms; "
+        f"against the closed form {verdict}")
     return {"commits": out["commits"], "train_s": out["train_s"],
-            "serve_ms": out["serve_ms"], "check": verdict}
+            "serve_ms": out["serve_ms"], "check": verdict, "jax_draw_launches": draws}
 
 
 def cluster_path(torch, np, kernels, keep=()) -> dict:
@@ -5678,15 +5763,15 @@ def main() -> int:
                "paper": paper_draws["jax_draw"],
                "prefetcher": tool["prefetch"]["ar1_stream"]["launches"],
                "cluster_quickstart": sum(r["jax_draw_launches"] for r in cq.values()),
-               "phase15": axis_draws}
+               "serve_quickstart": sq["jax_draw_launches"], "phase15": axis_draws}
     kernels.append({
         "name": "jax_draw", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/jax_draw.cu",
         "replaces": "not Pallas: jax.random.normal / uniform "
                     "(src/repro/models/common.py:72)",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        **{k: big[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")},
+        **{k: big[k] for k in ("max_abs_err", "ms", "call_ms", "clock", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")},
         "torch_randn_ms": big["torch_randn_ms"], "cases": draws["draws"],
         "init_reference": inits})
     cat = next(r for r in draws["categorical"]
@@ -5699,8 +5784,8 @@ def main() -> int:
         "replaces": "not Pallas: jax.random.categorical "
                     "(src/repro/cluster/decode.py:178)",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        **{k: cat[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")},
+        **{k: cat[k] for k in ("max_abs_err", "ms", "call_ms", "clock", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")},
         "cases": draws["categorical"]})
     log(json.dumps({"paper": {k: v for k, v in pp.items() if k != "launches"}}))
     log(json.dumps({"cluster": {"reference": ca, "quickstart": cq, "full_width": cp}}))

@@ -41,25 +41,11 @@ WIDTH_FACTOR = 2.0  # the interval's half-width against 1.645 stds, either way
 
 
 def batch_fn(reg: PolyRegression, n: int):
-    """Minibatches of the regression's data law, drawn on its device: the
-    executor hands ``batch_fn`` one PRNG key a (commit, chain), the
-    reference's keys, and each seeds one device generator (``z`` uniform
-    on the scaled interval, Gaussian observation noise, ``y`` as
-    ``PolyRegression.sample_batch`` computes it).  The numbers are torch's
-    draws from the key, not ``jax.random``'s: ``reg.sample_batch(key, n)``
-    gives those, at about 300 small launches a batch where this takes
-    four, and the ensemble makes 32 batches a commit."""
-    dev = reg.device
-    g = torch.Generator(device=dev)
-
-    def draw(key):
-        g.manual_seed(rng.seed_int(key))
-        z = reg.z_scale * (2.0 * torch.rand(n, generator=g, device=dev) - 1.0)
-        phi = reg.features(z)
-        eps = torch.randn(n, generator=g, device=dev)
-        return phi, phi @ reg.true_coef + reg.true_bias + reg.nu_std * eps
-
-    return draw
+    """Minibatches of the regression's data law: the executor hands
+    ``batch_fn`` one PRNG key a (commit, chain), the reference's keys, and
+    each gives ``reg.sample_batch(key, n)``, the JAX twin's batch for that
+    key (on a card two launches of the draw kernel and a product)."""
+    return lambda key: reg.sample_batch(key, n)
 
 
 def run(device="cuda", commits: int = COMMITS, path=None) -> dict:

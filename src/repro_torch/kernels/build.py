@@ -100,6 +100,17 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def raw_stream(index: int) -> int:
+    """The handle of device ``index``'s current CUDA stream (a graph's
+    capture stream while one is captured), without the ``torch.cuda.Stream``
+    object ``current_stream`` builds: the wrappers' enqueue takes it once a
+    launch."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+
+
 def require_cuda(t, what: str) -> None:
     """Raise unless ``t`` lies on a CUDA device (a wrapper launches its
     kernel or raises; the plain versions are in ``kernels.ref``)."""

@@ -5,19 +5,21 @@
 v)))``: under one key row r takes counters ``[r V, (r + 1) V)``
 (``rng.categorical``); with a ``(B, 2)`` key table on the card, row r
 takes ``[0, V)`` under ``keys[r]`` (``rng.categorical_rows``).  Each row is
-split over several blocks, combined in the same launch.  The argmax is
-``torch.argmax``'s: the first maximal index, NaN above every number.
+split over blocks of :data:`THREADS` threads, :data:`COLS` columns each,
+combined in the same launch by one 64-bit ``atomicMax`` a block on an
+ordered key (:func:`ordered_keys`).  The argmax is ``torch.argmax``'s: the
+first maximal index, NaN above every number.
 
 The kernel replaces no Pallas kernel: it is what XLA runs for the
 reference's ``jax.random.categorical``.  Its plain versions are
 :func:`repro_torch.kernels.rng.categorical` and ``categorical_rows`` on the
 CPU, which route a CUDA ``logp`` here.
 
-The arrival counters of the combine live in one zeroed int32 buffer a
-device, grown when a call has more rows and left zeroed by every launch;
-calls on one stream share it (two streams that may overlap would race on
-it).  ``categorical.launches`` counts launches and is raised nowhere
-else.
+The combine's words (a 64-bit key a row) and arrival counters live in one
+zeroed buffer a device, grown when a call has more rows and left zeroed by
+every launch; calls on one stream share it (two streams that may overlap
+would race on it).  ``categorical.launches`` counts launches and is raised
+nowhere else.
 """
 
 from __future__ import annotations
@@ -29,40 +31,81 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-THREADS = 256
-MIN_CHUNK = 1024  # columns a block at least
-TARGET_BLOCKS = 2 * 132  # two blocks an SM of an H100
+THREADS, COLS = 128, 8  # a block's threads, a thread's columns (csrc/categorical.cu)
+SPAN = THREADS * COLS
+MAX_V = 2**31
 
-_COUNTERS: dict = {}  # device -> zeroed int32 arrival counters
+_SCRATCH: dict = {}  # device -> zeroed int64: a word a row, then the counters
 
 
 def _lib():
     lib = build.load("categorical")
     if not getattr(lib, "_typed", False):
         p, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
-        lib.categorical_launch.argtypes = [p, ll, i, p, u, u, p, p, p, p, i, ll, i, p]
+        lib.categorical_launch.argtypes = [p, ll, i, p, u, u, p, p, p, i, p]
         lib.categorical_launch.restype = i
+        lib.categorical_shape.argtypes = [p, p]
+        lib.categorical_shape.restype = None
         lib._typed = True
     return lib
 
 
-def split_of(rows: int, V: int) -> tuple:
-    """``(splits, chunk)``: the blocks a row and the columns a block, about
-    :data:`TARGET_BLOCKS` blocks in all, at least :data:`MIN_CHUNK` columns
-    each."""
-    splits = max(1, min(-(-V // MIN_CHUNK), -(-TARGET_BLOCKS // rows)))
-    chunk = -(-V // splits)
-    return -(-V // chunk), chunk
+def kernel_shape() -> tuple:
+    """``(threads, cols)`` as the built kernel has them (the card's tests
+    hold :data:`THREADS` and :data:`COLS` to them)."""
+    t, c = ctypes.c_int(), ctypes.c_int()
+    _lib().categorical_shape(ctypes.byref(t), ctypes.byref(c))
+    return t.value, c.value
 
 
-def _counters(dev, rows: int) -> torch.Tensor:
-    buf = _COUNTERS.get(dev)
-    if buf is None or buf.numel() < rows:
+def plan(rows: int, V: int) -> tuple:
+    """The launch's grid ``(blocks a row, rows)``: one block a span of
+    :data:`SPAN` columns."""
+    if not 1 <= rows <= 65535:
+        raise ValueError(f"categorical: {rows} rows, not 1 .. 65535")
+    return -(-V // SPAN), rows
+
+
+def peel_of(row_ptr: int, elsize: int, V: int) -> int:
+    """A row's columns before its first 16-byte boundary (read one each)."""
+    return min(((16 - row_ptr % 16) % 16) // elsize, V)
+
+
+def thread_columns(V: int, peel: int, block: int, thread: int) -> list:
+    """The columns thread ``thread`` of block ``block`` takes in a row, as
+    the kernel assigns them: a peeled column (block 0), then up to
+    :data:`COLS` consecutive ones after the peel."""
+    cols = [thread] if block == 0 and thread < peel else []
+    v0 = peel + (block * THREADS + thread) * COLS
+    return cols + list(range(v0, min(v0 + COLS, V)))
+
+
+def ordered_keys(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's ordered keys of the float32 values ``x`` ``(..., V)``
+    (column v's value, then ``0xFFFFFFFF - v``), as int64: the unsigned
+    key less 2^63, so that int64 order is the kernel's unsigned order.  The
+    largest key's column is ``torch.argmax``'s choice."""
+    b = x.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    b = torch.where(b == 0x80000000, torch.zeros_like(b), b)  # -0.0 as +0.0
+    b = torch.where(b >= 0x80000000, b ^ 0xFFFFFFFF, b | 0x80000000)
+    b = torch.where(torch.isnan(x), torch.full_like(b, 0xFFFFFFFF), b)
+    v = torch.arange(x.shape[-1], dtype=torch.int64, device=x.device)
+    return ((b - 2**31) << 32) | (0xFFFFFFFF - v)
+
+
+def argmax_of_keys(keys: torch.Tensor) -> torch.Tensor:
+    """The column of each row's largest :func:`ordered_keys` key."""
+    return 0xFFFFFFFF - (keys.max(dim=-1).values & 0xFFFFFFFF)
+
+
+def _scratch(dev, rows: int) -> torch.Tensor:
+    buf = _SCRATCH.get(dev)
+    if buf is None or buf.numel() < 2 * rows:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("categorical: call it once at this batch before "
-                               "capturing a CUDA graph of it (its counters are "
-                               "made on the first call)")
-        buf = _COUNTERS[dev] = torch.zeros(max(rows, 64), dtype=torch.int32, device=dev)
+                               "capturing a CUDA graph of it (its words are made "
+                               "on the first call)")
+        buf = _SCRATCH[dev] = torch.zeros(2 * max(rows, 64), dtype=torch.int64, device=dev)
     return buf
 
 
@@ -76,27 +119,28 @@ def categorical(logp: torch.Tensor, key=None, keys: torch.Tensor | None = None):
         raise ValueError(f"categorical: logp must be contiguous (B, V) of "
                          f"{tuple(DTYPES)}, got {tuple(logp.shape)} {logp.dtype}")
     B, V = logp.shape
-    if not 1 <= B <= 65535 or V < 1:
-        raise ValueError(f"categorical: {B} rows (1 .. 65535) of {V} columns (>= 1)")
+    if not 1 <= B <= 65535 or not 1 <= V <= MAX_V:
+        raise ValueError(f"categorical: {B} rows (1 .. 65535) of {V} columns "
+                         f"(1 .. 2^31)")
     if (key is None) == (keys is None):
         raise ValueError("categorical: pass one key or a key table")
-    if keys is not None and (tuple(keys.shape) != (B, 2) or keys.element_size() != 4
-                             or keys.device != logp.device or not keys.is_contiguous()):
-        raise ValueError(f"categorical: keys must be contiguous ({B}, 2) 32-bit "
-                         f"words on {logp.device}")
-    splits, chunk = split_of(B, V)
     dev = logp.device
+    if keys is not None and (tuple(keys.shape) != (B, 2) or keys.element_size() != 4
+                             or keys.device != dev or not keys.is_contiguous()):
+        raise ValueError(f"categorical: keys must be contiguous ({B}, 2) 32-bit "
+                         f"words on {dev}")
     tokens = torch.empty(B, dtype=torch.int64, device=dev)
-    part_v = torch.empty(B * splits, dtype=torch.float32, device=dev)
-    part_i = torch.empty(B * splits, dtype=torch.int64, device=dev)
-    counters = _counters(dev, B)
+    buf = _scratch(dev, B)
+    words = buf.data_ptr()
     k0, k1 = (0, 0) if key is None else (int(key[0]) & 0xFFFFFFFF, int(key[1]) & 0xFFFFFFFF)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().categorical_launch(
-            logp.data_ptr(), V, B, None if keys is None else keys.data_ptr(), k0, k1,
-            tokens.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
-            counters.data_ptr(), splits, chunk, DTYPES[logp.dtype], stream)
+    args = (logp.data_ptr(), V, B, None if keys is None else keys.data_ptr(), k0, k1,
+            tokens.data_ptr(), words, words + 8 * B, DTYPES[logp.dtype])
+    idx = logp.get_device()
+    if idx == torch.cuda.current_device():  # no device switch: the common case
+        err = _lib().categorical_launch(*args, build.raw_stream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = _lib().categorical_launch(*args, build.raw_stream(idx))
     build.check_launch(err, "categorical")
     categorical.launches += 1
     return tokens

@@ -75,9 +75,14 @@ __device__ __forceinline__ float xla_log(float x) {
 }
 
 // rng._xla_log1p: Cephes' rational below sqrt(2) - 1 in magnitude, log(1 +
-// x) above
+// x) above.  Both sides are computed and one is selected: in a normal draw
+// nearly every warp has lanes on both sides (the rational's for |u| <
+// 0.644, 64% of them), so a branch would run both anyway and add its own
+// instructions.
 __device__ __forceinline__ float xla_log1p(float x) {
-  if (fabsf(x) < 0.41421356237309504880f) {
+  const float far = xla_log(__fadd_rn(x, 1.0f));
+  float near;
+  {
     const float x2 = __fmul_rn(x, x);
     float num = 4.5270000862445199635215e-5f;
     num = fmaf(num, x, 4.9854102823193375972212e-1f);
@@ -94,40 +99,49 @@ __device__ __forceinline__ float xla_log1p(float x) {
     den = fmaf(den, x, 2.1642788614495947685003e2f);
     den = fmaf(den, x, 6.0118660497603843919306e1f);
     const float r = __fdiv_rn(num, den);
-    return __fadd_rn(x, __fadd_rn(__fmul_rn(-0.5f, x2), __fmul_rn(__fmul_rn(x, x2), r)));
+    near = __fadd_rn(x, __fadd_rn(__fmul_rn(-0.5f, x2), __fmul_rn(__fmul_rn(x, x2), r)));
   }
-  return xla_log(__fadd_rn(x, 1.0f));
+  return fabsf(x) < 0.41421356237309504880f ? near : far;
+}
+
+// Giles' polynomial for w >= 5 (|x| > 0.9966: a third of a percent of a
+// normal draw's elements).  Not inlined, so the compiler keeps it behind a
+// branch that most warps skip, where it would otherwise compute it for
+// every element and select.
+__device__ __noinline__ float erf_inv_tail(float w) {
+  w = __fsub_rn(__fsqrt_rn(w), 3.0f);
+  float p = -0.000200214257f;
+  p = fmaf(p, w, 0.000100950558f);
+  p = fmaf(p, w, 0.00134934322f);
+  p = fmaf(p, w, -0.00367342844f);
+  p = fmaf(p, w, 0.00573950773f);
+  p = fmaf(p, w, -0.0076224613f);
+  p = fmaf(p, w, 0.00943887047f);
+  p = fmaf(p, w, 1.00167406f);
+  return fmaf(p, w, 2.83297682f);
 }
 
 // rng._xla_erf_inv: Giles' single-precision erfinv in w = -log1p(-x^2),
 // split at w = 5, for x in (-1, 1); +-1 map to +-max float
 __device__ __forceinline__ float xla_erf_inv(float x) {
-  float w = -xla_log1p(-__fmul_rn(x, x));
+  const float w = -xla_log1p(-__fmul_rn(x, x));
   float p;
   if (w < 5.0f) {
-    w = __fsub_rn(w, 2.5f);
+    const float v = __fsub_rn(w, 2.5f);
     p = 2.81022636e-08f;
-    p = fmaf(p, w, 3.43273939e-07f);
-    p = fmaf(p, w, -3.5233877e-06f);
-    p = fmaf(p, w, -4.39150654e-06f);
-    p = fmaf(p, w, 0.00021858087f);
-    p = fmaf(p, w, -0.00125372503f);
-    p = fmaf(p, w, -0.00417768164f);
-    p = fmaf(p, w, 0.246640727f);
-    p = fmaf(p, w, 1.50140941f);
+    p = fmaf(p, v, 3.43273939e-07f);
+    p = fmaf(p, v, -3.5233877e-06f);
+    p = fmaf(p, v, -4.39150654e-06f);
+    p = fmaf(p, v, 0.00021858087f);
+    p = fmaf(p, v, -0.00125372503f);
+    p = fmaf(p, v, -0.00417768164f);
+    p = fmaf(p, v, 0.246640727f);
+    p = fmaf(p, v, 1.50140941f);
   } else {
-    w = __fsub_rn(__fsqrt_rn(w), 3.0f);
-    p = -0.000200214257f;
-    p = fmaf(p, w, 0.000100950558f);
-    p = fmaf(p, w, 0.00134934322f);
-    p = fmaf(p, w, -0.00367342844f);
-    p = fmaf(p, w, 0.00573950773f);
-    p = fmaf(p, w, -0.0076224613f);
-    p = fmaf(p, w, 0.00943887047f);
-    p = fmaf(p, w, 1.00167406f);
-    p = fmaf(p, w, 2.83297682f);
+    p = erf_inv_tail(w);
   }
-  return fabsf(x) == 1.0f ? __fmul_rn(x, 3.40282347e+38f) : __fmul_rn(p, x);
+  // +-1 (u at either end): x times max float; one product either way
+  return __fmul_rn(fabsf(x) == 1.0f ? 3.40282347e+38f : p, x);
 }
 
 // The three values of a draw, from an element's bits.

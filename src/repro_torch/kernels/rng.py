@@ -331,7 +331,7 @@ def _draw_routed(key, shape, device, start: int, block, value: str, values,
     _check_counter(start + math.prod(shape))
     parts = _block_of(shape, block)
     n = math.prod(length for _, length in parts)
-    _record(dev, torch.empty((), dtype=dtype).element_size() * n)
+    _record(dev, dtype.itemsize * n)
     if dev.type == "cuda":
         return _jd.jax_draw(as_key(key), shape, parts, value, dev, start=start, op=op,
                             c=c, lo=lo, span=span, dtype=dtype)
@@ -679,7 +679,7 @@ def _rows_routed(keys, shape, device, value: str, values, op, c, dtype,
     R, shape = keys.shape[0], tuple(int(n) for n in shape)
     n = math.prod(shape)
     _check_counter(n)
-    _record(dev, torch.empty((), dtype=dtype).element_size() * R * n)
+    _record(dev, dtype.itemsize * R * n)
     if dev.type == "cuda":
         if R == 1:  # one key: by value, no table to copy
             k = (int(keys[0, 0]) & M32, int(keys[0, 1]) & M32)

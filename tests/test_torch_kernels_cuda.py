@@ -1041,7 +1041,30 @@ DRAW_CASES = [
     ("uniform", (3, 1001), 0, None, "uniform", None, 1.0, torch.float32),
     ("gumbel", (3, 1001), 0, None, "gumbel", None, 1.0, torch.float32),
     ("div_f16", (7, 333), 0, None, "normal", "div", 3**0.5, torch.float16),
+    # five and six dimensions after merging, ragged lines (no vectors)
+    ("block_5d", (3, 4, 3, 4, 5), 2, (slice(0, 2), slice(1, 3), slice(0, 2), slice(1, 4),
+                                      slice(0, 3)), "uniform", None, 1.0, torch.float32),
+    ("block_6d", (2, 3, 2, 3, 2, 13), 0, (slice(0, 1), slice(1, 3), slice(0, 1), slice(1, 2),
+                                          slice(1, 2), slice(3, 12)),
+     "gumbel", None, 1.0, torch.float32),
+    ("block_past_2_32", (3, 5, 700), 2**32 - 5000,
+     (slice(None), slice(1, 4), slice(3, 650)), "normal", "mul", 0.5, torch.bfloat16),
+    # every float32 normal and gumbel is a function of 23 mantissa bits:
+    # 2^27 draws reach all but about one of the 2^23 values
+    ("normal_2^27", (2**27,), 0, None, "normal", None, 1.0, torch.float32),
+    ("gumbel_2^27", (2**27,), 0, None, "gumbel", None, 1.0, torch.float32),
 ]
+
+
+@pytest.mark.cuda
+def test_the_draw_kernels_shapes_are_their_plans(cuda):
+    """The launch plans' constants (kernels/jax_draw.py, categorical.py,
+    which the CPU tests cover) are the built kernels'."""
+    from repro_torch.kernels import categorical as kc
+    from repro_torch.kernels import jax_draw as jd
+
+    assert jd.kernel_shape() == (jd.THREADS, jd.PER)
+    assert kc.kernel_shape() == (kc.THREADS, kc.COLS)
 
 
 @pytest.mark.cuda
@@ -1066,19 +1089,21 @@ def test_draw_kernel_equals_its_plain_version(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 36])
+@pytest.mark.parametrize("rows", [1, 36, 1000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_draw_kernel_key_a_row_equals_its_plain_version(cuda, rows, dtype):
-    """A key table of 36 rows (a layer-stacked leaf's keys) and one key (by
-    value): row r is the plain draw under keys[r]."""
+@pytest.mark.parametrize("shape", [(64, 100), (7, 333)], ids=["aligned", "ragged"])
+def test_draw_kernel_key_a_row_equals_its_plain_version(cuda, rows, dtype, shape):
+    """A key table of 36 and 1,000 rows (a layer-stacked leaf's keys) and
+    one key (by value): row r is the plain draw under keys[r]; rows of
+    6,400 elements (vectors) and of 2,331 (each row off a vector)."""
     from repro_torch.kernels import jax_draw as jd
 
     keys = rng.split_rows([[0, 42]], rows)[0] if rows == 1 else torch.tensor(
         rng.split(rng.PRNGKey(3), rows), dtype=torch.int64)
     before = jd.jax_draw.launches
-    got = rng.normal_rows(keys, (64, 100), cuda, op="mul", c=0.125, dtype=dtype)
+    got = rng.normal_rows(keys, shape, cuda, op="mul", c=0.125, dtype=dtype)
     assert jd.jax_draw.launches == before + 1
-    want = rng.rows_plain(keys, (64, 100), cuda, rng._normal_values, "mul", 0.125, dtype)
+    want = rng.rows_plain(keys, shape, cuda, rng._normal_values, "mul", 0.125, dtype)
     assert _bits_equal(got, want)
 
 
@@ -1115,3 +1140,39 @@ def test_categorical_kernel_equals_its_plain_version(cuda, B, dtype, mode):
     assert kc.categorical.launches == before + 1
     assert torch.equal(got, want)
     assert got[1] == 0 and got[2] == 7777 and got[3] == 5000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, V, offset", [(4, 151_935, 0), (4, 151_936, 1), (8, 32_003, 3),
+                                          (3, 5, 1), (1, 1, 0), (2, 1030, 5)],
+                         ids=["V_ragged", "offset_1", "ragged_offset_3", "V_5", "V_1",
+                              "peel_and_end"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("mode", ["key", "rows"])
+def test_categorical_kernel_off_the_vectors(cuda, B, V, offset, dtype, mode):
+    """V that 8 does not divide (rows start off 16-byte boundaries), logp
+    starting ``offset`` elements into its buffer, V below a vector: the
+    peeled columns, the vectors and a ragged end, against the plain draw;
+    then a row of -0.0 and 0.0 ties and a row of -inf."""
+    from repro_torch.kernels import categorical as kc
+
+    g = torch.Generator(device=cuda).manual_seed(V)
+    buf = torch.empty(B * V + offset, dtype=dtype, device=cuda)
+    logp = buf[offset:].view(B, V)
+    logp.copy_(torch.log_softmax(torch.randn(B, V, generator=g, device=cuda), -1))
+    if B > 1 and V > 1:
+        logp[1] = float("-inf")
+    if B > 2:
+        logp[2, ::2] = -0.0
+        logp[2, 1::2] = 0.0
+    keys = rng.fold_in_rows(np.asarray(rng.split(rng.PRNGKey(5), B), np.int64),
+                            np.arange(B)).to(cuda)
+    before = kc.categorical.launches
+    if mode == "key":
+        got, want = rng.categorical(rng.PRNGKey(5), logp), rng.categorical_plain(
+            rng.PRNGKey(5), logp)
+    else:
+        got, want = rng.categorical_rows(keys, logp), rng.categorical_rows_plain(keys, logp)
+    assert kc.categorical.launches == before + 1
+    assert torch.equal(got, want)
