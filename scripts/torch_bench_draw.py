@@ -2,7 +2,7 @@
 """Time the port's two draw kernels (``jax_draw``, ``categorical``) on one
 NVIDIA GPU, for one or more copies of the package.
 
-    python3 scripts/torch_bench_draw.py [--src DIR ...] [--sass] [--quick] [--phases]
+    python3 scripts/torch_bench_draw.py [--src DIR ...] [--sass] [--quick] [--phases | --bank]
 
 Each ``--src`` is a ``src`` directory holding ``repro_torch`` (default: this
 checkout's).  Giving two, e.g. an unpacked parent commit's and this one's,
@@ -55,7 +55,11 @@ With ``--phases`` it runs instead, for each source, that tree's own
 ``chip_smoke.py`` (the one beside its ``src``): phase 2's draw checks and
 ``init_params`` check, and phase 8's serve quickstart (``serve_quickstart``),
 each with its wall seconds: host-bound numbers, so compare trees only in
-turns within one call.
+turns within one call.  With ``--bank``: that tree's full-width qwen3-4b
+bank of 4 chains from a key (``init_params``, twice) and the default
+unfused noise over one chain (``noise_like``, three times after the
+first), wall seconds around a synchronise, as ``chip_smoke.py`` phase 4
+times them.
 
 Prints the card's name, power limit and SM clock, then one JSON object a
 line.
@@ -347,6 +351,44 @@ def run_phases(src: str) -> None:
                       "draws": draws}), flush=True)
 
 
+def run_bank(src: str) -> None:
+    """The tree's full-width qwen3-4b bank of 4 chains drawn from a key
+    (``init_params``, one draw launch a leaf, a key a row), twice, and the
+    default unfused noise over one chain (``noise_like``, 14 launches),
+    after a warm-up, each in wall seconds around a synchronise."""
+    import torch
+
+    sys.path.insert(0, src)
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rng
+    from repro_torch.models.transformer import init_params
+    from repro_torch.samplers.transform import chain_at
+    from repro_torch.samplers.transforms import langevin_scale, noise_like
+    from repro_torch.utils import tree_leaves
+
+    build.build(["jax_draw"])
+    cfg, init_s = get_arch("qwen3-4b"), []
+    for _ in range(2):
+        params = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = init_params(cfg, 0, device="cuda", num_chains=4)
+        torch.cuda.synchronize()
+        init_s.append(time.perf_counter() - t0)
+    chain, scale = chain_at(params, 0), langevin_scale(1e-6, 1e-3)
+    noise_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        noise = tree_leaves(noise_like(rng.PRNGKey(9), chain, scale, torch.float32))
+        torch.cuda.synchronize()
+        noise_ms.append((time.perf_counter() - t0) * 1e3)
+        del noise
+    print(json.dumps({"src": src, "bank_init_s": init_s, "chain_noise_ms": noise_ms,
+                      "smi": smi()}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", action="append",
@@ -358,8 +400,14 @@ def main() -> int:
     ap.add_argument("--phases", action="store_true",
                     help="run each tree's own chip_smoke phase-2 draw checks and serve "
                          "quickstart instead")
+    ap.add_argument("--bank", action="store_true",
+                    help="time each tree's 4-chain qwen3-4b init_params and a chain's "
+                         "default noise instead")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.one and args.bank:
+        run_bank(args.one)
+        return 0
     if args.one and args.phases:
         run_phases(args.one)
         return 0
@@ -371,7 +419,8 @@ def main() -> int:
         subprocess.run([sys.executable, __file__, "--one", str(Path(src).resolve())]
                        + (["--sass"] if args.sass else [])
                        + (["--quick"] if args.quick else [])
-                       + (["--phases"] if args.phases else []), check=True)
+                       + (["--phases"] if args.phases else [])
+                       + (["--bank"] if args.bank else []), check=True)
     print(smi(), flush=True)
     return 0
 

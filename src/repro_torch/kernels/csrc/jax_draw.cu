@@ -192,15 +192,6 @@ __device__ __forceinline__ I quotient(I n, I d, const Magic& g) {
   }
 }
 
-// the last group of a ragged line, m < kPer elements, one at a time: not
-// inlined, so the loop over full groups holds only their code
-template <int kValue, bool kDivide, int kDtype, typename I>
-__device__ __noinline__ void ragged(typename Out<kDtype>::S* dst, int m, uint32_t k0,
-                                    uint32_t k1, I c, float lo, float span, float k) {
-  for (int l = 0; l < m; ++l)
-    dst[l] = draw_one<kValue, kDivide, kDtype, I>(k0, k1, c + (I)l, lo, span, k);
-}
-
 template <int kValue, bool kDivide, int kDtype, typename I>
 __global__ void __launch_bounds__(kThreads)
     jax_draw_kernel(typename Out<kDtype>::S* __restrict__ out,
@@ -221,11 +212,17 @@ __global__ void __launch_bounds__(kThreads)
     if (p.outer > 0) {
       o = quotient<I>(g, p.G, p.by_G);
       inner = (g - o * p.G) * kPer;
+      // the outer dimensions, innermost first (constant indices: the plan
+      // stays in the parameter space, where a runtime index would select
+      // among all its words)
       I q = o;
-      for (int d = p.outer - 1; d > 0; --d) {
-        const I up = quotient<I>(q, p.len[d], p.by_len[d]);
-        c += (q - up * p.len[d]) * p.stride[d];
-        q = up;
+#pragma unroll
+      for (int d = kMaxDims - 2; d > 0; --d) {
+        if (d < p.outer) {
+          const I up = quotient<I>(q, p.len[d], p.by_len[d]);
+          c += (q - up * p.len[d]) * p.stride[d];
+          q = up;
+        }
       }
       c += q * p.stride[0];
     }
@@ -243,7 +240,11 @@ __global__ void __launch_bounds__(kThreads)
         for (int l = 0; l < kPer; ++l) dst[l] = v[l];
       }
     } else {
-      ragged<kValue, kDivide, kDtype, I>(dst, (int)(p.L - inner), k0, k1, c, lo, span, k);
+      // the last group of a ragged line, one element at a time (a loop: as
+      // a call it cost the full groups' loop 4%)
+#pragma unroll 1
+      for (int l = 0; inner + (I)l < p.L; ++l)
+        dst[l] = draw_one<kValue, kDivide, kDtype, I>(k0, k1, c + (I)l, lo, span, k);
     }
   }
 }
